@@ -1,0 +1,146 @@
+"""Frame sources (port of ``dvf_tpu.io.sources``).
+
+A source yields ``(frame_u8, timestamp)``; a ``None`` frame ends the
+stream. ``SyntheticSource`` is a copy of the reference's: the same seed
+gives the same bytes. The file, webcam and shared-memory sources wait for
+a later slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+Frame = Tuple[Optional[np.ndarray], float]
+
+
+def _pace(next_t: float, period: float) -> float:
+    """Sleep until ``next_t``; return the following due time.
+
+    Drift-free on the normal path (the schedule advances by exactly one
+    period, using the PRE-sleep clock — a post-sleep reading would
+    accumulate sleep overshoot and systematically under-deliver at high
+    rates) — but with no catch-up burst after a consumer stall
+    (backpressure, jit warm-up): the next frame is due one full period
+    after the LATER of the schedule and now, never immediately. Bursting
+    to repay a stall would congest the very stream bench_e2e_latency is
+    rate-controlling."""
+    now = time.perf_counter()
+    if now < next_t:
+        time.sleep(next_t - now)
+    return max(next_t, now) + period
+
+
+class SyntheticSource:
+    """Procedural moving-gradient frames — deterministic, camera-free.
+
+    ``rate``: target frames/sec; 0 = unthrottled (benchmark mode, the
+    analog of measuring pure pipeline capacity rather than the reference's
+    30fps camera ceiling, webcam_app.py:14).
+
+    ``motion`` selects the temporal structure, which is what the
+    temporal-delta wire's dirty ratio is a function of:
+
+    - ``True`` / ``"roll"`` — every pixel changes every frame (cyclic
+      roll); the full-motion worst case (dirty ratio ≈ 1).
+    - ``"block"`` — a small moving block over a STATIC background, the
+      webcam-like low-motion workload (a subject moving against a fixed
+      scene): per-frame change is ~2 block footprints, a few % of the
+      frame, which is the regime the delta wire's order-of-magnitude
+      codec saving is claimed for (benchmarks/DELTA_BENCH.json).
+    - ``False`` / ``"none"`` — a fully static stream (dirty ratio 0;
+      the bit-identity equivalence tests).
+    """
+
+    def __init__(
+        self,
+        height: int = 1080,
+        width: int = 1920,
+        channels: int = 3,
+        n_frames: int = 300,
+        rate: float = 0.0,
+        seed: int = 0,
+        motion: bool = True,
+        texture: str = "noise",
+    ):
+        self.height, self.width, self.channels = height, width, channels
+        self.n_frames = n_frames
+        self.rate = rate
+        self.motion = motion
+        rng = np.random.default_rng(seed)
+        # One textured base frame; per-frame variation is a cyclic roll +
+        # brightness ramp. The rolls are PRE-COMPUTED (a small cycle of
+        # distinct frames served round-robin as read-only views): an
+        # unthrottled 1080p source doing a fresh 6 MB np.roll copy per frame
+        # burns ~1 GB/s of host bandwidth + GIL inside the ingest thread and
+        # becomes the pipeline bottleneck it exists to measure around.
+        #
+        # ``texture``: "noise" (default — iid noise + ramp; maximally
+        # incompressible, the bench workload) or "structured" (gratings,
+        # rings, and hard-edged blocks; spatially coherent content with
+        # real edges — what super-resolution training needs, since iid
+        # noise is information-destroyed by downscaling and unlearnable).
+        if texture == "structured":
+            yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+            rad = np.hypot(yy - height / 2.0, xx - width / 2.0)
+            ch = [
+                127.5 + 127.5 * np.sin(2 * np.pi * xx / 17.0),        # grating
+                127.5 + 127.5 * np.sin(rad / 5.0),                    # rings
+                ((xx // 11).astype(int) + (yy // 11).astype(int)) % 2 * 255.0,  # checker
+            ]
+            base = np.stack([ch[i % 3] for i in range(channels)], axis=-1)
+            # hard-edged diagonal blocks for step edges in every channel
+            block = (((xx + yy) // 23).astype(int) % 3 == 0)[..., None] * 60.0
+            self._base = np.clip(base * 0.75 + block, 0, 255).astype(np.uint8)
+        elif texture == "noise":
+            base = rng.integers(0, 255, size=(height, width, channels), dtype=np.uint8)
+            ramp = np.linspace(0, 255, width, dtype=np.uint8)[None, :, None]
+            self._base = (base // 2 + ramp // 2).astype(np.uint8)
+        else:
+            raise ValueError(f"texture must be 'noise' or 'structured', got {texture!r}")
+        if motion is True:
+            motion = "roll"
+        elif motion is False:
+            motion = "none"
+        if motion not in ("roll", "block", "none"):
+            raise ValueError(
+                f"motion must be 'roll', 'block', 'none' (or a bool), "
+                f"got {motion!r}")
+        self.motion = motion
+        n_cycle = min(16, n_frames) if motion != "none" else 1
+        if motion == "block":
+            # Low-motion: invert a block (~1/6 of each linear dim → ~3%
+            # of the area) walking a precomputed cycle of positions over
+            # the static base. Same read-only-view serving discipline as
+            # the roll cycle — the source must never become the
+            # bottleneck it exists to measure around.
+            bh, bw = max(8, height // 6), max(8, width // 6)
+            self._cycle = []
+            for i in range(n_cycle):
+                f = self._base.copy()
+                y0 = (i * max(1, (height - bh) // max(1, n_cycle - 1))
+                      ) % max(1, height - bh + 1)
+                x0 = (i * max(1, (width - bw) // max(1, n_cycle - 1))
+                      ) % max(1, width - bw + 1)
+                f[y0: y0 + bh, x0: x0 + bw] = 255 - f[y0: y0 + bh,
+                                                      x0: x0 + bw]
+                self._cycle.append(f)
+        else:
+            self._cycle = [
+                np.roll(self._base, (i * 2) % self.width, axis=1)
+                for i in range(n_cycle)
+            ]
+        for f in self._cycle:
+            f.setflags(write=False)  # served as shared views — keep them immutable
+
+    def __iter__(self) -> Iterator[Frame]:
+        period = 1.0 / self.rate if self.rate > 0 else 0.0
+        next_t = time.perf_counter()
+        n_cycle = len(self._cycle)
+        for i in range(self.n_frames):
+            if period:
+                next_t = _pace(next_t, period)
+            yield self._cycle[i % n_cycle], time.time()
+        yield None, time.time()

@@ -131,6 +131,9 @@ def pytest_configure(config):
                    "ZMQ gate — CPU backend, bounded wall time; run in "
                    "tier-1, select with -m broadcast)")
     config.addinivalue_line(
+        "markers", "cuda: tests of the PyTorch port that need a CUDA card "
+                   "(hand-written kernels); they skip without one")
+    config.addinivalue_line(
         "markers", "swap: live-reconfiguration tests (compile-aside "
                    "program double-buffering, atomic hot swap, "
                    "mid-stream filter morph, chaos-injected swap "
