@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each of
 which raises (and so exits non-zero) on failure:
 
 1. the card: torch's device name, and name + power limit from nvidia-smi;
-2. build every kernel in dvf_tpu_torch/csrc with nvcc (sm_90a);
-3. each hand-written kernel against its plain torch version on the card, at
-   an unaligned 68x40 shape and at the main-path shape (16 x 1080 x 1920 x 3),
-   max abs error <= 1e-5 (TF32 off for every plain or library call);
-4. CUDA-event times (median of 20 runs after warm-up) of the kernel, its
-   plain version and, for the separable blur, one PyTorch library
-   formulation as a yardstick; the bound each kernel could reach;
-5. the main path: a 1080p batch-16 Pipeline for invert, gaussian_blur(k=9),
-   bilateral and sobel_bilateral with impl=None (the kernels). Launch
-   counters are set to 0 just before and read just after; every kernel must
-   have launched once per batch of its filter. Delivered frames must come
-   in order, all of them, within 1 LSB of the plain version;
+2. build every kernel in dvf_tpu_torch/csrc with nvcc (sm_90a), one nvcc
+   per source, all started together;
+3. each hand-written kernel against its plain torch version on the card:
+   the stencil kernels at an unaligned 68x40 shape and at their main-path
+   shape (16 x 1080 x 1920 x 3), max abs error <= 1e-5; the bounded warp
+   at 68x40 (3 and 5 channels, flows in +-6 so the clip engages), a border
+   case, and its two main-path shapes (4 x 720 x 1280 x 3, the final warp;
+   4 x 360 x 640 x 5, the inner warp), max abs error <= 3e-6. TF32 is off
+   for every plain or library call;
+4. CUDA-event times (median of 20 runs after warm-up) of each kernel, its
+   plain version and, where one PyTorch call computes the same function
+   (the separable blur's depthwise convolutions, the warp's grid_sample),
+   that call as a yardstick; the bound each kernel could reach;
+5. the main paths, each driven with the launch counters set to 0 just
+   before and read just after: 1080p batch-16 Pipelines for invert,
+   gaussian_blur(k=9), bilateral and sobel_bilateral, and 720p batch-4
+   Pipelines for flow_warp() and flow_warp(inner_warp="pallas"), all with
+   impl=None (the kernels). Every kernel of a leg must have launched its
+   expected count per batch and no other kernel at all; frames must come
+   in order, all of them, within 1 LSB of the plain version (for the flow
+   legs: of the same stream computed on the card with the plain warp, the
+   state carried across the same batches);
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
-   (16 frames into a pinned slot, 16 rows out of it).
+   (frames into a pinned slot, rows out of it); for the flow legs also a
+   torch.profiler window: the card's busy share and its kernels per batch.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``,
 ``{"stages": [...]}`` and ``{"kernels": [...]}`` lines, and as the last line
@@ -43,11 +54,21 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 TOL = 1e-5
+WARP_TOL = 3e-6
 MAIN_SHAPE = (16, 1080, 1920, 3)
 SMALL_SHAPE = (2, 68, 40, 3)
 N_FRAMES = 320
+# flow_warp (BASELINE configs[3]): 720p, batch 4; the flow is estimated at
+# half resolution, so the inner warp runs on 360 x 640 5-channel stacks.
+FLOW_SHAPE = (4, 720, 1280, 3)
+INNER_SHAPE = (4, 360, 640, 5)
+FLOW_FRAMES = 80
+MAX_DISP = 4                          # flow_warp's default bound
+INNER_DISP = 2                        # ceil(MAX_DISP / flow_scale)
+INNER_LAUNCHES = 1 + 3 * 3            # final warp + levels * n_iters
 REPS = 20
 SOURCE = "dvf_tpu_torch/csrc/stencils.cu"
+WARP_SOURCE = "dvf_tpu_torch/csrc/warp.cu"
 
 
 def log(msg: str) -> None:
@@ -99,10 +120,28 @@ def ops_sobel_bilateral(shape, d: int) -> int:
     return b * h * w * (5 + 14 + 7 + 8 * d * d + 1)
 
 
-def bound(shape, ops: int):
-    nbytes = 2 * int(np.prod(shape)) * 4  # float32 in once, out once
+def ops_warp(shape) -> int:
+    # per pixel: 2 flow clips (4), 2 adds, 2 coordinate clamps (4), 2
+    # floors, 2 fractions, 2 complements = 16; per channel 6 mul + 3 add
+    b, h, w, c = shape
+    return b * h * w * (16 + 9 * c)
+
+
+def bound(shape, ops: int, nbytes=None):
+    if nbytes is None:
+        nbytes = 2 * int(np.prod(shape)) * 4  # float32 in once, out once
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def warp_bytes(shape) -> int:
+    # float32 img in, flow (2 channels) in, out: each once
+    b, h, w, c = shape
+    return b * h * w * (2 * c + 2) * 4
+
+
+def max_lsb(got: np.ndarray, want: np.ndarray) -> int:
+    return int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
 
 
 def main() -> int:
@@ -208,88 +247,111 @@ def main() -> int:
     log("K2/K3 have no single PyTorch call computing the same function: "
         "library_ms is null for them")
     torch.cuda.empty_cache()
+    rows.append(check_warp(dev, gen))
+    torch.cuda.empty_cache()
 
-    # 5. the main path
-    legs = [("invert", {}, None),
-            ("gaussian_blur", {"ksize": 9}, "sep_blur"),
-            ("bilateral", {}, "bilateral"),
-            ("sobel_bilateral", {}, "sobel_bilateral")]
+    # 5. the main paths
+    legs = [("invert", {}, None, 1),
+            ("gaussian_blur", {"ksize": 9}, "sep_blur", 1),
+            ("bilateral", {}, "bilateral", 1),
+            ("sobel_bilateral", {}, "sobel_bilateral", 1),
+            ("flow_warp", {}, "warp_bounded", 1),
+            ("flow_warp", {"inner_warp": "pallas"}, "warp_bounded", INNER_LAUNCHES)]
     plain_of = {spec["name"]: spec["plain"] for spec in specs}
-    cfg = dvf_tpu_torch.PipelineConfig(batch_size=MAIN_SHAPE[0],
-                                       queue_size=N_FRAMES + 1)
     engines = {}
-    for name, kw, _ in legs:  # compile (and warm up) outside the counted run
+    for name, kw, _, _ in legs:  # compile (and warm up) outside the counted run
         eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw))
-        eng.compile(MAIN_SHAPE)
-        engines[name] = eng
+        eng.compile(FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE)
+        engines[leg_label(name, kw)] = eng
     keep = (0, 1, N_FRAMES // 2, N_FRAMES - 1)
     pipe_rows = []
-    tk.reset_launches()
-    for name, kw, counter in legs:
-        before = dict(tk.LAUNCHES)
+    launches = {k: 0 for k in tk.LAUNCHES}
+    for name, kw, counter, per_batch in legs:
+        label = leg_label(name, kw)
+        flow = name == "flow_warp"
+        shape, n = (FLOW_SHAPE, FLOW_FRAMES) if flow else (MAIN_SHAPE, N_FRAMES)
+        # Flow legs wait for full batches, so the reference below cuts the
+        # stream where the pipeline did.
+        cfg = dvf_tpu_torch.PipelineConfig(
+            batch_size=shape[0], queue_size=n + 1,
+            assemble_timeout_s=60.0 if flow else 0.01)
         order, kept = [], {}
 
         def sink(i, f, _ts):
             order.append(i)
-            if i in keep:
+            if flow or i in keep:
                 kept[i] = f
 
-        src = dvf_tpu_torch.SyntheticSource(*MAIN_SHAPE[1:], n_frames=N_FRAMES, seed=0)
-        stats = dvf_tpu_torch.Pipeline(src, engines[name].filter,
+        src = dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n, seed=0)
+        tk.reset_launches()
+        stats = dvf_tpu_torch.Pipeline(src, engines[label].filter,
                                        dvf_tpu_torch.CallbackSink(sink), cfg,
-                                       engine=engines[name]).run()
-        delta = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
-        if order != list(range(N_FRAMES)) or stats["delivered"] != N_FRAMES:
-            raise AssertionError(f"{name}: delivered {stats['delivered']} of "
-                                 f"{N_FRAMES}, in order: {order == sorted(order)}")
-        want_delta = {k: (stats["engine_batches"] if k == counter else 0)
+                                       engine=engines[label]).run()
+        delta = dict(tk.LAUNCHES)
+        for k, v in delta.items():
+            launches[k] += v
+        if order != list(range(n)) or stats["delivered"] != n:
+            raise AssertionError(f"{label}: delivered {stats['delivered']} of "
+                                 f"{n}, in order: {order == sorted(order)}")
+        want_delta = {k: (stats["engine_batches"] * per_batch if k == counter else 0)
                       for k in delta}
         if delta != want_delta:
-            raise AssertionError(f"{name}: launches {delta}, want {want_delta}")
+            raise AssertionError(f"{label}: launches {delta}, want {want_delta}")
         frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
-            *MAIN_SHAPE[1:], n_frames=N_FRAMES, seed=0)]
-        x = torch.from_numpy(np.stack([frames[i] for i in keep])).to(dev)
-        plain = plain_of.get(counter, lambda v: 1.0 - v)  # invert: no kernel
-        want = to_uint8(plain(to_float(x))).cpu().numpy()
-        got = np.stack([kept[i] for i in keep])
-        lsb = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+            *shape[1:], n_frames=n, seed=0)][:-1]
+        if flow:
+            if stats["engine_batches"] != n // shape[0]:
+                raise AssertionError(f"{label}: {stats['engine_batches']} batches, "
+                                     f"want {n // shape[0]} full ones")
+            want = flow_reference(frames, shape[0], dev,
+                                  inner=kw.get("inner_warp") == "pallas")
+            got = np.stack([kept[i] for i in range(n)])
+            if not np.array_equal(got[:shape[0]], want[:shape[0]]):
+                raise AssertionError(f"{label}: the first batch did not pass through")
+        else:
+            x = torch.from_numpy(np.stack([frames[i] for i in keep])).to(dev)
+            plain = plain_of.get(counter, lambda v: 1.0 - v)  # invert: no kernel
+            want = to_uint8(plain(to_float(x))).cpu().numpy()
+            got = np.stack([kept[i] for i in keep])
+        lsb = max_lsb(got, want)
         if lsb > 1:
-            raise AssertionError(f"{name}: delivered frames differ from the "
+            raise AssertionError(f"{label}: delivered frames differ from the "
                                  f"plain version by {lsb} LSB")
-        log(f"pipeline {name}: {stats['delivered']} frames, {stats['engine_batches']} "
+        log(f"pipeline {label}: {stats['delivered']} frames, {stats['engine_batches']} "
             f"batches, {stats['fps']:.1f} fps, p50 {stats['p50_ms']:.2f} ms, "
             f"p99 {stats['p99_ms']:.2f} ms, launches {delta}, max {lsb} LSB vs plain")
-        pipe_rows.append(dict(filter=name, frames=N_FRAMES,
-                              batch=MAIN_SHAPE[0], geometry=list(MAIN_SHAPE[1:]),
-                              fps=stats["fps"], p50_ms=stats["p50_ms"],
-                              p99_ms=stats["p99_ms"], launches=delta,
-                              max_lsb_vs_plain=lsb))
-    launches = dict(tk.LAUNCHES)
+        pipe_rows.append(dict(filter=label, frames=n, batch=shape[0],
+                              geometry=list(shape[1:]), fps=stats["fps"],
+                              p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+                              launches=delta, max_lsb_vs_plain=lsb))
+        del kept, got, want, frames
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main path")
 
     # 6. where a pipeline batch goes (after the counted run)
-    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
-        *MAIN_SHAPE[1:], n_frames=MAIN_SHAPE[0], seed=0)][:-1]
-    inp = torch.empty(MAIN_SHAPE, dtype=torch.uint8, pin_memory=True)
-    view = inp.numpy()
-    outs = [torch.empty(MAIN_SHAPE, dtype=torch.uint8, pin_memory=True)
-            for _ in range(2)]
-    t = time.perf_counter()
-    for _ in range(REPS):
-        for row, f in enumerate(frames):
-            view[row] = f
-    stage_ms = (time.perf_counter() - t) * 1e3 / REPS
-    t = time.perf_counter()
-    for _ in range(REPS):
-        rows_out = [outs[0].numpy()[i].copy() for i in range(MAIN_SHAPE[0])]
-    copy_out_ms = (time.perf_counter() - t) * 1e3 / REPS
-    del rows_out
     stage_rows = []
-    for name, _, _ in legs:
-        eng = engines[name]
+    for name, kw, _, _ in legs:
+        label = leg_label(name, kw)
+        shape = FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE
+        frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+            *shape[1:], n_frames=shape[0], seed=0)][:-1]
+        inp = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        view = inp.numpy()
+        outs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+                for _ in range(2)]
+        t = time.perf_counter()
+        for _ in range(REPS):
+            for row, f in enumerate(frames):
+                view[row] = f
+        stage_ms = (time.perf_counter() - t) * 1e3 / REPS
+        t = time.perf_counter()
+        for _ in range(REPS):
+            rows_out = [outs[0].numpy()[i].copy() for i in range(shape[0])]
+        copy_out_ms = (time.perf_counter() - t) * 1e3 / REPS
+        del rows_out
+        eng = engines[label]
         eng.submit(inp, out=outs[0]).fetch()
         t = time.perf_counter()
         prev = None
@@ -300,12 +362,21 @@ def main() -> int:
             prev = cur
         prev.fetch()
         engine_ms = (time.perf_counter() - t) * 1e3 / REPS
-        log(f"stages {name}: engine alone {engine_ms:.2f} ms/batch "
-            f"({MAIN_SHAPE[0] * 1e3 / engine_ms:.1f} fps); host staging "
-            f"{stage_ms:.2f} ms, row copy-out {copy_out_ms:.2f} ms per batch")
-        stage_rows.append(dict(filter=name, engine_ms_per_batch=engine_ms,
-                               staging_ms_per_batch=stage_ms,
-                               copy_out_ms_per_batch=copy_out_ms))
+        row = dict(filter=label, batch=shape[0], engine_ms_per_batch=engine_ms,
+                   staging_ms_per_batch=stage_ms, copy_out_ms_per_batch=copy_out_ms)
+        busy = ""
+        if name == "flow_warp":
+            row.update(device_busy(eng, inp, outs))
+            busy = (f"; profiled: device busy {row['device_busy_share']:.3f} of "
+                    f"the wall ({row['profiled_wall_ms_per_batch']:.2f} ms/batch "
+                    f"under the profiler), {row['device_ms_per_batch']:.2f} ms and "
+                    f"{row['device_kernels_per_batch']:.0f} device kernels per "
+                    f"batch; top [name, ms, count] per batch: "
+                    f"{json.dumps(row['top_device_ms_per_batch'])}")
+        log(f"stages {label}: engine alone {engine_ms:.2f} ms/batch "
+            f"({shape[0] * 1e3 / engine_ms:.1f} fps); host staging "
+            f"{stage_ms:.2f} ms, row copy-out {copy_out_ms:.2f} ms per batch{busy}")
+        stage_rows.append(row)
 
     print(json.dumps({"pipeline": pipe_rows}))
     print(json.dumps({"stages": stage_rows}))
@@ -313,6 +384,144 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def device_busy(eng, inp, outs, n: int = 5) -> dict:
+    """Profile ``n`` engine batches back to back (each waited for): the
+    share of the wall the card spent in kernels and copies, and per batch
+    that device time and the number of device kernels. The profiler's own
+    host overhead lengthens the wall, so the share errs low."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(n):
+            eng.submit(inp, out=outs[i % 2]).fetch()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    return dict(device_busy_share=dev_ms / wall_ms, device_ms_per_batch=dev_ms / n,
+                device_kernels_per_batch=sum(e.count for e in dev) / n,
+                profiled_wall_ms_per_batch=wall_ms / n,
+                top_device_ms_per_batch=[
+                    [e.key[:70], e.self_device_time_total / 1e3 / n, e.count / n]
+                    for e in top])
+
+
+def leg_label(name: str, kw: dict) -> str:
+    args = ",".join(f"{k}={v!r}" for k, v in kw.items())
+    return f"{name}({args})" if name == "flow_warp" else name
+
+
+def check_warp(dev, gen) -> dict:
+    """Phases 3-4 for the bounded warp (K4): against its plain version at
+    the checked shapes, then timed at the final warp's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.ops.flow import warp_by_flow
+
+    def plain(img, flow, r):
+        return warp_by_flow(img, flow.clamp(-r, r))
+
+    def inputs(shape, scale):
+        img = torch.rand(shape, generator=gen, device=dev)
+        flow = (torch.rand(shape[:3] + (2,), generator=gen, device=dev) - 0.5) * scale
+        return img, flow
+
+    cases = []
+    for shape in ((2, 68, 40, 3), (2, 68, 40, 5)):
+        cases.append((f"{shape} flows in +-6", *inputs(shape, 12.0), MAX_DISP))
+    img, flow = inputs((2, 68, 40, 3), 4.0)          # border: +-2, edges outward
+    flow[:, :3, :, 1] = -2.0
+    flow[:, -3:, :, 1] = 2.0
+    flow[:, :, :3, 0] = -2.0
+    flow[:, :, -3:, 0] = 2.0
+    cases.append(("(2, 68, 40, 3) border", img, flow, MAX_DISP))
+    cases.append((f"{FLOW_SHAPE} final warp", *inputs(FLOW_SHAPE, 12.0), MAX_DISP))
+    cases.append((f"{INNER_SHAPE} inner warp", *inputs(INNER_SHAPE, 6.0), INNER_DISP))
+    err = 0.0
+    for label, img, flow, r in cases:
+        got = tk.warp_bounded_pallas(img, flow, r)
+        torch.cuda.synchronize()
+        e = (got - plain(img, flow, r)).abs().max().item()
+        log(f"check warp_bounded {label}: max abs err {e:.3e}")
+        if not e <= WARP_TOL:
+            raise AssertionError(f"warp_bounded kernel disagrees with its plain "
+                                 f"version at {label}: {e} > {WARP_TOL}")
+        err = max(err, e)
+    _, img, flow, _ = cases[3]
+    inner_img, inner_flow = cases[4][1], cases[4][2]
+    ms = cuda_ms(lambda _: tk.warp_bounded_pallas(img, flow, MAX_DISP), None)
+    plain_ms = cuda_ms(lambda _: plain(img, flow, MAX_DISP), None)
+    inner_ms = cuda_ms(lambda _: tk.warp_bounded_pallas(inner_img, inner_flow,
+                                                        INNER_DISP), None)
+    # Library yardstick: grid_sample on the clipped flow's normalized grid
+    # (built outside the timed call), border padding = coordinate clamp.
+    b, h, w, _ = FLOW_SHAPE
+    fc = flow.clamp(-MAX_DISP, MAX_DISP)
+    gx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) + fc[..., 0]
+    gy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) + fc[..., 1]
+    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
+    img_nchw = img.permute(0, 3, 1, 2)
+
+    def library(_):
+        return F.grid_sample(img_nchw, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_err = (library(None).permute(0, 2, 3, 1)
+               - plain(img, flow, MAX_DISP)).abs().max().item()
+    lib_ms = cuda_ms(library, None)
+    b_ms, b_by = bound(FLOW_SHAPE, ops_warp(FLOW_SHAPE), warp_bytes(FLOW_SHAPE))
+    ib_ms, _ = bound(INNER_SHAPE, ops_warp(INNER_SHAPE), warp_bytes(INNER_SHAPE))
+    log(f"library warp_bounded (grid_sample): max abs err vs plain {lib_err:.3e}")
+    log(f"time warp_bounded {FLOW_SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{INNER_SHAPE}: kernel {inner_ms:.4f} ms, bound {ib_ms:.4f} ms")
+    return dict(name="warp_bounded", route="cuda", source=WARP_SOURCE,
+                replaces="dvf_tpu/ops/pallas_kernels.py:268",
+                shape=list(FLOW_SHAPE), launches=None, max_abs_err=err, ms=ms,
+                kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_max_abs_err=lib_err,
+                inner_shape=list(INNER_SHAPE), inner_ms=inner_ms,
+                inner_bound_ms=ib_ms)
+
+
+def flow_reference(frames, bsz: int, dev, inner: bool) -> np.ndarray:
+    """The flow legs' stream computed on the card with the plain warp
+    (warp_by_flow on the clipped flow) in place of the kernel: batches of
+    ``bsz`` in stream order, the previous frame carried across them, the
+    first batch passed through. uint8 (N, H, W, C)."""
+    import torch
+
+    from dvf_tpu_torch.ops.flow import farneback_flow_seq, warp_by_flow
+    from dvf_tpu_torch.utils.image import resize_linear, rgb_to_gray, to_float, to_uint8
+
+    def clipped(r):
+        return lambda img, f: warp_by_flow(img, f.clamp(-r, r))
+
+    out, prev = [], None
+    with torch.no_grad():
+        for s in range(0, len(frames), bsz):
+            batch = to_float(torch.from_numpy(np.stack(frames[s:s + bsz])).to(dev))
+            if prev is None:
+                res = batch
+            else:
+                _, h, w, _ = batch.shape
+                seq = torch.cat([prev[None], batch], dim=0)
+                sg = resize_linear(rgb_to_gray(seq), (h // 2, w // 2))
+                flow = farneback_flow_seq(
+                    sg, inner_warp=clipped(INNER_DISP) if inner else "gather")
+                flow = resize_linear(flow, (h, w)) * 2.0
+                res = clipped(MAX_DISP)(seq[:-1], flow)
+            out.append(to_uint8(res).cpu().numpy())
+            prev = batch[-1]
+    return np.concatenate(out)
 
 
 if __name__ == "__main__":

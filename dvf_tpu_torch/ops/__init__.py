@@ -11,4 +11,5 @@ from dvf_tpu_torch.ops import pointwise  # noqa: F401,E402
 from dvf_tpu_torch.ops import conv  # noqa: F401,E402
 from dvf_tpu_torch.ops import bilateral  # noqa: F401,E402
 from dvf_tpu_torch.ops import chains  # noqa: F401,E402
+from dvf_tpu_torch.ops import flow  # noqa: F401,E402
 from dvf_tpu_torch.ops import kernels  # noqa: F401,E402

@@ -1,5 +1,5 @@
-"""Convolutional filters: separable Gaussian blur, box blur, Sobel edges
-(port of ``dvf_tpu.ops.conv``).
+"""Convolutional filters: separable Gaussian blur, box blur and the
+running-sum box filter, Sobel edges (port of ``dvf_tpu.ops.conv``).
 
 The plain formulation is stencil-as-shifted-FMAs (``impl="shift"``): k
 shifted slices of one reflect-101-padded buffer, multiply-added per axis
@@ -134,14 +134,48 @@ def gaussian_blur(ksize: int = 9, sigma: float = 0.0,
     return stateless(f"gaussian_blur(k={ksize},s={sigma})", fn, halo=ksize // 2)
 
 
+def box_filter(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Uniform win×win windowed mean via running sums over float NHWC,
+    reflect-101 borders like :func:`sep_conv2d`: O(1) per pixel in the
+    window size. cv2's Farneback default window (``flags=0``), behind
+    ``flow_warp(win_type="box")`` and ``box_blur(impl="cumsum")``.
+
+    The running sums reach O(H·W) before the hi-lo difference, so they
+    are taken in float64 (the reference's float32 associative scan drifts
+    ~2e-5 at 720p; a sequential float32 scan would drift more), and the
+    window sums are rounded to float32 before the division, as the
+    reference divides."""
+    if win % 2 != 1 or win < 1:
+        raise ValueError(f"win must be odd and positive, got {win}")
+    r = win // 2
+    xp = reflect_pad_nhwc(x, r, r)
+
+    def running(c: torch.Tensor, dim: int) -> torch.Tensor:
+        hi = c.narrow(dim, win - 1, c.shape[dim] - win + 1)
+        lo = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)),
+                        c.narrow(dim, 0, c.shape[dim] - win)], dim=dim)
+        return hi - lo
+
+    s = running(torch.cumsum(xp, dim=1, dtype=torch.float64), 1)
+    s = running(torch.cumsum(s, dim=2), 2)
+    return s.to(x.dtype) / float(win * win)
+
+
 @register_filter("box_blur")
 def box_blur(ksize: int = 3, impl: str = "shift") -> Filter:
-    """Separable box (mean) blur; ``impl`` "shift" or "depthwise"."""
-    if impl not in ("shift", "depthwise"):
-        raise ValueError(f"impl must be 'shift' or 'depthwise', got {impl!r}")
+    """Separable box (mean) blur; ``impl`` "shift" or "depthwise"
+    (:func:`sep_conv2d` lowerings) or "cumsum" (:func:`box_filter`
+    running sums)."""
+    if impl not in ("shift", "depthwise", "cumsum"):
+        raise ValueError(
+            f"impl must be 'shift', 'depthwise' or 'cumsum', got {impl!r}")
+    if impl == "cumsum" and (ksize % 2 != 1 or ksize < 1):
+        raise ValueError(f"ksize must be odd for impl='cumsum', got {ksize}")
     kern = np.full((ksize,), 1.0 / ksize, dtype=np.float32)
 
     def fn(batch: torch.Tensor) -> torch.Tensor:
+        if impl == "cumsum":
+            return box_filter(batch, ksize)
         return sep_conv2d(batch, kern, kern, impl=impl)
 
     return stateless(f"box_blur(k={ksize})", fn, halo=ksize // 2)

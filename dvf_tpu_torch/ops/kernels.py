@@ -1,11 +1,11 @@
-"""Hand-written Hopper kernels for the stencil ops, their wrappers and
-their registered filters (port of ``dvf_tpu/ops/pallas_kernels.py``'s
-stencil half).
+"""Hand-written Hopper kernels for the stencil ops and the bounded warp,
+their wrappers and their registered filters (port of
+``dvf_tpu/ops/pallas_kernels.py``'s stencil and warp kernels).
 
 The names keep the reference's: ``*_pallas`` here denotes the CUDA C++
-kernel in ``dvf_tpu_torch/csrc/stencils.cu`` that replaces the TPU's
-Pallas kernel of the same name. Each wrapper dispatches on the tensor's
-device:
+kernel in ``dvf_tpu_torch/csrc/`` (``stencils.cu``, ``warp.cu``) that
+replaces the TPU's Pallas kernel of the same name. Each wrapper
+dispatches on the tensor's device:
 
 - a CUDA tensor launches the kernel on the current stream (no
   synchronisation) or raises — there is no fallback;
@@ -29,37 +29,47 @@ from dvf_tpu_torch.api.filter import Filter, stateless
 from dvf_tpu_torch.ops import _build
 from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
 from dvf_tpu_torch.ops.conv import Taps, gaussian_kernel_1d, sep_conv2d, taps_f32
+from dvf_tpu_torch.ops.flow import warp_by_flow
 from dvf_tpu_torch.ops.registry import get_filter, register_filter
 
-LAUNCHES: Dict[str, int] = {"sep_blur": 0, "bilateral": 0, "sobel_bilateral": 0}
+LAUNCHES: Dict[str, int] = {"sep_blur": 0, "bilateral": 0, "sobel_bilateral": 0,
+                            "warp_bounded": 0}
 _launch_lock = threading.Lock()
 
 # Limits compiled into csrc/stencils.cu.
 MAX_TAPS = 31
 MAX_WIN = 15
 MAX_C = 4
+# Channels csrc/warp.cu takes (the inner warp runs on 5-channel stacks).
+MAX_WARP_C = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)  # host float arrays (taps, weights)
+# C entry points of each csrc/<source>.cu.
 _SIGNATURES = {
-    "dvf_sep_blur": [_P, _P, _I, _I, _I, _I, _FP, _I, _FP, _I, _P],
-    "dvf_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _P],
-    "dvf_sobel_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _F, _P],
+    "stencils": {
+        "dvf_sep_blur": [_P, _P, _I, _I, _I, _I, _FP, _I, _FP, _I, _P],
+        "dvf_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _P],
+        "dvf_sobel_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _F, _P],
+    },
+    "warp": {
+        "dvf_warp_bounded": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
-_lib_obj = None
+_lib_objs: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_obj
-    if _lib_obj is None:
-        lib = _build.load("stencils")
-        for fn, argtypes in _SIGNATURES.items():
+def _lib(source: str = "stencils") -> ctypes.CDLL:
+    lib = _lib_objs.get(source)
+    if lib is None:
+        lib = _build.load(source)
+        for fn, argtypes in _SIGNATURES[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.dvf_error_string.argtypes = [ctypes.c_int]
         lib.dvf_error_string.restype = ctypes.c_char_p
-        _lib_obj = lib
-    return _lib_obj
+        _lib_objs[source] = lib
+    return lib
 
 
 def reset_launches() -> None:
@@ -111,12 +121,17 @@ def _launch(fn: str, counter: str, batch: torch.Tensor, *args) -> torch.Tensor:
         stream = torch.cuda.current_stream(batch.device).cuda_stream
         rc = getattr(lib, fn)(batch.data_ptr(), out.data_ptr(), b, h, w, c,
                               *args, stream)
+    _count(lib, fn, counter, rc)
+    return out
+
+
+def _count(lib: ctypes.CDLL, fn: str, counter: str, rc: int) -> None:
+    """Raise on a refused launch, else count it."""
     if rc != 0:
         raise RuntimeError(
             f"{fn} launch failed: {lib.dvf_error_string(rc).decode()} ({rc})")
     with _launch_lock:
         LAUNCHES[counter] += 1
-    return out
 
 
 def sep_blur_nhwc_pallas(batch: torch.Tensor, kh: Taps, kw: Taps) -> torch.Tensor:
@@ -181,6 +196,47 @@ def sobel_bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,
     return _launch("dvf_sobel_bilateral", "sobel_bilateral", batch, r,
                    _floats(_spatial_weights(r, sigma_space)),
                    c / (2.0 * sigma_color * sigma_color), magnitude_scale)
+
+
+def warp_bounded_pallas(img: torch.Tensor, flow: torch.Tensor,
+                        max_disp: int = 4) -> torch.Tensor:
+    """Backward-warp ``img`` (B,H,W,C) by ``flow`` (B,H,W,2; [...,0]=dx)
+    with displacements clipped to ±``max_disp`` px and the sample point
+    clamped to the frame: one gathering thread per output pixel
+    (``csrc/warp.cu``). Plain version: ``warp_by_flow(img,
+    flow.clamp(-max_disp, max_disp))``, which the kernel reproduces
+    operation for operation."""
+    r = int(max_disp)
+    if r < 1:
+        raise ValueError("max_disp must be >= 1")
+    if img.device.type == "cpu" and flow.device.type == "cpu":
+        return warp_by_flow(img, flow.clamp(-r, r))
+    what = "warp_bounded_pallas"
+    if img.device.type != "cuda" or flow.device != img.device:
+        raise ValueError(f"{what}: takes img and flow both on one CUDA device "
+                         f"or both on the CPU, got {img.device} and {flow.device}")
+    if img.dtype != torch.float32 or flow.dtype != torch.float32:
+        raise TypeError(f"{what}: needs float32, got {img.dtype} and {flow.dtype}")
+    if img.dim() != 4 or not 1 <= img.shape[-1] <= MAX_WARP_C:
+        raise ValueError(f"{what}: needs an NHWC batch of 1..{MAX_WARP_C} "
+                         f"channels, got shape {tuple(img.shape)}")
+    b, h, w, c = img.shape
+    if tuple(flow.shape) != (b, h, w, 2):
+        raise ValueError(f"{what}: flow must be {(b, h, w, 2)}, got "
+                         f"{tuple(flow.shape)}")
+    if not (img.is_contiguous() and flow.is_contiguous()) or flow.data_ptr() % 8:
+        raise ValueError(f"{what}: needs contiguous NHWC tensors (flow "
+                         f"8-byte aligned)")
+    out = torch.empty_like(img)
+    if img.numel() == 0:
+        return out
+    lib = _lib("warp")
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.dvf_warp_bounded(img.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                                  b, h, w, c, r, stream)
+    _count(lib, "dvf_warp_bounded", "warp_bounded", rc)
+    return out
 
 
 @register_filter("gaussian_blur_pallas")

@@ -12,7 +12,8 @@ pipeline's path) and, on the launching thread's current CUDA stream:
    ``is_ready``/``fetch`` poll or wait on that event.
 
 uint8 crosses the host link in both directions (a quarter of float32's
-bytes). Filter state stays on the device across batches. The mesh and
+bytes). Filter state stays on the device across batches; ``reset_state``
+starts a new stream on the same engine, ``free`` drops the state. The mesh and
 halo routing, resident submission, probes, hot swap and the calibrations
 of the reference wait for later slices.
 """
@@ -87,6 +88,7 @@ class Engine:
         self.stats = EngineStats()
         self._signature: Optional[Tuple] = None
         self._state: Any = None
+        self.freed = False  # set by free(): no state, no further submits
         self.out_shape: Optional[Tuple[int, ...]] = None  # set by compile()
         self.out_dtype: Optional[np.dtype] = None
 
@@ -119,6 +121,7 @@ class Engine:
         sig = (tuple(batch_shape), np.dtype(dtype))
         if sig == self._signature:
             return
+        self._refuse_if_freed()
         self._state = self._fresh_state(batch_shape, dtype)
         zeros = torch.zeros(tuple(batch_shape), dtype=_torch_dtype(dtype),
                             pin_memory=self.on_cuda)
@@ -146,6 +149,7 @@ class Engine:
         (pinned, shape ``out_shape``); None allocates one. The caller must
         not rewrite ``batch`` or read ``out`` before the result is ready.
         """
+        self._refuse_if_freed()
         host = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(batch))
         if host.device.type != "cpu":
@@ -165,6 +169,27 @@ class Engine:
         self.stats.batches += 1
         self.stats.frames += host.shape[0]
         return BatchResult(out, event)
+
+    def reset_state(self) -> None:
+        """Start a new stream on this engine: rebuild a stateful filter's
+        state for the compiled signature, so the next batch does not see
+        the last stream's frames (flow_warp passes its first batch
+        through again)."""
+        self._refuse_if_freed()
+        if self.filter.stateful and self._signature is not None:
+            self._state = self._fresh_state(*self._signature)
+
+    def free(self) -> None:
+        """Drop the device state and refuse further submits (and
+        compiles). Idempotent. The caller frees after the last result it
+        wants has been fetched."""
+        self.freed = True
+        self._state = None
+        self._signature = None
+
+    def _refuse_if_freed(self) -> None:
+        if self.freed:
+            raise RuntimeError("engine was freed; build a new Engine")
 
 
 def _torch_to_np(dtype: torch.dtype) -> np.dtype:

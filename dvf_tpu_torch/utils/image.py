@@ -9,7 +9,10 @@ division), and ``to_uint8`` clips, scales by 255 and rounds half to even
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 # Rec.601 luma weights — what cv2.cvtColor(..., COLOR_RGB2GRAY) uses.
 _LUMA = (0.299, 0.587, 0.114)
@@ -35,3 +38,20 @@ def rgb_to_gray(frame: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     r, g, b = frame[..., 0], frame[..., 1], frame[..., 2]
     gray = _LUMA[0] * r + _LUMA[1] * g + _LUMA[2] * b
     return gray[..., None] if keepdims else gray
+
+
+def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize float NHWC ``x`` to ``size`` = (h, w): the counterpart of
+    ``jax.image.resize(x, (b, h, w, c), method="linear")``.
+
+    Half-pixel centres (``align_corners=False``) and, as JAX does by
+    default, an antialiasing triangle filter widened by the scale factor
+    on a downscale (``antialias=True``; without it a 2x downscale differs
+    from JAX's by tenths of the range). Returns a contiguous NHWC tensor.
+    """
+    h, w = size
+    if tuple(x.shape[1:3]) == (h, w):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).contiguous()

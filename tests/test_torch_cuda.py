@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import dvf_tpu_torch
+from dvf_tpu_torch.ops import flow as tflow
 from dvf_tpu_torch.ops import kernels as tk
 from dvf_tpu_torch.ops.conv import gaussian_kernel_1d
 
@@ -85,6 +86,67 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.sobel_bilateral_nhwc_pallas(x[..., :2].contiguous())
     with pytest.raises(ValueError, match="too small"):
         tk.sobel_bilateral_nhwc_pallas(_input((1, 3, 24, 3), 5, dev))
+
+
+@pytest.mark.parametrize("shape,scale,r", [
+    ((2, 68, 40, 3), 12.0, 4), ((2, 68, 40, 5), 12.0, 4),
+    ((1, 33, 17, 1), 5.0, 2), ((4, 90, 160, 5), 4.0, 1),
+])
+def test_warp_bounded_kernel_matches_plain(dev, shape, scale, r):
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    flow = torch.from_numpy(((rng.random(shape[:3] + (2,)) - 0.5) * scale)
+                            .astype(np.float32)).to(dev)
+    got = _launched("warp_bounded", lambda: tk.warp_bounded_pallas(img, flow, r))
+    want = tk.warp_bounded_pallas(img.cpu(), flow.cpu(), r)
+    # The kernel repeats the plain version's operations: 3e-6 is the
+    # reference's bar, the kernel is expected to match bit for bit.
+    assert (got.cpu() - want).abs().max().item() <= 3e-6
+    on_card = tflow.warp_by_flow(img, flow.clamp(-r, r))
+    assert (got - on_card).abs().max().item() <= 3e-6
+
+
+def test_warp_bounded_refuses_without_launching(dev):
+    img = _input((1, 16, 24, 3), 8, dev)
+    flow = torch.zeros((1, 16, 24, 2), device=dev)
+    before = tk.LAUNCHES["warp_bounded"]
+    with pytest.raises(TypeError):
+        tk.warp_bounded_pallas(img.double(), flow)
+    with pytest.raises(ValueError, match="flow must be"):
+        tk.warp_bounded_pallas(img, flow[:, :8].contiguous())   # too few rows
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.warp_bounded_pallas(img.transpose(1, 2).contiguous().transpose(1, 2),
+                               flow)
+    with pytest.raises(ValueError, match="channels"):
+        tk.warp_bounded_pallas(_input((1, 16, 24, 9), 9, dev), flow)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk.warp_bounded_pallas(img, flow.cpu())
+    assert tk.LAUNCHES["warp_bounded"] == before
+
+
+def test_flow_warp_state_stays_on_the_card(dev):
+    """The stateful path never waits on the host: after a warm-up batch,
+    a batch runs under CUDA's sync debug mode set to raise, the
+    ``initialized`` flag and the previous frame stay device tensors, and
+    the kernel launches once per batch (10 times with the inner warp)."""
+    frames = np.random.default_rng(10).integers(0, 256, (4, 48, 64, 3), np.uint8)
+    for kw, per_batch in [({}, 1), ({"inner_warp": "pallas"}, 10)]:
+        filt = dvf_tpu_torch.get_filter("flow_warp", **kw)
+        state = filt.init_state(frames.shape, torch.float32, dev)
+        x = torch.from_numpy(frames).to(dev).float() / 255.0
+        _, state = filt.fn(x, state)                         # warm-up
+        torch.cuda.synchronize()
+        before = tk.LAUNCHES["warp_bounded"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, state = filt.fn(x, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["warp_bounded"] == before + per_batch
+        assert state["initialized"].device == dev == state["prev"].device
+        assert state["initialized"].dim() == 0 and bool(state["initialized"])
+        assert out.device == dev and torch.isfinite(out).all()
 
 
 def test_engine_runs_the_kernels_on_cuda(dev):

@@ -2,7 +2,8 @@
 
 On the CPU each wrapper runs its kernel's plain torch version; these tests
 hold that to the JAX Pallas function run in interpret mode (as
-tests/test_spatial.py runs it) at atol 1e-5. The CUDA kernels themselves
+tests/test_spatial.py runs it): the stencils at atol 1e-5, the bounded
+warp at the reference's 3e-6 or its coordinate-rounding bound. The CUDA kernels themselves
 are held to the same plain versions on the card by tests/test_torch_cuda.py
 and chip_smoke.py.
 """
@@ -16,6 +17,7 @@ import dvf_tpu
 import dvf_tpu_torch
 from dvf_tpu.ops import pallas_kernels as jk
 from dvf_tpu.ops.conv import gaussian_kernel_1d as jax_taps
+from dvf_tpu_torch.ops import flow as tflow
 from dvf_tpu_torch.ops import kernels as tk
 from dvf_tpu_torch.ops.conv import gaussian_kernel_1d
 
@@ -118,13 +120,77 @@ def test_wrappers_refuse_devices_they_cannot_serve():
         tk.sep_blur_nhwc_pallas(x, [0.5, 0.5], k)
 
 
+def _coord_tol(h: int, w: int, r: int) -> float:
+    """What the plain warp may differ from the TPU kernel by. The plain
+    version (the golden, warp_by_flow on the clipped flow) rounds the
+    sample coordinate y + fy to float32 before taking its fraction; the
+    TPU kernel weighs the flow's own fraction. So the weights differ by up
+    to half a float32 step at the largest coordinate, in y and in x, on
+    top of a few roundings of the value. 3e-6 is the reference's own bar
+    (tests/test_spatial.py), which that term stays under while frames are
+    below ~32 px; at 68 rows it reaches 5.7e-6 (measured up to 3.5e-6)."""
+    half_steps = 0.5 * (np.spacing(np.float32(h - 1 + r))
+                        + np.spacing(np.float32(w - 1 + r)))
+    return max(3e-6, float(half_steps) + 4 * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("shape,scale,r", [
+    ((2, 24, 32, 3), 7.0, 4),     # the reference's own aligned case
+    ((2, 68, 40, 3), 12.0, 4),    # unaligned H and W; flows in +-6 clip
+    ((2, 68, 40, 5), 12.0, 4),    # the inner warp's 5-channel poly stacks
+    ((2, 24, 32, 5), 5.0, 2),
+], ids=["aligned", "unaligned-68x40", "c5-68x40", "c5-r2"])
+def test_warp_bounded_matches_pallas(shape, scale, r):
+    rng = np.random.default_rng(19)
+    img = rng.random(shape, dtype=np.float32)
+    flow = ((rng.random(shape[:3] + (2,)) - 0.5) * scale).astype(np.float32)
+    want = jk.warp_bounded_pallas(jnp.asarray(img), jnp.asarray(flow),
+                                  max_disp=r, interpret=True)
+    got = tk.warp_bounded_pallas(torch.from_numpy(img), torch.from_numpy(flow),
+                                 max_disp=r)
+    assert tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=_coord_tol(shape[1], shape[2], r))
+
+
+def test_warp_bounded_border_clamp_matches_pallas():
+    """Flows that push every sample point past the frame's edge: the
+    border clamp (coordinate clamping in the plain version, edge padding
+    in the TPU kernel)."""
+    rng = np.random.default_rng(20)
+    img = rng.random((2, 8, 16, 3), dtype=np.float32)
+    flow = np.empty((2, 8, 16, 2), np.float32)
+    flow[0] = 3.7                                   # out past bottom/right
+    flow[1] = rng.uniform(-2.0, 2.0, (8, 16, 2))    # near every edge
+    flow[1, :2, :, 1] = -2.0                        # rows 0-1 look above
+    flow[1, :, -2:, 0] = 2.0                        # last cols look right
+    want = jk.warp_bounded_pallas(jnp.asarray(img), jnp.asarray(flow),
+                                  max_disp=4, interpret=True)
+    got = tk.warp_bounded_pallas(torch.from_numpy(img), torch.from_numpy(flow))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=3e-6)
+
+
+def test_warp_bounded_plain_is_the_clipped_gather():
+    rng = np.random.default_rng(21)
+    img = torch.from_numpy(rng.random((1, 12, 10, 4), dtype=np.float32))
+    flow = torch.from_numpy(((rng.random((1, 12, 10, 2)) - 0.5) * 20).astype(np.float32))
+    got = tk.warp_bounded_pallas(img, flow, max_disp=3)
+    want = tflow.warp_by_flow(img, flow.clamp(-3, 3))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="max_disp"):
+        tk.warp_bounded_pallas(img, flow, max_disp=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk.warp_bounded_pallas(img.to("meta"), flow.to("meta"))
+
+
 def test_reset_launches_zeroes_every_counter():
     saved = dict(tk.LAUNCHES)
     try:
         for k in tk.LAUNCHES:
             tk.LAUNCHES[k] = 3
         tk.reset_launches()
-        assert set(tk.LAUNCHES) == {"sep_blur", "bilateral", "sobel_bilateral"}
+        assert set(tk.LAUNCHES) == {"sep_blur", "bilateral", "sobel_bilateral",
+                                    "warp_bounded"}
         assert all(v == 0 for v in tk.LAUNCHES.values())
     finally:
         tk.LAUNCHES.update(saved)

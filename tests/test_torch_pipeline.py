@@ -81,6 +81,43 @@ def test_pipeline_matches_reference(filt_spec, max_lsb, mode):
         assert diff.max() <= max_lsb, (i, diff.max())
 
 
+@pytest.mark.parametrize("warp_impl", ["pallas", "gather"])
+def test_flow_warp_pipeline_matches_reference(warp_impl):
+    """The stateful filter end to end: the temporal window carried across
+    batches on each side. The assembler waits for full batches (no 10 ms
+    early close), so both runs cut the stream at the same frames and pass
+    the same first batch through."""
+    spec = ("flow_warp", {"levels": 2, "win_size": 9, "n_iters": 2,
+                          "max_disp": 2, "warp_impl": warp_impl})
+    runs = []
+    for pipe_cls, cfg_cls, pkg, kw in [
+            (Pipeline, PipelineConfig, dvf_tpu_torch, {"device": "cpu"}),
+            (JaxPipeline, JaxConfig, dvf_tpu, {})]:
+        got, order = {}, []
+
+        def keep(i, f, _ts, got=got, order=order):
+            order.append(i)
+            got[i] = f
+
+        src_cls = SyntheticSource if pkg is dvf_tpu_torch else JaxSource
+        stats = pipe_cls(src_cls(32, 40, n_frames=20, seed=0),
+                         pkg.get_filter(spec[0], **spec[1]), CallbackSink(keep),
+                         cfg_cls(batch_size=8, queue_size=100,
+                                 assemble_timeout_s=60.0), **kw).run()
+        runs.append((order, got, stats))
+    (order, got, stats), (ref_order, ref, ref_stats) = runs
+    assert order == ref_order == list(range(20))
+    # 20 frames in full batches of 8: the last one short and padded.
+    assert stats["engine_batches"] == ref_stats["engine_batches"] == 3
+    frames = [f for f, _ in SyntheticSource(32, 40, n_frames=20, seed=0)][:-1]
+    for i in order:
+        if i < 8:   # the first batch has no previous frame: passthrough
+            np.testing.assert_array_equal(got[i], frames[i])
+        diff = np.abs(got[i].astype(np.int16) - ref[i].astype(np.int16))
+        assert diff.max() <= 1, (i, diff.max())
+    assert any(not np.array_equal(got[i], frames[i]) for i in range(8, 20))
+
+
 def test_pipeline_pads_short_batch_and_keeps_rows():
     """A stream that is no multiple of the batch: the short last batch is
     padded and its padding dropped; delivered rows survive the reuse of
