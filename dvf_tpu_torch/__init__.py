@@ -12,7 +12,7 @@ labels. In this package ``impl="pallas"`` (and the ``*_pallas`` filter
 names) denotes the hand-written Hopper CUDA kernel in
 ``dvf_tpu_torch/csrc/`` that replaces the TPU's Pallas kernel.
 
-Entry points (``Engine``, ``Pipeline``) run on ``cuda:0`` unless the
+Entry points (``Engine``, ``Pipeline``, ``ZmqWorker``) run on ``cuda:0`` unless the
 caller passes ``device="cpu"``; they never fall back to the CPU on their
 own.
 """
@@ -27,3 +27,15 @@ from dvf_tpu_torch.io.sources import SyntheticSource  # noqa: F401
 from dvf_tpu_torch.io.sinks import CallbackSink, NullSink  # noqa: F401
 from dvf_tpu_torch.sched.reorder import ReorderBuffer  # noqa: F401
 from dvf_tpu_torch.sched.queues import DropOldestQueue  # noqa: F401
+from dvf_tpu_torch.runtime.codec_assist import (  # noqa: F401
+    DeviceDeltaProbe,
+    FusedDeltaTransform,
+)
+from dvf_tpu_torch.transport import (  # noqa: F401
+    DeltaCodec,
+    NativeJpegCodec,
+    RawCodec,
+    ZmqWorker,
+    make_codec,
+    make_wire_codec,
+)

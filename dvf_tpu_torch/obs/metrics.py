@@ -1,5 +1,6 @@
-"""Streaming metrics: fps and latency percentiles (port of the
-``LatencyStats`` and ``RateLogger`` parts of ``dvf_tpu.obs.metrics``)."""
+"""Streaming metrics: fps and latency percentiles, egress accounting (port
+of the ``LatencyStats``, ``RateLogger`` and ``EgressStats`` parts of
+``dvf_tpu.obs.metrics``)."""
 
 from __future__ import annotations
 
@@ -74,3 +75,62 @@ class RateLogger:
             self._last = now
             return rate
         return None
+
+
+class EgressStats:
+    """Egress accounting of the ZMQ worker and its codec plane (port of the
+    fields of ``dvf_tpu.obs.metrics.EgressStats`` that the plane and the
+    worker write).
+
+    ``d2h_wait_ms`` is how long the worker blocked on a batch's
+    device→host pixel copy. ``encode_ms`` is the wall span of one batch's
+    encode inside the codec pool (submit → last future done) and
+    ``encode_wait_ms`` how long the delivery thread actually blocked
+    draining it: a wait far below the span is encode running under the
+    next batch's decode and compute. ``entropy_ms`` is the host
+    entropy-coding time per batch on the coefficient wire, where it is the
+    whole host codec cost.
+    """
+
+    def __init__(self, depth: int = 2):
+        self.depth = depth               # encode-plane in-flight window
+        self.batches = 0
+        self.d2h_wait_ms_total = 0.0
+        self.encode_batches = 0
+        self.encode_ms_total = 0.0
+        self.encode_wait_ms_total = 0.0
+        self.entropy_batches = 0
+        self.entropy_ms_total = 0.0
+        self.send_batches = 0
+        self.send_ms_total = 0.0
+
+    def record_fetch(self, wait_ms: float) -> None:
+        self.batches += 1
+        self.d2h_wait_ms_total += wait_ms
+
+    def record_encode(self, encode_ms: float, wait_ms: float) -> None:
+        self.encode_batches += 1
+        self.encode_ms_total += encode_ms
+        self.encode_wait_ms_total += wait_ms
+
+    def record_entropy(self, entropy_ms: float) -> None:
+        self.entropy_batches += 1
+        self.entropy_ms_total += entropy_ms
+
+    def record_send(self, send_ms: float) -> None:
+        self.send_batches += 1
+        self.send_ms_total += send_ms
+
+    def summary(self) -> Dict[str, object]:
+        ne = max(1, self.encode_batches)
+        return {
+            "depth": self.depth,
+            "batches": self.batches,
+            "d2h_wait_ms": round(self.d2h_wait_ms_total / max(1, self.batches), 4),
+            "encode_batches": self.encode_batches,
+            "encode_ms": round(self.encode_ms_total / ne, 4),
+            "encode_wait_ms": round(self.encode_wait_ms_total / ne, 4),
+            "entropy_ms": round(self.entropy_ms_total
+                                / max(1, self.entropy_batches), 4),
+            "send_ms": round(self.send_ms_total / max(1, self.send_batches), 4),
+        }

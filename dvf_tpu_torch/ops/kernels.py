@@ -1,11 +1,11 @@
-"""Hand-written Hopper kernels for the stencil ops and the bounded warp,
-their wrappers and their registered filters (port of
-``dvf_tpu/ops/pallas_kernels.py``'s stencil and warp kernels).
+"""Hand-written Hopper kernels for the stencil ops, the bounded warp and
+the delta wire's codec assist, their wrappers and their registered
+filters (port of ``dvf_tpu/ops/pallas_kernels.py``).
 
 The names keep the reference's: ``*_pallas`` here denotes the CUDA C++
-kernel in ``dvf_tpu_torch/csrc/`` (``stencils.cu``, ``warp.cu``) that
-replaces the TPU's Pallas kernel of the same name. Each wrapper
-dispatches on the tensor's device:
+kernel in ``dvf_tpu_torch/csrc/`` (``stencils.cu``, ``warp.cu``,
+``codec.cu``) that replaces the TPU's Pallas kernel of the same name.
+Each wrapper dispatches on the tensor's device:
 
 - a CUDA tensor launches the kernel on the current stream (no
   synchronisation) or raises — there is no fallback;
@@ -23,7 +23,9 @@ import math
 import threading
 from typing import Dict, List
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dvf_tpu_torch.api.filter import Filter, stateless
 from dvf_tpu_torch.ops import _build
@@ -33,7 +35,8 @@ from dvf_tpu_torch.ops.flow import warp_by_flow
 from dvf_tpu_torch.ops.registry import get_filter, register_filter
 
 LAUNCHES: Dict[str, int] = {"sep_blur": 0, "bilateral": 0, "sobel_bilateral": 0,
-                            "warp_bounded": 0}
+                            "warp_bounded": 0, "tile_maxdiff": 0,
+                            "dct8x8_quant": 0}
 _launch_lock = threading.Lock()
 
 # Limits compiled into csrc/stencils.cu.
@@ -54,6 +57,11 @@ _SIGNATURES = {
     },
     "warp": {
         "dvf_warp_bounded": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "codec": {
+        "dvf_tile_maxdiff": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dvf_dct8x8_quant_u8": [_P, _P, _I, _I, _I, _FP, _FP, _P],
+        "dvf_dct8x8_quant_f32": [_P, _P, _I, _I, _I, _FP, _FP, _P],
     },
 }
 _lib_objs: Dict[str, ctypes.CDLL] = {}
@@ -237,6 +245,206 @@ def warp_bounded_pallas(img: torch.Tensor, flow: torch.Tensor,
                                   b, h, w, c, r, stream)
     _count(lib, "dvf_warp_bounded", "warp_bounded", rc)
     return out
+
+
+# -- temporal-delta change detection (K5) -------------------------------
+
+
+def tile_maxdiff_ref(a: torch.Tensor, b: torch.Tensor, tile: int = 32) -> torch.Tensor:
+    """Plain version: per-tile max |a − b| of two uint8 NHWC batches,
+    ``(B, H, W, C) × (B, H, W, C) → (B, ⌈H/tile⌉, ⌈W/tile⌉)`` uint8 (a 3-D
+    frame pair gives one 2-D map). max − min keeps everything uint8;
+    unaligned H/W are zero-padded, which can never mark a tile dirty."""
+    if a.dim() == 3:
+        return tile_maxdiff_ref(a[None], b[None], tile)[0]
+    bsz, h, w, c = a.shape
+    d = torch.maximum(a, b) - torch.minimum(a, b)
+    nty, ntx = -(-h // tile), -(-w // tile)
+    ph, pw = nty * tile - h, ntx * tile - w
+    if ph or pw:
+        d = F.pad(d, (0, 0, 0, pw, 0, ph))
+    return d.reshape(bsz, nty, tile, ntx, tile, c).amax(dim=(2, 4, 5))
+
+
+def tile_maxdiff_pallas(a: torch.Tensor, b: torch.Tensor, tile: int = 32) -> torch.Tensor:
+    """Per-tile max |a − b| through ``csrc/codec.cu``'s kernel: one warp
+    per tile, 16/4/1-byte chunks, every geometry and channel
+    count (a ragged edge tile covers the pixels that exist, which is the
+    plain version's zero pad). Bit-exact to :func:`tile_maxdiff_ref`."""
+    tile = int(tile)
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return tile_maxdiff_ref(a, b, tile)
+    what = "tile_maxdiff_pallas"
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{what}: takes a and b both on one CUDA device or "
+                         f"both on the CPU, got {a.device} and {b.device}")
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
+        raise TypeError(f"{what}: needs uint8, got {a.dtype} and {b.dtype}")
+    if a.shape != b.shape or a.dim() not in (3, 4):
+        raise ValueError(f"{what}: needs two (B,H,W,C) or (H,W,C) batches of one "
+                         f"shape, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: needs contiguous NHWC tensors")
+    squeeze = a.dim() == 3
+    a4, b4 = (a[None], b[None]) if squeeze else (a, b)
+    bsz, h, w, c = a4.shape
+    nty, ntx = -(-h // tile), -(-w // tile)
+    out = torch.empty((bsz, nty, ntx), dtype=torch.uint8, device=a.device)
+    if a4.numel():
+        lib = _lib("codec")
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = lib.dvf_tile_maxdiff(a4.data_ptr(), b4.data_ptr(), out.data_ptr(),
+                                      bsz, h, w, c, tile, stream)
+        _count(lib, "dvf_tile_maxdiff", "tile_maxdiff", rc)
+    return out[0] if squeeze else out
+
+
+def tile_maxdiff(a: torch.Tensor, b: torch.Tensor, tile: int = 32) -> torch.Tensor:
+    """Dispatch (the reference's name): the kernel takes every geometry,
+    so a CUDA tensor always launches it; a CPU tensor runs the plain
+    version."""
+    return tile_maxdiff_pallas(a, b, tile)
+
+
+# -- JPEG forward DCT + quantization (K6) -------------------------------
+
+# Annex-K base tables (the ones libjpeg scales in jpeg_set_quality).
+_JPEG_LUMA_BASE = (
+    (16, 11, 10, 16, 24, 40, 51, 61),
+    (12, 12, 14, 19, 26, 58, 60, 55),
+    (14, 13, 16, 24, 40, 57, 69, 56),
+    (14, 17, 22, 29, 51, 87, 80, 62),
+    (18, 22, 37, 56, 68, 109, 103, 77),
+    (24, 35, 55, 64, 81, 104, 113, 92),
+    (49, 64, 78, 87, 103, 121, 120, 101),
+    (72, 92, 95, 98, 112, 100, 103, 99),
+)
+_JPEG_CHROMA_BASE = (
+    (17, 18, 24, 47, 99, 99, 99, 99),
+    (18, 21, 26, 66, 99, 99, 99, 99),
+    (24, 26, 56, 99, 99, 99, 99, 99),
+    (47, 66, 99, 99, 99, 99, 99, 99),
+) + ((99,) * 8,) * 4
+
+
+def jpeg_quant_table(quality: int, chroma: bool = False) -> np.ndarray:
+    """The (8, 8) table ``jpeg_set_quality(quality, force_baseline=TRUE)``
+    installs (IJG scaling of the Annex-K base tables), int32, natural
+    order. Quantizing with it lets the JPEG shim's entropy-only encode
+    tell the decoder to multiply by the same table."""
+    q = min(100, max(1, int(quality)))
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    base = np.asarray(_JPEG_CHROMA_BASE if chroma else _JPEG_LUMA_BASE, np.int64)
+    return np.clip((base * scale + 50) // 100, 1, 255).astype(np.int32)
+
+
+def _dct8_matrix() -> np.ndarray:
+    """D[u, x] = C(u)/2 · cos((2x+1)uπ/16), the orthonormal 8-point DCT-II
+    (built in float64, kept as float32 constants)."""
+    d = np.zeros((8, 8), np.float64)
+    for u in range(8):
+        cu = (1.0 / math.sqrt(2.0)) if u == 0 else 1.0
+        for x in range(8):
+            d[u, x] = 0.5 * cu * math.cos((2 * x + 1) * u * math.pi / 16.0)
+    return d.astype(np.float32)
+
+
+_DCT8 = _dct8_matrix()
+
+
+def _qrecip(qtable) -> np.ndarray:
+    """1/q in float64, rounded to float32, natural order (8, 8)."""
+    return (1.0 / np.asarray(qtable, np.float64).reshape(8, 8)).astype(np.float32)
+
+
+def dct8x8_quant_ref(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """Plain version: per-8×8-block forward DCT + quantization of a sample
+    plane, ``(B, H, W) → (B, ⌈H/8⌉, ⌈W/8⌉, 8, 8)`` int16 (a 2-D plane
+    gives one grid), natural order: level shift −128, D·X·Dᵀ, × the
+    float32 reciprocal of ``qtable``, round half to even. Unaligned H/W
+    are edge-padded (libjpeg's edge replication).
+
+    Every product and sum is its own elementwise float32 operation, in the
+    reference golden's order (``acc = D[u,0]·x0``, then ``acc + D[u,k]·xk``
+    for k = 1..7; vertical pass, then horizontal), so no multiply-add is
+    ever fused and the result is bit-identical to it — and to the kernel,
+    which repeats the same sequence with ``__fmul_rn``/``__fadd_rn``."""
+    if plane.dim() == 2:
+        return dct8x8_quant_ref(plane[None], qtable)[0]
+    b, h, w = plane.shape
+    x = plane.to(torch.float32)
+    ph, pw = (-h) % 8, (-w) % 8
+    if ph or pw:
+        x = F.pad(x[:, None], (0, pw, 0, ph), mode="replicate")[:, 0]
+    nby, nbx = (h + ph) // 8, (w + pw) // 8
+    blocks = x.reshape(b, nby, 8, nbx, 8).permute(0, 1, 3, 2, 4)  # (b,by,bx,y,x)
+    d = [[torch.tensor(float(_DCT8[u, k]), dtype=torch.float32, device=x.device)
+          for k in range(8)] for u in range(8)]
+    rows = [blocks[..., y, :] - 128.0 for y in range(8)]      # each (..., x)
+    vert = []
+    for u in range(8):
+        acc = d[u][0] * rows[0]
+        for y in range(1, 8):
+            acc = acc + d[u][y] * rows[y]
+        vert.append(acc)
+    v = torch.stack(vert, dim=-2)                               # (..., v, x)
+    horiz = []
+    for u in range(8):
+        acc = d[u][0] * v[..., 0]
+        for k in range(1, 8):
+            acc = acc + d[u][k] * v[..., k]
+        horiz.append(acc)
+    t = torch.stack(horiz, dim=-1)                              # (..., v, u)
+    recip = torch.from_numpy(_qrecip(qtable)).to(x.device)
+    return torch.round(t * recip).to(torch.int16)
+
+
+def dct8x8_quant_pallas(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """Per-8×8-block DCT + quantization through ``csrc/codec.cu``'s kernel:
+    a strip of 32 blocks per 256-thread block, one pixel column per thread
+    in the vertical pass and one block row in the horizontal pass, the
+    golden's operation order without FMA. Reads uint8 or float32 planes
+    of any geometry (a partial block clamps its reads: the plain
+    version's edge pad). Bit-exact to :func:`dct8x8_quant_ref`."""
+    if plane.device.type == "cpu":
+        return dct8x8_quant_ref(plane, qtable)
+    what = "dct8x8_quant_pallas"
+    if plane.device.type != "cuda":
+        raise ValueError(f"{what}: takes a CUDA or CPU tensor, got {plane.device}")
+    if plane.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"{what}: needs a uint8 or float32 plane, got {plane.dtype}")
+    if plane.dim() not in (2, 3):
+        raise ValueError(f"{what}: needs a (B,H,W) or (H,W) plane, got shape "
+                         f"{tuple(plane.shape)}")
+    if not plane.is_contiguous():
+        raise ValueError(f"{what}: needs a contiguous plane")
+    squeeze = plane.dim() == 2
+    p3 = plane[None] if squeeze else plane
+    b, h, w = p3.shape
+    out = torch.empty((b, -(-h // 8), -(-w // 8), 8, 8), dtype=torch.int16,
+                      device=plane.device)
+    if p3.numel():
+        lib = _lib("codec")
+        fn = ("dvf_dct8x8_quant_u8" if plane.dtype == torch.uint8
+              else "dvf_dct8x8_quant_f32")
+        dct = _floats(_DCT8.reshape(-1).tolist())
+        recip = _floats(_qrecip(qtable).reshape(-1).tolist())
+        with torch.cuda.device(plane.device):
+            stream = torch.cuda.current_stream(plane.device).cuda_stream
+            rc = getattr(lib, fn)(p3.data_ptr(), out.data_ptr(), b, h, w, dct,
+                                  recip, stream)
+        _count(lib, fn, "dct8x8_quant", rc)
+    return out[0] if squeeze else out
+
+
+def dct8x8_quant(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """Dispatch (the reference's name): the kernel takes every geometry,
+    so a CUDA tensor always launches it; a CPU tensor runs the plain
+    version."""
+    return dct8x8_quant_pallas(plane, qtable)
 
 
 @register_filter("gaussian_blur_pallas")

@@ -54,10 +54,16 @@ def _torch_dtype(dtype) -> torch.dtype:
 class BatchResult:
     """A submitted batch. Its output lands in ``host`` (a CPU tensor)
     once ``event`` has completed; ``event`` is None on the CPU, where the
-    output is already there."""
+    output is already there. ``device`` is the filter's uint8 output on
+    the engine's device (stages appended after the filter, such as the
+    codec assist, read it on the same stream); ``host`` is None when the
+    batch was submitted with ``fetch=False``."""
 
-    def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event]):
+    def __init__(self, host: Optional[torch.Tensor],
+                 event: Optional[torch.cuda.Event],
+                 device: Optional[torch.Tensor] = None):
         self.host = host
+        self.device = device
         self._event = event
 
     def is_ready(self) -> bool:
@@ -66,6 +72,9 @@ class BatchResult:
     def fetch(self) -> np.ndarray:
         """Wait for the device→host copy; the output as a numpy view of
         ``host``."""
+        if self.host is None:
+            raise RuntimeError("batch was submitted with fetch=False: no "
+                               "host copy exists")
         if self._event is not None:
             self._event.synchronize()
         return self.host.numpy()
@@ -141,13 +150,16 @@ class Engine:
         self.compile(tuple(batch_shape), dtype)
 
     def submit(self, batch: Union[np.ndarray, torch.Tensor],
-               out: Optional[torch.Tensor] = None) -> BatchResult:
+               out: Optional[torch.Tensor] = None,
+               fetch: bool = True) -> BatchResult:
         """Dispatch one host batch; returns at once with a BatchResult.
 
         ``batch`` should sit in pinned memory for the copy to be
         asynchronous. ``out`` is the host buffer the output is copied into
-        (pinned, shape ``out_shape``); None allocates one. The caller must
-        not rewrite ``batch`` or read ``out`` before the result is ready.
+        (pinned, shape ``out_shape``); None allocates one. ``fetch=False``
+        skips the device→host copy (the coefficient wire reads only the
+        device output). The caller must not rewrite ``batch`` or read
+        ``out`` before the result is ready.
         """
         self._refuse_if_freed()
         host = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
@@ -160,15 +172,19 @@ class Engine:
         with torch.no_grad():
             x = host.to(self.device, non_blocking=True)
             y, self._state = self._step(x, self._state)
-            if out is None:
-                out = torch.empty(y.shape, dtype=y.dtype, pin_memory=self.on_cuda)
-            out.copy_(y, non_blocking=True)
+            if fetch:
+                if out is None:
+                    out = torch.empty(y.shape, dtype=y.dtype,
+                                      pin_memory=self.on_cuda)
+                out.copy_(y, non_blocking=True)
+            else:
+                out = None
             if self.on_cuda:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
         self.stats.batches += 1
         self.stats.frames += host.shape[0]
-        return BatchResult(out, event)
+        return BatchResult(out, event, device=y)
 
     def reset_state(self) -> None:
         """Start a new stream on this engine: rebuild a stateful filter's

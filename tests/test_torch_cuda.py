@@ -149,6 +149,65 @@ def test_flow_warp_state_stays_on_the_card(dev):
         assert out.device == dev and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("shape,tile", [
+    ((2, 68, 40, 3), 16), ((2, 68, 40, 1), 8), ((2, 64, 96, 4), 16),
+    ((3, 67, 41, 3), 16), ((64, 96, 3), 32), ((2, 45, 77, 3), 8),
+])
+def test_tile_maxdiff_kernel_matches_plain(dev, shape, tile):
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = a.copy()
+    b[..., 3:9, 5:30, :] = rng.integers(0, 256, b[..., 3:9, 5:30, :].shape,
+                                        dtype=np.uint8)
+    b[..., -1, -1, :] ^= 1                    # the ragged corner tile too
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = _launched("tile_maxdiff", lambda: tk.tile_maxdiff_pallas(ta, tb, tile))
+    want = tk.tile_maxdiff_ref(ta, tb, tile)
+    assert got.shape == want.shape and torch.equal(got, want)
+    # views one byte into the buffer are unaligned: byte-wide loads
+    va = ta.reshape(-1)[1:1 + 4 * 96 * 3].view(1, 4, 96, 3)
+    vb = tb.reshape(-1)[1:1 + 4 * 96 * 3].view(1, 4, 96, 3)
+    assert va.is_contiguous() and va.data_ptr() % 4
+    assert torch.equal(tk.tile_maxdiff_pallas(va, vb, tile),
+                       tk.tile_maxdiff_ref(va, vb, tile))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shape", [(2, 52, 100), (1, 8, 8), (3, 48, 64), (50, 33)])
+@pytest.mark.parametrize("quality", [50, 90, 100])
+def test_dct8x8_quant_kernel_matches_plain(dev, dtype, shape, quality):
+    rng = np.random.default_rng(12)
+    plane = (rng.integers(0, 256, shape, dtype=np.uint8) if dtype == np.uint8
+             else rng.uniform(0, 255, shape).astype(np.float32))
+    q = tk.jpeg_quant_table(quality, chroma=quality == 50)
+    x = torch.from_numpy(plane).to(dev)
+    got = _launched("dct8x8_quant", lambda: tk.dct8x8_quant_pallas(x, q))
+    assert torch.equal(got, tk.dct8x8_quant_ref(x, q))      # plain, on the card
+    assert torch.equal(got.cpu(), tk.dct8x8_quant_ref(x.cpu(), q))
+
+
+def test_codec_kernels_refuse_without_launching(dev):
+    a = torch.zeros((2, 32, 32, 3), dtype=torch.uint8, device=dev)
+    plane = torch.zeros((2, 32, 32), dtype=torch.uint8, device=dev)
+    q = tk.jpeg_quant_table(90)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(TypeError):
+        tk.tile_maxdiff_pallas(a.float(), a.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.tile_maxdiff_pallas(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk.tile_maxdiff_pallas(a, a.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        tk.tile_maxdiff_pallas(a, a[:1])
+    with pytest.raises(TypeError):
+        tk.dct8x8_quant_pallas(plane.to(torch.int16), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.dct8x8_quant_pallas(plane.transpose(1, 2), q)
+    with pytest.raises(ValueError, match="plane"):
+        tk.dct8x8_quant_pallas(a, q)
+    assert tk.LAUNCHES == before
+
+
 def test_engine_runs_the_kernels_on_cuda(dev):
     frames = np.random.default_rng(6).integers(0, 256, (4, 40, 56, 3), np.uint8)
     for name, counter in [("gaussian_blur", "sep_blur"),

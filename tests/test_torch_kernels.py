@@ -190,7 +190,7 @@ def test_reset_launches_zeroes_every_counter():
             tk.LAUNCHES[k] = 3
         tk.reset_launches()
         assert set(tk.LAUNCHES) == {"sep_blur", "bilateral", "sobel_bilateral",
-                                    "warp_bounded"}
+                                    "warp_bounded", "tile_maxdiff", "dct8x8_quant"}
         assert all(v == 0 for v in tk.LAUNCHES.values())
     finally:
         tk.LAUNCHES.update(saved)
