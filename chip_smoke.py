@@ -19,14 +19,21 @@ which raises (and so exits non-zero) on failure:
    tile 16, (2,68,40,1) tile 8, (8,512,512,3) and (16,1080,1920,3) tile 32,
    dct8x8_quant on uint8 and float32 (2,52,100) planes at q90, uint8
    (8,512,512) and (8,256,256) at q 50/90/95/100 and (4,720,1280) at q90.
-   TF32 is off for every plain or library call;
+   TF32 is off for every plain or library call. The separable blur and
+   the bilateral also at frames larger than one tile with ragged edges,
+   on a view whose base is not 16-byte aligned, at their largest C = 4
+   case (31 taps, d = 15) and in each compiled and the runtime-size
+   instantiation;
 4. CUDA-event times (median of 20 runs after warm-up) of each kernel, its
    plain version and, where one PyTorch call computes the same function
    (the separable blur's depthwise convolutions, the warp's grid_sample),
    that call as a yardstick; for the codec kernels, whose launch outlasts
    their work, the device time per call from a torch.profiler window
    instead (the CUDA-event time beside it); the bound each kernel could
-   reach;
+   reach; for the stencil kernels also the share of that bound, the
+   achieved GB/s and, for the separable blur and the bilateral, the
+   instantiation timed and the SM clock and power draw read right after
+   the timing loop;
 5. the main paths, each driven with the launch counters set to 0 just
    before and read just after: 1080p batch-16 Pipelines for invert,
    gaussian_blur(k=9), bilateral and sobel_bilateral, and 720p batch-4
@@ -50,6 +57,11 @@ which raises (and so exits non-zero) on failure:
    (frames into a pinned slot, rows out of it); for the flow legs also a
    torch.profiler window: the card's busy share and its kernels per batch.
 
+Phase 2 also prints the static SASS of the separable blur's and the
+bilateral's main-path instantiations (``cuobjdump -sass``: instruction
+count, opcode histogram, innermost loops); ``sass_of(path)`` does the same
+for any stencil source, e.g. an older checkout's.
+
 Output: human-readable lines, then ``{"pipeline": [...]}``,
 ``{"stages": [...]}`` and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -61,6 +73,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -103,6 +117,118 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def smi_sample() -> str:
+    """SM clock and power draw now, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+_SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "STS", "LDG", "STG", "LDC",
+             "IMAD", "IADD3", "ISETP", "SEL", "IMNMX", "BRA")
+
+
+def _demangle(sym: str) -> str:
+    """``...15sep_blur_kernelILi3ELi9ELi9EE...`` -> ``sep_blur_kernel<3,9,9>``."""
+    m = re.search(r"(sobel_bilateral_kernel|bilateral_kernel|sep_blur_kernel)"
+                  r"(I(?:Li-?\d+E)+E)?", sym)
+    if not m:
+        return sym
+    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    return m.group(1) + ("<" + ",".join(args) + ">" if args else "")
+
+
+def _histogram(ops) -> dict:
+    hist = {k: 0 for k in _SASS_OPS}
+    for op in ops:
+        base = op.split(".")[0]
+        if base in hist:
+            hist[base] += 1
+        else:
+            hist["other"] = hist.get("other", 0) + 1
+    return {k: v for k, v in hist.items() if v}
+
+
+def sass_report(binary: str, keep=None) -> dict:
+    """Static SASS of each kernel in a built library or cubin: its
+    instruction count, opcode histogram and innermost loops (a backward
+    branch and the instructions from its target to it, holding no other
+    loop). ``keep(name)`` selects the kernels. None where the toolkit has
+    no cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(os.path.realpath(_nvcc())), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", binary], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _demangle(m.group(1))
+            kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
+                     r"([^;]*);", line)
+        if m and name is not None:
+            kernels[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    report = {}
+    for name, insns in kernels.items():
+        if keep is not None and not keep(name):
+            continue
+        loops = []
+        for addr, op, args in insns:
+            t = re.search(r"0x([0-9a-f]+)", args)
+            if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [(a, b) for a, b in loops
+                 if not any((c, d) != (a, b) and a <= c and d <= b for c, d in loops)]
+        report[name] = dict(
+            instructions=len(insns), ops=_histogram(op for _, op, _ in insns),
+            inner_loops=[dict(instructions=sum(a <= x <= b for x, _, _ in insns),
+                              ops=_histogram(op for x, op, _ in insns if a <= x <= b))
+                         for a, b in inner])
+    return report
+
+
+def _nvcc() -> str:
+    from dvf_tpu_torch.ops import _build
+
+    return _build.nvcc_path()
+
+
+def sass_of(source: str) -> None:
+    """Build a stencil source to a cubin with the port's nvcc flags and
+    print the SASS report of its C = 3 blur and bilateral kernels (for
+    comparing an older design: ``python3 -c 'import chip_smoke;
+    chip_smoke.sass_of("old/stencils.cu")'``)."""
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        subprocess.run([_nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-o", cubin, source], check=True,
+                       timeout=600)
+        log_sass(source, sass_report(cubin, _main_path_kernel))
+
+
+def _main_path_kernel(name: str) -> bool:
+    # the C = 3 instantiations of K1 and K2
+    return (name.startswith(("sep_blur_kernel", "bilateral_kernel"))
+            and re.search(r"<3[,>]", name) is not None)
+
+
+def log_sass(what: str, report) -> None:
+    if report is None:
+        log(f"sass {what}: not read (no cuobjdump in the toolkit)")
+        return
+    for name, r in report.items():
+        log(f"sass {what} {name}: {r['instructions']} instructions {json.dumps(r['ops'])}; "
+            f"innermost loops {json.dumps(r['inner_loops'])}")
 
 
 def cuda_ms(fn, x, reps: int = REPS) -> float:
@@ -244,6 +370,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    log_sass("stencils.cu", sass_report(str(_build.library_path("stencils")),
+                                        _main_path_kernel))
     if env["libjpeg"]:
         from dvf_tpu_torch.transport.codec import _load_shim
 
@@ -272,12 +400,28 @@ def main() -> int:
              replaces="dvf_tpu/ops/pallas_kernels.py:363",
              kernel=lambda x: tk.sep_blur_nhwc_pallas(x, k9, k9),
              plain=lambda x: sep_conv2d(x, k9, k9, impl="shift"),
-             library=library_blur, ops=lambda s: ops_sep_blur(s, 9, 9)),
+             library=library_blur, ops=lambda s: ops_sep_blur(s, 9, 9),
+             instance="sep_blur_kernel<{},{},{}>".format(
+                 *tk.sep_blur_instance(9, 9, MAIN_SHAPE[-1])),
+             extra=[((1, 150, 270, 3), (9, 9), 1), ((1, 70, 130, 4), (31, 31), 0),
+                    ((2, 97, 131, 1), (5, 1), 0), ((1, 64, 130, 2), (3, 9), 1),
+                    ((1, 150, 270, 3), (7, 7), 0)],
+             extra_kernel=lambda x, k: tk.sep_blur_nhwc_pallas(
+                 x, gaussian_kernel_1d(k[0], 0.0), gaussian_kernel_1d(k[1], 0.0)),
+             extra_plain=lambda x, k: sep_conv2d(
+                 x, gaussian_kernel_1d(k[0], 0.0), gaussian_kernel_1d(k[1], 0.0))),
         dict(name="bilateral",
              replaces="dvf_tpu/ops/pallas_kernels.py:188",
              kernel=lambda x: tk.bilateral_nhwc_pallas(x),
              plain=lambda x: bilateral_nhwc(x), library=None,
-             ops=lambda s: ops_bilateral(s, 5)),
+             ops=lambda s: ops_bilateral(s, 5),
+             instance="bilateral_kernel<{},{}>".format(
+                 *tk.bilateral_instance(5, MAIN_SHAPE[-1])),
+             extra=[((1, 150, 270, 3), 5, 1), ((1, 70, 130, 4), 15, 0),
+                    ((2, 97, 131, 1), 3, 0), ((1, 64, 130, 2), 7, 1),
+                    ((1, 150, 270, 3), 9, 0)],
+             extra_kernel=lambda x, d: tk.bilateral_nhwc_pallas(x, d=d),
+             extra_plain=lambda x, d: bilateral_nhwc(x, d=d)),
         dict(name="sobel_bilateral",
              replaces="dvf_tpu/ops/pallas_kernels.py:485",
              kernel=lambda x: tk.sobel_bilateral_nhwc_pallas(x),
@@ -301,7 +445,22 @@ def main() -> int:
                     f"at {shape}: {e} > {TOL}")
             err = max(err, e)
             del got, want
+        for shape, size, offset in spec.get("extra", []):
+            # offset 1: a contiguous view whose base is not 16-byte aligned
+            flat = torch.rand(int(np.prod(shape)) + offset, generator=gen, device=dev)
+            xe = flat[offset:].view(shape)
+            got = spec["extra_kernel"](xe, size)
+            torch.cuda.synchronize()
+            e = (got - spec["extra_plain"](xe, size)).abs().max().item()
+            log(f"check {spec['name']} {shape} size {size} offset {offset}: max abs "
+                f"err {e:.3e}")
+            if not e <= TOL:
+                raise AssertionError(
+                    f"{spec['name']} kernel disagrees with its plain version at "
+                    f"{shape} size {size} offset {offset}: {e} > {TOL}")
+            err = max(err, e)
         ms = cuda_ms(spec["kernel"], x)
+        smi_after = smi_sample()
         plain_ms = cuda_ms(spec["plain"], x)
         lib_ms = None
         if spec["library"] is not None:
@@ -309,13 +468,22 @@ def main() -> int:
             lib_ms = cuda_ms(spec["library"], x)
             log(f"library {spec['name']}: max abs err vs plain {lib_err:.3e}")
         b_ms, b_by = bound(MAIN_SHAPE, spec["ops"](MAIN_SHAPE))
+        gbps = 2 * int(np.prod(MAIN_SHAPE)) * 4 / (ms * 1e-3) / 1e9
+        extra = {}
+        if "instance" in spec:
+            clock, power = (v.strip() for v in smi_after.split(","))
+            extra = dict(instance=spec["instance"], clocks_sm=clock, power_draw=power)
         log(f"time {spec['name']} {MAIN_SHAPE}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{plain_ms:.4f} ms, library {lib_ms} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"share of bound {b_ms / ms:.3f}, {gbps:.1f} GB/s"
+            + (f", {extra['instance']}; after the timing loop: clocks.sm "
+               f"{extra['clocks_sm']}, power.draw {extra['power_draw']}" if extra else ""))
         rows.append(dict(name=spec["name"], route="cuda", source=SOURCE,
                          replaces=spec["replaces"], shape=list(MAIN_SHAPE),
                          launches=None, max_abs_err=err, ms=ms, kernel_ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, share_of_bound=b_ms / ms,
+                         achieved_gb_s=gbps, **extra))
         del x
     log("K2/K3 have no single PyTorch call computing the same function: "
         "library_ms is null for them")

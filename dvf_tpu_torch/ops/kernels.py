@@ -21,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,11 @@ _launch_lock = threading.Lock()
 MAX_TAPS = 31
 MAX_WIN = 15
 MAX_C = 4
+# Sizes csrc/stencils.cu compiles with constant taps / window (the main
+# path's k = 9 and d = 5, and the sizes the card tests use); every other
+# size up to the limits runs the runtime-size instantiation.
+SEP_BLUR_TAPS = ((9, 9), (3, 9), (5, 1))
+BILATERAL_RADII = (1, 2, 3)
 # Channels csrc/warp.cu takes (the inner warp runs on 5-channel stacks).
 MAX_WARP_C = 8
 
@@ -51,8 +56,8 @@ _FP = ctypes.POINTER(ctypes.c_float)  # host float arrays (taps, weights)
 # C entry points of each csrc/<source>.cu.
 _SIGNATURES = {
     "stencils": {
-        "dvf_sep_blur": [_P, _P, _I, _I, _I, _I, _FP, _I, _FP, _I, _P],
-        "dvf_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _P],
+        "dvf_sep_blur": [_P, _P, _I, _I, _I, _I, _FP, _I, _FP, _I, _I, _I, _P],
+        "dvf_bilateral": [_P, _P, _I, _I, _I, _I, _I, _I, _FP, _F, _P],
         "dvf_sobel_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _F, _P],
     },
     "warp": {
@@ -96,6 +101,37 @@ def _spatial_weights(r: int, sigma_space: float) -> List[float]:
     plain version does (the kernel receives the float32 roundings)."""
     return [math.exp(-(dy * dy + dx * dx) / (2.0 * sigma_space * sigma_space))
             for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+
+
+def sep_blur_instance(kh: int, kw: int, c: int) -> Tuple[int, int, int]:
+    """The template arguments ``(C, KH, KW)`` of the ``sep_blur_kernel``
+    a (kh, kw)-tap blur over c channels runs: the tap pair itself where it
+    is compiled as constants, else KH = KW = 0 (tap counts at run time)."""
+    fixed = (kh, kw) in SEP_BLUR_TAPS
+    return (c, kh if fixed else 0, kw if fixed else 0)
+
+
+def bilateral_instance(d: int, c: int) -> Tuple[int, int]:
+    """The template arguments ``(C, R)`` of the ``bilateral_kernel`` a
+    d×d window over c channels runs: its radius where that is compiled as
+    a constant, else R = 0 (radius at run time)."""
+    r = d // 2
+    return (c, r if r in BILATERAL_RADII else 0)
+
+
+def bilateral_constants(d: int, sigma_color: float,
+                        sigma_space: float) -> Tuple[List[float], float]:
+    """What the bilateral kernel folds its weights from: log2 of the
+    (2r+1)² spatial weights, row-major, and nk = −log2(e)/(2σc²), both
+    computed in double and rounded to float32. Per tap the kernel takes
+    w = 2^(dist2·nk + log2 sw) (one FFMA, one ex2.approx); the plain
+    version's sw·exp(−dist2/(2σc²)) is the same value."""
+    r = d // 2
+    log2e = 1.0 / math.log(2.0)
+    log2w = [float(np.float32(-(dy * dy + dx * dx) / (2.0 * sigma_space * sigma_space)
+                              * log2e))
+             for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    return log2w, float(np.float32(-log2e / (2.0 * sigma_color * sigma_color)))
 
 
 def _check_cuda(batch: torch.Tensor, what: str, halo_h: int, halo_w: int,
@@ -144,9 +180,10 @@ def _count(lib: ctypes.CDLL, fn: str, counter: str, rc: int) -> None:
 
 def sep_blur_nhwc_pallas(batch: torch.Tensor, kh: Taps, kw: Taps) -> torch.Tensor:
     """Separable conv over float NHWC, both 1-D passes in one kernel (the
-    H-blurred intermediate stays in shared memory). Plain version:
-    ``sep_conv2d(impl="shift")`` — same reflect-101 borders, same tap
-    order."""
+    H pass in registers down each column of a 64×64 tile, the H-blurred
+    tile in shared memory for the W pass; see :func:`sep_blur_instance`).
+    Plain version: ``sep_conv2d(impl="shift")`` — same reflect-101
+    borders, same tap order."""
     th, tw = taps_f32(kh), taps_f32(kw)
     if len(th) % 2 != 1 or len(tw) % 2 != 1:
         raise ValueError(f"tap counts must be odd, got {len(th)} and {len(tw)}")
@@ -155,15 +192,19 @@ def sep_blur_nhwc_pallas(batch: torch.Tensor, kh: Taps, kw: Taps) -> torch.Tenso
     if len(th) > MAX_TAPS or len(tw) > MAX_TAPS:
         raise ValueError(f"at most {MAX_TAPS} taps per axis, got {len(th)}, {len(tw)}")
     _check_cuda(batch, "sep_blur_nhwc_pallas", len(th) // 2, len(tw) // 2)
-    return _launch("dvf_sep_blur", "sep_blur", batch,
-                   _floats(th), len(th), _floats(tw), len(tw))
+    _, fixed_kh, fixed_kw = sep_blur_instance(len(th), len(tw), batch.shape[-1])
+    return _launch("dvf_sep_blur", "sep_blur", batch, _floats(th), len(th),
+                   _floats(tw), len(tw), fixed_kh, fixed_kw)
 
 
 def bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,
                           sigma_color: float = 0.1,
                           sigma_space: float = 2.0) -> torch.Tensor:
-    """Bilateral over float NHWC in [0,1], the whole d×d window per thread
-    from shared memory. Plain version: ``ops.bilateral.bilateral_nhwc``."""
+    """Bilateral over float NHWC in [0,1]: four vertically adjacent
+    outputs per thread from an RGB0 tile in shared memory, the spatial
+    weight folded into the range weight's exponent
+    (:func:`bilateral_constants`, :func:`bilateral_instance`). Plain
+    version: ``ops.bilateral.bilateral_nhwc``."""
     if d % 2 != 1:
         raise ValueError(f"window d must be odd, got {d}")
     if batch.device.type == "cpu":
@@ -173,9 +214,10 @@ def bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,
         raise ValueError(f"window d must be at most {MAX_WIN}, got {d}")
     r = d // 2
     _check_cuda(batch, "bilateral_nhwc_pallas", r, r)
-    return _launch("dvf_bilateral", "bilateral", batch, r,
-                   _floats(_spatial_weights(r, sigma_space)),
-                   1.0 / (2.0 * sigma_color * sigma_color))
+    _, fixed_r = bilateral_instance(d, batch.shape[-1])
+    log2w, nk = bilateral_constants(d, sigma_color, sigma_space)
+    return _launch("dvf_bilateral", "bilateral", batch, r, fixed_r,
+                   _floats(log2w), nk)
 
 
 def sobel_bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,

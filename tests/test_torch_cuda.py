@@ -43,20 +43,47 @@ def _launched(counter, fn):
     return out
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("kh,kw", [(9, 9), (3, 9), (5, 1)])
-def test_sep_blur_kernel_matches_plain(dev, shape, kh, kw):
-    x = _input(shape, 1, dev)
+# K1 and K2 also at frames larger than one of their tiles (64x64 and
+# 32x32 outputs) with ragged right and bottom tiles, at every channel
+# count. (1, 70, 130, 4) with 31 taps is K1's largest case: its 96 KB of
+# shared memory needs the launch's opt-in above 48 KB.
+STENCIL_SHAPES = SHAPES + [(1, 150, 270, 3), (2, 97, 131, 1), (1, 64, 130, 2),
+                           (1, 70, 130, 4)]
+
+
+def _view(x, offset):
+    """x itself, or a contiguous copy of it that starts ``offset`` floats
+    into its buffer (not 16-byte aligned for offset 1)."""
+    if not offset:
+        return x
+    flat = torch.empty(x.numel() + offset, device=x.device)
+    v = flat[offset:].view(x.shape)
+    v.copy_(x)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    return v
+
+
+# (9,9), (3,9), (5,1): compiled tap pairs; (7,7), (31,31), (1,15): the
+# runtime-tap instantiation.
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+@pytest.mark.parametrize("kh,kw", [(9, 9), (3, 9), (5, 1), (7, 7), (31, 31), (1, 15)])
+def test_sep_blur_kernel_matches_plain(dev, shape, kh, kw, offset):
+    x = _view(_input(shape, 1, dev), offset)
     th, tw = gaussian_kernel_1d(kh, 0.0), gaussian_kernel_1d(kw, 0.0)
     got = _launched("sep_blur", lambda: tk.sep_blur_nhwc_pallas(x, th, tw))
     want = tk.sep_blur_nhwc_pallas(x.cpu(), th, tw)
     assert (got.cpu() - want).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("d,sc,ss", [(5, 0.1, 2.0), (3, 0.2, 5.0), (7, 0.15, 3.0)])
-def test_bilateral_kernel_matches_plain(dev, shape, d, sc, ss):
-    x = _input(shape, 2, dev)
+# d 3, 5, 7: compiled radii; d 9, 15, 1: the runtime-radius instantiation
+# (d = 15 at C = 4 is K2's largest tile, 46x46 RGBA, 34 KB).
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+@pytest.mark.parametrize("d,sc,ss", [(5, 0.1, 2.0), (3, 0.2, 5.0), (7, 0.15, 3.0),
+                                     (9, 0.1, 3.0), (15, 0.12, 4.0), (1, 0.1, 1.0)])
+def test_bilateral_kernel_matches_plain(dev, shape, d, sc, ss, offset):
+    x = _view(_input(shape, 2, dev), offset)
     got = _launched("bilateral", lambda: tk.bilateral_nhwc_pallas(
         x, d=d, sigma_color=sc, sigma_space=ss))
     want = tk.bilateral_nhwc_pallas(x.cpu(), d=d, sigma_color=sc, sigma_space=ss)
@@ -86,6 +113,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.sobel_bilateral_nhwc_pallas(x[..., :2].contiguous())
     with pytest.raises(ValueError, match="too small"):
         tk.sobel_bilateral_nhwc_pallas(_input((1, 3, 24, 3), 5, dev))
+    # An instantiation that does not match the sizes, or was not compiled,
+    # is refused by the C entry points, not substituted.
+    lib, out = tk._lib(), torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    taps = tk._floats([0.25, 0.5, 0.25])
+    for fixed in ((9, 9), (3, 3)):
+        assert lib.dvf_sep_blur(x.data_ptr(), out.data_ptr(), 1, 16, 24, 3, taps, 3,
+                                taps, 3, *fixed, stream) != 0
+    for d, fixed_r in ((5, 1), (9, 4)):    # a mismatch; a radius not compiled
+        log2w, nk = tk.bilateral_constants(d, 0.1, 2.0)
+        assert lib.dvf_bilateral(x.data_ptr(), out.data_ptr(), 1, 16, 24, 3, d // 2,
+                                 fixed_r, tk._floats(log2w), nk, stream) != 0
 
 
 @pytest.mark.parametrize("shape,scale,r", [

@@ -19,7 +19,8 @@ from dvf_tpu.ops import pallas_kernels as jk
 from dvf_tpu.ops.conv import gaussian_kernel_1d as jax_taps
 from dvf_tpu_torch.ops import flow as tflow
 from dvf_tpu_torch.ops import kernels as tk
-from dvf_tpu_torch.ops.conv import gaussian_kernel_1d
+from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
+from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, reflect_pad_nhwc
 
 
 def _batch(shape, seed):
@@ -65,6 +66,66 @@ def test_bilateral_matches_pallas(d, sc, ss, shape):
     got = tk.bilateral_nhwc_pallas(torch.from_numpy(x), d=d, sigma_color=sc,
                                    sigma_space=ss)
     _close(got, want)
+
+
+def _folded_bilateral(x: torch.Tensor, d: int, sc: float, ss: float) -> torch.Tensor:
+    """The bilateral kernel's per-tap formula in float32 torch, from the
+    constants its wrapper hands it: w = 2^(dist2·nk + log2 sw), taps in the
+    plain version's (dy, dx) order."""
+    log2w, nk = tk.bilateral_constants(d, sc, ss)
+    r = d // 2
+    h, w = x.shape[1], x.shape[2]
+    pad = reflect_pad_nhwc(x, r, r)
+    nk_t = torch.tensor(nk, dtype=torch.float32)
+    num = torch.zeros_like(x)
+    den = torch.zeros(x.shape[:-1] + (1,), dtype=torch.float32)
+    for i in range(d * d):
+        dy, dx = divmod(i, d)
+        shifted = pad[:, dy:dy + h, dx:dx + w, :]
+        diff = shifted - x
+        dist2 = torch.sum(diff * diff, dim=-1, keepdim=True)
+        wgt = torch.exp2(dist2 * nk_t + torch.tensor(log2w[i], dtype=torch.float32))
+        num = num + wgt * shifted
+        den = den + wgt
+    return num / den
+
+
+@pytest.mark.parametrize("d,sc,ss", [(3, 0.2, 5.0), (5, 0.1, 2.0), (7, 0.15, 3.0)])
+def test_bilateral_folded_weights_match_plain_and_pallas(d, sc, ss):
+    x = _batch((1, 68, 40, 3), 23)
+    got = _folded_bilateral(torch.from_numpy(x), d, sc, ss)
+    plain = bilateral_nhwc(torch.from_numpy(x), d=d, sigma_color=sc, sigma_space=ss)
+    want = jk.bilateral_nhwc_pallas(jnp.asarray(x), d=d, sigma_color=sc,
+                                    sigma_space=ss, interpret=True)
+    _close(got, plain)
+    _close(got, want)
+
+
+def test_bilateral_constants():
+    log2w, nk = tk.bilateral_constants(5, 0.1, 2.0)
+    assert len(log2w) == 25 and log2w[12] == 0.0    # the centre weight is 1
+    sw = [np.exp(-(dy * dy + dx * dx) / 8.0) for dy in range(-2, 3)
+          for dx in range(-2, 3)]
+    np.testing.assert_allclose(np.exp2(np.float64(log2w)), sw, rtol=1e-6)
+    np.testing.assert_allclose(nk * np.log(2.0), -50.0, rtol=1e-6)
+    assert all(float(np.float32(v)) == v for v in log2w + [nk])   # float32 values
+
+
+@pytest.mark.parametrize("kh,kw,c,want", [
+    (9, 9, 3, (3, 9, 9)), (3, 9, 1, (1, 3, 9)), (5, 1, 4, (4, 5, 1)),
+    (9, 3, 3, (3, 0, 0)), (7, 7, 2, (2, 0, 0)), (31, 31, 4, (4, 0, 0)),
+    (1, 1, 3, (3, 0, 0)),
+])
+def test_sep_blur_instance(kh, kw, c, want):
+    assert tk.sep_blur_instance(kh, kw, c) == want
+
+
+@pytest.mark.parametrize("d,c,want", [
+    (5, 3, (3, 2)), (3, 1, (1, 1)), (7, 4, (4, 3)),
+    (9, 3, (3, 0)), (15, 4, (4, 0)), (1, 2, (2, 0)),
+])
+def test_bilateral_instance(d, c, want):
+    assert tk.bilateral_instance(d, c) == want
 
 
 @pytest.mark.parametrize("shape", [(2, 24, 32, 3), (1, 68, 40, 3)],
