@@ -14,26 +14,30 @@ which raises (and so exits non-zero) on failure:
    shape (16 x 1080 x 1920 x 3), max abs error <= 1e-5; the bounded warp
    at 68x40 (3 and 5 channels, flows in +-6 so the clip engages), a border
    case, and its two main-path shapes (4 x 720 x 1280 x 3, the final warp;
-   4 x 360 x 640 x 5, the inner warp), max abs error <= 3e-6; the codec
+   4 x 360 x 640 x 5, the inner warp) and at ragged, smaller-than-a-tile,
+   C = 1 and 8, offset-base and large-R cases, in both of its designs,
+   bit-exact (0 differing elements); the codec
    kernels bit-exact (0 differing elements): tile_maxdiff at (2,68,40,3)
    tile 16, (2,68,40,1) tile 8, (8,512,512,3) and (16,1080,1920,3) tile 32,
    dct8x8_quant on uint8 and float32 (2,52,100) planes at q90, uint8
    (8,512,512) and (8,256,256) at q 50/90/95/100 and (4,720,1280) at q90.
-   TF32 is off for every plain or library call. The separable blur and
-   the bilateral also at frames larger than one tile with ragged edges,
-   on a view whose base is not 16-byte aligned, at their largest C = 4
-   case (31 taps, d = 15) and in each compiled and the runtime-size
+   TF32 is off for every plain or library call. The three stencil
+   kernels also at frames larger than one tile with ragged edges, on a
+   view whose base is not 16-byte aligned, at their largest C = 4 case
+   (31 taps, d = 15) and in each compiled and the runtime-size
    instantiation;
 4. CUDA-event times (median of 20 runs after warm-up) of each kernel, its
    plain version and, where one PyTorch call computes the same function
    (the separable blur's depthwise convolutions, the warp's grid_sample),
-   that call as a yardstick; for the codec kernels, whose launch outlasts
-   their work, the device time per call from a torch.profiler window
-   instead (the CUDA-event time beside it); the bound each kernel could
-   reach; for the stencil kernels also the share of that bound, the
-   achieved GB/s and, for the separable blur and the bilateral, the
-   instantiation timed and the SM clock and power draw read right after
-   the timing loop;
+   that call as a yardstick; the device time per call from a
+   torch.profiler window beside them (for the warp, at both of its
+   shapes and in both designs, with the inputs warm in L2 as on the flow
+   path and with L2 flushed; for the warp and the codec kernels, whose
+   launch outlasts their work, the device time is the reported time);
+   the bound each kernel could reach; for the stencil kernels also the
+   share of that bound, the achieved GB/s, the instantiation timed, the
+   SM clock and power draw read right after the timing loop, and the
+   device time of a plain copy of the same batch (a practical floor);
 5. the main paths, each driven with the launch counters set to 0 just
    before and read just after: 1080p batch-16 Pipelines for invert,
    gaussian_blur(k=9), bilateral and sobel_bilateral, and 720p batch-4
@@ -57,10 +61,11 @@ which raises (and so exits non-zero) on failure:
    (frames into a pinned slot, rows out of it); for the flow legs also a
    torch.profiler window: the card's busy share and its kernels per batch.
 
-Phase 2 also prints the static SASS of the separable blur's and the
-bilateral's main-path instantiations (``cuobjdump -sass``: instruction
-count, opcode histogram, innermost loops); ``sass_of(path)`` does the same
-for any stencil source, e.g. an older checkout's.
+Phase 2 also prints the static SASS of the stencil kernels' main-path
+instantiations and of the warp kernels at C = 3 and 5 (``cuobjdump
+-sass``: instruction count, opcode histogram, innermost loops);
+``sass_of(path)`` does the same for any stencil or warp source, e.g. an
+older checkout's.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``,
 ``{"stages": [...]}`` and ``{"kernels": [...]}`` lines, and as the last line
@@ -86,7 +91,6 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 TOL = 1e-5
-WARP_TOL = 3e-6
 MAIN_SHAPE = (16, 1080, 1920, 3)
 SMALL_SHAPE = (2, 68, 40, 3)
 N_FRAMES = 320
@@ -98,6 +102,9 @@ FLOW_FRAMES = 80
 MAX_DISP = 4                          # flow_warp's default bound
 INNER_DISP = 2                        # ceil(MAX_DISP / flow_scale)
 INNER_LAUNCHES = 1 + 3 * 3            # final warp + levels * n_iters
+# The inner warp's coarser pyramid levels (flow_warp's pyr_scale 0.5): each
+# of the three levels takes n_iters = 3 launches per batch.
+COARSE_SHAPES = ((4, 180, 320, 5), (4, 90, 160, 5))
 REPS = 20
 SOURCE = "dvf_tpu_torch/csrc/stencils.cu"
 WARP_SOURCE = "dvf_tpu_torch/csrc/warp.cu"
@@ -133,7 +140,8 @@ _SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "STS", "LDG", "STG", "LDC",
 
 def _demangle(sym: str) -> str:
     """``...15sep_blur_kernelILi3ELi9ELi9EE...`` -> ``sep_blur_kernel<3,9,9>``."""
-    m = re.search(r"(sobel_bilateral_kernel|bilateral_kernel|sep_blur_kernel)"
+    m = re.search(r"(sobel_bilateral_kernel|bilateral_kernel|sep_blur_kernel|"
+                  r"warp_bounded_kernel|warp_window_kernel|warp_gather_kernel)"
                   r"(I(?:Li-?\d+E)+E)?", sym)
     if not m:
         return sym
@@ -201,8 +209,8 @@ def _nvcc() -> str:
 
 
 def sass_of(source: str) -> None:
-    """Build a stencil source to a cubin with the port's nvcc flags and
-    print the SASS report of its C = 3 blur and bilateral kernels (for
+    """Build a stencil or warp source to a cubin with the port's nvcc
+    flags and print the SASS report of its main-path kernels (for
     comparing an older design: ``python3 -c 'import chip_smoke;
     chip_smoke.sass_of("old/stencils.cu")'``)."""
     import tempfile
@@ -216,10 +224,54 @@ def sass_of(source: str) -> None:
         log_sass(source, sass_report(cubin, _main_path_kernel))
 
 
+_WARP_TIMES = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("cs", {script!r})
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+from dvf_tpu_torch.ops import kernels as tk
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+flush = torch.empty(32 * 1024 * 1024, device=dev)
+for shape, r, scale in ((cs.FLOW_SHAPE, cs.MAX_DISP, 12.0),
+                        (cs.INNER_SHAPE, cs.INNER_DISP, 6.0),
+                        *((c, cs.INNER_DISP, 6.0) for c in cs.COARSE_SHAPES)):
+    img = torch.rand(shape, generator=gen, device=dev)
+    flow = (torch.rand(shape[:3] + (2,), generator=gen, device=dev) - 0.5) * scale
+    kern = lambda _: tk.warp_bounded_pallas(img, flow, r)
+    warm, n = cs.profiled_ms(kern, None)
+    cold = cs.profiled_ms(kern, None, match="warp_", between=flush.zero_)[0]
+    print(json.dumps(dict(checkout={checkout!r}, shape=list(shape), r=r,
+                          device_ms_warm=warm, device_ms_cold=cold,
+                          kernels_per_call=n, call_ms=cs.cuda_ms(kern, None))))
+"""
+
+
+def warp_times_of(checkout: str) -> None:
+    """Print the device times (torch.profiler; warm, and with L2 flushed)
+    of a checkout's bounded-warp kernel at the final warp's shape and the
+    inner warp's three levels, called through that checkout's own wrapper,
+    e.g. an older
+    design: ``python3 -c 'import chip_smoke;
+    chip_smoke.warp_times_of("old")'``."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WARP_TIMES.format(script=os.path.abspath(__file__),
+                                                  checkout=checkout)],
+        cwd=checkout, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"warp_times_of({checkout!r}) failed:\n{out.stderr}")
+    for line in out.stdout.splitlines():
+        log(f"warp times {line}")
+
+
 def _main_path_kernel(name: str) -> bool:
-    # the C = 3 instantiations of K1 and K2
-    return (name.startswith(("sep_blur_kernel", "bilateral_kernel"))
-            and re.search(r"<3[,>]", name) is not None)
+    # the C = 3 instantiations of K1 and K2, K3's at d = 5 (an older
+    # K3 is one kernel), the warp kernels at C = 3 (final warp) and C = 5
+    # (inner warp)
+    if name.startswith(("sep_blur_kernel", "bilateral_kernel")):
+        return re.search(r"<3[,>]", name) is not None
+    if name.startswith("sobel_bilateral_kernel"):
+        return name in ("sobel_bilateral_kernel", "sobel_bilateral_kernel<3,2>")
+    return name.startswith("warp_") and re.search(r"<[35]>", name) is not None
 
 
 def log_sass(what: str, report) -> None:
@@ -248,23 +300,32 @@ def cuda_ms(fn, x, reps: int = REPS) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in times)
 
 
-def profiled_ms(fn, x, reps: int = REPS):
+def profiled_ms(fn, x, reps: int = REPS, match=None, between=None):
     """Device time and device kernels per call of ``fn(x)`` from a
     torch.profiler window over ``reps`` calls after warm-up. Unlike
     ``cuda_ms`` it leaves out the gaps in which the card waits for the
-    host to launch."""
+    host to launch. ``between()`` runs before each call (an L2 flush);
+    ``match`` keeps only the device entries whose name holds it."""
     for _ in range(3):
         fn(x)
-    p = profile_call(lambda: [fn(x) for _ in range(reps)], reps)
+
+    def run():
+        for _ in range(reps):
+            if between is not None:
+                between()
+            fn(x)
+
+    p = profile_call(run, reps, match)
     return p["device_ms_per_batch"], p["device_kernels_per_batch"]
 
 
-def profile_call(fn, per: int) -> dict:
+def profile_call(fn, per: int, match=None) -> dict:
     """Run ``fn()`` once under torch.profiler: device time (kernels and
-    copies), device kernels and host wall, each per one of ``per`` units
-    (batches), the share of the wall the card was busy, and the top
-    device entries [name, ms, count] per unit. The profiler slows the
-    host, so the share errs low."""
+    copies; only entries whose name holds ``match`` where given), device
+    kernels and host wall, each per one of ``per`` units (batches), the
+    share of the wall the card was busy, and the top device entries
+    [name, ms, count] per unit. The profiler slows the host, so the share
+    errs low."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -275,7 +336,8 @@ def profile_call(fn, per: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and (match is None or match in e.key)]
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if dev_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -303,7 +365,9 @@ def ops_bilateral(shape, d: int) -> int:
 def ops_sobel_bilateral(shape, d: int) -> int:
     # per pixel: gray 5; Sobel 4 x (1 mul + 2 add) + 2 sub; magnitude
     # 2 mul + add + sqrt + scale + 2 clip; single-channel bilateral 8 per
-    # tap (sub, square, scale, exp, spatial mul, mul-add, add); 1 division
+    # tap (sub, square, scale, exp, spatial mul, mul-add, add); 1 division.
+    # The kernel folds the scale and the spatial weight into one
+    # multiply-add per tap; this counts the plain formula's operations.
     b, h, w, _ = shape
     return b * h * w * (5 + 14 + 7 + 8 * d * d + 1)
 
@@ -370,8 +434,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log_sass("stencils.cu", sass_report(str(_build.library_path("stencils")),
-                                        _main_path_kernel))
+    for src in ("stencils", "warp"):
+        log_sass(f"{src}.cu", sass_report(str(_build.library_path(src)),
+                                          _main_path_kernel))
     if env["libjpeg"]:
         from dvf_tpu_torch.transport.codec import _load_shim
 
@@ -385,6 +450,10 @@ def main() -> int:
     # 3-4. each kernel against its plain version; times
     k9 = gaussian_kernel_1d(9, 0.0)
     chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+
+    def chain_d(x, d):
+        return dvf_tpu_torch.get_filter("sobel_bilateral", d=d,
+                                        impl="chain").fn(x, None)[0]
     w9 = k9.to(dev)
 
     def library_blur(x):
@@ -426,10 +495,24 @@ def main() -> int:
              replaces="dvf_tpu/ops/pallas_kernels.py:485",
              kernel=lambda x: tk.sobel_bilateral_nhwc_pallas(x),
              plain=lambda x: chain.fn(x, None)[0], library=None,
-             ops=lambda s: ops_sobel_bilateral(s, 5)),
+             ops=lambda s: ops_sobel_bilateral(s, 5),
+             instance="sobel_bilateral_kernel<{},{}>".format(
+                 *tk.sobel_bilateral_instance(5, MAIN_SHAPE[-1])),
+             extra=[((1, 150, 270, 3), 5, 1), ((1, 70, 130, 4), 15, 0),
+                    ((2, 97, 131, 3), 3, 0), ((1, 64, 130, 4), 7, 1),
+                    ((1, 150, 270, 3), 9, 0), ((1, 70, 130, 4), 1, 1)],
+             extra_kernel=lambda x, d: tk.sobel_bilateral_nhwc_pallas(x, d=d),
+             extra_plain=chain_d),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
+    # A practical floor for the stencils: the device time of a plain copy
+    # of the main-path batch (the same bytes in and out, no arithmetic).
+    x = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
+    copy_ms, _ = profiled_ms(torch.clone, x)
+    log(f"time copy (torch.clone) {MAIN_SHAPE}: {copy_ms:.4f} ms device, "
+        f"{2 * int(np.prod(MAIN_SHAPE)) * 4 / (copy_ms * 1e-3) / 1e9:.1f} GB/s")
+    del x
     for spec in specs:
         err = 0.0
         for shape in (SMALL_SHAPE, MAIN_SHAPE):
@@ -461,6 +544,7 @@ def main() -> int:
             err = max(err, e)
         ms = cuda_ms(spec["kernel"], x)
         smi_after = smi_sample()
+        dev_ms, _ = profiled_ms(spec["kernel"], x)
         plain_ms = cuda_ms(spec["plain"], x)
         lib_ms = None
         if spec["library"] is not None:
@@ -473,7 +557,8 @@ def main() -> int:
         if "instance" in spec:
             clock, power = (v.strip() for v in smi_after.split(","))
             extra = dict(instance=spec["instance"], clocks_sm=clock, power_draw=power)
-        log(f"time {spec['name']} {MAIN_SHAPE}: kernel {ms:.4f} ms, plain "
+        log(f"time {spec['name']} {MAIN_SHAPE}: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, library {lib_ms} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"share of bound {b_ms / ms:.3f}, {gbps:.1f} GB/s"
             + (f", {extra['instance']}; after the timing loop: clocks.sm "
@@ -481,7 +566,8 @@ def main() -> int:
         rows.append(dict(name=spec["name"], route="cuda", source=SOURCE,
                          replaces=spec["replaces"], shape=list(MAIN_SHAPE),
                          launches=None, max_abs_err=err, ms=ms, kernel_ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         device_ms=dev_ms, copy_ms=copy_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, share_of_bound=b_ms / ms,
                          achieved_gb_s=gbps, **extra))
         del x
@@ -642,8 +728,9 @@ def leg_label(name: str, kw: dict) -> str:
 
 
 def check_warp(dev, gen) -> dict:
-    """Phases 3-4 for the bounded warp (K4): against its plain version at
-    the checked shapes, then timed at the final warp's shape."""
+    """Phases 3-4 for the bounded warp (K4): both designs against the plain
+    version at every checked shape, bit-exact; then device times at the
+    final warp's and the inner warp's shape, beside grid_sample's."""
     import torch
     import torch.nn.functional as F
 
@@ -653,12 +740,17 @@ def check_warp(dev, gen) -> dict:
     def plain(img, flow, r):
         return warp_by_flow(img, flow.clamp(-r, r))
 
-    def inputs(shape, scale):
-        img = torch.rand(shape, generator=gen, device=dev)
-        flow = (torch.rand(shape[:3] + (2,), generator=gen, device=dev) - 0.5) * scale
+    def inputs(shape, scale, offset=0, flow_offset=0):
+        # offset: an image view whose base is `offset` floats into its
+        # buffer; flow_offset 2: a flow 8- but not 16-byte aligned
+        n = int(np.prod(shape))
+        img = torch.rand(n + offset, generator=gen, device=dev)[offset:].view(shape)
+        nf = int(np.prod(shape[:3])) * 2
+        flow = ((torch.rand(nf + flow_offset, generator=gen, device=dev) - 0.5)
+                * scale)[flow_offset:].view(shape[:3] + (2,))
         return img, flow
 
-    cases = []
+    cases = []   # (label, img, flow, R); the C = 8 case has no 48 KB window
     for shape in ((2, 68, 40, 3), (2, 68, 40, 5)):
         cases.append((f"{shape} flows in +-6", *inputs(shape, 12.0), MAX_DISP))
     img, flow = inputs((2, 68, 40, 3), 4.0)          # border: +-2, edges outward
@@ -667,53 +759,113 @@ def check_warp(dev, gen) -> dict:
     flow[:, :, :3, 0] = -2.0
     flow[:, :, -3:, 0] = 2.0
     cases.append(("(2, 68, 40, 3) border", img, flow, MAX_DISP))
+    for shape, scale, r, off, foff in [
+            ((2, 37, 131, 3), 12.0, 4, 0, 0),   # W not a multiple of a tile or of 2 px
+            ((1, 5, 9, 3), 6.0, 2, 0, 0),       # smaller than one tile
+            ((3, 1, 3, 1), 6.0, 1, 0, 0),
+            ((2, 45, 70, 1), 12.0, 4, 0, 0),    # C = 1
+            ((1, 33, 65, 8), 12.0, 4, 0, 0),    # C = 8: the window does not fit
+            ((2, 50, 67, 3), 12.0, 4, 1, 2),    # image base + 1 float, flow + 8 bytes
+            ((2, 50, 67, 5), 6.0, 2, 1, 0),
+            ((1, 40, 90, 3), 60.0, 12, 0, 0)]:  # R = 12
+        cases.append((f"{shape} R {r} offsets {off}/{foff}",
+                      *inputs(shape, scale, off, foff), r))
+    for shape in COARSE_SHAPES:
+        cases.append((f"{shape} coarse inner warp", *inputs(shape, 6.0), INNER_DISP))
     cases.append((f"{FLOW_SHAPE} final warp", *inputs(FLOW_SHAPE, 12.0), MAX_DISP))
     cases.append((f"{INNER_SHAPE} inner warp", *inputs(INNER_SHAPE, 6.0), INNER_DISP))
-    err = 0.0
     for label, img, flow, r in cases:
-        got = tk.warp_bounded_pallas(img, flow, r)
-        torch.cuda.synchronize()
-        e = (got - plain(img, flow, r)).abs().max().item()
-        log(f"check warp_bounded {label}: max abs err {e:.3e}")
-        if not e <= WARP_TOL:
-            raise AssertionError(f"warp_bounded kernel disagrees with its plain "
-                                 f"version at {label}: {e} > {WARP_TOL}")
-        err = max(err, e)
-    _, img, flow, _ = cases[3]
-    inner_img, inner_flow = cases[4][1], cases[4][2]
-    ms = cuda_ms(lambda _: tk.warp_bounded_pallas(img, flow, MAX_DISP), None)
-    plain_ms = cuda_ms(lambda _: plain(img, flow, MAX_DISP), None)
-    inner_ms = cuda_ms(lambda _: tk.warp_bounded_pallas(inner_img, inner_flow,
-                                                        INNER_DISP), None)
-    # Library yardstick: grid_sample on the clipped flow's normalized grid
-    # (built outside the timed call), border padding = coordinate clamp.
-    b, h, w, _ = FLOW_SHAPE
-    fc = flow.clamp(-MAX_DISP, MAX_DISP)
-    gx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) + fc[..., 0]
-    gy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) + fc[..., 1]
-    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
-    img_nchw = img.permute(0, 3, 1, 2)
+        want = plain(img, flow, r)
+        for design in (("auto", "gather") if img.shape[-1] == 8 else tk.WARP_DESIGNS):
+            got = tk.warp_bounded_pallas(img, flow, r, design)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            log(f"check warp_bounded {label} design {design}: {n_diff} differing "
+                f"of {got.numel()}")
+            if n_diff:
+                raise AssertionError(f"warp_bounded ({design}) differs from its plain "
+                                     f"version at {label} in {n_diff} elements")
+    # Device times (torch.profiler) are the reported times: at 0.01-0.07 ms a
+    # CUDA-event span per call also holds the card's wait for the host's
+    # launch (reported beside them as *_call_ms). "warm": calls back to
+    # back, the inputs in L2 as on the flow path, where the previous op has
+    # just written them; "cold": L2 flushed (a 128 MB write) before each.
+    flush = torch.empty(32 * 1024 * 1024, device=dev)
+    timed = {}
+    for key, (_, img, flow, r) in (("final", cases[-2]), ("inner", cases[-1])):
+        shape = tuple(img.shape)
+        t = {}
+        for design, name in (("auto", "warp_"), ("gather", "warp_gather_kernel")):
+            def kern(_, design=design):
+                return tk.warp_bounded_pallas(img, flow, r, design)
+            t[design] = (profiled_ms(kern, None, match=name)[0],
+                         profiled_ms(kern, None, match=name,
+                                     between=flush.zero_)[0],
+                         cuda_ms(kern, None))
+        b, h, w, c = shape
+        fc = flow.clamp(-r, r)
+        gx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) + fc[..., 0]
+        gy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) + fc[..., 1]
+        grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
+        img_nchw = img.permute(0, 3, 1, 2)
 
-    def library(_):
-        return F.grid_sample(img_nchw, grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
+        # Library yardstick: grid_sample on the clipped flow's normalized
+        # grid (built outside the timed call), border padding = coordinate
+        # clamp.
+        def library(_):
+            return F.grid_sample(img_nchw, grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
 
-    lib_err = (library(None).permute(0, 2, 3, 1)
-               - plain(img, flow, MAX_DISP)).abs().max().item()
-    lib_ms = cuda_ms(library, None)
-    b_ms, b_by = bound(FLOW_SHAPE, ops_warp(FLOW_SHAPE), warp_bytes(FLOW_SHAPE))
-    ib_ms, _ = bound(INNER_SHAPE, ops_warp(INNER_SHAPE), warp_bytes(INNER_SHAPE))
-    log(f"library warp_bounded (grid_sample): max abs err vs plain {lib_err:.3e}")
-    log(f"time warp_bounded {FLOW_SHAPE}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{INNER_SHAPE}: kernel {inner_ms:.4f} ms, bound {ib_ms:.4f} ms")
+        lib_err = (library(None).permute(0, 2, 3, 1) - plain(img, flow, r)).abs().max().item()
+        lib_warm, lib_kernels = profiled_ms(library, None)
+        lib = (lib_warm,
+               profiled_ms(library, None, match="grid_sampler", between=flush.zero_)[0],
+               cuda_ms(library, None))
+        plain_ms = cuda_ms(lambda _: plain(img, flow, r), None)
+        b_ms, b_by = bound(shape, ops_warp(shape), warp_bytes(shape))
+        timed[key] = dict(shape=list(shape), t=t, lib=lib, lib_err=lib_err,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"library warp_bounded (grid_sample) {shape}: max abs err vs plain "
+            f"{lib_err:.3e}, {lib_kernels:.0f} device kernels per call")
+        log(f"time warp_bounded {shape} R {r}: auto {t['auto'][0]:.4f} ms device warm, "
+            f"{t['auto'][1]:.4f} cold ({t['auto'][2]:.4f} ms per call with launch); "
+            f"gather {t['gather'][0]:.4f} warm, {t['gather'][1]:.4f} cold "
+            f"({t['gather'][2]:.4f}); grid_sample {lib[0]:.4f} warm, {lib[1]:.4f} cold "
+            f"({lib[2]:.4f}); plain {plain_ms:.4f} ms per call; bound {b_ms:.4f} ms "
+            f"({b_by}), share of bound {b_ms / t['auto'][0]:.3f} warm, "
+            f"{b_ms / t['auto'][1]:.3f} cold")
+    coarse = []
+    for _, img, flow, r in cases[-4:-2]:
+        shape = tuple(img.shape)
+        t = {d: profiled_ms(lambda _, d=d: tk.warp_bounded_pallas(img, flow, r, d),
+                            None)[0] for d in tk.WARP_DESIGNS}
+        b_ms, _ = bound(shape, ops_warp(shape), warp_bytes(shape))
+        coarse.append(dict(shape=list(shape), ms=t["auto"], window_ms=t["window"],
+                           gather_ms=t["gather"], bound_ms=b_ms))
+        log(f"time warp_bounded {shape} R {r} (a coarser inner level): auto "
+            f"{t['auto']:.4f} ms device warm (window {t['window']:.4f}, gather "
+            f"{t['gather']:.4f}), bound {b_ms:.4f} ms, share of bound "
+            f"{b_ms / t['auto']:.3f}")
+    del flush
+    fin, inn = timed["final"], timed["inner"]
     return dict(name="warp_bounded", route="cuda", source=WARP_SOURCE,
                 replaces="dvf_tpu/ops/pallas_kernels.py:268",
-                shape=list(FLOW_SHAPE), launches=None, max_abs_err=err, ms=ms,
-                kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library_max_abs_err=lib_err,
-                inner_shape=list(INNER_SHAPE), inner_ms=inner_ms,
-                inner_bound_ms=ib_ms)
+                shape=fin["shape"], launches=None, max_abs_err=0.0,
+                ms=fin["t"]["auto"][0], kernel_ms=fin["t"]["auto"][0],
+                cold_ms=fin["t"]["auto"][1],
+                call_ms=fin["t"]["auto"][2], gather_ms=fin["t"]["gather"][0],
+                gather_cold_ms=fin["t"]["gather"][1],
+                plain_ms=fin["plain_ms"], bound_ms=fin["bound_ms"],
+                bound_by=fin["bound_by"], library_ms=fin["lib"][0],
+                library_cold_ms=fin["lib"][1], library_call_ms=fin["lib"][2],
+                library_max_abs_err=fin["lib_err"],
+                inner_shape=inn["shape"], inner_ms=inn["t"]["auto"][0],
+                inner_cold_ms=inn["t"]["auto"][1], inner_call_ms=inn["t"]["auto"][2],
+                inner_gather_ms=inn["t"]["gather"][0],
+                inner_gather_cold_ms=inn["t"]["gather"][1],
+                inner_plain_ms=inn["plain_ms"], inner_bound_ms=inn["bound_ms"],
+                inner_library_ms=inn["lib"][0], inner_library_cold_ms=inn["lib"][1],
+                inner_library_call_ms=inn["lib"][2], coarse=coarse)
 
 
 def host_env() -> dict:

@@ -14,21 +14,22 @@
 // pixels outside the frame (the ragged last tile) are computed from
 // clamped indices and not stored.
 //
-// sep_blur and bilateral are specialised at compile time for the sizes
-// the main path and the tests use (taps (9,9), (3,9), (5,1); radii 1, 2,
-// 3), fully unrolled with the taps / spatial weights as kernel-parameter
-// constants; every other size up to MAX_TAPS / MAX_WIN runs the same
-// kernel with the size as a runtime argument (template argument 0). The
-// wrapper picks the instantiation (ops/kernels.py: sep_blur_instance,
-// bilateral_instance) and passes it here; an instantiation that was not
-// compiled is refused (cudaErrorInvalidValue), never substituted.
+// Each kernel is specialised at compile time for the sizes the main path
+// and the tests use (sep_blur: taps (9,9), (3,9), (5,1); bilateral and
+// sobel_bilateral: radii 1, 2, 3), fully unrolled with the taps / log
+// weights as kernel-parameter constants; every other size up to MAX_TAPS
+// / MAX_WIN runs the same kernel with the size as a runtime argument
+// (template argument 0). The wrapper picks the instantiation
+// (ops/kernels.py: sep_blur_instance, bilateral_instance,
+// sobel_bilateral_instance) and passes it here; an instantiation that was
+// not compiled is refused (cudaErrorInvalidValue), never substituted.
 //
 // Numerics. Float32 accumulation in the tap order of the plain versions
 // (dvf_tpu_torch/ops/conv.py, bilateral.py, chains.py). IEEE division and
-// sqrt, accurate expf in sobel_bilateral: build without --use_fast_math.
-// nvcc's default FMA contraction moves results by a few ulp, inside the
-// 1e-5 bar these three kernels are held to. bilateral's range weight is
-// one explicit ex2.approx (see its note).
+// sqrt: build without --use_fast_math. nvcc's default FMA contraction
+// moves results by a few ulp, inside the 1e-5 bar these three kernels
+// are held to. The bilateral range weights are one explicit ex2.approx
+// each (see bilateral_kernel's note).
 //
 // Bounds on an H100 at the main-path shape (16 x 1080 x 1920 x 3 float32,
 // 398 MB in, 398 MB out; 3.35 TB/s, 67 TFLOP/s float32): 0.2377 ms of
@@ -40,9 +41,6 @@
 
 namespace {
 
-constexpr int TW = 32;            // sobel_bilateral: output tile width  == blockDim.x
-constexpr int TH = 8;             // sobel_bilateral: output tile height == blockDim.y
-constexpr int NTHREADS = TW * TH;
 constexpr int MAX_TAPS = 31;      // sep_blur: longest 1-D tap vector
 constexpr int MAX_WIN = 15;       // bilateral: longest window side d
 constexpr int MAX_C = 4;          // channels a frame may have
@@ -64,10 +62,6 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   if (i < 0) i = -i;
   if (i >= n) i = 2 * (n - 1) - i;
   return min(max(i, 0), n - 1);
-}
-
-__device__ __forceinline__ int thread_id() {
-  return threadIdx.y * TW + threadIdx.x;
 }
 
 // ---------------------------------------------------------------------------
@@ -324,73 +318,162 @@ bilateral_kernel(const float* __restrict__ x, float* __restrict__ y, int H,
 // sobel_bilateral (K3)
 // ---------------------------------------------------------------------------
 
-// Replaces dvf_tpu/ops/pallas_kernels.py:_sobel_bilateral_kernel. Reads
-// the frame once and writes it once; the gray image and the Sobel
-// magnitude live only in shared memory. The bilateral runs on one channel
-// (colour distance of a gray image broadcast to C channels is C * delta^2,
-// the C folded into inv2sc by the caller), so at d = 5 it issues a third
-// of a 3-channel bilateral's range arithmetic with the same 25 expf per
-// pixel. A 32x8 tile, one output pixel per thread.
-__global__ void __launch_bounds__(NTHREADS)
+static_assert(BIL_TW + 2 * (MAX_WIN / 2 + 1) <= 2 * BIL_TW,
+              "a lane loads at most two gray columns of a tile row");
+
+// Rec.601 gray of the RGB in p[0..2] (utils/image.py rgb_to_gray).
+__device__ __forceinline__ float luma(const float* __restrict__ p) {
+  return 0.299f * p[0] + 0.587f * p[1] + 0.114f * p[2];
+}
+
+// Replaces dvf_tpu/ops/pallas_kernels.py:_sobel_bilateral_kernel. Gray ->
+// Sobel magnitude x scale clipped to [0, 1] -> single-channel bilateral,
+// broadcast to C channels. The frame is read once and written once; the
+// gray tile and the magnitude tile live only in shared memory (11 KB at
+// d = 5). The bilateral of a gray image broadcast to C channels has range
+// distance C * delta^2, the C folded into nk (the TPU kernel hard-codes 3).
+//
+// Bound: bytes (0.2377 ms at the main-path shape), with the MUFU close
+// behind: 24 ex2 per pixel x 33.2 M pixels at 16 per clock per SM is
+// ~0.19 ms at 1.98 GHz, and FP32 issue about as much. What held the first
+// design (one output per thread of a 32x8 tile, a runtime window loop
+// with an accurate expf and the weight from shared memory per tap, the
+// halo loaded 2.08x with two integer divisions per value) to 1.15 ms was
+// issue; this one spends few issue slots per tap, as bilateral_kernel
+// does, and keeps every load of a block in flight at once:
+// - R compile-time: the window unrolls, the weight folds into the
+//   exponent, w = 2^(delta^2 * nk + log2 sw) with nk = -C log2(e)/(2 sc^2)
+//   and log2 sw computed in double on the host and rounded to float
+//   (ops/kernels.py: sobel_bilateral_constants): one FMUL, one FFMA and one
+//   ex2.approx per tap; the centre tap is w = 1 exactly and skips them.
+//   Error: as in bilateral_kernel's note, the fold moves each w by at most
+//   3 * 2^-24 / e = 6.6e-8 and ex2.approx by ~2^-22 of w; the denominator
+//   is >= 1 and |p - out| <= 1, so at d = 5 the output moves by under
+//   24 * 6.6e-8 + 2.4e-7 < 2e-6 against the 1e-5 bar;
+// - a 32x32 output tile, 4 vertically adjacent outputs per thread: each
+//   magnitude row of a thread's window is read once for its 4 outputs,
+//   (4 + 2r) * d loads for 4 * d * d taps;
+// - the gray tile ((32 + 2r + 2)^2, 1.41x the outputs at d = 5) is loaded
+//   as bilateral_kernel loads its tile: reflect-101 once per tile row and
+//   once per lane column, lane tx taking columns tx and tx + 32, no integer
+//   division; the row loop unrolls, so all of a thread's loads are issued
+//   before the first returns. The Sobel magnitude ((32 + 2r)^2, 1.27x) is
+//   computed from it, flattened over the block with a division by a
+//   compile-time width, its loop unrolled too;
+// - IEEE sqrtf and num / den run once per pixel, not per tap;
+// - the results are staged in shared memory (over the magnitude tile) and
+//   each output row is written as C * 32 consecutive floats, lane e
+//   storing floats e, e + 32, ...: every store of a warp fills 4 whole
+//   32-byte sectors, where C scalar stores per pixel from each lane leave
+//   each sector a third written per store; any 4-byte aligned output.
+// - at most 32 registers (8 blocks of 256 threads per SM), so other blocks
+//   hide each block's load latency; 40 at C = 4, d = 7 (6 blocks), which
+//   spills at 32.
+// Magnitude commutes with reflect-101 (the derivative flips sign under
+// reflection, |.| restores it), so computing it inside the reflected halo
+// reproduces the unfused chain's borders.
+template <int C, int R>           // R = 0: radius at run time (r_rt)
+__global__ void __launch_bounds__(BIL_TW * BIL_TY, C == 4 && R == 3 ? 6 : 8)
 sobel_bilateral_kernel(const float* __restrict__ x, float* __restrict__ y,
-                       int H, int W, int C, int r, float inv2sc, float scale,
-                       Window win) {
+                       int H, int W, int r_rt, float nk, float scale,
+                       Window lw) {
   extern __shared__ float smem[];
-  __shared__ float sw[MAX_WIN * MAX_WIN];
-  const int d = 2 * r + 1;
-  const int R = r + 1;                             // + Sobel support
-  const int gw = TW + 2 * R, gh = TH + 2 * R;      // gray tile
-  const int mw = TW + 2 * r, mh = TH + 2 * r;      // magnitude tile
+  __shared__ float slw[R ? 1 : MAX_WIN * MAX_WIN];
+  constexpr int RM = R ? R : MAX_WIN / 2;           // largest radius
+  const int r = R ? R : r_rt, d = 2 * r + 1;
+  const int GW = BIL_TW + 2 * r + 2, GH = BIL_TH + 2 * r + 2;   // gray tile
+  const int MW = BIL_TW + 2 * r, MH = BIL_TH + 2 * r;           // magnitude tile
   float* gray = smem;
-  float* mag = smem + gh * gw;
-  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tid = thread_id();
-  for (int i = tid; i < d * d; i += NTHREADS) sw[i] = win.w[i];
-  // Rec.601 gray of the reflect-101 halo'd tile (R rows/cols each side).
-  const float* img = x + (size_t)b * H * W * C;
-  for (int i = tid; i < gh * gw; i += NTHREADS) {
-    const int row = i / gw, col = i - row * gw;
-    const float* p = img + ((size_t)reflect101(y0 - R + row, H) * W
-                            + reflect101(x0 - R + col, W)) * C;
-    gray[i] = 0.299f * p[0] + 0.587f * p[1] + 0.114f * p[2];
+  float* mag = smem + GH * GW;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BIL_TW + tx;
+  const int b = blockIdx.z, y0 = blockIdx.y * BIL_TH, x0 = blockIdx.x * BIL_TW;
+  const int WC = W * C;
+  const float* img = x + (size_t)b * H * WC;
+  if constexpr (R == 0) {
+    for (int i = tid; i < d * d; i += BIL_TW * BIL_TY) slw[i] = lw.w[i];
+  }
+  // Gray: warp ty takes tile rows ty, ty + 8, ...; lane tx columns tx and
+  // tx + 32 (GW <= 48).
+  const int gx0 = reflect101(x0 - r - 1 + tx, W) * C;
+  const int gx1 = reflect101(x0 - r - 1 + tx + BIL_TW, W) * C;
+  const bool two = tx + BIL_TW < GW;
+#pragma unroll
+  for (int it = 0; it < (BIL_TH + 2 * RM + 2 + BIL_TY - 1) / BIL_TY; ++it) {
+    const int row = ty + it * BIL_TY;
+    if (row >= GH) break;
+    const float* src = img + (size_t)reflect101(y0 - r - 1 + row, H) * WC;
+    float* dst = gray + row * GW;
+    dst[tx] = luma(src + gx0);
+    if (two) dst[tx + BIL_TW] = luma(src + gx1);
   }
   __syncthreads();
-  // Sobel magnitude on the (TH+2r) x (TW+2r) region. Magnitude commutes
-  // with reflect-101 (the derivative flips sign under reflection, |.|
-  // restores it), so computing it inside the reflected halo reproduces
-  // the unfused chain's borders.
-  for (int i = tid; i < mh * mw; i += NTHREADS) {
-    const int row = i / mw, col = i - row * mw;
-    const float* g = gray + row * gw + col;        // 3x3 neighbourhood
-    const float sx0 = g[0] + 2.0f * g[gw] + g[2 * gw];
-    const float sx2 = g[2] + 2.0f * g[gw + 2] + g[2 * gw + 2];
+  constexpr int M_MAX = (BIL_TH + 2 * RM) * (BIL_TW + 2 * RM);
+  constexpr int NT = BIL_TW * BIL_TY;
+#pragma unroll
+  for (int it = 0; it < (M_MAX + NT - 1) / NT; ++it) {
+    const int i = tid + it * NT;
+    if (i >= MH * MW) break;
+    const int row = i / MW, col = i - row * MW;
+    const float* g = gray + row * GW + col;        // 3x3 neighbourhood
+    const float sx0 = g[0] + 2.0f * g[GW] + g[2 * GW];
+    const float sx2 = g[2] + 2.0f * g[GW + 2] + g[2 * GW + 2];
     const float sy0 = g[0] + 2.0f * g[1] + g[2];
-    const float sy2 = g[2 * gw] + 2.0f * g[2 * gw + 1] + g[2 * gw + 2];
+    const float sy2 = g[2 * GW] + 2.0f * g[2 * GW + 1] + g[2 * GW + 2];
     const float gx = sx2 - sx0, gy = sy2 - sy0;
     const float m = sqrtf(gx * gx + gy * gy) * scale;
     mag[i] = fminf(fmaxf(m, 0.0f), 1.0f);
   }
   __syncthreads();
-  const int ox = x0 + threadIdx.x, oy = y0 + threadIdx.y;
-  if (ox >= W || oy >= H) return;
-  const float cv = mag[(threadIdx.y + r) * mw + threadIdx.x + r];
-  float num = 0.0f, den = 0.0f;
-  for (int dy = 0; dy < d; ++dy) {
-    const float* p = mag + (threadIdx.y + dy) * mw + threadIdx.x;
+  float cv[BIL_ROWS], num[BIL_ROWS], den[BIL_ROWS];
+  const float* base = mag + ty * BIL_ROWS * MW + tx;
+#pragma unroll
+  for (int k = 0; k < BIL_ROWS; ++k) {
+    cv[k] = base[(k + r) * MW + r];
+    num[k] = 0.0f;
+    den[k] = 0.0f;
+  }
+  // Window rows j of the thread's 4 + 2r; output k sees row j as dy = j - k,
+  // so each output accumulates in the plain version's (dy, dx) order.
+#pragma unroll
+  for (int j = 0; j < BIL_ROWS + 2 * r; ++j) {
+#pragma unroll
     for (int dx = 0; dx < d; ++dx) {
-      const float diff = p[dx] - cv;
-      const float wgt = sw[dy * d + dx] * expf(-(diff * diff) * inv2sc);
-      num = num + wgt * p[dx];
-      den = den + wgt;
+      const float p = base[j * MW + dx];
+#pragma unroll
+      for (int k = 0; k < BIL_ROWS; ++k) {
+        const int dy = j - k;
+        if (dy < 0 || dy >= d) continue;
+        if (R > 0 && dy == r && dx == r) {          // the centre: w = 1
+          num[k] = num[k] + p;
+          den[k] = den[k] + 1.0f;
+          continue;
+        }
+        const float diff = p - cv[k];
+        float l;
+        if constexpr (R > 0) l = lw.w[dy * d + dx];
+        else l = slw[dy * d + dx];
+        const float wgt = ex2_approx(fmaf(diff * diff, nk, l));
+        num[k] = num[k] + wgt * p;
+        den[k] = den[k] + wgt;
+      }
     }
   }
-  const float res = num / den;
-  float* dst = y + (((size_t)b * H + oy) * W + ox) * C;
-  for (int c = 0; c < C; ++c) dst[c] = res;
-}
-
-dim3 grid_for(int B, int H, int W) {
-  return dim3((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  __syncthreads();                                  // mag is read no more
+  float* res = smem;                                // BIL_TH x BIL_TW results
+#pragma unroll
+  for (int k = 0; k < BIL_ROWS; ++k)
+    res[(ty * BIL_ROWS + k) * BIL_TW + tx] = num[k] / den[k];
+  __syncthreads();
+  const int rows = min(BIL_TH, H - y0);
+  const int valid = min(BIL_TW, W - x0) * C;
+  for (int i = ty; i < rows; i += BIL_TY) {
+    float* dst = y + ((size_t)b * H + y0 + i) * WC + x0 * C;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int e = tx + j * BIL_TW;
+      if (e < valid) dst[e] = res[i * BIL_TW + e / C];
+    }
+  }
 }
 
 // Launch with `smem` bytes of dynamic shared memory, opting the kernel in
@@ -460,6 +543,32 @@ int bilateral_dispatch(int fixed_r, const float* x, float* y, int B, int H,
   return cudaErrorInvalidValue;
 }
 
+template <int C, int R>
+int sobel_bilateral_launch(const float* x, float* y, int B, int H, int W, int r,
+                           float nk, float scale, const Window& lw,
+                           cudaStream_t s) {
+  const size_t smem = ((size_t)(BIL_TH + 2 * r + 2) * (BIL_TW + 2 * r + 2)
+                       + (size_t)(BIL_TH + 2 * r) * (BIL_TW + 2 * r)) * sizeof(float);
+  const dim3 grid((W + BIL_TW - 1) / BIL_TW, (H + BIL_TH - 1) / BIL_TH, B);
+  return launch(sobel_bilateral_kernel<C, R>, grid, dim3(BIL_TW, BIL_TY), smem, s,
+                x, y, H, W, r, nk, scale, lw);
+}
+
+// The radii compiled as constants (ops/kernels.py BILATERAL_RADII), or 0
+// for the runtime-radius instantiation.
+template <int C>
+int sobel_bilateral_dispatch(int fixed_r, const float* x, float* y, int B, int H,
+                             int W, int r, float nk, float scale, const Window& lw,
+                             cudaStream_t s) {
+  switch (fixed_r) {
+    case 0: return sobel_bilateral_launch<C, 0>(x, y, B, H, W, r, nk, scale, lw, s);
+    case 1: return sobel_bilateral_launch<C, 1>(x, y, B, H, W, r, nk, scale, lw, s);
+    case 2: return sobel_bilateral_launch<C, 2>(x, y, B, H, W, r, nk, scale, lw, s);
+    case 3: return sobel_bilateral_launch<C, 3>(x, y, B, H, W, r, nk, scale, lw, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,21 +626,24 @@ int dvf_bilateral(const float* x, float* y, int B, int H, int W, int C, int r,
   return cudaErrorInvalidValue;
 }
 
+// log2_weights, fixed_r: as dvf_bilateral; nk = -C log2(e) / (2 sigma_color^2)
+// (the gray range distance broadcast to C channels); scale: the Sobel
+// magnitude's factor.
 int dvf_sobel_bilateral(const float* x, float* y, int B, int H, int W, int C,
-                        int r, const float* spatial, float inv2sc,
+                        int r, int fixed_r, const float* log2_weights, float nk,
                         float scale, void* stream) {
   const int d = 2 * r + 1;
-  if (C < 3 || C > MAX_C || r < 0 || d > MAX_WIN) return cudaErrorInvalidValue;
-  Window win;
-  memset(&win, 0, sizeof(win));
-  memcpy(win.w, spatial, d * d * sizeof(float));
-  const int R = r + 1;
-  const size_t smem = ((size_t)(TH + 2 * R) * (TW + 2 * R)
-                       + (size_t)(TH + 2 * r) * (TW + 2 * r)) * sizeof(float);
+  if (C < 3 || C > MAX_C || r < 0 || d > MAX_WIN || (fixed_r && fixed_r != r))
+    return cudaErrorInvalidValue;
+  Window lw;
+  memset(&lw, 0, sizeof(lw));
+  memcpy(lw.w, log2_weights, d * d * sizeof(float));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sobel_bilateral_kernel<<<grid_for(B, H, W), dim3(TW, TH), smem, s>>>(
-      x, y, H, W, C, r, inv2sc, scale, win);
-  return static_cast<int>(cudaGetLastError());
+  switch (C) {
+    case 3: return sobel_bilateral_dispatch<3>(fixed_r, x, y, B, H, W, r, nk, scale, lw, s);
+    case 4: return sobel_bilateral_dispatch<4>(fixed_r, x, y, B, H, W, r, nk, scale, lw, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

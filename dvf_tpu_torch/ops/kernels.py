@@ -45,11 +45,18 @@ MAX_WIN = 15
 MAX_C = 4
 # Sizes csrc/stencils.cu compiles with constant taps / window (the main
 # path's k = 9 and d = 5, and the sizes the card tests use); every other
-# size up to the limits runs the runtime-size instantiation.
+# size up to the limits runs the runtime-size instantiation. The bilateral
+# and the fused Sobel+bilateral share the radii.
 SEP_BLUR_TAPS = ((9, 9), (3, 9), (5, 1))
 BILATERAL_RADII = (1, 2, 3)
 # Channels csrc/warp.cu takes (the inner warp runs on 5-channel stacks).
 MAX_WARP_C = 8
+# csrc/warp.cu's designs: "auto" takes the shared-memory window where it
+# fits 48 KB of shared memory and its grid gives every SM two blocks, else
+# the direct gather; "window" and "gather" force one (a window that does not
+# fit is refused), so the card tests and chip_smoke.py hold both to the
+# plain version at every shape.
+WARP_DESIGNS = ("auto", "window", "gather")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)  # host float arrays (taps, weights)
@@ -58,10 +65,10 @@ _SIGNATURES = {
     "stencils": {
         "dvf_sep_blur": [_P, _P, _I, _I, _I, _I, _FP, _I, _FP, _I, _I, _I, _P],
         "dvf_bilateral": [_P, _P, _I, _I, _I, _I, _I, _I, _FP, _F, _P],
-        "dvf_sobel_bilateral": [_P, _P, _I, _I, _I, _I, _I, _FP, _F, _F, _P],
+        "dvf_sobel_bilateral": [_P, _P, _I, _I, _I, _I, _I, _I, _FP, _F, _F, _P],
     },
     "warp": {
-        "dvf_warp_bounded": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dvf_warp_bounded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "codec": {
         "dvf_tile_maxdiff": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -96,13 +103,6 @@ def _floats(vals: List[float]):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def _spatial_weights(r: int, sigma_space: float) -> List[float]:
-    """The (2r+1)² spatial Gaussian, row-major, computed in double as the
-    plain version does (the kernel receives the float32 roundings)."""
-    return [math.exp(-(dy * dy + dx * dx) / (2.0 * sigma_space * sigma_space))
-            for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
-
-
 def sep_blur_instance(kh: int, kw: int, c: int) -> Tuple[int, int, int]:
     """The template arguments ``(C, KH, KW)`` of the ``sep_blur_kernel``
     a (kh, kw)-tap blur over c channels runs: the tap pair itself where it
@@ -132,6 +132,25 @@ def bilateral_constants(d: int, sigma_color: float,
                               * log2e))
              for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
     return log2w, float(np.float32(-log2e / (2.0 * sigma_color * sigma_color)))
+
+
+def sobel_bilateral_instance(d: int, c: int) -> Tuple[int, int]:
+    """The template arguments ``(C, R)`` of the ``sobel_bilateral_kernel`` a
+    d×d window over c channels runs: as :func:`bilateral_instance`."""
+    return bilateral_instance(d, c)
+
+
+def sobel_bilateral_constants(d: int, sigma_color: float, sigma_space: float,
+                              c: int) -> Tuple[List[float], float]:
+    """What the fused Sobel+bilateral kernel folds its weights from: log2
+    of the spatial weights (as :func:`bilateral_constants`) and
+    nk = −c·log2(e)/(2σc²), computed in double and rounded to float32.
+    The chain's bilateral sees the edge map broadcast to c channels, so its
+    range distance is c·Δ² of the single channel; per tap the kernel takes
+    w = 2^(Δ²·nk + log2 sw)."""
+    log2w, _ = bilateral_constants(d, sigma_color, sigma_space)
+    log2e = 1.0 / math.log(2.0)
+    return log2w, float(np.float32(-c * log2e / (2.0 * sigma_color * sigma_color)))
 
 
 def _check_cuda(batch: torch.Tensor, what: str, halo_h: int, halo_w: int,
@@ -227,7 +246,10 @@ def sobel_bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,
     """Fused Sobel→bilateral over float NHWC in [0,1]: Rec.601 gray →
     Sobel magnitude × scale clipped to [0,1] → single-channel bilateral,
     broadcast to C channels; gray and magnitude never leave shared
-    memory. Plain version: ``sobel_bilateral(impl="chain")``."""
+    memory. Four vertically adjacent outputs per thread, the spatial
+    weight folded into the range weight's exponent
+    (:func:`sobel_bilateral_constants`, :func:`sobel_bilateral_instance`).
+    Plain version: ``sobel_bilateral(impl="chain")``."""
     if d % 2 != 1:
         raise ValueError(f"window d must be odd, got {d}")
     if batch.device.type == "cpu":
@@ -239,26 +261,31 @@ def sobel_bilateral_nhwc_pallas(batch: torch.Tensor, d: int = 5,
         raise ValueError(f"window d must be at most {MAX_WIN}, got {d}")
     r = d // 2
     _check_cuda(batch, "sobel_bilateral_nhwc_pallas", r + 1, r + 1, min_c=3)
-    # The chain's bilateral sees the edge map broadcast to C channels, so
-    # its range distance is C·Δ² of the single channel (the TPU kernel
-    # hard-codes C = 3).
-    c = batch.shape[-1]
-    return _launch("dvf_sobel_bilateral", "sobel_bilateral", batch, r,
-                   _floats(_spatial_weights(r, sigma_space)),
-                   c / (2.0 * sigma_color * sigma_color), magnitude_scale)
+    # C·Δ² range distance, as the unfused chain (the TPU kernel hard-codes
+    # C = 3).
+    log2w, nk = sobel_bilateral_constants(d, sigma_color, sigma_space,
+                                          batch.shape[-1])
+    _, fixed_r = sobel_bilateral_instance(d, batch.shape[-1])
+    return _launch("dvf_sobel_bilateral", "sobel_bilateral", batch, r, fixed_r,
+                   _floats(log2w), nk, magnitude_scale)
 
 
 def warp_bounded_pallas(img: torch.Tensor, flow: torch.Tensor,
-                        max_disp: int = 4) -> torch.Tensor:
+                        max_disp: int = 4, design: str = "auto") -> torch.Tensor:
     """Backward-warp ``img`` (B,H,W,C) by ``flow`` (B,H,W,2; [...,0]=dx)
     with displacements clipped to ±``max_disp`` px and the sample point
-    clamped to the frame: one gathering thread per output pixel
-    (``csrc/warp.cu``). Plain version: ``warp_by_flow(img,
-    flow.clamp(-max_disp, max_disp))``, which the kernel reproduces
-    operation for operation."""
+    clamped to the frame (``csrc/warp.cu``): each block gathers from its
+    bounded source window in shared memory, or one thread per pixel
+    gathers straight from global memory where the window does not fit or
+    the frame is too small to fill the card (``design``, see
+    :data:`WARP_DESIGNS`).
+    Plain version: ``warp_by_flow(img, flow.clamp(-max_disp, max_disp))``,
+    which the kernels reproduce operation for operation."""
     r = int(max_disp)
     if r < 1:
         raise ValueError("max_disp must be >= 1")
+    if design not in WARP_DESIGNS:
+        raise ValueError(f"design must be one of {WARP_DESIGNS}, got {design!r}")
     if img.device.type == "cpu" and flow.device.type == "cpu":
         return warp_by_flow(img, flow.clamp(-r, r))
     what = "warp_bounded_pallas"
@@ -284,7 +311,7 @@ def warp_bounded_pallas(img: torch.Tensor, flow: torch.Tensor,
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.dvf_warp_bounded(img.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                                  b, h, w, c, r, stream)
+                                  b, h, w, c, r, WARP_DESIGNS.index(design), stream)
     _count(lib, "dvf_warp_bounded", "warp_bounded", rc)
     return out
 

@@ -90,10 +90,17 @@ def test_bilateral_kernel_matches_plain(dev, shape, d, sc, ss, offset):
     assert (got.cpu() - want).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("d,scale", [(5, 1.0), (3, 2.5)])
-def test_sobel_bilateral_kernel_matches_plain(dev, shape, d, scale):
-    x = _input(shape, 3, dev)
+# K3 takes C = 3 or 4: every such shape above, tiles ragged (32x32
+# outputs) and frames smaller than one. d 3, 5, 7: compiled radii; d 9, 1:
+# the runtime-radius instantiation.
+SOBEL_SHAPES = [s for s in STENCIL_SHAPES if s[-1] >= 3]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", SOBEL_SHAPES)
+@pytest.mark.parametrize("d,scale", [(5, 1.0), (3, 2.5), (7, 1.0), (9, 1.5), (1, 1.0)])
+def test_sobel_bilateral_kernel_matches_plain(dev, shape, d, scale, offset):
+    x = _view(_input(shape, 3, dev), offset)
     got = _launched("sobel_bilateral", lambda: tk.sobel_bilateral_nhwc_pallas(
         x, d=d, magnitude_scale=scale))
     want = tk.sobel_bilateral_nhwc_pallas(x.cpu(), d=d, magnitude_scale=scale)
@@ -125,24 +132,52 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         log2w, nk = tk.bilateral_constants(d, 0.1, 2.0)
         assert lib.dvf_bilateral(x.data_ptr(), out.data_ptr(), 1, 16, 24, 3, d // 2,
                                  fixed_r, tk._floats(log2w), nk, stream) != 0
+        log2w, nk = tk.sobel_bilateral_constants(d, 0.1, 2.0, 3)
+        assert lib.dvf_sobel_bilateral(x.data_ptr(), out.data_ptr(), 1, 16, 24, 3,
+                                       d // 2, fixed_r, tk._floats(log2w), nk, 1.0,
+                                       stream) != 0
 
 
-@pytest.mark.parametrize("shape,scale,r", [
-    ((2, 68, 40, 3), 12.0, 4), ((2, 68, 40, 5), 12.0, 4),
-    ((1, 33, 17, 1), 5.0, 2), ((4, 90, 160, 5), 4.0, 1),
+# offsets (image, flow), in floats: an image view not 16-byte aligned, a
+# flow 8- but not 16-byte aligned. fits: the shared-memory window fits 48
+# KB (every case up to C = 6 at R = 4); where it does not, "window" is
+# refused without a launch and "auto" runs the direct gather, as it does on
+# frames too small to give every SM two window blocks.
+@pytest.mark.parametrize("design", ["auto", "window", "gather"])
+@pytest.mark.parametrize("shape,scale,r,offsets,fits", [
+    ((2, 68, 40, 3), 12.0, 4, (0, 0), True), ((2, 68, 40, 5), 12.0, 4, (0, 0), True),
+    ((1, 33, 17, 1), 5.0, 2, (0, 0), True), ((4, 90, 160, 5), 4.0, 1, (0, 0), True),
+    ((2, 37, 131, 3), 12.0, 4, (0, 0), True),     # W not a multiple of a tile or of 2 px
+    ((1, 5, 9, 3), 6.0, 2, (0, 0), True),         # smaller than one tile
+    ((3, 1, 3, 1), 6.0, 1, (0, 0), True),
+    ((2, 45, 70, 1), 12.0, 4, (0, 0), True),      # C = 1
+    ((1, 33, 65, 8), 12.0, 4, (0, 0), False),     # C = 8
+    ((2, 50, 67, 3), 12.0, 4, (1, 2), True),
+    ((2, 50, 67, 5), 6.0, 2, (1, 0), True),
+    ((1, 40, 90, 3), 60.0, 12, (0, 0), True),     # R = 12: a 41-row window
+    ((1, 40, 90, 3), 100.0, 20, (0, 0), False),   # R = 20
+    ((4, 200, 330, 5), 6.0, 2, (0, 0), True),     # 312 window blocks: "auto" takes it
 ])
-def test_warp_bounded_kernel_matches_plain(dev, shape, scale, r):
+def test_warp_bounded_kernel_matches_plain(dev, shape, scale, r, offsets, fits, design):
     rng = np.random.default_rng(7)
-    img = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    img = _view(torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev),
+                offsets[0])
     flow = torch.from_numpy(((rng.random(shape[:3] + (2,)) - 0.5) * scale)
                             .astype(np.float32)).to(dev)
-    got = _launched("warp_bounded", lambda: tk.warp_bounded_pallas(img, flow, r))
+    if offsets[1]:
+        flow = _view(flow, offsets[1])
+    if design == "window" and not fits:
+        before = tk.LAUNCHES["warp_bounded"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tk.warp_bounded_pallas(img, flow, r, design)
+        assert tk.LAUNCHES["warp_bounded"] == before
+        return
+    got = _launched("warp_bounded", lambda: tk.warp_bounded_pallas(img, flow, r, design))
     want = tk.warp_bounded_pallas(img.cpu(), flow.cpu(), r)
-    # The kernel repeats the plain version's operations: 3e-6 is the
-    # reference's bar, the kernel is expected to match bit for bit.
+    # 3e-6 is the reference's bar; the kernels repeat the plain version's
+    # operations and match it bit for bit on the card.
     assert (got.cpu() - want).abs().max().item() <= 3e-6
-    on_card = tflow.warp_by_flow(img, flow.clamp(-r, r))
-    assert (got - on_card).abs().max().item() <= 3e-6
+    assert torch.equal(got, tflow.warp_by_flow(img, flow.clamp(-r, r)))
 
 
 def test_warp_bounded_refuses_without_launching(dev):

@@ -137,6 +137,66 @@ def test_sobel_bilateral_matches_pallas(shape):
     _close(got, want)
 
 
+def _folded_sobel_bilateral(x: torch.Tensor, d: int, sc: float, ss: float,
+                            scale: float = 1.0) -> torch.Tensor:
+    """The fused Sobel+bilateral kernel's per-tap formula in float32 torch,
+    from the constants its wrapper hands it: the Sobel magnitude of the
+    gray image, then w = 2^(Δ²·nk + log2 sw) on that single channel (the
+    centre tap w = 1), taps in the plain version's (dy, dx) order, the
+    result broadcast to the C channels."""
+    c = x.shape[-1]
+    log2w, nk = tk.sobel_bilateral_constants(d, sc, ss, c)
+    mag = dvf_tpu_torch.get_filter("sobel", magnitude_scale=scale).fn(x, None)[0]
+    mag = mag[..., :1]
+    r = d // 2
+    h, w = x.shape[1], x.shape[2]
+    pad = reflect_pad_nhwc(mag, r, r)
+    nk_t = torch.tensor(nk, dtype=torch.float32)
+    num = torch.zeros_like(mag)
+    den = torch.zeros_like(mag)
+    for i in range(d * d):
+        dy, dx = divmod(i, d)
+        shifted = pad[:, dy:dy + h, dx:dx + w, :]
+        diff = shifted - mag
+        wgt = torch.exp2(diff * diff * nk_t + torch.tensor(log2w[i], dtype=torch.float32))
+        num = num + wgt * shifted
+        den = den + wgt
+    return (num / den).expand(x.shape)
+
+
+# C = 3 only: the TPU kernel hard-codes the range distance 3·Δ².
+@pytest.mark.parametrize("shape", [(2, 24, 32, 3), (1, 68, 40, 3)],
+                         ids=["2x24x32", "68x40"])
+@pytest.mark.parametrize("d,sc,ss", [(3, 0.2, 5.0), (5, 0.1, 2.0), (7, 0.15, 3.0)])
+def test_sobel_bilateral_folded_weights_match_plain_and_pallas(d, sc, ss, shape):
+    x = _batch(shape, 29)
+    got = _folded_sobel_bilateral(torch.from_numpy(x), d, sc, ss)
+    plain = tk.sobel_bilateral_nhwc_pallas(torch.from_numpy(x), d=d, sigma_color=sc,
+                                           sigma_space=ss)
+    want = jk.sobel_bilateral_nhwc_pallas(jnp.asarray(x), d=d, sigma_color=sc,
+                                          sigma_space=ss, interpret=True)
+    _close(got, plain)
+    _close(got, want)
+
+
+def test_sobel_bilateral_constants():
+    log2w, nk = tk.sobel_bilateral_constants(5, 0.1, 2.0, 3)
+    assert len(log2w) == 25 and log2w[12] == 0.0    # the centre weight is 1
+    assert log2w == tk.bilateral_constants(5, 0.1, 2.0)[0]
+    np.testing.assert_allclose(nk * np.log(2.0), -3 / (2 * 0.1 ** 2), rtol=1e-6)
+    _, nk4 = tk.sobel_bilateral_constants(3, 0.2, 1.0, 4)
+    np.testing.assert_allclose(nk4 * np.log(2.0), -4 / (2 * 0.2 ** 2), rtol=1e-6)
+    assert all(float(np.float32(v)) == v for v in log2w + [nk, nk4])   # float32 values
+
+
+@pytest.mark.parametrize("d,c,want", [
+    (3, 3, (3, 1)), (5, 3, (3, 2)), (7, 4, (4, 3)),
+    (9, 3, (3, 0)), (15, 4, (4, 0)), (1, 3, (3, 0)),
+])
+def test_sobel_bilateral_instance(d, c, want):
+    assert tk.sobel_bilateral_instance(d, c) == want
+
+
 @pytest.mark.parametrize("name,cfg,halo", [
     ("gaussian_blur_pallas", {"ksize": 9}, 4),
     ("bilateral_pallas", {"d": 5}, 2),
@@ -242,6 +302,15 @@ def test_warp_bounded_plain_is_the_clipped_gather():
         tk.warp_bounded_pallas(img, flow, max_disp=0)
     with pytest.raises(ValueError, match="CUDA device"):
         tk.warp_bounded_pallas(img.to("meta"), flow.to("meta"))
+
+
+def test_warp_bounded_takes_only_its_designs():
+    img = torch.zeros((1, 8, 8, 3))
+    flow = torch.zeros((1, 8, 8, 2))
+    for design in tk.WARP_DESIGNS:                  # a CPU tensor: the plain version
+        assert torch.equal(tk.warp_bounded_pallas(img, flow, 2, design), img)
+    with pytest.raises(ValueError, match="design"):
+        tk.warp_bounded_pallas(img, flow, 2, "tiles")
 
 
 def test_reset_launches_zeroes_every_counter():
