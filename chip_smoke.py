@@ -20,7 +20,10 @@ which raises (and so exits non-zero) on failure:
    kernels bit-exact (0 differing elements): tile_maxdiff at (2,68,40,3)
    tile 16, (2,68,40,1) tile 8, (8,512,512,3) and (16,1080,1920,3) tile 32,
    dct8x8_quant on uint8 and float32 (2,52,100) planes at q90, uint8
-   (8,512,512) and (8,256,256) at q 50/90/95/100 and (4,720,1280) at q90.
+   (8,512,512) and (8,256,256) at q 50/90/95/100 and (4,720,1280) at q90,
+   and its three-plane launch (dct8x8_quant_planes, one launch each) at
+   the wire's Y/Cb/Cr shapes and a ragged set, uint8 and float32, at q
+   50/90/95/100.
    TF32 is off for every plain or library call. The three stencil
    kernels also at frames larger than one tile with ragged edges, on a
    view whose base is not 16-byte aligned, at their largest C = 4 case
@@ -53,7 +56,7 @@ which raises (and so exits non-zero) on failure:
    the JPEG delta wire where libjpeg is present; where it is not, "probe"
    on the raw-inner delta wire and an Engine -> FusedDeltaTransform leg
    (K5 and K6 without the entropy stage). Every index once and in order,
-   K5 one launch and K6 three per batch where the leg runs them and no
+   K5 one launch and K6 one per batch where the leg runs them and no
    other kernel, and every payload (or dirty coefficient block) identical
    to the same stream recomputed on the card with the plain versions;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
@@ -62,10 +65,12 @@ which raises (and so exits non-zero) on failure:
    torch.profiler window: the card's busy share and its kernels per batch.
 
 Phase 2 also prints the static SASS of the stencil kernels' main-path
-instantiations and of the warp kernels at C = 3 and 5 (``cuobjdump
--sass``: instruction count, opcode histogram, innermost loops);
-``sass_of(path)`` does the same for any stencil or warp source, e.g. an
-older checkout's.
+instantiations, the warp kernels at C = 3 and 5 and the codec kernels'
+uint8 instantiations (``cuobjdump -sass``: instruction count, opcode
+histogram, innermost loops); ``sass_of(path)`` does the same for any of
+those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
+``dct_times_of(checkout)`` print another checkout's K4 and K6 device
+times through its own wrappers.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``,
 ``{"stages": [...]}`` and ``{"kernels": [...]}`` lines, and as the last line
@@ -135,17 +140,23 @@ def smi_sample() -> str:
 
 
 _SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "STS", "LDG", "STG", "LDC",
-             "IMAD", "IADD3", "ISETP", "SEL", "IMNMX", "BRA")
+             "IMAD", "IADD3", "ISETP", "SEL", "IMNMX", "BRA", "I2F", "F2I", "FRND",
+             "PRMT", "MOV", "LDL", "STL")
+# Itanium codes of the template type arguments the kernels take.
+_TYPE_CODES = {"h": "unsigned char", "f": "float"}
 
 
 def _demangle(sym: str) -> str:
-    """``...15sep_blur_kernelILi3ELi9ELi9EE...`` -> ``sep_blur_kernel<3,9,9>``."""
+    """``...15sep_blur_kernelILi3ELi9ELi9EE...`` -> ``sep_blur_kernel<3,9,9>``,
+    ``...19dct8x8_quant_kernelIhEE...`` -> ``dct8x8_quant_kernel<unsigned char>``."""
     m = re.search(r"(sobel_bilateral_kernel|bilateral_kernel|sep_blur_kernel|"
-                  r"warp_bounded_kernel|warp_window_kernel|warp_gather_kernel)"
-                  r"(I(?:Li-?\d+E)+E)?", sym)
+                  r"warp_bounded_kernel|warp_window_kernel|warp_gather_kernel|"
+                  r"tile_maxdiff_kernel|dct8x8_quant_kernel)"
+                  r"(I(?:Li-?\d+E|[hf])+E)?", sym)
     if not m:
         return sym
-    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    args = [n or _TYPE_CODES[c]
+            for n, c in re.findall(r"Li(-?\d+)E|([hf])", m.group(2) or "")]
     return m.group(1) + ("<" + ",".join(args) + ">" if args else "")
 
 
@@ -209,8 +220,8 @@ def _nvcc() -> str:
 
 
 def sass_of(source: str) -> None:
-    """Build a stencil or warp source to a cubin with the port's nvcc
-    flags and print the SASS report of its main-path kernels (for
+    """Build a stencil, warp or codec source to a cubin with the port's
+    nvcc flags and print the SASS report of its main-path kernels (for
     comparing an older design: ``python3 -c 'import chip_smoke;
     chip_smoke.sass_of("old/stencils.cu")'``)."""
     import tempfile
@@ -263,10 +274,55 @@ def warp_times_of(checkout: str) -> None:
         log(f"warp times {line}")
 
 
+_DCT_TIMES = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("cs", {script!r})
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+from dvf_tpu_torch.ops import kernels as tk
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+n, b, q = cs.WIRE_SIZE, cs.WIRE_BATCH, cs.WIRE_QUALITY
+planes = [torch.randint(0, 256, s, generator=gen, device=dev, dtype=torch.uint8)
+          for s in ((b, n, n), (b, n // 2, n // 2), (b, n // 2, n // 2))]
+tables = (tk.jpeg_quant_table(q), *(tk.jpeg_quant_table(q, chroma=True),) * 2)
+one = getattr(tk, "dct8x8_quant_planes", None)
+def batch(_):   # the fused transform's K6 work for one batch
+    if one is not None:
+        return one(planes, tables)
+    return [tk.dct8x8_quant_pallas(p, t) for p, t in zip(planes, tables)]
+res = dict(checkout={checkout!r})
+for key, x, t in (("luma", planes[0], tables[0]), ("chroma", planes[1], tables[1])):
+    res[key + "_ms"] = cs.profiled_ms(lambda _: tk.dct8x8_quant_pallas(x, t), None,
+                                      match="dct8x8")[0]
+res["batch_ms"], res["batch_launches"] = cs.profiled_ms(batch, None, match="dct8x8")
+res["batch_call_ms"] = cs.cuda_ms(batch, None)
+print(json.dumps(res))
+"""
+
+
+def dct_times_of(checkout: str) -> None:
+    """Print the device times (torch.profiler) of a checkout's 8×8
+    DCT+quant kernel at the delta wire's luma (8×512×512) and chroma
+    (8×256×256) uint8 planes at q90, and of one fused batch's K6 work (Y,
+    Cb and Cr, through that checkout's own wrappers); e.g. an older
+    design: ``python3 -c 'import chip_smoke;
+    chip_smoke.dct_times_of("old")'``."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DCT_TIMES.format(script=os.path.abspath(__file__),
+                                                 checkout=checkout)],
+        cwd=checkout, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"dct_times_of({checkout!r}) failed:\n{out.stderr}")
+    for line in out.stdout.splitlines():
+        log(f"dct times {line}")
+
+
 def _main_path_kernel(name: str) -> bool:
     # the C = 3 instantiations of K1 and K2, K3's at d = 5 (an older
     # K3 is one kernel), the warp kernels at C = 3 (final warp) and C = 5
-    # (inner warp)
+    # (inner warp), K5's 16-byte chunks and K6's uint8 planes
+    if name in ("tile_maxdiff_kernel<16>", "dct8x8_quant_kernel<unsigned char>"):
+        return True
     if name.startswith(("sep_blur_kernel", "bilateral_kernel")):
         return re.search(r"<3[,>]", name) is not None
     if name.startswith("sobel_bilateral_kernel"):
@@ -315,8 +371,22 @@ def profiled_ms(fn, x, reps: int = REPS, match=None, between=None):
                 between()
             fn(x)
 
-    p = profile_call(run, reps, match)
+    try:
+        p = profile_call(run, reps, match)
+    except NoDeviceTime:
+        # the profiler now and then loses a window's device records; the
+        # kernel's row counts the windows taken again (profile_retries)
+        log("profiler: no device time recorded; profiling the window again")
+        PROFILE_RETRIES[0] += 1
+        p = profile_call(run, reps, match)
     return p["device_ms_per_batch"], p["device_kernels_per_batch"]
+
+
+PROFILE_RETRIES = [0]   # profiler windows taken again, over the run
+
+
+class NoDeviceTime(AssertionError):
+    """A profiler window that recorded no device time."""
 
 
 def profile_call(fn, per: int, match=None) -> dict:
@@ -340,7 +410,7 @@ def profile_call(fn, per: int, match=None) -> dict:
            and (match is None or match in e.key)]
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
     if dev_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
+        raise NoDeviceTime("the profiler recorded no device time")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     return dict(device_busy_share=dev_ms / wall_ms, device_ms_per_batch=dev_ms / per,
                 device_kernels_per_batch=sum(e.count for e in dev) / per,
@@ -434,7 +504,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    for src in ("stencils", "warp"):
+    for src in ("stencils", "warp", "codec"):
         log_sass(f"{src}.cu", sass_report(str(_build.library_path(src)),
                                           _main_path_kernel))
     if env["libjpeg"]:
@@ -514,6 +584,7 @@ def main() -> int:
         f"{2 * int(np.prod(MAIN_SHAPE)) * 4 / (copy_ms * 1e-3) / 1e9:.1f} GB/s")
     del x
     for spec in specs:
+        retries0 = PROFILE_RETRIES[0]
         err = 0.0
         for shape in (SMALL_SHAPE, MAIN_SHAPE):
             x = torch.rand(shape, generator=gen, device=dev)
@@ -569,7 +640,8 @@ def main() -> int:
                          device_ms=dev_ms, copy_ms=copy_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, share_of_bound=b_ms / ms,
-                         achieved_gb_s=gbps, **extra))
+                         achieved_gb_s=gbps,
+                         profile_retries=PROFILE_RETRIES[0] - retries0, **extra))
         del x
     log("K2/K3 have no single PyTorch call computing the same function: "
         "library_ms is null for them")
@@ -730,12 +802,14 @@ def leg_label(name: str, kw: dict) -> str:
 def check_warp(dev, gen) -> dict:
     """Phases 3-4 for the bounded warp (K4): both designs against the plain
     version at every checked shape, bit-exact; then device times at the
-    final warp's and the inner warp's shape, beside grid_sample's."""
+    final warp's and the inner warp's shape, and at the two coarser pyramid
+    levels, beside grid_sample's and the plain version's."""
     import torch
-    import torch.nn.functional as F
 
     from dvf_tpu_torch.ops import kernels as tk
     from dvf_tpu_torch.ops.flow import warp_by_flow
+
+    retries0 = PROFILE_RETRIES[0]
 
     def plain(img, flow, r):
         return warp_by_flow(img, flow.clamp(-r, r))
@@ -802,20 +876,7 @@ def check_warp(dev, gen) -> dict:
                          profiled_ms(kern, None, match=name,
                                      between=flush.zero_)[0],
                          cuda_ms(kern, None))
-        b, h, w, c = shape
-        fc = flow.clamp(-r, r)
-        gx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) + fc[..., 0]
-        gy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) + fc[..., 1]
-        grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
-        img_nchw = img.permute(0, 3, 1, 2)
-
-        # Library yardstick: grid_sample on the clipped flow's normalized
-        # grid (built outside the timed call), border padding = coordinate
-        # clamp.
-        def library(_):
-            return F.grid_sample(img_nchw, grid, mode="bilinear",
-                                 padding_mode="border", align_corners=True)
-
+        library = grid_sample_call(img, flow, r)
         lib_err = (library(None).permute(0, 2, 3, 1) - plain(img, flow, r)).abs().max().item()
         lib_warm, lib_kernels = profiled_ms(library, None)
         lib = (lib_warm,
@@ -840,12 +901,18 @@ def check_warp(dev, gen) -> dict:
         t = {d: profiled_ms(lambda _, d=d: tk.warp_bounded_pallas(img, flow, r, d),
                             None)[0] for d in tk.WARP_DESIGNS}
         b_ms, _ = bound(shape, ops_warp(shape), warp_bytes(shape))
+        library = grid_sample_call(img, flow, r)
+        lib_err = (library(None).permute(0, 2, 3, 1) - plain(img, flow, r)).abs().max().item()
+        lib_ms = profiled_ms(library, None)[0]
+        plain_ms = cuda_ms(lambda _: plain(img, flow, r), None)
         coarse.append(dict(shape=list(shape), ms=t["auto"], window_ms=t["window"],
-                           gather_ms=t["gather"], bound_ms=b_ms))
+                           gather_ms=t["gather"], bound_ms=b_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_max_abs_err=lib_err))
         log(f"time warp_bounded {shape} R {r} (a coarser inner level): auto "
             f"{t['auto']:.4f} ms device warm (window {t['window']:.4f}, gather "
-            f"{t['gather']:.4f}), bound {b_ms:.4f} ms, share of bound "
-            f"{b_ms / t['auto']:.3f}")
+            f"{t['gather']:.4f}), grid_sample {lib_ms:.4f} ms device warm (max abs "
+            f"err vs plain {lib_err:.3e}), plain {plain_ms:.4f} ms per call; bound "
+            f"{b_ms:.4f} ms, share of bound {b_ms / t['auto']:.3f}")
     del flush
     fin, inn = timed["final"], timed["inner"]
     return dict(name="warp_bounded", route="cuda", source=WARP_SOURCE,
@@ -865,7 +932,29 @@ def check_warp(dev, gen) -> dict:
                 inner_gather_cold_ms=inn["t"]["gather"][1],
                 inner_plain_ms=inn["plain_ms"], inner_bound_ms=inn["bound_ms"],
                 inner_library_ms=inn["lib"][0], inner_library_cold_ms=inn["lib"][1],
-                inner_library_call_ms=inn["lib"][2], coarse=coarse)
+                inner_library_call_ms=inn["lib"][2], coarse=coarse,
+                profile_retries=PROFILE_RETRIES[0] - retries0)
+
+
+def grid_sample_call(img, flow, r: int):
+    """The warp's library yardstick: ``fn(_)`` runs grid_sample on the
+    clipped flow's normalized grid (built here, outside the timed call),
+    border padding = coordinate clamp; it returns NCHW."""
+    import torch
+    import torch.nn.functional as F
+
+    _, h, w, _ = img.shape
+    fc = flow.clamp(-r, r)
+    gx = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) + fc[..., 0]
+    gy = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1) + fc[..., 1]
+    grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0, gy * (2.0 / (h - 1)) - 1.0], -1)
+    img_nchw = img.permute(0, 3, 1, 2)
+
+    def library(_):
+        return F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    return library
 
 
 def host_env() -> dict:
@@ -894,6 +983,29 @@ def ops_dct(shape) -> int:
     # per pixel: level shift 1, vertical pass 8 mul + 7 add, horizontal
     # pass 8 mul + 7 add, quantizer multiply 1, round 1
     return 33 * int(np.prod(shape))
+
+
+def issue_floor_ms(shape) -> float:
+    """K6's floor on this card beside its published-peak bound: the
+    golden's order bars FMA, so each of ops_dct's operations issues as
+    one instruction, at most 128 per clock per SM (4 schedulers x 32
+    lanes), at the card's maximum SM clock."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops_dct(shape) / (128 * sms * mhz * 1e6) * 1e3
+
+
+def wire_tables(quality: int) -> tuple:
+    """The fused transform's tables for Y, Cb, Cr at a JPEG quality."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    chroma = tk.jpeg_quant_table(quality, chroma=True)
+    return tk.jpeg_quant_table(quality), chroma, chroma
 
 
 def check_codec_kernels(dev, gen) -> list:
@@ -927,6 +1039,7 @@ def check_codec_kernels(dev, gen) -> list:
             raise AssertionError(f"tile_maxdiff kernel differs from its plain "
                                  f"version at {shape}/t{tile} in {n_diff} tiles")
     wire_shape = (WIRE_BATCH, WIRE_SIZE, WIRE_SIZE, 3)
+    retries0 = PROFILE_RETRIES[0]
     # Kernel and plain times are device times (profiler); at these sizes a
     # CUDA-event span per call also holds the card's wait for the host's
     # launch, reported beside them as *_call_ms.
@@ -948,6 +1061,7 @@ def check_codec_kernels(dev, gen) -> list:
         log(f"time tile_maxdiff {shape} tile {WIRE_TILE}: kernel {ms:.4f} ms device "
             f"({cms:.4f} ms per call with launch), plain {pms:.4f} ms device in "
             f"{pk:.0f} kernels ({pcms:.4f} ms per call), bound {b_ms:.4f} ms ({b_by})")
+    md_retries = PROFILE_RETRIES[0] - retries0
 
     def plane(shape, dtype):
         if dtype == torch.uint8:
@@ -955,7 +1069,8 @@ def check_codec_kernels(dev, gen) -> list:
         return torch.rand(shape, generator=gen, device=dev) * 255.0
 
     dct_cases = [((2, 52, 100), torch.uint8, 90), ((2, 52, 100), torch.float32, 90),
-                 ((4, 720, 1280), torch.uint8, 90)]
+                 ((4, 720, 1280), torch.uint8, 90), ((16, 1080, 1920), torch.uint8, 90),
+                 ((16, 1080, 1920), torch.float32, 90)]
     dct_cases += [(s, torch.uint8, q) for s in ((8, 512, 512), (8, 256, 256))
                   for q in (50, 90, 95, 100)]
     for shape, dtype, q in dct_cases:
@@ -969,7 +1084,28 @@ def check_codec_kernels(dev, gen) -> list:
         if n_diff:
             raise AssertionError(f"dct8x8_quant kernel differs from its plain "
                                  f"version at {shape} q{q} in {n_diff} coefficients")
+    # Y, Cb, Cr in one launch: the wire's shapes and a ragged set
+    wire_planes = ((WIRE_BATCH, WIRE_SIZE, WIRE_SIZE),
+                   *((WIRE_BATCH, WIRE_SIZE // 2, WIRE_SIZE // 2),) * 2)
+    ragged_planes = ((2, 52, 100), (2, 26, 50), (2, 26, 50))
+    for shapes, dtype in ((wire_planes, torch.uint8), (ragged_planes, torch.uint8),
+                          (ragged_planes, torch.float32)):
+        for q in (50, 90, 95, 100):
+            xs = [plane(s, dtype) for s in shapes]
+            tables = wire_tables(q)
+            before = tk.LAUNCHES["dct8x8_quant"]
+            got = tk.dct8x8_quant_planes(xs, tables)
+            torch.cuda.synchronize()
+            launched = tk.LAUNCHES["dct8x8_quant"] - before
+            n_diff = sum(int((g != w).sum()) for g, w in
+                         zip(got, tk.dct8x8_quant_planes_ref(xs, tables)))
+            log(f"check dct8x8_quant_planes {shapes} {str(dtype)[6:]} q{q}: {n_diff} "
+                f"differing of {sum(g.numel() for g in got)}, {launched} launch")
+            if n_diff or launched != 1:
+                raise AssertionError(f"dct8x8_quant_planes at {shapes} q{q}: {n_diff} "
+                                     f"differing coefficients, {launched} launches")
     table = tk.jpeg_quant_table(WIRE_QUALITY)
+    retries0 = PROFILE_RETRIES[0]
     dct_timed = {}
     for shape in ((WIRE_BATCH, WIRE_SIZE, WIRE_SIZE),
                   (WIRE_BATCH, WIRE_SIZE // 2, WIRE_SIZE // 2)):
@@ -987,7 +1123,33 @@ def check_codec_kernels(dev, gen) -> list:
         ms, (pms, pk), cms, pcms, (b_ms, b_by) = dct_timed[shape]
         log(f"time dct8x8_quant {shape} uint8: kernel {ms:.4f} ms device ({cms:.4f} "
             f"ms per call with launch), plain {pms:.4f} ms device in {pk:.0f} kernels "
-            f"({pcms:.4f} ms per call), bound {b_ms:.4f} ms ({b_by})")
+            f"({pcms:.4f} ms per call), bound {b_ms:.4f} ms ({b_by}), issue floor "
+            f"{issue_floor_ms(shape):.4f} ms")
+    # one fused batch's K6 work: Y, Cb, Cr in one launch
+    xs = [plane(s, torch.uint8) for s in wire_planes]
+    tables = wire_tables(WIRE_QUALITY)
+
+    def kern_batch(_):
+        return tk.dct8x8_quant_planes(xs, tables)
+
+    def plain_batch(_):
+        return tk.dct8x8_quant_planes_ref(xs, tables)
+
+    batch_px = sum(int(np.prod(s)) for s in wire_planes)
+    b_ms, b_by = bound((batch_px,), ops_dct((batch_px,)), 3 * batch_px)
+    batch_ms, batch_kernels = profiled_ms(kern_batch, None, match="dct8x8")
+    batch = dict(batch_shapes=[list(s) for s in wire_planes], batch_ms=batch_ms,
+                 batch_call_ms=cuda_ms(kern_batch, None),
+                 batch_plain_ms=profiled_ms(plain_batch, None)[0],
+                 batch_bound_ms=b_ms, batch_bound_by=b_by,
+                 batch_issue_floor_ms=issue_floor_ms((batch_px,)),
+                 batch_launches_per_call=batch_kernels,
+                 profile_retries=PROFILE_RETRIES[0] - retries0)
+    log(f"time dct8x8_quant_planes {wire_planes} uint8 (one fused batch): kernel "
+        f"{batch_ms:.4f} ms device in {batch_kernels:.0f} launches per call "
+        f"({batch['batch_call_ms']:.4f} ms per call with launch), plain "
+        f"{batch['batch_plain_ms']:.4f} ms device, bound {b_ms:.4f} ms ({b_by}), issue "
+        f"floor {batch['batch_issue_floor_ms']:.4f} ms")
     log("K5/K6 have no single PyTorch call computing the same function: "
         "library_ms is null for them")
 
@@ -1003,11 +1165,15 @@ def check_codec_kernels(dev, gen) -> list:
     return [
         row("tile_maxdiff", "dvf_tpu/ops/pallas_kernels.py:625", wire_shape,
             timed[wire_shape], tile=WIRE_TILE, hd_shape=list(MAIN_SHAPE),
-            hd_ms=hd[0], hd_call_ms=hd[2], hd_plain_ms=hd[1][0], hd_bound_ms=hd[4][0]),
+            hd_ms=hd[0], hd_call_ms=hd[2], hd_plain_ms=hd[1][0], hd_bound_ms=hd[4][0],
+            profile_retries=md_retries),
         row("dct8x8_quant", "dvf_tpu/ops/pallas_kernels.py:840", y_shape,
-            dct_timed[y_shape], quality=WIRE_QUALITY, chroma_shape=list(c_shape),
+            dct_timed[y_shape], quality=WIRE_QUALITY,
+            share_of_bound=dct_timed[y_shape][4][0] / dct_timed[y_shape][0],
+            issue_floor_ms=issue_floor_ms(y_shape), chroma_shape=list(c_shape),
             chroma_ms=chroma[0], chroma_call_ms=chroma[2],
-            chroma_plain_ms=chroma[1][0], chroma_bound_ms=chroma[4][0]),
+            chroma_plain_ms=chroma[1][0], chroma_bound_ms=chroma[4][0],
+            chroma_issue_floor_ms=issue_floor_ms(c_shape), **batch),
     ]
 
 
@@ -1020,14 +1186,15 @@ class plain_codec_kernels:
         from dvf_tpu_torch.ops import kernels as tk
         from dvf_tpu_torch.runtime import codec_assist as ca
 
-        self._saved = (ca.tile_maxdiff, ca.dct8x8_quant)
-        ca.tile_maxdiff, ca.dct8x8_quant = tk.tile_maxdiff_ref, tk.dct8x8_quant_ref
+        self._saved = (ca.tile_maxdiff, ca.dct8x8_quant_planes)
+        ca.tile_maxdiff, ca.dct8x8_quant_planes = (tk.tile_maxdiff_ref,
+                                                   tk.dct8x8_quant_planes_ref)
         return self
 
     def __exit__(self, *exc):
         from dvf_tpu_torch.runtime import codec_assist as ca
 
-        ca.tile_maxdiff, ca.dct8x8_quant = self._saved
+        ca.tile_maxdiff, ca.dct8x8_quant_planes = self._saved
 
 
 def wire_frames() -> list:
@@ -1115,7 +1282,7 @@ def worker_leg(dev, frames: list, assist: str, inner: str):
     want = {k: 0 for k in delta}
     want["tile_maxdiff"] = nb
     if assist == "full":
-        want["dct8x8_quant"] = 3 * nb
+        want["dct8x8_quant"] = nb
     if delta != want:
         raise AssertionError(f"{label}: launches {delta}, want {want}")
     with plain_codec_kernels():
@@ -1219,7 +1386,7 @@ def fused_leg(dev, frames: list):
     bms, dirty, first, d2h, secs, split, calls = _fused_pass(dev, frames)
     delta = dict(tk.LAUNCHES)
     want = {k: 0 for k in delta}
-    want.update(tile_maxdiff=nb, dct8x8_quant=3 * nb)
+    want.update(tile_maxdiff=nb, dct8x8_quant=nb)
     if delta != want or calls != nb:
         raise AssertionError(f"{label}: launches {delta} in {calls} calls, want {want}")
     out = [255 - f for f in frames]

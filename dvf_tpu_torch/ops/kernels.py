@@ -57,9 +57,14 @@ MAX_WARP_C = 8
 # fit is refused), so the card tests and chip_smoke.py hold both to the
 # plain version at every shape.
 WARP_DESIGNS = ("auto", "window", "gather")
+# csrc/codec.cu's DCT kernel takes at most this many planes per launch (the
+# wire's Y, Cb, Cr).
+DCT_MAX_PLANES = 3
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)  # host float arrays (taps, weights)
+_IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points of each csrc/<source>.cu.
 _SIGNATURES = {
     "stencils": {
@@ -72,8 +77,7 @@ _SIGNATURES = {
     },
     "codec": {
         "dvf_tile_maxdiff": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "dvf_dct8x8_quant_u8": [_P, _P, _I, _I, _I, _FP, _FP, _P],
-        "dvf_dct8x8_quant_f32": [_P, _P, _I, _I, _I, _FP, _FP, _P],
+        "dvf_dct8x8_quant_planes": [_PP, _PP, _IP, _I, _I, _FP, _FP, _P],
     },
 }
 _lib_objs: Dict[str, ctypes.CDLL] = {}
@@ -471,42 +475,72 @@ def dct8x8_quant_ref(plane: torch.Tensor, qtable) -> torch.Tensor:
     return torch.round(t * recip).to(torch.int16)
 
 
-def dct8x8_quant_pallas(plane: torch.Tensor, qtable) -> torch.Tensor:
-    """Per-8×8-block DCT + quantization through ``csrc/codec.cu``'s kernel:
-    a strip of 32 blocks per 256-thread block, one pixel column per thread
-    in the vertical pass and one block row in the horizontal pass, the
-    golden's operation order without FMA. Reads uint8 or float32 planes
-    of any geometry (a partial block clamps its reads: the plain
-    version's edge pad). Bit-exact to :func:`dct8x8_quant_ref`."""
-    if plane.device.type == "cpu":
-        return dct8x8_quant_ref(plane, qtable)
-    what = "dct8x8_quant_pallas"
-    if plane.device.type != "cuda":
-        raise ValueError(f"{what}: takes a CUDA or CPU tensor, got {plane.device}")
-    if plane.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"{what}: needs a uint8 or float32 plane, got {plane.dtype}")
-    if plane.dim() not in (2, 3):
-        raise ValueError(f"{what}: needs a (B,H,W) or (H,W) plane, got shape "
-                         f"{tuple(plane.shape)}")
-    if not plane.is_contiguous():
-        raise ValueError(f"{what}: needs a contiguous plane")
-    squeeze = plane.dim() == 2
-    p3 = plane[None] if squeeze else plane
-    b, h, w = p3.shape
-    out = torch.empty((b, -(-h // 8), -(-w // 8), 8, 8), dtype=torch.int16,
-                      device=plane.device)
-    if p3.numel():
+def dct8x8_quant_planes_ref(planes, qtables) -> List[torch.Tensor]:
+    """Plain version of :func:`dct8x8_quant_planes`: each plane through
+    :func:`dct8x8_quant_ref` with its own table."""
+    return [dct8x8_quant_ref(p, q) for p, q in zip(planes, qtables, strict=True)]
+
+
+def dct8x8_quant_planes(planes, qtables) -> List[torch.Tensor]:
+    """Per-8×8-block DCT + quantization of 1–3 planes (the wire's Y, Cb,
+    Cr), each with its own table, in ONE launch of ``csrc/codec.cu``'s
+    kernel: one lane per 8×8 block, both passes in registers in the
+    golden's operation order without FMA, the planes' tasks in one list so
+    the small planes fill the large one's tail. Reads uint8 or float32
+    planes of any geometry (a partial block clamps its reads: the plain
+    version's edge pad). All planes share a dtype and a batch size.
+    Returns one ``(B, ⌈H/8⌉, ⌈W/8⌉, 8, 8)`` int16 tensor per plane,
+    bit-exact to :func:`dct8x8_quant_planes_ref`."""
+    planes, qtables = list(planes), list(qtables)
+    what = "dct8x8_quant_planes"
+    if not 1 <= len(planes) <= DCT_MAX_PLANES or len(qtables) != len(planes):
+        raise ValueError(f"{what}: takes 1..{DCT_MAX_PLANES} planes and one table "
+                         f"each, got {len(planes)} and {len(qtables)}")
+    if all(p.device.type == "cpu" for p in planes):
+        return dct8x8_quant_planes_ref(planes, qtables)
+    dev = planes[0].device
+    if dev.type != "cuda" or any(p.device != dev for p in planes):
+        raise ValueError(f"{what}: takes planes all on one CUDA device or all on "
+                         f"the CPU, got {[str(p.device) for p in planes]}")
+    dtype = planes[0].dtype
+    if dtype not in (torch.uint8, torch.float32) or any(p.dtype != dtype for p in planes):
+        raise TypeError(f"{what}: needs uint8 or float32 planes of one dtype, got "
+                        f"{[p.dtype for p in planes]}")
+    dim = planes[0].dim()
+    if dim not in (2, 3) or any(p.dim() != dim for p in planes):
+        raise ValueError(f"{what}: needs (B,H,W) or (H,W) planes, got shapes "
+                         f"{[tuple(p.shape) for p in planes]}")
+    if dim == 3 and any(p.shape[0] != planes[0].shape[0] for p in planes):
+        raise ValueError(f"{what}: needs planes of one batch size, got shapes "
+                         f"{[tuple(p.shape) for p in planes]}")
+    if not all(p.is_contiguous() for p in planes):
+        raise ValueError(f"{what}: needs contiguous planes")
+    p3 = [p[None] if dim == 2 else p for p in planes]
+    outs = [torch.empty((p.shape[0], -(-p.shape[1] // 8), -(-p.shape[2] // 8), 8, 8),
+                        dtype=torch.int16, device=dev) for p in p3]
+    live = [i for i, p in enumerate(p3) if p.numel()]
+    if live:
         lib = _lib("codec")
-        fn = ("dvf_dct8x8_quant_u8" if plane.dtype == torch.uint8
-              else "dvf_dct8x8_quant_f32")
-        dct = _floats(_DCT8.reshape(-1).tolist())
-        recip = _floats(_qrecip(qtable).reshape(-1).tolist())
-        with torch.cuda.device(plane.device):
-            stream = torch.cuda.current_stream(plane.device).cuda_stream
-            rc = getattr(lib, fn)(p3.data_ptr(), out.data_ptr(), b, h, w, dct,
-                                  recip, stream)
-        _count(lib, fn, "dct8x8_quant", rc)
-    return out[0] if squeeze else out
+        n = len(live)
+        src = (ctypes.c_void_p * n)(*[p3[i].data_ptr() for i in live])
+        dst = (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in live])
+        dims = (ctypes.c_int * (3 * n))(*[d for i in live for d in p3[i].shape])
+        recip = _floats(np.concatenate([_qrecip(qtables[i]).reshape(-1)
+                                        for i in live]).tolist())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.dvf_dct8x8_quant_planes(
+                src, dst, dims, n, int(dtype == torch.uint8),
+                _floats(_DCT8.reshape(-1).tolist()), recip, stream)
+        _count(lib, "dvf_dct8x8_quant_planes", "dct8x8_quant", rc)
+    return [o[0] for o in outs] if dim == 2 else outs
+
+
+def dct8x8_quant_pallas(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """Per-8×8-block DCT + quantization of one plane through
+    ``csrc/codec.cu``'s kernel (:func:`dct8x8_quant_planes` with one
+    plane). Bit-exact to :func:`dct8x8_quant_ref`."""
+    return dct8x8_quant_planes([plane], [qtable])[0]
 
 
 def dct8x8_quant(plane: torch.Tensor, qtable) -> torch.Tensor:

@@ -14,7 +14,8 @@ output, queued on the same CUDA stream (no host sync in between):
   matrix) plus the 2×2 chroma subsample on the card, so the host codec
   starts from half the bytes (``NativeJpegCodec.encode_ycbcr420``).
 - :class:`FusedDeltaTransform` — probe, convert, per-8×8-block forward
-  DCT and quantization (``ops.kernels.dct8x8_quant``, K6) for one batch:
+  DCT and quantization of the three planes in one launch
+  (``ops.kernels.dct8x8_quant_planes``, K6) for one batch:
   only dirty tiles' int16 coefficient blocks and the bitmap cross D2H;
   the host runs entropy coding and nothing else
   (``NativeJpegCodec.encode_coefficients_batch``).
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from dvf_tpu_torch.ops.kernels import dct8x8_quant, jpeg_quant_table, tile_maxdiff
+from dvf_tpu_torch.ops.kernels import dct8x8_quant_planes, jpeg_quant_table, tile_maxdiff
 
 
 def _stream_of(t: torch.Tensor):
@@ -149,7 +150,7 @@ class DeviceCodecAssist:
 class FusedDeltaTransform:
     """The codec endgame's device stage for one batch: dirty-tile probe
     (K5, one launch), RGB→YCbCr 4:2:0 (plain torch), per-8×8-block DCT +
-    quantization (K6, one launch per plane: Y, Cb, Cr), all queued on the
+    quantization (K6, one launch for Y, Cb and Cr), all queued on the
     batch's CUDA stream. ``calls`` counts :meth:`process` calls, one per
     batch. The host never sees pixels: only dirty tiles' int16 coefficient
     blocks and the bitmap cross D2H (``transport.codec.CoefficientFrame``
@@ -210,9 +211,9 @@ class FusedDeltaTransform:
         tiles = tile_maxdiff(batch, torch.cat([prev, batch[:-1]], dim=0), t)
         self._prev = batch[-1:].clone()
         y, cb, cr = rgb_to_ycbcr420(batch)
-        yq = self._group(dct8x8_quant(y, self._ql), t // 8)
-        cbq = self._group(dct8x8_quant(cb, self._qc), t // 16)
-        crq = self._group(dct8x8_quant(cr, self._qc), t // 16)
+        yq, cbq, crq = dct8x8_quant_planes((y, cb, cr), (self._ql, self._qc, self._qc))
+        yq = self._group(yq, t // 8)
+        cbq, crq = self._group(cbq, t // 16), self._group(crq, t // 16)
         self.calls += 1
         bm = tiles.cpu().numpy()
         if first:

@@ -77,3 +77,27 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["stencils"])
+
+
+def test_sass_report_names_the_codec_kernels():
+    """chip_smoke.py's SASS report reads the codec kernels' instantiations
+    by name and counts the conversion opcodes (no card needed)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    names = {
+        "_ZN12_GLOBAL__N_119dct8x8_quant_kernelIhEEv7DctArgs":
+            "dct8x8_quant_kernel<unsigned char>",
+        "_ZN12_GLOBAL__N_119dct8x8_quant_kernelIfEEv7DctArgs": "dct8x8_quant_kernel<float>",
+        "_ZN12_GLOBAL__N_119tile_maxdiff_kernelILi16EEEvPKhS2_Phiiiiix":
+            "tile_maxdiff_kernel<16>",
+        "_ZN12_GLOBAL__N_115sep_blur_kernelILi3ELi9ELi9EEEvPKfPfiiii": "sep_blur_kernel<3,9,9>",
+    }
+    for sym, want in names.items():
+        assert chip_smoke._demangle(sym) == want
+    main = [n for n in names.values() if chip_smoke._main_path_kernel(n)]
+    assert main == ["dct8x8_quant_kernel<unsigned char>", "tile_maxdiff_kernel<16>",
+                    "sep_blur_kernel<3,9,9>"]
+    assert chip_smoke._histogram(["I2F.U32", "F2I.S16", "FRND", "PRMT", "PRMT",
+                                  "LOP3.LUT"]) == {"I2F": 1, "F2I": 1, "FRND": 1,
+                                                   "PRMT": 2, "other": 1}

@@ -187,6 +187,84 @@ def test_dct8x8_quant_uint8_planes(quality):
                           _stated_sequence(padded, q))
 
 
+# The CUDA kernel's uint8 instantiation replaces two conversions by float
+# identities (csrc/codec.cu); float32 numpy evaluates them as the card does.
+
+
+def test_level_shift_identity_every_byte():
+    """2^23 + v, built as the bits 0x4B0000vv, minus 2^23 + 128 is
+    float32(v) - 128 for every byte v."""
+    v = np.arange(256, dtype=np.uint32)
+    got = (0x4B000000 | v).view(np.float32) + np.float32(-8388736.0)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, v.astype(np.float32) - np.float32(128))
+
+
+def _magic_round_int16(q: np.ndarray) -> np.ndarray:
+    bits = (q.astype(np.float32) + np.float32(12582912.0)).view(np.uint32)
+    return (bits & 0xFFFF).astype(np.uint16).view(np.int16)
+
+
+def test_round_identity_over_the_uint8_quotient_range():
+    """q + 1.5 * 2^23 in float32 keeps round_half_even(q) in its low 16
+    bits for every quotient the uint8 path gives (|q| <= 1024): every
+    multiple of 2^-8 in [-1024, 1024] (all integers and all ±k.5 ties),
+    the float32 neighbours of each, and 10^6 random float32 values."""
+    grid = np.arange(-1024 * 256, 1024 * 256 + 1, dtype=np.int64).astype(np.float32) / 256
+    assert grid.dtype == np.float32
+    ties = grid[np.abs(grid % 1) == 0.5]
+    assert len(ties) == 2048
+    rng = np.random.default_rng(8)
+    q = np.concatenate([grid, np.nextafter(grid, np.float32(np.inf)),
+                        np.nextafter(grid, np.float32(-np.inf)),
+                        rng.uniform(-1024, 1024, 10 ** 6).astype(np.float32)])
+    q = q[np.abs(q) <= 1024]
+    assert np.array_equal(_magic_round_int16(q), np.rint(q).astype(np.int16))
+    # the bound: a flat 0 or 255 block at q100 (all divisors 1) reaches it
+    ones = np.ones((8, 8), np.int32)
+    for v, dc in ((0, -1024), (255, 1016)):
+        t = _stated_sequence(np.full((1, 8, 8), v, np.uint8), ones)
+        assert t[0, 0, 0, 0, 0] == dc and np.abs(t).max() == abs(dc)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("quality", [50, 90, 100])
+def test_dct8x8_quant_planes_match_reference(quality, dtype):
+    """Y (2, 64, 128) with Cb and Cr (2, 32, 64), luma and chroma tables:
+    float planes bit-exact to the reference's Pallas kernel in interpret
+    mode, uint8 planes to the golden's stated sequence (see the module
+    docstring), each plane as it would be alone."""
+    rng = np.random.default_rng(200 + quality)
+    shapes = ((2, 64, 128), (2, 32, 64), (2, 32, 64))
+    if dtype == "uint8":
+        planes = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
+    else:
+        planes = [rng.uniform(0, 255, s).astype(np.float32) for s in shapes]
+    tables = [tk.jpeg_quant_table(quality)] + [tk.jpeg_quant_table(quality, chroma=True)] * 2
+    got = tk.dct8x8_quant_planes([torch.from_numpy(p) for p in planes], tables)
+    assert len(got) == 3
+    for g, p, q in zip(got, planes, tables, strict=True):
+        g = g.numpy()
+        assert g.dtype == np.int16 and g.shape == (p.shape[0], p.shape[1] // 8,
+                                                   p.shape[2] // 8, 8, 8)
+        if dtype == "uint8":
+            want = _stated_sequence(p, q)
+        else:
+            want = np.asarray(pk.dct8x8_quant_pallas(jnp.asarray(p), q, interpret=True))
+        assert np.array_equal(g, want)
+        assert np.array_equal(g, tk.dct8x8_quant(torch.from_numpy(p), q).numpy())
+
+
+def test_dct8x8_quant_planes_refuses_what_it_does_not_take():
+    plane = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    q = tk.jpeg_quant_table(90)
+    for planes, tables in (([], []), ([plane] * 4, [q] * 4), ([plane, plane], [q])):
+        with pytest.raises(ValueError, match="planes"):
+            tk.dct8x8_quant_planes(planes, tables)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk.dct8x8_quant_planes([plane, plane.to("meta")], [q, q])
+
+
 # -- YCbCr, probe, fused transform ---------------------------------------
 
 

@@ -260,11 +260,73 @@ def test_dct8x8_quant_kernel_matches_plain(dev, dtype, shape, quality):
     assert torch.equal(got.cpu(), tk.dct8x8_quant_ref(x.cpu(), q))
 
 
+def _planes(rng, shapes, dtype, dev, offset=0):
+    out = []
+    for s in shapes:
+        p = (rng.integers(0, 256, s, dtype=np.uint8) if dtype == np.uint8
+             else rng.uniform(0, 255, s).astype(np.float32))
+        t = torch.from_numpy(p).to(dev)
+        if offset:   # a contiguous view `offset` elements into its buffer
+            flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            t = flat[offset:].view(s).copy_(t)
+        out.append(t)
+    return out
+
+
+def _wire_tables(quality, n=3):
+    chroma = tk.jpeg_quant_table(quality, chroma=True)
+    return [tk.jpeg_quant_table(quality)] + [chroma] * (n - 1)
+
+
+# Y with Cb and Cr: ragged (edge blocks clamp), one block, more than one
+# 32-block strip per block row.
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shapes", [((2, 52, 100), (2, 26, 50)), ((1, 8, 8), (1, 4, 4)),
+                                    ((3, 40, 520), (3, 20, 260))])
+@pytest.mark.parametrize("quality", [50, 90, 95, 100])
+def test_dct8x8_quant_planes_kernel_matches_plain(dev, dtype, shapes, quality):
+    xs = _planes(np.random.default_rng(13), (shapes[0], shapes[1], shapes[1]), dtype, dev)
+    tables = _wire_tables(quality)
+    got = _launched("dct8x8_quant", lambda: tk.dct8x8_quant_planes(xs, tables))
+    for g, w, x, t in zip(got, tk.dct8x8_quant_planes_ref(xs, tables), xs, tables,
+                          strict=True):
+        assert torch.equal(g, w)                                # plain, on the card
+        assert torch.equal(g.cpu(), tk.dct8x8_quant_ref(x.cpu(), t))
+
+
+def test_dct8x8_quant_planes_kernel_other_counts_and_views(dev):
+    """One and two planes, 2-D planes, and uint8 views not 8-byte aligned
+    (their blocks load byte by byte): one launch each, bit-exact."""
+    rng = np.random.default_rng(14)
+    cases = [(((4, 64, 64),), 0), (((2, 48, 64), (2, 24, 32)), 0),
+             (((56, 72), (28, 36), (28, 36)), 0), (((2, 48, 64), (2, 24, 32)), 1),
+             (((2, 48, 64), (2, 24, 32), (2, 24, 32)), 3)]
+    for shapes, offset in cases:
+        xs = _planes(rng, shapes, np.uint8, dev, offset)
+        tables = _wire_tables(90, len(xs))
+        got = _launched("dct8x8_quant", lambda: tk.dct8x8_quant_planes(xs, tables))
+        for g, w in zip(got, tk.dct8x8_quant_planes_ref(xs, tables), strict=True):
+            assert torch.equal(g, w)
+
+
 def test_codec_kernels_refuse_without_launching(dev):
     a = torch.zeros((2, 32, 32, 3), dtype=torch.uint8, device=dev)
     plane = torch.zeros((2, 32, 32), dtype=torch.uint8, device=dev)
     q = tk.jpeg_quant_table(90)
+    qs = [q, q]
     before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tk.dct8x8_quant_planes([plane, plane.cpu()], qs)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.dct8x8_quant_planes([plane, plane.transpose(1, 2)], qs)
+    with pytest.raises(TypeError):
+        tk.dct8x8_quant_planes([plane, plane.to(torch.int16)], qs)
+    with pytest.raises(TypeError):
+        tk.dct8x8_quant_planes([plane, plane.float()], qs)
+    with pytest.raises(ValueError, match="batch size"):
+        tk.dct8x8_quant_planes([plane, plane[:1]], qs)
+    with pytest.raises(ValueError, match="planes"):
+        tk.dct8x8_quant_planes([plane] * 4, [q] * 4)
     with pytest.raises(TypeError):
         tk.tile_maxdiff_pallas(a.float(), a.float())
     with pytest.raises(ValueError, match="contiguous"):
