@@ -28,7 +28,11 @@ which raises (and so exits non-zero) on failure:
    kernels also at frames larger than one tile with ragged edges, on a
    view whose base is not 16-byte aligned, at their largest C = 4 case
    (31 taps, d = 15) and in each compiled and the runtime-size
-   instantiation;
+   instantiation. The neural nets (cuDNN convs, no hand kernel): the
+   port's trained checkpoints style_stripes_64 and sr2x_64 on the card in
+   bfloat16 against the JAX package's goldens (tests/golden/, mean |d| <
+   2.0 and max <= 30, their tests' bar), and in float32 against the CPU
+   within 1e-4;
 4. CUDA-event times (median of 20 runs after warm-up) of each kernel, its
    plain version and, where one PyTorch call computes the same function
    (the separable blur's depthwise convolutions, the warp's grid_sample),
@@ -58,11 +62,20 @@ which raises (and so exits non-zero) on failure:
    (K5 and K6 without the entropy stage). Every index once and in order,
    K5 one launch and K6 one per batch where the leg runs them and no
    other kernel, and every payload (or dirty coefficient block) identical
-   to the same stream recomputed on the card with the plain versions;
+   to the same stream recomputed on the card with the plain versions.
+   Then the filters with no hand kernel, 64 frames each in full batches,
+   every launch count 0: style_transfer() (c 32, r 5, bf16) at 8 x 720 x
+   1280 (BASELINE configs[4]) and again with fast_convs=True (an A/B
+   row), super_resolution() (x2, bf16) at 8 x 540 x 960 (1080p out), and
+   equalize, clahe and canny at 16 x 1080 x 1920; every frame in order,
+   the first batch within 1 LSB of a direct filt.fn call on the card,
+   the classical ops' kept frames bit-exact to the CPU;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
-   (frames into a pinned slot, rows out of it); for the flow legs also a
-   torch.profiler window: the card's busy share and its kernels per batch.
+   (frames into a pinned slot, rows out of it); for the flow, style and
+   SR legs also a torch.profiler window: the card's busy share, its
+   device time and kernels per batch and the top kernels; for the style
+   and SR legs also their bound (FLOP at the bf16 tensor-core peak).
 
 Phase 2 also prints the static SASS of the stencil kernels' main-path
 instantiations, the warp kernels at C = 3 and 5 and the codec kernels'
@@ -70,10 +83,11 @@ uint8 instantiations (``cuobjdump -sass``: instruction count, opcode
 histogram, innermost loops); ``sass_of(path)`` does the same for any of
 those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
-times through its own wrappers.
+times through its own wrappers, ``neural_times_of(checkout)`` its style
+and SR batches' device times.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``,
-``{"stages": [...]}`` and ``{"kernels": [...]}`` lines, and as the last line
+``{"stages": [...]}``, ``{"neural_checks": {...}}`` and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -118,6 +132,23 @@ CODEC_SOURCE = "dvf_tpu_torch/csrc/codec.cu"
 # invert, batch 8, tile 32, JPEG quality 90, keyframe every 16 frames.
 WIRE_SIZE, WIRE_FRAMES, WIRE_BATCH, WIRE_TILE = 512, 160, 8, 32
 WIRE_QUALITY, WIRE_KEY = 90, 16
+# The neural filters and the rest of the registry (no hand kernel on their
+# path): style transfer at BASELINE configs[4] (720p, batch 8; the JAX
+# package's style_720p / style_fast_720p shape), ESPCN x2 at 540p batch 8
+# (its sr_fast_540p shape, 1080p out), equalize / clahe / canny at
+# MAIN_SHAPE. The style net also with fast_convs=True, as an A/B row.
+STYLE_SHAPE = (8, 720, 1280, 3)
+SR_SHAPE = (8, 540, 960, 3)
+REGISTRY_FRAMES = 64
+REGISTRY_LEGS = [("style_transfer", {}, STYLE_SHAPE),
+                 ("style_transfer", {"fast_convs": True}, STYLE_SHAPE),
+                 ("super_resolution", {}, SR_SHAPE),
+                 ("equalize", {}, MAIN_SHAPE),
+                 ("clahe", {}, MAIN_SHAPE),
+                 ("canny", {}, MAIN_SHAPE)]
+CLASSICAL = ("equalize", "clahe", "canny")
+# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet), FLOP/s.
+PEAK_BF16_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -317,6 +348,46 @@ def dct_times_of(checkout: str) -> None:
         log(f"dct times {line}")
 
 
+_NEURAL_TIMES = """
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("cs", {script!r})
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+import dvf_tpu_torch
+dev = torch.device("cuda", 0)
+for name, kw, shape in cs.REGISTRY_LEGS[:3]:
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
+    frames = torch.randint(0, 256, shape, dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0)).pin_memory()
+    eng.compile(shape)
+    eng.submit(frames).fetch()
+    x = frames.to(dev)
+    def step():
+        for _ in range(5):
+            eng._step(x, eng._state)
+    p = cs.profile_call(step, 5)
+    print(json.dumps(dict(checkout={checkout!r}, filter=cs.registry_label(name, kw),
+                          device_ms=p["device_ms_per_batch"],
+                          kernels=p["device_kernels_per_batch"],
+                          top=p["top_device_ms_per_batch"])))
+"""
+
+
+def neural_times_of(checkout: str) -> None:
+    """Print the device time per batch (torch.profiler) of a checkout's
+    style_transfer() (and with fast_convs=True) at STYLE_SHAPE and
+    super_resolution() at SR_SHAPE, the engine's on-card step alone (cast,
+    filter, cast back; no copies), through that checkout's own filters:
+    ``python3 -c 'import chip_smoke; chip_smoke.neural_times_of("old")'``."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NEURAL_TIMES.format(script=os.path.abspath(__file__),
+                                                    checkout=checkout)],
+        cwd=checkout, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"neural_times_of({checkout!r}) failed:\n{out.stderr}")
+    for line in out.stdout.splitlines():
+        log(f"neural times {line}")
+
+
 def _main_path_kernel(name: str) -> bool:
     # the C = 3 instantiations of K1 and K2, K3's at d = 5 (an older
     # K3 is one kernel), the warp kernels at C = 3 (final warp) and C = 5
@@ -371,18 +442,12 @@ def profiled_ms(fn, x, reps: int = REPS, match=None, between=None):
                 between()
             fn(x)
 
-    try:
-        p = profile_call(run, reps, match)
-    except NoDeviceTime:
-        # the profiler now and then loses a window's device records; the
-        # kernel's row counts the windows taken again (profile_retries)
-        log("profiler: no device time recorded; profiling the window again")
-        PROFILE_RETRIES[0] += 1
-        p = profile_call(run, reps, match)
+    p = profile_call(run, reps, match)
     return p["device_ms_per_batch"], p["device_kernels_per_batch"]
 
 
 PROFILE_RETRIES = [0]   # profiler windows taken again, over the run
+PROFILE_ATTEMPTS = 4    # windows tried before a kernel's time is given up
 
 
 class NoDeviceTime(AssertionError):
@@ -395,22 +460,30 @@ def profile_call(fn, per: int, match=None) -> dict:
     kernels and host wall, each per one of ``per`` units (batches), the
     share of the wall the card was busy, and the top device entries
     [name, ms, count] per unit. The profiler slows the host, so the share
-    errs low."""
+    errs low. The profiler now and then loses a window's device records
+    (twice in a row once): such a window is taken again, up to
+    PROFILE_ATTEMPTS in all, each retry counted in PROFILE_RETRIES (the
+    kernels' rows report them as profile_retries)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and (match is None or match in e.key)]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    if dev_ms <= 0:
-        raise NoDeviceTime("the profiler recorded no device time")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and (match is None or match in e.key)]
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        if dev_ms > 0:
+            break
+        if attempt == PROFILE_ATTEMPTS - 1:
+            raise NoDeviceTime("the profiler recorded no device time")
+        log("profiler: no device time recorded; profiling the window again")
+        PROFILE_RETRIES[0] += 1
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     return dict(device_busy_share=dev_ms / wall_ms, device_ms_per_batch=dev_ms / per,
                 device_kernels_per_batch=sum(e.count for e in dev) / per,
@@ -650,6 +723,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.extend(check_codec_kernels(dev, gen))
     torch.cuda.empty_cache()
+    neural_checks = check_neural(dev)
 
     # 5. the main paths
     legs = [("invert", {}, None, 1),
@@ -731,6 +805,13 @@ def main() -> int:
         for k, v in delta.items():
             launches[k] += v
         pipe_rows.append(row)
+    # the neural filters and the rest of the registry (no hand kernel)
+    registry_engines = {}
+    for name, kw, shape in REGISTRY_LEGS:
+        row, delta, eng = registry_leg(dev, name, kw, shape)
+        pipe_rows.append(row)
+        registry_engines[row["filter"]] = (eng, shape)
+        torch.cuda.empty_cache()
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -740,54 +821,25 @@ def main() -> int:
     stage_rows = []
     for name, kw, _, _ in legs:
         label = leg_label(name, kw)
-        shape = FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE
-        frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
-            *shape[1:], n_frames=shape[0], seed=0)][:-1]
-        inp = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        view = inp.numpy()
-        outs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-                for _ in range(2)]
-        t = time.perf_counter()
-        for _ in range(REPS):
-            for row, f in enumerate(frames):
-                view[row] = f
-        stage_ms = (time.perf_counter() - t) * 1e3 / REPS
-        t = time.perf_counter()
-        for _ in range(REPS):
-            rows_out = [outs[0].numpy()[i].copy() for i in range(shape[0])]
-        copy_out_ms = (time.perf_counter() - t) * 1e3 / REPS
-        del rows_out
-        eng = engines[label]
-        eng.submit(inp, out=outs[0]).fetch()
-        t = time.perf_counter()
-        prev = None
-        for i in range(REPS):
-            cur = eng.submit(inp, out=outs[i % 2])
-            if prev is not None:
-                prev.fetch()
-            prev = cur
-        prev.fetch()
-        engine_ms = (time.perf_counter() - t) * 1e3 / REPS
-        row = dict(filter=label, batch=shape[0], engine_ms_per_batch=engine_ms,
-                   staging_ms_per_batch=stage_ms, copy_out_ms_per_batch=copy_out_ms)
-        busy = ""
-        if name == "flow_warp":
-            n = 5   # batches back to back, each waited for
-            row.update(profile_call(lambda: [eng.submit(inp, out=outs[i % 2]).fetch()
-                                             for i in range(n)], n))
-            busy = (f"; profiled: device busy {row['device_busy_share']:.3f} of "
-                    f"the wall ({row['profiled_wall_ms_per_batch']:.2f} ms/batch "
-                    f"under the profiler), {row['device_ms_per_batch']:.2f} ms and "
-                    f"{row['device_kernels_per_batch']:.0f} device kernels per "
-                    f"batch; top [name, ms, count] per batch: "
-                    f"{json.dumps(row['top_device_ms_per_batch'])}")
-        log(f"stages {label}: engine alone {engine_ms:.2f} ms/batch "
-            f"({shape[0] * 1e3 / engine_ms:.1f} fps); host staging "
-            f"{stage_ms:.2f} ms, row copy-out {copy_out_ms:.2f} ms per batch{busy}")
+        stage_rows.append(stage_row(label, engines[label],
+                                    FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE,
+                                    profile=name == "flow_warp"))
+    for label, (eng, shape) in registry_engines.items():
+        row = stage_row(label, eng, shape, profile=label.startswith(
+            ("style_transfer", "super_resolution")))
+        if "device_ms_per_batch" in row:
+            flop, b_ms, b_by = net_bound(label, shape)
+            row.update(flop_per_batch=flop, bound_ms=b_ms, bound_by=b_by,
+                       share_of_bound=b_ms / row["device_ms_per_batch"])
+            log(f"bound {label} {shape}: {flop / 1e12:.4f} TFLOP per batch, "
+                f"bound {b_ms:.4f} ms ({b_by}, bf16 peak {PEAK_BF16_S / 1e12:.0f} "
+                f"TFLOP/s), share of bound {row['share_of_bound']:.3f} of the "
+                f"profiled device time")
         stage_rows.append(row)
 
     print(json.dumps({"pipeline": pipe_rows}))
     print(json.dumps({"stages": stage_rows}))
+    print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -795,8 +847,7 @@ def main() -> int:
 
 
 def leg_label(name: str, kw: dict) -> str:
-    args = ",".join(f"{k}={v!r}" for k, v in kw.items())
-    return f"{name}({args})" if name == "flow_warp" else name
+    return registry_label(name, kw) if name == "flow_warp" else name
 
 
 def check_warp(dev, gen) -> dict:
@@ -1451,6 +1502,233 @@ def flow_reference(frames, bsz: int, dev, inner: bool) -> np.ndarray:
             out.append(to_uint8(res).cpu().numpy())
             prev = batch[-1]
     return np.concatenate(out)
+
+
+def style_macs_per_pixel(c: int = 32, r: int = 5) -> int:
+    """Multiply-adds of the style net (reference lowering) per full-resolution
+    pixel: the stem 9x9 3->c; down1 3x3 c->2c at 1/2 and down2 2c->4c at 1/4
+    resolution; 2r 3x3 4c->4c trunk convs at 1/4; up1 3x3 4c->2c at 1/2 and
+    up2 2c->c at full resolution (after each x2 upsample); out 9x9 c->3.
+    153,792 at c = 32, r = 5."""
+    return (81 * 3 * c + 9 * c * 2 * c // 4 + 9 * 2 * c * 4 * c // 16
+            + 2 * r * 9 * 16 * c * c // 16 + 9 * 4 * c * 2 * c // 4
+            + 9 * 2 * c * c + 81 * c * 3)
+
+
+def espcn_macs_per_pixel(c1: int = 64, c2: int = 32, scale: int = 2) -> int:
+    """Multiply-adds of ESPCN per low-resolution pixel: feat 5x5 3->c1, map
+    3x3 c1->c2, head 3x3 c2->3r². 26,688 at the defaults."""
+    return 25 * 3 * c1 + 9 * c1 * c2 + 9 * c2 * 3 * scale * scale
+
+
+def net_bound(label: str, shape):
+    """(FLOP per batch, bound ms, bound_by) of a neural leg's batch: the
+    convs' multiply-adds x 2 at the bf16 tensor-core peak, against the
+    float32 batch read once and the float32 output written once."""
+    b, h, w, c = shape
+    if label.startswith("style_transfer"):
+        flop, out = 2 * style_macs_per_pixel() * b * h * w, b * h * w * c
+    else:
+        flop, out = 2 * espcn_macs_per_pixel() * b * h * w, 4 * b * h * w * c
+    t_ops = flop / PEAK_BF16_S * 1e3
+    t_bytes = (b * h * w * c + out) * 4 / PEAK_BYTES_S * 1e3
+    return flop, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _golden_diff(out, name: str) -> tuple:
+    """(mean, max) |Δ| of frame 0 of a [0, 1] output, as the reference's
+    golden tests make it uint8, against tests/golden/<name>."""
+    import torch
+
+    got = (torch.clamp(out, 0, 1)[0].cpu().numpy() * 255).astype(np.uint8)
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "golden", name))
+    diff = np.abs(got.astype(int) - golden.astype(int))
+    return float(diff.mean()), int(diff.max())
+
+
+def _filter_out(filt, x, device):
+    import torch
+
+    state = (filt.init_state(tuple(x.shape), torch.float32, device)
+             if filt.stateful else None)
+    with torch.no_grad():
+        return filt.fn(x.to(device), state)[0]
+
+
+def check_neural(dev) -> dict:
+    """Phase 3 for the neural filters (cuDNN convs, no hand kernel): the
+    port's trained checkpoints on the card against the JAX package's
+    goldens at their tests' bar (mean |Δ| < 2.0, max <= 30), and the
+    float32 nets on the card against the CPU within 1e-4 (the reference's
+    f32 bar)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.train import checkpoint as tc
+    from dvf_tpu_torch.train.sr import downscale_area, synthesize_structured_batch
+
+    style_dir = os.path.join(tc.CHECKPOINT_ROOT, "style_stripes_64")
+    sr_dir = os.path.join(tc.CHECKPOINT_ROOT, "sr2x_64")
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(64, 64, n_frames=4)][:4]
+    x_style = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
+    hr = torch.from_numpy(synthesize_structured_batch(
+        np.random.default_rng(12345), 8, 80)).to(dev).float() / 255.0
+    x_sr = downscale_area(hr, 2)
+    res = {}
+    for key, load, ckpt, x, golden in (
+            ("style_stripes_64", tc.load_style_filter, style_dir, x_style,
+             "style_demo_out.npy"),
+            ("sr2x_64", tc.load_sr_filter, sr_dir, x_sr, "sr_demo_out.npy")):
+        mean, mx = _golden_diff(_filter_out(load(ckpt), x, dev), golden)
+        log(f"check {key} (bfloat16) on the card vs {golden}: mean |d| {mean:.4f}, "
+            f"max {mx} (bar: mean < 2.0, max <= 30)")
+        if not (mean < 2.0 and mx <= 30):
+            raise AssertionError(f"{key} drifted from {golden}: mean {mean}, max {mx}")
+        f32 = load(ckpt, dtype="float32")
+        err = float((_filter_out(f32, x, dev).cpu()
+                     - _filter_out(f32, x, torch.device("cpu"))).abs().max())
+        log(f"check {key} (float32) card vs CPU: max abs err {err:.3e} (bar 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{key} float32 on the card differs from the CPU "
+                                 f"by {err}")
+        res[key] = dict(golden_mean_abs=mean, golden_max_abs=mx,
+                        f32_card_vs_cpu_max_abs_err=err)
+    return res
+
+
+def registry_label(name: str, kw: dict) -> str:
+    args = ",".join(f"{k}={v!r}" for k, v in kw.items())
+    return f"{name}({args})"
+
+
+def registry_leg(dev, name: str, kw: dict, shape):
+    """Phase 5 for a filter with no hand kernel: a Pipeline over
+    REGISTRY_FRAMES frames of SyntheticSource(seed=0) in full batches, the
+    launch counters zeroed just before and read just after (every count
+    must stay 0). Every frame once and in order; the first delivered batch
+    within 1 LSB of a direct ``filt.fn`` call on the card on the same
+    frames; for the classical ops the kept frames also bit-exact to the
+    same filter on the CPU. Returns (pipeline row, launch counts, engine)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    label = registry_label(name, kw)
+    n, bsz = REGISTRY_FRAMES, shape[0]
+    filt = dvf_tpu_torch.get_filter(name, **kw)
+    eng = dvf_tpu_torch.Engine(filt, device=dev)
+    eng.compile(shape)   # the first call's cuDNN set-up falls outside the run
+    keep = (0, 1, n // 2, n - 1)
+    order, kept = [], {}
+
+    def sink(i, f, _ts):
+        order.append(i)
+        if i < bsz or i in keep:
+            kept[i] = f
+
+    cfg = dvf_tpu_torch.PipelineConfig(batch_size=bsz, queue_size=n + 1,
+                                       assemble_timeout_s=60.0)
+    src = dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n, seed=0)
+    tk.reset_launches()
+    stats = dvf_tpu_torch.Pipeline(src, filt, dvf_tpu_torch.CallbackSink(sink), cfg,
+                                   engine=eng).run()
+    delta = dict(tk.LAUNCHES)
+    if order != list(range(n)) or stats["delivered"] != n:
+        raise AssertionError(f"{label}: delivered {stats['delivered']} of {n}, in "
+                             f"order: {order == sorted(order)}")
+    if stats["engine_batches"] != n // bsz:
+        raise AssertionError(f"{label}: {stats['engine_batches']} batches, want "
+                             f"{n // bsz} full ones")
+    if any(delta.values()):
+        raise AssertionError(f"{label}: launched a hand kernel: {delta}")
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *shape[1:], n_frames=n, seed=0)][:-1]
+    x = torch.from_numpy(np.stack(frames[:bsz])).to(dev)
+    direct = to_uint8(_filter_out(filt, x if filt.uint8_ok else to_float(x), dev))
+    got = np.stack([kept[i] for i in range(bsz)])
+    lsb = max_lsb(got, direct.cpu().numpy())
+    if lsb > 1:
+        raise AssertionError(f"{label}: the first batch differs from a direct call "
+                             f"by {lsb} LSB")
+    extra, cpu_note = {}, ""
+    if name in CLASSICAL:
+        cpu = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw),
+                                   device="cpu").submit(
+            np.stack([frames[i] for i in keep])).fetch()
+        n_diff = int((np.stack([kept[i] for i in keep]) != cpu).sum())
+        if n_diff:
+            raise AssertionError(f"{label}: {n_diff} bytes of the kept frames differ "
+                                 f"from the CPU")
+        extra = dict(bytes_differing_from_cpu=0, out_mean=float(cpu.mean()))
+        cpu_note = f"; kept frames {keep} bit-exact to the CPU"
+    log(f"pipeline {label}: {stats['delivered']} frames {list(shape[1:])} -> "
+        f"{list(eng.out_shape[1:])}, {stats['engine_batches']} batches, "
+        f"{stats['fps']:.1f} fps, p50 {stats['p50_ms']:.2f} ms, p99 "
+        f"{stats['p99_ms']:.2f} ms, launches {delta}, first batch max {lsb} LSB vs "
+        f"a direct call{cpu_note}")
+    row = dict(filter=label, frames=n, batch=bsz, geometry=list(shape[1:]),
+               out_geometry=list(eng.out_shape[1:]), fps=stats["fps"],
+               p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"], launches=delta,
+               max_lsb_vs_direct=lsb, **extra)
+    return row, delta, eng
+
+
+def stage_row(label: str, eng, shape, profile: bool) -> dict:
+    """Phase 6 for one leg: the engine alone (pinned H2D, filter, D2H, back
+    to back) against the host copies the pipeline adds (frames into a
+    pinned slot, rows out of it); with ``profile`` also a torch.profiler
+    window over batches each waited for: the card's busy share, device ms
+    and kernels per batch, the top device kernels."""
+    import torch
+
+    import dvf_tpu_torch
+
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *shape[1:], n_frames=shape[0], seed=0)][:-1]
+    inp = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    view = inp.numpy()
+    outs = [torch.empty(eng.out_shape, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    t = time.perf_counter()
+    for _ in range(REPS):
+        for row, f in enumerate(frames):
+            view[row] = f
+    stage_ms = (time.perf_counter() - t) * 1e3 / REPS
+    t = time.perf_counter()
+    for _ in range(REPS):
+        rows_out = [outs[0].numpy()[i].copy() for i in range(shape[0])]
+    copy_out_ms = (time.perf_counter() - t) * 1e3 / REPS
+    del rows_out
+    eng.submit(inp, out=outs[0]).fetch()
+    t = time.perf_counter()
+    prev = None
+    for i in range(REPS):
+        cur = eng.submit(inp, out=outs[i % 2])
+        if prev is not None:
+            prev.fetch()
+        prev = cur
+    prev.fetch()
+    engine_ms = (time.perf_counter() - t) * 1e3 / REPS
+    row = dict(filter=label, batch=shape[0], engine_ms_per_batch=engine_ms,
+               staging_ms_per_batch=stage_ms, copy_out_ms_per_batch=copy_out_ms)
+    busy = ""
+    if profile:
+        n = 5   # batches back to back, each waited for
+        row.update(profile_call(lambda: [eng.submit(inp, out=outs[i % 2]).fetch()
+                                         for i in range(n)], n))
+        busy = (f"; profiled: device busy {row['device_busy_share']:.3f} of "
+                f"the wall ({row['profiled_wall_ms_per_batch']:.2f} ms/batch "
+                f"under the profiler), {row['device_ms_per_batch']:.2f} ms and "
+                f"{row['device_kernels_per_batch']:.0f} device kernels per "
+                f"batch; top [name, ms, count] per batch: "
+                f"{json.dumps(row['top_device_ms_per_batch'])}")
+    log(f"stages {label}: engine alone {engine_ms:.2f} ms/batch "
+        f"({shape[0] * 1e3 / engine_ms:.1f} fps); host staging "
+        f"{stage_ms:.2f} ms, row copy-out {copy_out_ms:.2f} ms per batch{busy}")
+    return row
 
 
 if __name__ == "__main__":

@@ -13,3 +13,7 @@ from dvf_tpu_torch.ops import bilateral  # noqa: F401,E402
 from dvf_tpu_torch.ops import chains  # noqa: F401,E402
 from dvf_tpu_torch.ops import flow  # noqa: F401,E402
 from dvf_tpu_torch.ops import kernels  # noqa: F401,E402
+from dvf_tpu_torch.ops import style  # noqa: F401,E402
+from dvf_tpu_torch.ops import sr  # noqa: F401,E402
+from dvf_tpu_torch.ops import histogram  # noqa: F401,E402
+from dvf_tpu_torch.ops import canny  # noqa: F401,E402

@@ -4,8 +4,10 @@ A registered factory is ``factory(**config) -> Filter``; one op name covers
 a config family (``gaussian_blur(ksize=9, sigma=2.0)``). The names are the
 reference package's, so an op-chain string means the same in both.
 
-The port has no measured per-backend defaults yet: where a filter has a
-hand-written kernel, ``impl=None`` resolves to it (see each factory).
+Where a filter has a hand-written kernel, ``impl=None`` resolves to it
+(see each factory). The neural filters' exact conv rewrites resolve
+through :data:`MEASURED_DEFAULTS`, which holds a backend's winner only
+from a committed A/B run of the port on that backend.
 """
 
 from __future__ import annotations
@@ -40,3 +42,34 @@ def get_filter(name: str, **config) -> Filter:
 
 def list_filters() -> List[str]:
     return sorted(_REGISTRY)
+
+
+# Measured per-backend defaults of the port. ``winners`` maps a backend
+# ("cuda", "cpu") to the impl label its committed A/B picked; a backend
+# without one takes ``fallback``. No TPU winner of the JAX package carries
+# over, and no port A/B has been committed yet, so both keys run the
+# reference lowering ("ref") everywhere.
+#   comparison    — the A/B it is decided by (the JAX package's name)
+#   label_to_impl — A/B labels → the factory's choice
+MEASURED_DEFAULTS = {
+    "style_fast": {
+        "comparison": "style_fast_720p",
+        "winners": {},
+        "fallback": "ref",
+        "label_to_impl": {"ref": "ref", "fast": "fast"},
+    },
+    "espcn_fast": {
+        "comparison": "sr_fast_540p",
+        "winners": {},
+        "fallback": "ref",
+        "label_to_impl": {"ref": "ref", "fast": "fast"},
+    },
+}
+
+
+def measured_default_for(key: str, backend: str = "cuda") -> str:
+    """The measured winner of ``MEASURED_DEFAULTS[key]`` on ``backend``
+    (the port's entry points run on "cuda" unless told otherwise), else
+    its fallback."""
+    entry = MEASURED_DEFAULTS[key]
+    return entry["winners"].get(backend, entry["fallback"])

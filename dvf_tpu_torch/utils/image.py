@@ -40,6 +40,15 @@ def rgb_to_gray(frame: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     return gray[..., None] if keepdims else gray
 
 
+def center_crop(frame: torch.Tensor, size: int) -> torch.Tensor:
+    """Center-crop (..., H, W, C) to (..., size, size, C), the reference
+    app's crop of the 1280x720 capture to ``target_size``²."""
+    h, w = frame.shape[-3], frame.shape[-2]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return frame[..., top:top + size, left:left + size, :]
+
+
 def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Resize float NHWC ``x`` to ``size`` = (h, w): the counterpart of
     ``jax.image.resize(x, (b, h, w, c), method="linear")``.

@@ -358,3 +358,121 @@ def test_engine_runs_the_kernels_on_cuda(dev):
         want = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name),
                                     device="cpu").submit(frames).fetch()
         assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+
+
+# --------------------------------------------------------- neural filters
+# No hand kernel runs here (cuDNN convs, torch ops): these hold the card's
+# output to the trained checkpoints' goldens and to the CPU.
+
+GOLDEN = __import__("pathlib").Path(__file__).resolve().parent / "golden"
+
+
+def _run_filter(filt, x, device):
+    state = (filt.init_state(tuple(x.shape), torch.float32, device)
+             if filt.stateful else None)
+    with torch.no_grad():
+        return filt.fn(x.to(device), state)[0]
+
+
+def test_style_checkpoint_meets_golden_on_the_card(dev):
+    """tests/test_style_demo.py's golden frame on the card, bf16, at the
+    reference's bar (mean |Δ| < 2.0, max <= 30)."""
+    import os
+
+    from dvf_tpu_torch.train.checkpoint import CHECKPOINT_ROOT, load_style_filter
+
+    filt = load_style_filter(os.path.join(CHECKPOINT_ROOT, "style_stripes_64"))
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(64, 64, n_frames=4)][:4]
+    x = torch.from_numpy(np.stack(frames)).float() / 255.0
+    out = _run_filter(filt, x, dev)
+    assert out.device == dev
+    got = (torch.clamp(out, 0, 1)[0].cpu().numpy() * 255).astype(np.uint8)
+    diff = np.abs(got.astype(int) - np.load(GOLDEN / "style_demo_out.npy").astype(int))
+    assert diff.mean() < 2.0 and diff.max() <= 30, (diff.mean(), diff.max())
+
+
+def test_sr_checkpoint_meets_golden_on_the_card(dev):
+    import os
+
+    from dvf_tpu_torch.train.checkpoint import CHECKPOINT_ROOT, load_sr_filter
+    from dvf_tpu_torch.train.sr import downscale_area, synthesize_structured_batch
+
+    filt = load_sr_filter(os.path.join(CHECKPOINT_ROOT, "sr2x_64"))
+    hr = torch.from_numpy(synthesize_structured_batch(
+        np.random.default_rng(12345), 8, 80)).to(dev).float() / 255.0
+    out = _run_filter(filt, downscale_area(hr, 2), dev)
+    got = (torch.clamp(out, 0, 1)[0].cpu().numpy() * 255).astype(np.uint8)
+    diff = np.abs(got.astype(int) - np.load(GOLDEN / "sr_demo_out.npy").astype(int))
+    assert diff.mean() < 2.0 and diff.max() <= 30, (diff.mean(), diff.max())
+
+
+@pytest.mark.parametrize("name,ckpt,kw", [
+    ("style", "style_stripes_64", {}),
+    ("style", "style_stripes_64", {"fast_convs": True}),
+    ("sr", "sr2x_64", {}),
+    ("sr", "sr2x_64", {"fast_convs": True}),
+])
+def test_float32_nets_on_the_card_match_the_cpu(dev, name, ckpt, kw):
+    """dtype="float32" means float32 on the card too (no TF32): within 1e-4
+    of the CPU, the reference's own f32 bar."""
+    import os
+
+    from dvf_tpu_torch.train import checkpoint as tc
+
+    load = tc.load_style_filter if name == "style" else tc.load_sr_filter
+    filt = load(os.path.join(tc.CHECKPOINT_ROOT, ckpt), dtype="float32", **kw)
+    x = torch.from_numpy(np.random.default_rng(7).random((2, 48, 64, 3),
+                                                         dtype=np.float32))
+    torch.backends.cudnn.allow_tf32 = True   # the filter must turn it off itself
+    try:
+        got = _run_filter(filt, x, dev).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = _run_filter(filt, x, torch.device("cpu"))
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("equalize", {}), ("equalize", {"on_gray": True}), ("clahe", {}),
+    ("clahe", {"grid": 5, "clip_limit": 1.0}), ("canny", {}),
+    ("upscale", {"scale": 2}),
+])
+def test_classical_ops_on_the_card_are_bit_exact(dev, name, cfg):
+    """The card's bytes are the CPU's (which the CPU tests hold to the JAX
+    package's) at a ragged geometry."""
+    frames = np.random.default_rng(8).integers(0, 256, (3, 45, 71, 3), np.uint8)
+    frames[:, 10:30, 20:50] //= 3           # structure for canny's edges
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **cfg))
+    assert eng.device == dev
+    got = eng.submit(frames).fetch()
+    want = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **cfg),
+                                device="cpu").submit(frames).fetch()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("style_transfer", {"base_channels": 8, "n_residual": 2}),
+    ("style_transfer", {"base_channels": 8, "n_residual": 2, "fast_convs": True,
+                        "parallel": "pp"}),
+    ("style_transfer", {"base_channels": 8, "n_residual": 2, "dtype": "float32"}),
+    ("super_resolution", {}),
+    ("super_resolution", {"fast_convs": True}),
+    ("upscale", {"scale": 2}),
+])
+def test_neural_forward_never_waits_on_the_host(dev, name, cfg):
+    """After a warm-up batch, the nets' forward runs under CUDA's sync
+    debug mode set to raise: no index or constant crosses from the host,
+    so the engine's host thread can run ahead of the card."""
+    filt = dvf_tpu_torch.get_filter(name, **cfg)
+    x = torch.rand((2, 36, 52, 3), device=dev)
+    state = filt.init_state(tuple(x.shape), torch.float32, dev) if filt.stateful else None
+    filt.fn(x, state)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out, _ = filt.fn(x, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device == dev and torch.isfinite(out).all()

@@ -39,6 +39,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert res["bad"] == []
     assert "dvf_tpu_torch.ops.kernels" in res["imported"]
     assert "dvf_tpu_torch.runtime.pipeline" in res["imported"]
+    assert {"dvf_tpu_torch.models.style_transfer", "dvf_tpu_torch.models.espcn",
+            "dvf_tpu_torch.train.checkpoint", "dvf_tpu_torch.ops.histogram",
+            "dvf_tpu_torch.ops.canny"} <= set(res["imported"])
 
 
 _FORBIDDEN = re.compile(

@@ -118,6 +118,41 @@ def test_flow_warp_pipeline_matches_reference(warp_impl):
     assert any(not np.array_equal(got[i], frames[i]) for i in range(8, 20))
 
 
+@pytest.mark.parametrize("name,cfg,scale", [
+    ("style_transfer", {"base_channels": 8, "n_residual": 2}, 1),
+    ("super_resolution", {}, 2),
+], ids=["style_transfer", "super_resolution"])
+def test_neural_filter_pipeline_delivers_in_order(name, cfg, scale):
+    """The neural filters end to end on the CPU (batch 2, 32x32 frames):
+    every frame once and in order, SR at twice the geometry, each frame
+    what a direct ``filt.fn`` call gives for its batch (the weights are
+    the filter's state; full batches: the assembler waits for them)."""
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    filt = dvf_tpu_torch.get_filter(name, **cfg)
+    src = SyntheticSource(32, 32, n_frames=8, seed=0)
+    frames = [f for f, _ in SyntheticSource(32, 32, n_frames=8, seed=0)][:-1]
+    got, order = {}, []
+
+    def keep(i, f, _ts):
+        order.append(i)
+        got[i] = f
+
+    stats = Pipeline(src, filt, CallbackSink(keep),
+                     PipelineConfig(batch_size=2, queue_size=100,
+                                    assemble_timeout_s=60.0), device="cpu").run()
+    assert order == list(range(8)) and stats["delivered"] == 8
+    assert stats["engine_batches"] == 4
+    state = filt.init_state((2, 32, 32, 3), torch.float32, torch.device("cpu"))
+    for s in range(0, 8, 2):
+        x = to_float(torch.from_numpy(np.stack(frames[s:s + 2])))
+        with torch.no_grad():
+            want = to_uint8(filt.fn(x, state)[0]).numpy()
+        for j in range(2):
+            assert got[s + j].shape == (32 * scale, 32 * scale, 3)
+            np.testing.assert_array_equal(got[s + j], want[j])
+
+
 def test_pipeline_pads_short_batch_and_keeps_rows():
     """A stream that is no multiple of the batch: the short last batch is
     padded and its padding dropped; delivered rows survive the reuse of
@@ -232,6 +267,24 @@ def test_no_device_means_cuda_and_never_the_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("name", ["style_transfer", "super_resolution", "upscale",
+                                  "equalize", "clahe", "canny"])
+def test_new_filters_run_on_cuda_unless_told(monkeypatch, name):
+    """The neural and histogram/canny filters go through the same entry
+    points: no device means cuda:0, which raises where there is none;
+    device="cpu" runs them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(dvf_tpu_torch.get_filter(name))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pipeline(SyntheticSource(8, 8, n_frames=1), dvf_tpu_torch.get_filter(name),
+                 NullSink())
+    frames = np.random.default_rng(1).integers(0, 256, (1, 8, 8, 3), np.uint8)
+    eng = Engine(dvf_tpu_torch.get_filter(name), device="cpu")
+    assert eng.device == torch.device("cpu")
+    assert eng.submit(frames).fetch().dtype == np.uint8
 
 
 def test_pipeline_refuses_engine_on_another_device():
