@@ -46,20 +46,38 @@ which raises (and so exits non-zero) on failure:
    SM clock and power draw read right after the timing loop, and the
    device time of a plain copy of the same batch (a practical floor);
 5. the main paths, each driven with the launch counters set to 0 just
-   before and read just after: 1080p batch-16 Pipelines for invert,
-   gaussian_blur(k=9), bilateral and sobel_bilateral, and 720p batch-4
+   before and read just after. First each leg engine's compile-time
+   calibrations (h2d_block_ms, d2h_block_ms, step_block_ms,
+   last_compile_ms) and, on the gaussian_blur engine, its other entries:
+   submit_resident and run_probe byte-identical to submit, run_probe
+   refusing flow_warp, out_uint8=False within 1e-5 of the plain float
+   version. Then 1080p batch-16 Pipelines for invert,
+   gaussian_blur(k=9), bilateral and sobel_bilateral, each with ingest and
+   egress "streamed" (the default) and again "monolithic", the delivered
+   frames byte-identical between the two, each run's ingest/egress stats
+   printed (mode, fallback reason, overlap efficiency, pool allocations,
+   stage/put/wait/copy ms); on the streamed invert leg the cudaMalloc
+   segments and pinned host allocations read at the sink after batch 3
+   and after the run must agree; and 720p batch-4
    Pipelines for flow_warp() and flow_warp(inner_warp="pallas"), all with
    impl=None (the kernels). Every kernel of a leg must have launched its
    expected count per batch and no other kernel at all; frames must come
    in order, all of them, within 1 LSB of the plain version (for the flow
    legs: of the same stream computed on the card with the plain warp, the
-   state carried across the same batches). Then the delta-wire worker on
+   state carried across the same batches). Then a resilient 1080p invert
+   leg under a seeded FaultPlan (three h2d and three d2h raises, fault
+   budget 2): both sides must degrade to monolithic with their reasons,
+   the other 96 frames delivered in order and exact; and the
+   gaussian_blur leg traced (trace=True), its per-batch spans
+   ingest_stage, ingest_h2d, ingest_overlap, egress_d2h and
+   batch_complete printed. Then the delta-wire worker on
    160 frames of SyntheticSource(512, 512, motion="block"), invert, batch
    8, tile 32, q90, keyframe every 16: its batch step driven without
    sockets (ZmqWorker(connect=False)), codec_assist "full" and "probe" on
    the JPEG delta wire where libjpeg is present; where it is not, "probe"
    on the raw-inner delta wire and an Engine -> FusedDeltaTransform leg
-   (K5 and K6 without the entropy stage). Every index once and in order,
+   (K5 and K6 without the entropy stage), ingest and egress at their
+   defaults (the modes the card picks printed). Every index once and in order,
    K5 one launch and K6 one per batch where the leg runs them and no
    other kernel, and every payload (or dirty coefficient block) identical
    to the same stream recomputed on the card with the plain versions.
@@ -87,7 +105,8 @@ times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``,
-``{"stages": [...]}``, ``{"neural_checks": {...}}`` and ``{"kernels": [...]}`` lines, and as the last line
+``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -95,6 +114,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -738,68 +758,39 @@ def main() -> int:
         eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw))
         eng.compile(FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE)
         engines[leg_label(name, kw)] = eng
-    keep = (0, 1, N_FRAMES // 2, N_FRAMES - 1)
+        log_calibration(leg_label(name, kw), eng)
+    engine_checks = check_engine_entries(dev, engines["gaussian_blur"])
     pipe_rows = []
     launches = {k: 0 for k in tk.LAUNCHES}
     for name, kw, counter, per_batch in legs:
         label = leg_label(name, kw)
         flow = name == "flow_warp"
-        shape, n = (FLOW_SHAPE, FLOW_FRAMES) if flow else (MAIN_SHAPE, N_FRAMES)
-        # Flow legs wait for full batches, so the reference below cuts the
-        # stream where the pipeline did.
-        cfg = dvf_tpu_torch.PipelineConfig(
-            batch_size=shape[0], queue_size=n + 1,
-            assemble_timeout_s=60.0 if flow else 0.01)
-        order, kept = [], {}
-
-        def sink(i, f, _ts):
-            order.append(i)
-            if flow or i in keep:
-                kept[i] = f
-
-        src = dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n, seed=0)
-        tk.reset_launches()
-        stats = dvf_tpu_torch.Pipeline(src, engines[label].filter,
-                                       dvf_tpu_torch.CallbackSink(sink), cfg,
-                                       engine=engines[label]).run()
-        delta = dict(tk.LAUNCHES)
-        for k, v in delta.items():
-            launches[k] += v
-        if order != list(range(n)) or stats["delivered"] != n:
-            raise AssertionError(f"{label}: delivered {stats['delivered']} of "
-                                 f"{n}, in order: {order == sorted(order)}")
-        want_delta = {k: (stats["engine_batches"] * per_batch if k == counter else 0)
-                      for k in delta}
-        if delta != want_delta:
-            raise AssertionError(f"{label}: launches {delta}, want {want_delta}")
-        frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
-            *shape[1:], n_frames=n, seed=0)][:-1]
-        if flow:
-            if stats["engine_batches"] != n // shape[0]:
-                raise AssertionError(f"{label}: {stats['engine_batches']} batches, "
-                                     f"want {n // shape[0]} full ones")
-            want = flow_reference(frames, shape[0], dev,
-                                  inner=kw.get("inner_warp") == "pallas")
-            got = np.stack([kept[i] for i in range(n)])
-            if not np.array_equal(got[:shape[0]], want[:shape[0]]):
-                raise AssertionError(f"{label}: the first batch did not pass through")
-        else:
-            x = torch.from_numpy(np.stack([frames[i] for i in keep])).to(dev)
-            plain = plain_of.get(counter, lambda v: 1.0 - v)  # invert: no kernel
-            want = to_uint8(plain(to_float(x))).cpu().numpy()
-            got = np.stack([kept[i] for i in keep])
-        lsb = max_lsb(got, want)
-        if lsb > 1:
-            raise AssertionError(f"{label}: delivered frames differ from the "
-                                 f"plain version by {lsb} LSB")
-        log(f"pipeline {label}: {stats['delivered']} frames, {stats['engine_batches']} "
-            f"batches, {stats['fps']:.1f} fps, p50 {stats['p50_ms']:.2f} ms, "
-            f"p99 {stats['p99_ms']:.2f} ms, launches {delta}, max {lsb} LSB vs plain")
-        pipe_rows.append(dict(filter=label, frames=n, batch=shape[0],
-                              geometry=list(shape[1:]), fps=stats["fps"],
-                              p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
-                              launches=delta, max_lsb_vs_plain=lsb))
-        del kept, got, want, frames
+        got = {}
+        for mode in ("streamed",) if flow else ("streamed", "monolithic"):
+            row, delta, got[mode] = pipeline_leg(
+                dev, engines[label], name, kw, counter, per_batch, mode,
+                plain_of, steady=label == "invert" and mode == "streamed")
+            for k, v in delta.items():
+                launches[k] += v
+            pipe_rows.append(row)
+        if not flow:
+            n_diff = sum(not np.array_equal(got["streamed"][i], got["monolithic"][i])
+                         for i in range(N_FRAMES))
+            if n_diff:
+                raise AssertionError(f"{label}: {n_diff} delivered frames differ "
+                                     f"between streamed and monolithic")
+            log(f"pipeline {label}: all {N_FRAMES} delivered frames byte-identical "
+                f"between ingest/egress streamed and monolithic")
+            pipe_rows[-1]["frames_differing_from_streamed"] = 0
+        del got
+    row, delta = resilient_leg(dev)
+    for k, v in delta.items():
+        launches[k] += v
+    pipe_rows.append(row)
+    row, delta = traced_leg(dev, engines["gaussian_blur"])
+    for k, v in delta.items():
+        launches[k] += v
+    pipe_rows.append(row)
     # the delta-wire worker's legs (K5, K6)
     for row, delta in wire_legs(dev, env["libjpeg"]):
         for k, v in delta.items():
@@ -825,6 +816,7 @@ def main() -> int:
                                     FLOW_SHAPE if name == "flow_warp" else MAIN_SHAPE,
                                     profile=name == "flow_warp"))
     for label, (eng, shape) in registry_engines.items():
+        log_calibration(label, eng)
         row = stage_row(label, eng, shape, profile=label.startswith(
             ("style_transfer", "super_resolution")))
         if "device_ms_per_batch" in row:
@@ -840,6 +832,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
+    print(json.dumps({"engine_checks": engine_checks}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -848,6 +841,352 @@ def main() -> int:
 
 def leg_label(name: str, kw: dict) -> str:
     return registry_label(name, kw) if name == "flow_warp" else name
+
+
+def log_calibration(label: str, eng) -> None:
+    """The engine's compile-time calibrations (Engine.compile) and what
+    the reference's streaming gates (MIN_STREAM_H2D_MS / _D2H_MS) pick
+    from them on this card."""
+    from dvf_tpu_torch.runtime import egress, ingest
+
+    def pick(cal, gate):
+        return "streamed" if cal is None or cal >= gate else "monolithic (cheap_transfer)"
+
+    log(f"calibration {label} {eng.signature[0]}: h2d_block_ms {eng.h2d_block_ms}, "
+        f"d2h_block_ms {eng.d2h_block_ms}, step_block_ms {eng.step_block_ms}, "
+        f"last_compile_ms {eng.last_compile_ms}; the {ingest.MIN_STREAM_H2D_MS} ms "
+        f"gates pick ingest {pick(eng.h2d_block_ms, ingest.MIN_STREAM_H2D_MS)}, "
+        f"egress {pick(eng.d2h_block_ms, egress.MIN_STREAM_D2H_MS)}")
+
+
+@contextlib.contextmanager
+def gates_open():
+    """Streamed ingest and egress whatever the calibrations: the 1080p
+    batch crosses the host link in about the gates' 2.0 ms, so with them
+    the card's pick flips from run to run (the calibration lines show
+    it); the streamed legs set both to 0, as the CPU tests do."""
+    from dvf_tpu_torch.runtime import egress, ingest
+
+    saved = ingest.MIN_STREAM_H2D_MS, egress.MIN_STREAM_D2H_MS
+    ingest.MIN_STREAM_H2D_MS = egress.MIN_STREAM_D2H_MS = 0.0
+    try:
+        yield
+    finally:
+        ingest.MIN_STREAM_H2D_MS, egress.MIN_STREAM_D2H_MS = saved
+
+
+def check_engine_entries(dev, eng) -> dict:
+    """The engine's other entries on one stateless main-path engine
+    (gaussian_blur at MAIN_SHAPE): submit_resident byte-identical to
+    submit; run_probe byte-identical to submit; run_probe refusing
+    flow_warp; out_uint8=False against the plain float version (TOL)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+    from dvf_tpu_torch.utils.image import to_float
+
+    frames = np.stack([f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *MAIN_SHAPE[1:], n_frames=MAIN_SHAPE[0], seed=1)][:-1])
+    want = eng.submit(frames).fetch().copy()
+    res = eng.submit_resident(torch.from_numpy(frames).to(dev))
+    resident_diff = int((res.device.cpu().numpy() != want).sum())
+    probe_diff = int((eng.run_probe(frames) != want).sum())
+    flow = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("flow_warp"))
+    flow.compile(FLOW_SHAPE)
+    try:
+        flow.run_probe(np.zeros(FLOW_SHAPE, np.uint8))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    f32 = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9),
+                               out_uint8=False)
+    got = f32.submit(frames).fetch()
+    k9 = gaussian_kernel_1d(9, 0.0)
+    x = to_float(torch.from_numpy(frames).to(dev))
+    f32_err = float(np.abs(got - sep_conv2d(x, k9, k9, impl="shift").cpu().numpy()).max())
+    out = dict(submit_resident_bytes_differing=resident_diff,
+               run_probe_bytes_differing=probe_diff,
+               run_probe_refuses_flow_warp=refused,
+               out_uint8_false_dtype=str(got.dtype), out_uint8_false_max_abs_err=f32_err)
+    log(f"engine entries gaussian_blur {MAIN_SHAPE}: {json.dumps(out)}")
+    if resident_diff or probe_diff or refused is None or got.dtype != np.float32 \
+            or not f32_err <= TOL:
+        raise AssertionError(f"engine entries: {out}")
+    return out
+
+
+def alloc_counts() -> dict:
+    """cudaMalloc segments and, where this torch has them, the pinned host
+    allocator's counters."""
+    import torch
+
+    ms = torch.cuda.memory_stats()
+    out = {"device_segments_allocated": ms.get("segment.all.allocated", 0),
+           "device_alloc_retries": ms.get("num_alloc_retries", 0)}
+    hs = getattr(torch.cuda, "host_memory_stats", None)
+    if hs is not None:
+        h = hs()
+        for k in ("num_host_alloc", "allocations.allocated", "allocation.allocated",
+                  "allocation.all.allocated", "segment.allocated"):
+            if k in h:
+                out[f"host_{k}"] = h[k]
+    return out
+
+
+def pipeline_leg(dev, eng, name: str, kw: dict, counter, per_batch: int, mode: str,
+                 plain_of: dict, steady: bool = False):
+    """One main-path Pipeline leg with ingest and egress ``mode``, the
+    launch counters zeroed just before and read just after. Every frame
+    once and in order, within 1 LSB of the plain version (the flow legs:
+    the first batch passed through and the stream within 1 LSB of the
+    plain recomputation); the 1080p legs return every delivered frame for
+    the byte comparison between modes. ``steady``: the allocator counters
+    read at the sink after the third batch and after the run must agree
+    (no device segment, no pinned host allocation in steady state)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    label = leg_label(name, kw)
+    flow = name == "flow_warp"
+    shape, n = (FLOW_SHAPE, FLOW_FRAMES) if flow else (MAIN_SHAPE, N_FRAMES)
+    # Flow legs wait for full batches, so the reference below cuts the
+    # stream where the pipeline did.
+    cfg = dvf_tpu_torch.PipelineConfig(
+        batch_size=shape[0], queue_size=n + 1, ingest=mode, egress=mode,
+        assemble_timeout_s=60.0 if flow else 0.01)
+    order, kept, counts = [], {}, {}
+    at = 3 * shape[0]
+
+    def sink(i, f, _ts):
+        order.append(i)
+        kept[i] = f     # a copy (pooled slab rows) or a view of a fresh array
+        if steady and i == at:
+            torch.cuda.synchronize()
+            counts["after_3_batches"] = alloc_counts()
+
+    src = dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n, seed=0)
+    b0 = eng.stats.batches   # the engine also served earlier legs
+    tk.reset_launches()
+    pipe = dvf_tpu_torch.Pipeline(src, eng.filter, dvf_tpu_torch.CallbackSink(sink),
+                                  cfg, engine=eng)
+    with gates_open() if mode == "streamed" else contextlib.nullcontext():
+        stats = pipe.run()
+    delta = dict(tk.LAUNCHES)
+    batches = eng.stats.batches - b0
+    if steady:
+        torch.cuda.synchronize()
+        counts["after_run"] = alloc_counts()
+    if order != list(range(n)) or stats["delivered"] != n:
+        raise AssertionError(f"{label} [{mode}]: delivered {stats['delivered']} of "
+                             f"{n}, in order: {order == sorted(order)}")
+    want_delta = {k: (batches * per_batch if k == counter else 0) for k in delta}
+    if delta != want_delta:
+        raise AssertionError(f"{label} [{mode}]: launches {delta}, want {want_delta}")
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *shape[1:], n_frames=n, seed=0)][:-1]
+    keep = (0, 1, n // 2, n - 1)
+    if flow:
+        if batches != n // shape[0]:
+            raise AssertionError(f"{label}: {batches} batches, "
+                                 f"want {n // shape[0]} full ones")
+        want = flow_reference(frames, shape[0], dev,
+                              inner=kw.get("inner_warp") == "pallas")
+        got = np.stack([kept[i] for i in range(n)])
+        if not np.array_equal(got[:shape[0]], want[:shape[0]]):
+            raise AssertionError(f"{label}: the first batch did not pass through")
+    else:
+        x = torch.from_numpy(np.stack([frames[i] for i in keep])).to(dev)
+        plain = plain_of.get(counter, lambda v: 1.0 - v)  # invert: no kernel
+        want = to_uint8(plain(to_float(x))).cpu().numpy()
+        got = np.stack([kept[i] for i in keep])
+    lsb = max_lsb(got, want)
+    if lsb > 1:
+        raise AssertionError(f"{label} [{mode}]: delivered frames differ from the "
+                             f"plain version by {lsb} LSB")
+    ing, egr = stats.get("ingest", {}), stats.get("egress", {})
+    io = {k: {f: d.get(f) for f in (
+        "mode", "fallback_reason", "overlap_efficiency", "pool_allocs", "stage_ms",
+        "h2d_put_ms", "h2d_wait_ms", "h2d_block_ms", "d2h_wait_ms", "copy_ms",
+        "d2h_block_ms") if f in d} for k, d in (("ingest", ing), ("egress", egr))}
+    for k in ("ingest", "egress"):
+        if io[k].get("mode") == "streamed" and io[k].get("pool_allocs") != 1:
+            raise AssertionError(f"{label} [{mode}]: {k} pool_allocs "
+                                 f"{io[k].get('pool_allocs')}, want 1")
+    steady_note = ""
+    if steady:
+        if counts["after_3_batches"] != counts["after_run"]:
+            raise AssertionError(f"{label}: allocations in steady state: {counts}")
+        steady_note = (f"; steady state (sink after batch 3 vs after the run): "
+                       f"{json.dumps(counts)}, no new device segment or pinned host "
+                       f"allocation")
+    log(f"pipeline {label} [ingest/egress {mode}]: {stats['delivered']} frames, "
+        f"{batches} batches, {stats['fps']:.1f} fps, p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, launches {delta}, "
+        f"max {lsb} LSB vs plain; {json.dumps(io)}{steady_note}")
+    row = dict(filter=label, mode=mode, frames=n, batch=shape[0],
+               geometry=list(shape[1:]), fps=stats["fps"], p50_ms=stats["p50_ms"],
+               p99_ms=stats["p99_ms"], launches=delta, max_lsb_vs_plain=lsb, **io)
+    if steady:
+        row["steady_state_alloc_counts"] = counts
+    return row, delta, (None if flow else kept)
+
+
+def resilient_leg(dev):
+    """A resilient 1080p invert Pipeline, streaming gates open, under a
+    seeded FaultPlan: three h2d raises (chunk copies 3, 7 and 11: the last
+    chunk of batches 0-2) and three d2h raises (the next three streamed
+    fetches, batches 3-5; the degradation then comes while at least two
+    batches are still to be submitted), fault budget 2. Each fault
+    drops its batch; the third of each kind trips the budget and degrades
+    that side to monolithic. Every other frame is delivered, in order,
+    and equal to 255 - frame."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.resilience import FaultPlan
+
+    n, bsz = 192, MAIN_SHAPE[0]
+    spec, seed = "h2d:at=3/7/11,d2h:at=0/1/2", 8
+    chaos = FaultPlan.parse(spec, seed=seed)
+    order, bad = [], []
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *MAIN_SHAPE[1:], n_frames=n, seed=0)][:-1]
+
+    def sink(i, f, _ts):
+        order.append(i)
+        if not np.array_equal(f, 255 - frames[i]):
+            bad.append(i)
+
+    cfg = dvf_tpu_torch.PipelineConfig(batch_size=bsz, queue_size=n + 1,
+                                       assemble_timeout_s=60.0, resilient=True,
+                                       fault_budget=2, chaos=chaos)
+    tk.reset_launches()
+    with gates_open():
+        stats = dvf_tpu_torch.Pipeline(
+            dvf_tpu_torch.SyntheticSource(*MAIN_SHAPE[1:], n_frames=n, seed=0),
+            dvf_tpu_torch.get_filter("invert"), dvf_tpu_torch.CallbackSink(sink),
+            cfg).run()
+    delta = dict(tk.LAUNCHES)
+    faults = stats["faults"]["by_kind"]
+    ing, egr = stats["ingest"], stats["egress"]
+    label = f"invert resilient, chaos {spec!r} seed {seed}, fault_budget 2"
+    ok = (faults == {"h2d": 3, "d2h": 3} and order == sorted(order)
+          and len(set(order)) == len(order) and not bad
+          and stats["delivered"] == n - 6 * bsz and stats["errors"] == 6
+          and ing["fallback_reason"] == "h2d_fault_budget" and ing["mode"] == "monolithic"
+          and egr["fallback_reason"] == "d2h_fault_budget" and egr["mode"] == "monolithic"
+          and not any(delta.values()))
+    log(f"pipeline {label}: delivered {stats['delivered']} of {n} in order, "
+        f"{stats['engine_batches']} batches submitted, faults {faults}, errors "
+        f"{stats['errors']}, ingest {ing['mode']} ({ing['fallback_reason']}), egress "
+        f"{egr['mode']} ({egr['fallback_reason']}), chaos {json.dumps(stats['chaos'])}, "
+        f"frames wrong {len(bad)}, launches {delta}")
+    if not ok:
+        raise AssertionError(f"resilient leg: {stats}")
+    row = dict(filter=label, frames=n, batch=bsz, geometry=list(MAIN_SHAPE[1:]),
+               delivered=stats["delivered"], faults=faults, errors=stats["errors"],
+               ingest_mode=ing["mode"], ingest_fallback_reason=ing["fallback_reason"],
+               egress_mode=egr["mode"], egress_fallback_reason=egr["fallback_reason"],
+               fps=stats["fps"], launches=delta)
+    return row, delta
+
+
+def traced_leg(dev, eng):
+    """The gaussian_blur 1080p leg with trace=True (exported into a
+    temporary directory), streaming gates open: per-batch spans ingest_stage, ingest_h2d (summed
+    over the batch's chunk copies), ingest_overlap, egress_d2h and
+    batch_complete, in ms. Launch counters as in the other legs."""
+    import tempfile
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+
+    n, bsz = 160, MAIN_SHAPE[0]
+    cfg = dvf_tpu_torch.PipelineConfig(batch_size=bsz, queue_size=n + 1,
+                                       assemble_timeout_s=60.0, trace=True)
+    order = []
+    cwd = os.getcwd()
+    b0 = eng.stats.batches   # the engine also served earlier legs
+    tk.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            pipe = dvf_tpu_torch.Pipeline(
+                dvf_tpu_torch.SyntheticSource(*MAIN_SHAPE[1:], n_frames=n, seed=0),
+                eng.filter, dvf_tpu_torch.CallbackSink(lambda i, f, _: order.append(i)),
+                cfg, engine=eng)
+            with gates_open():
+                stats = pipe.run()
+        finally:
+            os.chdir(cwd)
+    delta = dict(tk.LAUNCHES)
+    batches = eng.stats.batches - b0
+    if order != list(range(n)) or delta != {k: batches if k == "sep_blur" else 0
+                                            for k in delta}:
+        raise AssertionError(f"traced leg: order ok {order == list(range(n))}, "
+                             f"launches {delta}")
+    names = ("ingest_stage", "ingest_h2d", "ingest_overlap", "egress_d2h",
+             "batch_complete")
+    spans = {k: [] for k in names}
+    for e in pipe.tracer.snapshot()["events"]:
+        if e.get("ph") == "X" and e["name"] in spans:
+            spans[e["name"]].append(e)
+    h2d = spans["ingest_h2d"]
+    per_chunk = max(1, len(h2d) // max(1, len(spans["ingest_stage"])))
+    per_batch = {k: [e["dur"] / 1e3 for e in v] for k, v in spans.items()}
+    per_batch["ingest_h2d"] = [sum(e["dur"] for e in h2d[i:i + per_chunk]) / 1e3
+                               for i in range(0, len(h2d), per_chunk)]
+    summary = {k: {"batches": len(v),
+                   "median_ms": round(statistics.median(v), 4) if v else None,
+                   "max_ms": round(max(v), 4) if v else None}
+               for k, v in per_batch.items()}
+    if any(summary[k]["batches"] == 0 for k in names):
+        raise AssertionError(f"traced leg: a span is missing: {summary}")
+    first = {k: [round(x, 3) for x in v[:6]] for k, v in per_batch.items()}
+    alone = ingest_alone(dev, eng)
+    log(f"trace gaussian_blur {MAIN_SHAPE} [streamed]: {stats['fps']:.1f} fps, "
+        f"{batches} batches, {per_chunk} chunk copies per batch; "
+        f"per-batch span ms (median, max): {json.dumps(summary)}; first batches: "
+        f"{json.dumps(first)}; ingest {json.dumps(stats['ingest'])}; egress "
+        f"{json.dumps(stats['egress'])}; the same staging and chunk copies with "
+        f"no pipeline thread beside them, per batch: {json.dumps(alone)}")
+    row = dict(filter="gaussian_blur(ksize=9) traced", mode="streamed", frames=n,
+               batch=bsz, geometry=list(MAIN_SHAPE[1:]), fps=stats["fps"],
+               launches=delta, trace_spans=summary, ingest_alone=alone)
+    return row, delta
+
+
+def ingest_alone(dev, eng, reps: int = 8) -> dict:
+    """Staging and chunk-copy launch of one MAIN_SHAPE batch through the
+    streamed assembler with no other thread running (the pipeline's
+    ingest and collect threads compete with its dispatch thread for the
+    interpreter): median stage and put ms per batch over ``reps``
+    batches, each waited for."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.runtime.ingest import ShardedBatchAssembler
+
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *MAIN_SHAPE[1:], n_frames=MAIN_SHAPE[0], seed=0)][:-1]
+    with gates_open():
+        asm = ShardedBatchAssembler(MAIN_SHAPE, np.uint8, dev, slots=2,
+                                    stream=eng.h2d_stream)
+    stage, put = [], []
+    for i in range(reps):
+        b = asm.begin(i)
+        for row, f in enumerate(frames):
+            b.write_row(row, f)
+        b.finish(len(frames))
+        torch.cuda.synchronize()
+        stage.append(b._stage_s * 1e3)
+        put.append(b._put_s * 1e3)
+    asm.release()
+    return {"stage_ms": round(statistics.median(stage), 4),
+            "put_ms": round(statistics.median(put), 4), "batches": reps}
 
 
 def check_warp(dev, gen) -> dict:
@@ -1357,11 +1696,15 @@ def worker_leg(dev, frames: list, assist: str, inner: str):
     d, split = stats["delta"], stats["split_ms_per_batch"]
     per = {k: round(v, 4) for k, v in split.items()}
     fps = n / secs
+    io = {k: {f: stats[k].get(f) for f in ("mode", "fallback_reason", "h2d_block_ms",
+                                           "d2h_block_ms", "pool_allocs")
+              if f in stats[k]} for k in ("ingest", "egress") if k in stats}
     log(f"pipeline {label}: {n} frames, {stats['batches']} batches, {fps:.1f} fps "
         f"(batch step + drain), dirty ratio {d['dirty_ratio']}, keyframes "
         f"{d['keyframes']}, entropy {d['entropy_ms'] / n:.4f} ms/frame, d2h coef "
         f"{d['d2h_coef_bytes'] / n:.0f} B/frame, encode {stats['egress']['encode_ms']:.3f}"
-        f" ms/batch; per batch ms {json.dumps(per)}; launches {delta}; payloads "
+        f" ms/batch; per batch ms {json.dumps(per)}; ingest/egress {json.dumps(io)}; "
+        f"launches {delta}; payloads "
         f"byte-identical to the plain recomputation"
         + ("; decoded == 255 - frame" if exact else "") + f"; profiled: {json.dumps(prof)}")
     row = dict(filter=label, frames=n, batch=WIRE_BATCH, geometry=[WIRE_SIZE, WIRE_SIZE, 3],
@@ -1369,7 +1712,8 @@ def worker_leg(dev, frames: list, assist: str, inner: str):
                entropy_ms_per_frame=d["entropy_ms"] / n,
                d2h_coef_bytes_per_frame=d["d2h_coef_bytes"] / n,
                encode_ms_per_batch=stats["egress"]["encode_ms"],
-               split_ms_per_batch=per, launches=delta, payloads_differing=0, **prof)
+               split_ms_per_batch=per, launches=delta, payloads_differing=0,
+               **io, **prof)
     return row, delta
 
 

@@ -23,6 +23,10 @@ from dvf_tpu_torch.api.filter import Filter, FilterChain  # noqa: F401
 from dvf_tpu_torch.ops import get_filter, list_filters, register_filter  # noqa: F401
 from dvf_tpu_torch.runtime.engine import Engine  # noqa: F401
 from dvf_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig  # noqa: F401
+from dvf_tpu_torch.runtime.ingest import ShardedBatchAssembler  # noqa: F401
+from dvf_tpu_torch.runtime.egress import ShardedBatchFetcher  # noqa: F401
+from dvf_tpu_torch.obs.trace import Tracer  # noqa: F401
+from dvf_tpu_torch.resilience import FaultPlan  # noqa: F401
 from dvf_tpu_torch.io.sources import SyntheticSource  # noqa: F401
 from dvf_tpu_torch.io.sinks import CallbackSink, NullSink  # noqa: F401
 from dvf_tpu_torch.sched.reorder import ReorderBuffer  # noqa: F401

@@ -1,0 +1,328 @@
+"""Perfetto / Chrome-trace-event frame-lifecycle tracing (port of
+``dvf_tpu.obs.trace``: the same event names, span arguments, ring and
+export format).
+
+Instant events at capture ('i', ``frame_captured``), complete events
+('X') spanning processing with a *track id* mapped to the trace ``pid``
+field so each stage gets its own lane. Timestamps are µs relative to the
+tracer's wall-clock start. Event names follow the frame lifecycle:
+frame_captured → batch_complete → frame_delivered; the streamed ingest
+path (runtime/ingest.py) adds a transfer lane:
+
+- ``ingest_h2d`` — one span per row chunk's host→device copy launch (args:
+  the batch-row range and bytes shipped);
+- ``ingest_stage`` — the whole host-staging window of one batch (args:
+  the cumulative host-copy time inside it);
+- ``ingest_overlap`` — first chunk copy launched → batch assembly complete:
+  the window in which copies ran under the staging of later chunks and
+  the device compute of the previous batch.
+
+The streamed egress path (runtime/egress.py) mirrors it on the delivery
+side:
+
+- ``egress_d2h`` — one span per batch's host copy wait (args: the
+  batch-row range and bytes fetched);
+- ``egress_encode`` / ``egress_send`` — the codec plane's spans (names
+  kept for the reference's consumers).
+
+The reference's ``merge_with_device_trace`` reads ``jax.profiler``
+output; its torch-profiler counterpart is not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import sys
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# Streamed-ingest span names (runtime/ingest.py emits these; one place
+# owns the strings so trace consumers can match on them).
+INGEST_H2D = "ingest_h2d"
+INGEST_STAGE = "ingest_stage"
+INGEST_OVERLAP = "ingest_overlap"
+
+# Streamed-egress span names (runtime/egress.py — the delivery-side
+# mirror): one ``egress_d2h`` span per output-shard host copy, one
+# ``egress_encode`` span per batch's in-pool encode window (submit →
+# last future done), one ``egress_send`` span per batch's wire sends.
+EGRESS_D2H = "egress_d2h"
+EGRESS_ENCODE = "egress_encode"
+EGRESS_SEND = "egress_send"
+
+# The reconfiguration ledger (obs/ledger.py) stamps every recorded
+# event onto its own dedicated lane as ``reconfig:<kind>`` spans (plus
+# ``reconfig_stall_closed`` instants when a bucket's measured stall
+# window closes) — so a merged Perfetto session shows compiles,
+# resizes, rebuilds, and scale actions INLINE with the dispatch/device
+# lanes they stalled. One place owns the prefix for consumers to match.
+RECONFIG_PREFIX = "reconfig:"
+RECONFIG_STALL_CLOSED = "reconfig_stall_closed"
+
+
+class Tracer:
+    """Frame-lifecycle tracer with a BOUNDED event ring.
+
+    ``max_events`` caps the buffer: an enabled tracer on an
+    indefinitely-running serve process keeps the most recent window and
+    counts what it sheds (``dropped``) — the same leak guard
+    ``LatencyStats`` decimation applies to samples. The retained window
+    doubles as the flight recorder's always-on black box: at the default
+    bound it covers the last ~10⁵ events, minutes of serving at frame
+    rates, for a few tens of MB worst case.
+
+    ``start_time`` is a WALL-CLOCK epoch (``time.time()``): event
+    timestamps are µs relative to it, so snapshots from different
+    processes merge onto one clock by offsetting each tracer's events by
+    its epoch delta (:func:`merge_tracer_snapshots`).
+    """
+
+    def __init__(self, enabled: bool = False, process_name: str = "dvf_tpu",
+                 max_events: int = 100_000):
+        self.enabled = enabled
+        self.process_name = process_name
+        self.start_time = time.time()
+        self.max_events = max_events
+        self.dropped = 0
+        self._events: "collections.deque[Dict[str, Any]]" = (
+            collections.deque(maxlen=max_events))
+        self._lock = threading.Lock()
+
+    def _us(self, t: float) -> int:
+        return int((t - self.start_time) * 1e6)
+
+    def instant(self, name: str, ts: Optional[float] = None, track: int = 0, **args) -> None:
+        """'i' event — e.g. frame_captured at enqueue (distributor.py:63-73)."""
+        if not self.enabled:
+            return
+        ev = {
+            "name": name,
+            "ph": "i",
+            "ts": self._us(ts if ts is not None else time.time()),
+            "pid": track,
+            "tid": 0,
+            "s": "g",
+        }
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def complete(self, name: str, t0: float, t1: float, track: int = 0, **args) -> None:
+        """'X' event spanning [t0, t1] (distributor.py:75-88)."""
+        if not self.enabled:
+            return
+        ev = {
+            "name": name,
+            "ph": "X",
+            "ts": self._us(t0),
+            "dur": max(0, int((t1 - t0) * 1e6)),
+            "pid": track,
+            "tid": 0,
+        }
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def _append(self, ev: Dict[str, Any]) -> None:
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                # The deque sheds the oldest on append; count the loss so
+                # a bounded export says "window, not whole run" honestly.
+                self.dropped += 1
+            self._events.append(ev)
+
+    # ------------------------------------------------------------------
+
+    def snapshot(self, max_events: Optional[int] = None) -> Dict[str, Any]:
+        """This tracer's mergeable export: the retained event window plus
+        the wall-clock epoch and identity needed to place it on a shared
+        timeline — plain JSON/pickle-safe values, the form that crosses a
+        fleet replica's RPC boundary (``merge_tracer_snapshots`` on the
+        other side). The event list is copied under the lock; emitters
+        keep appending concurrently.
+
+        ``max_events`` keeps only the most RECENT k events (the extra
+        shed counts as ``dropped``): the cap a transfer-cost-sensitive
+        exporter applies — the fleet's ``trace`` RPC serializes the
+        snapshot while holding the replica's serial channel lock, where
+        a full 100k-event ring would stall the submit hot path for the
+        whole transfer."""
+        import os
+
+        with self._lock:
+            events = list(self._events)
+            dropped = self.dropped
+        if max_events is not None and len(events) > max_events:
+            dropped += len(events) - max_events
+            events = events[-max_events:]
+        return {
+            "process_name": self.process_name,
+            "start_time": self.start_time,
+            "pid": os.getpid(),
+            "dropped": dropped,
+            "events": events,
+        }
+
+    def export(self, path: str = "dvf_frame_timing.pftrace") -> Optional[str]:
+        """Write Chrome-trace JSON (the reference hand-serializes the same
+        format to webcam_frame_timing.pftrace, distributor.py:90-148)."""
+        if not self.enabled or not self._events:
+            return None
+        with self._lock:
+            events = list(self._events)
+        meta = [
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": pid,
+                "args": {"name": f"{self.process_name}/{pid}" if pid else self.process_name},
+            }
+            for pid in sorted({e["pid"] for e in events})
+        ]
+        doc = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        # The reference prints capture/processing FPS stats on every export
+        # (distributor.py:152-171); match that so a traced run ends with
+        # the numbers, not just a file path.
+        stats = self.summarize()
+        if stats:
+            pretty = ", ".join(f"{k}={v:.2f}" for k, v in stats.items())
+            print(f"[trace] exported {len(events)} events to {path} ({pretty})",
+                  file=sys.stderr)
+        return path
+
+    def summarize(self) -> Dict[str, float]:
+        """FPS statistics from the trace, like distributor.py:152-171."""
+        with self._lock:
+            events = list(self._events)
+        out: Dict[str, float] = {}
+        captures = sorted(e["ts"] for e in events if e["name"] == "frame_captured")
+        if len(captures) > 1:
+            ivals = [b - a for a, b in zip(captures, captures[1:])]
+            mean_us = sum(ivals) / len(ivals)
+            if mean_us > 0:
+                out["capture_fps"] = 1e6 / mean_us
+        durs = [e["dur"] for e in events if e["ph"] == "X" and e.get("dur", 0) > 0]
+        if durs:
+            out["mean_process_ms"] = sum(durs) / len(durs) / 1e3
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+
+# ---------------------------------------------------------------------------
+# Cross-process trace merging (fleet tier: one Perfetto session, N tracers)
+# ---------------------------------------------------------------------------
+
+# Each snapshot's tracks are offset into their own pid block so lanes from
+# different processes can never collide — the same trick
+# merge_with_device_trace uses (+10000) for the jax.profiler lanes, which
+# therefore stay clear of any realistic fleet (100 lanes × 100 replicas).
+LANE_STRIDE = 100
+
+
+def merge_tracer_snapshots(
+    snaps: "List[dict]",
+    out_path: Optional[str] = None,
+    max_events: int = 100_000,
+) -> Optional[dict]:
+    """Fuse N :meth:`Tracer.snapshot` exports — serve frontends, fleet
+    replicas (in-process or across the RPC boundary), the ZMQ worker —
+    into ONE Chrome-trace document that opens as a single Perfetto
+    session, every lane on one aligned clock.
+
+    Clock alignment: each tracer's timestamps are µs relative to its own
+    wall-clock ``start_time``; the merge re-bases every event onto the
+    EARLIEST epoch among the snapshots (``ts += (start_time_i − epoch0)
+    in µs``), which is exact up to wall-clock skew between processes —
+    on one host (the fleet's process replicas) that is NTP-free and
+    effectively zero.
+
+    Lanes: snapshot *i*'s tracks land in pid block ``i * LANE_STRIDE``,
+    named ``{process_name}/{track}`` so the Perfetto UI groups one
+    process per replica. If the union exceeds ``max_events`` the
+    longest-duration events win, mirroring the device-trace merge's cut.
+
+    Returns the document (and writes it to ``out_path`` when given);
+    None when no snapshot carried any events.
+    """
+    snaps = [s for s in snaps if s and s.get("events")]
+    if not snaps:
+        return None
+    epoch0 = min(float(s["start_time"]) for s in snaps)
+    meta: List[dict] = []
+    events: List[dict] = []
+    lanes: List[dict] = []
+    for i, s in enumerate(snaps):
+        base = i * LANE_STRIDE
+        off_us = int((float(s["start_time"]) - epoch0) * 1e6)
+        name = s.get("process_name") or f"tracer{i}"
+        # Track ids are arbitrary ints (pipeline stage ids, but also
+        # device ids / profiler pids from merged device traces): an id
+        # outside [0, LANE_STRIDE) would land in ANOTHER snapshot's pid
+        # block and interleave two processes' lanes in the Perfetto UI
+        # — so out-of-range tracks CLAMP into this snapshot's last lane
+        # (LANE_STRIDE − 1; negatives to 0). Within-process folding
+        # loses lane separation for the oversized ids only; the
+        # cross-process block invariant — the thing the merge exists
+        # for — always holds. Folds are counted in the provenance.
+        lane_tracks: Dict[int, set] = {}
+        folded = 0
+        for e in s["events"]:
+            e = dict(e)
+            track = int(e.get("pid", 0))
+            lane = min(max(track, 0), LANE_STRIDE - 1)
+            if lane != track:
+                folded += 1
+            lane_tracks.setdefault(lane, set()).add(track)
+            e["pid"] = base + lane
+            e["ts"] = int(e.get("ts", 0)) + off_us
+            events.append(e)
+        for lane in sorted(lane_tracks):
+            raw = sorted(lane_tracks[lane])
+            label = (f"{name}/{raw[0]}" if len(raw) == 1 and raw[0]
+                     else name if len(raw) == 1
+                     else f"{name}/{'+'.join(map(str, raw))}")
+            meta.append({
+                "name": "process_name", "ph": "M", "pid": base + lane,
+                "args": {"name": label},
+            })
+        lanes.append({
+            "process_name": name,
+            "pid_base": base,
+            "pid": s.get("pid"),
+            "epoch_offset_us": off_us,
+            "events": len(s["events"]),
+            "folded_tracks": folded,
+            "dropped": int(s.get("dropped", 0)),
+        })
+    if len(events) > max_events:
+        # Instants survive the cut: they are rare and they are the
+        # incident markers (replica_lost, replica_stall, frame_captured)
+        # a post-mortem reads first — a duration sort alone would cull
+        # every one of them (no ``dur`` ranks as 0) before any span.
+        instants = [e for e in events if e.get("ph") != "X"][:max_events]
+        spans = [e for e in events if e.get("ph") == "X"]
+        spans.sort(key=lambda e: e.get("dur", 0), reverse=True)
+        events = instants + spans[:max(0, max_events - len(instants))]
+    events.sort(key=lambda e: e.get("ts", 0))
+    doc = {
+        "traceEvents": meta + events,
+        "displayTimeUnit": "ms",
+        # Provenance for post-mortem readers: which lane is which
+        # process, and how far its clock was re-based (Perfetto ignores
+        # unknown top-level keys).
+        "dvfTraceLanes": lanes,
+        "dvfEpoch": epoch0,
+    }
+    if out_path is not None:
+        with open(out_path, "w") as f:
+            json.dump(doc, f)
+        print(f"[trace] merged {len(snaps)} tracer snapshots "
+              f"({len(events)} events) → {out_path}", file=sys.stderr)
+    return doc

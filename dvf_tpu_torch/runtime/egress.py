@@ -1,24 +1,243 @@
-"""Asynchronous codec plane (port of ``AsyncCodecPlane`` and
-``_EncodeEntry`` from ``dvf_tpu/runtime/egress.py``).
+"""Streamed egress and the asynchronous codec plane (port of
+``ShardedBatchFetcher``, ``AsyncCodecPlane`` and ``_EncodeEntry`` from
+``dvf_tpu/runtime/egress.py`` for one device).
 
-The delivery loop submits a batch's rows to the codec's thread pool and
-returns to decoding and computing the NEXT batch while the pool encodes;
-completed batches drain in submission order. The JAX package's
-``ShardedBatchFetcher`` has no counterpart: the port's engine already
-copies each batch into a pinned host buffer, and the coefficient wire
-fetches no pixels at all.
+:class:`ShardedBatchFetcher` — ``prefetch(result, slot)`` right after the
+engine's submit makes the engine's D2H stream wait for the batch's compute
+event, copies the output into the slot's preallocated pinned slab there
+and records a D2H event, so the copy runs under the tail of compute and
+the next batch's staging. ``fetch(result, slot)`` in the collect path
+first waits for the compute event (that wait is device time, not D2H),
+then for the D2H event (timed as ``wait_ms``), and returns the slab's
+numpy view; ``owns(out)`` is then True, and rows that outlive the collect
+step must be copied. No pinned allocation happens per batch.
+
+Fallbacks mirror the ingest assembler, recorded in the stats either way:
+
+- ``mode="monolithic"`` (the escape hatch) keeps the classic fetch: a
+  fresh host array per batch, its rows handed out as views;
+- a CPU engine's output is already in host memory, so a slab copy is pure
+  added work (``fallback_reason="zero_copy_backend"``; tests monkeypatch
+  ``STREAM_ON_CPU`` to run the machinery);
+- a calibrated blocking fetch (``Engine.d2h_block_ms``) below
+  ``MIN_STREAM_D2H_MS`` stays monolithic (``"cheap_transfer"``);
+- a result at another geometry than the pool's falls back per batch;
+- repeated d2h faults degrade streamed → monolithic through the error
+  budget (``"d2h_fault_budget"``, wired in the pipeline and the worker).
+
+:class:`AsyncCodecPlane` — the delivery loop submits a batch's rows to the
+codec's thread pool and returns to decoding and computing the NEXT batch
+while the pool encodes; completed batches drain in submission order.
+
+Slot discipline is the staging-pool contract: the caller gives a
+monotonically increasing slot id per batch and guarantees (by its
+in-flight bound or encode window) that a slab is revisited only after its
+rows have been copied onward or sent.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
+from dvf_tpu_torch.obs.trace import EGRESS_D2H
+from dvf_tpu_torch.runtime.engine import record_event
+
+EGRESS_MODES = ("streamed", "monolithic")
+
+# Below this calibrated blocking-fetch cost (Engine.d2h_block_ms, measured
+# at compile) the fetcher stays monolithic — the mirror of
+# ingest.MIN_STREAM_H2D_MS; tests at tiny sizes monkeypatch it to 0.
+MIN_STREAM_D2H_MS = 2.0
+
+# A CPU engine's output already lies in host memory: the monolithic fetch
+# is a zero-copy view, and a slab copy would be a pure regression. Tests
+# monkeypatch True to run the streamed machinery on the CPU.
+STREAM_ON_CPU = False
+
+# Host-slab accounting registry, the egress mirror of
+# runtime.ingest._LIVE_ASSEMBLERS; a released fetcher reports 0.
+_LIVE_FETCHERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_fetchers() -> List["ShardedBatchFetcher"]:
+    return list(_LIVE_FETCHERS)
+
+
+def occupied_slab_bytes() -> int:
+    """Total host delivery-slab bytes currently held by live fetchers."""
+    return sum(f.slab_bytes() for f in live_fetchers())
+
+
+class ShardedBatchFetcher:
+    """Fetches engine results into preallocated host slabs.
+
+    One fetcher per output signature. ``device`` is the engine's device
+    (None: monolithic); ``stream`` the engine's D2H stream
+    (``Engine.d2h_stream``; None on the CPU). ``prefetch`` belongs right
+    after the engine's submit, ``fetch`` in the collect path.
+    """
+
+    def __init__(
+        self,
+        out_shape: Tuple[int, ...],
+        dtype,
+        device: Optional[torch.device] = None,
+        mode: str = "streamed",
+        slots: int = 5,
+        stats: Optional[EgressStats] = None,
+        tracer=None,
+        track: int = 0,
+        chaos=None,
+        stream: Optional[torch.cuda.Stream] = None,
+    ):
+        if mode not in EGRESS_MODES:
+            raise ValueError(f"egress mode must be one of {EGRESS_MODES}, "
+                             f"got {mode!r}")
+        self.out_shape = tuple(out_shape)
+        self.dtype = np.dtype(dtype)
+        self.device = None if device is None else torch.device(device)
+        self.mode = mode
+        self.slots = max(1, slots)
+        self.tracer = tracer
+        self.track = track
+        self.chaos = chaos  # resilience.chaos.FaultPlan — the "d2h" site
+        #   fires per batch fetch when armed
+        self.stream = stream
+        self.stats = stats if stats is not None else EgressStats(
+            requested_mode=mode)
+        self._pool: Optional[List[torch.Tensor]] = None
+        self._views: List[np.ndarray] = []
+        self.effective_mode = self._plan()
+        self.stats.effective_mode = self.effective_mode
+        _LIVE_FETCHERS.add(self)
+
+    def slab_bytes(self) -> int:
+        """Host delivery-slab memory this fetcher currently holds — 0
+        after :meth:`release` and on the monolithic path."""
+        if self._pool is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in self._pool)
+
+    def _plan(self) -> str:
+        if self.mode == "monolithic" or self.device is None:
+            return "monolithic"
+        if self.device.type == "cpu" and not STREAM_ON_CPU:
+            self.stats.fallback_reason = "zero_copy_backend"
+            return "monolithic"
+        cal = self.stats.d2h_block_ms
+        if cal is not None and cal < MIN_STREAM_D2H_MS:
+            self.stats.fallback_reason = "cheap_transfer"
+            return "monolithic"
+        tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        self._pool = [torch.empty(self.out_shape, dtype=tdt,
+                                  pin_memory=self.device.type == "cuda")
+                      for _ in range(self.slots)]
+        self._views = [t.numpy() for t in self._pool]
+        self.stats.pool_allocs += 1
+        return "streamed"
+
+    def _streamable(self, result: Any) -> bool:
+        y = getattr(result, "device", None)
+        return (self._pool is not None  # released mid-flight (degradation):
+                #   fall back per batch, never write into freed slabs
+                and y is not None
+                and tuple(y.shape) == self.out_shape
+                and y.device == self.device
+                and y.dtype == self._pool[0].dtype)
+
+    # -- submit side ----------------------------------------------------
+
+    def prefetch(self, result: Any, slot: int) -> None:
+        """Start the D2H of a streamable result into slot ``slot``'s slab
+        now, on the D2H stream after the compute event; ``fetch`` then
+        only waits. The slab and the D2H event are kept on the result
+        (``result.host`` and its event). Nothing to do on the monolithic
+        path or on the CPU (the copy is made in ``fetch``)."""
+        if self.stream is None or not self._streamable(result):
+            return
+        y = result.device
+        slab = self._pool[slot % self.slots]
+        self.stream.wait_event(result.compute_event)
+        y.record_stream(self.stream)  # the allocator must not hand y's
+        #   memory to the next batch while this copy still reads it
+        with torch.cuda.stream(self.stream):
+            slab.copy_(y, non_blocking=True)
+        result.host, result._event = slab, record_event(self.stream)
+
+    # -- collect side ---------------------------------------------------
+
+    def _wait_compute(self, result: Any) -> None:
+        ev = getattr(result, "compute_event", None)
+        if ev is not None:
+            ev.synchronize()
+
+    def fetch(self, result: Any, slot: int) -> np.ndarray:
+        """One batch's output on the host; blocks until the device is done
+        (the compute wait is not counted as D2H). Streamed: the slot's
+        slab (valid until the slot is revisited). Monolithic or a result
+        the pool cannot take: a fresh host array."""
+        t_begin = time.perf_counter()
+        if not self._streamable(result):
+            self._wait_compute(result)
+            y = result.device
+            if self.stream is not None:
+                with torch.cuda.stream(self.stream):
+                    out = y.cpu().numpy()
+            else:
+                out = y.numpy() if y.device.type == "cpu" else y.cpu().numpy()
+            self.stats.record_fetch(
+                wait_ms=0.0, copy_ms=0.0,
+                span_ms=(time.perf_counter() - t_begin) * 1e3)
+            return out
+        self._wait_compute(result)
+        if self.chaos is not None:
+            # Injection site "d2h": a delay rule stalls this fetch (a
+            # congested link), a raise rule denies it.
+            self.chaos.fire("d2h")
+        i = slot % self.slots
+        t0 = time.perf_counter()
+        if self.stream is not None:
+            if result.host is not self._pool[i]:
+                # Not prefetched here (the fetcher was rebuilt between the
+                # batch's submit and its collect): start the copy now.
+                self.prefetch(result, slot)
+            result._event.synchronize()
+            t1 = time.perf_counter()
+        else:
+            t1 = time.perf_counter()
+            self._pool[i].copy_(result.device)  # CPU: the copy itself
+        t2 = time.perf_counter()
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            off = time.time() - time.perf_counter()  # monotonic → wall
+            tracer.complete(EGRESS_D2H, t0 + off, t2 + off, self.track,
+                            rows=f"0:{self.out_shape[0]}",
+                            bytes=self._views[i].nbytes)
+        self.stats.record_fetch(
+            wait_ms=(t1 - t0) * 1e3, copy_ms=(t2 - t1) * 1e3,
+            span_ms=(time.perf_counter() - t_begin) * 1e3)
+        return self._views[i]
+
+    def owns(self, out: np.ndarray) -> bool:
+        """True when ``out`` is one of this fetcher's pooled slabs — it is
+        rewritten once the slot cycles, so rows that outlive the caller's
+        collect step must be copied. The monolithic and per-batch
+        fallback paths return fresh arrays and stay False."""
+        return self._pool is not None and any(out is v for v in self._views)
+
+    def release(self) -> None:
+        """Drop the slab pool eagerly (geometry re-probe / degradation).
+        A copy in flight keeps its own reference to its slab."""
+        self._pool = None
+        self._views = []
 
 
 class _EncodeEntry:

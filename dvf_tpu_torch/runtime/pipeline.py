@@ -1,26 +1,36 @@
 """The end-to-end pipeline: source → batch staging → device → ordered sink
 (port of the single-stream path of ``dvf_tpu.runtime.pipeline``).
 
-Three threads around the engine's asynchronous CUDA stream:
+Three threads around the engine's CUDA streams:
 
   ingest    — pulls frames from the source, indexes them, enqueues with
               drop-oldest backpressure;
-  dispatch  — drains the queue into a fixed-size batch, writes it into a
-              pinned staging slot (padding a short batch by repeating its
-              last frame), submits it to the Engine; the in-flight depth is
-              bounded to cap latency;
+  dispatch  — drains the queue into a fixed-size batch, stages it through
+              the ingest assembler (runtime/ingest.py: streamed row chunks
+              copied on the engine's H2D stream as they fill, or the
+              monolithic whole-batch buffer), pads a short batch by
+              repeating its last frame, submits it to the Engine and starts
+              its device→host copy (runtime/egress.py); the in-flight depth
+              is bounded to cap latency;
   collect   — waits for results in submission order, feeds the reorder
               buffer, advances the display cursor, emits to the sink
               (``collect_mode="inline"`` folds this into dispatch).
 
-Staging discipline: ``max_inflight + 1`` pinned input slots and as many
-pinned output slots, slot = batch sequence number mod the slot count. At
-most ``max_inflight`` batches are outstanding, so the slot being rewritten
-always belongs to a batch already collected; delivered rows are copied out
-of the reused output slab before the reorder buffer holds them.
+Staging discipline: the assembler and the fetcher each own
+``max_inflight + 1`` slots, slot = batch sequence number mod the slot
+count. At most ``max_inflight`` batches are outstanding, so a slot being
+rewritten always belongs to a batch already collected. Delivered rows are
+copied only out of a slab the fetcher owns (it is rewritten when its slot
+cycles); the monolithic fetch's fresh per-batch array hands out views.
 
-Not in this slice: streamed ingest/egress, the tracer, fault containment
-and supervision, chaos injection, the flight recorder and device traces.
+Fault planes (``resilient``, ``fault_budget``, ``stall_timeout_s``,
+``chaos``, ``trace``): per-iteration containment classified by
+resilience.faults and bounded by the per-kind error budget (repeated h2d
+faults degrade streamed → monolithic ingest, repeated d2h faults the
+egress), a stall watchdog whose recovery rebuilds the engine, the
+deterministic chaos sites, and the frame-lifecycle tracer. Not ported yet:
+the device trace (``device_trace_dir``), the flight recorder
+(``flight_dir``) and the metrics registry.
 """
 
 from __future__ import annotations
@@ -30,16 +40,26 @@ import sys
 import threading
 import time
 from collections import deque
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
-from dvf_tpu_torch.obs.metrics import LatencyStats, RateLogger
-from dvf_tpu_torch.runtime.engine import Engine, _torch_dtype, resolve_device
+from dvf_tpu_torch.obs.metrics import EgressStats, IngestStats, LatencyStats, RateLogger
+from dvf_tpu_torch.obs.trace import Tracer
+from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
+from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
+from dvf_tpu_torch.resilience.supervisor import Supervisor
+from dvf_tpu_torch.runtime.egress import EGRESS_MODES, ShardedBatchFetcher
+from dvf_tpu_torch.runtime.engine import Engine, resolve_device
+from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.sched.queues import DropOldestQueue
 from dvf_tpu_torch.sched.reorder import ReorderBuffer
+
+# Trace track ids (the reference's): stages, plus the streamed-ingest
+# transfer lane (ingest_h2d spans) and the streamed-egress one (egress_d2h).
+TRACK_INGEST, TRACK_DEVICE, TRACK_SINK, TRACK_H2D, TRACK_D2H = 0, 1, 2, 3, 4
 
 
 @dataclasses.dataclass
@@ -50,10 +70,34 @@ class PipelineConfig:
     reorder_capacity: int = 50    # reorder cap (distributor.py:23)
     max_inflight: int = 4         # batches in flight; bounds latency
     assemble_timeout_s: float = 0.01  # wait for a short batch to fill
+    trace: bool = False           # frame-lifecycle trace (obs.trace),
+    #   exported to dvf_frame_timing.pftrace in the working directory
+    resilient: bool = False       # per-iteration error containment: one bad
+    #   frame/batch is dropped and counted, the loops keep running. Off by
+    #   default so tests and benches fail fast.
     telemetry_interval_s: float = 0.0  # >0: print capture/deliver fps every N s
     collect_mode: str = "thread"  # "thread": a collect thread; "inline":
     #   dispatch retires the oldest in-flight batch itself once the window
     #   fills. Batches retire oldest-first either way.
+    ingest: str = "streamed"      # "streamed": row chunks copied on the
+    #   engine's H2D stream as they fill (runtime/ingest.py); "monolithic":
+    #   stage the whole batch, then one copy inside Engine.submit
+    ingest_depth: int = 4         # chunk copies in flight before the
+    #   assembler waits on the oldest (also the number of chunks)
+    egress: str = "streamed"      # "streamed": the D2H starts at submit on
+    #   the engine's D2H stream into a pooled pinned slab
+    #   (runtime/egress.py); "monolithic": a fresh host array per batch
+    fault_budget: int = 16        # contained faults per kind inside
+    #   fault_window_s before containment escalates (drop → degrade →
+    #   fail); resilient mode only
+    fault_window_s: float = 30.0
+    stall_timeout_s: float = 0.0  # >0: arm the stall watchdog — an
+    #   in-flight batch older than this trips recovery (resilient + thread
+    #   collect: shed the window, rebuild the engine; otherwise: abort with
+    #   a stall FaultError). 0 = off.
+    chaos: Any = None             # resilience.chaos.FaultPlan — arms the
+    #   fault-injection sites in the engine, assembler, fetcher and collect
+    #   loop; None = zero overhead
 
 
 class Pipeline:
@@ -77,24 +121,53 @@ class Pipeline:
             raise ValueError(
                 f"collect_mode must be 'thread' or 'inline', got "
                 f"{self.config.collect_mode!r}")
+        if self.config.ingest not in INGEST_MODES:
+            raise ValueError(
+                f"ingest must be one of {INGEST_MODES}, got "
+                f"{self.config.ingest!r}")
+        if self.config.egress not in EGRESS_MODES:
+            raise ValueError(
+                f"egress must be one of {EGRESS_MODES}, got "
+                f"{self.config.egress!r}")
         if engine is None:
-            engine = Engine(filt, device=device)
+            engine = Engine(filt, device=device, chaos=self.config.chaos)
         elif device is not None and resolve_device(device) != engine.device:
             raise ValueError(
                 f"engine runs on {engine.device}, pipeline asked for {device}")
+        if self.config.chaos is not None and engine.chaos is None:
+            engine.chaos = self.config.chaos  # arm a caller-built engine
         self.engine = engine
+        self.tracer = Tracer(enabled=self.config.trace)
         self.queue = DropOldestQueue(maxsize=self.config.queue_size)
         self.reorder = ReorderBuffer(frame_delay=self.config.frame_delay,
                                      capacity=self.config.reorder_capacity)
         self.latency = LatencyStats()
         self.frame_counter = 0
+        self.errors = 0
+        self.faults = FaultStats()      # per-kind counters + last errors
+        self.recoveries = 0             # supervisor engine rebuilds
+        self._budget = ErrorBudget(limit=self.config.fault_budget,
+                                   window_s=self.config.fault_window_s)
+        # Stall escalation is consecutive, not time-windowed: recoveries
+        # with no delivered batch in between fail hard.
+        self._stalls_since_progress = 0
+        self._stall_fail_after = max(2, self.config.fault_budget // 4)
+        self._ingest_mode = self.config.ingest  # may degrade to monolithic
+        self._degrade_reason: Optional[str] = None
+        self._egress_mode = self.config.egress
+        self._egress_degrade_reason: Optional[str] = None
+        self._assembler: Optional[ShardedBatchAssembler] = None
+        self._ingest_stats: Optional[IngestStats] = None
+        self._fetcher: Optional[ShardedBatchFetcher] = None
+        self._egress_stats: Optional[EgressStats] = None
+        self._supervisor: Optional[Supervisor] = None
+        self._recovering = threading.Event()  # dispatch parks while the
+        #   supervisor swaps the engine (see _on_stall)
         _ti = self.config.telemetry_interval_s
         self._capture_rate = RateLogger("capture", _ti if _ti > 0 else 5.0,
                                         quiet=_ti <= 0)
         self._deliver_rate = RateLogger("deliver", _ti if _ti > 0 else 5.0,
                                         quiet=_ti <= 0)
-        self._slots: Optional[List[Tuple[torch.Tensor, np.ndarray, torch.Tensor]]] = None
-        self._slot_sig: Optional[Tuple] = None
         self._on_idle = None  # inline collect: drain-ready hook (_assemble)
         self._inflight = DropOldestQueue(maxsize=1_000_000)
         self._inflight_sem = threading.Semaphore(self.config.max_inflight)
@@ -121,6 +194,87 @@ class Pipeline:
             self._error = e
         self._abort.set()
 
+    def _contain(self, e: BaseException, where: str) -> bool:
+        """Resilient mode: drop, count, continue — classified
+        (resilience.faults) and bounded by the per-kind error budget: the
+        first overflow degrades (h2d: streamed → monolithic ingest; d2h:
+        the egress), the second fails hard. Fail-fast mode: abort the
+        pipeline. Returns True to continue."""
+        kind = classify(e, site=where)
+        self.faults.record(kind, e)
+        if not (self.config.resilient and isinstance(e, Exception)):
+            self._fail(e)
+            return False
+        self.errors += 1
+        if escalate(self._budget, kind, self._degrade) == ErrorBudget.CONTAIN:
+            print(f"[pipeline:{where}] {kind} fault (continuing): {e!r}",
+                  file=sys.stderr, flush=True)
+            return True
+        self._fail(FaultError(
+            kind,
+            f"error budget exhausted for {kind!r} faults "
+            f"(> {self.config.fault_budget} in "
+            f"{self.config.fault_window_s:g}s, no degradation left); "
+            f"last: {e!r}"))
+        return False
+
+    def _degrade(self, kind: str) -> bool:
+        """Apply this kind's degradation, if one exists (reason recorded in
+        the ingest / egress stats). Returns True if one was applied."""
+        if kind == FaultKind.H2D and self._ingest_mode == "streamed":
+            self._ingest_mode = "monolithic"
+            self._degrade_reason = "h2d_fault_budget"
+            self._assembler = None  # rebuilt monolithic on the next batch
+            print("[pipeline] repeated h2d faults: degrading ingest "
+                  "streamed → monolithic", file=sys.stderr, flush=True)
+            return True
+        if kind == FaultKind.D2H and self._egress_mode == "streamed":
+            self._egress_mode = "monolithic"
+            self._egress_degrade_reason = "d2h_fault_budget"
+            old, self._fetcher = self._fetcher, None
+            if old is not None:
+                old.release()
+            print("[pipeline] repeated d2h faults: degrading egress "
+                  "streamed → monolithic", file=sys.stderr, flush=True)
+            return True
+        return False
+
+    def _on_stall(self, reason: str) -> None:
+        """Watchdog callback (supervisor thread): a submitted batch aged
+        past stall_timeout_s. Resilient + thread collect: shed the
+        in-flight window and rebuild the engine (recompile, re-warm,
+        re-calibrate). Inline collect or fail-fast: abort with a stall
+        fault."""
+        e = FaultError(FaultKind.STALL, f"pipeline stalled: {reason}")
+        self.faults.record(FaultKind.STALL, e)
+        self._stalls_since_progress += 1
+        recoverable = (self.config.resilient
+                       and self.config.collect_mode == "thread"
+                       and self._stalls_since_progress <= self._stall_fail_after)
+        if not recoverable:
+            self._fail(e)
+            return
+        self.errors += 1
+        print(f"[pipeline] {reason}: shedding in-flight window and "
+              f"rebuilding engine", file=sys.stderr, flush=True)
+        self._recovering.set()
+        try:
+            shed = self._inflight.pop_up_to(len(self._inflight))
+            for item in shed:
+                self._supervisor.window.remove(item[0])
+            # Rebuild BEFORE releasing the shed permits, so a dispatch
+            # blocked on the semaphore wakes to the fresh engine.
+            self.engine = self.engine.rebuild()
+            self._assembler = None
+            self._fetcher = None  # rebuilt against the fresh engine's
+            #   streams and re-calibrated d2h_block_ms
+            for _ in shed:
+                self._inflight_sem.release()
+            self._supervisor.window.drain()
+            self.recoveries += 1
+        finally:
+            self._recovering.clear()
+
     def _ingest(self) -> None:
         it = iter(self.source)
         try:
@@ -129,6 +283,10 @@ class Pipeline:
                     frame, ts = next(it)
                 except StopIteration:
                     break
+                except Exception as e:  # noqa: BLE001 — bad read, maybe next works
+                    if not self._contain(e, "ingest"):
+                        return
+                    continue
                 if frame is None:
                     break
                 idx = self.frame_counter
@@ -139,6 +297,7 @@ class Pipeline:
                     # here does not starve dispatch/collect of the GIL.
                     time.sleep(0.0002)
                 self._capture_rate.tick()
+                self.tracer.instant("frame_captured", ts, TRACK_INGEST, frame=idx)
         except BaseException as e:  # noqa: BLE001 — surfaces from run()
             self._fail(e)
         finally:
@@ -172,33 +331,65 @@ class Pipeline:
             return None
         return items
 
-    def _slot(self, frame_shape, dtype, seq: int):
-        """The (input tensor, its numpy view, output tensor) of the staging
-        slot for batch ``seq``. The slots are allocated once per frame
-        signature, pinned when the engine is on CUDA."""
+    def _builder_for(self, frame_shape, dtype, slot: int):
+        """One staged batch via the assembler (runtime/ingest.py), which
+        owns ``max_inflight + 1`` slots. Rebuilt when the frame signature
+        changes, after a degradation and after an engine rebuild."""
         shape = (self.config.batch_size, *frame_shape)
-        sig = (shape, np.dtype(dtype))
-        if self._slot_sig != sig:
+        dtype = np.dtype(dtype)
+        asm = self._assembler
+        if asm is None or asm.batch_shape != shape or asm.dtype != dtype:
+            # The engine's warm-up put calibrates the un-overlapped H2D
+            # cost the overlap_efficiency metric is judged against.
             self.engine.ensure_compiled(shape, dtype)
-            pin = self.engine.on_cuda
-            out_dtype = _torch_dtype(self.engine.out_dtype)
-            self._slots = []
-            for _ in range(self.config.max_inflight + 1):
-                inp = torch.empty(shape, dtype=_torch_dtype(dtype), pin_memory=pin)
-                out = torch.empty(self.engine.out_shape, dtype=out_dtype,
-                                  pin_memory=pin)
-                self._slots.append((inp, inp.numpy(), out))
-            self._slot_sig = sig
-        return self._slots[seq % len(self._slots)]
+            self._ingest_stats = IngestStats(
+                requested_mode=self.config.ingest,
+                depth=self.config.ingest_depth,
+                h2d_block_ms=self.engine.h2d_block_ms)
+            self._assembler = asm = ShardedBatchAssembler(
+                shape, dtype, self.engine.device,
+                mode=self._ingest_mode, depth=self.config.ingest_depth,
+                slots=self.config.max_inflight + 1,
+                tracer=self.tracer, track=TRACK_H2D,
+                stats=self._ingest_stats, chaos=self.config.chaos,
+                stream=self.engine.h2d_stream)
+            if self._degrade_reason is not None:
+                self._ingest_stats.fallback_reason = self._degrade_reason
+        return asm.begin(slot)
 
-    def _drain_ready(self, pending: deque) -> None:
+    def _fetcher_for(self) -> ShardedBatchFetcher:
+        """The egress fetcher for the engine's compiled output signature
+        (runtime/egress.py), ``max_inflight + 1`` slabs. Rebuilt when the
+        output signature changes or the engine was rebuilt."""
+        shape, dtype = self.engine.out_shape, self.engine.out_dtype
+        f = self._fetcher
+        if f is None or f.out_shape != tuple(shape) or f.dtype != dtype:
+            self._egress_stats = EgressStats(
+                requested_mode=self.config.egress,
+                d2h_block_ms=self.engine.d2h_block_ms)
+            self._fetcher = f = ShardedBatchFetcher(
+                shape, dtype, self.engine.device,
+                mode=self._egress_mode,
+                slots=self.config.max_inflight + 1,
+                stats=self._egress_stats,
+                tracer=self.tracer, track=TRACK_D2H,
+                chaos=self.config.chaos, stream=self.engine.d2h_stream)
+            if self._egress_degrade_reason is not None:
+                self._egress_stats.fallback_reason = \
+                    self._egress_degrade_reason
+        return f
+
+    def _drain_ready(self, pending: deque) -> bool:
         """Inline collect: retire the oldest batch while the window is
-        full, plus any results already complete (oldest-first)."""
+        full, plus any results already complete (oldest-first). Returns
+        False only when an error escaped containment."""
         while pending:
             if (len(pending) < self.config.max_inflight
-                    and not pending[0][2].is_ready()):
+                    and not pending[0][3].is_ready()):
                 break
-            self._collect_one(*pending.popleft(), release=False)
+            if not self._collect_one(*pending.popleft(), release=False):
+                return False
+        return True
 
     def _dispatch(self) -> None:
         seq = 0
@@ -213,9 +404,14 @@ class Pipeline:
                     break
                 if not items:
                     continue
+                while self._recovering.is_set() and not self._abort.is_set():
+                    # Stall recovery is swapping the engine: park with the
+                    # assembled frames in hand.
+                    time.sleep(0.001)
                 valid = len(items)
                 if inline:
-                    self._drain_ready(pending)
+                    if not self._drain_ready(pending):
+                        return
                 else:
                     # Acquired BEFORE touching the staging slot: the permit
                     # is what makes slot reuse safe. Polled, so a dead
@@ -223,53 +419,98 @@ class Pipeline:
                     while not self._inflight_sem.acquire(timeout=0.1):
                         if self._abort.is_set():
                             return
-                f0 = items[0][1]
-                inp, view, out = self._slot(f0.shape, f0.dtype, seq)
-                for row, (_, frame, _) in enumerate(items):
-                    view[row] = frame
-                # Pad a short batch by repeating the last frame: one
-                # signature, and the padded outputs are dropped.
-                view[valid:] = view[valid - 1]
-                result = self.engine.submit(inp, out=out)
+                try:
+                    f0 = items[0][1]
+                    builder = self._builder_for(f0.shape, f0.dtype, seq)
+                    for row, (_, frame, _) in enumerate(items):
+                        builder.write_row(row, frame)
+                    # finish() pads a short batch by repeating the last
+                    # frame (one signature; the padded outputs are
+                    # dropped) and flushes the remaining chunk copies.
+                    batch, resident = builder.finish(valid)
+                    t0 = time.time()
+                    result = (self.engine.submit_resident(batch, ready=builder.ready)
+                              if resident else self.engine.submit(batch, fetch=False))
+                    # Start the D2H now, under the next batch's staging and
+                    # this batch's compute; collect then only waits.
+                    self._fetcher_for().prefetch(result, seq)
+                except Exception as e:  # noqa: BLE001 — drop this batch
+                    if not inline:
+                        self._inflight_sem.release()
+                    if not self._contain(e, "dispatch"):
+                        return
+                    continue
+                if self._supervisor is not None:
+                    self._supervisor.window.add(seq)
                 meta = [(idx, ts) for idx, _, ts in items]
                 if inline:
-                    pending.append((meta, valid, result))
+                    pending.append((seq, meta, valid, result, t0))
                 else:
-                    self._inflight.put((meta, valid, result))
+                    self._inflight.put((seq, meta, valid, result, t0))
                 seq += 1
             # Inline mode drains its window at end of stream or graceful
             # stop; a hard abort drops it, like the collect thread.
             while pending and not self._abort.is_set():
-                self._collect_one(*pending.popleft(), release=False)
+                if not self._collect_one(*pending.popleft(), release=False):
+                    return
         except BaseException as e:  # noqa: BLE001 — surfaces from run()
             self._fail(e)
         finally:
             self._dispatch_done.set()
 
-    def _collect_one(self, meta, valid, result, release=True) -> None:
-        """Wait for one batch and hand its valid rows to the reorder
-        buffer and the sink."""
+    def _collect_one(self, seq, meta, valid, result, t0, release=True) -> bool:
+        """Wait for one batch and hand its valid rows to the reorder buffer
+        and the sink; returns False only when an error escaped
+        containment."""
+        fetcher = self._fetcher
         try:
-            out = result.fetch()
-        finally:
+            if fetcher is None:
+                # Degraded mid-flight (the fetcher was released): the
+                # classic fetch, after the batch's compute.
+                if result.compute_event is not None:
+                    result.compute_event.synchronize()
+                out = result.device.cpu().numpy()
+            else:
+                out = fetcher.fetch(result, seq)
+        except Exception as e:  # noqa: BLE001 — device error: drop batch
+            if self._supervisor is not None:
+                self._supervisor.window.remove(seq)
             if release:
                 self._inflight_sem.release()
-        # The output slab is rewritten max_inflight + 1 batches later; rows
-        # the reorder buffer keeps across frame_delay must own their bytes.
+            return self._contain(e, "collect")
+        if self._supervisor is not None:
+            self._supervisor.window.remove(seq)
+            self._stalls_since_progress = 0  # the engine made progress
+        if release:
+            self._inflight_sem.release()
+        self.tracer.complete("batch_complete", t0, time.time(), TRACK_DEVICE,
+                             frames=[i for i, _ in meta])
+        # A pooled slab is rewritten max_inflight + 1 batches later; rows
+        # the reorder buffer keeps across frame_delay must own their
+        # bytes. The monolithic fetch's fresh array keeps handing out views.
+        copy_rows = fetcher is not None and fetcher.owns(out)
         for row, (idx, ts) in enumerate(meta[:valid]):
-            self.reorder.complete(idx, (out[row].copy(), ts))
+            frame = out[row].copy() if copy_rows else out[row]
+            self.reorder.complete(idx, (frame, ts))
         self._deliver()
+        return True
 
     def _collect(self) -> None:
+        chaos = self.config.chaos
         try:
             while not self._abort.is_set():
+                if chaos is not None:
+                    chaos.fire("freeze")  # injection site: a delay rule
+                    #   wedges this consumer so the stall watchdog has a
+                    #   deterministic stall to catch
                 try:
                     item = self._inflight.get(timeout=0.05)
                 except TimeoutError:
                     if self._dispatch_done.is_set() and len(self._inflight) == 0:
                         break
                     continue
-                self._collect_one(*item)
+                if not self._collect_one(*item):
+                    return
         except BaseException as e:  # noqa: BLE001 — surfaces from run()
             self._fail(e)
 
@@ -282,7 +523,12 @@ class Pipeline:
         for idx, (frame, ts) in self.reorder.pop_ready():
             self.latency.record(time.time() - ts)
             self._deliver_rate.tick()
-            self.sink.emit(idx, frame, ts)
+            self.tracer.instant("frame_delivered", track=TRACK_SINK, frame=idx)
+            try:
+                self.sink.emit(idx, frame, ts)
+            except Exception as e:  # noqa: BLE001 — a display hiccup must
+                if not self._contain(e, "sink"):  # not kill the stream
+                    return
 
     # ------------------------------------------------------------------
 
@@ -295,33 +541,94 @@ class Pipeline:
         if self.config.collect_mode != "inline":
             threads.append(threading.Thread(target=self._collect,
                                             name="dvf-collect", daemon=True))
-        for t in threads:
-            t.start()
-        while any(t.is_alive() for t in threads):
-            try:
-                for t in threads:
-                    t.join(timeout=0.2)
-            except KeyboardInterrupt:
-                # First Ctrl-C: graceful stop; second: abort.
-                if self._stop_requested.is_set():
-                    self.abort()
-                else:
-                    print("\n[pipeline] stopping (Ctrl-C again to abort)…",
-                          file=sys.stderr, flush=True)
-                    self.stop()
+        if self.config.stall_timeout_s > 0:
+            self._supervisor = Supervisor(
+                self.config.stall_timeout_s, on_stall=self._on_stall,
+                name="dvf-pipeline-supervisor").start()
+        try:
+            for t in threads:
+                t.start()
+            while any(t.is_alive() for t in threads):
+                try:
+                    for t in threads:
+                        t.join(timeout=0.2)
+                except KeyboardInterrupt:
+                    # First Ctrl-C: graceful stop; second: abort.
+                    if self._stop_requested.is_set():
+                        self.abort()
+                    else:
+                        print("\n[pipeline] stopping (Ctrl-C again to abort)…",
+                              file=sys.stderr, flush=True)
+                        self.stop()
+        finally:
+            if self._supervisor is not None:
+                self._supervisor.stop()
         if self._error is not None:
             raise self._error
         if not self._abort.is_set():
             self._deliver(flush=True)
         self.sink.close()
+        if self.tracer.enabled:
+            self.tracer.export()
         return self.stats()
 
-    def stats(self) -> dict:
+    def health(self) -> dict:
+        """Cheap liveness export: no percentile work. ``ok`` flips False
+        once the pipeline has failed."""
+        err = self._error
         return {
+            "ok": err is None,
+            "error": repr(err) if err is not None else None,
+            "delivered": self.latency.count,
+            "errors": self.errors,
+            "recoveries": self.recoveries,
+        }
+
+    def signals(self) -> dict:
+        """Flat load-control signal row (the reference's registry-conformant
+        keys)."""
+        agg = self.latency.summary()
+        out = {
+            "fps": agg.get("fps"),
+            "p50_ms": agg.get("p50_ms"),
+            "p90_ms": agg.get("p90_ms"),
+            "p99_ms": agg.get("p99_ms"),
+            "queue_depth": float(len(self.queue)),
+            "inflight_batches": float(len(self._inflight)),
+            "produced_total": float(self.frame_counter),
+            "delivered_total": float(self.latency.count),
+            "dropped_at_ingest_total": float(self.queue.dropped),
+            "errors_total": float(self.errors),
+            "recoveries_total": float(self.recoveries),
+            "engine_batches_total": float(self.engine.stats.batches),
+            "trace_dropped_total": float(self.tracer.dropped),
+        }
+        ing, egr = self._ingest_stats, self._egress_stats
+        if ing is not None:
+            out["ingest_overlap_efficiency"] = ing.overlap_efficiency()
+        if egr is not None:
+            out["egress_overlap_efficiency"] = egr.overlap_efficiency()
+        for kind, n in self.faults.summary()["by_kind"].items():
+            out[f"fault_{kind}_total"] = float(n)
+        return out
+
+    def stats(self) -> dict:
+        out = {
             **self.reorder.stats(),
             "frames_produced_total": self.frame_counter,
             "dropped_at_ingest": self.queue.dropped,
+            "transport": type(self.queue).__name__,
+            "errors": self.errors,
             "delivered": self.latency.count,
             "engine_batches": self.engine.stats.batches,
+            "faults": self.faults.summary(),
+            "recoveries": self.recoveries,
             **self.latency.summary(),
         }
+        if self._ingest_stats is not None:
+            out["ingest"] = self._ingest_stats.summary()
+        if self._egress_stats is not None:
+            out["egress"] = self._egress_stats.summary()
+        if self.config.chaos is not None:
+            out["chaos"] = self.config.chaos.summary()
+        return out

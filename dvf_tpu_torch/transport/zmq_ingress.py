@@ -21,11 +21,20 @@ coefficient blocks.
 
 The batch step (:meth:`ZmqWorker.process_batch`: decode → engine → assist
 → codec plane → send) takes a ``send`` callable, so it runs with or
-without sockets. Wire faults (a delta frame that cannot be decoded, a
-corrupt JPEG, a malformed reply) are contained per batch; every other
-failure raises out of the worker. Not ported: the ring transport,
-streamed ingest, chaos, tracer/registry/lineage, audit envelope, ledger,
-heartbeat/continuity, and the fault budget with its degrade ladders.
+without sockets. Frames are staged through the streamed ingest
+assembler (runtime/ingest.py, one slot: the step waits for each batch
+before the next is staged) and fetched through the egress fetcher
+(runtime/egress.py, ``egress_depth + 1`` slabs: the codec plane holds at
+most ``egress_depth`` batches' rows). Wire faults (a delta frame that
+cannot be decoded, a corrupt JPEG, a malformed reply) are contained in
+the step; in the socket loop every other per-batch failure is contained
+too. Each is classified (resilience.faults) and bounded by the per-kind
+error budget: repeated h2d faults degrade ingest streamed → monolithic,
+repeated d2h faults the egress, repeated delta wire faults the delta wire
+to keyframes only; the next overflow fails. ``chaos`` arms the decode,
+transport, h2d, d2h, compute and oom sites. Not ported yet: the ring
+transport, the tracer, registry and lineage, the audit envelope, the
+ledger, and heartbeat/continuity.
 """
 
 from __future__ import annotations
@@ -40,9 +49,12 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
-from dvf_tpu_torch.obs.metrics import EgressStats
-from dvf_tpu_torch.runtime.egress import AsyncCodecPlane
+from dvf_tpu_torch.obs.metrics import EgressStats, IngestStats
+from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
+from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
+from dvf_tpu_torch.runtime.egress import EGRESS_MODES, AsyncCodecPlane, ShardedBatchFetcher
 from dvf_tpu_torch.runtime.engine import Engine
+from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.transport.codec import (
     WIRE_MODES,
     DeltaCodec,
@@ -91,7 +103,10 @@ class ZmqWorker:
     ``codec`` replaces the wire codec the worker would build (for example
     a ``DeltaCodec`` over a ``RawCodec``: a delta wire without JPEG).
     ``connect=False`` opens no sockets and needs no ``zmq``: the caller
-    then calls :meth:`process_batch` itself.
+    then calls :meth:`process_batch` itself. ``ingest``/``ingest_depth``
+    and ``egress``/``egress_depth`` are the reference's staging and fetch
+    knobs; ``fault_budget``/``fault_window_s`` bound containment per fault
+    kind; ``chaos`` is a ``resilience.chaos.FaultPlan``.
     """
 
     def __init__(
@@ -106,7 +121,13 @@ class ZmqWorker:
         raw_size: int = 512,
         jpeg_quality: int = 90,
         codec_threads: int = 4,
+        ingest: str = "streamed",
+        ingest_depth: int = 4,
+        egress: str = "streamed",
         egress_depth: int = 2,
+        fault_budget: int = 16,
+        fault_window_s: float = 30.0,
+        chaos=None,
         delta_tile: int = 32,
         delta_keyframe_interval: int = 16,
         delta_threshold: int = 0,
@@ -123,6 +144,12 @@ class ZmqWorker:
         if codec_assist not in ("none", "probe", "full"):
             raise ValueError(f"codec_assist must be one of "
                              f"('none', 'probe', 'full'), got {codec_assist!r}")
+        if ingest not in INGEST_MODES:
+            raise ValueError(f"ingest must be one of {INGEST_MODES}, "
+                             f"got {ingest!r}")
+        if egress not in EGRESS_MODES:
+            raise ValueError(f"egress must be one of {EGRESS_MODES}, "
+                             f"got {egress!r}")
         if egress_depth < 1:
             raise ValueError("egress depth must be >= 1")
         if filt.stateful and not filt.pad_safe:
@@ -130,8 +157,14 @@ class ZmqWorker:
                 f"filter {filt.name!r} is stateful and not pad-safe; "
                 f"the ZMQ worker pads short batches and cannot serve it")
         self.filt = filt
-        self.engine = engine or Engine(filt, device=device)
+        self.chaos = chaos  # resilience.chaos.FaultPlan ("decode" and
+        #   "transport" sites live here; "h2d", "d2h", "compute" and "oom"
+        #   ride on the assembler, the fetcher and the engine)
+        self.engine = engine or Engine(filt, device=device, chaos=chaos)
+        if chaos is not None and self.engine.chaos is None:
+            self.engine.chaos = chaos
         self.wire = wire
+        self._wire_degrade_reason: Optional[str] = None
         if codec is not None:
             self.codec = codec
         elif wire == "delta":
@@ -173,19 +206,31 @@ class ZmqWorker:
         self.batch_size = int(batch_size)
         self.assemble_timeout_s = assemble_timeout_s
         self.raw_size = int(raw_size)
+        self.ingest = ingest
+        self.ingest_depth = ingest_depth
+        self.egress = egress
         self.egress_depth = int(egress_depth)
         self.poll_ms = poll_ms
         self.frames_processed = 0
         self.batches = 0
         self.errors = 0
-        self.faults = {}                 # kind -> contained wire faults
+        self.faults = FaultStats()
+        self.fault_budget = fault_budget
+        self.fault_window_s = fault_window_s
+        self._budget = ErrorBudget(limit=fault_budget, window_s=fault_window_s)
         # Host wall ms per stage; on a card also the stream time (CUDA
         # events) from the engine's submit to its end and through the assist.
         self.split = {"decode_ms": 0.0, "engine_stream_ms": 0.0,
                       "assist_stream_ms": 0.0, "assist_host_ms": 0.0,
                       "fetch_ms": 0.0, "step_ms": 0.0}
-        self._staging: Optional[torch.Tensor] = None
-        self._egress_stats = EgressStats(depth=self.egress_depth)
+        self._asm: Optional[ShardedBatchAssembler] = None  # per geometry
+        self._ingest_stats: Optional[IngestStats] = None
+        self._degrade_reason: Optional[str] = None
+        self._fetcher: Optional[ShardedBatchFetcher] = None
+        self._egress_stats = EgressStats(requested_mode=egress,
+                                         depth=self.egress_depth)
+        self._egress_seq = 0
+        self._egress_degrade_reason: Optional[str] = None
         self._plane: Optional[AsyncCodecPlane] = None
         self._send: Optional[SendFn] = None
         self._stop = threading.Event()
@@ -208,68 +253,136 @@ class ZmqWorker:
     def stop(self) -> None:
         self._stop.set()
 
-    def _fault(self, kind: str, err: BaseException, what: str) -> None:
-        self.errors += 1
-        self.faults[kind] = self.faults.get(kind, 0) + 1
+    def _fault(self, kind: str, err: BaseException, what: str,
+               degrade=None, error: bool = True) -> None:
+        """Count one contained fault and escalate it through the budget:
+        within budget it is dropped (``what`` says how much), on the first
+        overflow ``degrade(kind)`` may buy a fresh window, otherwise a
+        fatal FaultError raises out of the worker. ``error=False``: a
+        fault the worker recovers from whole (a geometry re-probe), so
+        not an error, as in the reference."""
+        self.errors += error
+        self.faults.record(kind, err)
+        if escalate(self._budget, kind, degrade) == ErrorBudget.FAIL:
+            raise FaultError(
+                kind,
+                f"{kind} fault budget exhausted (> {self.fault_budget} in "
+                f"{self.fault_window_s:g}s); last: {err!r}",
+                fatal=True) from err
         print(f"[ZmqWorker] {kind} fault ({what}): {err!r}", file=sys.stderr)
 
-    def _stage(self, h: int, w: int) -> np.ndarray:
-        """The (batch_size, H, W, 3) uint8 staging batch (pinned on a card),
-        rebuilt when the geometry changes; compiles the engine for it."""
-        shape = (self.batch_size, h, w, 3)
-        if self._staging is None or tuple(self._staging.shape) != shape:
-            self.engine.ensure_compiled(shape, np.uint8)
-            self._staging = torch.empty(shape, dtype=torch.uint8,
-                                        pin_memory=self.engine.on_cuda)
-        return self._staging.numpy()
+    def _release_asm(self) -> None:
+        old, self._asm = self._asm, None
+        if old is not None:
+            old.release()
 
-    def _decode(self, blobs: list) -> np.ndarray:
-        """Decode a codec-wire batch into the staging rows."""
-        if self._staging is None:
+    def _builder(self, h: int, w: int):
+        """The per-geometry ingest assembler (runtime/ingest.py), one slot:
+        the batch step waits for each batch (its fetch or the assist's
+        bitmap read) before the next is staged, so the slot's buffers are
+        never still in use when rewritten. Compiles the engine for the
+        geometry first (its calibration gates streaming)."""
+        shape = (self.batch_size, h, w, 3)
+        if self._asm is None or self._asm.batch_shape != shape:
+            self._release_asm()
+            self.engine.ensure_compiled(shape, np.uint8)
+            self._ingest_stats = IngestStats(
+                requested_mode=self.ingest, depth=self.ingest_depth,
+                h2d_block_ms=self.engine.h2d_block_ms)
+            self._asm = ShardedBatchAssembler(
+                shape, np.uint8, self.engine.device, mode=self.ingest,
+                depth=self.ingest_depth, slots=1, stats=self._ingest_stats,
+                chaos=self.chaos, stream=self.engine.h2d_stream)
+            if self._degrade_reason is not None:
+                self._ingest_stats.fallback_reason = self._degrade_reason
+        return self._asm.begin(0)
+
+    def _fetcher_for(self) -> ShardedBatchFetcher:
+        """The per-output-signature egress fetcher (runtime/egress.py),
+        ``egress_depth + 1`` slabs: the codec plane holds at most
+        ``egress_depth`` batches' rows, so the slab being rewritten belongs
+        to a batch whose sends completed. Rebuilt on a geometry change."""
+        shape = tuple(self.engine.out_shape)
+        f = self._fetcher
+        if f is None or f.out_shape != shape:
+            self._egress_stats = EgressStats(
+                requested_mode=self.egress, depth=self.egress_depth,
+                d2h_block_ms=self.engine.d2h_block_ms)
+            if f is not None:
+                f.release()
+            self._fetcher = f = ShardedBatchFetcher(
+                shape, self.engine.out_dtype, self.engine.device,
+                mode=self.egress, slots=self.egress_depth + 1,
+                stats=self._egress_stats, chaos=self.chaos,
+                stream=self.engine.d2h_stream)
+            if self._egress_degrade_reason is not None:
+                self._egress_stats.fallback_reason = self._egress_degrade_reason
+            if self._plane is not None:
+                self._plane.stats = self._egress_stats
+        return f
+
+    def _decode(self, blobs: list, valid: int):
+        """Decode a codec-wire batch window by window into the
+        assembler's slab (each decoded chunk's copy streams out under the
+        decode of the next); returns the finished builder and its
+        ``(batch, resident)``."""
+        if self._asm is None:
             h, w = self.codec.probe(blobs[0])
         else:
-            h, w = self._staging.shape[1:3]
-        out = self._stage(h, w)
-        self.codec.decode_batch(blobs, out=out[:len(blobs)])
-        return out
+            h, w = self._asm.batch_shape[1:3]
+        builder = self._builder(h, w)
+        for start, stop in builder.windows(valid):
+            self.codec.decode_batch(blobs[start:stop],
+                                    out=builder.window_view(start, stop))
+            builder.commit_window(start, stop)
+        return builder, builder.finish(valid)
 
     def _decode_wire(self, blobs, indices):
         """Decode one codec-wire batch with delta resync recovery: a delta
         wire fault drops the batch up to its next keyframe after the
         failing row (a gap heals only at a keyframe) and decodes the rest;
         a stream whose geometry changed is re-staged once; a corrupt JPEG
-        drops the batch. Returns ``(staging, indices)``, staging None when
-        the faults consumed the batch."""
+        drops the batch. Each is counted and bounded by the budget.
+        Returns ``(builder, (batch, resident), indices)``, builder None
+        when the faults consumed the batch."""
         while True:
             try:
                 try:
-                    return self._decode(blobs), indices
+                    return (*self._decode(blobs, len(blobs)), indices)
                 except JpegGeometryError as ge:
-                    self.faults["geometry"] = self.faults.get("geometry", 0) + 1
-                    print(f"[ZmqWorker] stream geometry changed, re-staging: "
-                          f"{ge!r}", file=sys.stderr)
-                    self._staging = None
-                    return self._decode(blobs), indices
+                    # The re-probe IS the containment: the degrade tier
+                    # keeps re-probing, only the second overflow fails.
+                    self._fault(FaultKind.GEOMETRY, ge, "re-staging",
+                                degrade=lambda _k: True, error=False)
+                    self._release_asm()
+                    return (*self._decode(blobs, len(blobs)), indices)
             except DeltaWireError as de:
+                self._release_asm()
                 r = getattr(de, "row", None)
                 search_from = (r + 1) if r is not None else 1
                 nxt = DeltaCodec.seek_keyframe(blobs[search_from:])
                 if nxt is None:
-                    self._fault("transport", de, "dropping the batch")
-                    return None, []
+                    self._fault(FaultKind.TRANSPORT, de, "dropping the batch",
+                                degrade=self._degrade_delta)
+                    return None, None, []
                 start = search_from + nxt
-                self._fault("transport", de,
-                            f"dropping {start} frame(s) to the next keyframe")
+                self._fault(FaultKind.TRANSPORT, de,
+                            f"dropping {start} frame(s) to the next keyframe",
+                            degrade=self._degrade_delta)
                 indices, blobs = indices[start:], blobs[start:]
+            except JpegGeometryError:
+                raise  # changed again on the re-staged decode
             except ValueError as e:        # corrupt JPEG stream
-                self._fault("decode", e, "dropping the batch")
-                return None, []
+                self._fault(FaultKind.DECODE, e, "dropping the batch",
+                            degrade=self._degrade)
+                return None, None, []
 
     def process_batch(self, pending: List[Tuple[int, bytes]], send: SendFn) -> None:
         """Decode → engine → assist → codec plane → send, for one batch of
         ``(frame_index, payload)`` pairs. ``send(index, t0, t1, payload)``
         delivers one result; encoded results go out in order as the plane
-        finishes them (the tail at :meth:`drain_egress`)."""
+        finishes them (the tail at :meth:`drain_egress`). Transfer and
+        compute faults raise (the socket loop contains them)."""
         self._send = send
         t0 = time.time()
         tp = time.perf_counter()
@@ -277,24 +390,29 @@ class ZmqWorker:
         blobs = [b for _, b in pending]
         if self.wire == "raw":
             h = w = self.raw_size
-            staging = self._stage(h, w)
-            try:
-                for row, b in enumerate(blobs):
-                    staging[row] = np.frombuffer(b, np.uint8).reshape(h, w, 3)
-            except ValueError as e:        # wrong byte count
-                self._fault("decode", e, "dropping the batch")
-                return
+            builder = self._builder(h, w)
+            for row, b in enumerate(blobs):
+                try:
+                    frame = np.frombuffer(b, np.uint8).reshape(h, w, 3)
+                except ValueError as e:    # wrong byte count
+                    self._fault(FaultKind.DECODE, e, "dropping the batch",
+                                degrade=self._degrade)
+                    return
+                builder.write_row(row, frame)
+            batch, resident = builder.finish(len(blobs))
         else:
-            staging, indices = self._decode_wire(blobs, indices)
-            if staging is None:
+            if self.chaos is not None:
+                # Injection site "decode": one event per blob; a firing
+                # rule mangles that blob so the codec rejects it.
+                blobs = [self.chaos.corrupt("decode", b) for b in blobs]
+            builder, staged, indices = self._decode_wire(blobs, indices)
+            if builder is None:
                 return
+            batch, resident = staged
         valid = len(indices)
-        # Pad to the compiled batch by repeating the last frame (stateful
-        # temporal windows stay right; see Filter.pad_safe).
-        staging[valid:] = staging[valid - 1]
         tdec = time.perf_counter()
         self.split["decode_ms"] += (tdec - tp) * 1e3
-        shape = tuple(self._staging.shape)
+        shape = tuple(batch.shape)
         fused = self._fused is not None and self._fused.supports(shape, self._fused.tile)
         if self._fused is not None and not fused and not self._fused_geom_warned:
             self._fused_geom_warned = True
@@ -305,9 +423,13 @@ class ZmqWorker:
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-        result = self.engine.submit(self._staging, fetch=not fused)
+        result = (self.engine.submit_resident(batch, ready=builder.ready)
+                  if resident else self.engine.submit(batch, fetch=False))
         if cuda:
             ev[1].record()
+        fetcher = None if fused else self._fetcher_for()
+        if fetcher is not None:
+            fetcher.prefetch(result, self._egress_seq)
         ta = time.perf_counter()
         bitmaps = coeffs = None
         if fused:
@@ -318,8 +440,9 @@ class ZmqWorker:
         if cuda:
             ev[2].record()
         rows = [None] * valid
-        if not fused:
-            rows = result.fetch()[:valid]
+        if fetcher is not None:
+            rows = fetcher.fetch(result, self._egress_seq)[:valid]
+        self._egress_seq += 1
         tc = time.perf_counter()
         if cuda:
             ev[2].synchronize()
@@ -327,8 +450,6 @@ class ZmqWorker:
             self.split["assist_stream_ms"] += ev[1].elapsed_time(ev[2])
         self.split["assist_host_ms"] += (tb - ta) * 1e3
         self.split["fetch_ms"] += (tc - tb) * 1e3
-        if not fused:
-            self._egress_stats.record_fetch((tc - tb) * 1e3)
         t1 = time.time()
         plane = self._plane_for()
         plane.submit([rows[i] for i in range(valid)],
@@ -348,16 +469,26 @@ class ZmqWorker:
         return self._plane
 
     def _pump_egress(self, send: SendFn, block: bool = False) -> None:
-        """Send the plane's finished batches, in order. An encode that
-        failed raises: it is no wire fault."""
+        """Send the plane's finished batches, in order. A failed encode
+        drops its row, a failed send the batch's remainder; both count as
+        transport faults under the budget, whose overflow fails."""
         if self._plane is None:
             return
         for batch in self._plane.ready(block=block):
             t_send = time.perf_counter()
             for (idx, t0, t1), payload, err in batch:
                 if err is not None:
-                    raise RuntimeError(f"encoding frame {idx} failed") from err
-                send(idx, t0, t1, payload)
+                    self._fault(FaultKind.TRANSPORT, err,
+                                f"encode failed, dropping frame {idx}",
+                                degrade=self._degrade)
+                    continue
+                try:
+                    send(idx, t0, t1, payload)
+                except Exception as e:  # noqa: BLE001 — dead/stalled peer
+                    self._fault(FaultKind.TRANSPORT, e,
+                                "send failed, dropping the batch remainder",
+                                degrade=self._degrade)
+                    break  # at-most-once: drop this batch's tail
             self._egress_stats.record_send((time.perf_counter() - t_send) * 1e3)
 
     def drain_egress(self, send: Optional[SendFn] = None) -> None:
@@ -376,7 +507,11 @@ class ZmqWorker:
         return send
 
     def run(self, max_frames: Optional[int] = None) -> None:
-        """Serve until :meth:`stop` (or until ``max_frames`` processed)."""
+        """Serve until :meth:`stop` (or until ``max_frames`` processed).
+        Any per-iteration failure — malformed message, codec error, engine
+        or transfer error — drops that message or batch, is counted and
+        classified, and the worker keeps serving until its kind's budget
+        fails."""
         if self.ctx is None:
             raise RuntimeError("worker built with connect=False has no sockets")
         with self._run_lock:
@@ -389,45 +524,95 @@ class ZmqWorker:
         pending: List[Tuple[int, bytes]] = []
         first_recv_t: Optional[float] = None
         while not self._stop.is_set():
-            self._pump_egress(send, block=False)
-            # Keep batch_size READYs outstanding (the reference worker
-            # holds one, worker.py:39-46). Non-blocking: with the app down
-            # a full DEALER buffer must not wedge stop().
-            while credits < self.batch_size:
-                try:
-                    self.dealer.send(READY, flags=zmq.NOBLOCK)
-                except zmq.Again:
-                    break
-                credits += 1
-            if self.dealer.poll(self.poll_ms):
-                parts = self.dealer.recv_multipart()
-                # Any reply consumes a credit, even a malformed one.
-                credits = max(0, credits - 1)
-                parsed = parse_frame_reply(parts)
-                if parsed is None:
-                    self._fault("transport", ValueError(
-                        f"malformed frame reply ({len(parts)} parts)"), "dropped")
+            try:
+                self._pump_egress(send, block=False)
+                # Keep batch_size READYs outstanding (the reference worker
+                # holds one, worker.py:39-46). Non-blocking: with the app
+                # down a full DEALER buffer must not wedge stop().
+                while credits < self.batch_size:
+                    try:
+                        self.dealer.send(READY, flags=zmq.NOBLOCK)
+                    except zmq.Again:
+                        break
+                    credits += 1
+                if self.dealer.poll(self.poll_ms):
+                    parts = self.dealer.recv_multipart()
+                    if self.chaos is not None:
+                        # Injection site "transport": a firing rule
+                        # truncates the multipart → malformed reply below.
+                        parts = self.chaos.truncate("transport", parts)
+                    # Any reply consumes a credit, even a malformed one.
+                    credits = max(0, credits - 1)
+                    parsed = parse_frame_reply(parts)
+                    if parsed is None:
+                        self._fault(FaultKind.TRANSPORT, ValueError(
+                            f"malformed frame reply ({len(parts)} parts)"),
+                            "dropped", degrade=lambda _k: True)
+                    else:
+                        pending.append(parsed)
+                        if first_recv_t is None:
+                            first_recv_t = time.perf_counter()
                 else:
-                    pending.append(parsed)
-                    if first_recv_t is None:
-                        first_recv_t = time.perf_counter()
-            else:
-                # Credits decay on every quiet poll: the reference
-                # distributor silently forgets READYs when it has no fresh
-                # frame (distributor.py:226-244), so send them again at that
-                # cadence (worker.py:38).
-                credits = max(0, credits - 1)
-            flush = len(pending) >= self.batch_size or (
-                pending and first_recv_t is not None
-                and time.perf_counter() - first_recv_t > self.assemble_timeout_s)
-            if not flush:
-                continue
-            batch, pending = pending[:self.batch_size], pending[self.batch_size:]
-            first_recv_t = time.perf_counter() if pending else None
-            self.process_batch(batch, send)
-            if max_frames is not None and self.frames_processed >= max_frames:
-                break
+                    # Credits decay on every quiet poll: the reference
+                    # distributor silently forgets READYs when it has no
+                    # fresh frame (distributor.py:226-244), so send them
+                    # again at that cadence (worker.py:38).
+                    credits = max(0, credits - 1)
+                flush = len(pending) >= self.batch_size or (
+                    pending and first_recv_t is not None
+                    and time.perf_counter() - first_recv_t > self.assemble_timeout_s)
+                if not flush:
+                    continue
+                batch, pending = pending[:self.batch_size], pending[self.batch_size:]
+                first_recv_t = time.perf_counter() if pending else None
+                self.process_batch(batch, send)
+                if max_frames is not None and self.frames_processed >= max_frames:
+                    break
+            except Exception as e:  # noqa: BLE001 — per-iteration containment
+                if isinstance(e, FaultError) and e.fatal:
+                    raise  # a budget-exhaustion error escaping containment
+                self._fault(classify(e, site="worker"), e,
+                            "dropping the batch", degrade=self._degrade)
+                pending = []
+                first_recv_t = None
         self.drain_egress(send)
+
+    def _degrade_delta(self, kind: str) -> bool:
+        """Delta-wire degradation, reachable only from delta wire faults:
+        fall back to full-frame results (every frame a keyframe, framed
+        identically, so the peer decodes it unchanged). The worker has no
+        lever over what the peer sends, so a peer that stays corrupt
+        through a second window still fails."""
+        if self.wire == "delta" and not self.codec.full_frames:
+            self.codec.full_frames = True
+            self._wire_degrade_reason = "delta_fault_budget"
+            print("[ZmqWorker] repeated delta wire faults: degrading to "
+                  "full-frame results (keyframe-only)", file=sys.stderr, flush=True)
+            return True
+        return False
+
+    def _degrade(self, kind: str) -> bool:
+        """First-overflow degradation: repeated h2d faults fall back from
+        streamed to monolithic ingest, repeated d2h faults the egress
+        (reason recorded in the stats). Other kinds have no degraded mode
+        here: the budget fails them."""
+        if kind == FaultKind.H2D and self.ingest == "streamed":
+            self.ingest = "monolithic"
+            self._degrade_reason = "h2d_fault_budget"
+            self._release_asm()
+            print("[ZmqWorker] repeated h2d faults: degrading ingest "
+                  "streamed → monolithic", file=sys.stderr, flush=True)
+            return True
+        if kind == FaultKind.D2H and self.egress == "streamed":
+            self.egress = "monolithic"
+            self._egress_degrade_reason = "d2h_fault_budget"
+            old, self._fetcher = self._fetcher, None
+            if old is not None:
+                old.release()
+            print("[ZmqWorker] repeated d2h faults: degrading egress "
+                  "streamed → monolithic", file=sys.stderr, flush=True)
+            return True
+        return False
 
     # -- accounting / lifecycle -----------------------------------------
 
@@ -438,17 +623,22 @@ class ZmqWorker:
             "batches": self.batches,
             "errors": self.errors,
             "wire": self.wire,
-            "faults": {"by_kind": dict(self.faults)},
+            "faults": self.faults.summary(),
+            **({"ingest": self._ingest_stats.summary()}
+               if self._ingest_stats is not None else {}),
             "egress": self._egress_stats.summary(),
             "split_ms_per_batch": {k: v / max(1, self.batches)
                                    for k, v in self.split.items()},
         }
         if self.wire == "delta":
             out["delta"] = {**self.codec.stats(),
+                            "fallback_reason": self._wire_degrade_reason,
                             "device_probe": self._probe is not None,
                             "fused_transform": self._fused is not None,
                             **({"fused_dispatches": self._fused.calls}
                                if self._fused is not None else {})}
+        if self.chaos is not None:
+            out["chaos"] = self.chaos.summary()
         return out
 
     def close(self) -> None:

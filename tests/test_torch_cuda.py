@@ -476,3 +476,147 @@ def test_neural_forward_never_waits_on_the_host(dev, name, cfg):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.device == dev and torch.isfinite(out).all()
+
+
+# -- streamed ingest and egress on the card ----------------------------------
+
+
+@pytest.mark.parametrize("name,kw", [("gaussian_blur", {"ksize": 9}),
+                                     ("flow_warp", {})])
+def test_streamed_dispatch_never_waits_on_the_host(dev, name, kw):
+    """Stage → chunk copies on the H2D stream → submit_resident → D2H
+    prefetch on the D2H stream runs under CUDA's sync debug mode set to
+    raise: only the fetch waits, and it waits on events. The result
+    equals a plain submit of the same frames."""
+    from dvf_tpu_torch.runtime.egress import ShardedBatchFetcher
+    from dvf_tpu_torch.runtime.ingest import ShardedBatchAssembler
+
+    shape = (4, 72, 130, 3)
+    frames = np.random.default_rng(11).integers(0, 256, (2,) + shape, np.uint8)
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
+    ref = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
+    eng.compile(shape)
+    asm = ShardedBatchAssembler(shape, np.uint8, dev, depth=3, slots=2,
+                                stream=eng.h2d_stream)
+    fetcher = ShardedBatchFetcher(eng.out_shape, eng.out_dtype, dev, slots=2,
+                                  stream=eng.d2h_stream)
+    assert asm.effective_mode == fetcher.effective_mode == "streamed"
+    for seq in range(2):
+        want = ref.submit(frames[seq]).fetch().copy()
+        b = asm.begin(seq)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for row in range(shape[0]):
+                b.write_row(row, frames[seq][row])
+            batch, resident = b.finish(shape[0])
+            res = eng.submit_resident(batch, ready=b.ready)
+            fetcher.prefetch(res, seq)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert resident and batch.device == dev
+        got = fetcher.fetch(res, seq)
+        assert fetcher.owns(got)
+        np.testing.assert_array_equal(got, want)
+
+
+def _card_pipeline(dev, name, kw, mode, n, shape, **cfg):
+    got = {}
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
+    stats = dvf_tpu_torch.Pipeline(
+        dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n, seed=5), eng.filter,
+        dvf_tpu_torch.CallbackSink(lambda i, f, _: got.__setitem__(i, f.copy())),
+        dvf_tpu_torch.PipelineConfig(batch_size=shape[0], queue_size=n + 1,
+                                     ingest=mode, egress=mode, **cfg),
+        engine=eng).run()
+    assert stats["delivered"] == n and sorted(got) == list(range(n))
+    return got, stats
+
+
+def test_slot_reuse_and_record_stream_at_a_full_window(dev, monkeypatch):
+    """max_inflight 2 with frame_delay 8: the staging, device and slab
+    slots wrap while the reorder buffer still holds rows and the card is
+    still busy (bilateral at 360p keeps it so): a copy that read freed or
+    rewritten memory would show as wrong bytes. The dispatch thread
+    submits and the collect thread fetches, so the copy streams must be
+    linked to the compute stream by events, not by whichever stream is
+    current in the other thread. Streamed equals monolithic byte for
+    byte, and both stay within 1 LSB of the CPU."""
+    from dvf_tpu_torch.runtime import egress as egress_mod
+    from dvf_tpu_torch.runtime import ingest as ingest_mod
+
+    monkeypatch.setattr(ingest_mod, "MIN_STREAM_H2D_MS", 0.0)
+    monkeypatch.setattr(egress_mod, "MIN_STREAM_D2H_MS", 0.0)
+    shape, n = (4, 360, 640, 3), 40
+    runs = {}
+    for mode in ("streamed", "monolithic"):
+        runs[mode], stats = _card_pipeline(dev, "bilateral", {}, mode, n, shape,
+                                           max_inflight=2, frame_delay=8,
+                                           ingest_depth=2, assemble_timeout_s=60.0)
+        assert stats["ingest"]["mode"] == stats["egress"]["mode"] == mode
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(*shape[1:], n_frames=n,
+                                                          seed=5)][:-1]
+    cpu = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("bilateral"), device="cpu")
+    for s in (0, n - shape[0]):
+        want = cpu.submit(np.stack(frames[s:s + shape[0]])).fetch()
+        for j in range(shape[0]):
+            d = np.abs(runs["streamed"][s + j].astype(np.int16) - want[j].astype(np.int16))
+            assert d.max() <= 1
+    for i in range(n):
+        np.testing.assert_array_equal(runs["streamed"][i], runs["monolithic"][i])
+
+
+def test_streamed_equals_monolithic_at_a_ragged_batch(dev, monkeypatch):
+    """A stream that is no multiple of the batch at an odd geometry: the
+    padded last batch, the chunks of unequal rows and both fetch paths."""
+    from dvf_tpu_torch.runtime import egress as egress_mod
+    from dvf_tpu_torch.runtime import ingest as ingest_mod
+
+    monkeypatch.setattr(ingest_mod, "MIN_STREAM_H2D_MS", 0.0)
+    monkeypatch.setattr(egress_mod, "MIN_STREAM_D2H_MS", 0.0)
+    shape, n = (5, 37, 53, 3), 23
+    for name, kw in [("invert", {}), ("sobel_bilateral", {}), ("identity", {})]:
+        runs = {m: _card_pipeline(dev, name, kw, m, n, shape, ingest_depth=3)[0]
+                for m in ("streamed", "monolithic")}
+        for i in range(n):
+            np.testing.assert_array_equal(runs["streamed"][i], runs["monolithic"][i])
+        if name != "sobel_bilateral":
+            frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+                *shape[1:], n_frames=n, seed=5)][:-1]
+            for i, f in enumerate(frames):
+                np.testing.assert_array_equal(runs["streamed"][i],
+                                              255 - f if name == "invert" else f)
+
+
+def test_engine_entries_on_the_card(dev):
+    """submit_resident equals submit byte for byte; run_probe equals
+    submit and refuses flow_warp; out_uint8=False is the float output;
+    compile sets the three calibrations; a fetcher handed a batch it did
+    not prefetch (one rebuilt between submit and collect) copies it
+    then."""
+    from dvf_tpu_torch.runtime.egress import ShardedBatchFetcher
+
+    shape = (4, 64, 96, 3)
+    x = np.random.default_rng(12).integers(0, 256, shape, np.uint8)
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9),
+                               device=dev)
+    want = eng.submit(x).fetch().copy()
+    assert None not in (eng.h2d_block_ms, eng.d2h_block_ms, eng.step_block_ms)
+    res = eng.submit_resident(torch.from_numpy(x).to(dev))
+    np.testing.assert_array_equal(res.device.cpu().numpy(), want)
+    np.testing.assert_array_equal(eng.run_probe(x), want)
+    fetcher = ShardedBatchFetcher(eng.out_shape, eng.out_dtype, dev, slots=2,
+                                  stream=eng.d2h_stream)
+    got = fetcher.fetch(eng.submit(x, fetch=False), 1)
+    assert fetcher.owns(got)
+    np.testing.assert_array_equal(got, want)
+    flow = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("flow_warp"), device=dev)
+    flow.compile(shape)
+    with pytest.raises(ValueError, match="stateful"):
+        flow.run_probe(x)
+    f32 = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9),
+                               device=dev, out_uint8=False)
+    got = f32.submit(x).fetch()
+    plain = tk.sep_blur_nhwc_pallas(torch.from_numpy(x).to(dev).float() / 255.0,
+                                    gaussian_kernel_1d(9, 0.0), gaussian_kernel_1d(9, 0.0))
+    assert got.dtype == np.float32
+    assert np.abs(got - plain.cpu().numpy()).max() <= 1e-5
