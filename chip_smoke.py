@@ -803,6 +803,10 @@ def main() -> int:
         pipe_rows.append(row)
         registry_engines[row["filter"]] = (eng, shape)
         torch.cuda.empty_cache()
+    # 7. the serving frontend (multi-tenant; the kernels through its buckets)
+    serve_rows, delta = serve_phase(dev, plain_of)
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -830,6 +834,7 @@ def main() -> int:
         stage_rows.append(row)
 
     print(json.dumps({"pipeline": pipe_rows}))
+    print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -2073,6 +2078,663 @@ def stage_row(label: str, eng, shape, profile: bool) -> dict:
         f"({shape[0] * 1e3 / engine_ms:.1f} fps); host staging "
         f"{stage_ms:.2f} ms, row copy-out {copy_out_ms:.2f} ms per batch{busy}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-tenant serving frontend (dvf_tpu_torch.serve)
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 16
+SERVE_HD = MAIN_SHAPE[1:]        # 1080 x 1920 x 3: BASELINE configs[1] and [2]
+SERVE_SD = (480, 640, 3)         # configs[0]'s geometry
+SERVE_FRAMES = 32                # per session in legs (a), (c) and (d)
+SWAP_FRAMES = 96                 # per session in leg (b)
+BRIDGE_FRAMES = 64               # per wire in leg (e)
+# Serving keeps every frame: ingress and poll queues hold a whole
+# session's frames and the SLO never sheds.
+SERVE_KW = dict(batch_size=SERVE_BATCH, queue_size=128, out_queue_size=128,
+                slo_ms=600_000.0, stall_timeout_s=0.0)
+
+
+def serve_bases(shape, n: int, seed: int) -> list:
+    """One random base frame per session: a frame delivered to the wrong
+    session differs everywhere."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(n)]
+
+
+def tagged(base: np.ndarray, j: int) -> np.ndarray:
+    """Frame ``j`` of a session: its base with row 0 set to the index."""
+    f = base.copy()
+    f[0] = j % 251
+    return f
+
+
+def serve_plain(chain: str, frames: list, dev, plain_of: dict) -> np.ndarray:
+    """The plain torch version of ``chain`` on the card, in batches."""
+    import torch
+
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    fn = {"gaussian_blur(ksize=9)": plain_of["sep_blur"],
+          "sobel_bilateral": plain_of["sobel_bilateral"],
+          "bilateral": plain_of["bilateral"]}.get(chain)
+    out = []
+    for i in range(0, len(frames), SERVE_BATCH):
+        x = torch.from_numpy(np.stack(frames[i:i + SERVE_BATCH])).to(dev)
+        y = 255 - x if fn is None else to_uint8(fn(to_float(x)))
+        out.append(y.cpu().numpy())
+    return np.concatenate(out)
+
+
+def serve_check(label: str, chain: str, base, got: list, n: int, dev,
+                plain_of: dict) -> int:
+    """One session's deliveries: indices 0..n-1 in order, every frame
+    within 1 LSB of the plain version of its own input (bit-exact for
+    invert). Returns the max LSB."""
+    idx = [d.index for d in got]
+    if idx != list(range(n)):
+        raise AssertionError(f"{label}: delivered indices {idx[:8]}... "
+                             f"({len(idx)} of {n}), want 0..{n - 1} in order")
+    want = serve_plain(chain, [tagged(base, j) for j in range(n)], dev, plain_of)
+    lsb = max_lsb(np.stack([d.frame for d in got]), want)
+    if lsb > (0 if chain == "invert" else 1):
+        raise AssertionError(f"{label}: frames differ from the plain version "
+                             f"by {lsb} LSB")
+    return lsb
+
+
+def serve_drive(fe, plan: dict, per_session: int, deadline_s: float = 120.0):
+    """Submit ``per_session`` frames to every session of ``plan`` ({sid:
+    base}) round robin, then poll until each has them all. Returns ({sid:
+    [Delivery]}, wall seconds)."""
+    got = {sid: [] for sid in plan}
+    t0 = time.perf_counter()
+    for j in range(per_session):
+        for sid, base in plan.items():
+            fe.submit(sid, tagged(base, j))
+    deadline = time.time() + deadline_s
+    while any(len(v) < per_session for v in got.values()):
+        if time.time() > deadline:
+            raise AssertionError(f"serving stalled: "
+                                 f"{ {s: len(v) for s, v in got.items()} } of "
+                                 f"{per_session}; {fe.health()}")
+        for sid in plan:
+            got[sid].extend(fe.poll(sid))
+        time.sleep(0.002)
+    return got, time.perf_counter() - t0
+
+
+def serve_counted(delta: dict, want: dict, label: str) -> None:
+    """Every kernel launched exactly its expected count (0 where absent)."""
+    full = {k: want.get(k, 0) for k in delta}
+    if delta != full:
+        raise AssertionError(f"{label}: launches {delta}, want {full}")
+
+
+def bucket_of(fe, sid):
+    return fe._session(sid).bucket
+
+
+def serve_leg_mixed(dev, plain_of: dict):
+    """(a) Mixed signatures: one frontend (batch 16, max_buckets 3,
+    pool_capacity 3) serving 2 sessions of sobel_bilateral and 2 of
+    gaussian_blur(ksize=9) at 1080p and 2 of invert at 480 x 640; the
+    launch counters zeroed after admission (the compiles) and read after
+    the run."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs.memory import memory_summary
+    from dvf_tpu_torch.ops import kernels as tk
+
+    cfg = dvf_tpu_torch.ServeConfig(max_buckets=3, pool_capacity=3, **SERVE_KW)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    tenants = [("sobel_bilateral", SERVE_HD, 2), ("gaussian_blur(ksize=9)",
+                                                   SERVE_HD, 2),
+               ("invert", SERVE_SD, 2)]
+    plan, chain_of, t_admit = {}, {}, {}
+    with fe:
+        seed = 70
+        for chain, shape, n in tenants:
+            t = time.perf_counter()
+            for base in serve_bases(shape, n, seed):
+                sid = fe.open_stream(op_chain=chain, frame_shape=shape)
+                plan[sid], chain_of[sid] = base, chain
+            t_admit[chain] = (time.perf_counter() - t) * 1e3
+            seed += 1
+        tk.reset_launches()
+        got, wall = serve_drive(fe, plan, SERVE_FRAMES)
+        delta = dict(tk.LAUNCHES)
+        st = fe.stats()
+        mem = memory_summary()
+        # invert at 480 x 640 pins the constructor's (invert) bucket, which
+        # compiles at its first batch on the dispatch thread, as the
+        # reference's default bucket does; the others compiled at admission
+        quiet = {chain_of[s]: calibrations(bucket_of(fe, s).engine) for s in plan}
+    batches = {chain_of[s]: bucket_of(fe, s).engine.stats.batches for s in plan}
+    serve_counted(delta, {"sobel_bilateral": batches["sobel_bilateral"],
+                          "sep_blur": batches["gaussian_blur(ksize=9)"]},
+                  "serve (a)")
+    if not (delta["sep_blur"] and delta["sobel_bilateral"]):
+        raise AssertionError(f"serve (a): K1/K3 never launched: {delta}")
+    lsb = {sid: serve_check(f"serve (a) {chain_of[sid]} {sid}", chain_of[sid],
+                            plan[sid], got[sid], SERVE_FRAMES, dev, plain_of)
+           for sid in plan}
+    buckets = {}
+    for label, row in st["buckets"].items():
+        buckets[label] = dict(
+            fps=row["fps"], p50_ms=row["p50_ms"], p99_ms=row["p99_ms"],
+            batches=row["batches"], mean_valid_rows=row["mean_valid_rows"],
+            tick_cost_ms=row["tick_cost_ms"],
+            ingest=row.get("ingest", {}).get("mode"),
+            ingest_fallback=row.get("ingest", {}).get("fallback_reason"),
+            egress=row.get("egress", {}).get("mode"),
+            egress_fallback=row.get("egress", {}).get("fallback_reason"))
+        log(f"serve (a) bucket {label}: {row['batches']} batches, fps "
+            f"{row['fps']:.1f}, p50 {row['p50_ms']:.2f} ms, p99 "
+            f"{row['p99_ms']:.2f} ms, mean valid rows {row['mean_valid_rows']}, "
+            f"tick-cost estimate {row['tick_cost_ms']:.3f} ms, ingest "
+            f"{buckets[label]['ingest']} ({buckets[label]['ingest_fallback']}), "
+            f"egress {buckets[label]['egress']} "
+            f"({buckets[label]['egress_fallback']})")
+    for chain, cal in quiet.items():
+        log(f"serve (a) {chain}: admission {t_admit[chain]:.1f} ms for its "
+            f"sessions; compile calibrations {json.dumps(cal)}")
+    log("serve (a): a bucket's tick-cost estimate starts from its first "
+        "sampled batch (submit -> collected, on an empty window), which "
+        "includes building its pinned staging and delivery slabs")
+    sessions = {}
+    for sid in plan:
+        s = st["sessions"][sid]
+        sessions[sid] = dict(chain=chain_of[sid], delivered=s["delivered"],
+                             p50_ms=s["p50_ms"], p99_ms=s["p99_ms"],
+                             max_lsb=lsb[sid])
+        log(f"serve (a) session {sid} {chain_of[sid]}: {s['delivered']} frames "
+            f"in order, p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms, max "
+            f"{lsb[sid]} LSB vs plain")
+    frames = sum(len(v) for v in got.values())
+    log(f"serve (a): {frames} frames in {wall:.3f} s ({frames / wall:.1f} fps "
+        f"over all buckets), launches {delta}, pool {json.dumps(st['pool'])}, "
+        f"memory_summary {json.dumps(mem)}, aggregate p50 "
+        f"{st['aggregate']['p50_ms']:.2f} ms, p99 {st['aggregate']['p99_ms']:.2f} ms")
+    torch.cuda.empty_cache()
+    return dict(leg="a_mixed", frames=frames, wall_s=wall, fps=frames / wall,
+                launches=delta, buckets=buckets, sessions=sessions,
+                pool=st["pool"], memory_summary=mem,
+                aggregate=st["aggregate"], calibrations_quiet=quiet), delta
+
+
+def calibrations(eng) -> dict:
+    return dict(batch=eng.signature[0][0] if eng.signature else None,
+                h2d_block_ms=eng.h2d_block_ms, d2h_block_ms=eng.d2h_block_ms,
+                step_block_ms=eng.step_block_ms,
+                last_compile_ms=eng.last_compile_ms)
+
+
+def serve_leg_swap(dev, plain_of: dict):
+    """(b) Hot swap under load: request_batch_size 16 -> 8 -> 16 on the
+    sobel_bilateral bucket (2 sessions) while its sessions stream, a
+    bilateral bucket (1 session) beside it; every frame within 1 LSB
+    throughout. The successor programs' calibrations are measured under
+    that load; quiet ones beside them: the admission compile (batch 16)
+    and a fresh engine compiled at batch 8 after the leg."""
+    import threading
+
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+
+    cfg = dvf_tpu_torch.ServeConfig(max_buckets=3, **SERVE_KW)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    plan, chain_of = {}, {}
+    with fe:
+        for chain, n, seed in (("sobel_bilateral", 2, 80), ("bilateral", 1, 81)):
+            for base in serve_bases(SERVE_HD, n, seed):
+                sid = fe.open_stream(op_chain=chain, frame_shape=SERVE_HD)
+                plan[sid], chain_of[sid] = base, chain
+        sob = next(s for s in plan if chain_of[s] == "sobel_bilateral")
+        bucket = bucket_of(fe, sob)
+        label = bucket.label()
+        quiet16 = calibrations(bucket.engine)
+        got = {sid: [] for sid in plan}
+        failed = []
+
+        def produce():
+            try:
+                for j in range(SWAP_FRAMES):
+                    # a bounded backlog: about two batches per session
+                    while j - min(len(v) for v in got.values()) > 2 * SERVE_BATCH:
+                        time.sleep(0.001)
+                    for sid, base in plan.items():
+                        fe.submit(sid, tagged(base, j))
+            except BaseException as e:   # noqa: BLE001 — raised below
+                failed.append(e)
+
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        under_load = []
+        deadline = time.time() + 120.0
+        targets = [(SWAP_FRAMES // 6, 8), (SWAP_FRAMES // 2, 16)]
+        while any(len(v) < SWAP_FRAMES for v in got.values()):
+            if time.time() > deadline or failed:
+                raise AssertionError(f"serve (b) stalled or failed: {failed} "
+                                     f"{ {s: len(v) for s, v in got.items()} }")
+            for sid in plan:
+                got[sid].extend(fe.poll(sid))
+            if targets and len(got[sob]) >= targets[0][0]:
+                n_swaps = fe.swaps
+                fe.request_batch_size(label, targets[0][1],
+                                      reason=f"leg (b) to {targets[0][1]}")
+                while fe.swaps == n_swaps and fe.swap_aborts == 0:
+                    if time.time() > deadline:
+                        raise AssertionError("serve (b): the swap never committed")
+                    for sid in plan:
+                        got[sid].extend(fe.poll(sid))
+                    time.sleep(0.001)
+                under_load.append(calibrations(bucket.engine))
+                targets.pop(0)
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        producer.join(timeout=10.0)
+        delta = dict(tk.LAUNCHES)
+        st = fe.stats()
+        swaps = [e for e in fe.ledger.snapshot() if e["kind"] == "swap"]
+        eng_batches = {chain_of[s]: bucket_of(fe, s).engine.stats.batches
+                       for s in plan}
+        compiles = {chain_of[s]: bucket_of(fe, s).engine.stats.compile_count
+                    for s in plan}
+    quiet8 = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("sobel_bilateral"))
+    quiet8.compile((8, *SERVE_HD))
+    quiet8 = calibrations(quiet8)
+    if fe.swaps != 2 or fe.swap_aborts:
+        raise AssertionError(f"serve (b): swaps {fe.swaps}, aborts {fe.swap_aborts}")
+    # Each swap's successor compile launches its kernel twice (the warm-up
+    # step and the step calibration) inside the counted run.
+    serve_counted(delta, {"sobel_bilateral": eng_batches["sobel_bilateral"]
+                          + 2 * (compiles["sobel_bilateral"] - 1),
+                          "bilateral": eng_batches["bilateral"]}, "serve (b)")
+    lsb = {sid: serve_check(f"serve (b) {chain_of[sid]} {sid}", chain_of[sid],
+                            plan[sid], got[sid], SWAP_FRAMES, dev, plain_of)
+           for sid in plan}
+    events = [dict(batch_size=e.get("batch_size"), stall_ms=e.get("stall_ms"),
+                   compile_aside_ms=e.get("compile_aside_ms"),
+                   migrate_ms=e.get("migrate_ms"), wall_ms=e.get("wall_ms"),
+                   aborted=bool(e.get("aborted"))) for e in swaps]
+    frames = sum(len(v) for v in got.values())
+    log(f"serve (b): {frames} frames in {wall:.3f} s, swaps {fe.swaps}, "
+        f"swap_aborts {fe.swap_aborts}, stall events "
+        f"{st['ledger']['stall_events_total']}, launches {delta}, max LSB "
+        f"{max(lsb.values())}; swap events {json.dumps(events)}")
+    log(f"serve (b) calibrations of {label}: quiet batch 16 (admission) "
+        f"{json.dumps(quiet16)}; under load {json.dumps(under_load)}; quiet "
+        f"batch 8 (fresh engine after the leg) {json.dumps(quiet8)}")
+    torch.cuda.empty_cache()
+    return dict(leg="b_hot_swap", frames=frames, wall_s=wall, swaps=fe.swaps,
+                swap_aborts=fe.swap_aborts, swap_events=events,
+                stall_events_total=st["ledger"]["stall_events_total"],
+                launches=delta, max_lsb=max(lsb.values()),
+                calibrations_quiet_b16=quiet16, calibrations_under_load=under_load,
+                calibrations_quiet_b8=quiet8), delta
+
+
+def serve_leg_pool(dev, plain_of: dict):
+    """(c) Pool eviction and re-admission: pool_capacity 2, max_buckets 2,
+    three signatures served one after another (each admission retires the
+    idle bucket before it, whose program stays warm until the pool evicts
+    it), then the first again: a recompile. memory_allocated after stop()
+    within 1 MiB of its value before the leg. Stateless programs hold no
+    device state, so their evictions free 0 state bytes; a ProgramPool of
+    one with a stateful engine (ema_smooth at 1080p) shows the freed-bytes
+    counter advancing by the evicted state."""
+    import gc
+
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.runtime import engine as reng
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    freed0 = reng.freed_device_bytes_total()
+    cfg = dvf_tpu_torch.ServeConfig(max_buckets=2, pool_capacity=2, **SERVE_KW)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    sigs = [("gaussian_blur(ksize=9)", SERVE_HD), ("sobel_bilateral", SERVE_HD),
+            ("gaussian_blur(ksize=9)", SERVE_SD), ("gaussian_blur(ksize=9)", SERVE_HD)]
+    steps = []
+    tk.reset_launches()
+    with fe:
+        for i, (chain, shape) in enumerate(sigs):
+            misses = fe.pool.misses
+            t = time.perf_counter()
+            sid = fe.open_stream(op_chain=chain, frame_shape=shape)
+            admit_ms = (time.perf_counter() - t) * 1e3
+            base = serve_bases(shape, 1, 90 + i)[0]
+            got, _ = serve_drive(fe, {sid: base}, SERVE_BATCH)
+            lsb = serve_check(f"serve (c) {chain} {shape}", chain, base, got[sid],
+                              SERVE_BATCH, dev, plain_of)
+            fe.close(sid, drain=True)
+            deadline = time.time() + 30.0
+            while fe.open_count():
+                if time.time() > deadline:
+                    raise AssertionError("serve (c): a session never retired")
+                time.sleep(0.002)
+            steps.append(dict(signature=f"{chain}|{'x'.join(map(str, shape))}",
+                              compiled=fe.pool.misses > misses,
+                              admit_ms=admit_ms, pool=fe.pool.stats(),
+                              max_lsb=lsb))
+        compiles = [e for e in fe.ledger.snapshot() if e["kind"] == "compile"]
+        evicts = [e for e in fe.ledger.snapshot() if e["kind"] == "pool_evict"]
+    delta = dict(tk.LAUNCHES)
+    del fe
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    leaked = reng.live_pool_engines()
+    readmit = steps[-1]
+    if not (steps[-1]["pool"]["evictions"] >= 1 and readmit["compiled"]
+            and len(compiles) == 4 and not leaked):
+        raise AssertionError(f"serve (c): steps {json.dumps(steps)}, compiles "
+                             f"{len(compiles)}, live pool engines {len(leaked)}")
+    if abs(after - before) > 1 << 20:
+        raise AssertionError(f"serve (c): memory_allocated {before} before the "
+                             f"leg, {after} after stop()")
+    freed_serve = reng.freed_device_bytes_total() - freed0
+    # The freed-bytes counter on a stateful program's eviction.
+    pool = reng.ProgramPool(capacity=1)
+    ema = pool.acquire("ema", lambda: _compiled(dvf_tpu_torch.get_filter(
+        "ema_smooth"), (SERVE_BATCH, *SERVE_HD)))
+    state_bytes = ema.state_bytes
+    pool.release("ema")
+    mem_ema = torch.cuda.memory_allocated()
+    freed1 = reng.freed_device_bytes_total()
+    pool.acquire("invert", lambda: _compiled(dvf_tpu_torch.get_filter("invert"),
+                                             (SERVE_BATCH, *SERVE_HD)))
+    freed_ema = reng.freed_device_bytes_total() - freed1
+    dropped = mem_ema - torch.cuda.memory_allocated()
+    pool.close()
+    del ema
+    if not (state_bytes > 0 and freed_ema == state_bytes and dropped >= state_bytes
+            and pool.evictions == 1):
+        raise AssertionError(f"serve (c): ema state {state_bytes} B, counter "
+                             f"+{freed_ema}, memory_allocated -{dropped}")
+    log(f"serve (c): steps {json.dumps(steps)}; {len(evicts)} evictions "
+        f"({[e.get('signature') for e in evicts]}), {len(compiles)} compiles "
+        f"(the re-admission recompiled), launches {delta}; memory_allocated "
+        f"{before} B before the leg, {after} B after stop() "
+        f"({after - before:+d} B); engine_freed_bytes_total +{freed_serve} B "
+        f"over the serving evictions (stateless programs hold no device "
+        f"state); a stateful eviction (ema_smooth {SERVE_HD}): state "
+        f"{state_bytes} B, counter +{freed_ema} B, memory_allocated "
+        f"-{dropped} B")
+    return dict(leg="c_pool", steps=steps, evictions=len(evicts),
+                compiles=len(compiles), launches=delta,
+                memory_allocated_before=before, memory_allocated_after=after,
+                freed_bytes_serving=freed_serve, ema_state_bytes=state_bytes,
+                freed_bytes_ema_eviction=freed_ema,
+                memory_allocated_drop_ema=dropped), delta
+
+
+def _compiled(filt, shape):
+    import dvf_tpu_torch
+
+    eng = dvf_tpu_torch.Engine(filt)
+    eng.compile(shape)
+    return eng
+
+
+def serve_leg_chaos(dev, plain_of: dict):
+    """(d) Compute chaos in one bucket: after one clean frame each, three
+    compute faults armed on the invert bucket's engine while both
+    sessions stream SERVE_FRAMES frames; the sobel_bilateral bucket's
+    frames arrive complete, in order and within 1 LSB; the faults (three
+    failed batches) are attributed to the invert bucket and its session
+    only, no recovery runs, and a second wave on the invert session is
+    delivered whole and exact once the faults are spent."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.resilience import FaultPlan
+
+    kw = dict(SERVE_KW, fault_budget=16)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"),
+                                     dvf_tpu_torch.ServeConfig(**kw))
+    n = SERVE_FRAMES
+    with fe:
+        good = fe.open_stream(op_chain="sobel_bilateral", frame_shape=SERVE_HD)
+        bad = fe.open_stream(op_chain="invert", frame_shape=SERVE_SD)
+        gbase, bbase = serve_bases(SERVE_HD, 1, 100)[0], serve_bases(SERVE_SD, 1, 101)[0]
+        first, _ = serve_drive(fe, {good: gbase, bad: bbase}, 1)
+        bucket_bad = bucket_of(fe, bad)
+        bucket_bad.engine.chaos = FaultPlan(seed=7).add("compute", every=1, count=3)
+        tk.reset_launches()
+        got = {good: list(first[good]), bad: list(first[bad])}
+        for j in range(1, n):
+            fe.submit(good, tagged(gbase, j))
+            fe.submit(bad, tagged(bbase, j))
+            time.sleep(0.002)
+        deadline = time.time() + 60.0
+
+        def settled(total):
+            sb = fe.stats()["sessions"][bad]
+            return sb["delivered"] + sb["failed"] + sb["shed"] \
+                + sb["dropped_at_ingress"] >= total
+
+        while len(got[good]) < n or not settled(n):
+            if time.time() > deadline:
+                raise AssertionError(f"serve (d) stalled: {fe.health()}")
+            for sid in (good, bad):
+                got[sid].extend(fe.poll(sid))
+            time.sleep(0.002)
+        got[bad].extend(fe.poll(bad))
+        j = n
+        # batches that happened to carry wave 1 may have left a fault
+        # unspent: one frame at a time until all three have fired
+        while fe.stats()["buckets"][bucket_bad.label()]["faults"].get(
+                "compute", 0) < 3:
+            fe.submit(bad, tagged(bbase, j))
+            j += 1
+            while not settled(j):
+                if time.time() > deadline:
+                    raise AssertionError(f"serve (d) stalled: {fe.health()}")
+                time.sleep(0.002)
+        got[bad].extend(fe.poll(bad))
+        wave1 = fe.stats()["sessions"][bad]
+        w2 = j
+        for j in range(w2, w2 + n):   # the faults are spent: all delivered
+            fe.submit(bad, tagged(bbase, j))
+        while not settled(w2 + n):
+            if time.time() > deadline:
+                raise AssertionError(f"serve (d) stalled: {fe.health()}")
+            got[bad].extend(fe.poll(bad))
+            time.sleep(0.002)
+        got[bad].extend(fe.poll(bad))
+        st = fe.stats()
+    delta = dict(tk.LAUNCHES)
+    lsb = serve_check("serve (d) healthy sobel_bilateral", "sobel_bilateral",
+                      gbase, got[good], n, dev, plain_of)
+    sb, sg = st["sessions"][bad], st["sessions"][good]
+    rows = st["buckets"]
+    second = [d.index for d in got[bad] if d.index >= w2]
+    if not (sb["failed"] == wave1["failed"] > 0
+            and sb["faults"] == {"compute": sb["failed"]}
+            and sg["failed"] == 0 and sg["faults"] == {}
+            and rows[bucket_bad.label()]["faults"] == {"compute": 3}
+            and st["recoveries"] == 0 and second == list(range(w2, w2 + n))
+            and sb["submitted"] == sb["delivered"] + sb["shed"] + sb["failed"]
+            + sb["dropped_at_ingress"]):
+        raise AssertionError(f"serve (d): chaos session {sb}, healthy {sg}, "
+                             f"recoveries {st['recoveries']}, second wave "
+                             f"{second[:8]}...")
+    # what the chaos bucket delivered is exact
+    for d in got[bad]:
+        if not np.array_equal(d.frame, 255 - tagged(bbase, d.index)):
+            raise AssertionError(f"serve (d): chaos bucket frame {d.index} wrong")
+    log(f"serve (d): healthy sobel_bilateral {len(got[good])}/{n} in order, max "
+        f"{lsb} LSB; chaos invert bucket: {sb['failed']} frames failed in its "
+        f"3 faulted batches, faults {sb['faults']}, bucket faults "
+        f"{rows[bucket_bad.label()]['faults']}, recoveries {st['recoveries']}, "
+        f"then {len(second)}/{n} of a second wave delivered exact; launches "
+        f"{delta}")
+    return dict(leg="d_chaos", healthy_delivered=len(got[good]), healthy_max_lsb=lsb,
+                chaos_delivered=sb["delivered"], chaos_failed=sb["failed"],
+                chaos_faults=sb["faults"], recoveries=st["recoveries"],
+                launches=delta), delta
+
+
+def serve_leg_bridge(dev):
+    """(e) ZmqStreamBridge: a reference-style app (ROUTER fan-out + PULL
+    collect on tcp loopback) sends BRIDGE_FRAMES frames of invert at
+    480 x 640, once on the raw wire and once on the delta wire over the
+    raw inner codec (no libjpeg on the card); every result exact and in
+    the app's order."""
+    import socket
+    import threading
+
+    import zmq
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.serve import ZmqStreamBridge
+    from dvf_tpu_torch.transport.codec import DeltaCodec, RawCodec
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    h, w, _ = SERVE_SD
+    base = serve_bases(SERVE_SD, 1, 110)[0]
+    frames = []
+    for j in range(BRIDGE_FRAMES):   # a moving block: the delta wire
+        f = base.copy()              # carries a few tiles per frame
+        y = 32 + 4 * j
+        f[y:y + 64, 96:224] = 255 - f[y:y + 64, 96:224]
+        frames.append(f)
+    cfg = dvf_tpu_torch.ServeConfig(**dict(SERVE_KW, queue_size=BRIDGE_FRAMES))
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    rows = []
+    tk.reset_launches()
+    with fe:
+        for wire in ("raw", "delta"):
+            def codec():
+                return DeltaCodec(RawCodec(h, w), tile=32, keyframe_interval=16)
+
+            app_enc = codec() if wire == "delta" else None
+            app_dec = codec() if wire == "delta" else None
+            p_dist, p_coll = free_port(), free_port()
+            ctx = zmq.Context()
+            router = ctx.socket(zmq.ROUTER)
+            router.bind(f"tcp://127.0.0.1:{p_dist}")
+            pull = ctx.socket(zmq.PULL)
+            pull.bind(f"tcp://127.0.0.1:{p_coll}")
+            order, wrong, nbytes = [], [], 0
+            t0 = time.perf_counter()
+            try:
+                bridge = ZmqStreamBridge(
+                    fe, host="127.0.0.1", distribute_port=p_dist,
+                    collect_port=p_coll, wire=wire, raw_shape=(h, w),
+                    codec=codec() if wire == "delta" else None)
+                bt = threading.Thread(target=bridge.run,
+                                      kwargs={"max_frames": BRIDGE_FRAMES},
+                                      daemon=True)
+                bt.start()
+                pending = list(range(BRIDGE_FRAMES))
+                deadline = time.time() + 60.0
+                while len(order) < BRIDGE_FRAMES and time.time() < deadline:
+                    if router.poll(5):
+                        ident, _ready = router.recv_multipart()
+                        if pending:
+                            i = pending.pop(0)
+                            blob = (frames[i].tobytes() if app_enc is None
+                                    else app_enc.encode(frames[i]))
+                            router.send_multipart([ident, str(i).encode(), blob])
+                    while pull.poll(0):
+                        idx_b, _pid, _t0, _t1, res = pull.recv_multipart()
+                        i = int(idx_b.decode())
+                        nbytes += len(res)
+                        out = (np.frombuffer(res, np.uint8).reshape(h, w, 3)
+                               if app_dec is None else app_dec.decode(res))
+                        order.append(i)
+                        if not np.array_equal(out, 255 - frames[i]):
+                            wrong.append(i)
+                bridge.stop()
+                bt.join(timeout=10.0)
+                bstats = bridge.stats()
+                bridge.close()
+            finally:
+                for c in (app_enc, app_dec):
+                    if c is not None:
+                        c.close()
+                router.close(0)
+                pull.close(0)
+                ctx.term()
+            wall = time.perf_counter() - t0
+            if order != list(range(BRIDGE_FRAMES)) or wrong or bstats["errors"]:
+                raise AssertionError(f"serve (e) {wire}: order {order[:8]}... "
+                                     f"({len(order)}), wrong {wrong[:8]}, bridge "
+                                     f"{bstats}")
+            log(f"serve (e) bridge {wire} wire: {BRIDGE_FRAMES} frames {SERVE_SD} "
+                f"exact and in order in {wall:.3f} s "
+                f"({BRIDGE_FRAMES / wall:.1f} fps), {nbytes} result bytes, "
+                f"bridge {json.dumps(bstats)}")
+            rows.append(dict(wire=wire, frames=BRIDGE_FRAMES, wall_s=wall,
+                             fps=BRIDGE_FRAMES / wall, result_bytes=nbytes,
+                             bridge=bstats))
+    delta = dict(tk.LAUNCHES)
+    serve_counted(delta, {}, "serve (e)")
+    return dict(leg="e_bridge", wires=rows, launches=delta), delta
+
+
+def serve_only() -> None:
+    """The build and phase 7 alone (a quick check of the serving legs):
+    ``python3 -c 'import chip_smoke; chip_smoke.serve_only()'``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import _build
+    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+                "bilateral": lambda x: bilateral_nhwc(x),
+                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    rows, _ = serve_phase(torch.device("cuda", 0), plain_of)
+    print(json.dumps({"serve": rows}))
+
+
+def serve_phase(dev, plain_of: dict):
+    """Phase 7: legs (a)-(e) of the serving frontend. Returns (rows, the
+    summed launch counts of the legs' counted runs)."""
+    t0 = time.perf_counter()
+    rows, total = [], {}
+    for leg in (lambda: serve_leg_mixed(dev, plain_of),
+                lambda: serve_leg_swap(dev, plain_of),
+                lambda: serve_leg_pool(dev, plain_of),
+                lambda: serve_leg_chaos(dev, plain_of),
+                lambda: serve_leg_bridge(dev)):
+        row, delta = leg()
+        rows.append(row)
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines():
+        raise AssertionError(f"serve: pool engines outlived their frontends: "
+                             f"{[e.op_chain for e in live_pool_engines()]}")
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
 
 
 if __name__ == "__main__":

@@ -12,9 +12,9 @@ labels. In this package ``impl="pallas"`` (and the ``*_pallas`` filter
 names) denotes the hand-written Hopper CUDA kernel in
 ``dvf_tpu_torch/csrc/`` that replaces the TPU's Pallas kernel.
 
-Entry points (``Engine``, ``Pipeline``, ``ZmqWorker``) run on ``cuda:0`` unless the
-caller passes ``device="cpu"``; they never fall back to the CPU on their
-own.
+Entry points (``Engine``, ``Pipeline``, ``ZmqWorker``, ``ServeFrontend``)
+run on ``cuda:0`` unless the caller passes ``device="cpu"``; they never
+fall back to the CPU on their own.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +23,7 @@ from dvf_tpu_torch.api.filter import Filter, FilterChain  # noqa: F401
 from dvf_tpu_torch.ops import get_filter, list_filters, register_filter  # noqa: F401
 from dvf_tpu_torch.runtime.engine import Engine  # noqa: F401
 from dvf_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig  # noqa: F401
+from dvf_tpu_torch.serve import ServeConfig, ServeFrontend  # noqa: F401
 from dvf_tpu_torch.runtime.ingest import ShardedBatchAssembler  # noqa: F401
 from dvf_tpu_torch.runtime.egress import ShardedBatchFetcher  # noqa: F401
 from dvf_tpu_torch.obs.trace import Tracer  # noqa: F401

@@ -1,9 +1,11 @@
-"""Streaming metrics: fps and latency percentiles, ingest and egress
-accounting (port of the ``LatencyStats``, ``RateLogger``, ``IngestStats``
-and ``EgressStats`` parts of ``dvf_tpu.obs.metrics``)."""
+"""Streaming metrics: fps and latency percentiles (mergeable across
+recorders), ingest and egress accounting (port of the ``LatencyStats``,
+``RateLogger``, ``IngestStats`` and ``EgressStats`` parts of
+``dvf_tpu.obs.metrics``)."""
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -52,14 +54,136 @@ class LatencyStats:
     def summary(self) -> Dict[str, float]:
         return {"fps": self.fps(), "count": self.count, **self.percentiles()}
 
+    def snapshot(self) -> Dict[str, object]:
+        """One recorder's mergeable export: samples + decimation stride +
+        time span, as plain JSON/pickle-safe values. This is what crosses
+        a process boundary when a fleet replica ships its latency data to
+        the front door (``LatencyStats.merge_snapshots`` on the other
+        side) — the object form can't ride an RPC.
+
+        The sample list is read ONCE (list() is atomic under the GIL):
+        collect threads append — and decimate, swapping the list and
+        doubling ``_stride`` — concurrently with this read. Pairing one
+        list snapshot with one stride read keeps samples/weights the same
+        length; a stride doubled between the two reads only skews
+        weighting transiently, never crashes. ``pid`` tags the time base:
+        ``t0``/``t1`` are ``perf_counter`` values, comparable only within
+        one process.
+        """
+        return {
+            "samples_ms": list(self.samples_ms),
+            "stride": float(self._stride),
+            "t0": self.t0,
+            "t1": self.t1,
+            "count": self.count,
+            "pid": os.getpid(),
+        }
+
+    @classmethod
+    def combined(cls, stats: "list[LatencyStats]") -> Dict[str, object]:
+        """Many recorders → ONE snapshot (per-sample ``weights`` carry
+        each recorder's stride) — the per-replica half of the fleet
+        export: a frontend merges its sessions here, the fleet tier
+        merges replicas' combined snapshots with ``merge_snapshots``."""
+        stats = [s for s in stats if s.count]
+        samples: List[float] = []
+        weights: List[float] = []
+        for s in stats:
+            part = list(s.samples_ms)
+            samples.extend(part)
+            weights.extend([float(s._stride)] * len(part))
+        live = [s for s in stats if s.t0 is not None]
+        return {
+            "samples_ms": samples,
+            "weights": weights,
+            "t0": min((s.t0 for s in live), default=None),
+            "t1": max((s.t1 for s in live), default=None),
+            "count": sum(s.count for s in stats),
+            "pid": os.getpid(),
+        }
+
+    @classmethod
+    def merge_snapshots(cls, snaps: "list[dict]",
+                        qs=(50, 90, 99)) -> Dict[str, float]:
+        """Weighted summary over :meth:`snapshot`/:meth:`combined`
+        exports — the percentile/fps arithmetic behind :meth:`merged`,
+        split out so it also works on data that crossed a process
+        boundary (fleet replicas).
+
+        Percentiles weight each sample by its recorder's decimation
+        stride, so a long-running stream decimated 2:1 still counts each
+        surviving sample for the ~stride deliveries it represents. fps
+        is total deliveries over the union time span when every snapshot
+        shares one time base (same ``pid`` — perf_counter origins are
+        per-process); across processes it falls back to total deliveries
+        over the LONGEST single span, which is the right wall-clock
+        denominator for replicas that ran concurrently.
+        """
+        snaps = [s for s in snaps if s and s.get("count")]
+        if not snaps:
+            return {"fps": 0.0, "count": 0,
+                    **{f"p{q}_ms": float("nan") for q in qs}}
+        count = sum(int(s["count"]) for s in snaps)
+        parts = []
+        for s in snaps:
+            arr = np.asarray(s["samples_ms"], dtype=float)
+            if not len(arr):
+                continue
+            w = (np.asarray(s["weights"], dtype=float)
+                 if s.get("weights") is not None
+                 else np.full(len(arr), float(s.get("stride", 1.0))))
+            parts.append((arr, w))
+        if not parts:  # count incremented before the first append landed
+            return {"fps": 0.0, "count": count,
+                    **{f"p{q}_ms": float("nan") for q in qs}}
+        samples = np.concatenate([a for a, _ in parts])
+        weights = np.concatenate([w for _, w in parts])
+        order = np.argsort(samples)
+        cum = np.cumsum(weights[order])
+        out: Dict[str, float] = {}
+        for q in qs:
+            k = int(np.searchsorted(cum, q / 100.0 * cum[-1]))
+            out[f"p{q}_ms"] = float(samples[order][min(k, len(samples) - 1)])
+        spans = [s for s in snaps
+                 if s.get("t0") is not None and s.get("t1") is not None]
+        fps = 0.0
+        if spans and count > 1:
+            if len({s.get("pid") for s in spans}) <= 1:
+                dt = (max(s["t1"] for s in spans)
+                      - min(s["t0"] for s in spans))
+            else:
+                dt = max(s["t1"] - s["t0"] for s in spans)
+            if dt > 0:
+                fps = (count - 1) / dt
+        out["fps"] = fps
+        out["count"] = count
+        return out
+
+    @classmethod
+    def merged(cls, stats: "list[LatencyStats]",
+               qs=(50, 90, 99)) -> Dict[str, float]:
+        """Fleet-level summary across several recorders (the serving
+        frontend's per-session stats → one aggregate p50/p99 export).
+        Same-process sugar over :meth:`merge_snapshots`."""
+        return cls.merge_snapshots(
+            [s.snapshot() for s in stats if s.count], qs=qs)
+
 
 class RateLogger:
-    """Periodic rate printer (the reference's every-5 s fps prints)."""
+    """Periodic rate printer (the reference's every-5 s fps prints).
 
-    def __init__(self, name: str, interval_s: float = 5.0, quiet: bool = False):
+    With a ``registry`` (obs.registry.MetricsRegistry) every computed
+    rate also lands as the ``rate_fps`` gauge labeled ``{stage: name}``;
+    ``quiet`` silences the print only."""
+
+    def __init__(self, name: str, interval_s: float = 5.0,
+                 quiet: bool = False, registry=None):
         self.name = name
         self.interval_s = interval_s
         self.quiet = quiet
+        self.last_rate: Optional[float] = None
+        self._gauge = (registry.gauge("rate_fps")
+                       if registry is not None else None)
         self._count = 0
         self._last = time.perf_counter()
 
@@ -69,6 +193,9 @@ class RateLogger:
         dt = now - self._last
         if dt >= self.interval_s:
             rate = self._count / dt
+            self.last_rate = rate
+            if self._gauge is not None:
+                self._gauge.set(rate, labels={"stage": self.name})
             if not self.quiet:
                 print(f"[{self.name}] {rate:.1f} fps")
             self._count = 0

@@ -30,17 +30,29 @@ bytes). Filter state stays on the device across batches; ``reset_state``
 starts a new stream on the same engine, ``free`` drops the state,
 ``rebuild`` makes a fresh engine at the same signature (supervised
 recovery). ``compile`` measures the reference's three calibrations:
-``h2d_block_ms``, ``d2h_block_ms`` and ``step_block_ms``. Not ported
-yet: the mesh and halo routing, the compiled-program pool, hot swap
-(``prepare_swap``/``commit_swap``), ``signature_key`` and XLA's
-``cost_analysis``.
+``h2d_block_ms``, ``d2h_block_ms`` and ``step_block_ms``. It runs its
+warm-up and calibration passes on the device's compile stream and waits
+only on events recorded there, so a compile made beside live serving
+(an admission, a hot swap's successor) never waits for other engines'
+batches.
+
+Multi-signature serving adds the double-buffered hot swap
+(``prepare_swap`` compiles a successor aside, ``commit_swap`` adopts it
+in place between ticks, ``abort_swap`` drops it) and the
+:class:`ProgramPool`, a bounded LRU of compiled engines keyed by
+canonical signature, with its registry of live pool engines and the
+freed-bytes counter. Not ported yet: the mesh and halo routing, the
+compile-cache helpers and XLA's ``cost_analysis``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import time
-from typing import Any, Optional, Tuple, Union
+from contextlib import nullcontext
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,16 +99,39 @@ def record_event(stream) -> Optional[torch.cuda.Event]:
     return ev
 
 
-def _tensor_bytes(tree) -> int:
-    """Summed nbytes of the tensors in a state pytree (dicts, lists,
-    tuples, tensors)."""
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a state pytree (dicts, lists, tuples, tensors), in
+    a fixed order (dict keys sorted)."""
     if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
+        return [tree]
     if isinstance(tree, dict):
-        return sum(_tensor_bytes(v) for v in tree.values())
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return sum(_tensor_bytes(v) for v in tree)
-    return 0
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _tensor_bytes(tree) -> int:
+    """Summed nbytes of the tensors in a state pytree."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+# One compile stream per CUDA device, shared by every engine's compile:
+# warm-up and calibration work runs there and compile() waits on events
+# recorded there — never on the device as a whole, which would make a
+# compile beside live serving wait for every other bucket's batches. One
+# stream per device (not per engine) keeps the caching allocator's
+# per-stream block pools from multiplying with engine churn.
+_COMPILE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_COMPILE_STREAMS_LOCK = threading.Lock()
+
+
+def _compile_stream(device: torch.device) -> "torch.cuda.Stream":
+    with _COMPILE_STREAMS_LOCK:
+        s = _COMPILE_STREAMS.get(device)
+        if s is None:
+            s = _COMPILE_STREAMS[device] = torch.cuda.Stream(device)
+        return s
 
 
 class BatchResult:
@@ -146,10 +181,15 @@ class Engine:
                  device: Union[None, str, torch.device] = None,
                  out_uint8: bool = True,
                  chaos=None,
-                 calibration_seed: Optional[dict] = None):
+                 calibration_seed: Optional[dict] = None,
+                 op_chain: Optional[str] = None):
         self.filter = filt
         self.device = resolve_device(device)
         self.out_uint8 = out_uint8
+        self.op_chain = op_chain if op_chain is not None else filt.name
+        #   the signature-key spelling of what this engine computes
+        #   (runtime.signature.canonical_op_chain where parseable): what
+        #   the program pool and the serving frontend key it by
         self.chaos = chaos  # resilience.chaos.FaultPlan: submit paths fire
         #   the "oom" and "compute" sites through it (nothing when None)
         self.calibration_seed = calibration_seed  # optional persisted
@@ -177,6 +217,15 @@ class Engine:
         self.out_dtype: Optional[np.dtype] = None
         self._h2d: Optional[torch.cuda.Stream] = None
         self._d2h: Optional[torch.cuda.Stream] = None
+        # Double-buffered hot swap: a successor compiled aside waits in
+        # _staged until commit_swap adopts it; _preparing latches
+        # concurrent prepares of one successor signature onto one compile.
+        self._swap_lock = threading.Lock()
+        self._staged: Optional["Engine"] = None
+        self._preparing: Dict[Tuple, threading.Event] = {}
+        self.swap_count = 0  # committed hot swaps
+        self.last_swap: Optional[dict] = None  # {migrate_ms, stall_ms,
+        #   migrated} of the last commit_swap
 
     @property
     def on_cuda(self) -> bool:
@@ -187,6 +236,15 @@ class Engine:
         """The compiled ``((B, H, W, C), dtype)`` signature, or None before
         the first compile."""
         return self._signature
+
+    @property
+    def signature_key(self):
+        """The canonical ``(op_chain, geometry, dtype)`` serving signature
+        (runtime.signature.SignatureKey), or None before the first
+        compile."""
+        from dvf_tpu_torch.runtime.signature import engine_signature_key
+
+        return engine_signature_key(self)
 
     @property
     def h2d_stream(self) -> Optional[torch.cuda.Stream]:
@@ -255,10 +313,6 @@ class Engine:
             out.copy_(y, non_blocking=True)
         return record_event(d2h)
 
-    def _sync(self) -> None:
-        if self.on_cuda:
-            torch.cuda.synchronize(self.device)
-
     def compile(self, batch_shape: Tuple[int, ...], dtype=np.uint8) -> None:
         """Prepare for a fixed (B, H, W, C) signature: build the state,
         make one warm-up call (so the kernel build and first launch fall
@@ -268,14 +322,20 @@ class Engine:
         into a pre-touched pinned buffer; one more blocking step — the
         last two skipped above ``_D2H_CALIBRATION_CAP_BYTES``. A
         ``calibration_seed`` with real h2d and step numbers replaces the
-        measurements. The state is rebuilt after each step."""
+        measurements. The state is rebuilt after each step.
+
+        On a card every pass runs on the device's compile stream and
+        each blocking wait is an event recorded there after this
+        compile's own work, so a compile beside live serving never waits
+        for other engines' batches (its copies still share the host link
+        with theirs). The final state is built on the caller's stream,
+        the one that serves."""
         sig = (tuple(batch_shape), np.dtype(dtype))
         if sig == self._signature:
             return
         self._refuse_if_freed()
         t_compile0 = time.perf_counter()
         shape = tuple(batch_shape)
-        self._state = self._fresh_state(shape, dtype)
         zeros = torch.zeros(shape, dtype=_torch_dtype(dtype),
                             pin_memory=self.on_cuda)
         seed = self.calibration_seed
@@ -283,19 +343,27 @@ class Engine:
                   and isinstance(seed.get("h2d_block_ms"), (int, float))
                   and isinstance(seed.get("step_block_ms"), (int, float)))
         self.calibration_seeded = seeded
-        with torch.no_grad():
-            warm = self._put(zeros)
-            self._sync()
+        cs = _compile_stream(self.device) if self.on_cuda else None
+
+        def wait_own() -> None:
+            if cs is not None:
+                record_event(cs).synchronize()
+
+        with torch.no_grad(), (torch.cuda.stream(cs) if cs is not None
+                               else nullcontext()):
+            state = self._fresh_state(shape, dtype)
+            warm = zeros.to(self.device, non_blocking=True)
+            wait_own()
             if seeded:
                 self.h2d_block_ms = float(seed["h2d_block_ms"])
             else:
                 del warm
                 t0 = time.perf_counter()
-                warm = self._put(zeros)
-                self._sync()
+                warm = zeros.to(self.device, non_blocking=True)
+                wait_own()
                 self.h2d_block_ms = (time.perf_counter() - t0) * 1e3
-            out, _ = self._step(warm, self._state)
-            self._sync()
+            out, _ = self._step(warm, state)
+            wait_own()
             self.out_shape = tuple(out.shape)
             self.out_dtype = _torch_to_np(out.dtype)
             nbytes = out.numel() * out.element_size()
@@ -307,29 +375,27 @@ class Engine:
                 dst = torch.empty(out.shape, dtype=out.dtype,
                                   pin_memory=self.on_cuda)
                 dst.fill_(0)
-                ev = record_event(self._compute_stream())
                 t0 = time.perf_counter()
-                done = self._copy_out(out, dst, ev)
-                if done is not None:
-                    done.synchronize()
+                dst.copy_(out, non_blocking=True)
+                wait_own()
                 self.d2h_block_ms = (time.perf_counter() - t0) * 1e3
                 del dst
             else:
                 self.d2h_block_ms = None
             del out
-            self._state = self._fresh_state(shape, dtype)
             if seeded:
                 self.step_block_ms = float(seed["step_block_ms"])
             elif zeros.numel() * zeros.element_size() <= _D2H_CALIBRATION_CAP_BYTES:
+                state = self._fresh_state(shape, dtype)
                 t0 = time.perf_counter()
-                out2, _ = self._step(warm, self._state)
-                self._sync()
+                out2, _ = self._step(warm, state)
+                wait_own()
                 self.step_block_ms = (time.perf_counter() - t0) * 1e3
                 del out2
-                self._state = self._fresh_state(shape, dtype)
             else:
                 self.step_block_ms = None
-        del warm
+            del warm, state
+        self._state = self._fresh_state(shape, dtype)
         self._signature = sig
         self.stats.compile_count += 1
         self.last_compile_ms = (time.perf_counter() - t_compile0) * 1e3
@@ -440,11 +506,171 @@ class Engine:
         so the replacement is warmed and re-calibrated before it takes
         traffic. A stateful filter's state restarts fresh."""
         fresh = Engine(self.filter, device=self.device, out_uint8=self.out_uint8,
-                       chaos=self.chaos)
+                       chaos=self.chaos, op_chain=self.op_chain)
         if self._signature is not None:
             shape, dtype = self._signature
             fresh.compile(shape, dtype)
         return fresh
+
+    # -- double-buffered hot swap -----------------------------------------
+
+    def prepare_swap(self, batch_shape: Tuple[int, ...], dtype=np.uint8,
+                     force: bool = False) -> dict:
+        """Compile the successor program for ``batch_shape``/``dtype``
+        ASIDE — a fresh engine built, warmed and calibrated on THIS
+        (background) thread while the live program keeps serving.
+        Nothing the serving path reads is touched until
+        :meth:`commit_swap` adopts the staged successor between ticks.
+
+        ``force=True`` prepares even at the live signature (a fresh
+        program and state at the same shape — the supervised-recovery
+        rebuild, compiled aside instead of in place).
+
+        Concurrent prepares for the same successor signature dedup onto
+        one compile via a per-signature latch; a prepare for a DIFFERENT
+        signature supersedes the previously staged successor (last
+        prepare wins; the superseded one is freed).
+
+        Returns ``{"compile_aside_ms", "staged", "cache"}``; ``staged``
+        False means the live program already serves this signature and
+        nothing was built. Raises on a compile failure (and on the chaos
+        ``swap`` site) with the live program untouched.
+        """
+        if self.freed:
+            raise RuntimeError("cannot prepare a swap on a freed engine")
+        sig = (tuple(batch_shape), np.dtype(dtype))
+        if sig == self._signature and not force:
+            return {"compile_aside_ms": 0.0, "staged": False,
+                    "cache": "live"}
+        while True:
+            with self._swap_lock:
+                st = self._staged
+                if st is not None and st._signature == sig and not force:
+                    return {"compile_aside_ms": 0.0, "staged": True,
+                            "cache": "staged"}
+                latch = self._preparing.get(sig)
+                if latch is None:
+                    self._preparing[sig] = latch = threading.Event()
+                    break
+            # Another thread is building this successor: wait it out,
+            # then re-check (it staged the program, or died and we build).
+            latch.wait(timeout=300.0)
+        t0 = time.perf_counter()
+        try:
+            if self.chaos is not None:
+                self.chaos.fire("swap")  # injection site: aside-compile
+                #   failure — the old program must keep serving
+            succ = Engine(self.filter, device=self.device,
+                          out_uint8=self.out_uint8, chaos=self.chaos,
+                          op_chain=self.op_chain)
+            succ.compile(tuple(batch_shape), dtype)
+        except BaseException:
+            with self._swap_lock:
+                self._preparing.pop(sig, None)
+            latch.set()
+            raise
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._swap_lock:
+            old, self._staged = self._staged, succ
+            self._preparing.pop(sig, None)
+        latch.set()
+        if old is not None and old is not succ:
+            old.free()  # superseded staging
+        return {"compile_aside_ms": ms, "staged": True, "cache": "miss"}
+
+    @property
+    def swap_staged(self) -> bool:
+        """Whether a prepared successor is waiting for commit_swap."""
+        with self._swap_lock:
+            return self._staged is not None
+
+    def commit_swap(self, migrate_state: bool = True) -> dict:
+        """Adopt the staged successor program in place: one lock-guarded
+        swing of the fields the serving and egress paths read — call it
+        from the thread that owns submits (the serving dispatch thread),
+        so a batch never straddles the old and new programs. Batches
+        already submitted on the old program hold their own tensors and
+        events and drain normally. The engine keeps its own H2D and D2H
+        streams, so their events and ``record_stream`` marks stay valid.
+
+        Device-resident filter state migrates with ``copy_`` on the
+        current stream when the successor's state matches leaf for leaf
+        (``migrate_state=True``); a geometry-changing swap (or
+        ``migrate_state=False`` — supervised recovery, whose old state
+        is suspect) keeps the successor's fresh state.
+
+        Returns ``{"migrate_ms", "stall_ms", "migrated"}`` — stall_ms is
+        the measured wall time of this call, the ONLY serving time the
+        swap consumes. Raises (the chaos ``swap`` site mid-migrate, a
+        failed copy) with the live program untouched and the staged
+        successor freed.
+        """
+        with self._swap_lock:
+            succ = self._staged
+            if succ is None:
+                raise RuntimeError(
+                    "no staged successor program (prepare_swap first)")
+            self._staged = None
+            t0 = time.perf_counter()
+            migrate_ms = 0.0
+            migrated = False
+            try:
+                if self.chaos is not None:
+                    self.chaos.fire("swap")  # injection site: mid-
+                    #   migrate failure — abort, old program serving
+                if migrate_state and self.filter.stateful \
+                        and self._state is not None:
+                    t_m = time.perf_counter()
+                    migrated = self._migrate_state_to(succ)
+                    if migrated:
+                        migrate_ms = (time.perf_counter() - t_m) * 1e3
+            except BaseException:
+                succ.free()
+                raise
+            for name in ("_signature", "_state", "out_shape", "out_dtype",
+                         "h2d_block_ms", "d2h_block_ms", "step_block_ms",
+                         "last_compile_ms", "state_bytes"):
+                setattr(self, name, getattr(succ, name))
+            self.stats.compile_count += succ.stats.compile_count
+            # The successor shell's state now belongs to this engine: its
+            # free() must not count it as freed.
+            succ._state = None
+            succ.state_bytes = 0
+            succ.freed = True
+            self.swap_count += 1
+            stall_ms = (time.perf_counter() - t0) * 1e3
+            self.last_swap = {"migrate_ms": round(migrate_ms, 3),
+                              "stall_ms": round(stall_ms, 3),
+                              "migrated": migrated}
+            return dict(self.last_swap)
+
+    def _migrate_state_to(self, succ: "Engine") -> bool:
+        """Copy the live filter state into the successor's, leaf by leaf
+        (``copy_`` on the current stream, ordered after the batches that
+        wrote it) — only when the two trees match in structure, shapes
+        and dtypes. False = they diverged (the successor keeps its fresh
+        state; a geometry change resets temporal state by definition)."""
+        old_leaves = _leaves(self._state)
+        new_leaves = _leaves(succ._state)
+        if len(old_leaves) != len(new_leaves):
+            return False
+        for a, b in zip(old_leaves, new_leaves):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                return False
+        with torch.no_grad():
+            for a, b in zip(old_leaves, new_leaves):
+                b.copy_(a)
+        return True
+
+    def abort_swap(self) -> bool:
+        """Free a staged successor without adopting it. True when
+        something was staged."""
+        with self._swap_lock:
+            succ, self._staged = self._staged, None
+        if succ is not None:
+            succ.free()
+            return True
+        return False
 
     def reset_state(self) -> None:
         """Start a new stream on this engine: rebuild a stateful filter's
@@ -456,13 +682,325 @@ class Engine:
             self._state = self._fresh_state(*self._signature)
 
     def free(self) -> None:
-        """Drop the device state and refuse further submits (and
-        compiles). Idempotent. The caller frees after the last result it
-        wants has been fetched."""
+        """Drop the device state (and a staged successor's) and refuse
+        further submits and compiles — the program pool's eviction path.
+        Idempotent. The caller frees after the last result it wants has
+        been fetched. The caching allocator keeps the blocks reserved;
+        they are free once no tensor holds them (``memory_allocated``)."""
+        if self.freed:
+            return
         self.freed = True
+        with self._swap_lock:
+            staged, self._staged = self._staged, None
+        if staged is not None:
+            staged.free()  # an un-committed successor must not leak
         self._state = None
         self._signature = None
+        _note_freed_bytes(self.state_bytes)
+        _unregister_pool_engine(self)
 
     def _refuse_if_freed(self) -> None:
         if self.freed:
             raise RuntimeError("engine was freed; build a new Engine")
+
+
+# ---------------------------------------------------------------------------
+# Compiled-program pool (multi-signature serving)
+# ---------------------------------------------------------------------------
+
+# Every engine currently holding device buffers under a ProgramPool's
+# management. The port's serving tests walk this after each module: a
+# pool engine still live after every frontend closed means some stop()
+# path stopped freeing — a long-lived multi-tenant server would leak one
+# compiled program (plus its device state) per churned signature forever.
+_POOL_ENGINES: "set" = set()
+_POOL_ENGINES_LOCK = threading.Lock()
+
+# Freed device-memory accounting (obs.memory): Engine.free() folds the
+# freed engine's measured state residency in here, so the scrape-time
+# gauges can report eviction traffic as a monotone counter.
+_FREED_DEVICE_BYTES = 0
+
+
+def _note_freed_bytes(n: int) -> None:
+    global _FREED_DEVICE_BYTES
+    with _POOL_ENGINES_LOCK:
+        _FREED_DEVICE_BYTES += int(n or 0)
+
+
+def freed_device_bytes_total() -> int:
+    """Monotone: device state bytes released by every ``Engine.free()``
+    so far (pool evictions, frontend stops, recovery replacements) —
+    the ``dvf_mem_engine_freed_bytes_total`` counter's source."""
+    with _POOL_ENGINES_LOCK:
+        return _FREED_DEVICE_BYTES
+
+
+def _register_pool_engine(engine: "Engine") -> None:
+    with _POOL_ENGINES_LOCK:
+        _POOL_ENGINES.add(engine)
+
+
+def _unregister_pool_engine(engine: "Engine") -> None:
+    with _POOL_ENGINES_LOCK:
+        _POOL_ENGINES.discard(engine)
+
+
+def live_pool_engines() -> List["Engine"]:
+    """Pool-managed engines whose device buffers are still live — the
+    leak guards' registry."""
+    with _POOL_ENGINES_LOCK:
+        return [e for e in _POOL_ENGINES if not e.freed]
+
+
+class ProgramPool:
+    """Bounded LRU of live compiled Engines, keyed by canonical
+    signature (runtime.signature.SignatureKey).
+
+    N serving signatures time-share ONE device without N processes: a
+    bucket *leases* its engine (refcounted — a leased program is never
+    evicted out from under in-flight batches), releases it when the
+    bucket retires, and the program stays WARM in the pool until LRU
+    capacity pressure frees its device buffers (``Engine.free``).
+    Re-admission of an evicted signature recompiles through ``build``
+    (a fresh engine: warm-up and calibrations; the hand kernels' builds
+    are cached per process, so nothing is compiled again by nvcc).
+
+    ``hits``/``misses``/``evictions`` are the ``dvf_compile_cache_*`` /
+    pool-eviction registry exports.
+    """
+
+    def __init__(self, capacity: int = 8):
+        if capacity < 1:
+            raise ValueError("pool capacity must be >= 1")
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        # key -> [engine, lease_count]; OrderedDict gives LRU order.
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+        self._building: Dict[Any, threading.Event] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.closed = False
+        self.observer: Optional[Callable] = None  # reconfiguration-
+        #   ledger tap (duck-typed: observer(kind, **fields)): the owner
+        #   wires it to record pool_acquire / compile / pool_evict
+        #   events. Always called OUTSIDE the pool lock; exceptions are
+        #   swallowed — accounting must never break a lease.
+
+    def _notify(self, kind: str, **fields) -> None:
+        obs = self.observer
+        if obs is None:
+            return
+        try:
+            obs(kind, **fields)
+        except Exception:  # noqa: BLE001 — see observer comment
+            pass
+
+    def acquire(self, key, build: Callable[[], "Engine"],
+                cause: Optional[str] = None) -> "Engine":
+        """Lease the engine for ``key``: LRU hit (warm — milliseconds)
+        or ``build()`` (cold — trace/compile; runs OUTSIDE the pool lock
+        so one slow compile can't block every other bucket's lease, with
+        a per-key latch so concurrent admits of the same signature
+        compile once). ``cause`` labels the ledger event (admission /
+        quality / precompile / …)."""
+        while True:
+            with self._lock:
+                if self.closed:
+                    raise RuntimeError("program pool is closed")
+                ent = self._entries.get(key)
+                if ent is not None:
+                    self._entries.move_to_end(key)
+                    ent[1] += 1
+                    self.hits += 1
+                    engine = ent[0]
+                    break
+                latch = self._building.get(key)
+                if latch is None:
+                    self._building[key] = latch = threading.Event()
+                    engine = None
+                    break
+            latch.wait(timeout=300.0)  # builder finished (or died): re-check
+        if engine is not None:
+            self._notify("pool_acquire", cause=cause, key=key,
+                         cache="hit", engine=engine)
+            return engine
+        t_build = time.perf_counter()
+        try:
+            engine = build()
+        except BaseException:
+            with self._lock:
+                self._building.pop(key, None)
+            latch.set()
+            raise
+        build_ms = (time.perf_counter() - t_build) * 1e3
+        with self._lock:
+            if self.closed:
+                # close() raced the build: the pool's free sweep already
+                # ran, so inserting now would leak a live program that
+                # nothing ever frees. Refuse (below, outside the lock,
+                # after freeing what we built).
+                self._building.pop(key, None)
+                raced_close = True
+            else:
+                raced_close = False
+                self.misses += 1
+                self._entries[key] = [engine, 1]
+                _register_pool_engine(engine)
+                self._building.pop(key, None)
+                evicted = self._evict_over_capacity_locked()
+        latch.set()
+        if raced_close:
+            engine.free()
+            raise RuntimeError("program pool is closed")
+        self._notify("compile", cause=cause, key=key, cache="miss",
+                     wall_ms=build_ms, engine=engine)
+        self._free_evicted(evicted)
+        return engine
+
+    def adopt(self, key, engine: "Engine") -> None:
+        """Insert an externally built engine as a leased entry — how the
+        frontend's default bucket (whose engine may be caller-built and
+        predate its key being known) joins the pool once pinned.
+        Raises RuntimeError on a closed pool (adopt racing the owner's
+        stop must not insert a program the close sweep already missed)."""
+        with self._lock:
+            if self.closed:
+                raise RuntimeError("program pool is closed")
+            if key in self._entries:
+                ent = self._entries[key]
+                if ent[0] is engine:
+                    return
+                raise ValueError(f"pool already holds a different engine "
+                                 f"for {key}")
+            self._entries[key] = [engine, 1]
+            self._entries.move_to_end(key)
+            _register_pool_engine(engine)
+            evicted = self._evict_over_capacity_locked()
+        self._free_evicted(evicted)
+
+    def release(self, key) -> None:
+        """Drop one lease. The program STAYS warm (that is the point —
+        the next admit of this signature is a pool hit) until capacity
+        pressure evicts it."""
+        evicted = []
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                return
+            ent[1] = max(0, ent[1] - 1)
+            evicted = self._evict_over_capacity_locked()
+        self._free_evicted(evicted)
+
+    def replace(self, key, engine: "Engine") -> None:
+        """Swap the live engine under an existing lease (supervised
+        recovery rebuilt it); the old engine's buffers are freed. On a
+        closed pool the rebuilt engine is freed and the call raises —
+        a recovery racing the owner's stop() must not insert a program
+        the close sweep already missed. A concurrently-retired key
+        re-enters WARM (lease 0): nothing holds it, so capacity
+        pressure may evict it immediately."""
+        old = None
+        evicted: List[Tuple[Any, "Engine"]] = []
+        with self._lock:
+            if self.closed:
+                raced_close = True
+            else:
+                raced_close = False
+                ent = self._entries.get(key)
+                if ent is None:
+                    self._entries[key] = [engine, 0]
+                    _register_pool_engine(engine)
+                    evicted = self._evict_over_capacity_locked()
+                else:
+                    old = ent[0]
+                    ent[0] = engine
+                    _register_pool_engine(engine)
+        if raced_close:
+            engine.free()
+            raise RuntimeError("program pool is closed")
+        self._free_evicted(evicted)
+        if old is not None and old is not engine:
+            old.free()
+
+    def _evict_over_capacity_locked(self) -> List[Tuple[Any, "Engine"]]:
+        """Pop LRU un-leased entries while over capacity; leased entries
+        are skipped (a live program can't be freed under its bucket), so
+        the pool may transiently exceed capacity when every entry is
+        leased — bounded by the frontend's max_buckets. Returns
+        ``(key, engine)`` pairs for the caller to free (and ledger)
+        outside the lock."""
+        out: List[Tuple[Any, "Engine"]] = []
+        if len(self._entries) <= self.capacity:
+            return out
+        for key in list(self._entries):
+            if len(self._entries) <= self.capacity:
+                break
+            if self._entries[key][1] == 0:
+                out.append((key, self._entries.pop(key)[0]))
+                self.evictions += 1
+        return out
+
+    def _free_evicted(self, evicted: List[Tuple[Any, "Engine"]]) -> None:
+        for key, e in evicted:
+            e.free()
+            self._notify("pool_evict", cause="capacity", key=key,
+                         engine=e)
+
+    def evict(self, key) -> bool:
+        """Explicitly drop one un-leased entry (tests; manual cache
+        control). False when absent or still leased."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None or ent[1] > 0:
+                return False
+            engine = self._entries.pop(key)[0]
+            self.evictions += 1
+        engine.free()
+        self._notify("pool_evict", cause="manual", key=key, engine=engine)
+        return True
+
+    def warm_keys(self) -> List:
+        """Signatures this pool can serve without a compile — what
+        admission-rejection messages enumerate and the fleet's
+        warm-replica preference matches against."""
+        with self._lock:
+            return list(self._entries)
+
+    def peek(self, key) -> Optional["Engine"]:
+        """The warm engine under ``key`` WITHOUT taking a lease — the
+        audit plane's divergence probe runs through it (a replica is
+        'warm on a signature' whether the program is bucket-leased or
+        pool-idle). None when absent; the caller must tolerate a
+        concurrent eviction (the freed engine's probe raises, which the
+        probe paths already contain as 'unprobeable')."""
+        with self._lock:
+            ent = self._entries.get(key)
+            return ent[0] if ent is not None else None
+
+    def close(self) -> None:
+        """Free every entry (frontend stop): after this, no pool engine
+        holds device buffers — pinned by the port's leak guards."""
+        with self._lock:
+            self.closed = True
+            engines = [ent[0] for ent in self._entries.values()]
+            self._entries.clear()
+        for e in engines:
+            e.free()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "size": len(self._entries),
+                "capacity": self.capacity,
+                "leased": sum(1 for ent in self._entries.values()
+                              if ent[1] > 0),
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+            }

@@ -620,3 +620,84 @@ def test_engine_entries_on_the_card(dev):
                                     gaussian_kernel_1d(9, 0.0), gaussian_kernel_1d(9, 0.0))
     assert got.dtype == np.float32
     assert np.abs(got - plain.cpu().numpy()).max() <= 1e-5
+
+
+def test_serve_runs_the_kernels_and_a_resize_swap_on_the_card(dev):
+    """Two signatures through ServeFrontend on cuda:0 — gaussian_blur(9)
+    (K1) and sobel_bilateral (K3) — with one resize hot swap mid-stream:
+    every frame within 1 LSB of the plain version of its own input, both
+    kernels launched once per batch, no pool engine live after stop()."""
+    import time
+
+    from dvf_tpu_torch.ops.conv import sep_conv2d
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    shape, n = (48, 72, 3), 24
+    rng = np.random.default_rng(3)
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain = {"gaussian_blur(ksize=9)": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+             "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        dvf_tpu_torch.ServeConfig(batch_size=4, queue_size=64, out_queue_size=64,
+                                  slo_ms=600_000.0))
+    frames, got = {}, {}
+    with fe:
+        sids = {c: fe.open_stream(op_chain=c, frame_shape=shape) for c in plain}
+        engines = {c: fe._session(s).bucket.engine for c, s in sids.items()}
+        b0 = {c: e.stats.batches for c, e in engines.items()}
+        tk.reset_launches()
+        for c, s in sids.items():
+            frames[c] = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(n)]
+            got[c] = []
+        label = fe._session(sids["sobel_bilateral"]).bucket.label()
+        deadline = time.time() + 60.0
+        for j in range(n):
+            for c, s in sids.items():
+                fe.submit(s, frames[c][j])
+            if j == n // 3:
+                assert fe.request_batch_size(label, 2, reason="card test")
+            time.sleep(0.002)
+        while any(len(v) < n for v in got.values()) or fe.swaps < 1:
+            assert time.time() < deadline, (fe.stats()["swaps"], fe.health())
+            for c, s in sids.items():
+                got[c].extend(fe.poll(s))
+            time.sleep(0.002)
+        launches = dict(tk.LAUNCHES)
+        batches = {c: e.stats.batches - b0[c] for c, e in engines.items()}
+    assert fe.swaps == 1 and fe.swap_aborts == 0
+    assert launches["sep_blur"] == batches["gaussian_blur(ksize=9)"] > 0
+    # the swap's successor compile launched K3 twice: its warm-up step and
+    # its step calibration
+    assert launches["sobel_bilateral"] == batches["sobel_bilateral"] + 2
+    assert batches["sobel_bilateral"] > 0
+    for c, fn in plain.items():
+        assert [d.index for d in got[c]] == list(range(n))
+        x = to_float(torch.from_numpy(np.stack(frames[c])).to(dev))
+        want = to_uint8(fn(x)).cpu().numpy().astype(np.int16)
+        diff = np.abs(np.stack([d.frame for d in got[c]]).astype(np.int16) - want)
+        assert diff.max() <= 1, (c, int(diff.max()))
+    assert live_pool_engines() == []
+
+
+def test_compile_waits_only_on_its_own_work(dev):
+    """A compile beside busy serving (the default stream held by a long
+    kernel) finishes without waiting for that work: its warm-up and
+    calibrations run on the compile stream and wait on events there."""
+    import time
+
+    busy = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("invert"))
+    busy.compile((2, 32, 32, 3))     # the pinned buffers of this size exist
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(4_000_000_000)  # ~2 s of the default stream at ~2 GHz
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("invert"))
+    eng.compile((2, 32, 32, 3))
+    t_compile = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_busy = time.perf_counter() - t0
+    assert t_busy > 0.5, t_busy       # the stream really was held
+    assert t_compile < t_busy / 2, (t_compile, t_busy)
+

@@ -42,6 +42,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"dvf_tpu_torch.models.style_transfer", "dvf_tpu_torch.models.espcn",
             "dvf_tpu_torch.train.checkpoint", "dvf_tpu_torch.ops.histogram",
             "dvf_tpu_torch.ops.canny"} <= set(res["imported"])
+    # The serving slice: the frontend and every module it pulls forward.
+    assert {"dvf_tpu_torch.serve", "dvf_tpu_torch.serve.server",
+            "dvf_tpu_torch.serve.session", "dvf_tpu_torch.serve.batcher",
+            "dvf_tpu_torch.serve.router", "dvf_tpu_torch.runtime.signature",
+            "dvf_tpu_torch.obs.registry", "dvf_tpu_torch.obs.export",
+            "dvf_tpu_torch.obs.ledger", "dvf_tpu_torch.obs.memory",
+            "dvf_tpu_torch.resilience.continuity"} <= set(res["imported"])
 
 
 _FORBIDDEN = re.compile(
