@@ -88,6 +88,28 @@ which raises (and so exits non-zero) on failure:
    equalize, clahe and canny at 16 x 1080 x 1920; every frame in order,
    the first batch within 1 LSB of a direct filt.fn call on the card,
    the classical ops' kept frames bit-exact to the CPU;
+7. the multi-tenant serving frontend (legs (a)-(e) of ``serve_phase``);
+8. the supervised rebuild and the worker's wire (``ring_phase``): (a) a
+   ServeFrontend of sobel_bilateral at 4 x 1080 x 1920, fault_budget 2,
+   whose live step is replaced after two healthy batches by one that
+   raises: exactly one recovery, faults {"compute": 3}, frames 0, 1 and 5
+   delivered within 1 LSB of the plain version, K3 launched twice per
+   compile plus once per delivered batch, the rebuild's compile_aside_ms
+   and stall_ms printed; (b) 1080p batch-16 Pipelines of invert and
+   sobel_bilateral fed through a raw RingFrameQueue (ingest/egress
+   streamed and monolithic) beside the DropOldestQueue leg of the same
+   shape and bound, and invert again over a ring of the default 10
+   frames: every delivered index in order, each frame exact (invert) or
+   within 1 LSB of the plain version of its own index, ring drops, fps
+   and the host's load printed, the streamed pair timed queue, ring,
+   ring, queue, and the ring's host copies per frame timed alone; (c)
+   the phase-5 worker setup with
+   transport="ring" (frames staged by ``ZmqWorker.receive`` into the
+   native ring), codec_assist "probe" on the raw-inner delta wire and,
+   where libjpeg or cv2 is present, on the JPEG delta wire: K5 once per
+   batch, every payload identical to the same stream through
+   transport="list", timed list, ring, ring, list after one uncounted
+   pass;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -102,9 +124,11 @@ histogram, innermost loops); ``sass_of(path)`` does the same for any of
 those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
-and SR batches' device times.
+and SR batches' device times; ``serve_only()`` and ``ring_only()`` run the
+build and phase 7 or phase 8 alone.
 
-Output: human-readable lines, then ``{"pipeline": [...]}``,
+Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
+[...]}``, ``{"ring": [...]}``,
 ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -807,6 +831,10 @@ def main() -> int:
     serve_rows, delta = serve_phase(dev, plain_of)
     for k, v in delta.items():
         launches[k] += v
+    # 8. the supervised rebuild and the worker's wire (the native ring)
+    ring_rows, delta = ring_phase(dev, plain_of, env["libjpeg"])
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -835,6 +863,7 @@ def main() -> int:
 
     print(json.dumps({"pipeline": pipe_rows}))
     print(json.dumps({"serve": serve_rows}))
+    print(json.dumps({"ring": ring_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -2736,6 +2765,436 @@ def serve_phase(dev, plain_of: dict):
     log(f"serve phase: {time.perf_counter() - t0:.1f} s, launches {total}")
     return rows, total
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the supervised rebuild (F1) and the worker's wire (the native ring)
+# ---------------------------------------------------------------------------
+
+REBUILD_BATCH = 4                # leg (a): 4 x 1080 x 1920 x 3, sobel_bilateral
+RING_FRAMES = 160                # leg (b): frames per 1080p batch-16 pipeline
+RING_DEFAULT_CAPACITY = 10       # RingFrameQueue's default (~62 MB at 1080p)
+
+
+def _serve_sync(fe, sid, frame, deadline_s: float = 60.0) -> None:
+    """Submit one frame and wait until it resolved (delivered or failed):
+    each batch then carries exactly that frame."""
+    s = fe._session(sid)
+    before = s.delivered + s.failed
+    fe.submit(sid, frame)
+    deadline = time.time() + deadline_s
+    while s.delivered + s.failed < before + 1:
+        if time.time() > deadline:
+            raise AssertionError(f"ring (a): serving stalled: {fe.health()}")
+        time.sleep(0.002)
+
+
+def ring_leg_rebuild(dev, plain_of: dict):
+    """(a) The supervised rebuild on the card: a ServeFrontend of
+    sobel_bilateral at 4 x 1080 x 1920 with fault_budget 2. After two
+    healthy batches the live engine's step is replaced by one that
+    raises; the third fault overflows the budget and the frontend rebuilds
+    the program aside and adopts it. Exactly one recovery, faults
+    {"compute": 3}, the rebuilt engine serves, every delivered frame
+    within 1 LSB of the plain version, and K3 launched exactly what the
+    engine ran: two per compile (warm-up and step calibration) and one per
+    delivered batch."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("sobel_bilateral"),
+        dvf_tpu_torch.ServeConfig(batch_size=REBUILD_BATCH, queue_size=64,
+                                  out_queue_size=64, slo_ms=600_000.0,
+                                  stall_timeout_s=0.0, fault_budget=2),
+        device=dev)
+    base = serve_bases(SERVE_HD, 1, 200)[0]
+    tk.reset_launches()
+    with fe:
+        sid = fe.open_stream()
+        eng = fe.engine
+        c0, b0 = eng.stats.compile_count, eng.stats.batches
+        for j in range(2):
+            _serve_sync(fe, sid, tagged(base, j))
+
+        def dead_step(*a, **k):
+            raise RuntimeError("engine died (forced)")
+
+        eng._step = dead_step
+        for j in range(2, 5):
+            _serve_sync(fe, sid, tagged(base, j))
+        deadline = time.time() + 60.0
+        while fe.recoveries < 1:
+            if time.time() > deadline:
+                raise AssertionError(f"ring (a): no rebuild: {fe.health()}")
+            time.sleep(0.002)
+        if fe.engine is not eng or eng._step is dead_step:
+            raise AssertionError("ring (a): the rebuild kept the broken step")
+        _serve_sync(fe, sid, tagged(base, 5))
+        got = fe.poll(sid)
+        st = fe.stats()
+        compiles = eng.stats.compile_count - c0
+        batches = eng.stats.batches - b0
+        prep, swap = dict(eng.last_prepare or {}), dict(eng.last_swap or {})
+        events = [e for e in st["ledger"]["events"] if e["kind"] == "engine_rebuild"]
+    delta = dict(tk.LAUNCHES)
+    sess = st["sessions"][sid]
+    idx = [d.index for d in got]
+    if not (st["recoveries"] == 1 and st["faults"]["by_kind"] == {"compute": 3}
+            and sess["faults"] == {"compute": 3} and sess["delivered"] == 3
+            and idx == [0, 1, 5] and fe._error is None):
+        raise AssertionError(f"ring (a): recoveries {st['recoveries']}, faults "
+                             f"{st['faults']['by_kind']}, session {sess}, "
+                             f"delivered {idx}")
+    want = serve_plain("sobel_bilateral", [tagged(base, i) for i in idx], dev, plain_of)
+    lsb = max_lsb(np.stack([d.frame for d in got]), want)
+    if lsb > 1:
+        raise AssertionError(f"ring (a): frames differ from the plain version by "
+                             f"{lsb} LSB")
+    want_k3 = 2 * compiles + batches
+    if compiles != 2 or batches != 3:
+        raise AssertionError(f"ring (a): {compiles} compiles and {batches} batches, "
+                             f"want 2 (first and rebuilt program) and 3")
+    serve_counted(delta, {"sobel_bilateral": want_k3}, "ring (a)")
+    log(f"ring (a) supervised rebuild (sobel_bilateral {REBUILD_BATCH} x "
+        f"{SERVE_HD[0]} x {SERVE_HD[1]}, fault_budget 2): recoveries "
+        f"{st['recoveries']}, faults {st['faults']['by_kind']}, delivered {idx}, max "
+        f"{lsb} LSB; rebuild compile_aside_ms {prep.get('compile_aside_ms')}, "
+        f"stall_ms {swap.get('stall_ms')}, ledger engine_rebuild "
+        f"{json.dumps(events[-1] if events else None)}; compiles {compiles}, "
+        f"batches {batches}, launches {delta} (2 per compile + 1 per batch)")
+    return dict(leg="a_rebuild", recoveries=st["recoveries"],
+                faults=st["faults"]["by_kind"], delivered=idx, max_lsb=lsb,
+                compile_aside_ms=prep.get("compile_aside_ms"),
+                stall_ms=swap.get("stall_ms"), compiles=compiles, batches=batches,
+                launches=delta), delta
+
+
+def ring_pipeline_leg(dev, name: str, counter, mode: str, transport: str,
+                      plain_of: dict, capacity=None):
+    """(b) One 1080p batch-16 Pipeline over ``transport`` ("ring": a raw
+    RingFrameQueue of ``capacity`` frames, default RING_FRAMES + 1;
+    "queue": the DropOldestQueue of phase 5 with the same bound), launch
+    counters zeroed just before and read just after. Every delivered
+    index in order, each frame exact (invert) or within 1 LSB of the plain
+    version of its own index."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.transport.ring_queue import RingFrameQueue
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    n = RING_FRAMES
+    cap = capacity or n + 1
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name), device=dev)
+    eng.compile(MAIN_SHAPE)
+    queue = RingFrameQueue(MAIN_SHAPE[1:], capacity_frames=cap) \
+        if transport == "ring" else None
+    cfg = dvf_tpu_torch.PipelineConfig(batch_size=MAIN_SHAPE[0], queue_size=cap,
+                                       ingest=mode, egress=mode)
+    kept = {}
+    order = []
+
+    def sink(i, f, _ts):
+        order.append(i)
+        kept[i] = f
+
+    src = dvf_tpu_torch.SyntheticSource(*MAIN_SHAPE[1:], n_frames=n, seed=0)
+    b0 = eng.stats.batches
+    load0 = os.getloadavg()
+    tk.reset_launches()
+    pipe = dvf_tpu_torch.Pipeline(src, eng.filter, dvf_tpu_torch.CallbackSink(sink),
+                                  cfg, engine=eng, queue=queue)
+    with gates_open() if mode == "streamed" else contextlib.nullcontext():
+        stats = pipe.run()
+    delta = dict(tk.LAUNCHES)
+    batches = eng.stats.batches - b0
+    load1 = os.getloadavg()
+    label = f"{name} over {'RingFrameQueue' if queue is not None else 'DropOldestQueue'}" \
+            f"(capacity {cap}) [ingest/egress {mode}]"
+    if order != sorted(set(order)) or stats["delivered"] != len(order) \
+            or stats["delivered"] + stats["dropped_at_ingest"] > n:
+        raise AssertionError(f"ring (b) {label}: delivered {stats['delivered']}, "
+                             f"dropped {stats['dropped_at_ingest']}, in order "
+                             f"{order == sorted(order)}")
+    if stats["transport"] != ("RingFrameQueue" if queue is not None else "DropOldestQueue"):
+        raise AssertionError(f"ring (b) {label}: transport {stats['transport']}")
+    want_delta = {k: (batches if k == counter else 0) for k in delta}
+    if delta != want_delta:
+        raise AssertionError(f"ring (b) {label}: launches {delta}, want {want_delta}")
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *MAIN_SHAPE[1:], n_frames=n, seed=0)][:-1]
+    lsb = 0
+    plain = plain_of.get(counter)
+    for s in range(0, len(order), MAIN_SHAPE[0]):
+        ids = order[s:s + MAIN_SHAPE[0]]
+        x = torch.from_numpy(np.stack([frames[i] for i in ids])).to(dev)
+        want = (255 - x if plain is None else to_uint8(plain(to_float(x)))).cpu().numpy()
+        lsb = max(lsb, max_lsb(np.stack([kept[i] for i in ids]), want))
+    if lsb > (0 if plain is None else 1):
+        raise AssertionError(f"ring (b) {label}: delivered frames differ from the "
+                             f"plain version of their own index by {lsb} LSB")
+    ing, egr = stats.get("ingest", {}), stats.get("egress", {})
+    log(f"ring (b) {label}: {stats['delivered']} of {n} delivered in order, ring "
+        f"drops {stats['dropped_at_ingest']}, {batches} batches, {stats['fps']:.1f} "
+        f"fps, p50 {stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, max {lsb} "
+        f"LSB vs plain; ingest {ing.get('mode')} ({ing.get('fallback_reason')}), "
+        f"egress {egr.get('mode')} ({egr.get('fallback_reason')}); host loadavg "
+        f"{load0[0]:.2f} -> {load1[0]:.2f} (of {os.cpu_count()} cores); launches {delta}")
+    row = dict(filter=name, transport=stats["transport"], capacity_frames=cap,
+               mode=mode, frames=n, delivered=stats["delivered"],
+               dropped=stats["dropped_at_ingest"], fps=stats["fps"],
+               p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"], max_lsb=lsb,
+               ingest_mode=ing.get("mode"), egress_mode=egr.get("mode"),
+               loadavg_1m=[load0[0], load1[0]], launches=delta)
+    del kept, frames
+    eng.free()
+    return row, delta
+
+
+def ring_copy_ms(samples: int = 32) -> dict:
+    """The host copies a raw RingFrameQueue adds per 1080p frame against
+    the DropOldestQueue's handoff of the array itself: ``tobytes`` (the
+    serialize in ``put``), the native push (a memcpy into the ring), the
+    pop (a memcpy out into a new ``bytes``); and the row copy into the
+    staging slab that both transports pay (``decode_into``), beside a
+    plain ``np.copyto`` of one frame. Medians in ms."""
+    from dvf_tpu_torch.transport.ring_queue import RingFrameQueue
+
+    frame = np.random.default_rng(0).integers(0, 255, MAIN_SHAPE[1:], np.uint8)
+    staging = np.empty((1,) + MAIN_SHAPE[1:], np.uint8)
+    q = RingFrameQueue(MAIN_SHAPE[1:], capacity_frames=4)
+    ts = {k: [] for k in ("tobytes", "push", "pop", "decode_into", "copyto")}
+    try:
+        for i in range(samples + 2):
+            t0 = time.perf_counter()
+            payload = frame.tobytes()
+            t1 = time.perf_counter()
+            q.ring.push(payload, i, 0.0)
+            t2 = time.perf_counter()
+            items = q.pop_up_to(1)
+            t3 = time.perf_counter()
+            q.decode_into(items, staging)
+            t4 = time.perf_counter()
+            np.copyto(staging[0], frame)
+            t5 = time.perf_counter()
+            if i >= 2:  # the first two touch fresh pages
+                for k, a, b in (("tobytes", t0, t1), ("push", t1, t2), ("pop", t2, t3),
+                                ("decode_into", t3, t4), ("copyto", t4, t5)):
+                    ts[k].append((b - a) * 1e3)
+            del payload, items
+    finally:
+        q.close()
+    out = {k: float(np.median(v)) for k, v in ts.items()}
+    out["ring_extra"] = out["tobytes"] + out["push"] + out["pop"]
+    log(f"ring (b) host copies per {MAIN_SHAPE[1:]} frame (medians of {samples}, "
+        f"ms): {json.dumps(out)}; the ring's extra over the queue's handoff is "
+        f"tobytes + push + pop")
+    return out
+
+
+def ring_pipeline_phase(dev, plain_of: dict):
+    """(b) invert and sobel_bilateral over the ring, streamed and
+    monolithic, beside the DropOldestQueue leg at the same shape and bound
+    (streamed), the streamed pair timed queue, ring, ring, queue so that
+    neither transport alone runs first; invert again over the ring at its
+    default capacity; the ring's host copies per frame."""
+    rows, total = [], {}
+    for name, counter in (("invert", None), ("sobel_bilateral", "sobel_bilateral")):
+        legs = []
+        for mode, transport in (("streamed", "queue"), ("streamed", "ring"),
+                                ("monolithic", "ring"), ("streamed", "ring"),
+                                ("streamed", "queue")):
+            row, delta = ring_pipeline_leg(dev, name, counter, mode, transport,
+                                           plain_of)
+            legs.append(row)
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+        rows.extend(legs)
+        q = [legs[0]["fps"], legs[4]["fps"]]
+        r = [legs[1]["fps"], legs[3]["fps"]]
+        log(f"ring (b) {name} streamed at {MAIN_SHAPE}: queue, ring, ring, queue "
+            f"{q[0]:.1f}, {r[0]:.1f}, {r[1]:.1f}, {q[1]:.1f} fps; ring / queue "
+            f"{sum(r) / sum(q):.3f}x (first pair {r[0] / q[0]:.3f}x, second pair "
+            f"{r[1] / q[1]:.3f}x)")
+    row, delta = ring_pipeline_leg(dev, "invert", None, "streamed", "ring", plain_of,
+                                   capacity=RING_DEFAULT_CAPACITY)
+    rows.append(row)
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+    rows.append(dict(leg="b_host_copies_ms", **ring_copy_ms()))
+    return rows, total
+
+
+def _ring_worker_pass(dev, blobs, transport: str, codec):
+    """The app's stream through a socket-less ZmqWorker on ``transport``:
+    each batch's frames staged with receive() (into the native ring or the
+    list), taken with next_batch() and run by process_batch. Returns
+    (payloads in send order, stats, seconds)."""
+    import dvf_tpu_torch
+
+    worker = dvf_tpu_torch.ZmqWorker(
+        dvf_tpu_torch.get_filter("invert"), batch_size=WIRE_BATCH, wire="delta",
+        jpeg_quality=WIRE_QUALITY, delta_tile=WIRE_TILE,
+        delta_keyframe_interval=WIRE_KEY, codec_assist="probe",
+        transport=transport, raw_size=WIRE_SIZE, device=dev, codec=codec,
+        connect=False)
+    sent = []
+    try:
+        worker.engine.compile((WIRE_BATCH, WIRE_SIZE, WIRE_SIZE, 3))
+        t = time.perf_counter()
+        for s in range(0, len(blobs), WIRE_BATCH):
+            for i in range(s, min(s + WIRE_BATCH, len(blobs))):
+                worker.receive(i, blobs[i])
+            worker.process_batch(worker.next_batch(),
+                                 lambda i, t0, t1, p: sent.append((i, p)))
+        worker.drain_egress()
+        secs = time.perf_counter() - t
+        stats = worker.stats()
+    finally:
+        worker.close()
+    return sent, stats, secs
+
+
+def ring_worker_legs(dev, have_jpeg: bool):
+    """(c) The phase-5 worker setup (SyntheticSource(512, 512,
+    motion="block"), invert, batch 8, tile 32, keyframe 16) with
+    transport="ring" on the raw-inner delta wire, codec_assist "probe"
+    (K5, one launch per batch); every payload identical to the same stream
+    through transport="list". Then the JPEG delta wire over the ring where
+    libjpeg (the native codec) or cv2 is present."""
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.transport import codec as tc
+
+    frames = wire_frames()
+    inners = [("raw", lambda: tc.RawCodec(WIRE_SIZE, WIRE_SIZE))]
+    if have_jpeg:
+        inners.append(("jpeg (native libjpeg)",
+                       lambda: tc.NativeJpegCodec(WIRE_QUALITY, threads=4)))
+    else:
+        try:
+            import cv2  # noqa: F401
+            inners.append(("jpeg (cv2)", lambda: tc.JpegCodec(WIRE_QUALITY, threads=4)))
+        except ImportError:
+            log("ring (c): neither libjpeg nor cv2 on this machine: the JPEG "
+                "delta wire over the ring does not run")
+    rows, total = [], {}
+    n, nb = len(frames), -(-len(frames) // WIRE_BATCH)
+    for inner, make in inners:
+        def codec(**kw):
+            return tc.DeltaCodec(make(), tile=WIRE_TILE, keyframe_interval=WIRE_KEY,
+                                 **kw)
+
+        app = codec()
+        try:
+            blobs = [app.encode(f) for f in frames]
+        finally:
+            app.close()
+        # One uncounted pass takes the process's one-time costs (codec pool
+        # threads, first-touch pages); then list, ring, ring, list, so that
+        # neither transport alone runs first. The first ring pass is the
+        # counted one.
+        _ring_worker_pass(dev, blobs, "list", codec(on_gap="raise"))
+        listed, lstats, lsecs = _ring_worker_pass(dev, blobs, "list",
+                                                  codec(on_gap="raise"))
+        tk.reset_launches()
+        sent, stats, secs = _ring_worker_pass(dev, blobs, "ring", codec(on_gap="raise"))
+        delta = dict(tk.LAUNCHES)
+        sent2, _, secs2 = _ring_worker_pass(dev, blobs, "ring", codec(on_gap="raise"))
+        listed2, _, lsecs2 = _ring_worker_pass(dev, blobs, "list",
+                                               codec(on_gap="raise"))
+        label = f"zmq_worker(delta/{inner}, codec_assist=probe, transport=ring)"
+        if [i for i, _ in sent] != list(range(n)):
+            raise AssertionError(f"ring (c) {label}: delivered {len(sent)} of {n}, "
+                                 f"out of order or repeated")
+        want = {k: 0 for k in delta}
+        want["tile_maxdiff"] = nb
+        if delta != want:
+            raise AssertionError(f"ring (c) {label}: launches {delta}, want {want}")
+        for ring_sent in (sent, sent2):
+            for list_sent in (listed, listed2):
+                n_diff = sum(p != q for (_, p), (_, q) in zip(ring_sent, list_sent))
+                if n_diff or len(list_sent) != len(ring_sent):
+                    raise AssertionError(f"ring (c) {label}: {n_diff} payloads "
+                                         f"differ from transport='list'")
+        if inner == "raw":
+            dec = codec()
+            try:
+                if not all(np.array_equal(dec.decode(p), 255 - f)
+                           for (_, p), f in zip(sent, frames)):
+                    raise AssertionError(f"ring (c) {label}: decoded results are "
+                                         f"not the inverted frames")
+            finally:
+                dec.close()
+        if stats["transport"] != "ring" or stats["ring_dropped"] != 0:
+            raise AssertionError(f"ring (c) {label}: transport {stats['transport']}, "
+                                 f"ring drops {stats.get('ring_dropped')}")
+        fps = [n / lsecs, n / secs, n / secs2, n / lsecs2]
+        ratio = (fps[1] + fps[2]) / (fps[0] + fps[3])
+        log(f"ring (c) {label}: {n} frames, {stats['batches']} batches; after one "
+            f"uncounted pass, list, ring, ring, list {fps[0]:.1f}, {fps[1]:.1f}, "
+            f"{fps[2]:.1f}, {fps[3]:.1f} fps; ring / list {ratio:.3f}x (first pair "
+            f"{fps[1] / fps[0]:.3f}x, second pair {fps[2] / fps[3]:.3f}x); ring drops "
+            f"{stats['ring_dropped']}, dirty ratio {stats['delta']['dirty_ratio']}, "
+            f"launches {delta}; all {n} payloads byte-identical to transport='list'")
+        rows.append(dict(filter=label, inner=inner, frames=n,
+                         fps_list_ring_ring_list=fps, ring_over_list=ratio,
+                         ring_dropped=stats["ring_dropped"], payloads_differing=0,
+                         launches=delta))
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+    return rows, total
+
+
+def ring_phase(dev, plain_of: dict, have_jpeg: bool):
+    """Phase 8: legs (a)-(c). Returns (rows, the summed launch counts of
+    the legs' counted runs)."""
+    import torch
+
+    t0 = time.perf_counter()
+    row, delta = ring_leg_rebuild(dev, plain_of)
+    rows, total = [row], dict(delta)
+    for leg in (lambda: ring_pipeline_phase(dev, plain_of),
+                lambda: ring_worker_legs(dev, have_jpeg)):
+        torch.cuda.empty_cache()
+        leg_rows, leg_delta = leg()
+        rows.extend(leg_rows)
+        for k, v in leg_delta.items():
+            total[k] = total.get(k, 0) + v
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines():
+        raise AssertionError(f"ring: pool engines outlived their frontends: "
+                             f"{[e.op_chain for e in live_pool_engines()]}")
+    log(f"ring phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def ring_only() -> None:
+    """The build and phase 8 alone (the supervised rebuild and the ring
+    legs): ``python3 -c 'import chip_smoke; chip_smoke.ring_only()'``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import _build
+    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = host_env()
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
+        f"environment: {json.dumps(env)}")
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+                "bilateral": lambda x: bilateral_nhwc(x),
+                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    rows, _ = ring_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
+    print(json.dumps({"ring": rows}))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,8 +2,9 @@
 
 A source yields ``(frame_u8, timestamp)``; a ``None`` frame ends the
 stream. ``SyntheticSource`` is a copy of the reference's: the same seed
-gives the same bytes. The file, webcam and shared-memory sources wait for
-a later slice.
+gives the same bytes. ``ShmRingSource`` reads frames another process
+pushes into a shared-memory ring. The file and webcam sources wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -143,4 +144,85 @@ class SyntheticSource:
             if period:
                 next_t = _pace(next_t, period)
             yield self._cycle[i % n_cycle], time.time()
+        yield None, time.time()
+
+
+class ShmRingSource:
+    """Consume frames that a separate process pushes into a POSIX
+    shared-memory :class:`~dvf_tpu_torch.transport.ring.FrameRing` — the
+    camera process → framework process boundary, with the native ring in
+    place of the reference's ZMQ sockets. Drop-oldest freshness is
+    enforced inside the ring by the producer's push.
+
+    Wire format: raw uint8 frames of ``frame_shape``; a 1-byte payload is
+    the end-of-stream sentinel (a real frame is always H·W·3 > 1 bytes).
+    ``attach_timeout_s`` bounds the wait for the producer to create the
+    ring; ``idle_timeout_s`` (None = forever) bounds the wait for the next
+    frame once attached, which is how a producer that died without its
+    sentinel ends the stream.
+    """
+
+    def __init__(
+        self,
+        shm_name: str,
+        frame_shape: Tuple[int, int, int],
+        attach_timeout_s: float = 10.0,
+        idle_timeout_s: Optional[float] = 30.0,
+        poll_s: float = 0.002,
+    ):
+        self.shm_name = shm_name
+        self.frame_shape = tuple(frame_shape)
+        self.attach_timeout_s = attach_timeout_s
+        self.idle_timeout_s = idle_timeout_s
+        self.poll_s = poll_s
+
+    def __iter__(self) -> Iterator[Frame]:
+        from dvf_tpu_torch.transport.ring import FrameRing
+
+        expected = int(np.prod(self.frame_shape))
+        deadline = time.perf_counter() + self.attach_timeout_s
+        ring = None
+        while ring is None:
+            try:
+                # A pop buffer well beyond the expected frame, so a
+                # geometry mismatch raises the explanatory error below
+                # rather than a pop-buffer one.
+                ring = FrameRing(shm_name=self.shm_name, create=False,
+                                 max_frame_bytes=max(4 * expected, 8 << 20))
+            except OSError:
+                if time.perf_counter() > deadline:
+                    raise TimeoutError(
+                        f"no producer created shm ring {self.shm_name!r} "
+                        f"within {self.attach_timeout_s:.0f}s")
+                time.sleep(0.05)
+        try:
+            idle_since = time.perf_counter()
+            while True:
+                rec = ring.pop()
+                if rec is None:
+                    if (self.idle_timeout_s is not None
+                            and time.perf_counter() - idle_since > self.idle_timeout_s):
+                        break  # producer stalled or died: end the stream
+                    time.sleep(self.poll_s)
+                    continue
+                idle_since = time.perf_counter()
+                payload, _idx, ts = rec
+                if len(payload) <= 1:
+                    break  # end-of-stream sentinel
+                if len(payload) != expected:
+                    # The two processes disagree about geometry: say how
+                    # to fix it. A square producer is recognizable from
+                    # the byte count.
+                    side = int(round((len(payload) / 3) ** 0.5))
+                    hint = (f" (producer frames look like a {side}x{side} "
+                            f"square — pass frame_shape=({side}, {side}, 3))"
+                            if side * side * 3 == len(payload) else "")
+                    raise ValueError(
+                        f"shm producer pushed {len(payload)}-byte frames; "
+                        f"this consumer expects {self.frame_shape} = "
+                        f"{expected} bytes{hint}")
+                yield (np.frombuffer(payload, np.uint8)
+                       .reshape(self.frame_shape), ts)
+        finally:
+            ring.close()
         yield None, time.time()

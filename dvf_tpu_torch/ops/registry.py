@@ -67,9 +67,18 @@ MEASURED_DEFAULTS = {
 }
 
 
+def measured_default(winners: Dict[str, str], fallback: str,
+                     backend: str = "cuda") -> str:
+    """Pick an implementation from measured per-backend ``winners``
+    (backend → impl label, filled only from committed A/B runs of the
+    port); a backend without one takes ``fallback``. ``backend`` is
+    "cuda" unless the caller names another: the port's entry points run
+    on the card unless told otherwise, and no device is asked here."""
+    return winners.get(backend, fallback)
+
+
 def measured_default_for(key: str, backend: str = "cuda") -> str:
-    """The measured winner of ``MEASURED_DEFAULTS[key]`` on ``backend``
-    (the port's entry points run on "cuda" unless told otherwise), else
-    its fallback."""
+    """The measured winner of ``MEASURED_DEFAULTS[key]`` on ``backend``,
+    else its fallback."""
     entry = MEASURED_DEFAULTS[key]
-    return entry["winners"].get(backend, entry["fallback"])
+    return measured_default(entry["winners"], entry["fallback"], backend)

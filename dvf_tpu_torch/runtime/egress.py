@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
-from dvf_tpu_torch.obs.trace import EGRESS_D2H
+from dvf_tpu_torch.obs.trace import EGRESS_D2H, EGRESS_ENCODE
 from dvf_tpu_torch.runtime.engine import record_event
 
 EGRESS_MODES = ("streamed", "monolithic")
@@ -304,13 +304,17 @@ class AsyncCodecPlane:
     """
 
     def __init__(self, codec, jpeg: bool = True, depth: int = 2,
-                 stats: Optional[EgressStats] = None):
+                 stats: Optional[EgressStats] = None, tracer=None,
+                 track: int = 0):
         if depth < 1:
             raise ValueError("encode depth must be >= 1")
         self.codec = codec
         self.jpeg = jpeg
         self.depth = depth
         self.stats = stats
+        self.tracer = tracer  # obs.trace.Tracer: one egress_encode span
+        #   per encoded batch on ``track`` when enabled
+        self.track = track
         self._pending: "deque[_EncodeEntry]" = deque()
 
     def __len__(self) -> int:
@@ -390,6 +394,12 @@ class AsyncCodecPlane:
                     ms = take()
                     if ms > 0.0:
                         self.stats.record_entropy(ms)
+            tracer = self.tracer
+            if tracer is not None and tracer.enabled and entry.futures:
+                off = time.time() - time.perf_counter()
+                tracer.complete(EGRESS_ENCODE, entry.t_submit + off,
+                                max(entry.t_done, entry.t_submit) + off,
+                                self.track, rows=len(entry.metas))
             out.append(entry.collect())
         return out
 

@@ -116,6 +116,30 @@ def _tensor_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+def _build_step(filt: Filter, out_uint8: bool):
+    """The per-batch program ``(batch, state) -> (out, state)``: cast to
+    the filter's compute dtype, run the filter, cast back. It closes over
+    the filter and the output policy only, never over an engine, so a
+    program adopted by ``commit_swap`` does not reach back into the
+    successor shell it was built on."""
+
+    def step(x: torch.Tensor, state: Any):
+        xin = x
+        if x.dtype == torch.uint8 and not filt.uint8_ok:
+            x = to_float(x, filt.compute_dtype)
+        y, state = filt.fn(x, state)
+        if out_uint8 and y.dtype != torch.uint8:
+            y = to_uint8(y)
+        if y.untyped_storage().data_ptr() == xin.untyped_storage().data_ptr():
+            # A filter that hands back its input (identity): the input is
+            # a staging buffer that is rewritten a few batches later, so
+            # the output must own its bytes.
+            y = y.clone()
+        return y, state
+
+    return step
+
+
 # One compile stream per CUDA device, shared by every engine's compile:
 # warm-up and calibration work runs there and compile() waits on events
 # recorded there — never on the device as a whole, which would make a
@@ -212,6 +236,10 @@ class Engine:
         self.stats = EngineStats()
         self._signature: Optional[Tuple] = None
         self._state: Any = None
+        self._step: Optional[Callable] = None  # the compiled per-batch
+        #   program (_build_step), set by compile() and adopted by
+        #   commit_swap: whatever runs per batch comes from the program
+        #   that was compiled, so a rebuild replaces it whole
         self.freed = False  # set by free(): no state, no further submits
         self.out_shape: Optional[Tuple[int, ...]] = None  # set by compile()
         self.out_dtype: Optional[np.dtype] = None
@@ -226,6 +254,8 @@ class Engine:
         self.swap_count = 0  # committed hot swaps
         self.last_swap: Optional[dict] = None  # {migrate_ms, stall_ms,
         #   migrated} of the last commit_swap
+        self.last_prepare: Optional[dict] = None  # the last successor
+        #   prepare_swap built: {compile_aside_ms, staged, cache}
 
     @property
     def on_cuda(self) -> bool:
@@ -271,21 +301,6 @@ class Engine:
                        if np.dtype(dtype) == np.uint8 and not f.uint8_ok
                        else _torch_dtype(dtype))
         return f.init_state(tuple(batch_shape), state_dtype, self.device)
-
-    def _step(self, x: torch.Tensor, state: Any):
-        f = self.filter
-        xin = x
-        if x.dtype == torch.uint8 and not f.uint8_ok:
-            x = to_float(x, f.compute_dtype)
-        y, state = f.fn(x, state)
-        if self.out_uint8 and y.dtype != torch.uint8:
-            y = to_uint8(y)
-        if y.untyped_storage().data_ptr() == xin.untyped_storage().data_ptr():
-            # A filter that hands back its input (identity): the input is
-            # a staging buffer that is rewritten a few batches later, so
-            # the output must own its bytes.
-            y = y.clone()
-        return y, state
 
     def _put(self, host: torch.Tensor) -> torch.Tensor:
         """Host → device on the H2D stream; the compute stream waits for
@@ -344,6 +359,7 @@ class Engine:
                   and isinstance(seed.get("step_block_ms"), (int, float)))
         self.calibration_seeded = seeded
         cs = _compile_stream(self.device) if self.on_cuda else None
+        self._step = _build_step(self.filter, self.out_uint8)
 
         def wait_own() -> None:
             if cs is not None:
@@ -576,7 +592,9 @@ class Engine:
         latch.set()
         if old is not None and old is not succ:
             old.free()  # superseded staging
-        return {"compile_aside_ms": ms, "staged": True, "cache": "miss"}
+        self.last_prepare = {"compile_aside_ms": ms, "staged": True,
+                             "cache": "miss"}
+        return dict(self.last_prepare)
 
     @property
     def swap_staged(self) -> bool:
@@ -627,13 +645,14 @@ class Engine:
             except BaseException:
                 succ.free()
                 raise
-            for name in ("_signature", "_state", "out_shape", "out_dtype",
-                         "h2d_block_ms", "d2h_block_ms", "step_block_ms",
-                         "last_compile_ms", "state_bytes"):
+            for name in ("_step", "_signature", "_state", "out_shape",
+                         "out_dtype", "h2d_block_ms", "d2h_block_ms",
+                         "step_block_ms", "last_compile_ms", "state_bytes"):
                 setattr(self, name, getattr(succ, name))
             self.stats.compile_count += succ.stats.compile_count
-            # The successor shell's state now belongs to this engine: its
-            # free() must not count it as freed.
+            # The successor shell's program and state now belong to this
+            # engine: its free() must not count the state as freed.
+            succ._step = None
             succ._state = None
             succ.state_bytes = 0
             succ.freed = True
@@ -694,6 +713,7 @@ class Engine:
             staged, self._staged = self._staged, None
         if staged is not None:
             staged.free()  # an un-committed successor must not leak
+        self._step = None
         self._state = None
         self._signature = None
         _note_freed_bytes(self.state_bytes)

@@ -28,7 +28,14 @@ Fault planes (``resilient``, ``fault_budget``, ``stall_timeout_s``,
 resilience.faults and bounded by the per-kind error budget (repeated h2d
 faults degrade streamed → monolithic ingest, repeated d2h faults the
 egress), a stall watchdog whose recovery rebuilds the engine, the
-deterministic chaos sites, and the frame-lifecycle tracer. Not ported yet:
+deterministic chaos sites, and the frame-lifecycle tracer.
+
+The ingest queue is injectable: the default is the Python drop-oldest
+queue; ``queue=RingFrameQueue(...)`` (transport/ring_queue.py) puts the
+native ring on the path. Frames then cross ingest → dispatch as payloads,
+which the queue decodes window by window straight into the staging slab
+(``decode_into``), so a decoded window's copy overlaps the next window's
+decode; the queue is closed when the run ends. Not ported yet:
 the device trace (``device_trace_dir``), the flight recorder
 (``flight_dir``) and the metrics registry.
 """
@@ -109,6 +116,7 @@ class Pipeline:
         config: Optional[PipelineConfig] = None,
         engine: Optional[Engine] = None,
         device: Union[None, str, torch.device] = None,
+        queue: Optional[Any] = None,
     ):
         if filt.stateful and not filt.pad_safe:
             raise ValueError(
@@ -138,7 +146,8 @@ class Pipeline:
             engine.chaos = self.config.chaos  # arm a caller-built engine
         self.engine = engine
         self.tracer = Tracer(enabled=self.config.trace)
-        self.queue = DropOldestQueue(maxsize=self.config.queue_size)
+        self.queue = queue if queue is not None else DropOldestQueue(
+            maxsize=self.config.queue_size)
         self.reorder = ReorderBuffer(frame_delay=self.config.frame_delay,
                                      capacity=self.config.reorder_capacity)
         self.latency = LatencyStats()
@@ -420,10 +429,23 @@ class Pipeline:
                         if self._abort.is_set():
                             return
                 try:
-                    f0 = items[0][1]
-                    builder = self._builder_for(f0.shape, f0.dtype, seq)
-                    for row, (_, frame, _) in enumerate(items):
-                        builder.write_row(row, frame)
+                    decode = getattr(self.queue, "decode_into", None)
+                    if decode is not None:
+                        # Ring transport: items carry payloads; the queue
+                        # decodes them into the staging slab one chunk
+                        # window at a time, and committing a window starts
+                        # its copy under the next window's decode.
+                        builder = self._builder_for(
+                            self.queue.frame_shape, self.queue.frame_dtype, seq)
+                        for start, stop in builder.windows(valid):
+                            decode(items[start:stop],
+                                   builder.window_view(start, stop))
+                            builder.commit_window(start, stop)
+                    else:
+                        f0 = items[0][1]
+                        builder = self._builder_for(f0.shape, f0.dtype, seq)
+                        for row, (_, frame, _) in enumerate(items):
+                            builder.write_row(row, frame)
                     # finish() pads a short batch by repeating the last
                     # frame (one signature; the padded outputs are
                     # dropped) and flushes the remaining chunk copies.
@@ -568,6 +590,8 @@ class Pipeline:
         if not self._abort.is_set():
             self._deliver(flush=True)
         self.sink.close()
+        if hasattr(self.queue, "close"):
+            self.queue.close()  # ring transport: the ring and its codecs
         if self.tracer.enabled:
             self.tracer.export()
         return self.stats()

@@ -1,5 +1,5 @@
-"""Build-and-load for the port's host C++ shims (``jpeg_shim.cpp``), port
-of ``dvf_tpu/transport/_native.py``.
+"""Build-and-load for the port's host C++ shims (``jpeg_shim.cpp`` and
+``ring.cpp``), port of ``dvf_tpu/transport/_native.py``.
 
 The source is compiled with g++ at first use (ctypes keeps the binding
 free of any build dependency) into ``dvf_tpu_torch/_build/`` (git-ignored),
@@ -46,7 +46,8 @@ def load_native(src: str, extra_flags: Sequence[str] = (),
 
     ``cdll_cls`` picks the GIL policy: ``ctypes.CDLL`` releases the GIL
     for each call (right for milliseconds of JPEG work that a thread pool
-    should run in parallel)."""
+    should run in parallel), ``ctypes.PyDLL`` holds it (right for the
+    ring's sub-microsecond calls)."""
     out = library_path(src, extra_flags)
     with _lock:
         lib = _loaded.get(out)

@@ -9,10 +9,15 @@
   full-frame codec, with the coefficient path (device-quantized DCT
   blocks, entropy-coded on the host) that the full codec assist feeds.
 - :class:`RawCodec` — the raw full-frame inner codec.
+- :class:`JpegCodec` — the cv2 codec (its imencode/imdecode release the
+  GIL inside libjpeg), for callers that ask for it by name.
 
 :func:`make_codec` builds only the native codec and raises where the
-shim cannot be built: the JAX package's cv2 fallback is not ported.
-The wire bytes are the JAX package's, byte for byte.
+shim cannot be built: it never falls back to cv2 on its own, so a failed
+native build cannot quietly change the codec under the port's wire. The
+wire bytes are the JAX package's, byte for byte.
+:func:`measure_codec_fps` and :func:`jpeg_wire_budget` size a wire at one
+geometry from this host's codec rates.
 """
 
 from __future__ import annotations
@@ -34,6 +39,73 @@ class JpegGeometryError(ValueError):
     """The JPEG's dims differ from the caller's staging geometry — a
     re-stageable condition (the stream changed size), distinct from a
     corrupt stream, so callers can retry exactly this case."""
+
+
+class JpegCodec:
+    """The cv2 codec (copy of the JAX package's): the same interface as
+    :class:`NativeJpegCodec`; batch decode copies into the staging
+    array. cv2 is imported when the codec is built, not with the module."""
+
+    def __init__(self, quality: int = 90, threads: int = 4,
+                 assist: str = "none"):
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError("JpegCodec needs cv2") from e
+        self._cv2 = cv2
+        self.quality = int(quality)
+        self.assist = str(assist)
+        self.pool = ThreadPoolExecutor(max_workers=threads, thread_name_prefix="dvf-jpeg")
+
+    def encode(self, frame_rgb: np.ndarray) -> bytes:
+        cv2 = self._cv2
+        ok, buf = cv2.imencode(".jpg", cv2.cvtColor(frame_rgb, cv2.COLOR_RGB2BGR),
+                               [cv2.IMWRITE_JPEG_QUALITY, self.quality])
+        if not ok:
+            raise ValueError("JPEG encode failed")
+        return buf.tobytes()
+
+    def decode(self, data: bytes) -> np.ndarray:
+        cv2 = self._cv2
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError("JPEG decode failed")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+    def probe(self, data: bytes):
+        """(height, width) of a JPEG blob. cv2 has no header-only path,
+        so this decodes."""
+        h, w = self.decode(data).shape[:2]
+        return h, w
+
+    def encode_batch(self, frames: Sequence[np.ndarray]) -> List[bytes]:
+        return list(self.pool.map(self.encode, frames))
+
+    def encode_batch_async(self, frames: Sequence[np.ndarray]) -> list:
+        """``[Future[bytes], …]`` in frame order (the codec plane's entry)."""
+        return [self.pool.submit(self.encode, f) for f in frames]
+
+    def decode_batch(self, blobs: Sequence[bytes],
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Decode into a stacked (N, H, W, 3) uint8 array (``out`` if
+        given: the staging buffer)."""
+        frames = list(self.pool.map(self.decode, blobs))
+        if out is None:
+            return np.stack(frames)
+        for i, f in enumerate(frames):
+            if f.shape != out[i].shape:
+                raise JpegGeometryError(
+                    f"JPEG is {f.shape[0]}x{f.shape[1]}, staging row is "
+                    f"{out[i].shape[0]}x{out[i].shape[1]}")
+            out[i] = f
+        return out
+
+    def config(self) -> dict:
+        return {"backend": "cv2", "wire": "jpeg", "quality": self.quality,
+                "threads": self.pool._max_workers, "assist": self.assist}
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 # -- native (jpeg_shim.cpp) ---------------------------------------------
@@ -349,6 +421,112 @@ def make_codec(quality: int = 90, threads: int = 4, assist: str = "none"):
     shim cannot be built (no g++ or no libjpeg): the port has no cv2
     fallback."""
     return NativeJpegCodec(quality=quality, threads=threads, assist=assist)
+
+
+def measure_codec_fps(height: int, width: int, samples: int = 8,
+                      quality: int = 90, mode: str = "cycle",
+                      threads: int = 4):
+    """Host codec throughput at this geometry (~0.1–0.3 s): ``(encode_fps,
+    decode_fps)`` on a noise frame (worst-case entropy).
+
+    - ``mode="cycle"``: one encode (or decode) start to finish on one
+      thread — what a latency model adds to a frame's path, and what the
+      wire budget multiplies by usable cores.
+    - ``mode="pool"``: aggregate throughput of a ``threads``-wide pool
+      driven with a full batch — what a pool-sizing decision compares.
+
+    The codec is :func:`make_codec`'s native one, which raises where the
+    shim cannot be built."""
+    if mode not in ("cycle", "pool"):
+        raise ValueError(f"mode must be 'cycle' or 'pool', got {mode!r}")
+    codec = make_codec(quality=quality,
+                       threads=1 if mode == "cycle" else threads)
+    try:
+        rng = np.random.default_rng(0)
+        frame = rng.integers(0, 255, size=(height, width, 3), dtype=np.uint8)
+        blob = codec.encode(frame)  # warm
+        if mode == "pool":
+            nb = max(2, threads)
+            frames = [frame] * nb
+            blobs = [blob] * nb
+            staging = np.empty((nb, height, width, 3), np.uint8)
+            codec.encode_batch(frames)
+            codec.decode_batch(blobs, out=staging)
+            t0 = time.perf_counter()
+            for _ in range(samples):
+                codec.encode_batch(frames)
+            enc_s = (time.perf_counter() - t0) / (samples * nb)
+            t0 = time.perf_counter()
+            for _ in range(samples):
+                codec.decode_batch(blobs, out=staging)
+            dec_s = (time.perf_counter() - t0) / (samples * nb)
+            return 1.0 / max(enc_s, 1e-9), 1.0 / max(dec_s, 1e-9)
+        out = np.empty((height, width, 3), np.uint8)
+        codec.decode_into(blob, out)  # warm
+        t0 = time.perf_counter()
+        for _ in range(samples):
+            codec.encode(frame)
+        enc_s = (time.perf_counter() - t0) / samples
+        t0 = time.perf_counter()
+        for _ in range(samples):
+            codec.decode_into(blob, out)
+        dec_s = (time.perf_counter() - t0) / samples
+        return 1.0 / max(enc_s, 1e-9), 1.0 / max(dec_s, 1e-9)
+    finally:
+        codec.close()
+
+
+def jpeg_wire_budget(height: int, width: int, quality: int = 90,
+                     threads: Optional[int] = None,
+                     overlap_depth: int = 1,
+                     expected_dirty_ratio: Optional[float] = None,
+                     keyframe_interval: int = 16) -> dict:
+    """Host-codec budget for the wire at one frame geometry (the JAX
+    package's model). With both legs on this host the sustainable rate is
+    ``workers / (encode_s + decode_s)``, ``workers = min(cores, threads)``:
+    ``capacity_fps``; ``decode_only_capacity_fps`` when only decode is
+    local. Per-core rates are :func:`measure_codec_fps` ``"cycle"``
+    numbers.
+
+    ``overlap_depth`` ≥ 1 (the egress codec plane's in-flight window)
+    hides encode under the next batch's decode on a host with two or more
+    cores: ``overlapped_capacity_fps = workers / max(enc_s, dec_s)``.
+    ``expected_dirty_ratio`` (the delta wire) prices a delta frame at the
+    dirty share of a full cycle, plus a change-detection pass modelled as
+    10 % of a decode, plus one full cycle per ``keyframe_interval``:
+    ``delta_capacity_fps``. ``wire_mode`` recommends ``"delta"`` when that
+    beats full-frame JPEG by more than 1.2×, else ``"jpeg"``."""
+    enc_fps, dec_fps = measure_codec_fps(height, width, quality=quality,
+                                         mode="cycle")
+    cores = os.cpu_count() or 1
+    workers = min(cores, threads) if threads else cores
+    enc_s, dec_s = 1.0 / enc_fps, 1.0 / dec_fps
+    per_frame_s = enc_s + dec_s
+    capacity = workers / per_frame_s
+    out = {
+        "per_core_encode_fps": round(enc_fps, 1),
+        "per_core_decode_fps": round(dec_fps, 1),
+        "cores": cores,
+        "codec_workers": workers,
+        "capacity_fps": round(capacity, 1),
+        "decode_only_capacity_fps": round(workers * dec_fps, 1),
+        "overlap_depth": overlap_depth,
+    }
+    if overlap_depth >= 1 and cores >= 2:
+        out["overlapped_capacity_fps"] = round(workers / max(enc_s, dec_s), 1)
+    else:
+        out["overlapped_capacity_fps"] = out["capacity_fps"]
+    wire_mode = "jpeg"
+    if expected_dirty_ratio is not None:
+        r = min(1.0, max(0.0, float(expected_dirty_ratio)))
+        delta_s = (r * per_frame_s + 0.1 * dec_s
+                   + per_frame_s / max(1, keyframe_interval))
+        out["expected_dirty_ratio"] = r
+        out["delta_capacity_fps"] = round(workers / delta_s, 1)
+        if out["delta_capacity_fps"] > 1.2 * out["capacity_fps"]:
+            wire_mode = "delta"
+    out["wire_mode"] = wire_mode
+    return out
 
 
 # -- temporal-delta wire ------------------------------------------------

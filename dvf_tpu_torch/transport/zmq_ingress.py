@@ -32,9 +32,18 @@ too. Each is classified (resilience.faults) and bounded by the per-kind
 error budget: repeated h2d faults degrade ingest streamed → monolithic,
 repeated d2h faults the egress, repeated delta wire faults the delta wire
 to keyframes only; the next overflow fails. ``chaos`` arms the decode,
-transport, h2d, d2h, compute and oom sites. Not ported yet: the ring
-transport, the tracer, registry and lineage, the audit envelope, the
-ledger, and heartbeat/continuity.
+transport, h2d, d2h, compute and oom sites.
+
+``transport="ring"`` stages arriving payloads in a private native
+:class:`~dvf_tpu_torch.transport.ring.FrameRing` between the socket
+receive and the batch step (drop-oldest if the app ever outruns
+assembly). The worker's tracer lane carries ``batch_complete``,
+``egress_encode`` and ``egress_send`` spans; its ledger records each
+engine compile; an armed ``heartbeat`` turns DEALER silence beyond its
+timeout into a budgeted partition fault answered by a jittered-backoff
+socket rebuild; ``signals()`` is its flat metrics row. Not ported yet:
+the batch latency attribution (obs/lineage.py) and the audit envelope
+(obs/audit.py), whose options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +58,10 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
+from dvf_tpu_torch.obs.export import attach_signal_provider
 from dvf_tpu_torch.obs.metrics import EgressStats, IngestStats
+from dvf_tpu_torch.obs.registry import MetricsRegistry
+from dvf_tpu_torch.obs.trace import EGRESS_SEND, Tracer
 from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
 from dvf_tpu_torch.runtime.egress import EGRESS_MODES, AsyncCodecPlane, ShardedBatchFetcher
@@ -95,7 +107,8 @@ class ZmqWorker:
 
     ``wire`` is ``"raw"`` (uint8 RGB frames of ``raw_size``², the
     reference's non-JPEG path), ``"jpeg"`` or ``"delta"`` (the
-    temporal-delta wire in both directions). On the delta wire
+    temporal-delta wire in both directions); None takes the legacy
+    ``use_jpeg`` flag (True: ``"jpeg"``, False: ``"raw"``). On the delta wire
     ``codec_assist`` picks the device stage: ``"none"`` (host change
     detection), ``"probe"`` (dirty-tile bitmaps on the card, K5) or
     ``"full"`` (bitmaps, YCbCr 4:2:0, DCT and quantization on the card, K5
@@ -106,7 +119,12 @@ class ZmqWorker:
     then calls :meth:`process_batch` itself. ``ingest``/``ingest_depth``
     and ``egress``/``egress_depth`` are the reference's staging and fetch
     knobs; ``fault_budget``/``fault_window_s`` bound containment per fault
-    kind; ``chaos`` is a ``resilience.chaos.FaultPlan``.
+    kind; ``chaos`` is a ``resilience.chaos.FaultPlan``. ``delay_s`` sleeps
+    before each batch's submit (a slow worker, as the reference's
+    ``--delay``); ``transport`` is ``"list"`` or ``"ring"``; ``tracer`` /
+    ``trace``, ``ledger`` and ``heartbeat`` (a
+    ``resilience.continuity.HeartbeatConfig``) arm the planes described in
+    the module docstring.
     """
 
     def __init__(
@@ -117,10 +135,12 @@ class ZmqWorker:
         collect_port: int = 5556,
         batch_size: int = 8,
         assemble_timeout_s: float = 0.01,
-        wire: str = "jpeg",
+        use_jpeg: bool = True,
         raw_size: int = 512,
         jpeg_quality: int = 90,
         codec_threads: int = 4,
+        delay_s: float = 0.0,
+        transport: str = "list",
         ingest: str = "streamed",
         ingest_depth: int = 4,
         egress: str = "streamed",
@@ -128,17 +148,36 @@ class ZmqWorker:
         fault_budget: int = 16,
         fault_window_s: float = 30.0,
         chaos=None,
+        tracer=None,
+        trace: bool = False,
+        wire: Optional[str] = None,
         delta_tile: int = 32,
         delta_keyframe_interval: int = 16,
         delta_threshold: int = 0,
         delta_device: bool = False,
         codec_assist: str = "none",
+        audit_wire: bool = False,
+        ledger: bool = True,
+        heartbeat=None,
         engine: Optional[Engine] = None,
         device: Union[None, str, torch.device] = None,
         poll_ms: int = 10,
         codec=None,
         connect: bool = True,
     ):
+        if not isinstance(use_jpeg, bool):
+            # A wire name passed in this positional slot would read as True.
+            raise TypeError(f"use_jpeg must be a bool, got {use_jpeg!r}; "
+                            f"pass a wire name as wire=")
+        if wire is None:
+            wire = "jpeg" if use_jpeg else "raw"  # legacy flag spelling
+        if audit_wire:
+            raise NotImplementedError(
+                "audit_wire needs the audit plane (obs/audit.py, ROADMAP "
+                "Queue 1 item 2), which the port has not ported yet")
+        if transport not in ("list", "ring"):
+            raise ValueError(f"transport must be 'list' or 'ring', "
+                             f"got {transport!r}")
         if wire not in WIRE_MODES:
             raise ValueError(f"wire must be one of {WIRE_MODES}, got {wire!r}")
         if codec_assist not in ("none", "probe", "full"):
@@ -211,6 +250,30 @@ class ZmqWorker:
         self.egress = egress
         self.egress_depth = int(egress_depth)
         self.poll_ms = poll_ms
+        self.delay_s = float(delay_s)
+        # The worker's trace lane (a bounded ring): batch spans and the
+        # egress encode/send spans on track 0; a caller's tracer wins.
+        self.tracer = (tracer if tracer is not None
+                       else Tracer(enabled=trace, process_name="worker"))
+        self.registry = MetricsRegistry()
+        attach_signal_provider(self.registry, "worker", self.signals)
+        # The worker's only reconfigurations are engine compiles on a
+        # geometry change: each lands as one compile event.
+        self.ledger = None
+        if ledger:
+            from dvf_tpu_torch.obs.ledger import ReconfigLedger
+
+            self.ledger = ReconfigLedger(tracer=self.tracer, track=2)
+        # Continuity plane: an armed HeartbeatConfig turns DEALER silence
+        # beyond timeout_s into a budgeted partition fault, answered by a
+        # jittered-backoff socket rebuild. None: credit decay alone.
+        from dvf_tpu_torch.resilience.continuity import (ContinuityStats,
+                                                         ReconnectPolicy)
+
+        self.heartbeat = heartbeat.validate() if heartbeat else None
+        self.continuity = ContinuityStats()
+        self._reconnect = (ReconnectPolicy(self.heartbeat)
+                           if self.heartbeat else None)
         self.frames_processed = 0
         self.batches = 0
         self.errors = 0
@@ -235,14 +298,30 @@ class ZmqWorker:
         self._send: Optional[SendFn] = None
         self._stop = threading.Event()
         self._run_lock = threading.Lock()
+        # transport="ring": arriving payloads wait in the native ring, not
+        # a Python list — the component the pipeline's ring queue uses,
+        # here between the socket receive and the batch step. Sized for 4
+        # batches of records of twice the raw frame (JPEG of noise-like
+        # content is larger than raw), so drop-oldest applies only under
+        # a pathological backlog.
+        self._ring = None
+        if transport == "ring":
+            from dvf_tpu_torch.transport.ring import FrameRing
+
+            rec_bytes = 2 * (self.raw_size * self.raw_size * 3) + 4096
+            self._ring = FrameRing(capacity_bytes=4 * self.batch_size * rec_bytes,
+                                   max_frame_bytes=rec_bytes)
+        self.transport = transport
+        self._pending: List[Tuple[int, bytes]] = []  # the list transport
         self.ctx = None
+        self._dealer_endpoint = f"tcp://{host}:{distribute_port}"
         if connect:
             import zmq
 
             self._zmq = zmq
             self.ctx = zmq.Context()
             self.dealer = self.ctx.socket(zmq.DEALER)
-            self.dealer.connect(f"tcp://{host}:{distribute_port}")
+            self.dealer.connect(self._dealer_endpoint)
             self.push = self.ctx.socket(zmq.PUSH)
             # A PUSH with no live peer blocks send() forever; bound it.
             self.push.setsockopt(zmq.SNDTIMEO, 1000)
@@ -285,7 +364,21 @@ class ZmqWorker:
         shape = (self.batch_size, h, w, 3)
         if self._asm is None or self._asm.batch_shape != shape:
             self._release_asm()
+            before = self.engine.stats.compile_count
             self.engine.ensure_compiled(shape, np.uint8)
+            if (self.ledger is not None
+                    and self.engine.stats.compile_count != before):
+                from dvf_tpu_torch.obs import ledger as ledger_mod
+
+                compile_ms = self.engine.last_compile_ms
+                sig_key = self.engine.signature_key
+                self.ledger.record(
+                    ledger_mod.COMPILE, cause=ledger_mod.CAUSE_ADMISSION,
+                    signature=sig_key.render() if sig_key is not None else None,
+                    wall_ms=compile_ms,
+                    compile_ms=(round(float(compile_ms), 3)
+                                if compile_ms is not None else None),
+                    cache="miss")
             self._ingest_stats = IngestStats(
                 requested_mode=self.ingest, depth=self.ingest_depth,
                 h2d_block_ms=self.engine.h2d_block_ms)
@@ -412,6 +505,10 @@ class ZmqWorker:
         valid = len(indices)
         tdec = time.perf_counter()
         self.split["decode_ms"] += (tdec - tp) * 1e3
+        if self.delay_s > 0:
+            # A slow worker, to exercise the app's drop and reorder logic
+            # (the reference's --delay, inverter.py:37-38,55-56).
+            time.sleep(self.delay_s)
         shape = tuple(batch.shape)
         fused = self._fused is not None and self._fused.supports(shape, self._fused.tile)
         if self._fused is not None and not fused and not self._fused_geom_warned:
@@ -451,6 +548,8 @@ class ZmqWorker:
         self.split["assist_host_ms"] += (tb - ta) * 1e3
         self.split["fetch_ms"] += (tc - tb) * 1e3
         t1 = time.time()
+        self.tracer.complete("batch_complete", t0, t1, 0,
+                             frames=valid, batch=self.batches)
         plane = self._plane_for()
         plane.submit([rows[i] for i in range(valid)],
                      [(idx, t0, t1) for idx in indices],
@@ -465,7 +564,7 @@ class ZmqWorker:
         if self._plane is None:
             self._plane = AsyncCodecPlane(
                 self.codec, jpeg=self.wire != "raw", depth=self.egress_depth,
-                stats=self._egress_stats)
+                stats=self._egress_stats, tracer=self.tracer)
         return self._plane
 
     def _pump_egress(self, send: SendFn, block: bool = False) -> None:
@@ -489,7 +588,12 @@ class ZmqWorker:
                                 "send failed, dropping the batch remainder",
                                 degrade=self._degrade)
                     break  # at-most-once: drop this batch's tail
-            self._egress_stats.record_send((time.perf_counter() - t_send) * 1e3)
+            t_done = time.perf_counter()
+            self._egress_stats.record_send((t_done - t_send) * 1e3)
+            if self.tracer.enabled:
+                off = time.time() - time.perf_counter()
+                self.tracer.complete(EGRESS_SEND, t_send + off, t_done + off,
+                                     0, rows=len(batch))
 
     def drain_egress(self, send: Optional[SendFn] = None) -> None:
         """Block until every pending encode has completed and been sent."""
@@ -518,11 +622,67 @@ class ZmqWorker:
             self._run_loop(self._socket_send(str(os.getpid()).encode()),
                            max_frames)
 
+    def _repartition_dealer(self) -> float:
+        """Declare the ingress link partitioned (liveness timeout): count,
+        classify and budget the event, ledger it, rebuild the DEALER
+        socket (the stale identity and queued credits die with it), and
+        return the jittered backoff to wait before pumping again. A budget
+        overflow fails like any other kind: a worker partitioned for good
+        must not spin silently."""
+        self.continuity.inc("partitions")
+        err = TimeoutError(f"no traffic on {self._dealer_endpoint} for "
+                           f"{self.heartbeat.timeout_s:.1f}s")
+        self.faults.record(FaultKind.PARTITION, err)
+        if self.ledger is not None:
+            from dvf_tpu_torch.obs import ledger as ledger_mod
+
+            self.ledger.record(ledger_mod.PARTITION,
+                               cause=ledger_mod.CAUSE_RECOVERY,
+                               peer=self._dealer_endpoint, plane="worker",
+                               attempt=self._reconnect.attempt)
+        if escalate(self._budget, FaultKind.PARTITION,
+                    lambda _k: True) == ErrorBudget.FAIL:
+            raise FaultError(
+                FaultKind.PARTITION,
+                f"partition fault budget exhausted (> {self.fault_budget} "
+                f"liveness timeouts in {self.fault_window_s:g}s); last: "
+                f"{err}", fatal=True)
+        self.dealer.close(0)
+        self.dealer = self.ctx.socket(self._zmq.DEALER)
+        self.dealer.connect(self._dealer_endpoint)
+        return self._reconnect.next_delay()
+
+    # -- staging between the socket receive and the batch step ----------
+
+    def receive(self, index: int, payload: bytes) -> None:
+        """Stage one arriving frame for the next batch: into the native
+        ring (``transport="ring"``, drop-oldest) or the list. The socket
+        loop calls it per frame reply; a caller without sockets may too."""
+        if self._ring is not None:
+            self._ring.push(payload, index, time.time())
+        else:
+            self._pending.append((index, payload))
+
+    def backlog(self) -> int:
+        """Frames staged and not yet taken into a batch."""
+        return len(self._ring) if self._ring is not None else len(self._pending)
+
+    def next_batch(self) -> List[Tuple[int, bytes]]:
+        """Take up to ``batch_size`` staged frames, oldest first, as the
+        ``(index, payload)`` pairs :meth:`process_batch` takes."""
+        if self._ring is not None:
+            return [(idx, payload) for payload, idx, _ts
+                    in self._ring.pop_up_to(self.batch_size)]
+        batch = self._pending[:self.batch_size]
+        del self._pending[:self.batch_size]
+        return batch
+
     def _run_loop(self, send: SendFn, max_frames: Optional[int]) -> None:
         zmq = self._zmq
         credits = 0
-        pending: List[Tuple[int, bytes]] = []
         first_recv_t: Optional[float] = None
+        last_rx = time.monotonic()  # liveness clock (any DEALER traffic)
+        partitioned = False         # a reconnect awaiting confirmation
         while not self._stop.is_set():
             try:
                 self._pump_egress(send, block=False)
@@ -537,6 +697,11 @@ class ZmqWorker:
                     credits += 1
                 if self.dealer.poll(self.poll_ms):
                     parts = self.dealer.recv_multipart()
+                    last_rx = time.monotonic()
+                    if partitioned:  # traffic after a partition: it healed
+                        partitioned = False
+                        self._reconnect.reset()
+                        self.continuity.inc("reconnects")
                     if self.chaos is not None:
                         # Injection site "transport": a firing rule
                         # truncates the multipart → malformed reply below.
@@ -549,7 +714,7 @@ class ZmqWorker:
                             f"malformed frame reply ({len(parts)} parts)"),
                             "dropped", degrade=lambda _k: True)
                     else:
-                        pending.append(parsed)
+                        self.receive(*parsed)
                         if first_recv_t is None:
                             first_recv_t = time.perf_counter()
                 else:
@@ -558,13 +723,25 @@ class ZmqWorker:
                     # fresh frame (distributor.py:226-244), so send them
                     # again at that cadence (worker.py:38).
                     credits = max(0, credits - 1)
-                flush = len(pending) >= self.batch_size or (
-                    pending and first_recv_t is not None
+                    if (self.heartbeat is not None
+                            and time.monotonic() - last_rx > self.heartbeat.timeout_s):
+                        delay = self._repartition_dealer()
+                        partitioned = True
+                        credits = 0  # they died with the old socket
+                        # The next liveness window opens after the backoff:
+                        # the reconnect ladder paces a dead peer.
+                        last_rx = time.monotonic() + delay
+                        self._stop.wait(delay)
+                n_pending = self.backlog()
+                flush = n_pending >= self.batch_size or (
+                    n_pending and first_recv_t is not None
                     and time.perf_counter() - first_recv_t > self.assemble_timeout_s)
                 if not flush:
                     continue
-                batch, pending = pending[:self.batch_size], pending[self.batch_size:]
-                first_recv_t = time.perf_counter() if pending else None
+                batch = self.next_batch()
+                # Leftovers beyond one batch restart the flush clock, or a
+                # short remainder would wait for the next arrival.
+                first_recv_t = time.perf_counter() if self.backlog() else None
                 self.process_batch(batch, send)
                 if max_frames is not None and self.frames_processed >= max_frames:
                     break
@@ -573,7 +750,7 @@ class ZmqWorker:
                     raise  # a budget-exhaustion error escaping containment
                 self._fault(classify(e, site="worker"), e,
                             "dropping the batch", degrade=self._degrade)
-                pending = []
+                self._pending.clear()
                 first_recv_t = None
         self.drain_egress(send)
 
@@ -616,6 +793,40 @@ class ZmqWorker:
 
     # -- accounting / lifecycle -----------------------------------------
 
+    def signals(self) -> dict:
+        """Flat load-control signal row (the reference's registry-conformant
+        keys): what the registry's ``worker`` provider scrapes. The batch
+        attribution keys (``attr_*``) and the audit counters wait for
+        their planes."""
+        out = {
+            "frames_total": float(self.frames_processed),
+            "batches_total": float(self.batches),
+            "errors_total": float(self.errors),
+            # The ring's backlog only, as the reference reports it: the
+            # list never holds more than one batch before it is taken.
+            "queue_depth": (float(len(self._ring))
+                            if self._ring is not None else None),
+            "trace_dropped_total": float(self.tracer.dropped),
+        }
+        if self._ingest_stats is not None:
+            out["ingest_overlap_efficiency"] = self._ingest_stats.overlap_efficiency()
+        if self._egress_stats is not None:
+            out["egress_overlap_efficiency"] = self._egress_stats.overlap_efficiency()
+        if self.ledger is not None:
+            out.update(self.ledger.signals())
+        out.update(self.continuity.signals())
+        for kind, n in self.faults.summary()["by_kind"].items():
+            out[f"fault_{kind}_total"] = float(n)
+        return out
+
+    def audit_document(self) -> dict:
+        """The worker's ``/audit`` body: wire-integrity counters per hop.
+        Waits for the audit plane."""
+        raise NotImplementedError(
+            "the worker's audit document needs the audit plane "
+            "(obs/audit.py, ROADMAP Queue 1 item 2), which the port has "
+            "not ported yet")
+
     def stats(self) -> dict:
         """Counters for tests and operators."""
         out = {
@@ -624,6 +835,10 @@ class ZmqWorker:
             "errors": self.errors,
             "wire": self.wire,
             "faults": self.faults.summary(),
+            "continuity": self.continuity.summary(),
+            "transport": self.transport,
+            **({"ring_dropped": self._ring.dropped}
+               if self._ring is not None and self._ring._ptr else {}),
             **({"ingest": self._ingest_stats.summary()}
                if self._ingest_stats is not None else {}),
             "egress": self._egress_stats.summary(),
@@ -637,16 +852,28 @@ class ZmqWorker:
                             "fused_transform": self._fused is not None,
                             **({"fused_dispatches": self._fused.calls}
                                if self._fused is not None else {})}
+        if self.ledger is not None:
+            out["ledger"] = self.ledger.summary()
         if self.chaos is not None:
             out["chaos"] = self.chaos.summary()
         return out
 
     def close(self) -> None:
         self._stop.set()
+        # Wait for run() to exit before freeing native resources:
+        # destroying the ring under a live loop is a use after free. A
+        # wedged loop leaks the ring instead.
         got = self._run_lock.acquire(timeout=10.0)
         try:
             if got:
                 self.drain_egress()
+            if self._ring is not None:
+                if got:
+                    self._ring.close()
+                else:
+                    print("[ZmqWorker] close(): run loop still live after "
+                          "10s; leaking the ring instead of freeing it under "
+                          "the loop", file=sys.stderr)
             if self.codec is not None:
                 self.codec.close()
         finally:

@@ -49,6 +49,70 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "dvf_tpu_torch.obs.registry", "dvf_tpu_torch.obs.export",
             "dvf_tpu_torch.obs.ledger", "dvf_tpu_torch.obs.memory",
             "dvf_tpu_torch.resilience.continuity"} <= set(res["imported"])
+    # The worker's wire: the native ring, its ingest queue, the shm source.
+    assert {"dvf_tpu_torch.transport.ring", "dvf_tpu_torch.transport.ring_queue",
+            "dvf_tpu_torch.io.sources"} <= set(res["imported"])
+
+
+def test_ring_source_is_the_ports_own_copy():
+    """The ring is built from the port's copy of ring.cpp (into the port's
+    build directory), never from the JAX package's source; the code is the
+    JAX package's, so both share one wire and one eviction order."""
+    from dvf_tpu_torch.transport import _native, ring
+
+    port_src = ROOT / "dvf_tpu_torch" / "transport" / "ring.cpp"
+    assert pathlib.Path(ring._SRC) == port_src
+    lib = _native.library_path(ring._SRC)
+    assert lib.parent == _native.BUILD_DIR
+    assert "dvf_tpu_torch" in lib.parts and "transport" not in lib.parts
+
+    def code(path):
+        text = path.read_text()
+        return text[text.index("#include <atomic>"):]
+
+    assert code(port_src) == code(ROOT / "dvf_tpu" / "transport" / "ring.cpp")
+
+
+@pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport"])
+def test_package_exports_the_references_names(pkg):
+    """Each package re-exports the names its JAX counterpart exports
+    (minus the file and webcam sources, which wait for their slice)."""
+    import importlib
+    import types
+
+    ref = importlib.import_module(f"dvf_tpu.{pkg}")
+    want = {n for n, v in vars(ref).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and getattr(v, "__module__", "").startswith("dvf_tpu.")}
+    want -= {"VideoFileSource", "WebcamSource"}
+    assert want
+    got = importlib.import_module(f"dvf_tpu_torch.{pkg}")
+    missing = sorted(n for n in want if not hasattr(got, n))
+    assert missing == []
+
+
+_CUDA_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import torch
+inits = []
+real = torch.cuda._lazy_init
+torch.cuda._lazy_init = lambda: inits.append(1) or real()
+import dvf_tpu_torch
+for m in pkgutil.walk_packages(dvf_tpu_torch.__path__, "dvf_tpu_torch."):
+    importlib.import_module(m.name)
+raise SystemExit(0 if not inits and not torch.cuda.is_initialized() else 3)
+"""
+
+
+def test_import_creates_no_cuda_context():
+    """Twin of tests/test_import_hygiene.py: importing the port (every
+    module of it) initializes no CUDA context; the card is first touched
+    by an entry point."""
+    out = subprocess.run([sys.executable, "-c", _CUDA_PROBE.format(root=str(ROOT))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
 
 
 _FORBIDDEN = re.compile(
