@@ -110,6 +110,31 @@ which raises (and so exits non-zero) on failure:
    batch, every payload identical to the same stream through
    transport="list", timed list, ring, ring, list after one uncounted
    pass;
+9. the observability planes (``planes_phase``): (a) audit (every 8th
+   staged frame replayed through the eager golden on the bucket's
+   device, on the plane's own stream) and lineage on phase 7 (a)'s mix
+   with the flight recorder armed and a torch.profiler window over the
+   drive: 0 confirmed corruptions, every sampled frame replayed, K1 and
+   K3 launched once per serving batch of their bucket plus once per
+   replay of it, every delivered frame's lineage components summing to
+   its latency within 1e-6 ms, explain naming a dominant component,
+   /audit and /explain answering with the reference's keys, the serving
+   busy share; (b) corrupt_device on every 2nd collected batch, every
+   frame replayed, each round submitted with the dispatch thread parked:
+   confirmed corruptions on the row-0 sessions only, classified
+   integrity, the other sessions bit-identical to (a), a flight dump with
+   audit.json and lineage.json that ``obs.viewer.summarize_dump`` reads;
+   (c) a resize and a direct ``_recover`` rebuild of the 1080p
+   sobel_bilateral bucket, each with a swap_guard verdict "match" and
+   the old program's probe row matching; (d) the phase-5 worker with
+   audit_wire over the list and the ring (payloads, stripped,
+   byte-identical to the unaudited run), then corrupt_wire on both stamp
+   sides of the raw wire (each flip caught at its hop); (e) the 1080p
+   sobel_bilateral pipeline (160 frames) with trace=True and
+   device_trace_dir: the merged host+device file, every K3 event inside
+   a host batch span, the busy share; (f) fps with the planes off, on,
+   on, off (the (a) mix) and the trace off, on, on, off ((e)'s leg), and
+   the blake2b time per 1080p frame;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -124,11 +149,11 @@ histogram, innermost loops); ``sass_of(path)`` does the same for any of
 those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
-and SR batches' device times; ``serve_only()`` and ``ring_only()`` run the
-build and phase 7 or phase 8 alone.
+and SR batches' device times; ``serve_only()``, ``ring_only()`` and
+``planes_only()`` run the build and phase 7, 8 or 9 alone.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
-[...]}``, ``{"ring": [...]}``,
+[...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``,
 ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -835,6 +860,10 @@ def main() -> int:
     ring_rows, delta = ring_phase(dev, plain_of, env["libjpeg"])
     for k, v in delta.items():
         launches[k] += v
+    # 9. the observability planes (replays and probes launch K1/K3)
+    planes_rows, delta = planes_phase(dev, plain_of, env["libjpeg"])
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -864,6 +893,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe_rows}))
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"ring": ring_rows}))
+    print(json.dumps({"planes": planes_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -3195,6 +3225,729 @@ def ring_only() -> None:
                 "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
     rows, _ = ring_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
     print(json.dumps({"ring": rows}))
+
+# ---------------------------------------------------------------------------
+# Phase 9: the observability planes (audit, lineage, flight, device trace)
+# ---------------------------------------------------------------------------
+
+PLANES_SAMPLE_EVERY = 8          # leg (a): every 8th staged frame replayed
+PLANES_CHAOS_ROUNDS = 16         # leg (b): rounds of one frame per session
+PLANES_TRACE_FRAMES = 160        # leg (e): the 1080p sobel_bilateral pipeline
+PLANES_WIRE_FRAMES = 64          # leg (d): the corrupt_wire run (raw wire)
+PLANES_FLIPS_IN = (3, 20, 45)    # app-side stamps flipped: frames in batches 0, 2, 5
+PLANES_FLIPS_OUT = (5, 30)       # worker-side result stamps flipped
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The reference's /audit and /explain documents (dvf_tpu.obs.audit
+# AuditPlane.document, ServeFrontend.explain with lineage armed).
+AUDIT_DOC_KEYS = {"sample_every", "tolerance", "replays_sampled_total",
+                  "replays_ok_total", "replay_mismatches_total",
+                  "replays_dropped_total", "replay_errors_total",
+                  "swap_guards_total", "swap_guard_mismatches_total",
+                  "confirmed_corruptions_total", "queue_depth", "events",
+                  "label"}
+EXPLAIN_DOC_KEYS = {"lineage", "frames_total", "quantile", "p_ms",
+                    "tail_frames", "tail_mean_ms", "fractions", "text",
+                    "by_bucket"}
+
+
+def busy_share(events, t0_us: float, t1_us: float, cats) -> float:
+    """Share of [t0, t1] (µs, one clock) covered by the union of the
+    device spans of ``cats`` (overlapping spans counted once)."""
+    spans = sorted((max(e["ts"], t0_us), min(e["ts"] + e.get("dur", 0), t1_us))
+                   for e in events
+                   if e.get("ph") == "X" and e.get("cat") in cats)
+    busy, end = 0.0, t0_us
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / (t1_us - t0_us) if t1_us > t0_us else 0.0
+
+
+def _planes_config(planes: bool, **kw):
+    import dvf_tpu_torch
+
+    extra = dict(audit=True, audit_sample_every=PLANES_SAMPLE_EVERY,
+                 lineage=True) if planes else {}
+    extra.update(kw)
+    return dvf_tpu_torch.ServeConfig(max_buckets=3, pool_capacity=3,
+                                     flight_min_interval_s=0.0,
+                                     **{**SERVE_KW, **extra})
+
+
+def _planes_open(fe) -> tuple:
+    """Phase 7 (a)'s tenants: 2 sessions each of sobel_bilateral and
+    gaussian_blur(ksize=9) at 1080p and of invert at 480 x 640, the same
+    seeded bases. Returns ({sid: base}, {sid: chain})."""
+    plan, chain_of = {}, {}
+    seed = 70
+    for chain, shape, n in (("sobel_bilateral", SERVE_HD, 2),
+                            ("gaussian_blur(ksize=9)", SERVE_HD, 2),
+                            ("invert", SERVE_SD, 2)):
+        for base in serve_bases(shape, n, seed):
+            sid = fe.open_stream(op_chain=chain, frame_shape=shape)
+            plan[sid], chain_of[sid] = base, chain
+        seed += 1
+    return plan, chain_of
+
+
+def _count_replays(fe) -> dict:
+    """Per-bucket count of the replays the collect thread hands the audit
+    plane (a wrapper on this frontend's plane only)."""
+    counts = {}
+    real = fe.audit.submit_replay
+
+    def counting(*a, **kw):
+        counts[kw.get("bucket")] = counts.get(kw.get("bucket"), 0) + 1
+        return real(*a, **kw)
+
+    fe.audit.submit_replay = counting
+    return counts
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return json.loads(r.read().decode())
+
+
+def planes_leg_audit(dev, plain_of: dict, tmp: str):
+    """(a) Audit (every 8th staged frame) and lineage on a clean run of
+    phase 7 (a)'s mix, flight recorder armed, a torch.profiler window over
+    the drive (the serving busy share). 0 confirmed corruptions; every
+    sampled frame replayed; K1 and K3 launched once per serving batch of
+    their bucket plus once per replay of it; every delivered frame's
+    lineage components summing to its latency; explain naming a dominant
+    component; /audit and /explain answering with the reference's keys."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs.export import MetricsExporter, start_device_profiler
+    from dvf_tpu_torch.ops import kernels as tk
+
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        _planes_config(True, flight_dir=os.path.join(tmp, "flight_a")))
+    with fe:
+        plan, chain_of = _planes_open(fe)
+        replays = _count_replays(fe)
+        b0 = {s: bucket_of(fe, s).engine.stats.batches for s in plan}
+        prof = start_device_profiler()
+        tk.reset_launches()
+        try:
+            w0 = time.time()
+            got, wall = serve_drive(fe, plan, SERVE_FRAMES)
+            w1 = time.time()
+            if not fe.audit.drain(120.0):
+                raise AssertionError("planes (a): the replay queue never drained")
+            delta = dict(tk.LAUNCHES)
+        finally:
+            prof.stop()
+        trace_path = os.path.join(tmp, "serve_a_trace.json")
+        prof.export_chrome_trace(trace_path)
+        st = fe.stats()
+        with MetricsExporter(fe.registry, explain_fn=fe.explain,
+                             audit_fn=fe.audit.document) as ex:
+            aud = _get_json(f"{ex.url}/audit")
+            expl = _get_json(f"{ex.url}/explain")
+        batches = {chain_of[s]: bucket_of(fe, s).engine.stats.batches - b0[s]
+                   for s in plan}
+        labels = {chain_of[s]: bucket_of(fe, s).label() for s in plan}
+    audit = st["audit"]
+    by_chain = {c: replays.get(labels[c], 0) for c in labels}
+    if audit["confirmed_corruptions_total"] or audit["replay_errors_total"] \
+            or audit["replays_dropped_total"]:
+        raise AssertionError(f"planes (a): {json.dumps(audit)[:800]}")
+    if not (audit["replays_sampled_total"] == audit["replays_ok_total"]
+            == sum(replays.values()) > 0):
+        raise AssertionError(f"planes (a): sampled {audit['replays_sampled_total']}, "
+                             f"ok {audit['replays_ok_total']}, handed over {replays}")
+    want = {"sep_blur": batches["gaussian_blur(ksize=9)"]
+            + by_chain["gaussian_blur(ksize=9)"],
+            "sobel_bilateral": batches["sobel_bilateral"]
+            + by_chain["sobel_bilateral"]}
+    serve_counted(delta, want, "planes (a)")
+    lsb = max(serve_check(f"planes (a) {chain_of[s]} {s}", chain_of[s], plan[s],
+                          got[s], SERVE_FRAMES, dev, plain_of) for s in plan)
+    worst = 0.0
+    for s in plan:
+        for d in got[s]:
+            comps = d.lineage.components_ms()
+            worst = max(worst, abs(sum(comps.values()) - d.latency_ms))
+    if worst > 1e-6:
+        raise AssertionError(f"planes (a): lineage components miss the latency "
+                             f"by {worst} ms")
+    fr = expl.get("fractions") or {}
+    dominant = max(fr, key=fr.get) if fr else None
+    if not dominant or not expl.get("text"):
+        raise AssertionError(f"planes (a): explain names no component: {expl}")
+    if set(aud) != AUDIT_DOC_KEYS or set(expl) != EXPLAIN_DOC_KEYS:
+        raise AssertionError(f"planes (a): /audit keys {sorted(aud)}, /explain "
+                             f"keys {sorted(expl)}")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    t0, t1 = w0 * 1e6 - base_us, w1 * 1e6 - base_us
+    ev = doc["traceEvents"]
+    share_k = busy_share(ev, t0, t1, ("kernel",))
+    share_all = busy_share(ev, t0, t1, GPU_CATS)
+    frames = sum(len(v) for v in got.values())
+    comp_p50 = {c: round(v["p50_ms"], 3)
+                for c, v in st["attribution"]["components"].items()}
+    log(f"planes (a) audit + lineage on the phase-7 (a) mix: {frames} frames in "
+        f"{wall:.3f} s ({frames / wall:.1f} fps, profiler window open), "
+        f"replays {json.dumps(by_chain)} all ok, 0 confirmed corruptions, "
+        f"launches {delta} (batches {json.dumps(batches)}), max {lsb} LSB vs "
+        f"plain; lineage additive (worst {worst:.2e} ms); explain "
+        f"{expl['text']!r}, component p50 ms {json.dumps(comp_p50)}; /audit and "
+        f"/explain 200 with the reference's keys; serving busy share kernels "
+        f"{share_k:.4f}, kernels + copies {share_all:.4f} over the drive's "
+        f"{(w1 - w0) * 1e3:.1f} ms")
+    keep = {s: [d.frame for d in got[s][:PLANES_CHAOS_ROUNDS]]
+            for s in plan if s != _victims(chain_of).get(chain_of[s])}
+    torch.cuda.empty_cache()
+    row = dict(leg="a_audit_lineage", frames=frames, wall_s=wall, fps=frames / wall,
+               replays=by_chain, replays_sampled=audit["replays_sampled_total"],
+               confirmed_corruptions=0, launches=delta, batches=batches,
+               max_lsb=lsb, lineage_worst_ms=worst, explain=expl["text"],
+               dominant=dominant, component_p50_ms=comp_p50,
+               busy_share_kernels=share_k, busy_share_gpu=share_all)
+    return row, delta, keep, chain_of
+
+
+@contextlib.contextmanager
+def dispatch_parked(fe):
+    """Hold the frontend's dispatch thread at the top of its loop (the
+    park it takes during a recovery) while a round is submitted, so each
+    bucket's next batch holds the whole round, in submission order."""
+    fe._recovering.set()
+    try:
+        deadline = time.time() + 30.0
+        while not fe._dispatch_parked.is_set():
+            if time.time() > deadline:
+                raise AssertionError("planes: the dispatch thread never parked")
+            time.sleep(0.001)
+        yield
+    finally:
+        fe._recovering.clear()
+
+
+def _victims(chain_of: dict) -> dict:
+    """Each bucket's first-opened session: row 0 of its batches when every
+    session submits in opening order and waits for its frame."""
+    out = {}
+    for sid, chain in chain_of.items():
+        out.setdefault(chain, sid)
+    return out
+
+
+def planes_leg_chaos(dev, plain_of: dict, tmp: str, control: dict,
+                     chain_of_a: dict):
+    """(b) corrupt_device every 2nd collected batch (row 0 perturbed) on
+    the same buckets, every frame replayed; each round submits one frame
+    per session in opening order with the dispatch thread parked and
+    waits for all of them, so each bucket's first session is row 0. At least one confirmed corruption,
+    attributed to its session and bucket, classified integrity; the other
+    sessions' frames bit-identical to leg (a)'s; a flight dump holding
+    audit.json and lineage.json that the viewer reads."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs.viewer import summarize_dump
+    from dvf_tpu_torch.resilience import FaultPlan
+
+    fdir = os.path.join(tmp, "flight_b")
+    chaos = FaultPlan(seed=7).add("corrupt_device", every=2)
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        _planes_config(True, audit_sample_every=1, flight_dir=fdir, chaos=chaos))
+    with fe:
+        plan, chain_of = _planes_open(fe)
+        victims = _victims(chain_of)
+        got = {s: [] for s in plan}
+        for j in range(PLANES_CHAOS_ROUNDS):
+            with dispatch_parked(fe):
+                for sid, base in plan.items():
+                    fe.submit(sid, tagged(base, j))
+            deadline = time.time() + 60.0
+            while any(len(v) < j + 1 for v in got.values()):
+                if time.time() > deadline:
+                    raise AssertionError(f"planes (b): stalled at round {j}")
+                for sid in plan:
+                    got[sid].extend(fe.poll(sid))
+                time.sleep(0.001)
+        if not fe.audit.drain(120.0):
+            raise AssertionError("planes (b): the replay queue never drained")
+        st = fe.stats()
+        labels = {s: bucket_of(fe, s).label() for s in plan}
+        deadline = time.time() + 60.0
+        while fe.flight.stats()["dumps"] == 0 and time.time() < deadline:
+            time.sleep(0.02)
+        dumps = list(fe.flight.dumps)
+    audit = st["audit"]
+    events = [e for e in audit["events"] if e["kind"] == "shadow_replay"]
+    if audit["confirmed_corruptions_total"] < 1 or not events:
+        raise AssertionError(f"planes (b): no confirmed corruption: "
+                             f"{json.dumps(audit)[:800]}")
+    victim_ids = set(victims.values())
+    for e in events:
+        if e["session"] not in victim_ids or e["bucket"] != labels[e["session"]]:
+            raise AssertionError(f"planes (b): corruption attributed to "
+                                 f"{e['session']} / {e['bucket']}, victims "
+                                 f"{victims}")
+    integrity = st["faults"]["by_kind"].get("integrity", 0)
+    if integrity < 1:
+        raise AssertionError(f"planes (b): faults {st['faults']['by_kind']}")
+    # the other sessions: bit-identical to leg (a) (the same bases and
+    # indices; sessions are matched by opening order within each chain)
+    order_a = {}
+    for sid, chain in chain_of_a.items():
+        order_a.setdefault(chain, []).append(sid)
+    order_b = {}
+    for sid, chain in chain_of.items():
+        order_b.setdefault(chain, []).append(sid)
+    compared = 0
+    for chain, sids in order_b.items():
+        for k, sid in enumerate(sids):
+            if sid in victim_ids:
+                continue
+            ref = control[order_a[chain][k]]
+            mine = [d.frame for d in got[sid]]
+            if [d.index for d in got[sid]] != list(range(PLANES_CHAOS_ROUNDS)) \
+                    or not all(np.array_equal(a, b) for a, b in zip(mine, ref)):
+                raise AssertionError(f"planes (b): control session {sid} "
+                                     f"({chain}) differs from leg (a)")
+            compared += len(mine)
+    if not dumps:
+        raise AssertionError("planes (b): no flight dump")
+    files = sorted(os.listdir(dumps[0]))
+    if not {"audit.json", "lineage.json", "meta.json", "stats.json"} <= set(files):
+        raise AssertionError(f"planes (b): dump files {files}")
+    summary = summarize_dump(dumps[0])
+    if summary.get("audit", {}).get("confirmed_corruptions_total", 0) < 1 \
+            or "lineages" not in summary:
+        raise AssertionError(f"planes (b): the viewer's summary "
+                             f"{json.dumps(summary)[:800]}")
+    log(f"planes (b) corrupt_device every 2nd batch: {audit['confirmed_corruptions_total']} "
+        f"confirmed corruptions of {audit['replays_sampled_total']} replays, each "
+        f"on a row-0 session ({sorted({e['session'] for e in events})}), faults "
+        f"integrity {integrity}; {compared} control frames bit-identical to leg "
+        f"(a); flight dump {os.path.basename(dumps[0])} with {files}; viewer: "
+        f"{summary['audit']}")
+    torch.cuda.empty_cache()
+    return dict(leg="b_corrupt_device", confirmed=audit["confirmed_corruptions_total"],
+                replays=audit["replays_sampled_total"], integrity_faults=integrity,
+                control_frames_identical=compared, dump_files=files)
+
+
+def planes_leg_guard(dev, plain_of: dict):
+    """(c) The swap guard on the 1080p sobel_bilateral bucket: a
+    request_batch_size 16 -> 8 resize (hot swap) and a direct _recover
+    rebuild; each substitution ledgers a swap_guard verdict "match", the
+    resize (and the rebuild) with old_program_match true."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.resilience.faults import FaultKind
+
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        _planes_config(True, audit_sample_every=10 ** 9))
+    n = 3 * SERVE_BATCH
+    with fe:
+        base = serve_bases(SERVE_HD, 1, 90)[0]
+        sid = fe.open_stream(op_chain="sobel_bilateral", frame_shape=SERVE_HD)
+        got = []
+
+        def feed(lo, hi):
+            for j in range(lo, hi):
+                fe.submit(sid, tagged(base, j))
+            deadline = time.time() + 60.0
+            while len(got) < hi:
+                if time.time() > deadline:
+                    raise AssertionError(f"planes (c): stalled: {fe.health()}")
+                got.extend(fe.poll(sid))
+                time.sleep(0.002)
+
+        feed(0, SERVE_BATCH)
+        label = bucket_of(fe, sid).label()
+        if not fe.request_batch_size(label, SERVE_BATCH // 2, reason="planes (c)"):
+            raise AssertionError("planes (c): resize refused")
+        deadline = time.time() + 60.0
+        while fe.swaps < 1:
+            if time.time() > deadline:
+                raise AssertionError("planes (c): the resize never committed")
+            time.sleep(0.005)
+        feed(SERVE_BATCH, 2 * SERVE_BATCH)
+        bucket = bucket_of(fe, sid)
+        fe._recover("planes (c) direct rebuild", kind=FaultKind.COMPUTE,
+                    bucket=bucket)
+        feed(2 * SERVE_BATCH, n)
+        if not fe.audit.drain(120.0):
+            raise AssertionError("planes (c): the guard queue never drained")
+        events = fe.ledger.snapshot()
+    subs = [e for e in events if e["kind"] in ("swap", "engine_rebuild")
+            and not e.get("aborted")]
+    guards = [e for e in events if e["kind"] == "swap_guard"]
+    kinds = {e["swap_kind"]: e for e in guards}
+    ok = (len(guards) >= len(subs) >= 2
+          and set(kinds) >= {"batch_resize", "engine_rebuild"}
+          and all(e["verdict"] == "match" for e in guards)
+          and kinds["batch_resize"].get("old_program_match") is True)
+    if not ok:
+        raise AssertionError(f"planes (c): substitutions "
+                             f"{[e['kind'] for e in subs]}, guards "
+                             f"{json.dumps(guards)[:1200]}")
+    lsb = serve_check("planes (c) sobel_bilateral", "sobel_bilateral", base, got, n,
+                      dev, plain_of)
+    log(f"planes (c) swap guard: {len(subs)} substitutions "
+        f"({[e['kind'] for e in subs]}), {len(guards)} guard verdicts "
+        f"{[(e['swap_kind'], e['verdict'], e.get('old_program_match')) for e in guards]}; "
+        f"{n} frames in order, max {lsb} LSB vs plain")
+    return dict(leg="c_swap_guard", substitutions=len(subs),
+                guards=[dict(kind=e["swap_kind"], verdict=e["verdict"],
+                             old_program_match=e.get("old_program_match"))
+                        for e in guards], max_lsb=lsb)
+
+
+def _planes_worker_pass(dev, blobs, transport: str, codec, assist: str, wire: str,
+                        audit: bool, app_chaos=None, worker_chaos=None):
+    """The app's stream through a socket-less ZmqWorker on ``transport``;
+    with ``audit`` the app stamps every payload (its own corrupt_wire
+    site: ``app_chaos``) and the worker runs audit_wire. A batch whose
+    payload fails its envelope raises out of process_batch; the hop is
+    recorded. Returns (payloads in send order, the caught hops, the
+    worker's audit document)."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs.audit import WireAudit, WireIntegrityError
+
+    worker = dvf_tpu_torch.ZmqWorker(
+        dvf_tpu_torch.get_filter("invert"), batch_size=WIRE_BATCH, wire=wire,
+        use_jpeg=False, jpeg_quality=WIRE_QUALITY, delta_tile=WIRE_TILE,
+        delta_keyframe_interval=WIRE_KEY, codec_assist=assist,
+        transport=transport, raw_size=WIRE_SIZE, device=dev, codec=codec,
+        connect=False, audit_wire=audit, chaos=worker_chaos)
+    app = WireAudit("app_egress", chaos=app_chaos) if audit else None
+    sent, caught = [], []
+    try:
+        worker.engine.compile((WIRE_BATCH, WIRE_SIZE, WIRE_SIZE, 3))
+        for s in range(0, len(blobs), WIRE_BATCH):
+            for i in range(s, min(s + WIRE_BATCH, len(blobs))):
+                worker.receive(i, app.stamp(blobs[i]) if app else blobs[i])
+            try:
+                worker.process_batch(worker.next_batch(),
+                                     lambda i, t0, t1, p: sent.append((i, p)))
+            except WireIntegrityError as e:
+                caught.append((s // WIRE_BATCH, e.hop))
+        worker.drain_egress()
+        doc = worker.audit_document()
+    finally:
+        worker.close()
+    return sent, caught, doc
+
+
+def planes_leg_wire(dev, have_jpeg: bool):
+    """(d) The audited wire: the phase-5 worker setup (512², batch 8, the
+    delta wire; codec_assist "full" (K5, K6) on the JPEG inner wire where
+    libjpeg is present, else "probe" (K5) on the raw inner wire) with
+    audit_wire over the list and over the ring: every payload, envelope
+    stripped, byte-identical to the unaudited list run's. Then the raw
+    wire with corrupt_wire armed on both stamp sides: every app-side flip
+    raises WireIntegrityError at the worker's zmq_ingress hop (its batch
+    dropped, the worker's audit document counting it), every worker-side
+    flip fails the app's own verify."""
+    from dvf_tpu_torch.obs.audit import WireAudit, WireIntegrityError, verify_wire
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.resilience import FaultPlan
+    from dvf_tpu_torch.transport import codec as tc
+
+    frames = wire_frames()
+    assist, inner = ("full", "jpeg") if have_jpeg else ("probe", "raw")
+
+    def codec(**kw):
+        base = (tc.NativeJpegCodec(WIRE_QUALITY, threads=4) if inner == "jpeg"
+                else tc.RawCodec(WIRE_SIZE, WIRE_SIZE))
+        return tc.DeltaCodec(base, tile=WIRE_TILE, keyframe_interval=WIRE_KEY, **kw)
+
+    app = codec()
+    try:
+        blobs = [app.encode(f) for f in frames]
+    finally:
+        app.close()
+    plain, _, _ = _planes_worker_pass(dev, blobs, "list", codec(on_gap="raise"),
+                                      assist, "delta", audit=False)
+    n, nb = len(frames), -(-len(frames) // WIRE_BATCH)
+    tk.reset_launches()
+    audited = {t: _planes_worker_pass(dev, blobs, t, codec(on_gap="raise"), assist,
+                                      "delta", audit=True)
+               for t in ("list", "ring")}
+    delta = dict(tk.LAUNCHES)
+    want = {k: 0 for k in delta}
+    want["tile_maxdiff"] = 2 * nb
+    if assist == "full":
+        want["dct8x8_quant"] = 2 * nb
+    if delta != want:
+        raise AssertionError(f"planes (d): launches {delta}, want {want}")
+    for t, (sent, caught, doc) in audited.items():
+        if caught or [i for i, _ in sent] != list(range(n)):
+            raise AssertionError(f"planes (d) {t}: caught {caught}, sent "
+                                 f"{len(sent)} of {n}")
+        stripped = [verify_wire(p, hop="app") for _, p in sent]
+        n_diff = sum(a != b for a, (_, b) in zip(stripped, plain))
+        if n_diff:
+            raise AssertionError(f"planes (d) {t}: {n_diff} payloads differ from "
+                                 f"the unaudited run once stripped")
+        hops = {h["hop"]: h for h in doc["wire_hops"]}
+        if hops["zmq_ingress"]["verified_total"] != n \
+                or hops["zmq_egress"]["stamped_total"] != n:
+            raise AssertionError(f"planes (d) {t}: audit document {doc}")
+    # corrupt_wire armed on both stamp sides (the raw wire: no delta state
+    # for a dropped batch to break)
+    raw = [f.tobytes() for f in frames[:PLANES_WIRE_FRAMES]]
+    app_chaos = FaultPlan(seed=11).add("corrupt_wire", at=PLANES_FLIPS_IN)
+    worker_chaos = FaultPlan(seed=12).add("corrupt_wire", at=PLANES_FLIPS_OUT)
+    sent, caught, doc = _planes_worker_pass(
+        dev, raw, "ring", None, "none", "raw", audit=True, app_chaos=app_chaos,
+        worker_chaos=worker_chaos)
+    want_batches = [i // WIRE_BATCH for i in PLANES_FLIPS_IN]
+    if caught != [(b, "zmq_ingress") for b in want_batches]:
+        raise AssertionError(f"planes (d): ingress flips caught {caught}, want "
+                             f"batches {want_batches} at zmq_ingress")
+    if doc["wire_mismatches_total"] != len(PLANES_FLIPS_IN):
+        raise AssertionError(f"planes (d): worker audit document {doc}")
+    verifier = WireAudit("app_ingress")
+    bad = []
+    for k, (i, p) in enumerate(sent):
+        try:
+            out = verifier.verify(p)
+        except WireIntegrityError as e:
+            bad.append((k, e.hop))
+            continue
+        if out != (255 - frames[i]).tobytes():
+            raise AssertionError(f"planes (d): result {i} is not the inverted frame")
+    if bad != [(k, "app_ingress") for k in PLANES_FLIPS_OUT]:
+        raise AssertionError(f"planes (d): egress flips caught {bad}, want "
+                             f"{PLANES_FLIPS_OUT} at app_ingress")
+    fired = {"app": app_chaos.summary()["fired"],
+             "worker": worker_chaos.summary()["fired"]}
+    log(f"planes (d) audited wire ({assist} on the {inner}-inner delta wire): list "
+        f"and ring {n} payloads each, byte-identical to the unaudited run once "
+        f"stripped, launches {delta}; corrupt_wire on the raw wire over the ring: "
+        f"{len(caught)} ingress flips caught at zmq_ingress (batches "
+        f"{want_batches} dropped), {len(bad)} egress flips caught by the app, "
+        f"worker audit document mismatches {doc['wire_mismatches_total']}; fired "
+        f"{json.dumps(fired)}")
+    return dict(leg="d_audited_wire", assist=assist, inner=inner, frames=n,
+                payloads_differing=0, launches=delta,
+                ingress_flips_caught=len(caught), egress_flips_caught=len(bad),
+                worker_mismatches=doc["wire_mismatches_total"]), delta
+
+
+def _traced_pipeline(dev, eng, n: int, trace: bool, tmp: str, tag: str):
+    """One 1080p sobel_bilateral Pipeline over ``eng`` (streamed, gates
+    open): with ``trace`` the host trace and a device trace into
+    ``tmp/tag``. Returns (stats, the merged file or None, the batches)."""
+    import dvf_tpu_torch
+
+    d = os.path.join(tmp, tag)
+    os.makedirs(d, exist_ok=True)
+    cfg = dvf_tpu_torch.PipelineConfig(
+        batch_size=MAIN_SHAPE[0], queue_size=n + 1, assemble_timeout_s=60.0,
+        trace=trace, device_trace_dir=d if trace else None)
+    order = []
+    b0 = eng.stats.batches
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        pipe = dvf_tpu_torch.Pipeline(
+            dvf_tpu_torch.SyntheticSource(*MAIN_SHAPE[1:], n_frames=n, seed=0),
+            eng.filter, dvf_tpu_torch.CallbackSink(lambda i, f, _: order.append(i)),
+            cfg, engine=eng)
+        with gates_open():
+            stats = pipe.run()
+    finally:
+        os.chdir(cwd)
+    if order != list(range(n)):
+        raise AssertionError(f"planes ({tag}): delivered {len(order)} of {n} "
+                             f"in order {order == sorted(order)}")
+    merged = os.path.join(d, "dvf_merged_timing.pftrace")
+    return stats, (merged if trace else None), eng.stats.batches - b0
+
+
+def planes_leg_trace(dev, tmp: str):
+    """(e) The 1080p sobel_bilateral pipeline, 160 frames, trace=True and
+    device_trace_dir: the merged file holds the host lanes and the device
+    lanes, every K3 kernel event falls inside a host batch span once
+    aligned (1 ms slack for the two clocks' reads), and the busy share
+    (device kernels, and kernels + copies, over the host's traced window)
+    is printed. K3 one launch per batch."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("sobel_bilateral"),
+                               device=dev)
+    eng.compile(MAIN_SHAPE)
+    tk.reset_launches()
+    stats, merged, batches = _traced_pipeline(dev, eng, PLANES_TRACE_FRAMES, True,
+                                              tmp, "e")
+    delta = dict(tk.LAUNCHES)
+    if delta != {k: batches if k == "sobel_bilateral" else 0 for k in delta}:
+        raise AssertionError(f"planes (e): launches {delta}, batches {batches}")
+    if not os.path.exists(merged):
+        raise AssertionError(f"planes (e): no merged trace; {os.listdir(os.path.dirname(merged))}")
+    with open(merged) as f:
+        doc = json.load(f)
+    ev = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    host = [e for e in ev if e["pid"] < 10000]
+    dev_ev = [e for e in ev if e["pid"] >= 10000]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in host
+                   if e["name"] == "batch_complete")
+    k3 = [e for e in dev_ev if e.get("cat") == "kernel"
+          and "sobel_bilateral" in e.get("name", "")]
+    if not spans or not k3:
+        raise AssertionError(f"planes (e): host batch spans {len(spans)}, K3 "
+                             f"events {len(k3)}, device events {len(dev_ev)}")
+    outside = [e["ts"] for e in k3
+               if not any(a - 1000 <= e["ts"] and e["ts"] + e["dur"] <= b + 1000
+                          for a, b in spans)]
+    if outside:
+        raise AssertionError(f"planes (e): {len(outside)} of {len(k3)} K3 events "
+                             f"outside every host batch span")
+    t0 = min(e["ts"] for e in host)
+    t1 = max(e["ts"] + e["dur"] for e in host)
+    share_k = busy_share(dev_ev, t0, t1, ("kernel",))
+    share_all = busy_share(dev_ev, t0, t1, GPU_CATS)
+    k3_ms = statistics.median(e["dur"] for e in k3) / 1e3
+    cats = {}
+    for e in dev_ev:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    log(f"planes (e) traced sobel_bilateral {MAIN_SHAPE} pipeline: {stats['fps']:.1f} "
+        f"fps (trace on), {batches} batches, launches {delta}; merged "
+        f"{os.path.basename(merged)}: {len(host)} host and {len(dev_ev)} device "
+        f"spans (by category {json.dumps(cats)}), all {len(k3)} K3 events inside "
+        f"a host batch span, K3 median {k3_ms:.4f} ms; busy share over the "
+        f"traced {(t1 - t0) / 1e3:.1f} ms: kernels {share_k:.4f}, kernels + copies "
+        f"{share_all:.4f}")
+    row = dict(leg="e_device_trace", frames=PLANES_TRACE_FRAMES, batches=batches,
+               fps_traced=stats["fps"], host_spans=len(host),
+               device_spans=len(dev_ev), k3_events=len(k3), k3_median_ms=k3_ms,
+               window_ms=(t1 - t0) / 1e3, busy_share_kernels=share_k,
+               busy_share_gpu=share_all, launches=delta)
+    return row, delta, eng
+
+
+def planes_leg_cost(dev, eng, tmp: str):
+    """(f) What the planes cost: fps of the phase-7 (a) mix with the
+    planes off, on, on, off (audit every 8th frame, lineage, flight
+    recorder) and of (e)'s pipeline with the trace off, on, on, off, in
+    this call; the blake2b digest per 1080p frame. Reported, not gated."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs.audit import frame_digest
+
+    fps = []
+    for planes in (False, True, True, False):
+        fe = dvf_tpu_torch.ServeFrontend(
+            dvf_tpu_torch.get_filter("invert"),
+            _planes_config(planes, flight_dir=os.path.join(tmp, "flight_f")
+                           if planes else None))
+        with fe:
+            plan, _ = _planes_open(fe)
+            got, wall = serve_drive(fe, plan, SERVE_FRAMES)
+        fps.append(sum(len(v) for v in got.values()) / wall)
+        del got
+    serve_ratio = (fps[1] + fps[2]) / (fps[0] + fps[3])
+    tfps = []
+    for k, trace in enumerate((False, True, True, False)):
+        stats, _, _ = _traced_pipeline(dev, eng, PLANES_TRACE_FRAMES, trace, tmp,
+                                       f"f{k}")
+        tfps.append(stats["fps"])
+    trace_ratio = (tfps[1] + tfps[2]) / (tfps[0] + tfps[3])
+    frame = np.random.default_rng(0).integers(0, 256, MAIN_SHAPE[1:], dtype=np.uint8)
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        frame_digest(frame)
+        times.append((time.perf_counter() - t) * 1e3)
+    digest_ms = statistics.median(times)
+    log(f"planes (f) cost: serving mix off, on, on, off {fps[0]:.1f}, {fps[1]:.1f}, "
+        f"{fps[2]:.1f}, {fps[3]:.1f} fps, on / off {serve_ratio:.3f} (the "
+        f"reference's audit budget: >= 0.97); sobel_bilateral pipeline trace off, "
+        f"on, on, off {tfps[0]:.1f}, {tfps[1]:.1f}, {tfps[2]:.1f}, {tfps[3]:.1f} fps, "
+        f"on / off {trace_ratio:.3f}; blake2b {digest_ms:.3f} ms per "
+        f"{frame.nbytes / 1e6:.1f} MB frame (median of 20); host loadavg "
+        f"{os.getloadavg()[0]:.2f} of {os.cpu_count()} cores")
+    return dict(leg="f_cost", serve_fps_off_on_on_off=fps, serve_on_over_off=serve_ratio,
+                audit_budget_reference=0.97, trace_fps_off_on_on_off=tfps,
+                trace_on_over_off=trace_ratio, blake2b_ms_per_1080p_frame=digest_ms)
+
+
+def planes_phase(dev, plain_of: dict, have_jpeg: bool):
+    """Phase 9: legs (a)-(f) of the observability planes. Returns (rows,
+    the summed launch counts of the legs' counted runs)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    rows, total = [], {}
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        row, delta, control, chain_of = planes_leg_audit(dev, plain_of, tmp)
+        rows.append(row)
+        add(delta)
+        rows.append(planes_leg_chaos(dev, plain_of, tmp, control, chain_of))
+        del control
+        rows.append(planes_leg_guard(dev, plain_of))
+        torch.cuda.empty_cache()
+        row, delta = planes_leg_wire(dev, have_jpeg)
+        rows.append(row)
+        add(delta)
+        row, delta, eng = planes_leg_trace(dev, tmp)
+        rows.append(row)
+        add(delta)
+        rows.append(planes_leg_cost(dev, eng, tmp))
+        eng.free()
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines():
+        raise AssertionError(f"planes: pool engines outlived their frontends: "
+                             f"{[e.op_chain for e in live_pool_engines()]}")
+    torch.cuda.empty_cache()
+    log(f"planes phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def planes_only() -> None:
+    """The build and phase 9 alone (the observability planes):
+    ``python3 -c 'import chip_smoke; chip_smoke.planes_only()'``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import _build
+    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = host_env()
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
+        f"environment: {json.dumps(env)}; torch {torch.__version__}")
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+                "bilateral": lambda x: bilateral_nhwc(x),
+                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    rows, _ = planes_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
+    print(json.dumps({"planes": rows}))
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,7 +2,7 @@
 (port of ``dvf_tpu.obs.ledger``; host code only).
 
 The third observability plane beside the stage metrics and the frame
-lineage (the latter not ported yet). Those answer "how fast is the steady state" and
+lineage. Those answer "how fast is the steady state" and
 "where did one frame's latency go"; this module answers the question
 between them — **what did every reconfiguration cost, and whom did it
 stall?** The ROADMAP's stall-free-reconfiguration item (compile-aside +

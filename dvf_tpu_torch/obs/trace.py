@@ -25,14 +25,17 @@ side:
 - ``egress_encode`` / ``egress_send`` — the codec plane's spans (names
   kept for the reference's consumers).
 
-The reference's ``merge_with_device_trace`` reads ``jax.profiler``
-output; its torch-profiler counterpart is not ported yet.
+:func:`merge_with_device_trace` fuses the host trace with a
+``torch.profiler`` (Kineto) Chrome trace into one file; it is the
+counterpart of the reference's merge of ``jax.profiler`` output.
 """
 
 from __future__ import annotations
 
 import collections
+import glob
 import json
+import os
 import sys
 import threading
 import time
@@ -216,12 +219,115 @@ class Tracer:
 
 
 # ---------------------------------------------------------------------------
+# Host + device trace merging (one UI, one FILE)
+# ---------------------------------------------------------------------------
+
+# Device lanes are offset by this so they never collide with the host's
+# small track ids (the reference's offset).
+DEVICE_PID_OFFSET = 10000
+MERGED_TRACE_NAME = "dvf_merged_timing.pftrace"
+
+
+def merge_with_device_trace(
+    host_path: str,
+    device_trace_dir: str,
+    out_path: str,
+    device_epoch_us: int,
+    max_events: int = 20000,
+    host_start_s: Optional[float] = None,
+) -> Optional[str]:
+    """Fuse the host frame-lifecycle trace with a ``torch.profiler``
+    Chrome trace (the newest ``*.json`` that ``export_chrome_trace``
+    wrote into ``device_trace_dir``) into ONE Chrome-trace file that
+    opens as a single Perfetto session — host lanes (capture → dispatch
+    → deliver) above the profiler's CPU-op and CUDA-kernel lanes, on one
+    aligned clock.
+
+    Clock alignment: a Kineto trace carries ``baseTimeNanoseconds`` at
+    its top level, and each event's ``ts`` is wall-clock µs minus
+    ``baseTimeNanoseconds / 1000``; the host tracer's ``ts`` is µs past
+    its ``start_time``. With ``host_start_s`` (the tracer's
+    ``start_time``) and a base in the file, each device event moves by
+    ``base/1e3 − host_start_s·1e6``. Without either, by
+    ``device_epoch_us`` (the reference's contract: device timestamps
+    relative to the profiler's start, which the caller places on the
+    host clock).
+
+    Filtering: 'M' metadata and 'X' spans are kept ('i' instants, flow
+    and counter events are not); the Python tracer's events
+    (``cat == "python_function"``) are dropped; if the remainder still
+    exceeds ``max_events``, the longest-duration events win. Device pids
+    (the OS pid for CPU events, the device index for kernels) are offset
+    by +10000. Returns None when there is no device trace or it (or the
+    host trace) cannot be read — the merge is best-effort teardown
+    garnish."""
+    candidates = sorted(glob.glob(os.path.join(device_trace_dir, "*.json")),
+                        key=os.path.getmtime)
+    if not candidates:
+        return None
+    try:
+        with open(host_path) as f:
+            host = json.load(f)
+        with open(candidates[-1]) as f:
+            dev = json.load(f)
+    except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+        # A truncated trace (profiler killed mid-write) — the merge must
+        # never fail a run whose frames were all delivered.
+        return None
+    if not isinstance(dev, dict):
+        return None
+    base_ns = dev.get("baseTimeNanoseconds")
+    if base_ns is not None and host_start_s is not None:
+        offset_us = base_ns / 1e3 - host_start_s * 1e6
+    else:
+        offset_us = device_epoch_us
+
+    meta, events = [], []
+    for e in dev.get("traceEvents", []):
+        ph = e.get("ph")
+        if ph == "M":
+            e = dict(e, pid=_dev_pid(e))
+            if e.get("name") == "process_name":
+                nm = (e.get("args") or {}).get("name", "")
+                e["args"] = {"name": f"device{nm}"}
+            meta.append(e)
+        elif ph == "X" and e.get("cat") != "python_function":
+            events.append(e)
+    if len(events) > max_events:
+        events.sort(key=lambda e: e.get("dur", 0), reverse=True)
+        events = events[:max_events]
+    for e in events:
+        e["pid"] = _dev_pid(e)
+        e["ts"] = e.get("ts", 0) + offset_us
+
+    doc = {
+        "traceEvents": host.get("traceEvents", []) + meta + events,
+        "displayTimeUnit": "ms",
+    }
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    print(f"[trace] merged host+device trace → {out_path} "
+          f"({len(events)} device events kept)", file=sys.stderr)
+    return out_path
+
+
+def _dev_pid(e: dict) -> int:
+    """A device event's lane: its pid (an int, or Kineto's string form
+    of one) past the offset; a non-numeric pid maps to the offset."""
+    try:
+        pid = int(e.get("pid", 0))
+    except (TypeError, ValueError):
+        pid = 0
+    return pid + DEVICE_PID_OFFSET
+
+
+# ---------------------------------------------------------------------------
 # Cross-process trace merging (fleet tier: one Perfetto session, N tracers)
 # ---------------------------------------------------------------------------
 
 # Each snapshot's tracks are offset into their own pid block so lanes from
 # different processes can never collide — the same trick
-# merge_with_device_trace uses (+10000) for the jax.profiler lanes, which
+# merge_with_device_trace uses (+10000) for the device lanes, which
 # therefore stay clear of any realistic fleet (100 lanes × 100 replicas).
 LANE_STRIDE = 100
 

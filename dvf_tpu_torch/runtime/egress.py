@@ -48,7 +48,7 @@ import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
 from dvf_tpu_torch.obs.trace import EGRESS_D2H, EGRESS_ENCODE
-from dvf_tpu_torch.runtime.engine import record_event
+from dvf_tpu_torch.runtime.engine import record_event, wait_compute
 
 EGRESS_MODES = ("streamed", "monolithic")
 
@@ -174,11 +174,6 @@ class ShardedBatchFetcher:
 
     # -- collect side ---------------------------------------------------
 
-    def _wait_compute(self, result: Any) -> None:
-        ev = getattr(result, "compute_event", None)
-        if ev is not None:
-            ev.synchronize()
-
     def fetch(self, result: Any, slot: int) -> np.ndarray:
         """One batch's output on the host; blocks until the device is done
         (the compute wait is not counted as D2H). Streamed: the slot's
@@ -186,7 +181,7 @@ class ShardedBatchFetcher:
         the pool cannot take: a fresh host array."""
         t_begin = time.perf_counter()
         if not self._streamable(result):
-            self._wait_compute(result)
+            wait_compute(result)
             y = result.device
             if self.stream is not None:
                 with torch.cuda.stream(self.stream):
@@ -197,7 +192,7 @@ class ShardedBatchFetcher:
                 wait_ms=0.0, copy_ms=0.0,
                 span_ms=(time.perf_counter() - t_begin) * 1e3)
             return out
-        self._wait_compute(result)
+        wait_compute(result)
         if self.chaos is not None:
             # Injection site "d2h": a delay rule stalls this fetch (a
             # congested link), a raise rule denies it.

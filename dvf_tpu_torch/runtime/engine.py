@@ -191,6 +191,16 @@ class BatchResult:
         return self.host.numpy()
 
 
+def wait_compute(result) -> None:
+    """Wait until one batch's compute has finished on the device: a
+    synchronize on that batch's own compute event (``BatchResult
+    .compute_event``), never on a stream or the device. No event (the
+    CPU) means the compute already ran when submit returned."""
+    ev = getattr(result, "compute_event", None)
+    if ev is not None:
+        ev.synchronize()
+
+
 @dataclasses.dataclass
 class EngineStats:
     batches: int = 0

@@ -35,14 +35,21 @@ queue; ``queue=RingFrameQueue(...)`` (transport/ring_queue.py) puts the
 native ring on the path. Frames then cross ingest → dispatch as payloads,
 which the queue decodes window by window straight into the staging slab
 (``decode_into``), so a decoded window's copy overlaps the next window's
-decode; the queue is closed when the run ends. Not ported yet:
-the device trace (``device_trace_dir``), the flight recorder
-(``flight_dir``) and the metrics registry.
+decode; the queue is closed when the run ends.
+
+Observability planes: ``registry`` (obs.registry) carries ``signals()``
+and the capture/deliver rates for a scrape endpoint; ``flight_dir`` arms
+the flight recorder (a watchdog trip or a hard failure dumps the trace
+window and stats); ``device_trace_dir`` runs a ``torch.profiler`` session
+(CPU and CUDA activity) around the whole run, exports its Chrome trace
+there and, with ``trace=True``, merges it with the host trace into
+``dvf_merged_timing.pftrace`` in the same directory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import threading
 import time
@@ -53,8 +60,15 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
+from dvf_tpu_torch.obs.export import (
+    DEVICE_TRACE_FILE,
+    FlightRecorder,
+    attach_signal_provider,
+    start_device_profiler,
+)
 from dvf_tpu_torch.obs.metrics import EgressStats, IngestStats, LatencyStats, RateLogger
-from dvf_tpu_torch.obs.trace import Tracer
+from dvf_tpu_torch.obs.registry import MetricsRegistry
+from dvf_tpu_torch.obs.trace import MERGED_TRACE_NAME, Tracer, merge_with_device_trace
 from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
 from dvf_tpu_torch.resilience.supervisor import Supervisor
@@ -105,6 +119,14 @@ class PipelineConfig:
     chaos: Any = None             # resilience.chaos.FaultPlan — arms the
     #   fault-injection sites in the engine, assembler, fetcher and collect
     #   loop; None = zero overhead
+    device_trace_dir: Optional[str] = None  # capture a torch.profiler
+    #   trace (CPU + CUDA activity) for the whole run into this dir as a
+    #   Chrome trace; with trace=True the merged host+device export
+    #   (dvf_merged_timing.pftrace) also lands in this dir
+    flight_dir: Optional[str] = None  # flight recorder (obs.export): a
+    #   watchdog trip or hard pipeline failure dumps the bounded
+    #   post-mortem (trace window + stats) here. None = off.
+    flight_min_interval_s: float = 10.0  # dump rate limit
 
 
 class Pipeline:
@@ -172,11 +194,26 @@ class Pipeline:
         self._supervisor: Optional[Supervisor] = None
         self._recovering = threading.Event()  # dispatch parks while the
         #   supervisor swaps the engine (see _on_stall)
+        # Metrics registry (obs.registry): the scrape endpoint's source
+        # for this pipeline. The RateLoggers land their rates as the
+        # rate_fps gauge on the ticks they print; the provider adapts
+        # signals() at scrape.
+        self.registry = MetricsRegistry()
+        attach_signal_provider(self.registry, "pipeline", self.signals)
+        self.flight: Optional[FlightRecorder] = None
+        if self.config.flight_dir:
+            self.flight = FlightRecorder(
+                self.config.flight_dir, label="pipeline",
+                min_interval_s=self.config.flight_min_interval_s,
+                trace_fn=lambda: [self.tracer.snapshot()],
+                stats_fn=self.stats)
         _ti = self.config.telemetry_interval_s
         self._capture_rate = RateLogger("capture", _ti if _ti > 0 else 5.0,
-                                        quiet=_ti <= 0)
+                                        quiet=_ti <= 0,
+                                        registry=self.registry)
         self._deliver_rate = RateLogger("deliver", _ti if _ti > 0 else 5.0,
-                                        quiet=_ti <= 0)
+                                        quiet=_ti <= 0,
+                                        registry=self.registry)
         self._on_idle = None  # inline collect: drain-ready hook (_assemble)
         self._inflight = DropOldestQueue(maxsize=1_000_000)
         self._inflight_sem = threading.Semaphore(self.config.max_inflight)
@@ -199,9 +236,21 @@ class Pipeline:
     # ------------------------------------------------------------------
 
     def _fail(self, e: BaseException) -> None:
-        if self._error is None:
+        first = self._error is None
+        if first:
             self._error = e
         self._abort.set()
+        if first and self.flight is not None:
+            # Hard failure: the post-mortem moment (off-thread,
+            # rate-limited in the recorder).
+            self.flight.trigger_async(f"pipeline failed: {e!r}")
+
+    def _flight_trip(self, reason: str) -> None:
+        """Supervisor on_trip tap: dump the black box before recovery
+        tears the evidence down (off-thread — a disk write must not
+        extend the stall it records)."""
+        if self.flight is not None:
+            self.flight.trigger_async(reason)
 
     def _contain(self, e: BaseException, where: str) -> bool:
         """Resilient mode: drop, count, continue — classified
@@ -556,6 +605,14 @@ class Pipeline:
 
     def run(self) -> dict:
         """Run to the end of the stream (or Ctrl-C); returns stats()."""
+        prof = None
+        if self.config.device_trace_dir:
+            os.makedirs(self.config.device_trace_dir, exist_ok=True)
+            prof = start_device_profiler()
+            # Host-clock epoch of the profiler session: the fallback
+            # alignment of the merged export when the device trace
+            # carries no base time of its own.
+            self._device_trace_epoch = time.time()
         threads = [
             threading.Thread(target=self._ingest, name="dvf-ingest", daemon=True),
             threading.Thread(target=self._dispatch, name="dvf-dispatch", daemon=True),
@@ -566,7 +623,8 @@ class Pipeline:
         if self.config.stall_timeout_s > 0:
             self._supervisor = Supervisor(
                 self.config.stall_timeout_s, on_stall=self._on_stall,
-                name="dvf-pipeline-supervisor").start()
+                name="dvf-pipeline-supervisor",
+                on_trip=self._flight_trip).start()
         try:
             for t in threads:
                 t.start()
@@ -585,6 +643,10 @@ class Pipeline:
         finally:
             if self._supervisor is not None:
                 self._supervisor.stop()
+            # Always stop the profiler — the abort path is exactly the
+            # run someone inspects.
+            if prof is not None:
+                self._stop_device_trace(prof)
         if self._error is not None:
             raise self._error
         if not self._abort.is_set():
@@ -593,8 +655,34 @@ class Pipeline:
         if hasattr(self.queue, "close"):
             self.queue.close()  # ring transport: the ring and its codecs
         if self.tracer.enabled:
-            self.tracer.export()
+            host_trace = self.tracer.export()
+            if host_trace and prof is not None:
+                # One file with the host frame-lifecycle lanes above the
+                # profiler's lanes, beside the device trace it merges.
+                try:
+                    d = self.config.device_trace_dir
+                    merge_with_device_trace(
+                        host_trace, d, os.path.join(d, MERGED_TRACE_NAME),
+                        int((self._device_trace_epoch
+                             - self.tracer.start_time) * 1e6),
+                        host_start_s=self.tracer.start_time)
+                except Exception as e:  # noqa: BLE001 — teardown garnish:
+                    # a merge failure must not fail a run that delivered.
+                    print(f"[trace] merged export failed: {e!r}",
+                          file=sys.stderr)
         return self.stats()
+
+    def _stop_device_trace(self, prof) -> None:
+        """Stop the run's profiler and export its Chrome trace into
+        ``device_trace_dir`` (best-effort: an export failure is printed,
+        never raised over the run's own outcome)."""
+        try:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                self.config.device_trace_dir, DEVICE_TRACE_FILE))
+        except Exception as e:  # noqa: BLE001
+            print(f"[trace] device trace export failed: {e!r}",
+                  file=sys.stderr)
 
     def health(self) -> dict:
         """Cheap liveness export: no percentile work. ``ok`` flips False

@@ -74,6 +74,16 @@ class BatchPlan:
     #   behind THEIR device time, which would contaminate the bucket's
     #   per-program tick-cost EWMA (the EDF/cost denominator) toward the
     #   shared pipeline latency instead of this program's cost
+    lin_marks: Any = None  # lineage-armed frontends: the BATCH-level
+    #   (component, wall_ts) marks shared by every slot in this batch —
+    #   assemble_h2d at dispatch, device/d2h at collect; the router
+    #   extends each slot's FrameLineage with them before demux (one
+    #   stamp per batch, not per frame). None = lineage off.
+    audit_rows: Any = None  # audit-armed frontends (obs.audit): rows
+    #   the shadow-replay sampler picked this tick — [(row, input-copy,
+    #   session_id, frame_index, lineage), ...]; the collect side pairs
+    #   each with its DELIVERED output and hands the pair to the replay
+    #   worker. None = audit off or nothing sampled (zero cost).
     fetcher: Any = None  # the egress fetcher THIS batch was prefetched
     #   into, pinned at dispatch: a hot program swap may replace
     #   ``bucket.fetcher`` (new output signature) while this batch is

@@ -57,8 +57,14 @@ class ResultRouter:
             #   route (the plan was still in the supervisor window) must
             #   become a no-op, not a second release of the same claims
         touched = []
+        marks = plan.lin_marks
         for row, slot in enumerate(plan.slots[: plan.valid]):
             s = slot.session
+            if slot.lin is not None and marks:
+                # Batch-level hop stamps (assemble_h2d / device / d2h)
+                # fan out to every slot's lineage here — the one place
+                # each routed row already passes.
+                slot.lin.marks.extend(marks)
             s.complete(slot, out[row].copy())
             if s.state == "closed":
                 self.late_after_close += 1

@@ -48,11 +48,18 @@ Compiles made beside live serving (admission, a hot swap's successor)
 wait only on their own work (``Engine.compile``). ``device="cpu"`` runs
 the plain torch versions.
 
-Planes of the reference frontend that are not ported yet refuse their
-``ServeConfig`` options with ``NotImplementedError`` (see
-:func:`_refuse_unported`): the audit plane, frame lineage, the flight
-recorder and stage profiles, the control plane, auto-plan and the plan
-cache, and broadcast.
+The observability planes are the reference's: the audit plane
+(``audit``: sampled shadow replay through an eager golden on the
+bucket's device, the program-swap guard on every resize and recovery
+rebuild, ``audit_probe``), frame lineage (``lineage``: every delivered
+frame's additive latency decomposition, ``explain``), the flight
+recorder (``flight_dir``, with a ``torch.profiler`` window when
+``flight_profile_s`` > 0) and stage profiles (``profile_dir``). On a
+card the lineage ``device`` mark is taken after a wait on the batch's
+own compute event, never on the whole device. Planes of the reference
+frontend that are not ported yet refuse their ``ServeConfig`` options
+with ``NotImplementedError`` (see :func:`_refuse_unported`): the control
+plane, auto-plan and the plan cache, and broadcast.
 
 ``ZmqStreamBridge`` binds one session to the reference app's socket pair
 using the exact READY-credit framing of ``transport.zmq_ingress`` — a
@@ -73,7 +80,20 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from dvf_tpu_torch.api.filter import Filter, FilterChain
-from dvf_tpu_torch.obs.export import attach_signal_provider
+from dvf_tpu_torch.obs.audit import (
+    AuditPlane,
+    WireAudit,
+    attach_audit_provider,
+    engine_probe_row,
+    frame_digest,
+    maybe_corrupt_device,
+)
+from dvf_tpu_torch.obs.export import FlightRecorder, attach_signal_provider
+from dvf_tpu_torch.obs.lineage import (
+    AttributionPlane,
+    load_stage_profile,
+    save_stage_profile,
+)
 from dvf_tpu_torch.obs import ledger as ledger_mod
 from dvf_tpu_torch.obs.ledger import ReconfigLedger
 from dvf_tpu_torch.obs.memory import (
@@ -101,7 +121,7 @@ from dvf_tpu_torch.runtime.egress import (
     AsyncCodecPlane,
     ShardedBatchFetcher,
 )
-from dvf_tpu_torch.runtime.engine import Engine, ProgramPool
+from dvf_tpu_torch.runtime.engine import Engine, ProgramPool, wait_compute
 from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.runtime.signature import (
     SignatureKey,
@@ -316,14 +336,8 @@ class ServeConfig:
 # ServeConfig options whose plane is not ported yet, each with the
 # ROADMAP item (Queue 1) that ports it. A set option raises — it never
 # runs silently without its plane.
-_PLANES_ITEM = "ROADMAP Queue 1 item 2 (planes)"
 _CONTROL_ITEM = "ROADMAP Queue 1 item 3 (control, fleet, broadcast)"
 _UNPORTED_OPTIONS = (
-    ("audit", lambda c: bool(c.audit), _PLANES_ITEM),
-    ("lineage", lambda c: bool(c.lineage), _PLANES_ITEM),
-    ("flight_dir", lambda c: c.flight_dir is not None, _PLANES_ITEM),
-    ("flight_profile_s", lambda c: c.flight_profile_s > 0, _PLANES_ITEM),
-    ("profile_dir", lambda c: c.profile_dir is not None, _PLANES_ITEM),
     ("control", lambda c: bool(c.control), _CONTROL_ITEM),
     ("autoplan", lambda c: bool(c.autoplan), _CONTROL_ITEM),
     ("plan_cache_dir", lambda c: c.plan_cache_dir is not None,
@@ -418,6 +432,11 @@ class _Bucket:
         #   around an event (obs.ledger.ReconfigLedger.note_dispatch)
         self._label_cache: Optional[str] = None
         self._label_key: Optional[SignatureKey] = None
+        self.stage_profile: Optional[dict] = None  # persisted
+        #   per-signature stage-cost profile (obs.lineage), loaded at
+        #   creation when the frontend has a profile_dir: measured
+        #   component costs from PREVIOUS runs of this package — seeds
+        #   the tick-cost estimate before the first live sample
         self._pooled = False  # engine leased/adopted in the ProgramPool
 
     # -- scheduling ------------------------------------------------------
@@ -432,6 +451,11 @@ class _Bucket:
         cal = getattr(self.engine, "step_block_ms", None)
         if cal:
             return cal
+        prof = self.stage_profile
+        if prof and prof.get("tick_cost_ms"):
+            # A previous run's MEASURED cost beats the 1 ms guess for
+            # the window before this run's first live sample.
+            return float(prof["tick_cost_ms"])
         return 1.0
 
     def observe_tick(self, wall_ms: float, sample: bool = True,
@@ -622,7 +646,7 @@ class ServeFrontend:
         #   process-lifetime only (serve tier has no crash-recovery story
         #   of its own; the session state IS this process)
         # -- telemetry plane (obs/): tracer lanes, metrics registry,
-        # sliding signal window ---------------------------------------------
+        # sliding signal window, flight recorder ---------------------------
         label = self.config.replica_label
         self.tracer = Tracer(
             enabled=self.config.trace,
@@ -652,6 +676,25 @@ class ServeFrontend:
             attach_memory_provider(self.registry,
                                    bucket_rows_fn=self._memory_bucket_rows)
             self._leak_watch = LeakTrendWatch()
+        # -- audit plane (obs.audit): shadow replay + swap guard -----------
+        self.audit: Optional[AuditPlane] = None
+        if self.config.audit:
+            self.audit = AuditPlane(
+                sample_every=self.config.audit_sample_every,
+                seed=self.config.audit_seed,
+                tolerance=self.config.audit_tolerance,
+                tracer=self.tracer,
+                ledger=self.ledger,
+                flight_cb=self._flight_trip,
+                fault_cb=lambda e: self.faults.record(
+                    FaultKind.INTEGRITY, e),
+                label=f"serve-{label}" if label else "serve")
+            attach_audit_provider(self.registry, self.audit)
+        # -- frame-lineage attribution plane (obs.lineage) -----------------
+        self.attribution: Optional[AttributionPlane] = None
+        if self.config.lineage:
+            self.attribution = AttributionPlane(
+                exemplar_capacity=self.config.lineage_exemplars)
         self._tick_s = self.config.tick_s  # dispatch idle poll (the
         #   reference's control plane writes it; constant here)
         self._pending_resizes: Dict[_Bucket, Any] = {}  # bucket →
@@ -679,18 +722,43 @@ class ServeFrontend:
         #   flushes — kept OUT of shed_total
         self.resize_compile_errors = 0
         self.telemetry: Optional[TimeSeriesRing] = None
-        if self.config.telemetry_sample_s > 0:
+        sample_s = self.config.telemetry_sample_s or (
+            1.0 if self.config.flight_dir else 0.0)  # burn trigger +
+        #   post-mortem window need the ring; plain serving doesn't pay
+        if sample_s > 0:
             self.telemetry = TimeSeriesRing(
                 self.signals,
-                interval_s=self.config.telemetry_sample_s,
+                interval_s=sample_s,
                 name="dvf-serve-telemetry",
                 on_sample=self._on_telemetry_sample)
+        self.flight: Optional[FlightRecorder] = None
+        if self.config.flight_dir:
+            self.flight = FlightRecorder(
+                self.config.flight_dir,
+                label=f"serve-{label}" if label else "serve",
+                min_interval_s=self.config.flight_min_interval_s,
+                max_total_bytes=self.config.flight_max_total_bytes,
+                trace_fn=lambda: [self.tracer.snapshot()],
+                stats_fn=self.stats,
+                ring=self.telemetry,
+                profile_s=self.config.flight_profile_s,
+                lineage_fn=(self.attribution.snapshot
+                            if self.attribution is not None else None),
+                ledger_fn=(self.ledger.document
+                           if self.ledger is not None else None),
+                audit_fn=(self.audit.document
+                          if self.audit is not None else None))
         self.registry.register_provider(self._bucket_samples)
         #   per-bucket queue depth / p99 + the compile-cache counters
         #   (dvf_compile_cache_hits_total / _misses_total,
         #   dvf_pool_evictions_total) — unprefixed provider, so the
         #   series names are fleet-wide, not per-tier
         self._draining = False       # fleet drain hook: open_stream refuses
+        self._retired_bucket_costs: Dict[str, Optional[float]] = {}
+        #   label → tick_cost_ms of buckets retired for headroom —
+        #   their measured costs must still persist at stop
+        #   (profile_dir); recorded at retirement (no I/O under the
+        #   admission lock), flushed by _persist_stage_profiles.
         self.recoveries = 0          # supervised engine rebuilds
         # Frontend-level budget = the default bucket's (fault budgets
         # attribute PER BUCKET — a broken signature's faults must not
@@ -753,10 +821,13 @@ class ServeFrontend:
         if self.config.stall_timeout_s > 0:
             self._supervisor = Supervisor(
                 self.config.stall_timeout_s, on_stall=self._on_stall,
-                name="dvf-serve-supervisor", window=self._window)
+                name="dvf-serve-supervisor", window=self._window,
+                on_trip=self._flight_trip)
             self._supervisor.start()
         if self.telemetry is not None:
             self.telemetry.start()
+        if self.audit is not None:
+            self.audit.start()
         return self
 
     def stop(self, timeout: float = 10.0) -> None:
@@ -765,6 +836,8 @@ class ServeFrontend:
         self._stop.set()
         if self._supervisor is not None:
             self._supervisor.stop()
+        if self.audit is not None:
+            self.audit.stop()
         if self.telemetry is not None:
             self.telemetry.stop()
             self.telemetry.sample_once()  # terminal row: a short run still
@@ -803,8 +876,43 @@ class ServeFrontend:
             b.release_drained_fetchers()
             if self.ledger is not None:
                 self.ledger.abandon_stalls(b.label())
+        if self.config.profile_dir:
+            # Persist this run's measured per-signature stage costs
+            # (sibling of the compile cache): the next run's buckets
+            # start from MEASURED numbers.
+            self._persist_stage_profiles(buckets)
         if self._error is not None:
             raise self._error
+
+    def _persist_stage_profiles(self, live_buckets) -> None:
+        """Best-effort stage-cost persistence at stop: one profile per
+        signature measured THIS run — live buckets plus buckets retired
+        for headroom along the way (their tick costs were recorded at
+        retirement; their attribution windows survive in the plane,
+        keyed by label). Deduped by label; a live bucket's newer tick
+        cost wins over a retired record's. Never raises — profiles are
+        optimization state, not worth failing a shutdown over."""
+        with self._lock:
+            pending: Dict[str, Optional[float]] = dict(
+                self._retired_bucket_costs)
+        for b in live_buckets:
+            if b.key is None:
+                continue
+            tick = b._tick_cost_ms
+            if tick is None:
+                tick = getattr(b.engine, "step_block_ms", None)
+            pending[b.key.render()] = tick
+        for label, tick in pending.items():
+            comps: dict = {}
+            count = 0
+            if self.attribution is not None:
+                doc = self.attribution.bucket_profile_doc(label)
+                if doc is not None:
+                    comps = doc["components"]
+                    count = doc["count"]
+            if comps or tick:
+                save_stage_profile(self.config.profile_dir, label,
+                                   comps, tick_cost_ms=tick, count=count)
 
     def __enter__(self) -> "ServeFrontend":
         return self.start()
@@ -991,19 +1099,67 @@ class ServeFrontend:
             slab, state = self._slab_state_bytes(buckets)
             out["mem_host_slab_bytes"] = float(slab)
             out["mem_device_state_bytes"] = float(state)
+        if self.attribution is not None:
+            # Frame-lineage attribution: per-component p99 over the
+            # window (attr_<component>_p99_ms) + lineage counters —
+            # the "where did my p99 go" row, scrapeable per second.
+            out.update(self.attribution.signals())
+        if self.audit is not None:
+            out.update(self.audit.signals())
         for kind, n in self.faults.summary()["by_kind"].items():
             out[f"fault_{kind}_total"] = float(n)
         return out
 
     def audit_probe(self, signature: Optional[str] = None) -> dict:
-        """The reference's cross-replica divergence probe (audit plane):
-        not ported yet."""
-        raise _unported("ServeFrontend.audit_probe", _PLANES_ITEM)
+        """Run the deterministic probe frame through one compiled
+        bucket's program and return its output digest — the unit a
+        fleet's cross-replica divergence detector compares (every
+        replica derives the SAME probe pixels from the signature, so
+        equal programs must produce equal digests). ``signature``
+        (a canonical render) picks the bucket; None probes the first
+        compiled one. Raises ``ServeError`` when nothing is compiled."""
+        with self._lock:
+            buckets = list(self._buckets)
+        engine = None
+        label = None
+        for b in buckets:
+            if b.engine.signature is None or b.engine.freed:
+                continue
+            if signature is None or b.label() == signature:
+                engine, label = b.engine, b.label()
+                break
+        if engine is None:
+            # Pool-warm fallback: "warm on a signature" includes
+            # programs whose bucket retired (or that only ever
+            # precompiled) — health() advertises exactly those.
+            for key in sorted(self.pool.warm_keys(),
+                              key=lambda k: k.render()):
+                if signature is None or key.render() == signature:
+                    cand = self.pool.peek(key)
+                    if cand is not None and not cand.freed \
+                            and cand.signature is not None:
+                        engine, label = cand, key.render()
+                        break
+        if engine is None:
+            raise ServeError(
+                f"no compiled program to probe"
+                + (f" for signature {signature!r}" if signature else ""))
+        stream = (self.audit.stream(engine.device)
+                  if self.audit is not None else None)
+        row = engine_probe_row(engine, stream=stream)
+        return {"signature": label,
+                "digest": frame_digest(row).hex()}
 
     def explain(self, q: float = 99.0) -> dict:
-        """The reference's latency-attribution surface (frame lineage):
-        not ported yet."""
-        raise _unported("ServeFrontend.explain", _PLANES_ITEM)
+        """The latency-attribution ``explain`` surface: which components
+        the slowest frames actually spent their time in, frontend-wide
+        and per bucket — "p99 = 62% queue_bucket, 21% device, …". Empty
+        when lineage is not armed (``ServeConfig.lineage``)."""
+        if self.attribution is None:
+            return {"lineage": False,
+                    "hint": "arm ServeConfig.lineage / --lineage to "
+                            "collect frame-lineage attribution"}
+        return {"lineage": True, **self.attribution.explain(q)}
 
     def _bucket_samples(self) -> List[MetricSample]:
         """Registry provider: the per-bucket load/latency series
@@ -1053,14 +1209,53 @@ class ServeFrontend:
         return out
 
     def _on_telemetry_sample(self, prev: Optional[dict], cur: dict) -> None:
-        """The ring's on_sample hook: the leak-trend watch over the
-        occupied host slabs. A trip is counted in the watch
-        (``trips_total``) and reported on stderr; the reference also
-        dumps its flight recorder here (not ported yet)."""
+        """The ring's on_sample hook: the SLO burn check, then the
+        leak-trend watch over the occupied host slabs. Each leg is
+        contained on its own: a burn-check hiccup is counted on the
+        ring's ``hook_errors`` and the leak watch still runs."""
+        try:
+            self._check_slo_burn(prev, cur)
+        except Exception:  # noqa: BLE001 — the leak watch still runs
+            if self.telemetry is not None:
+                self.telemetry.hook_errors += 1
         if self._leak_watch is not None:
-            trip = self._leak_watch.observe(cur.get("mem_host_slab_bytes"))
-            if trip is not None:
-                print(f"[serve] {trip}", file=sys.stderr, flush=True)
+            try:
+                trip = self._leak_watch.observe(
+                    cur.get("mem_host_slab_bytes"))
+                if trip is not None:
+                    print(f"[serve] {trip}", file=sys.stderr, flush=True)
+                    self._flight_trip(trip)
+            except Exception:  # noqa: BLE001 — same containment rule as
+                if self.telemetry is not None:  # the burn check above
+                    self.telemetry.hook_errors += 1
+
+    def _check_slo_burn(self, prev: Optional[dict], cur: dict) -> None:
+        """Telemetry-ring hook: burn rate over one sampling window =
+        fraction of the window's deliveries that missed their SLO; past
+        the threshold, the flight recorder dumps (rate-limited there)."""
+        threshold = self.config.slo_burn_threshold
+        if self.flight is None or threshold <= 0 or prev is None:
+            return
+        delivered = (cur.get("delivered_total", 0)
+                     - prev.get("delivered_total", 0))
+        if delivered <= 0:
+            return
+        missed = cur.get("slo_miss_total", 0) - prev.get("slo_miss_total", 0)
+        burn = missed / delivered
+        if burn >= threshold:
+            self.flight.trigger(
+                f"slo burn rate {burn:.2f} >= {threshold:g} "
+                f"({missed:.0f}/{delivered:.0f} deliveries past "
+                f"{self.config.slo_ms:g}ms in one window)")
+
+    def _flight_trip(self, reason: str) -> None:
+        """Observability tap for failure events (watchdog on_trip,
+        budget-exhaustion _fail, the leak watch, the audit plane's first
+        confirmed corruption): dump the black box OFF-THREAD — the
+        callers are supervision and recovery paths, and serializing a
+        trace window to disk must not extend the stall it records."""
+        if self.flight is not None:
+            self.flight.trigger_async(reason)
 
     # -- reconfiguration ledger + memory accounting ----------------------
 
@@ -1360,6 +1555,9 @@ class ServeFrontend:
                 default.frame_shape = tuple(key.geometry)
                 default.frame_dtype = key.np_dtype
                 default.key = key
+                if self.config.profile_dir:
+                    default.stage_profile = load_stage_profile(
+                        self.config.profile_dir, key.render())
                 self._bucket_by_key[key] = default
                 return default, None
             if pinned == (tuple(key.geometry), key.np_dtype):
@@ -1379,6 +1577,7 @@ class ServeFrontend:
             raise ServeError(f"session id {sid!r} already exists")
         s = StreamSession(sid, cfg, sink=sink)
         s.bucket = bucket
+        s.attribution = self.attribution  # None when lineage is off
         self._sessions[sid] = s
         bucket.sessions[sid] = s
         return sid
@@ -1408,6 +1607,12 @@ class ServeFrontend:
         b = _Bucket(self.config, engine.filter, key.op_chain, engine,
                     key=key)
         b._pooled = True  # leased through self.pool by _acquire_program
+        if self.config.profile_dir:
+            # One small JSON read at bucket creation (a path that just
+            # paid a compile): a previous run's measured stage costs
+            # seed the tick-cost estimate.
+            b.stage_profile = load_stage_profile(
+                self.config.profile_dir, key.render())
         self._buckets.append(b)
         self._bucket_by_key[key] = b
         if self.ledger is not None:
@@ -1430,6 +1635,13 @@ class ServeFrontend:
         if bucket.key is not None:
             if self._bucket_by_key.get(bucket.key) is bucket:
                 del self._bucket_by_key[bucket.key]
+            if self.config.profile_dir:
+                # Record (no disk I/O under this lock) so stop() still
+                # persists a churned-out signature's measured costs.
+                tick = bucket._tick_cost_ms
+                if tick is None:
+                    tick = getattr(bucket.engine, "step_block_ms", None)
+                self._retired_bucket_costs[bucket.label()] = tick
             if getattr(bucket, "_pooled", False):
                 self.pool.release(bucket.key)
         a, bucket.assembler = bucket.assembler, None
@@ -1730,6 +1942,21 @@ class ServeFrontend:
                         signature=key.render(), bucket=target.label(),
                         session=sid, level=level, frames_flushed=flushed,
                         stall_ms=stall_ms, reason=reason, t0=t_c)
+            if self.audit is not None and morph_chain is not None:
+                # Equivalence verdict for the program the session was
+                # just rebound onto — vs the golden path of ITS OWN
+                # chain: a morph is by design not equivalent to the base
+                # program, but the substituted program must still
+                # compute its chain. Async: this is the dispatch thread
+                # — the probe runs on the audit worker (a raced
+                # retirement yields probe_failed, not a crash). The
+                # quality rebind's guard comes with the control plane
+                # that issues quality moves.
+                self.audit.swap_guard(
+                    engine=target.engine, filt=target.filter,
+                    kind="morph", cause=ledger_mod.CAUSE_MORPH,
+                    signature=key.render(), bucket=target.label(),
+                    reason=reason, asynchronous=True)
 
     def _apply_resizes_dispatch(self) -> None:
         """Dispatch-thread half of a batch resize, hot-swap edition:
@@ -1782,13 +2009,20 @@ class ServeFrontend:
     def _swap_prepare_resize(self, bucket: "_Bucket", n: int,
                              shape: tuple, dtype,
                              reason: Optional[str] = None) -> None:
-        """Background half of a hot resize: compile the successor at the
-        new batch shape aside, then hand the staged commit to the
-        dispatch thread. A failed aside-compile is contained — the
-        staged successor is discarded, the old program never stopped
-        serving, and the abort is ledgered."""
+        """Background half of a hot resize: capture the OLD program's
+        probe row (the swap guard's bit-identity reference), compile
+        the successor at the new batch shape aside, then hand the
+        staged commit to the dispatch thread. A failed aside-compile
+        is contained — the staged successor is discarded, the old
+        program never stopped serving, and the abort is ledgered."""
         t0 = time.time()
         try:
+            # Swap guard (obs.audit): the OLD program's probe output
+            # captured BEFORE the swap can land — the resize
+            # substitutes a program under live tenants, which is only
+            # safe if equivalence is proven.
+            old_row = (self.audit.probe_row(bucket.engine)
+                       if self.audit is not None else None)
             with self._recover_lock:
                 prep = bucket.engine.prepare_swap(shape, dtype)
         except Exception as e:  # noqa: BLE001 — counted, never raised
@@ -1804,7 +2038,8 @@ class ServeFrontend:
                     reason=f"aside compile failed (old program keeps "
                            f"serving): {e!r}", t0=t0)
             return
-        self._pending_commits.put(("resize", bucket, n, prep, reason, t0))
+        self._pending_commits.put(
+            ("resize", bucket, n, prep, old_row, reason, t0))
 
     def _apply_commits_dispatch(self) -> None:
         """Dispatch-thread commit of staged hot swaps: one pointer
@@ -1819,7 +2054,8 @@ class ServeFrontend:
                 self._commit_resize_swap(*item[1:])
 
     def _commit_resize_swap(self, bucket: "_Bucket", n: int, prep: dict,
-                            reason: Optional[str], t0: float) -> None:
+                            old_row, reason: Optional[str],
+                            t0: float) -> None:
         with self._lock:
             live = bucket in self._buckets
             self._preparing_swaps.discard(bucket)
@@ -1866,6 +2102,18 @@ class ServeFrontend:
                 cache=prep.get("cache"), reason=reason, t0=t0)
             self._observe_swap(res["stall_ms"], label,
                                ledger_mod.CAUSE_RESIZE)
+        if self.audit is not None:
+            # Equivalence verdict for the adopted program: probe
+            # through the new program vs the golden path (and
+            # bit-identity vs the old program's probe row — same
+            # per-frame geometry across a batch resize). Async: this
+            # is the dispatch thread. Ledgered as a swap_guard event:
+            # zero unaudited substitutions.
+            self.audit.swap_guard(
+                engine=bucket.engine, filt=bucket.filter,
+                kind="batch_resize", cause=ledger_mod.CAUSE_RESIZE,
+                signature=bucket.label(), bucket=bucket.label(),
+                old_row=old_row, reason=reason, asynchronous=True)
 
     def submit(self, session_id: str, frame: np.ndarray,
                ts: Optional[float] = None, tag: Any = None) -> int:
@@ -2047,9 +2295,13 @@ class ServeFrontend:
         key = bucket.engine.signature_key
         if key is None:
             return
+        prof = (load_stage_profile(self.config.profile_dir, key.render())
+                if self.config.profile_dir else None)
         with self._lock:
             if bucket.key is None:
                 bucket.key = key
+            if prof is not None and bucket.stage_profile is None:
+                bucket.stage_profile = prof
             self._bucket_by_key.setdefault(key, bucket)
         try:
             self.pool.adopt(key, bucket.engine)
@@ -2095,9 +2347,15 @@ class ServeFrontend:
         return f
 
     def _fail(self, e: BaseException) -> None:
-        if self._error is None:
+        first = self._error is None
+        if first:
             self._error = e
         self._stop.set()
+        if first:
+            # Hard failure (fault budget exhausted, fail-fast fault,
+            # unrecoverable engine): the moment a post-mortem is worth a
+            # dump. Best-effort, rate-limited in the recorder.
+            self._flight_trip(f"frontend failed: {e!r}")
 
     def _contain(self, e: BaseException, where: str,
                  bucket: Optional["_Bucket"] = None) -> bool:
@@ -2276,6 +2534,11 @@ class ServeFrontend:
                     stall_from = (b.last_dispatch_t
                                   if b.last_dispatch_t is not None
                                   else t_rb)
+                    # Swap guard: old-program probe BEFORE the rebuild
+                    # replaces it (best-effort — a broken engine's
+                    # probe failing is itself expected here).
+                    old_row = (self.audit.probe_row(b.engine)
+                               if self.audit is not None else None)
                     swapped = False
                     sig = b.engine.signature
                     if sig is not None:
@@ -2337,6 +2600,18 @@ class ServeFrontend:
                             self._observe_compile(
                                 compile_ms, label,
                                 ledger_mod.CAUSE_RECOVERY)
+                    if self.audit is not None:
+                        # Equivalence verdict for the rebuilt program
+                        # (recovery substitutes it under live
+                        # sessions): new probe vs golden, plus
+                        # bit-identity vs the old program when it was
+                        # still probeable.
+                        self.audit.swap_guard(
+                            engine=b.engine, filt=b.filter,
+                            kind="engine_rebuild",
+                            cause=ledger_mod.CAUSE_RECOVERY,
+                            signature=b.label(), bucket=b.label(),
+                            old_row=old_row, reason=reason)
                 # Second straggler sweep: a dispatch iteration that was
                 # mid-staging when the drain above ran (wedged past the
                 # park deadline) has had the whole engine rebuild to land
@@ -2461,6 +2736,16 @@ class ServeFrontend:
                 q = self._inflight
                 t0 = time.time()
                 bucket = plan.bucket
+                if self.attribution is not None:
+                    # Lineage hop: bucket queue wait ends as staging
+                    # begins (one stamp per batch, fanned to the chosen
+                    # slots); the batch-level marks list then collects
+                    # assemble_h2d here and device/d2h on the collect
+                    # side — the router extends each slot's lineage.
+                    for slot in plan.slots:
+                        if slot.lin is not None:
+                            slot.lin.mark("queue_bucket", t0)
+                    plan.lin_marks = []
                 # A tick-cost sample is trustworthy only when nothing
                 # else is in flight at submit: otherwise submit→
                 # materialize includes queue wait behind OTHER batches'
@@ -2470,6 +2755,19 @@ class ServeFrontend:
                 # program's cost. Contended ticks still count batches;
                 # they just don't feed the estimate.
                 plan.cost_sample = len(self._window) == 0
+                if self.audit is not None:
+                    # Shadow-replay sampling (obs.audit): the sampler
+                    # decides per staged frame; a picked frame's INPUT
+                    # is copied here — the only place it still exists —
+                    # and paired with its delivered output at collect.
+                    # One modulo per frame when nothing is picked.
+                    for row, slot in enumerate(plan.slots[: plan.valid]):
+                        if self.audit.want_sample():
+                            if plan.audit_rows is None:
+                                plan.audit_rows = []
+                            plan.audit_rows.append(
+                                (row, np.array(slot.frame, copy=True),
+                                 slot.session.id, slot.index, slot.lin))
                 pools = (bucket.assembler, bucket.fetcher)
                 try:
                     builder = self._builder_for(bucket, seq)
@@ -2485,6 +2783,10 @@ class ServeFrontend:
                                                      ready=builder.ready)
                               if resident
                               else engine.submit(batch, fetch=False))
+                    if plan.lin_marks is not None:
+                        # Batch assembly + H2D ends at submit return
+                        # (the device now owns the batch).
+                        plan.lin_marks.append(("assemble_h2d", time.time()))
                     # Start the D2H now, on the engine's D2H stream after
                     # the compute event, so the collect side only waits,
                     # never initiates (runtime/egress.py).
@@ -2565,6 +2867,20 @@ class ServeFrontend:
                                  else None))  # plan-pinned first: the
                 #   bucket's fetcher may already belong to a hot-swapped
                 #   successor program with a different output signature
+                if plan.lin_marks is not None:
+                    # Lineage needs the device/D2H split: the device
+                    # mark is taken once THIS batch's compute event has
+                    # completed (submit returned at launch, so a stamp
+                    # there would be the launch time); the fetch that
+                    # follows is then the D2H wait. Never a device-wide
+                    # synchronize: that would wait on every bucket's
+                    # work and the copy streams.
+                    try:
+                        wait_compute(result)
+                        plan.lin_marks.append(("device", time.time()))
+                    except Exception:  # noqa: BLE001 — a poisoned batch
+                        pass  # raises again in fetch below, where the
+                        #   containment ladder owns it
                 try:
                     # Streamed egress: the slot's pinned slab (D2H issued
                     # at submit); monolithic: a fresh host copy. Either
@@ -2574,6 +2890,14 @@ class ServeFrontend:
                     # only cycles max_inflight+1 batches later.
                     out = (fetcher.fetch(result, seq) if fetcher is not None
                            else _fetch_whole(result))
+                    if plan.lin_marks is not None:
+                        plan.lin_marks.append(("d2h", time.time()))
+                    if chaos is not None:
+                        # Chaos site "corrupt_device": one element of
+                        # row 0 perturbed in an otherwise-valid batch —
+                        # the silent corruption ONLY the shadow replay
+                        # below can catch (it parses, routes, delivers).
+                        out = maybe_corrupt_device(chaos, out)
                 except Exception as e:  # noqa: BLE001 — poisoned batch
                     if self._collect_gen != gen:
                         # Superseded mid-wait: make sure the plan's
@@ -2612,6 +2936,22 @@ class ServeFrontend:
                 self.tracer.complete("batch_complete", _t0, time.time(),
                                      TRACK_DEVICE, seq=seq,
                                      frames=plan.valid)
+                if plan.audit_rows and self.audit is not None \
+                        and bucket is not None:
+                    # Pair each sampled input with its DELIVERED output
+                    # (post any corrupt_device perturbation — the replay
+                    # must judge what the client actually receives) and
+                    # hand the pair to the off-thread golden worker,
+                    # which re-runs it on the bucket's device.
+                    for row, in_frame, sid, idx, lin in plan.audit_rows:
+                        if row < plan.valid:
+                            self.audit.submit_replay(
+                                bucket.filter, in_frame,
+                                np.array(out[row], copy=True),
+                                session=sid, index=idx,
+                                bucket=bucket.label(), lineage=lin,
+                                out_uint8=bucket.engine.out_uint8,
+                                device=bucket.engine.device)
                 self.router.route(plan, out)
                 if bucket is not None and bucket.draining_fetchers \
                         and bucket.inflight_batches == 0:
@@ -2690,9 +3030,15 @@ class ServeFrontend:
             **({"trace": {"events": len(self.tracer),
                           "dropped_total": self.tracer.dropped}}
                if self.tracer.enabled else {}),
+            **({"attribution": self.attribution.summary()}
+               if self.attribution is not None else {}),
+            **({"audit": self.audit.stats()}
+               if self.audit is not None else {}),
             **({"ledger": self.ledger.summary(),
                 "memory": self._memory_stats()}
                if self.ledger is not None else {}),
+            **({"flight": self.flight.stats()}
+               if self.flight is not None else {}),
         }
 
 
@@ -2700,8 +3046,7 @@ def _fetch_whole(result) -> np.ndarray:
     """A whole batch on the host without a fetcher (the bucket's engine
     had no output signature yet at dispatch): wait for the compute
     event, then copy."""
-    if result.compute_event is not None:
-        result.compute_event.synchronize()
+    wait_compute(result)
     return result.device.cpu().numpy()
 
 
@@ -2719,8 +3064,10 @@ class ZmqStreamBridge:
     ``raw_size``²), ``"jpeg"`` or ``"delta"``; ``codec`` replaces the
     wire codec the bridge would build (for example a ``DeltaCodec`` over
     a ``RawCodec``: a delta wire without JPEG). The raw wire builds no
-    codec. Not ported yet: the audit-wire envelope (``audit_wire``
-    raises) and the lineage extension past delivery.
+    codec. ``audit_wire`` wraps every payload in the audit envelope
+    (incoming frames are verified and stripped, deliveries stamped after
+    encode); a lineage-armed frontend gets each delivery's ``encode`` and
+    ``send`` marks folded into its attribution plane.
     """
 
     def __init__(
@@ -2751,8 +3098,6 @@ class ZmqStreamBridge:
         from dvf_tpu_torch.transport.codec import WIRE_MODES, make_wire_codec
         from dvf_tpu_torch.transport.zmq_ingress import READY
 
-        if audit_wire:
-            raise _unported("ZmqStreamBridge(audit_wire=True)", _PLANES_ITEM)
         if wire is None:
             wire = "jpeg" if use_jpeg else "raw"
         if wire not in WIRE_MODES:
@@ -2795,6 +3140,24 @@ class ZmqStreamBridge:
         # order. Raw mode rides the same plane as zero-copy memoryviews.
         self.plane = AsyncCodecPlane(self.codec, jpeg=(wire != "raw"),
                                      depth=encode_depth)
+        # Lineage extension past delivery (lineage-armed frontends): the
+        # bridge marks encode/send on each delivery's FrameLineage and
+        # folds the wire components back into the frontend's attribution
+        # plane — "21% encode" in explain() comes from here.
+        self._attr = frontend.attribution
+        # Wire-integrity audit (obs.audit): incoming frames must pass
+        # the digest envelope, outgoing deliveries are stamped
+        # post-encode; counters fold into the frontend's audit plane
+        # when one is armed. Strict ingress — audit-mode peers stamp.
+        self._wire_in = None
+        self._wire_out = None
+        if audit_wire:
+            self._wire_in = WireAudit("bridge_ingress")
+            self._wire_out = WireAudit("bridge_egress",
+                                       chaos=frontend.config.chaos)
+            if frontend.audit is not None:
+                frontend.audit.register_wire(self._wire_in)
+                frontend.audit.register_wire(self._wire_out)
         self.use_jpeg = wire != "raw"
         self.raw_size = raw_size
         self.raw_shape = (tuple(raw_shape) if raw_shape is not None
@@ -2921,6 +3284,13 @@ class ZmqStreamBridge:
                         self.errors += 1
                     else:
                         remote_idx, payload = parsed
+                        if self._wire_in is not None:
+                            # Verify + strip the audit envelope before
+                            # decode: a flipped bit on the wire raises
+                            # WireIntegrityError into this loop's
+                            # containment (counted, frame dropped)
+                            # instead of decoding corrupt pixels.
+                            payload = self._wire_in.verify(payload)
                         self.frontend.submit(
                             self.session_id, self._decode(payload),
                             tag=(remote_idx, time.time()))
@@ -2947,6 +3317,7 @@ class ZmqStreamBridge:
                     self.plane.submit([d.frame for d in fresh], fresh)
                 for batch in self.plane.ready(
                         block=len(self.plane) > self.plane.depth):
+                    enc_t = time.time()
                     for d, payload, err in batch:
                         if err is not None:
                             self.errors += 1  # one bad frame: dropped
@@ -2955,6 +3326,17 @@ class ZmqStreamBridge:
                                   f"(dropping frame): {err!r}",
                                   file=sys.stderr)
                             continue
+                        if self._attr is not None \
+                                and d.lineage is not None:
+                            d.lineage.mark("encode", enc_t)
+                        if self._wire_out is not None:
+                            # Stamp ONCE per frame, at enqueue: a
+                            # zmq.Again retry must re-send the same
+                            # stamped bytes, not re-stamp (which would
+                            # inflate the stamp counter and advance the
+                            # corrupt_wire chaos event index per
+                            # ATTEMPT instead of per frame).
+                            payload = self._wire_out.stamp(payload)
                         out_pending.append((d, payload))
                 while out_pending:
                     d, payload = out_pending[0]
@@ -2968,6 +3350,9 @@ class ZmqStreamBridge:
                         #   re-sent next iteration — never re-encoded
                         break  # peer stalled: keep the tail, retry later
                     out_pending.popleft()
+                    if self._attr is not None and d.lineage is not None:
+                        d.lineage.mark("send")
+                        self._attr.observe_wire(d.lineage)
                     served += 1
                     in_send = False
                 if max_frames is not None and served >= max_frames:
@@ -2998,6 +3383,8 @@ class ZmqStreamBridge:
             for batch in self.plane.flush():
                 for d, payload, err in batch:
                     if err is None:
+                        if self._wire_out is not None:
+                            payload = self._wire_out.stamp(payload)
                         out_pending.append((d, payload))
                     else:
                         self.errors += 1

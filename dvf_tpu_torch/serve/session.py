@@ -34,6 +34,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
+from dvf_tpu_torch.obs.lineage import FrameLineage
 from dvf_tpu_torch.obs.metrics import LatencyStats
 from dvf_tpu_torch.resilience.continuity import ReplayRing
 from dvf_tpu_torch.sched.queues import DropOldestQueue
@@ -88,8 +89,10 @@ class Slot:
     frame: Optional[np.ndarray]  # cleared once staged into the batch
     tag: Any = None     # opaque client cookie (e.g. the ZMQ bridge's
     #   remote frame index), threaded through to the Delivery
-    lin: Any = None     # the frame's lineage trail in the reference's
-    #   attribution plane; always None here (that plane is not ported)
+    lin: Any = None     # obs.lineage.FrameLineage when the frontend's
+    #   attribution plane is armed: the frame's hop trail, marked at
+    #   each queue/stage boundary and closed at delivery — None (zero
+    #   cost) otherwise
 
 
 class Delivery(NamedTuple):
@@ -100,8 +103,10 @@ class Delivery(NamedTuple):
     capture_ts: float
     latency_ms: float
     tag: Any
-    lineage: Any = None  # the reference's FrameLineage; always None
-    #   here (the attribution plane is not ported)
+    lineage: Any = None  # FrameLineage (lineage-armed frontends): the
+    #   additive latency decomposition behind latency_ms; rides the
+    #   ProcessReplica RPC so the fleet front door can re-base and
+    #   extend it
 
 
 class StreamSession:
@@ -123,6 +128,11 @@ class StreamSession:
         self.id = session_id
         self.config = config or SessionConfig()
         self.sink = sink
+        self.attribution: Any = None  # obs.lineage.AttributionPlane when
+        #   the owning frontend armed frame-lineage attribution (set at
+        #   registration): submit then opens a FrameLineage per frame
+        #   and deliver_ready closes + folds it. None = lineage off,
+        #   zero per-frame cost.
         self.bucket: Any = None  # the signature bucket this session is
         #   bound to (serve.server._Bucket, set at admission): which
         #   compiled program serves it, which geometry its frames must
@@ -199,6 +209,12 @@ class StreamSession:
         that reuse their capture buffer must pass a copy.
         """
         ts = time.time() if ts is None else ts
+        lin = None
+        if self.attribution is not None:
+            # The lineage clock starts at the CLIENT's capture ts, so
+            # the decomposition telescopes to exactly the latency_ms the
+            # delivery reports (capture→deliver).
+            lin = FrameLineage(self.id, -1, ts)
         # ONE atomic section for state check, index, deadline clamp, AND
         # the enqueue: concurrent submits that clamped in one order but
         # enqueued in the other would put a later deadline ahead of an
@@ -218,9 +234,11 @@ class StreamSession:
             # clamp rather than trust.
             deadline = max(self._last_deadline, ts + self.config.slo_ms / 1e3)
             self._last_deadline = deadline
+            if lin is not None:
+                lin.frame_index = idx
             self.ingress.put(Slot(
                 session=self, index=idx, ts=ts,
-                deadline=deadline, frame=frame, tag=tag))
+                deadline=deadline, frame=frame, tag=tag, lin=lin))
         return idx
 
     def poll(self, max_items: Optional[int] = None) -> list:
@@ -248,7 +266,15 @@ class StreamSession:
                 with self._lock:
                     self.shed += n
             return
-        self.pending.extend(self.ingress.pop_up_to(len(self.ingress)))
+        got = self.ingress.pop_up_to(len(self.ingress))
+        if got and self.attribution is not None:
+            # One stamp per drain, shared across the drained slots: the
+            # end of each frame's session-ingress-queue component.
+            now = time.time()
+            for slot in got:
+                if slot.lin is not None:
+                    slot.lin.mark("queue_ingress", now)
+        self.pending.extend(got)
 
     def flush_queued(self, count_shed: bool = True) -> int:
         """Drop everything queued (pending + ingress) — the
@@ -322,6 +348,7 @@ class StreamSession:
         concurrent callers (collect thread vs finalize) cannot interleave
         out of index order."""
         n = 0
+        closed = None
         with self._deliver_lock:
             self.reorder.advance()
             for idx, (frame, ts, tag, lin) in self.reorder.pop_ready():
@@ -332,6 +359,16 @@ class StreamSession:
                     self.delivered += 1
                     if lat_s * 1e3 > self.config.slo_ms:
                         self.slo_miss += 1
+                if lin is not None and self.attribution is not None:
+                    # Close the lineage on the SAME clock read latency
+                    # is computed from, so the additive decomposition
+                    # sums to latency_ms exactly (the invariant the
+                    # golden tests pin); the fold happens once per
+                    # delivery round below, not per frame.
+                    lin.mark("deliver", now)
+                    if closed is None:
+                        closed = []
+                    closed.append((lin, lat_s * 1e3))
                 d = Delivery(idx, frame, ts, lat_s * 1e3, tag, lin)
                 if self.replay is not None:
                     # Record BEFORE the sink/out handoff: a frame the
@@ -362,6 +399,11 @@ class StreamSession:
                         print(f"[serve:tap:{self.id}] error (continuing): "
                               f"{e!r}", file=sys.stderr, flush=True)
                 n += 1
+            if closed is not None:
+                bucket = self.bucket
+                self.attribution.observe_batch(
+                    closed, self.config.slo_ms,
+                    bucket.label() if bucket is not None else None)
         return n
 
     # -- lifecycle ------------------------------------------------------

@@ -29,9 +29,11 @@ Differences from the Python queue, by design: the bound is bytes
 (``capacity_frames`` raw frames); ``pop_up_to`` returns ``(index,
 payload_bytes, timestamp)``; the pipeline finds :meth:`decode_into` and
 decodes payloads into its staging slab instead of copying arrays.
-``audit_wire`` (the digest envelope of ``obs/audit.py``) waits for the
-audit plane and raises ``NotImplementedError``; ``chaos`` arms only that
-envelope's ``corrupt_wire`` site, so no ring site fires until then.
+``audit_wire`` wraps every payload in the digest envelope of
+``obs/audit.py`` at ``put`` and verifies and strips it in
+:meth:`decode_into` (a mismatch raises ``WireIntegrityError`` attributed
+to the ``ring`` hop); ``chaos`` arms that envelope's ``corrupt_wire``
+site on the stamp side.
 """
 
 from __future__ import annotations
@@ -73,10 +75,6 @@ class RingFrameQueue:
             wire = "jpeg" if jpeg else "raw"
         if wire not in WIRE_MODES:
             raise ValueError(f"wire must be one of {WIRE_MODES}, got {wire!r}")
-        if audit_wire:
-            raise NotImplementedError(
-                "audit_wire needs the audit plane (obs/audit.py, ROADMAP "
-                "Queue 1 item 2), which the port has not ported yet")
         self.frame_shape = tuple(frame_shape)
         self.frame_dtype = np.dtype(np.uint8)
         self._frame_bytes = int(np.prod(self.frame_shape))
@@ -102,6 +100,18 @@ class RingFrameQueue:
 
             self.codec = _delta()
             self._dec_codec = _delta()
+        # Wire-integrity audit (obs.audit): every payload is wrapped in
+        # a digest-stamped envelope at put and verified+stripped at
+        # decode_into — a flipped bit between the two (the native ring,
+        # shm) raises WireIntegrityError into the pipeline's containment
+        # as an ``integrity`` fault instead of delivering wrong pixels.
+        # ``chaos`` arms the post-encode ``corrupt_wire`` flip on the
+        # stamp side. Off by default.
+        self._wire_audit = None
+        if audit_wire:
+            from dvf_tpu_torch.obs.audit import WireAudit
+
+            self._wire_audit = WireAudit("ring", chaos=chaos)
         # The first eviction re-keys at once; the cooldown only limits
         # re-keying under sustained overload.
         self._force_cooldown = max(4, delta_keyframe_interval // 2)
@@ -130,6 +140,8 @@ class RingFrameQueue:
             payload = frame.tobytes() if isinstance(frame, np.ndarray) else frame
         else:
             payload = self.codec.encode(frame)
+        if self._wire_audit is not None:
+            payload = self._wire_audit.stamp(payload)
         evicted = self.ring.push(payload, idx, ts)
         self._puts_since_forced += 1
         if (evicted > 0 and self.wire == "delta"
@@ -155,6 +167,12 @@ class RingFrameQueue:
         array (JPEG through the threaded codec; delta sequentially, each
         frame's cost scaled by its dirty share)."""
         k = len(items)
+        if self._wire_audit is not None:
+            # Verify + strip every envelope BEFORE any pixel decode: a
+            # digest mismatch raises here (integrity fault) instead of
+            # compositing corrupt bytes into the staging batch.
+            items = [(idx, self._wire_audit.verify(payload), ts)
+                     for idx, payload, ts in items]
         if self.wire == "raw":
             for row, (_, payload, _) in enumerate(items):
                 staging[row] = np.frombuffer(
@@ -189,6 +207,8 @@ class RingFrameQueue:
             out["codec"] = self.codec.config()
         elif self.codec is not None:
             out["codec"] = self.codec.config()
+        if self._wire_audit is not None:
+            out["audit"] = self._wire_audit.stats()
         return out
 
     def __len__(self) -> int:

@@ -41,9 +41,14 @@ assembly). The worker's tracer lane carries ``batch_complete``,
 ``egress_encode`` and ``egress_send`` spans; its ledger records each
 engine compile; an armed ``heartbeat`` turns DEALER silence beyond its
 timeout into a budgeted partition fault answered by a jittered-backoff
-socket rebuild; ``signals()`` is its flat metrics row. Not ported yet:
-the batch latency attribution (obs/lineage.py) and the audit envelope
-(obs/audit.py), whose options raise ``NotImplementedError``.
+socket rebuild; ``signals()`` is its flat metrics row. Every batch
+stamps its assemble_h2d / device / d2h hops into a bounded attribution
+window (obs/lineage.py; the device hop ends at a wait on the batch's own
+compute event), and ``audit_wire`` wraps the wire in the audit envelope
+(obs/audit.py): incoming payloads are verified before decode (a mismatch
+raises ``WireIntegrityError`` attributed to the ``zmq_ingress`` hop),
+results stamped after encode (the ``zmq_egress`` hop, where the
+``corrupt_wire`` chaos site flips a bit).
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from dvf_tpu_torch.obs.trace import EGRESS_SEND, Tracer
 from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
 from dvf_tpu_torch.runtime.egress import EGRESS_MODES, AsyncCodecPlane, ShardedBatchFetcher
-from dvf_tpu_torch.runtime.engine import Engine
+from dvf_tpu_torch.runtime.engine import Engine, wait_compute
 from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.transport.codec import (
     WIRE_MODES,
@@ -171,10 +176,6 @@ class ZmqWorker:
                             f"pass a wire name as wire=")
         if wire is None:
             wire = "jpeg" if use_jpeg else "raw"  # legacy flag spelling
-        if audit_wire:
-            raise NotImplementedError(
-                "audit_wire needs the audit plane (obs/audit.py, ROADMAP "
-                "Queue 1 item 2), which the port has not ported yet")
         if transport not in ("list", "ring"):
             raise ValueError(f"transport must be 'list' or 'ring', "
                              f"got {transport!r}")
@@ -257,6 +258,25 @@ class ZmqWorker:
                        else Tracer(enabled=trace, process_name="worker"))
         self.registry = MetricsRegistry()
         attach_signal_provider(self.registry, "worker", self.signals)
+        # Batch-level latency attribution (obs.lineage): one stream, a
+        # batch-synchronous loop, so no per-frame lineage — every batch
+        # stamps its assemble_h2d/device/d2h hops into a bounded window
+        # (stats()['attribution'] + attr_* signals). Always on: a few
+        # clock reads per BATCH.
+        from dvf_tpu_torch.obs.lineage import AttributionAggregate
+
+        self.attribution = AttributionAggregate(1024)
+        # Wire-integrity audit (obs.audit): incoming payloads must carry
+        # (and pass) the digest envelope; outgoing results are stamped
+        # post-encode. Strict on ingress. Off by default: the reference
+        # app does not speak the envelope.
+        self._wire_in = None
+        self._wire_out = None
+        if audit_wire:
+            from dvf_tpu_torch.obs.audit import WireAudit
+
+            self._wire_in = WireAudit("zmq_ingress")
+            self._wire_out = WireAudit("zmq_egress", chaos=chaos)
         # The worker's only reconfigurations are engine compiles on a
         # geometry change: each lands as one compile event.
         self.ledger = None
@@ -475,12 +495,20 @@ class ZmqWorker:
         ``(frame_index, payload)`` pairs. ``send(index, t0, t1, payload)``
         delivers one result; encoded results go out in order as the plane
         finishes them (the tail at :meth:`drain_egress`). Transfer and
-        compute faults raise (the socket loop contains them)."""
+        compute faults raise (the socket loop contains them), and so does
+        a payload that fails its audit envelope (``audit_wire``)."""
         self._send = send
         t0 = time.time()
         tp = time.perf_counter()
         indices = [i for i, _ in pending]
         blobs = [b for _, b in pending]
+        if self._wire_in is not None:
+            # Verify + strip the audit envelope on every payload BEFORE
+            # any decode: a digest mismatch (a bit flip that would still
+            # decode) raises WireIntegrityError — the batch drops
+            # at-most-once under the integrity budget, attributed to the
+            # zmq_ingress hop.
+            blobs = [self._wire_in.verify(b) for b in blobs]
         if self.wire == "raw":
             h = w = self.raw_size
             builder = self._builder(h, w)
@@ -522,6 +550,7 @@ class ZmqWorker:
             ev[0].record()
         result = (self.engine.submit_resident(batch, ready=builder.ready)
                   if resident else self.engine.submit(batch, fetch=False))
+        t_sub = time.time()  # decode+assemble+H2D end / device start
         if cuda:
             ev[1].record()
         fetcher = None if fused else self._fetcher_for()
@@ -536,6 +565,11 @@ class ZmqWorker:
         tb = time.perf_counter()
         if cuda:
             ev[2].record()
+        # Device/D2H attribution split: the batch's own compute event
+        # (the fetch below would wait for it anyway) marks where the
+        # compute ended.
+        wait_compute(result)
+        t_ready = time.time()
         rows = [None] * valid
         if fetcher is not None:
             rows = fetcher.fetch(result, self._egress_seq)[:valid]
@@ -548,6 +582,10 @@ class ZmqWorker:
         self.split["assist_host_ms"] += (tb - ta) * 1e3
         self.split["fetch_ms"] += (tc - tb) * 1e3
         t1 = time.time()
+        self.attribution.observe((t1 - t0) * 1e3, {
+            "assemble_h2d": (t_sub - t0) * 1e3,
+            "device": (t_ready - t_sub) * 1e3,
+            "d2h": (t1 - t_ready) * 1e3})
         self.tracer.complete("batch_complete", t0, t1, 0,
                              frames=valid, batch=self.batches)
         plane = self._plane_for()
@@ -581,6 +619,11 @@ class ZmqWorker:
                                 f"encode failed, dropping frame {idx}",
                                 degrade=self._degrade)
                     continue
+                if self._wire_out is not None:
+                    # Post-encode stamp (and the corrupt_wire chaos
+                    # site): the digest covers exactly the bytes that
+                    # ride the wire.
+                    payload = self._wire_out.stamp(payload)
                 try:
                     send(idx, t0, t1, payload)
                 except Exception as e:  # noqa: BLE001 — dead/stalled peer
@@ -795,9 +838,7 @@ class ZmqWorker:
 
     def signals(self) -> dict:
         """Flat load-control signal row (the reference's registry-conformant
-        keys): what the registry's ``worker`` provider scrapes. The batch
-        attribution keys (``attr_*``) and the audit counters wait for
-        their planes."""
+        keys): what the registry's ``worker`` provider scrapes."""
         out = {
             "frames_total": float(self.frames_processed),
             "batches_total": float(self.batches),
@@ -812,6 +853,16 @@ class ZmqWorker:
             out["ingest_overlap_efficiency"] = self._ingest_stats.overlap_efficiency()
         if self._egress_stats is not None:
             out["egress_overlap_efficiency"] = self._egress_stats.overlap_efficiency()
+        attr = self.attribution.summary()
+        for comp, row in (attr.get("components") or {}).items():
+            out[f"attr_{comp}_p99_ms"] = row["p99_ms"]
+        if self._wire_in is not None:
+            out["audit_wire_verified_total"] = float(
+                self._wire_in.verified)
+            out["audit_wire_mismatches_total"] = float(
+                self._wire_in.mismatches)
+            out["audit_wire_stamped_total"] = float(
+                self._wire_out.stamped)
         if self.ledger is not None:
             out.update(self.ledger.signals())
         out.update(self.continuity.signals())
@@ -820,12 +871,19 @@ class ZmqWorker:
         return out
 
     def audit_document(self) -> dict:
-        """The worker's ``/audit`` body: wire-integrity counters per hop.
-        Waits for the audit plane."""
-        raise NotImplementedError(
-            "the worker's audit document needs the audit plane "
-            "(obs/audit.py, ROADMAP Queue 1 item 2), which the port has "
-            "not ported yet")
+        """The worker's ``/audit`` endpoint body: wire-integrity
+        counters per hop (the worker runs no shadow replay — its loop
+        is batch-synchronous; wire digests are its audit surface)."""
+        hops = []
+        if self._wire_in is not None:
+            hops = [self._wire_in.stats(), self._wire_out.stats()]
+        return {
+            "label": "worker",
+            "wire_enabled": self._wire_in is not None,
+            "wire_hops": hops,
+            "wire_mismatches_total": sum(h["mismatches_total"]
+                                         for h in hops),
+        }
 
     def stats(self) -> dict:
         """Counters for tests and operators."""
@@ -844,6 +902,15 @@ class ZmqWorker:
             "egress": self._egress_stats.summary(),
             "split_ms_per_batch": {k: v / max(1, self.batches)
                                    for k, v in self.split.items()},
+            # Batch-level hop attribution (encode/send costs live in
+            # "egress": they run asynchronously on the codec plane).
+            "attribution": {
+                **self.attribution.summary(),
+                **({"explain": self.attribution.explain()}
+                   if self.attribution.count else {}),
+            },
+            **({"audit": self.audit_document()}
+               if self._wire_in is not None else {}),
         }
         if self.wire == "delta":
             out["delta"] = {**self.codec.stats(),

@@ -701,3 +701,127 @@ def test_compile_waits_only_on_its_own_work(dev):
     assert t_busy > 0.5, t_busy       # the stream really was held
     assert t_compile < t_busy / 2, (t_compile, t_busy)
 
+
+
+def test_shadow_replay_launches_k3_once_on_the_planes_own_stream(dev):
+    """One shadow replay of a sobel_bilateral frame launches K3 exactly
+    once, on the audit plane's own non-default stream (never the legacy
+    default stream every engine stream would synchronize with), and its
+    golden agrees with the plain version on the CPU within the plane's
+    tolerance."""
+    import dataclasses
+
+    from dvf_tpu_torch.obs.audit import AuditPlane, golden_execute
+
+    filt = dvf_tpu_torch.get_filter("sobel_bilateral")
+    streams = []
+
+    def spy(x, state):
+        streams.append(torch.cuda.current_stream(x.device))
+        return filt.fn(x, state)
+
+    spied = dataclasses.replace(filt, fn=spy)
+    frame = np.random.default_rng(11).integers(0, 256, (72, 96, 3),
+                                               dtype=np.uint8)
+    delivered = golden_execute(filt, frame)          # the plain version
+    plane = AuditPlane(sample_every=1).start()
+    try:
+        tk.reset_launches()
+        plane.submit_replay(spied, frame, delivered, session="s",
+                            index=0, bucket="b", device=dev)
+        assert plane.drain(60.0)
+    finally:
+        plane.stop()
+    assert tk.LAUNCHES["sobel_bilateral"] == 1
+    assert plane.replays_ok == 1 and plane.replay_errors == 0
+    own = plane.stream(dev)
+    assert streams == [own]
+    assert own != torch.cuda.default_stream(dev)
+    assert own != torch.cuda.current_stream(dev)
+
+
+def test_lineage_device_mark_waits_on_the_batch_event(dev, monkeypatch):
+    """The collect thread takes each batch's ``device`` mark after a wait
+    on that batch's own compute event (BatchResult.compute_event), never
+    a device-wide synchronize; the mark comes out non-zero and within a
+    few step times of the bucket's calibration."""
+    import time
+
+    from dvf_tpu_torch.runtime import engine as engine_mod
+    from dvf_tpu_torch.serve import server as server_mod
+
+    waited, syncs = [], []
+    real_wait = engine_mod.wait_compute
+
+    def spy_wait(result):
+        waited.append(result.compute_event)
+        return real_wait(result)
+
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(server_mod, "wait_compute", spy_wait)
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        dvf_tpu_torch.ServeConfig(batch_size=4, queue_size=64,
+                                  slo_ms=600_000.0, lineage=True,
+                                  max_inflight=2))
+    shape, n = (240, 320, 3), 32
+    got = []
+    with fe:
+        sid = fe.open_stream(op_chain="sobel_bilateral", frame_shape=shape)
+        step_ms = fe._session(sid).bucket.engine.step_block_ms
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a, **k: syncs.append(1) or real_sync(*a, **k))
+        rng = np.random.default_rng(2)
+        for _ in range(n):
+            fe.submit(sid, rng.integers(0, 256, shape, dtype=np.uint8))
+        deadline = time.time() + 60.0
+        while len(got) < n:
+            assert time.time() < deadline
+            got += fe.poll(sid)
+            time.sleep(0.002)
+        monkeypatch.setattr(torch.cuda, "synchronize", real_sync)
+    assert syncs == []
+    assert waited and all(isinstance(ev, torch.cuda.Event) for ev in waited)
+    device_ms = [d.lineage.components_ms()["device"] for d in got]
+    for d in got:
+        assert sum(d.lineage.components_ms().values()) == pytest.approx(
+            d.latency_ms, abs=1e-6)
+    assert min(device_ms) > 0
+    # A batch's device span can hold the batches queued ahead of it on
+    # the compute stream (max_inflight) besides its own.
+    assert float(np.median(device_ms)) < (2 + 2) * step_ms + 5.0, (
+        device_ms, step_ms)
+
+
+def test_audited_serving_launches_k3_per_batch_and_per_replay(dev):
+    """An audited sobel_bilateral bucket: K3 launches once per serving
+    batch plus once per sampled replay; no replay mismatches."""
+    import time
+
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        dvf_tpu_torch.ServeConfig(batch_size=4, queue_size=64,
+                                  slo_ms=600_000.0, audit=True,
+                                  audit_sample_every=3))
+    shape, n = (64, 96, 3), 24
+    got = []
+    with fe:
+        sid = fe.open_stream(op_chain="sobel_bilateral", frame_shape=shape)
+        eng = fe._session(sid).bucket.engine
+        b0 = eng.stats.batches
+        tk.reset_launches()
+        rng = np.random.default_rng(5)
+        for _ in range(n):
+            fe.submit(sid, rng.integers(0, 256, shape, dtype=np.uint8))
+        deadline = time.time() + 60.0
+        while len(got) < n:
+            assert time.time() < deadline
+            got += fe.poll(sid)
+            time.sleep(0.002)
+        assert fe.audit.drain(60.0)
+        st = fe.stats()["audit"]
+        batches = eng.stats.batches - b0
+        launches = tk.LAUNCHES["sobel_bilateral"]
+    assert st["replays_sampled_total"] == n // 3
+    assert st["replays_ok_total"] == n // 3
+    assert launches == batches + n // 3

@@ -52,6 +52,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # The worker's wire: the native ring, its ingest queue, the shm source.
     assert {"dvf_tpu_torch.transport.ring", "dvf_tpu_torch.transport.ring_queue",
             "dvf_tpu_torch.io.sources"} <= set(res["imported"])
+    # The observability planes: audit, lineage, the viewer, the trace
+    # merge and the flight recorder.
+    assert {"dvf_tpu_torch.obs.audit", "dvf_tpu_torch.obs.lineage",
+            "dvf_tpu_torch.obs.viewer", "dvf_tpu_torch.obs.trace",
+            "dvf_tpu_torch.obs.export"} <= set(res["imported"])
 
 
 def test_ring_source_is_the_ports_own_copy():
@@ -73,7 +78,8 @@ def test_ring_source_is_the_ports_own_copy():
     assert code(port_src) == code(ROOT / "dvf_tpu" / "transport" / "ring.cpp")
 
 
-@pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport"])
+@pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
+                                 "obs"])
 def test_package_exports_the_references_names(pkg):
     """Each package re-exports the names its JAX counterpart exports
     (minus the file and webcam sources, which wait for their slice)."""

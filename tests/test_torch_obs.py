@@ -1,12 +1,17 @@
 """The port's observability planes (``dvf_tpu_torch.obs``) on the CPU:
 counterparts of ``tests/test_obs.py``'s metric-name, registry,
-time-series-ring and serve-endpoint tests and of ``tests/test_ledger.py``'s
-ledger, leak-trend and serve-ledger tests (without their lineage and
-flight-recorder cases: those planes are not ported yet), plus parity of
-the ledger's event kinds and causes with the JAX package.
+time-series-ring, serve-endpoint, tracer-ring, trace-merge, flight
+recorder, flight-trigger and export-schema tests (not its fleet cases and
+bench writers) and of ``tests/test_ledger.py``'s ledger, leak-trend and
+serve-ledger tests, plus parity with the JAX package: the ledger's event
+kinds and causes, and the flight dump's file set and document keys. The
+device-trace merge is held to a hand-written Kineto trace and to a real
+``torch.profiler`` run on the CPU.
 """
 
 import gc
+import importlib
+import os
 import json
 import time
 import urllib.error
@@ -17,6 +22,7 @@ import pytest
 
 from dvf_tpu_torch.obs import ledger as ledger_mod
 from dvf_tpu_torch.obs.export import (
+    FlightRecorder,
     MetricsExporter,
     jsonable,
     samples_from_signals,
@@ -29,9 +35,17 @@ from dvf_tpu_torch.obs.registry import (
     check_metric_name,
     walk_export,
 )
+from dvf_tpu_torch.obs.trace import (
+    LANE_STRIDE,
+    MERGED_TRACE_NAME,
+    Tracer,
+    merge_tracer_snapshots,
+    merge_with_device_trace,
+)
 from dvf_tpu_torch.ops import get_filter
 from dvf_tpu_torch.resilience import FaultPlan
 from dvf_tpu_torch.serve import ServeConfig
+from dvf_tpu_torch.serve.session import ServeError
 from torch_serve_util import ServeFrontend, port_leak_guard  # noqa: F401
 
 H, W = 16, 24
@@ -669,8 +683,8 @@ class TestServeLedger:
 
     def test_leak_watch_trips_on_telemetry_hook(self):
         """A synthetic rising mem_host_slab_bytes staircase through the
-        telemetry hook trips the leak watch once (the reference also
-        dumps its flight recorder there; not ported yet)."""
+        telemetry hook trips the leak watch once (with a flight recorder
+        armed, the trip dumps: test_leak_watch_trips_flight)."""
         fe = _frontend()
         fe._leak_watch = LeakTrendWatch(window=3, min_growth_bytes=10)
         with fe:
@@ -721,15 +735,34 @@ def test_scripted_ledger_kinds_and_causes_match_reference():
     assert kinds.count(ledger_mod.COMPILE) == 2
 
 
+# The plane options of ServeConfig: the five observability planes are
+# ported (they construct and serve); the rest still wait for their item.
+_PORTED_PLANE_OPTIONS = {"audit", "lineage", "flight_dir",
+                         "flight_profile_s", "profile_dir"}
+
+
 @pytest.mark.parametrize("option,value", [
     ("audit", True), ("lineage", True), ("flight_dir", "flight"),
     ("flight_profile_s", 1.0), ("profile_dir", "profiles"),
     ("control", True), ("autoplan", True), ("plan_cache_dir", "plans"),
 ])
-def test_unported_plane_options_raise(option, value):
+def test_unported_plane_options_raise(option, value, tmp_path):
     """Every ServeConfig option whose plane is not ported raises at
     construction, naming the ROADMAP item that ports it — never runs
-    silently without its plane; the default config runs."""
+    silently without its plane; the default config runs. A ported plane's
+    option constructs, and a frontend built with it serves."""
+    if isinstance(value, str):
+        value = str(tmp_path / value)
+    if option in _PORTED_PLANE_OPTIONS:
+        cfg = ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                          flight_min_interval_s=0.0, **{option: value})
+        fe = ServeFrontend(get_filter("invert"), cfg)
+        with fe:
+            sid = fe.open_stream()
+            fe.submit(sid, tagged_frame(0, 0))
+            got = drain(fe, sid, 1)
+        assert len(got) == 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         ServeConfig(**{option: value})
     cfg = ServeConfig()
@@ -739,10 +772,606 @@ def test_unported_plane_options_raise(option, value):
 
 
 def test_unported_surfaces_raise():
+    """Broadcast still waits for its item; the audit probe and explain
+    are ported and answer as the reference's do on an unarmed frontend."""
     fe = ServeFrontend(get_filter("invert"), ServeConfig(batch_size=2))
     with fe:
-        for call in (lambda: fe.audit_probe(), lambda: fe.explain(),
-                     lambda: fe.subscribe("ch"),
+        for call in (lambda: fe.subscribe("ch"),
                      lambda: fe.open_stream(publish="ch")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 call()
+        with pytest.raises(ServeError, match="no compiled program"):
+            fe.audit_probe()
+        assert fe.explain() == {
+            "lineage": False,
+            "hint": "arm ServeConfig.lineage / --lineage to collect "
+                    "frame-lineage attribution"}
+
+
+# ---------------------------------------------------------------------------
+# Ledger × lineage × flight (tests/test_ledger.py's plane cases)
+# ---------------------------------------------------------------------------
+
+
+class TestServeLedgerPlanes:
+    def test_leak_watch_trips_flight(self, tmp_path):
+        """A synthetic rising mem_host_slab_bytes staircase through the
+        telemetry hook trips the flight recorder once."""
+        fe = _frontend(flight_dir=str(tmp_path / "flight"),
+                       flight_min_interval_s=0.0)
+        fe._leak_watch = LeakTrendWatch(window=3, min_growth_bytes=10)
+        with fe:
+            before = fe.flight.stats()["dumps"]
+            for v in (0.0, 100.0, 250.0, 400.0):
+                fe._on_telemetry_sample(None, {"mem_host_slab_bytes": v})
+            _wait(lambda: fe.flight.stats()["dumps"] == before + 1,
+                  msg="leak trend never dumped")
+            assert "leak trend" in fe.flight.last_reason
+
+    def test_lineage_additivity_with_ledger_armed(self):
+        """The two planes coexist: every delivered frame's lineage
+        components still telescope to its e2e latency while the ledger
+        records a live resize in the same run."""
+        fe = _frontend(lineage=True, trace=True)
+        with fe:
+            sid = fe.open_stream(frame_shape=(H, W, 3))
+            for j in range(4):
+                _drive_sync(fe, sid, frame_u8(0, j))
+            label = next(iter(fe.stats()["buckets"]))
+            assert fe.request_batch_size(label, 1, reason="mid-run")
+            _wait(lambda: _events(fe, ledger_mod.SWAP),
+                  msg="resize swap never landed")
+            for j in range(4, 10):
+                _drive_sync(fe, sid, frame_u8(0, j))
+            got = drain(fe, sid, 10)
+            assert len(got) == 10
+            for d in got:
+                assert d.lineage is not None
+                assert sum(d.lineage.components_ms().values()) == \
+                    pytest.approx(d.latency_ms, abs=1e-6)
+            assert fe.ledger.summary()["by_kind"]["swap"] >= 1
+            assert not walk_export(fe.stats())
+
+
+# ---------------------------------------------------------------------------
+# Tracer ring + trace merges
+# ---------------------------------------------------------------------------
+
+
+class TestTracerRing:
+    def test_bounded_with_dropped_counter(self):
+        t = Tracer(enabled=True, max_events=4)
+        for i in range(10):
+            t.instant("ev", ts=t.start_time + i * 1e-3, track=0, i=i)
+        assert len(t) == 4
+        assert t.dropped == 6
+        snap = t.snapshot()
+        assert [e["args"]["i"] for e in snap["events"]] == [6, 7, 8, 9]
+        assert snap["dropped"] == 6
+
+    def test_snapshot_cap_keeps_most_recent(self):
+        t = Tracer(enabled=True)
+        for i in range(10):
+            t.instant("ev", ts=t.start_time + i * 1e-3, i=i)
+        snap = t.snapshot(max_events=3)
+        assert [e["args"]["i"] for e in snap["events"]] == [7, 8, 9]
+        assert snap["dropped"] == 7
+        assert len(t.snapshot()["events"]) == 10
+
+    def test_disabled_tracer_records_nothing(self):
+        t = Tracer(enabled=False, max_events=4)
+        for _ in range(10):
+            t.instant("ev")
+            t.complete("sp", t.start_time, t.start_time + 1)
+        assert len(t) == 0 and t.dropped == 0
+
+    def test_snapshot_is_plain_values(self):
+        import pickle
+
+        t = Tracer(enabled=True, process_name="serve:r0")
+        t.complete("span", t.start_time, t.start_time + 0.01, track=2,
+                   frames=3)
+        snap = pickle.loads(pickle.dumps(t.snapshot()))
+        assert snap["process_name"] == "serve:r0"
+        assert snap["events"][0]["args"] == {"frames": 3}
+        json.dumps(snap)
+
+
+class TestMergeTracerSnapshots:
+    def _tracer(self, name, epoch):
+        t = Tracer(enabled=True, process_name=name)
+        t.start_time = epoch
+        return t
+
+    def test_clock_alignment_and_lane_blocks(self):
+        e0 = 1_000_000.0
+        a = self._tracer("serve:r0", e0)
+        b = self._tracer("serve:r1", e0 + 2.0)
+        a.complete("span", e0 + 0.5, e0 + 0.6, track=1)
+        b.complete("span", b.start_time + 0.5, b.start_time + 0.6, track=1)
+        doc = merge_tracer_snapshots([a.snapshot(), b.snapshot()])
+        ev = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        by_pid = {e["pid"]: e for e in ev}
+        assert set(by_pid) == {1, LANE_STRIDE + 1}
+        assert by_pid[LANE_STRIDE + 1]["ts"] - by_pid[1]["ts"] == 2_000_000
+        lanes = doc["dvfTraceLanes"]
+        assert [ln["process_name"] for ln in lanes] == ["serve:r0",
+                                                        "serve:r1"]
+        assert [ln["epoch_offset_us"] for ln in lanes] == [0, 2_000_000]
+
+    def test_lane_stride_overflow_cannot_interleave_pid_blocks(self):
+        a = self._tracer("serve:r0", 1000.0)
+        a.complete("ok", 1000.0, 1000.01, track=1)
+        a.complete("big", 1000.0, 1000.01, track=LANE_STRIDE + 50)
+        a.instant("neg", ts=1000.0, track=-3)
+        b = self._tracer("serve:r1", 1000.0)
+        b.complete("other", 1000.0, 1000.01, track=50)
+        doc = merge_tracer_snapshots([a.snapshot(), b.snapshot()])
+        ev = [e for e in doc["traceEvents"] if e.get("ph") != "M"]
+        assert all(0 <= e["pid"] < LANE_STRIDE for e in ev
+                   if e["name"] in ("ok", "big", "neg"))
+        assert all(LANE_STRIDE <= e["pid"] < 2 * LANE_STRIDE for e in ev
+                   if e["name"] == "other")
+        assert next(e for e in ev if e["name"] == "big")["pid"] == \
+            LANE_STRIDE - 1
+        assert next(e for e in ev if e["name"] == "neg")["pid"] == 0
+        lanes = {ln["process_name"]: ln for ln in doc["dvfTraceLanes"]}
+        assert lanes["serve:r0"]["folded_tracks"] == 2
+
+    def test_longest_duration_cut_and_instants_kept(self):
+        t = self._tracer("fleet", 1000.0)
+        t.instant("replica_lost", ts=1000.5, track=0, replica="r1")
+        for i in range(6):
+            t.complete(f"s{i}", 1000.0, 1000.0 + (i + 1) * 0.01)
+        doc = merge_tracer_snapshots([t.snapshot()], max_events=3)
+        kept = [e["name"] for e in doc["traceEvents"] if e.get("ph") != "M"]
+        assert "replica_lost" in kept and len(kept) == 3
+        assert "s5" in kept and "s4" in kept
+        assert merge_tracer_snapshots([]) is None
+
+    def test_merged_document_matches_reference(self, tmp_path):
+        """Cross-package: the same tracer events merge to the same
+        document bytes."""
+        from dvf_tpu.obs import trace as ref
+
+        docs = []
+        for mod in (importlib.import_module("dvf_tpu_torch.obs.trace"), ref):
+            snaps = []
+            for k, name in enumerate(("serve:r0", "worker")):
+                t = mod.Tracer(enabled=True, process_name=name)
+                t.start_time = 1000.0 + k
+                t.complete("batch_complete", t.start_time + 0.1,
+                           t.start_time + 0.2, track=1, frames=8)
+                t.instant("frame_delivered", ts=t.start_time + 0.3, frame=k)
+                snaps.append(t.snapshot())
+            docs.append(json.dumps(mod.merge_tracer_snapshots(snaps),
+                                   sort_keys=True))
+        assert docs[0] == docs[1]
+
+
+def _host_trace(tmp_path, start=1000.0):
+    t = Tracer(enabled=True, process_name="pipeline")
+    t.start_time = start
+    t.complete("batch_complete", start + 0.010, start + 0.020, track=1)
+    t.instant("frame_delivered", ts=start + 0.021, track=2)
+    return t.export(str(tmp_path / "host.pftrace")), t
+
+
+def _kineto_dir(tmp_path, events, base_ns=None, name="trace.json"):
+    d = tmp_path / "dev"
+    d.mkdir(exist_ok=True)
+    doc = {"schemaVersion": 1, "traceEvents": events,
+           "displayTimeUnit": "ms"}
+    if base_ns is not None:
+        doc["baseTimeNanoseconds"] = base_ns
+    (d / name).write_text(json.dumps(doc))
+    return str(d)
+
+
+class TestMergeWithDeviceTrace:
+    """The torch.profiler (Kineto) Chrome-trace counterpart of the
+    reference's merge: alignment by baseTimeNanoseconds, the Python
+    tracer's events dropped, the +10000 pid offset, the longest-duration
+    cut, None on a missing or truncated trace."""
+
+    def test_kineto_alignment_filters_and_offsets(self, tmp_path):
+        host, tracer = _host_trace(tmp_path)
+        base_ns = 999_000_000_000   # 999 s, on the wall clock
+        dev = _kineto_dir(tmp_path, [
+            {"ph": "M", "name": "process_name", "pid": 0,
+             "args": {"name": "GPU 0"}},
+            {"ph": "M", "name": "process_name", "pid": 4242,
+             "args": {"name": "python"}},
+            {"ph": "X", "cat": "python_function", "name": "<built-in>",
+             "ts": 1_000_000.0, "dur": 99999.0, "pid": 4242},
+            {"ph": "i", "cat": "cpu_instant_event", "name": "inst",
+             "ts": 1_000_001.0, "pid": 4242, "s": "t"},
+            # 1.0125 s after the base: 12.5 ms past the tracer's start.
+            {"ph": "X", "cat": "kernel", "name": "sobel_bilateral_kernel",
+             "ts": 1_012_500.0, "dur": 420.0, "pid": 0, "tid": 7},
+            {"ph": "X", "cat": "cpu_op", "name": "aten::copy_",
+             "ts": 1_011_000.0, "dur": 30.0, "pid": 4242, "tid": 1},
+        ], base_ns=base_ns)
+        out = str(tmp_path / "merged.pftrace")
+        assert merge_with_device_trace(host, dev, out, device_epoch_us=0,
+                                       host_start_s=tracer.start_time) == out
+        doc = json.loads(open(out).read())
+        names = [e.get("name") for e in doc["traceEvents"]]
+        assert "<built-in>" not in names and "inst" not in names
+        assert "batch_complete" in names and "frame_delivered" in names
+        k = next(e for e in doc["traceEvents"]
+                 if e.get("name") == "sobel_bilateral_kernel")
+        assert k["pid"] == 10000
+        assert k["ts"] == pytest.approx(12_500.0)
+        # Inside the host batch span once aligned.
+        b = next(e for e in doc["traceEvents"]
+                 if e.get("name") == "batch_complete")
+        assert b["ts"] <= k["ts"] and k["ts"] + k["dur"] <= b["ts"] + b["dur"]
+        op = next(e for e in doc["traceEvents"]
+                  if e.get("name") == "aten::copy_")
+        assert op["pid"] == 14242
+        metas = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "M" and e.get("name") == "process_name"
+                 and e["pid"] >= 10000}
+        assert metas == {10000: "deviceGPU 0", 14242: "devicepython"}
+
+    def test_no_base_time_falls_back_to_epoch(self, tmp_path):
+        host, tracer = _host_trace(tmp_path)
+        dev = _kineto_dir(tmp_path, [
+            {"ph": "X", "name": "fusion", "ts": 5, "dur": 7, "pid": 3}])
+        out = str(tmp_path / "merged.json")
+        assert merge_with_device_trace(host, dev, out, device_epoch_us=100,
+                                       host_start_s=tracer.start_time) == out
+        doc = json.loads(open(out).read())
+        fusion = next(e for e in doc["traceEvents"] if e["name"] == "fusion")
+        assert fusion["pid"] == 10003 and fusion["ts"] == 105
+
+    def test_truncated_trace_is_best_effort_none(self, tmp_path):
+        host, _ = _host_trace(tmp_path)
+        dev = _kineto_dir(tmp_path, [
+            {"ph": "X", "name": "k", "ts": 5, "dur": 7, "pid": 0}])
+        p = os.path.join(dev, "trace.json")
+        data = open(p, "rb").read()
+        open(p, "wb").write(data[:-12])  # profiler killed mid-write
+        out = str(tmp_path / "merged.json")
+        assert merge_with_device_trace(host, dev, out, 0) is None
+        assert not os.path.exists(out)
+
+    def test_no_candidates_is_none(self, tmp_path):
+        host, _ = _host_trace(tmp_path)
+        assert merge_with_device_trace(
+            host, str(tmp_path / "missing"), str(tmp_path / "m.json"),
+            0) is None
+
+    def test_max_events_keeps_longest_durations(self, tmp_path):
+        host, _ = _host_trace(tmp_path)
+        dev = _kineto_dir(tmp_path, [
+            {"ph": "X", "name": f"op{i}", "ts": i, "dur": i, "pid": 1}
+            for i in range(1, 6)])
+        out = str(tmp_path / "merged.json")
+        merge_with_device_trace(host, dev, out, 0, max_events=2)
+        doc = json.loads(open(out).read())
+        assert sorted(e["name"] for e in doc["traceEvents"]
+                      if e["name"].startswith("op")) == ["op4", "op5"]
+
+    def test_real_profiler_run_aligns_with_host_spans(self, tmp_path):
+        """A real torch.profiler session on the CPU, in a process of its
+        own (one profiler session per process): an op run inside a host
+        span on a worker thread lands inside that span once merged."""
+        import subprocess
+        import sys
+
+        code = r"""
+import json, os, sys, threading, time, torch
+from torch.profiler import record_function
+from dvf_tpu_torch.obs.export import DEVICE_TRACE_FILE, start_device_profiler
+from dvf_tpu_torch.obs.trace import MERGED_TRACE_NAME, Tracer, merge_with_device_trace
+d = sys.argv[1]
+tracer = Tracer(enabled=True, process_name="pipeline")
+prof = start_device_profiler()
+try:
+    def work():
+        t0 = time.time()
+        with record_function("dvf_marked_step"):
+            x = torch.ones(64, 64)
+            for _ in range(4):
+                x = x @ x
+        tracer.complete("batch_complete", t0, time.time(), 1)
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+finally:
+    prof.stop()
+prof.export_chrome_trace(os.path.join(d, DEVICE_TRACE_FILE))
+host = tracer.export(os.path.join(d, "host.pftrace"))
+out = merge_with_device_trace(host, d, os.path.join(d, MERGED_TRACE_NAME),
+                              0, host_start_s=tracer.start_time)
+print(json.dumps({"out": out}))
+"""
+        env = dict(os.environ)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                             capture_output=True, text=True, timeout=300,
+                             env=env, cwd=str(tmp_path))
+        assert res.returncode == 0, res.stderr[-2000:]
+        out = json.loads(res.stdout.strip().splitlines()[-1])["out"]
+        assert out == str(tmp_path / MERGED_TRACE_NAME)
+        doc = json.loads(open(out).read())
+        span = next(e for e in doc["traceEvents"]
+                    if e.get("name") == "batch_complete")
+        marks = [e for e in doc["traceEvents"]
+                 if e.get("name") == "dvf_marked_step"
+                 and e.get("ph") == "X"]
+        assert marks and all(e["pid"] >= 10000 for e in marks)
+        mark = marks[0]
+        # Alignment within 1 ms (host and profiler clocks are read by
+        # different calls).
+        assert span["ts"] - 1000 <= mark["ts"]
+        assert mark["ts"] + mark["dur"] <= span["ts"] + span["dur"] + 1000
+
+
+# ---------------------------------------------------------------------------
+# Flight recorder
+# ---------------------------------------------------------------------------
+
+
+class TestFlightRecorder:
+    def test_dump_artifacts_and_rate_limit(self, tmp_path):
+        t = Tracer(enabled=True, process_name="w")
+        t.instant("ev", ts=t.start_time)
+        ring = TimeSeriesRing(lambda: {"fps": 1.0}, interval_s=10.0)
+        ring.sample_once()
+        fr = FlightRecorder(
+            str(tmp_path), label="t", min_interval_s=60.0,
+            trace_fn=lambda: [t.snapshot()],
+            stats_fn=lambda: {"errors": 0}, ring=ring)
+        d = fr.trigger("watchdog stall: oldest 1.2s")
+        assert d is not None and os.path.isdir(d)
+        assert sorted(os.listdir(d)) == ["meta.json", "stats.json",
+                                         "timeseries.json", "trace.pftrace"]
+        meta = json.loads(open(os.path.join(d, "meta.json")).read())
+        assert meta["reason"].startswith("watchdog stall")
+        assert "watchdog-stall" in os.path.basename(d)
+        assert fr.trigger("again") is None
+        assert fr.suppressed == 1
+        assert fr.stats()["dumps"] == 1
+
+    def test_partial_sources_still_dump(self, tmp_path):
+        fr = FlightRecorder(
+            str(tmp_path), min_interval_s=0.0,
+            trace_fn=lambda: (_ for _ in ()).throw(RuntimeError("gone")),
+            stats_fn=lambda: {"ok": 1})
+        d = fr.trigger("loss")
+        assert sorted(os.listdir(d)) == ["meta.json", "stats.json"]
+        assert fr.dump_errors == 1
+
+    def test_max_dumps_cap(self, tmp_path):
+        fr = FlightRecorder(str(tmp_path), min_interval_s=0.0, max_dumps=2)
+        assert fr.trigger("a") and fr.trigger("b")
+        assert fr.trigger("c") is None
+
+    def test_byte_cap_evicts_oldest(self, tmp_path):
+        fr = FlightRecorder(str(tmp_path), min_interval_s=0.0,
+                            stats_fn=lambda: {"pad": "x" * 4000},
+                            max_total_bytes=6000)
+        first = fr.trigger("one")
+        second = fr.trigger("two")
+        assert not os.path.exists(first) and os.path.isdir(second)
+        assert fr.stats()["evicted_dumps"] == 1
+
+    def test_dump_file_set_and_keys_match_reference(self, tmp_path):
+        """Cross-package: the same sources give the same dump file set,
+        the same document keys and the same directory-name pattern."""
+        from dvf_tpu.obs import export as ref_export
+        from dvf_tpu.obs import registry as ref_registry
+        from dvf_tpu.obs import trace as ref_trace
+
+        def dump(export_mod, registry_mod, trace_mod, where):
+            t = trace_mod.Tracer(enabled=True, process_name="serve")
+            t.complete("serve_dispatch", t.start_time, t.start_time + 0.01)
+            ring = registry_mod.TimeSeriesRing(lambda: {"fps": 2.0},
+                                               interval_s=10.0)
+            ring.sample_once()
+            fr = export_mod.FlightRecorder(
+                str(where), label="serve", min_interval_s=0.0,
+                trace_fn=lambda: [t.snapshot()],
+                stats_fn=lambda: {"errors": 0, "faults": {"total": 0}},
+                ring=ring, lineage_fn=lambda: {"summary": {}, "explain": {},
+                                               "exemplars": []},
+                ledger_fn=lambda: {"events": [], "events_total": 0},
+                audit_fn=lambda: {"confirmed_corruptions_total": 0,
+                                  "events": []})
+            d = fr.trigger("audit: first confirmed silent corruption")
+            files = sorted(os.listdir(d))
+            keys = {f: sorted(json.load(open(os.path.join(d, f))))
+                    for f in files}
+            return os.path.basename(d).split("-", 3)[-1], files, keys, \
+                sorted(fr.stats())
+
+        ours = dump(importlib.import_module("dvf_tpu_torch.obs.export"),
+                    importlib.import_module("dvf_tpu_torch.obs.registry"),
+                    importlib.import_module("dvf_tpu_torch.obs.trace"),
+                    tmp_path / "ours")
+        ref = dump(ref_export, ref_registry, ref_trace, tmp_path / "ref")
+        assert ours == ref
+        assert ours[1] == ["audit.json", "ledger.json", "lineage.json",
+                           "meta.json", "stats.json", "timeseries.json",
+                           "trace.pftrace"]
+
+    def test_profile_window_writes_device_trace(self, tmp_path):
+        """flight_profile_s: a short torch.profiler window lands in the
+        dump as device_trace/trace.json; the one-session lock is free
+        again afterwards."""
+        fr = FlightRecorder(str(tmp_path), min_interval_s=0.0,
+                            stats_fn=lambda: {}, profile_s=0.05)
+        d = fr.trigger("manual")
+        assert FlightRecorder._profiling.acquire(timeout=120)
+        FlightRecorder._profiling.release()
+        p = os.path.join(d, "device_trace", "trace.json")
+        assert os.path.exists(p), fr.stats()
+        assert "traceEvents" in json.load(open(p))
+        assert fr.stats()["dump_errors"] == 0
+
+
+class TestServeFlightTriggers:
+    def test_watchdog_trip_dumps(self, tmp_path):
+        chaos = FaultPlan().add("freeze", at=(3,), delay_s=1.2)
+        fe = ServeFrontend(
+            get_filter("invert"),
+            ServeConfig(batch_size=4, queue_size=1000, slo_ms=60_000.0,
+                        stall_timeout_s=0.35, chaos=chaos, trace=True,
+                        telemetry_sample_s=0.1, flight_dir=str(tmp_path),
+                        flight_min_interval_s=0.0))
+        with fe:
+            sid = fe.open_stream()
+            i = 0
+            deadline = time.time() + 30.0
+            while fe.recoveries < 1:
+                assert time.time() < deadline, "watchdog never tripped"
+                fe.submit(sid, tagged_frame(0, i))
+                i += 1
+                fe.poll(sid)
+                time.sleep(0.01)
+            _wait(lambda: fe.flight.stats()["dumps"] >= 1, deadline_s=30.0)
+            stats = fe.stats()
+        assert stats["flight"]["dumps"] >= 1
+        dump = sorted(tmp_path.iterdir())[0]
+        assert "stall" in dump.name
+        merged = json.loads((dump / "trace.pftrace").read_text())
+        assert any(e.get("ph") == "X" for e in merged["traceEvents"])
+        assert "sessions" in json.loads((dump / "stats.json").read_text())
+
+    def test_slo_burn_rate_dumps(self, tmp_path):
+        fe = ServeFrontend(
+            get_filter("invert"),
+            ServeConfig(batch_size=2, queue_size=100, slo_ms=50.0,
+                        telemetry_sample_s=30.0, slo_burn_threshold=0.5,
+                        flight_dir=str(tmp_path), flight_min_interval_s=0.0))
+        with fe:
+            assert fe.telemetry.on_sample == fe._on_telemetry_sample
+            fe._check_slo_burn({"delivered_total": 0, "slo_miss_total": 0},
+                               {"delivered_total": 10, "slo_miss_total": 1})
+            assert fe.flight.stats()["dumps"] == 0
+            fe._check_slo_burn({"delivered_total": 10, "slo_miss_total": 1},
+                               {"delivered_total": 20, "slo_miss_total": 9})
+            st = fe.flight.stats()
+        assert st["dumps"] == 1
+        assert "slo burn rate" in st["last_reason"]
+        assert "slo-burn-rate" in sorted(tmp_path.iterdir())[0].name
+        fe._check_slo_burn({"delivered_total": 20, "slo_miss_total": 9},
+                           {"delivered_total": 20, "slo_miss_total": 9})
+        assert fe.flight.stats()["dumps"] == 1
+
+    def test_flight_dir_arms_the_telemetry_ring(self, tmp_path):
+        fe = ServeFrontend(get_filter("invert"),
+                           ServeConfig(flight_dir=str(tmp_path)))
+        assert fe.telemetry is not None and fe.telemetry.interval_s == 1.0
+        assert fe.flight.ring is fe.telemetry
+        fe.stop()
+
+    def test_budget_exhaustion_failure_dumps(self, tmp_path):
+        fe = ServeFrontend(
+            get_filter("invert"),
+            ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                        resilient=False, telemetry_sample_s=0.0,
+                        flight_dir=str(tmp_path), flight_min_interval_s=0.0))
+        fe.start()
+        try:
+            sid = fe.open_stream()
+            for j in range(2):
+                fe.submit(sid, tagged_frame(0, j))
+            drain(fe, sid, 2)
+
+            def dead_step(*a, **k):
+                raise RuntimeError("engine died (forced)")
+
+            fe.engine._step = dead_step
+            deadline = time.time() + 30.0
+            while fe._error is None and time.time() < deadline:
+                try:
+                    fe.submit(sid, tagged_frame(0, 99))
+                except ServeError:
+                    break
+                time.sleep(0.01)
+            _wait(lambda: fe.flight.stats()["dumps"] >= 1, deadline_s=30.0)
+            assert "frontend failed" in fe.flight.stats()["last_reason"]
+        finally:
+            try:
+                fe.stop()
+            except Exception:  # noqa: BLE001 — fail-fast stop re-raises
+                pass           # the stored engine error, as designed
+
+
+class TestPipelineFlight:
+    def test_pipeline_failure_dumps(self, tmp_path):
+        from dvf_tpu_torch.io.sinks import NullSink
+        from dvf_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+        pipe = Pipeline([], get_filter("invert"), NullSink(),
+                        PipelineConfig(flight_dir=str(tmp_path),
+                                       flight_min_interval_s=0.0),
+                        device="cpu")
+        assert pipe.flight is not None
+        pipe._fail(RuntimeError("forced"))
+        _wait(lambda: pipe.flight.stats()["dumps"] == 1, deadline_s=30.0)
+        st = pipe.flight.stats()
+        assert "pipeline failed" in st["last_reason"]
+        dump = sorted(tmp_path.iterdir())[0]
+        assert (dump / "meta.json").exists()
+        assert (dump / "stats.json").exists()
+
+    def test_pipeline_registry_scrapes_signals(self):
+        from dvf_tpu_torch import NullSink, Pipeline, PipelineConfig, SyntheticSource
+
+        pipe = Pipeline(SyntheticSource(16, 16, n_frames=8),
+                        get_filter("invert"), NullSink(),
+                        PipelineConfig(batch_size=4, queue_size=100),
+                        device="cpu")
+        pipe.run()
+        text = pipe.registry.to_prometheus()
+        assert "dvf_pipeline_delivered_total 8" in text
+        assert "dvf_pipeline_engine_batches_total" in text
+
+
+class TestExportSchemas:
+    def _assert_clean(self, label, doc):
+        bad = walk_export(doc)
+        assert not bad, (label, bad)
+
+    def test_serve_and_pipeline_exports_with_planes(self, tmp_path):
+        from dvf_tpu_torch import NullSink, Pipeline, PipelineConfig
+
+        fe = ServeFrontend(get_filter("invert"),
+                           ServeConfig(telemetry_sample_s=0.0, audit=True,
+                                       lineage=True,
+                                       flight_dir=str(tmp_path / "f")))
+        with fe:
+            sid = fe.open_stream()
+            fe.open_stream(op_chain="grayscale", frame_shape=(H, W, 3))
+            fe.submit(sid, tagged_frame(0, 0))
+            drain(fe, sid, 1)
+            st = fe.stats()
+            assert {"audit", "attribution", "flight"} <= set(st)
+            self._assert_clean("serve.stats", st)
+            self._assert_clean("serve.signals", fe.signals())
+            self._assert_clean("serve.health", fe.health())
+            self._assert_clean("serve.explain", fe.explain())
+            self._assert_clean("audit.document", fe.audit.document())
+        pipe = Pipeline([], get_filter("invert"), NullSink(),
+                        PipelineConfig(), device="cpu")
+        self._assert_clean("pipeline.stats", pipe.stats())
+        self._assert_clean("pipeline.signals", pipe.signals())
+
+    def test_worker_exports(self):
+        from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
+
+        worker = ZmqWorker(get_filter("invert"), wire="delta", batch_size=2,
+                           raw_size=H, audit_wire=True, device="cpu",
+                           connect=False, codec_threads=1)
+        try:
+            self._assert_clean("worker.stats", worker.stats())
+            self._assert_clean("worker.signals", worker.signals())
+            self._assert_clean("worker.audit", worker.audit_document())
+        finally:
+            worker.close()

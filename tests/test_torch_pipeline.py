@@ -292,3 +292,96 @@ def test_pipeline_refuses_engine_on_another_device():
     with pytest.raises((ValueError, RuntimeError)):
         Pipeline(SyntheticSource(8, 8, n_frames=1), eng.filter, NullSink(),
                  engine=eng, device="cuda:0")
+
+
+# ---------------------------------------------------------------------------
+# Planes: device trace, registry, flight recorder (config parity)
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_config_has_every_reference_field():
+    import dataclasses
+
+    ours = {f.name: f.default for f in dataclasses.fields(PipelineConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    assert set(ours) == set(ref)
+    for name in ("device_trace_dir", "flight_dir", "flight_min_interval_s"):
+        assert ours[name] == ref[name]
+
+
+_DEVICE_TRACE_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+import dvf_tpu_torch as dt
+from dvf_tpu_torch.api.filter import stateless
+d = sys.argv[1]
+out = {}
+# (1) traced run: the device trace and the merged export land in the dir.
+cfg = dt.PipelineConfig(batch_size=4, queue_size=100, trace=True,
+                        frame_delay=0, device_trace_dir=os.path.join(d, "a"))
+s = dt.Pipeline(dt.SyntheticSource(16, 16, n_frames=8),
+                dt.get_filter("sobel_bilateral"), dt.NullSink(), cfg,
+                device="cpu").run()
+out["delivered"] = s["delivered"]
+out["files_a"] = sorted(os.listdir(os.path.join(d, "a")))
+doc = json.load(open(os.path.join(d, "a", "dvf_merged_timing.pftrace")))
+ev = doc["traceEvents"]
+out["host_spans"] = sorted({e["name"] for e in ev
+                            if e.get("ph") == "X" and e["pid"] < 10000})
+out["device_spans"] = len([e for e in ev
+                           if e.get("ph") == "X" and e["pid"] >= 10000])
+out["python_function"] = len([e for e in ev
+                              if e.get("cat") == "python_function"])
+# (2) untraced run: the device trace alone, no merge.
+cfg = dt.PipelineConfig(batch_size=4, queue_size=100, frame_delay=0,
+                        device_trace_dir=os.path.join(d, "b"))
+dt.Pipeline(dt.SyntheticSource(16, 16, n_frames=4), dt.get_filter("invert"),
+            dt.NullSink(), cfg, device="cpu").run()
+out["files_b"] = sorted(os.listdir(os.path.join(d, "b")))
+# (3) a failing run still stops the profiler: a next session starts.
+def boom(x):
+    raise RuntimeError("forced")
+cfg = dt.PipelineConfig(batch_size=4, queue_size=100,
+                        device_trace_dir=os.path.join(d, "c"))
+try:
+    dt.Pipeline(dt.SyntheticSource(16, 16, n_frames=4),
+                stateless("boom", boom), dt.NullSink(), cfg,
+                device="cpu").run()
+    out["raised"] = False
+except RuntimeError:
+    out["raised"] = True
+out["files_c"] = sorted(os.listdir(os.path.join(d, "c")))
+from dvf_tpu_torch.obs.export import start_device_profiler
+p = start_device_profiler()
+p.stop()
+print(json.dumps(out))
+"""
+
+
+def test_device_trace_capture_and_merge(tmp_path):
+    """device_trace_dir runs a torch.profiler session around the run
+    (in a process of its own: one profiler session per process): the
+    Chrome trace lands in the dir and, with trace=True, the merged
+    host+device file beside it; a failing run still stops the session."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", _DEVICE_TRACE_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["delivered"] == 8
+    assert out["files_a"] == ["dvf_merged_timing.pftrace", "trace.json"]
+    assert "batch_complete" in out["host_spans"]
+    assert out["device_spans"] > 0
+    assert out["python_function"] == 0
+    assert out["files_b"] == ["trace.json"]
+    assert out["raised"] is True and out["files_c"] == ["trace.json"]
+    assert (tmp_path / "dvf_frame_timing.pftrace").exists()

@@ -786,3 +786,81 @@ def test_bridge_wire_bytes_match_reference(wire):
     if wire == "raw":
         for f, p in zip(frames, port):
             assert p == (255 - f).tobytes()
+
+
+def test_bridge_audit_wire_and_lineage():
+    """The bridge's planes: an audit-stamped app wire (one frame flipped
+    on its way in is caught at the ``bridge_ingress`` hop and dropped,
+    the rest decode), results stamped on the way out, and each delivery's
+    lineage extended by ``encode`` and ``send`` into the frontend's wire
+    attribution window."""
+    zmq = pytest.importorskip("zmq")
+
+    from benchtools import free_port
+    from dvf_tpu_torch.obs.audit import WireAudit
+    from dvf_tpu_torch.resilience import FaultPlan
+    from dvf_tpu_torch.serve import ZmqStreamBridge
+
+    p_dist, p_coll = free_port(), free_port()
+    ctx = zmq.Context()
+    router = ctx.socket(zmq.ROUTER)
+    router.bind(f"tcp://127.0.0.1:{p_dist}")
+    pull = ctx.socket(zmq.PULL)
+    pull.bind(f"tcp://127.0.0.1:{p_coll}")
+    fe = ServeFrontend(
+        get_filter("invert"),
+        ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                    audit=True, audit_sample_every=2, lineage=True))
+    n, size = 6, 16
+    rng = np.random.default_rng(4)
+    frames = {j: rng.integers(0, 255, (size, size, 3), dtype=np.uint8)
+              for j in range(n)}
+    app_out = WireAudit("app_egress",
+                        chaos=FaultPlan(seed=1).add("corrupt_wire", at=(2,)))
+    app_in = WireAudit("app_ingress")
+    got = {}
+    try:
+        with fe:
+            bridge = ZmqStreamBridge(
+                fe, host="127.0.0.1", distribute_port=p_dist,
+                collect_port=p_coll, use_jpeg=False, raw_size=size,
+                audit_wire=True)
+            bt = threading.Thread(target=bridge.run,
+                                  kwargs={"max_frames": n - 1}, daemon=True)
+            bt.start()
+            pending = sorted(frames)
+            deadline = time.time() + 30.0
+            while len(got) < n - 1 and time.time() < deadline:
+                if router.poll(10):
+                    ident, _ready = router.recv_multipart()
+                    if pending:
+                        idx = pending.pop(0)
+                        router.send_multipart(
+                            [ident, str(idx).encode(),
+                             app_out.stamp(frames[idx].tobytes())])
+                while pull.poll(0):
+                    idx_b, _pid, _t0, _t1, result = pull.recv_multipart()
+                    got[int(idx_b.decode())] = np.frombuffer(
+                        app_in.verify(result), np.uint8).reshape(
+                            size, size, 3)
+            bridge.stop()
+            bt.join(timeout=10.0)
+            assert fe.audit.drain(30.0)
+            st = fe.stats()
+            bridge.close()
+    finally:
+        router.close(0)
+        pull.close(0)
+        ctx.term()
+    assert sorted(got) == [0, 1, 3, 4, 5]   # frame 2 was flipped in flight
+    for idx, frame in got.items():
+        np.testing.assert_array_equal(frame, 255 - frames[idx])
+    hops = {h["hop"]: h for h in st["audit"]["wire_hops"]}
+    assert hops["bridge_ingress"]["mismatches_total"] == 1
+    assert hops["bridge_ingress"]["verified_total"] == n - 1
+    assert hops["bridge_egress"]["stamped_total"] == n - 1
+    assert st["audit"]["wire_mismatches_total"] == 1
+    assert app_in.mismatches == 0
+    wire = st["attribution"]["wire"]
+    assert set(wire["components"]) == {"encode", "send"}
+    assert wire["count"] == n - 1

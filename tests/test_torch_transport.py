@@ -482,8 +482,17 @@ def test_ring_queue_contract():
     q.close()  # idempotent
     with pytest.raises(ValueError, match="wire"):
         RingFrameQueue((8, 8, 3), wire="png")
-    with pytest.raises(NotImplementedError, match="audit"):
-        RingFrameQueue((8, 8, 3), audit_wire=True)
+    # The audit envelope: stamped at put, verified and stripped at decode.
+    q = RingFrameQueue((8, 8, 3), capacity_frames=2, audit_wire=True)
+    try:
+        frame = np.arange(192, dtype=np.uint8).reshape(8, 8, 3)
+        q.put((0, frame, 0.0))
+        staging = np.zeros((1, 8, 8, 3), np.uint8)
+        q.decode_into(q.pop_up_to(1), staging)
+        assert (staging[0] == frame).all()
+        assert q.wire_stats()["audit"]["verified_total"] == 1
+    finally:
+        q.close()
 
 
 # ---------------------------------------------------- zmq wire protocol
@@ -706,7 +715,7 @@ def test_worker_receive_next_batch_ring_matches_list(inner, native_codec):
 def test_worker_options_and_planes():
     """The worker's constructor options against the JAX package's: the
     legacy ``use_jpeg`` flag, the tracer lane, the ledger's compile event,
-    the signal row, and the planes that wait for their ports."""
+    the signal row with its batch attribution, and the audit document."""
     from dvf_tpu_torch import get_filter
     from dvf_tpu_torch.obs.trace import Tracer
     from dvf_tpu_torch.transport.codec import RawCodec
@@ -722,8 +731,9 @@ def test_worker_options_and_planes():
     with pytest.raises(TypeError, match="use_jpeg"):  # a wire name there
         ZmqWorker(inv, "localhost", 5555, 5556, 8, 0.01, "raw",
                   device="cpu", connect=False)
-    with pytest.raises(NotImplementedError, match="audit"):
-        ZmqWorker(inv, audit_wire=True, device="cpu", connect=False)
+    w = ZmqWorker(inv, audit_wire=True, device="cpu", connect=False)
+    assert w.audit_document()["wire_enabled"] is True
+    w.close()
     with pytest.raises(ValueError, match="transport"):
         ZmqWorker(inv, transport="pipe", device="cpu", connect=False)
 
@@ -749,8 +759,12 @@ def test_worker_options_and_planes():
     assert sig["frames_total"] == 4.0 and sig["batches_total"] == 2.0
     assert sig["queue_depth"] is None
     assert "dvf_continuity_partitions" in sig
-    with pytest.raises(NotImplementedError, match="audit"):
-        w.audit_document()
+    # Batch attribution rides every batch; no envelope without audit_wire.
+    assert {"attr_assemble_h2d_p99_ms", "attr_device_p99_ms",
+            "attr_d2h_p99_ms"} <= set(sig)
+    assert w.audit_document() == {"label": "worker", "wire_enabled": False,
+                                  "wire_hops": [],
+                                  "wire_mismatches_total": 0}
     samples = w.registry.collect()
     assert any(s.name == "worker_frames_total" for s in samples)
     w.close()
