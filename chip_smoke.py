@@ -135,6 +135,27 @@ which raises (and so exits non-zero) on failure:
    a host batch span, the busy share; (f) fps with the planes off, on,
    on, off (the (a) mix) and the trace off, on, on, off ((e)'s leg), and
    the blake2b time per 1080p frame;
+10. the control plane, auto-plan and broadcast (``control_phase``): (a)
+   a batch-16 frontend with the control plane armed (its controllers
+   idle) serving 2 sobel_bilateral and 1 gaussian_blur(ksize=9) sessions
+   at 1080p, 96 frames each, one sobel_bilateral session downshifted for
+   frames 32-63: every frame in order at full size within 1 LSB of the
+   plain full program, or of the plain frame[::2, ::2] -> program ->
+   nearest x2 while downshifted; the downshift a pool hit on the program
+   warmed at admission; K3 launched at 540 x 960; (b) the default
+   ControlConfig over 6 sobel_bilateral sessions offered 60 frames/s each
+   under a 150 ms SLO: the plane sampled, no hook or apply raised, every
+   delivered frame in order, full size and within 1 LSB of the program
+   the ledger's rebinds say served it; then a tier floor of 1 refuses a
+   tier-2 open and admits a tier-0 one; (c) auto-plan of a batch-8
+   gaussian_blur(ksize=9) frontend (45 candidates, at most 15 searched)
+   into a fresh plan cache, a second frontend's cache hit and seeded
+   compile, the fingerprint naming the card, a CPU entry missing; (d)
+   (a)'s moving session published on three raw tiers to 64 subscribers,
+   one that never drains and a relay, audit stamps on: one encode per
+   lane per frame, the slow one evicted, payloads byte-identical to the
+   delivered frames downscaled, the relay verbatim; and one session's fps
+   with publishing off, on, on, off;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -149,12 +170,13 @@ histogram, innermost loops); ``sass_of(path)`` does the same for any of
 those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
-and SR batches' device times; ``serve_only()``, ``ring_only()`` and
-``planes_only()`` run the build and phase 7, 8 or 9 alone.
+and SR batches' device times; ``serve_only()``, ``ring_only()``,
+``planes_only()`` and ``control_only()`` run the build and phase 7, 8, 9
+or 10 alone.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
-[...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``,
-``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+[...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
+[...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -164,6 +186,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -864,6 +887,10 @@ def main() -> int:
     planes_rows, delta = planes_phase(dev, plain_of, env["libjpeg"])
     for k, v in delta.items():
         launches[k] += v
+    # 10. the control plane, auto-plan and broadcast (K1/K3 through buckets)
+    control_rows, delta = control_phase(dev, plain_of)
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -894,6 +921,7 @@ def main() -> int:
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"ring": ring_rows}))
     print(json.dumps({"planes": planes_rows}))
+    print(json.dumps({"control": control_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -3947,6 +3975,713 @@ def planes_only() -> None:
                 "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
     rows, _ = planes_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
     print(json.dumps({"planes": rows}))
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the control plane, auto-plan with its plan cache, and broadcast
+# ---------------------------------------------------------------------------
+
+CONTROL_FRAMES = 96              # leg (a): frames per session
+CONTROL_CUTS = (32, 64)          # leg (a): downshift after 32, recover after 64
+LOOP_SESSIONS = 6                # leg (b): sobel_bilateral sessions at 1080p
+LOOP_WAVES, LOOP_HZ = 240, 60.0  # leg (b): one frame per session per wave
+LOOP_SLO_MS = 150.0              # leg (b): tight enough to press the plane
+PLAN_BATCH, PLAN_BURST = 8, 24   # leg (c): hand-set batch, frames per burst
+BCAST_TIERS = ("native/raw", "960x540/raw", "640x360/raw")
+BCAST_SUBS = 64                  # leg (d): subscribers over the three tiers
+BCAST_FPS_FRAMES = 48            # leg (d): frames per publishing on/off run
+
+
+def _mem_after_stop(label: str) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    b = torch.cuda.memory_allocated()
+    log(f"control {label}: memory_allocated after stop {b} B")
+    return b
+
+
+def _control_config(**kw):
+    import dvf_tpu_torch
+
+    return dvf_tpu_torch.ServeConfig(**{**SERVE_KW, **kw})
+
+
+def plain_down(chain: str, frames: list, dev, plain_of: dict) -> np.ndarray:
+    """The plain version of the quality-1 program: frame[::2, ::2] ->
+    ``chain`` -> nearest x2 (the upscale stage), on the card."""
+    half = serve_plain(chain, [np.ascontiguousarray(f[::2, ::2])
+                               for f in frames], dev, plain_of)
+    return half.repeat(2, axis=1).repeat(2, axis=2)
+
+
+def _wait(pred, what: str, deadline_s: float = 60.0) -> None:
+    deadline = time.time() + deadline_s
+    while not pred():
+        if time.time() > deadline:
+            raise AssertionError(f"control: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _timed_lanes(ch) -> dict:
+    """Wrap each tier lane's fan-out (encode once + enqueue to every
+    subscriber) with a timer; returns {tier label: [seconds per frame]}."""
+    spent = {}
+    for tier, lane in list(ch._lanes.items()):
+        real = lane.offer
+        spent[tier.label()] = acc = []
+
+        def timed(*a, _real=real, _acc=acc, **k):
+            t = time.perf_counter()
+            out = _real(*a, **k)
+            _acc.append(time.perf_counter() - t)
+            return out
+
+        lane.offer = timed
+    return spent
+
+
+def control_leg_quality(dev, plain_of: dict):
+    """(a) Quality actuation, and (d) broadcast on the same frontend: batch
+    16, control armed with its controllers idle (manual actuation), 2
+    sessions of sobel_bilateral and 1 of gaussian_blur(ksize=9) at 1080p,
+    96 frames each; sobel_bilateral session A downshifts after frame 32
+    and recovers after 64. A publishes channel "cam" on three raw tiers to
+    64 subscribers, one subscriber that never drains, and a relay."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.broadcast import Tier
+    from dvf_tpu_torch.broadcast.channel import downscale
+    from dvf_tpu_torch.control import ControlConfig
+    from dvf_tpu_torch.obs import ledger as ledger_mod
+    from dvf_tpu_torch.obs.audit import is_stamped, verify_wire
+    from dvf_tpu_torch.ops import kernels as tk
+
+    n = CONTROL_FRAMES
+    cfg = _control_config(
+        max_buckets=5, pool_capacity=6, control=True,
+        control_config=ControlConfig(interval_s=3600.0),
+        broadcast_audit_wire=True, broadcast_ingest_depth=n + 8,
+        broadcast_sub_queue=n + 8)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    bases = serve_bases(SERVE_HD, 3, 100)
+    chains = ("sobel_bilateral", "sobel_bilateral", "gaussian_blur(ksize=9)")
+    tiers = [Tier.parse(t) for t in BCAST_TIERS]
+    with fe:
+        t = time.perf_counter()
+        sids = [fe.open_stream(op_chain=c, frame_shape=SERVE_HD,
+                               **({"publish": "cam",
+                                   "publish_tiers": list(BCAST_TIERS)}
+                                  if i == 0 else {}))
+                for i, c in enumerate(chains)]
+        admit_ms = (time.perf_counter() - t) * 1e3
+        a = sids[0]
+        # The x2 programs of both signatures compile at admission on
+        # background threads; the downshift must find its program warm.
+        _wait(lambda: len([e for e in fe.ledger.snapshot()
+                           if e["kind"] == ledger_mod.COMPILE
+                           and e.get("cause") == ledger_mod.CAUSE_QUALITY]) >= 2,
+              "the quality programs' admission warm-up")
+        warm = [e for e in fe.ledger.snapshot()
+                if e["kind"] == ledger_mod.COMPILE
+                and e.get("cause") == ledger_mod.CAUSE_QUALITY]
+        subs = [fe.subscribe("cam", tier=tiers[i % 3]) for i in range(BCAST_SUBS)]
+        slow = fe.subscribe("cam", tier=tiers[0], queue_size=2)
+        node = fe.broadcast.spawn_relay("cam", sub_queue=n + 8,
+                                        upstream_queue=n + 8)
+        rsub = node.subscribe()
+        ch = fe.broadcast.channel("cam")
+        fanout_s = _timed_lanes(ch)
+        got = {sid: [] for sid in sids}
+        sub_got = [[] for _ in subs]
+        relay_got = []
+        cut_at, rebinds_t, seg_s = {}, {}, []
+        b0 = {id(b.engine): b.engine.stats.batches for b in fe._buckets}
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        for lo, hi, level in ((0, CONTROL_CUTS[0], None),
+                              (CONTROL_CUTS[0], CONTROL_CUTS[1], 1),
+                              (CONTROL_CUTS[1], n, 0)):
+            if level is not None:
+                # Move A only when its queue is empty, so the rebind flushes
+                # no frame: every index 0..95 is delivered.
+                _wait(lambda: len(got[a]) >= lo, f"session A's first {lo}")
+                tr = time.perf_counter()
+                if not fe.request_session_quality(a, level, reason="phase 10"):
+                    raise AssertionError(f"control (a): quality {level} refused")
+                _wait(lambda: fe._session(a).quality_level == level,
+                      f"the rebind to level {level}")
+                rebinds_t[level] = (time.perf_counter() - tr) * 1e3
+                cut_at[level] = fe._session(a).submitted
+            ts = time.perf_counter()
+            for j in range(lo, hi):
+                for sid, base in zip(sids, bases):
+                    fe.submit(sid, tagged(base, j))
+            while any(len(v) < hi for v in got.values()):
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"control (a) stalled: "
+                                         f"{ {s: len(v) for s, v in got.items()} }")
+                for sid in sids:
+                    got[sid].extend(fe.poll(sid))
+                for i, s in enumerate(subs):
+                    sub_got[i].extend(s.poll(256))
+                relay_got.extend(rsub.poll(256))
+                time.sleep(0.002)
+            seg_s.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        delta = dict(tk.LAUNCHES)
+        if not ch.flush(timeout=60.0):
+            raise AssertionError("control (d): the fan-out did not quiesce")
+        for i, s in enumerate(subs):
+            sub_got[i].extend(s.poll(256))
+        deadline = time.time() + 30.0
+        while len(relay_got) < n and time.time() < deadline:
+            relay_got.extend(rsub.poll(256))
+            time.sleep(0.002)
+        view = fe.control_view()
+        ch_stats = ch.stats()
+        slow_stats = slow.stats()
+        relay_stats = node.stats()
+        events = fe.ledger.snapshot()
+        quality_buckets = {b.label(): b.engine.stats.batches
+                           - b0.get(id(b.engine), 0) for b in fe._buckets}
+        k3_batches = sum(v for k, v in quality_buckets.items()
+                         if k.startswith("sobel_bilateral"))
+        k1_batches = sum(v for k, v in quality_buckets.items()
+                         if k.startswith("gaussian_blur"))
+        half = [k for k in quality_buckets
+                if k.startswith("sobel_bilateral|upscale(scale=2)|"
+                                f"{SERVE_HD[0] // 2}x{SERVE_HD[1] // 2}x3")]
+        half_batches = quality_buckets[half[0]] if half else 0
+    mem = _mem_after_stop("(a)+(d)")
+    # -- (a) checks -------------------------------------------------------
+    serve_counted(delta, {"sobel_bilateral": k3_batches,
+                          "sep_blur": k1_batches}, "control (a)")
+    if not half_batches:
+        raise AssertionError(f"control (a): K3 never ran at half size: "
+                             f"{quality_buckets}")
+    hits = [e for e in events if e["kind"] == ledger_mod.POOL_ACQUIRE
+            and e.get("cause") == ledger_mod.CAUSE_QUALITY]
+    if not hits or any(e.get("cache") != "hit" for e in hits):
+        raise AssertionError(f"control (a): the downshift was not a pool "
+                             f"hit: {hits}")
+    rebinds = [e for e in events if e["kind"] == ledger_mod.QUALITY_REBIND]
+    if [e["level"] for e in rebinds] != [1, 0] or \
+            [cut_at[1], cut_at[0]] != list(CONTROL_CUTS):
+        raise AssertionError(f"control (a): rebinds {rebinds}, cutovers "
+                             f"{cut_at}")
+    for sid in sids:
+        idx = [d.index for d in got[sid]]
+        if idx != list(range(n)):
+            raise AssertionError(f"control (a) {sid}: indices {idx[:8]}...")
+        if any(d.frame.shape != SERVE_HD for d in got[sid]):
+            raise AssertionError(f"control (a) {sid}: a frame not {SERVE_HD}")
+    lsb = {}
+    for sid, chain, base in zip(sids, chains, bases):
+        frames = [tagged(base, j) for j in range(n)]
+        want = serve_plain(chain, frames, dev, plain_of)
+        if sid == a:
+            lo, hi = CONTROL_CUTS
+            want[lo:hi] = plain_down(chain, frames[lo:hi], dev, plain_of)
+        lsb[sid] = max_lsb(np.stack([d.frame for d in got[sid]]), want)
+        if lsb[sid] > 1:
+            raise AssertionError(f"control (a) {sid} {chain}: {lsb[sid]} LSB "
+                                 f"from the plain version")
+    segments = ((0, CONTROL_CUTS[0]), CONTROL_CUTS, (CONTROL_CUTS[1], n))
+
+    def rate(lo, hi):
+        # session A's delivery rate over its frames lo..hi-1: the level-1
+        # bucket served A alone while A was downshifted
+        t = [d.capture_ts + d.latency_ms / 1e3 for d in got[a][lo:hi]]
+        return (len(t) - 1) / (max(t) - min(t))
+
+    fps = {"session_a_level_0_1_0": [rate(lo, hi) for lo, hi in segments],
+           # all three sessions' frames per second in each segment
+           "all_sessions_level_0_1_0": [3 * (hi - lo) / w for (lo, hi), w
+                                        in zip(segments, seg_s)]}
+    for e in rebinds:
+        log(f"control (a) ledger quality_rebind: level {e['level']}, session "
+            f"{e['session']}, cutover index {cut_at[e['level']]}, stall_ms "
+            f"{e['stall_ms']}, frames_flushed {e['frames_flushed']}, signature "
+            f"{e['signature']}")
+    log(f"control (a): admission {admit_ms:.1f} ms; quality programs warmed at "
+        f"admission: {[(e['signature'], e.get('compile_ms')) for e in warm]}; "
+        f"downshift pool acquires {[(e['signature'], e['cache']) for e in hits]}")
+    log(f"control (a): {3 * n} frames in {wall:.3f} s; session A's fps with A "
+        f"at level 0, 1, 0 (its bucket's): "
+        f"{[round(v, 1) for v in fps['session_a_level_0_1_0']]}, all three "
+        f"sessions' over the same segments: "
+        f"{[round(v, 1) for v in fps['all_sessions_level_0_1_0']]}; request "
+        f"to rebind applied {json.dumps({k: round(v, 3) for k, v in rebinds_t.items()})} "
+        f"ms; launches {delta} (K3 at {SERVE_HD[0] // 2}x{SERVE_HD[1] // 2}: "
+        f"{half_batches} batches); max "
+        f"LSB {lsb}")
+    log(f"control (a) control_view(): {json.dumps(view)}")
+    # -- (d) checks -------------------------------------------------------
+    frame_of = {d.index: d.frame for d in got[a]}
+    encodes = {k: v["encodes_total"] for k, v in ch_stats["tiers"].items()}
+    if ch_stats["offered_total"] != n or ch_stats["ingest_dropped_total"] or \
+            any(v != n for v in encodes.values()):
+        raise AssertionError(f"control (d): offered {ch_stats['offered_total']}, "
+                             f"ingest drops {ch_stats['ingest_dropped_total']}, "
+                             f"encodes {encodes} (want {n} per tier)")
+    if not slow_stats["evicted"]:
+        raise AssertionError(f"control (d): the slow subscriber was not "
+                             f"evicted: {slow_stats}")
+    first = {}
+    for i, got_i in enumerate(sub_got):
+        tier = tiers[i % 3]
+        if [d.seq for d in got_i] != list(range(n)):
+            raise AssertionError(f"control (d) subscriber {i}: seqs "
+                                 f"{[d.seq for d in got_i][:8]}...")
+        if tier not in first:
+            first[tier] = got_i
+            for d in got_i:
+                f = frame_of[d.seq]
+                want = (f if tier.geometry is None
+                        else downscale(f, tier.geometry)).tobytes()
+                if not is_stamped(d.payload) or \
+                        verify_wire(d.payload, hop="subscriber") != want:
+                    raise AssertionError(f"control (d) {tier.label()} seq "
+                                         f"{d.seq}: payload is not the "
+                                         f"delivered frame's")
+        elif any(x.payload is not y.payload and x.payload != y.payload
+                 for x, y in zip(got_i, first[tier])):
+            raise AssertionError(f"control (d) subscriber {i}: payloads "
+                                 f"differ from its tier's")
+    direct = {d.seq: d.payload for d in first[tiers[0]]}
+    if [d.seq for d in relay_got] != list(range(n)) or any(
+            d.payload != direct[d.seq] for d in relay_got):
+        raise AssertionError("control (d): the relay did not forward verbatim")
+    for d in relay_got:
+        verify_wire(d.payload, hop="relay subscriber")
+    if relay_stats["forward"]["encodes_total"] != 0:
+        raise AssertionError(f"control (d): the relay encoded: {relay_stats}")
+    fan_ms = {k: 1e3 * statistics.mean(v) for k, v in fanout_s.items() if v}
+    log(f"control (d): channel offered {ch_stats['offered_total']}, encodes "
+        f"per tier {encodes}, fan-out frames "
+        f"{ {k: v['fanout_frames_total'] for k, v in ch_stats['tiers'].items()} }; "
+        f"slow subscriber evicted (dropped {slow_stats['dropped']}); {BCAST_SUBS} "
+        f"subscribers byte-identical to downscale(delivered frame, tier) "
+        f"(audit-stamped, verified); relay forwarded {len(relay_got)} verbatim, "
+        f"stamps verified, {relay_stats['forward']['encodes_total']} encodes; "
+        f"fan-out ms per frame per tier (encode once + enqueue + stamp) "
+        f"{json.dumps({k: round(v, 4) for k, v in fan_ms.items()})}, total "
+        f"{sum(fan_ms.values()):.4f}")
+    torch.cuda.empty_cache()
+    row_a = dict(leg="a_quality", frames=3 * n, wall_s=wall, launches=delta,
+                 k3_half_batches=half_batches, fps=fps, max_lsb=lsb,
+                 cutovers={str(k): v for k, v in cut_at.items()},
+                 rebinds=[{k: e.get(k) for k in ("level", "stall_ms",
+                                                 "frames_flushed", "signature")}
+                          for e in rebinds],
+                 request_to_rebind_ms=rebinds_t,
+                 warm_compile_ms=[e.get("compile_ms") for e in warm],
+                 control_view=view, memory_allocated_after_stop=mem)
+    row_d = dict(leg="d_broadcast", offered=ch_stats["offered_total"],
+                 encodes=encodes, subscribers=BCAST_SUBS,
+                 slow_evicted=True, relay_forwarded=len(relay_got),
+                 fanout_ms_per_frame=fan_ms)
+    return row_a, row_d, delta
+
+
+def _levels_matched(chain: str, frames: list, got: list, dev, plain_of: dict,
+                    levels) -> list:
+    """Per delivered frame, the set of quality levels (of ``levels``)
+    whose plain program it matches within 1 LSB, computed on the card in
+    batches."""
+    import torch
+
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    fn = plain_of[chain]
+    out = []
+    for i in range(0, len(frames), SERVE_BATCH):
+        x = torch.from_numpy(np.stack(frames[i:i + SERVE_BATCH])).to(dev)
+        y = torch.from_numpy(np.stack([d.frame for d in got[i:i + SERVE_BATCH]])
+                             ).to(dev).to(torch.int16)
+        lsb = {}
+        for lv in levels:
+            xi = x if lv == 0 else x[:, ::2, ::2].contiguous()
+            w = to_uint8(fn(to_float(xi)))
+            if lv:
+                w = w.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            lsb[lv] = (y - w.to(torch.int16)).abs().amax(dim=(1, 2, 3)).tolist()
+        for k in range(y.shape[0]):
+            out.append({lv for lv in levels if lsb[lv][k] <= 1})
+    return out
+
+
+def control_leg_loop(dev, plain_of: dict):
+    """(b) The closed loop: the default ControlConfig, 6 sobel_bilateral
+    sessions at 1080p, one frame to each per wave at 60 Hz (360 frames/s
+    offered, above what the bucket serves) under a 150 ms SLO. Asserts only what no timing
+    decides: the plane sampled, no hook or apply raised, every delivered
+    frame full size, in order, and within 1 LSB of the program the
+    ledger's rebinds say served it. Then the admission floor."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.obs import ledger as ledger_mod
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.serve import AdmissionError
+
+    cfg = _control_config(max_buckets=3, pool_capacity=4, queue_size=8,
+                          out_queue_size=LOOP_WAVES, slo_ms=LOOP_SLO_MS,
+                          control=True)
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
+    bases = serve_bases(SERVE_HD, LOOP_SESSIONS, 110)
+    with fe:
+        sids = [fe.open_stream(op_chain="sobel_bilateral", frame_shape=SERVE_HD)
+                for _ in range(LOOP_SESSIONS)]
+        _wait(lambda: any(e["kind"] == ledger_mod.COMPILE
+                          and e.get("cause") == ledger_mod.CAUSE_QUALITY
+                          for e in fe.ledger.snapshot()),
+              "the quality program's admission warm-up")
+        got = {sid: [] for sid in sids}
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        for w in range(LOOP_WAVES):
+            for sid, base in zip(sids, bases):
+                fe.submit(sid, tagged(base, w))
+            for sid in sids:
+                got[sid].extend(fe.poll(sid))
+            time.sleep(max(0.0, t0 + (w + 1) / LOOP_HZ - time.perf_counter()))
+        quiet_deadline = time.time() + 60.0
+        while any(len(s.ingress) + len(s.pending)
+                  for s in (fe._session(x) for x in sids)) or \
+                len(fe._window):
+            if time.time() > quiet_deadline:
+                raise AssertionError(f"control (b): never drained: {fe.health()}")
+            for sid in sids:
+                got[sid].extend(fe.poll(sid))
+            time.sleep(0.005)
+        time.sleep(0.2)
+        for sid in sids:
+            got[sid].extend(fe.poll(sid))
+        wall = time.perf_counter() - t0
+        delta = dict(tk.LAUNCHES)
+        cstats = fe.control_plane.stats()
+        series = fe.telemetry.series()
+        st = fe.stats()
+        events = fe.ledger.snapshot()
+        # The admission floor, with the controllers paused so that none of
+        # their own floor moves races this one.
+        fe.control_plane.paused = True
+        _wait(lambda: fe.control_plane.stats()["pending_applies"] == 0,
+              "the control plane's pending applies")
+        fe.set_admission_tier_floor(1)
+        try:
+            fe.open_stream(op_chain="sobel_bilateral", frame_shape=SERVE_HD,
+                           tier=2)
+            raise AssertionError("control (b): a tier-2 open passed floor 1")
+        except AdmissionError as e:
+            refused = str(e)
+        admitted = fe.open_stream(op_chain="sobel_bilateral",
+                                  frame_shape=SERVE_HD, tier=0)
+    mem = _mem_after_stop("(b)")
+    if series["hook_errors_total"] or cstats["apply_errors_total"] or \
+            not series["rows"]:
+        raise AssertionError(f"control (b): rows {len(series['rows'])}, hook "
+                             f"errors {series['hook_errors_total']}, apply "
+                             f"errors {cstats['apply_errors_total']}")
+    if not delta["sobel_bilateral"]:
+        raise AssertionError(f"control (b): K3 never launched: {delta}")
+    checked, moves = 0, {}
+    for sid, base in zip(sids, bases):
+        d_list = got[sid]
+        idx = [d.index for d in d_list]
+        if idx != sorted(set(idx)):
+            raise AssertionError(f"control (b) {sid}: indices out of order: "
+                                 f"{idx[:12]}...")
+        if any(d.frame.shape != SERVE_HD for d in d_list):
+            raise AssertionError(f"control (b) {sid}: a frame not full size")
+        levels = [0] + [e["level"] for e in events
+                        if e["kind"] == ledger_mod.QUALITY_REBIND
+                        and e.get("session") == sid]
+        moves[sid] = levels[1:]
+        frames = [tagged(base, i) for i in idx]
+        pos = 0
+        for i, ok in enumerate(_levels_matched(
+                "sobel_bilateral", frames, d_list, dev, plain_of,
+                sorted(set(levels)))):
+            nxt = next((q for q in range(pos, len(levels))
+                        if levels[q] in ok), None)
+            if nxt is None:
+                raise AssertionError(
+                    f"control (b) {sid} frame {idx[i]}: matches levels {ok}, "
+                    f"but the ledger's sequence {levels} is at {levels[pos]}")
+            pos = nxt
+        checked += len(d_list)
+        del frames
+    if not checked:
+        raise AssertionError("control (b): no frame was delivered")
+    decisions = {}
+    for e in cstats["decisions"]:
+        decisions.setdefault(e["kind"], []).append(
+            {k: e.get(k) for k in ("target", "value", "reason")})
+    log(f"control (b): {LOOP_WAVES} waves x {LOOP_SESSIONS} sessions in "
+        f"{wall:.3f} s; delivered {checked} (each within 1 LSB of the program "
+        f"the ledger says served it), shed {st['shed_total']}, samples "
+        f"{len(series['rows'])}, hook errors 0; launches {delta}")
+    log(f"control (b) counters: {json.dumps({k: v for k, v in cstats.items() if k.endswith('_total')})}, "
+        f"tier floor {cstats['tier_floor']}, tick {cstats['tick_s']}; per-session "
+        f"rebind levels {json.dumps(moves)}")
+    for kind, acts in decisions.items():
+        log(f"control (b) {kind} actions ({len(acts)}): {json.dumps(acts[:6])}")
+    log(f"control (b): floor 1 refused a tier-2 open ({refused}); admitted a "
+        f"tier-0 open ({admitted})")
+    torch.cuda.empty_cache()
+    return dict(leg="b_closed_loop", waves=LOOP_WAVES, sessions=LOOP_SESSIONS,
+                wall_s=wall, delivered=checked, shed=st["shed_total"],
+                samples=len(series["rows"]), launches=delta,
+                counters={k: v for k, v in cstats.items() if k.endswith("_total")},
+                rebind_levels=moves, memory_allocated_after_stop=mem), delta
+
+
+def control_leg_plan(dev, tmp: str):
+    """(c) Auto-plan: a 1080p gaussian_blur(ksize=9) frontend, batch 8,
+    autoplan on a fresh plan_cache_dir (cold: the measured search), then a
+    second frontend on the same directory (warm: a cache hit, its compile
+    seeded), and a CPU entry that a card lookup must miss."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.control import plan_cache as pc
+    from dvf_tpu_torch.control import planner as pl
+    from dvf_tpu_torch.obs import ledger as ledger_mod
+    from dvf_tpu_torch.ops import kernels as tk
+
+    chain = "gaussian_blur(ksize=9)"
+    cache = os.path.join(tmp, "plans")
+    kind = torch.cuda.get_device_name(0)
+
+    def frontend():
+        return dvf_tpu_torch.ServeFrontend(
+            dvf_tpu_torch.get_filter("invert"),
+            _control_config(batch_size=PLAN_BATCH, queue_size=4 * PLAN_BATCH,
+                            out_queue_size=4 * PLAN_BATCH, autoplan=True,
+                            plan_cache_dir=cache,
+                            autoplan_burst_frames=PLAN_BURST))
+
+    def compiles(fe):
+        return [e for e in fe.ledger.snapshot()
+                if e["kind"] == ledger_mod.COMPILE
+                and e.get("cause") == ledger_mod.CAUSE_ADMISSION]
+
+    fe = frontend()
+    with fe:
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        doc = fe.autoplan(op_chain=chain, frame_shape=SERVE_HD,
+                          log=lambda m: log(f"control (c) search: {m}"))
+        search_s = time.perf_counter() - t0
+        delta = dict(tk.LAUNCHES)
+        cold = [e for e in fe.ledger.snapshot() if e["kind"] == ledger_mod.PLAN]
+        cold_compile = compiles(fe)
+        topo = fe._topology_fingerprint()
+    mem_cold = _mem_after_stop("(c) cold")
+    ev = cold[-1]
+    grid = pl.candidate_grid(batch_cap=2 * PLAN_BATCH)
+    if ev["cache"] != "miss" or ev["grid"] != len(grid) or len(grid) != 45 or \
+            not 0 < ev["legs"] <= len(grid) // 3 or doc["source"] != "measured":
+        raise AssertionError(f"control (c) cold: {ev}, plan {doc}")
+    if kind not in topo or not topo.startswith("torch-cuda/"):
+        raise AssertionError(f"control (c): fingerprint {topo!r} does not "
+                             f"name the card {kind!r}")
+    if not delta["sep_blur"]:
+        raise AssertionError(f"control (c): the search never launched K1: {delta}")
+    sig = f"{chain}|{SERVE_HD[0]}x{SERVE_HD[1]}x3|uint8"
+    cal_sig = f"b{PLAN_BATCH}|{sig}"
+    cached_cal = pc.load_calibrations(cache, topo, cal_sig)
+    log(f"control (c) cold: grid {len(grid)} candidates (batch "
+        f"{sorted({p.batch_size for p in grid})} x tick "
+        f"{sorted({p.tick_s for p in grid})} x depth "
+        f"{sorted({p.ingest_depth for p in grid})}), live-profiled "
+        f"{ev['legs']}, winner {json.dumps(doc)}, wall_ms {ev['wall_ms']} "
+        f"({search_s:.2f} s), topology {topo!r}, launches {delta}; admission "
+        f"compile {[e.get('compile_ms') for e in cold_compile]} ms")
+    fe = frontend()
+    with fe:
+        sid = fe.open_stream(op_chain=chain, frame_shape=SERVE_HD)
+        eng = fe._session(sid).bucket.engine
+        seeded = eng.calibration_seeded
+        warm_compile = compiles(fe)
+        t0 = time.perf_counter()
+        doc2 = fe.autoplan(op_chain=chain, frame_shape=SERVE_HD)
+        hit_s = time.perf_counter() - t0
+        warm = [e for e in fe.ledger.snapshot() if e["kind"] == ledger_mod.PLAN]
+        fe.close(sid, drain=False)
+    mem_warm = _mem_after_stop("(c) warm")
+    ev2 = warm[-1]
+    if ev2["cache"] != "hit" or ev2["legs"] != 0 or not seeded or \
+            doc2["source"] != "cache" or {k: v for k, v in doc2.items()
+                                          if k != "source"} != \
+            {k: v for k, v in doc.items() if k != "source"}:
+        raise AssertionError(f"control (c) warm: {ev2}, seeded {seeded}, "
+                             f"plan {doc2}")
+    # A quiet calibration beside the cached one (the cold run's was taken
+    # beside its own search traffic).
+    quiet = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur",
+                                                          ksize=9))
+    quiet.compile((PLAN_BATCH, *SERVE_HD))
+    quiet_cal = calibrations(quiet)
+    quiet.free()
+    # A CPU entry for the same signature never answers a card lookup.
+    cpu_dir = os.path.join(tmp, "plans-cpu")
+    cpu_plan = pl.Plan.from_doc(doc)
+    pl.plan_to_cache(cpu_dir, sig, SERVE_HD, pc.topology_fingerprint("cpu"),
+                     dataclasses.replace(cpu_plan, source=pl.PLAN_SOURCE_MEASURED))
+    if pl.plan_from_cache(cpu_dir, sig, SERVE_HD,
+                          pc.topology_fingerprint("cpu")) is None or \
+            pl.plan_from_cache(cpu_dir, sig, SERVE_HD, topo) is not None:
+        raise AssertionError("control (c): a CPU plan entry answered a card lookup")
+    log(f"control (c) warm: plan event cache {ev2['cache']}, legs {ev2['legs']}, "
+        f"wall_ms {ev2['wall_ms']} ({hit_s * 1e3:.2f} ms), same plan; compile "
+        f"seeded {seeded}: {[e.get('compile_ms') for e in warm_compile]} ms "
+        f"against the cold {[e.get('compile_ms') for e in cold_compile]} ms; "
+        f"cached calibrations {json.dumps(cached_cal)} beside a quiet compile's "
+        f"{json.dumps(quiet_cal)}; a CPU entry misses under the card's "
+        f"fingerprint")
+    torch.cuda.empty_cache()
+    return dict(leg="c_autoplan", grid=len(grid), searched=ev["legs"],
+                winner=doc, wall_ms_cold=ev["wall_ms"], wall_ms_warm=ev2["wall_ms"],
+                topology=topo, launches=delta,
+                compile_ms_cold=[e.get("compile_ms") for e in cold_compile],
+                compile_ms_warm=[e.get("compile_ms") for e in warm_compile],
+                seeded=seeded, cached_calibrations=cached_cal,
+                quiet_calibrations=quiet_cal,
+                memory_allocated_after_stop=[mem_cold, mem_warm]), delta
+
+
+def control_leg_publish_fps(dev):
+    """(d) The publisher's cost: one 1080p sobel_bilateral session's fps
+    with publishing off, on, on, off in one frontend (on: the three raw
+    tiers, 64 subscribers drained by a thread)."""
+    import threading
+
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+
+    n = BCAST_FPS_FRAMES
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"),
+                                     _control_config(max_buckets=2))
+    base = serve_bases(SERVE_HD, 1, 120)[0]
+    runs = []
+    with fe:
+        warm = fe.open_stream(op_chain="sobel_bilateral", frame_shape=SERVE_HD)
+        serve_drive(fe, {warm: base}, SERVE_BATCH)   # an uncounted pass
+        fe.close(warm, drain=True)
+        tk.reset_launches()
+        for k, on in enumerate((False, True, True, False)):
+            kw = ({"publish": f"fps{k}", "publish_tiers": list(BCAST_TIERS)}
+                  if on else {})
+            sid = fe.open_stream(op_chain="sobel_bilateral",
+                                 frame_shape=SERVE_HD, **kw)
+            stop = threading.Event()
+            drainer = None
+            if on:
+                subs = [fe.subscribe(f"fps{k}", tier=BCAST_TIERS[i % 3])
+                        for i in range(BCAST_SUBS)]
+
+                def drain_subs(subs=subs):
+                    while not stop.is_set():
+                        for s in subs:
+                            s.poll(256)
+                        time.sleep(0.001)
+
+                drainer = threading.Thread(target=drain_subs, daemon=True)
+                drainer.start()
+            got, wall = serve_drive(fe, {sid: base}, n)
+            if [d.index for d in got[sid]] != list(range(n)):
+                raise AssertionError(f"control (d) fps run {k}: out of order")
+            stop.set()
+            if drainer is not None:
+                drainer.join(timeout=10)
+            fe.close(sid, drain=True)
+            if on:
+                fe.broadcast.unpublish(f"fps{k}")
+            runs.append(dict(publish=on, fps=n / wall, wall_s=wall))
+        delta = dict(tk.LAUNCHES)
+    mem = _mem_after_stop("(d) fps")
+    log(f"control (d) publisher fps off, on, on, off: "
+        f"{[round(r['fps'], 2) for r in runs]} ({n} frames each, "
+        f"{BCAST_SUBS} subscribers on the three raw tiers when on); launches "
+        f"{delta}")
+    torch.cuda.empty_cache()
+    return dict(leg="d_publish_fps", runs=runs,
+                memory_allocated_after_stop=mem), delta
+
+
+def control_phase(dev, plain_of: dict):
+    """Phase 10: legs (a)-(d) of the control plane, auto-plan and broadcast.
+    Returns (rows, the summed launch counts of the legs' counted runs)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    rows, total = [], {}
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+
+    log(f"control phase on {nvidia_smi()}")
+    row_a, row_d, delta = control_leg_quality(dev, plain_of)
+    rows += [row_a, row_d]
+    add(delta)
+    row, delta = control_leg_loop(dev, plain_of)
+    rows.append(row)
+    add(delta)
+    with tempfile.TemporaryDirectory() as tmp:
+        row, delta = control_leg_plan(dev, tmp)
+    rows.append(row)
+    add(delta)
+    row, delta = control_leg_publish_fps(dev)
+    rows.append(row)
+    add(delta)
+    from dvf_tpu_torch.broadcast import plane as bplane
+    from dvf_tpu_torch.broadcast import relay as brelay
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines() or bplane.live_broadcast_sockets() or \
+            brelay.live_relay_nodes():
+        raise AssertionError("control: engines, gates or relays outlived "
+                             "their frontends")
+    torch.cuda.empty_cache()
+    log(f"control phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def control_only() -> None:
+    """The build and phase 10 alone (control, auto-plan, broadcast):
+    ``python3 -c 'import chip_smoke; chip_smoke.control_only()'``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import _build
+    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = host_env()
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
+        f"environment: {json.dumps(env)}; torch {torch.__version__}")
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+                "bilateral": lambda x: bilateral_nhwc(x),
+                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    rows, _ = control_phase(torch.device("cuda", 0), plain_of)
+    print(json.dumps({"control": rows}))
 
 
 if __name__ == "__main__":

@@ -254,6 +254,7 @@ def golden_execute(filt, frame: np.ndarray, out_uint8: bool = True,
     do in serving. ``stream`` (a CUDA stream on ``device``) is where the
     work is queued; the result is read after a synchronize on it. What
     shadow replay and the swap guard compare the serving path against."""
+    from dvf_tpu_torch.runtime.engine import host_array, host_tensor
     from dvf_tpu_torch.utils.image import to_float, to_uint8
 
     if filt.stateful:
@@ -261,7 +262,7 @@ def golden_execute(filt, frame: np.ndarray, out_uint8: bool = True,
             f"golden replay of stateful filter {filt.name!r}: temporal "
             f"state is batch-threaded and cannot be replayed per frame")
     dev = torch.device("cpu") if device is None else torch.device(device)
-    batch = torch.from_numpy(np.ascontiguousarray(np.asarray(frame)[None]))
+    batch = host_tensor(np.asarray(frame)[None])
     ctx = (torch.cuda.stream(stream) if stream is not None
            else contextlib.nullcontext())
     with ctx, torch.no_grad():
@@ -273,7 +274,7 @@ def golden_execute(filt, frame: np.ndarray, out_uint8: bool = True,
             y = to_uint8(y)
         if stream is not None:
             stream.synchronize()
-        return y[0].cpu().numpy()
+        return host_array(y[0].cpu())
 
 
 def probe_frame(shape, dtype, tag: str = "") -> np.ndarray:

@@ -42,7 +42,8 @@ this module gets them out of the process.
     dump carries device lanes too.
 
 Not ported yet: the fleet scrape (``fleet_samples``,
-``attach_fleet_provider``).
+``attach_fleet_provider``), which comes with the fleet (ROADMAP Queue 1
+item 3b).
 """
 
 from __future__ import annotations

@@ -48,7 +48,12 @@ import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
 from dvf_tpu_torch.obs.trace import EGRESS_D2H, EGRESS_ENCODE
-from dvf_tpu_torch.runtime.engine import record_event, wait_compute
+from dvf_tpu_torch.runtime.engine import (
+    _torch_dtype,
+    host_array,
+    record_event,
+    wait_compute,
+)
 
 EGRESS_MODES = ("streamed", "monolithic")
 
@@ -136,11 +141,11 @@ class ShardedBatchFetcher:
         if cal is not None and cal < MIN_STREAM_D2H_MS:
             self.stats.fallback_reason = "cheap_transfer"
             return "monolithic"
-        tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        tdt = _torch_dtype(self.dtype)
         self._pool = [torch.empty(self.out_shape, dtype=tdt,
                                   pin_memory=self.device.type == "cuda")
                       for _ in range(self.slots)]
-        self._views = [t.numpy() for t in self._pool]
+        self._views = [host_array(t) for t in self._pool]
         self.stats.pool_allocs += 1
         return "streamed"
 
@@ -185,9 +190,9 @@ class ShardedBatchFetcher:
             y = result.device
             if self.stream is not None:
                 with torch.cuda.stream(self.stream):
-                    out = y.cpu().numpy()
+                    out = host_array(y.cpu())
             else:
-                out = y.numpy() if y.device.type == "cpu" else y.cpu().numpy()
+                out = host_array(y.cpu())
             self.stats.record_fetch(
                 wait_ms=0.0, copy_ms=0.0,
                 span_ms=(time.perf_counter() - t_begin) * 1e3)

@@ -83,11 +83,35 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
 
 
 def _torch_dtype(dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+    dtype = np.dtype(dtype)
+    if dtype.name == "bfloat16":  # ml_dtypes' numpy bfloat16
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 def _torch_to_np(dtype: torch.dtype) -> np.dtype:
+    if dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a host array's memory (copied only when the
+    array is not C-contiguous). numpy's bfloat16 (ml_dtypes), which
+    ``torch.from_numpy`` refuses, crosses as its 16-bit pattern."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of a CPU tensor (bfloat16 as ml_dtypes' bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_torch_to_np(t.dtype))
+    return t.numpy()
 
 
 def record_event(stream) -> Optional[torch.cuda.Event]:
@@ -188,7 +212,7 @@ class BatchResult:
                                "host copy exists")
         if self._event is not None:
             self._event.synchronize()
-        return self.host.numpy()
+        return host_array(self.host)
 
 
 def wait_compute(result) -> None:
@@ -459,8 +483,8 @@ class Engine:
         wire reads ``BatchResult.device``). The caller must not rewrite
         ``batch`` or read ``out`` before the result is ready.
         """
-        host = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(batch))
+        host = batch if isinstance(batch, torch.Tensor) else host_tensor(
+            batch)
         if host.device.type != "cpu":
             raise ValueError(f"submit takes a host batch, got one on {host.device}")
         self._enter_submit(host.shape, _torch_to_np(host.dtype))
@@ -521,10 +545,10 @@ class Engine:
             raise ValueError(
                 f"probe batch {batch.shape}/{batch.dtype} does not "
                 f"match the compiled signature {self._signature}")
-        host = torch.from_numpy(np.ascontiguousarray(batch))
+        host = host_tensor(batch)
         with torch.no_grad():
             y, _ = self._step(host.to(self.device), None)
-            return y.cpu().numpy()
+            return host_array(y.cpu())
 
     def rebuild(self) -> "Engine":
         """Fresh engine for supervised recovery: same filter, device and

@@ -51,7 +51,7 @@ import torch
 from dvf_tpu_torch.obs.metrics import IngestStats
 from dvf_tpu_torch.obs.trace import INGEST_H2D, INGEST_OVERLAP, INGEST_STAGE
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind
-from dvf_tpu_torch.runtime.engine import record_event
+from dvf_tpu_torch.runtime.engine import _torch_dtype, host_array, record_event
 
 INGEST_MODES = ("streamed", "monolithic")
 
@@ -141,10 +141,10 @@ class ShardedBatchAssembler:
         return sum(t.numel() * t.element_size() for t in self._host)
 
     def _plan(self) -> str:
-        tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        tdt = _torch_dtype(self.dtype)
         self._host = [torch.empty(self.batch_shape, dtype=tdt, pin_memory=self._pin)
                       for _ in range(self.slots)]
-        self._views = [t.numpy() for t in self._host]
+        self._views = [host_array(t) for t in self._host]
         if self.mode == "monolithic" or self.device is None:
             return "monolithic"
         cal = self.stats.h2d_block_ms

@@ -73,7 +73,7 @@ from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
 from dvf_tpu_torch.resilience.supervisor import Supervisor
 from dvf_tpu_torch.runtime.egress import EGRESS_MODES, ShardedBatchFetcher
-from dvf_tpu_torch.runtime.engine import Engine, resolve_device
+from dvf_tpu_torch.runtime.engine import Engine, host_array, resolve_device
 from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.sched.queues import DropOldestQueue
 from dvf_tpu_torch.sched.reorder import ReorderBuffer
@@ -540,7 +540,7 @@ class Pipeline:
                 # classic fetch, after the batch's compute.
                 if result.compute_event is not None:
                     result.compute_event.synchronize()
-                out = result.device.cpu().numpy()
+                out = host_array(result.device.cpu())
             else:
                 out = fetcher.fetch(result, seq)
         except Exception as e:  # noqa: BLE001 — device error: drop batch

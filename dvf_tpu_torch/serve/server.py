@@ -50,16 +50,19 @@ the plain torch versions.
 
 The observability planes are the reference's: the audit plane
 (``audit``: sampled shadow replay through an eager golden on the
-bucket's device, the program-swap guard on every resize and recovery
-rebuild, ``audit_probe``), frame lineage (``lineage``: every delivered
-frame's additive latency decomposition, ``explain``), the flight
-recorder (``flight_dir``, with a ``torch.profiler`` window when
-``flight_profile_s`` > 0) and stage profiles (``profile_dir``). On a
-card the lineage ``device`` mark is taken after a wait on the batch's
-own compute event, never on the whole device. Planes of the reference
-frontend that are not ported yet refuse their ``ServeConfig`` options
-with ``NotImplementedError`` (see :func:`_refuse_unported`): the control
-plane, auto-plan and the plan cache, and broadcast.
+bucket's device, the program-swap guard on every resize, quality rebind
+and recovery rebuild, ``audit_probe``), frame lineage (``lineage``:
+every delivered frame's additive latency decomposition, ``explain``),
+the flight recorder (``flight_dir``, with a ``torch.profiler`` window
+when ``flight_profile_s`` > 0) and stage profiles (``profile_dir``). On
+a card the lineage ``device`` mark is taken after a wait on the batch's
+own compute event, never on the whole device. So are the load-adaptive
+control plane (``control``: quality downshift, batch and tick resizing,
+priority-tier admission), auto-plan with its on-disk plan cache
+(``autoplan``, ``plan_cache_dir``) and encode-once broadcast
+(``open_stream(publish=...)``, ``subscribe``). A quality downshift's
+program (the chain on a ×2-decimated frame, then ``upscale``) compiles
+at admission on a background thread, on the engine's compile stream.
 
 ``ZmqStreamBridge`` binds one session to the reference app's socket pair
 using the exact READY-credit framing of ``transport.zmq_ingress`` — a
@@ -121,7 +124,12 @@ from dvf_tpu_torch.runtime.egress import (
     AsyncCodecPlane,
     ShardedBatchFetcher,
 )
-from dvf_tpu_torch.runtime.engine import Engine, ProgramPool, wait_compute
+from dvf_tpu_torch.runtime.engine import (
+    Engine,
+    ProgramPool,
+    host_array,
+    wait_compute,
+)
 from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.runtime.signature import (
     SignatureKey,
@@ -247,7 +255,7 @@ class ServeConfig:
     #   device-profiler capture window of this length (device lanes in
     #   the post-mortem); off by default — profiling is not free
     control: bool = False         # arm the load-adaptive control plane
-    #   (the reference's dvf_tpu.control): closed-loop controllers over the telemetry
+    #   (dvf_tpu_torch.control): closed-loop controllers over the telemetry
     #   ring actuating per-bucket batch size + tick budget, per-session
     #   resolution downshift (sr upscale return path), and the
     #   priority-tier admission floor (--control on the CLI)
@@ -284,8 +292,7 @@ class ServeConfig:
     audit_tolerance: float = 2.0  # pinned max-abs-diff tolerance for
     #   chains whose compute leaves uint8 (jit-vs-unjit float rounding
     #   freedom); uint8_ok chains compare bit-exact regardless
-    broadcast_sub_queue: int = 8  # broadcast plane (the reference's
-    #   dvf_tpu.broadcast,
+    broadcast_sub_queue: int = 8  # broadcast plane (dvf_tpu_torch.broadcast,
     #   built lazily at the first open_stream(publish=...)): default
     #   per-subscriber drop-oldest bound — a slow watcher drops its own
     #   frames, never the tier's
@@ -328,37 +335,6 @@ class ServeConfig:
     #   keyed per topology — warm restarts skip both the plan search
     #   and the blocking calibration passes at engine compile. None
     #   with autoplan on = plan is searched but never persisted.
-
-    def __post_init__(self):
-        _refuse_unported(self)
-
-
-# ServeConfig options whose plane is not ported yet, each with the
-# ROADMAP item (Queue 1) that ports it. A set option raises — it never
-# runs silently without its plane.
-_CONTROL_ITEM = "ROADMAP Queue 1 item 3 (control, fleet, broadcast)"
-_UNPORTED_OPTIONS = (
-    ("control", lambda c: bool(c.control), _CONTROL_ITEM),
-    ("autoplan", lambda c: bool(c.autoplan), _CONTROL_ITEM),
-    ("plan_cache_dir", lambda c: c.plan_cache_dir is not None,
-     _CONTROL_ITEM),
-)
-
-
-def _refuse_unported(config: "ServeConfig") -> None:
-    """Raise ``NotImplementedError`` for the first set option whose plane
-    the port does not have yet (checked at ServeConfig construction and
-    again when a frontend is built, for a config changed in between)."""
-    for name, is_set, item in _UNPORTED_OPTIONS:
-        if is_set(config):
-            raise NotImplementedError(
-                f"ServeConfig.{name} needs a plane that dvf_tpu_torch does "
-                f"not port yet; see {item}")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to dvf_tpu_torch yet; see {item}")
 
 
 class _Bucket:
@@ -588,7 +564,6 @@ class ServeFrontend:
                 f"only multiplexes stateless filters")
         self.filter = filt
         self.config = config or ServeConfig()
-        _refuse_unported(self.config)
         if self.config.ingest not in INGEST_MODES:
             raise ValueError(
                 f"ingest must be one of {INGEST_MODES}, got "
@@ -695,8 +670,19 @@ class ServeFrontend:
         if self.config.lineage:
             self.attribution = AttributionPlane(
                 exemplar_capacity=self.config.lineage_exemplars)
-        self._tick_s = self.config.tick_s  # dispatch idle poll (the
-        #   reference's control plane writes it; constant here)
+        # -- broadcast plane (dvf_tpu_torch.broadcast) ---------------------
+        # Built lazily at the first open_stream(publish=...): plain
+        # per-session serving pays nothing for the fan-out machinery.
+        self.broadcast: Any = None
+        # -- load-adaptive control plane (dvf_tpu_torch.control) ----------
+        # Built BEFORE the ring so the ring cadence can come from the
+        # control config; the plane's decisions ride the ring's
+        # on_sample seam (chained with the SLO burn check below).
+        self.control_plane = None
+        self._admission_tier_floor: Optional[int] = None  # controller-
+        #   set admission floor: open_stream refuses tier > floor
+        self._tick_s = self.config.tick_s  # live dispatch tick (the
+        #   control plane's tick-budget actuator writes it)
         self._pending_resizes: Dict[_Bucket, Any] = {}  # bucket →
         #   (n, reason): the dispatch thread kicks each off as a
         #   compile-aside (Engine.prepare_swap on a background thread;
@@ -718,11 +704,37 @@ class ServeFrontend:
         self.morphs = 0       # committed live filter-chain morphs
         self.quality_rebinds = 0
         self.quality_rebinds_dropped = 0
+        self._warmed_quality: set = set()   # quality keys pre-compiled
+        #   at admission time (control armed): the moment the quality
+        #   controller needs the downshift program is mid-overload —
+        #   the worst time to pay a compile on a busy host
         self.quality_flushed_frames = 0   # frames dropped by rebind
-        #   flushes — kept OUT of shed_total
+        #   flushes — kept OUT of shed_total (the pressure predicate
+        #   reads shed deltas; the controller's own moves must not feed
+        #   back as overload evidence)
         self.resize_compile_errors = 0
+        # -- auto-plan plane (dvf_tpu_torch.control.planner) ----------------
+        self.applied_plan: Optional[dict] = None  # the Plan doc driving
+        #   this frontend (autoplan() or a fleet front door applied it);
+        #   None = the hand-set ServeConfig defaults
+        self._topology: Optional[str] = None  # cached topology
+        #   fingerprint (control.plan_cache) — the plan/calibration
+        #   cache's invalidation axis; computed once from the device
+        control_sample_s = 0.0
+        if self.config.control:
+            from dvf_tpu_torch.control import ControlConfig, ControlPlane
+
+            ccfg = self.config.control_config or ControlConfig()
+            if ccfg.batch_max <= 0:
+                # The compiled staging/slab pools size from the
+                # frontend batch_size; the controller may shrink below
+                # it, never grow past it.
+                ccfg = dataclasses.replace(ccfg,
+                                           batch_max=self.config.batch_size)
+            self.control_plane = ControlPlane(self, ccfg)
+            control_sample_s = ccfg.interval_s
         self.telemetry: Optional[TimeSeriesRing] = None
-        sample_s = self.config.telemetry_sample_s or (
+        sample_s = self.config.telemetry_sample_s or control_sample_s or (
             1.0 if self.config.flight_dir else 0.0)  # burn trigger +
         #   post-mortem window need the ring; plain serving doesn't pay
         if sample_s > 0:
@@ -824,6 +836,8 @@ class ServeFrontend:
                 name="dvf-serve-supervisor", window=self._window,
                 on_trip=self._flight_trip)
             self._supervisor.start()
+        if self.control_plane is not None:
+            self.control_plane.start()
         if self.telemetry is not None:
             self.telemetry.start()
         if self.audit is not None:
@@ -838,6 +852,8 @@ class ServeFrontend:
             self._supervisor.stop()
         if self.audit is not None:
             self.audit.stop()
+        if self.control_plane is not None:
+            self.control_plane.stop()
         if self.telemetry is not None:
             self.telemetry.stop()
             self.telemetry.sample_once()  # terminal row: a short run still
@@ -855,6 +871,12 @@ class ServeFrontend:
             buckets = list(self._buckets)
         for _, s in sessions:
             s.finalize()
+        if self.broadcast is not None:
+            # After the session tail delivery (finalize still taps) and
+            # before device/slab release: fan-out workers, relays, and
+            # tier codecs all join here — the broadcast leak guards pin
+            # that nothing outlives stop().
+            self.broadcast.stop(timeout=timeout)
         # Release every compiled program's device residency: pooled
         # engines free through the pool; an engine that never made it
         # into the pool (default bucket that never compiled, adoption
@@ -913,6 +935,21 @@ class ServeFrontend:
             if comps or tick:
                 save_stage_profile(self.config.profile_dir, label,
                                    comps, tick_cost_ms=tick, count=count)
+
+    def _bucket_stage_cost(self, bucket: "_Bucket") -> Optional[dict]:
+        """Measured mean per-component cost for one bucket: the live
+        attribution window when lineage is running, else the persisted
+        profile from a previous run — what control-plane decisions are
+        annotated with."""
+        if self.attribution is not None:
+            live = self.attribution.bucket_stage_cost_ms(bucket.label())
+            if live:
+                return live
+        prof = bucket.stage_profile
+        if prof and prof.get("components_ms"):
+            return {k: round(float(v.get("mean_ms", 0.0)), 4)
+                    for k, v in prof["components_ms"].items()}
+        return None
 
     def __enter__(self) -> "ServeFrontend":
         return self.start()
@@ -1086,6 +1123,23 @@ class ServeFrontend:
         out.update(self.continuity.signals())
         if self._supervisor is not None:
             out["stalls_total"] = float(self._supervisor.stalls)
+        if self.control_plane is not None:
+            # Control-plane decision counters (the acceptance bar:
+            # controller actions are observable on the scrape endpoint)
+            # plus the live actuation state.
+            for k, v in self.control_plane.signals().items():
+                out[f"control_{k}"] = v
+            out["control_quality_rebinds_total"] = float(
+                self.quality_rebinds)
+            out["control_quality_rebinds_dropped_total"] = float(
+                self.quality_rebinds_dropped)
+            out["control_quality_flushed_frames_total"] = float(
+                self.quality_flushed_frames)
+            out["control_resize_compile_errors_total"] = float(
+                self.resize_compile_errors)
+            out["downshifted_sessions"] = float(sum(
+                1 for s in live if s.quality_level > 0))
+            out["dispatch_tick_s"] = float(self._tick_s)
         ing = self._buckets[0].ingest_stats
         egr = self._buckets[0].egress_stats
         if ing is not None:
@@ -1106,6 +1160,8 @@ class ServeFrontend:
             out.update(self.attribution.signals())
         if self.audit is not None:
             out.update(self.audit.signals())
+        if self.broadcast is not None:
+            out.update(self.broadcast.signals())
         for kind, n in self.faults.summary()["by_kind"].items():
             out[f"fault_{kind}_total"] = float(n)
         return out
@@ -1209,13 +1265,15 @@ class ServeFrontend:
         return out
 
     def _on_telemetry_sample(self, prev: Optional[dict], cur: dict) -> None:
-        """The ring's on_sample hook: the SLO burn check, then the
-        leak-trend watch over the occupied host slabs. Each leg is
-        contained on its own: a burn-check hiccup is counted on the
-        ring's ``hook_errors`` and the leak watch still runs."""
+        """The ring's on_sample hook: the SLO burn check, the leak-trend
+        watch over the occupied host slabs, then the control plane's
+        decision step. Each leg is contained on its own: a burn-check or
+        leak-watch hiccup is counted on the ring's ``hook_errors`` and
+        the controller still gets its tick; a raising decision step is
+        counted by the ring, which keeps sampling."""
         try:
             self._check_slo_burn(prev, cur)
-        except Exception:  # noqa: BLE001 — the leak watch still runs
+        except Exception:  # noqa: BLE001 — the controller still runs
             if self.telemetry is not None:
                 self.telemetry.hook_errors += 1
         if self._leak_watch is not None:
@@ -1228,6 +1286,8 @@ class ServeFrontend:
             except Exception:  # noqa: BLE001 — same containment rule as
                 if self.telemetry is not None:  # the burn check above
                     self.telemetry.hook_errors += 1
+        if self.control_plane is not None:
+            self.control_plane.on_sample(prev, cur)
 
     def _check_slo_burn(self, prev: Optional[dict], cur: dict) -> None:
         """Telemetry-ring hook: burn rate over one sampling window =
@@ -1401,17 +1461,24 @@ class ServeFrontend:
     ) -> str:
         """Admit one new stream; returns its session id.
 
-        ``publish`` (the reference's broadcast channels) is not ported
-        yet and raises ``NotImplementedError``.
+        ``publish`` registers the session's delivered output as a named
+        broadcast channel (dvf_tpu_torch.broadcast): subscribers attach
+        with :meth:`subscribe` at a (geometry, quality, wire) tier —
+        ``publish_tiers`` pre-registers the ladder (tier specs like
+        ``"640x360/q60/delta"`` or :class:`~dvf_tpu_torch.broadcast.Tier`).
+        The publisher's own poll()/sink delivery is unchanged; fan-out
+        rides a per-delivery tap behind it.
 
         Raises ``AdmissionError`` at the ``max_sessions`` cap — overload
         is refused at the door, not absorbed as unbounded queueing — and
         when the frontend is draining (fleet replica teardown).
 
         ``tier`` is the stream's priority tier (0 interactive, 1
-        standard, 2 batch; default ``config.default_tier``): the
-        batcher's slot pick prefers lower tiers (the reference's control
-        plane also refuses and downshifts by tier; not ported yet).
+        standard, 2 batch; default ``config.default_tier``): under
+        sustained overload the control plane's admission floor refuses
+        the highest tiers first, the batcher's slot pick prefers lower
+        tiers, and the quality controller downshifts higher tiers first
+        — paid/interactive streams shed LAST end to end.
 
         ``op_chain``/``frame_shape``/``frame_dtype`` declare the
         stream's signature at admission time and ROUTE it: a declaration
@@ -1427,9 +1494,6 @@ class ServeFrontend:
         joins the default bucket, whose geometry pins at first submit
         (the legacy single-signature behavior, unchanged).
         """
-        if publish is not None or publish_tiers is not None:
-            raise _unported("open_stream(publish=...) (broadcast)",
-                            _CONTROL_ITEM)
         t = self.config.default_tier if tier is None else int(tier)
         if t < 0:
             raise ValueError(f"tier must be >= 0, got {tier!r}")
@@ -1459,12 +1523,16 @@ class ServeFrontend:
                     self.admission_rejections += 1
                 raise AdmissionError(f"malformed op_chain: {e}") from e
         with self._lock:
-            self._check_admission_locked()
+            self._check_admission_locked(tier=t)
             bucket, create_key = self._route_locked(chain, declared)
             if bucket is not None:
+                self._price_admission_locked(bucket, t, cfg.slo_ms)
                 sid_out = self._register_session_locked(
                     bucket, session_id, cfg, sink)
         if bucket is not None:
+            self._warm_quality_async(bucket)
+            if publish:
+                self.publish_stream(sid_out, publish, publish_tiers)
             return sid_out
         with self._lock:
             # Best-effort headroom check BEFORE the compile: a frontend
@@ -1483,7 +1551,7 @@ class ServeFrontend:
         owned = False
         try:
             with self._lock:
-                self._check_admission_locked()
+                self._check_admission_locked(tier=t)
                 bucket = self._bucket_by_key.get(create_key)
                 if bucket is None:
                     bucket = self._create_bucket_locked(create_key, engine)
@@ -1497,31 +1565,118 @@ class ServeFrontend:
                 # admission failed after the lease: the program stays
                 # WARM in the pool either way.
                 self.pool.release(create_key)
+        self._warm_quality_async(bucket)
+        if publish:
+            self.publish_stream(sid_out, publish, publish_tiers)
         return sid_out
 
-    # -- broadcast plane (not ported yet) --------------------------------
+    # -- broadcast plane (publish / subscribe) ---------------------------
+
+    def _ensure_broadcast(self):
+        if self.broadcast is None:
+            from dvf_tpu_torch.broadcast import BroadcastPlane
+
+            c = self.config
+            self.broadcast = BroadcastPlane(
+                audit_wire=c.broadcast_audit_wire, chaos=c.chaos,
+                ingest_depth=c.broadcast_ingest_depth,
+                sub_queue=c.broadcast_sub_queue,
+                evict_after=c.broadcast_evict_after,
+                keyframe_interval=c.broadcast_keyframe_interval,
+                lineage=self.attribution is not None)
+        return self.broadcast
 
     def publish_stream(self, session_id: str, channel: str,
                        tiers: Optional[Sequence] = None) -> None:
-        raise _unported("ServeFrontend.publish_stream (broadcast)",
-                        _CONTROL_ITEM)
+        """Register an open session's delivered output as broadcast
+        channel ``channel``. The session keeps its own delivery path
+        (poll/sink); the broadcast tap tees each delivered frame into
+        the channel's fan-out worker (one copy + one bounded enqueue —
+        a stalled fan-out sheds frames there, never the publisher)."""
+        plane = self._ensure_broadcast()
+        plane.publish(channel, publisher=session_id, tiers=tiers or ())
+        with self._lock:
+            s = self._sessions.get(session_id)
+        if s is None:
+            plane.unpublish(channel)
+            raise ServeError(f"no open session {session_id!r} to publish")
+        s.tap = plane.tap(channel)
 
     def subscribe(self, channel: str, tier=None,
                   queue_size: Optional[int] = None, abr: bool = False):
-        raise _unported("ServeFrontend.subscribe (broadcast)", _CONTROL_ITEM)
+        """Attach a watcher to a published channel at a tier (spec
+        string or :class:`~dvf_tpu_torch.broadcast.Tier`; None = the
+        ladder top, or its cheapest rung when ``abr`` is on). Returns the
+        :class:`~dvf_tpu_torch.broadcast.Subscription` handle (``poll`` /
+        ``stats``; pass back to :meth:`unsubscribe`)."""
+        return self._ensure_broadcast().subscribe(
+            channel, tier=tier, queue_size=queue_size, abr=abr)
+
+    def unsubscribe(self, sub) -> None:
+        if self.broadcast is not None:
+            self.broadcast.unsubscribe(sub)
 
     # -- admission internals (bucket routing) ---------------------------
 
-    def _check_admission_locked(self) -> None:
+    def _check_admission_locked(self, tier: Optional[int] = None) -> None:
         if self._draining:
             self.admission_rejections += 1
             raise AdmissionError(
                 "frontend is draining (no new sessions admitted)")
+        floor = self._admission_tier_floor
+        if tier is not None and floor is not None and tier > floor:
+            # Controller-set load shed at the door: the cheapest place
+            # to refuse work is before any of it is queued. Graceful by
+            # contract — a refused low-tier open is degradation, not a
+            # failure (the fleet tier spills it to a replica with
+            # headroom when one exists).
+            self.admission_rejections += 1
+            raise AdmissionError(
+                f"tier {tier} not admitted under overload (admission "
+                f"floor {floor}: the load controller is shedding "
+                f"low-priority sessions first)")
         if len(self._sessions) >= self.config.max_sessions:
             self.admission_rejections += 1
             raise AdmissionError(
                 f"session limit reached ({self.config.max_sessions} "
                 f"open); close a stream or raise max_sessions")
+
+    def _price_admission_locked(self, bucket: "_Bucket", tier: int,
+                                slo_ms: float) -> None:
+        """Feed-forward admission pricing (the auto-plan plane's third
+        leg, armed by ``config.autoplan``): BEFORE a tenant is
+        admitted, predict what its bucket's scheduling round will cost
+        with it aboard — from the persisted stage-cost profile
+        (obs.lineage) a previous run measured, else the live tick
+        EWMA — and refuse a non-interactive tenant whose predicted
+        steady-state latency already breaches its own SLO. The
+        reactive tier controller (control.controllers) refuses AFTER
+        queues build and refusals advance; this prices the marginal
+        tenant from the profile so the refusal lands before its first
+        frame is ever queued. Nothing measured yet → admit (the cold
+        path stays reactive, exactly as before this plane)."""
+        if not self.config.autoplan or tier <= 0:
+            return
+        from dvf_tpu_torch.control.planner import predicted_tick_cost_ms
+        cost = predicted_tick_cost_ms(bucket.stage_profile,
+                                      batch_size=bucket.batch_size)
+        if cost is None:
+            cost = bucket._tick_cost_ms
+        if not cost:
+            return
+        occupants = len(bucket.sessions) + 1
+        rounds = -(-occupants // max(1, bucket.batch_size))  # ceil
+        predicted_ms = float(cost) * rounds
+        if predicted_ms > float(slo_ms):
+            self.admission_rejections += 1
+            raise AdmissionError(
+                f"admission priced out (feed-forward): predicted "
+                f"steady-state latency {predicted_ms:.1f} ms for "
+                f"tenant {occupants} of bucket {bucket.label()!r} "
+                f"(predicted tick {float(cost):.2f} ms x {rounds} "
+                f"scheduling rounds) exceeds its {float(slo_ms):g} ms "
+                f"SLO; warm signatures this frontend serves cheaply: "
+                f"{self._warm_signatures()}")
 
     def _route_locked(
         self, chain: Optional[str], declared: Optional[tuple],
@@ -1667,7 +1822,7 @@ class ServeFrontend:
         """Lease (or compile ahead) the program for ``key`` — the
         admission-time compile that replaces the first-frame stall.
         ``cause`` labels the ledger/histogram record (admission /
-        morph / precompile)."""
+        quality / morph / precompile)."""
         def build() -> Engine:
             with self._lock:
                 filt = self._filters_by_chain.get(key.op_chain)
@@ -1681,10 +1836,32 @@ class ServeFrontend:
                         f"chains only")
                 with self._lock:
                     self._filters_by_chain.setdefault(key.op_chain, filt)
+            seed = None
+            cal_sig = f"b{self.config.batch_size}|{key.render()}"
+            if self.config.plan_cache_dir:
+                # Warm-restart calibration seed (control.plan_cache): a
+                # previous run on this exact (topology, batch signature)
+                # already measured the H2D/D2H/step block costs — the
+                # compile adopts them and skips its blocking measurement
+                # passes (engine.calibration_seeded records the
+                # adoption, and the ledgered compile's wall shows it).
+                from dvf_tpu_torch.control import plan_cache as _pc
+                seed = _pc.load_calibrations(
+                    self.config.plan_cache_dir,
+                    self._topology_fingerprint(), cal_sig)
             eng = Engine(filt, device=self.device,
-                         chaos=self.config.chaos, op_chain=key.op_chain)
+                         chaos=self.config.chaos, op_chain=key.op_chain,
+                         calibration_seed=seed)
             eng.compile((self.config.batch_size, *key.geometry),
                         key.np_dtype)
+            if self.config.plan_cache_dir and not eng.calibration_seeded:
+                from dvf_tpu_torch.control import plan_cache as _pc
+                _pc.save_calibrations(
+                    self.config.plan_cache_dir,
+                    self._topology_fingerprint(), cal_sig,
+                    {"h2d_block_ms": eng.h2d_block_ms,
+                     "d2h_block_ms": eng.d2h_block_ms,
+                     "step_block_ms": eng.step_block_ms})
             return eng
 
         try:
@@ -1727,10 +1904,386 @@ class ServeFrontend:
             warmed.append(key.render())
         return warmed
 
-    # -- actuator surface ----------------------------------------------
-    # The reference's control plane calls these; here they are public
-    # API. Anything that must be serialized with staging (batch resizes,
-    # morphs) is handed to the dispatch thread instead of done here.
+    # -- auto-plan plane (dvf_tpu_torch.control.planner / plan_cache) ---
+
+    def _topology_fingerprint(self) -> str:
+        """Cached: what hardware this frontend drives, laid out how —
+        the plan/calibration cache's invalidation axis."""
+        if self._topology is None:
+            from dvf_tpu_torch.control.plan_cache import topology_fingerprint
+            self._topology = topology_fingerprint(self.device)
+        return self._topology
+
+    def _cal_signature(self, bucket: "_Bucket") -> Optional[str]:
+        """The calibration-cache key for a bucket's compile: the batch
+        size is part of the measured shape, so it is part of the key."""
+        try:
+            key = bucket.key or bucket.engine.signature_key
+            if key is None:
+                key = make_key(bucket.op_chain, bucket.frame_shape,
+                               bucket.frame_dtype)
+            return f"b{bucket.batch_size}|{key.render()}"
+        except Exception:  # noqa: BLE001 — an unparseable display-name
+            return None    #   chain just skips the calibration cache
+
+    def _seed_calibrations(self, bucket: "_Bucket") -> None:
+        """Before a bucket engine's FIRST compile: adopt the persisted
+        (topology, batch signature) calibration triple from the plan
+        cache so ``Engine.compile`` skips its blocking measurement
+        passes on a warm restart. No cache dir, already compiled, or
+        any cache miss → no-op (the cold path re-measures; always
+        correct)."""
+        eng = bucket.engine
+        if (not self.config.plan_cache_dir
+                or eng.calibration_seed is not None
+                or eng.stats.compile_count > 0
+                or bucket.frame_shape is None):
+            return
+        sig = self._cal_signature(bucket)
+        if sig is None:
+            return
+        from dvf_tpu_torch.control import plan_cache as _pc
+        eng.calibration_seed = _pc.load_calibrations(
+            self.config.plan_cache_dir, self._topology_fingerprint(), sig)
+
+    def _save_calibrations(self, bucket: "_Bucket", before: int) -> None:
+        """After a compile that actually MEASURED (ran here, was not
+        seeded): persist the calibration triple so the next restart on
+        this topology skips the measurement passes."""
+        eng = bucket.engine
+        if (not self.config.plan_cache_dir
+                or eng.stats.compile_count == before
+                or eng.calibration_seeded):
+            return
+        sig = self._cal_signature(bucket)
+        if sig is None:
+            return
+        from dvf_tpu_torch.control import plan_cache as _pc
+        _pc.save_calibrations(
+            self.config.plan_cache_dir, self._topology_fingerprint(), sig,
+            {"h2d_block_ms": eng.h2d_block_ms,
+             "d2h_block_ms": eng.d2h_block_ms,
+             "step_block_ms": eng.step_block_ms})
+
+    def autoplan(self, frame_shape, frame_dtype="uint8",
+                 op_chain: Optional[str] = None,
+                 log: Optional[Any] = None) -> Optional[dict]:
+        """Plan this frontend's operating point for one signature —
+        the auto-plan plane's entry point (``--autoplan`` on the CLI).
+        Call AFTER :meth:`start` (the measured search pushes paced
+        bursts through the live dispatch path).
+
+        Warm restart: the cached winner for (canonical signature,
+        geometry, topology fingerprint, planner version) applies in
+        O(one JSON read) — no search, no traffic; the ledgered ``plan``
+        event's ``wall_ms`` is the auditable "plan step under 50 ms"
+        bound. Cold: the candidate grid is scored analytically from the
+        compile-time calibration triple, the best ≤ 1/3 is
+        live-profiled through a real measurement session (each
+        candidate applied via the SAME actuators the controllers use —
+        batch hot swap, tick write, depth-aware assembler rebuild), and
+        the measured winner is applied, cached, and ledgered with its
+        search cost. Returns the applied plan doc."""
+        from dvf_tpu_torch.control import planner as planner_mod
+
+        t0 = time.perf_counter()
+        say = log if log is not None else (lambda _m: None)
+        chain = (self._buckets[0].op_chain if op_chain is None
+                 else canonical_op_chain_or_verbatim(op_chain))
+        key = make_key(chain, frame_shape, frame_dtype)
+        signature = key.render()
+        shape = tuple(key.geometry)
+        topo = self._topology_fingerprint()
+        cache_dir = self.config.plan_cache_dir
+        plan = planner_mod.plan_from_cache(cache_dir, signature, shape,
+                                           topo)
+        if plan is not None:
+            self._apply_plan(plan, reason="plan cache hit")
+            wall = (time.perf_counter() - t0) * 1e3
+            if self.ledger is not None:
+                self.ledger.record(
+                    ledger_mod.PLAN, cause=ledger_mod.CAUSE_AUTOPLAN,
+                    signature=signature, cache="hit",
+                    wall_ms=round(wall, 3), plan=plan.to_doc(),
+                    topology=topo, legs=0, grid=0)
+            say(f"autoplan: cache hit {plan.label()} ({wall:.1f} ms)")
+            return plan.to_doc()
+        base = planner_mod.Plan(
+            batch_size=self.config.batch_size, tick_s=self.config.tick_s,
+            ingest_depth=self.config.ingest_depth)
+        # Quiesce the reactive loops for the search: the batch
+        # controller would size the measurement bucket to its
+        # occupancy of one, undoing every candidate's hot swap
+        # mid-burst. Resumed after the winner's envelope is applied.
+        if self.control_plane is not None:
+            self.control_plane.paused = True
+        try:
+            sid = self.open_stream(op_chain=chain, frame_shape=shape,
+                                   frame_dtype=key.dtype, tier=0,
+                                   slo_ms=120000.0)
+            frame = np.zeros(shape, dtype=key.np_dtype)
+            try:
+                # Warmup burst at the hand-set defaults: compiles the
+                # program on the real serving path and measures (or
+                # adopts from the calibration cache) the triple the
+                # analytic pruner seeds from.
+                warm = self._measure_plan_candidate(sid, frame, base)
+                if "error" in warm:
+                    raise ServeError(f"autoplan warmup failed: "
+                                     f"{warm['error']}")
+                with self._lock:
+                    bucket = self._sessions[sid].bucket
+                eng = bucket.engine
+                cal = {"h2d_block_ms": eng.h2d_block_ms,
+                       "d2h_block_ms": eng.d2h_block_ms,
+                       "step_block_ms": eng.step_block_ms}
+                # The hand-set batch is a starting guess, not a bound:
+                # the grid probes up to 2x above it (whether a bigger
+                # batch pays is exactly what measuring decides — the
+                # analytic-only fleet path stays capped at the hand-set
+                # batch because nothing measured says otherwise). The
+                # winner becomes the envelope's ladder top.
+                grid = planner_mod.candidate_grid(
+                    batch_cap=2 * base.batch_size)
+                def measure(p):
+                    # Best-of-2: the first burst after a hot swap pays
+                    # cold staging (fresh program, empty assembler
+                    # ring) — the second burst is the steady state the
+                    # plan will actually run at. Same repeat discipline
+                    # as the bench table's A/B legs.
+                    a = self._measure_plan_candidate(sid, frame, p)
+                    if "error" in a:
+                        return a
+                    b = self._measure_plan_candidate(sid, frame, p)
+                    return a if "error" in b or a["fps"] >= b["fps"] \
+                        else b
+
+                plan, comp = planner_mod.plan_search(
+                    grid, measure,
+                    cal=cal, cal_batch=base.batch_size,
+                    stage_profile=bucket.stage_profile, log=log)
+            except BaseException:
+                # A failed search must not leave a half-applied
+                # candidate driving the frontend: restore the hand-set
+                # point.
+                self.config.ingest_depth = base.ingest_depth
+                self.set_tick_interval(base.tick_s)
+                with self._lock:
+                    s = self._sessions.get(sid)
+                    b = s.bucket if s is not None else None
+                if b is not None and b.batch_size != base.batch_size:
+                    self.request_batch_size(b.label(), base.batch_size,
+                                            reason="autoplan aborted")
+                raise
+            finally:
+                self.close(sid, drain=False)
+            self._apply_plan(plan, reason="measured plan search")
+        finally:
+            if self.control_plane is not None:
+                self.control_plane.paused = False
+        planner_mod.plan_to_cache(cache_dir, signature, shape, topo, plan)
+        wall = (time.perf_counter() - t0) * 1e3
+        if self.ledger is not None:
+            self.ledger.record(
+                ledger_mod.PLAN, cause=ledger_mod.CAUSE_AUTOPLAN,
+                signature=signature, cache="miss",
+                wall_ms=round(wall, 3), plan=plan.to_doc(),
+                topology=topo, legs=plan.searched, grid=plan.grid,
+                reason=f"winner {comp.get('winner')}")
+        say(f"autoplan: live-profiled {plan.searched}/{plan.grid} -> "
+            f"{plan.label()} ({wall:.0f} ms)")
+        return plan.to_doc()
+
+    def apply_plan_doc(self, doc: dict,
+                       reason: Optional[str] = None) -> bool:
+        """Apply an externally-chosen plan doc (the fleet front door
+        plans once and pushes the winner to replicas). Returns False on
+        an implausible doc — never raises over an optimization."""
+        from dvf_tpu_torch.control.planner import Plan
+
+        plan = Plan.from_doc(doc)
+        if plan is None:
+            return False
+        self._apply_plan(plan, reason=reason or "fleet plan")
+        return True
+
+    def _apply_plan(self, plan, reason: Optional[str] = None) -> None:
+        """Make ``plan`` this frontend's operating point: the config
+        fields (future buckets compile at the planned batch/depth), the
+        live dispatch tick, every live bucket's batch size (hot swap
+        when pinned, direct when nothing has flowed yet), and the
+        control plane's operating envelope — the reactive loops
+        then adapt WITHIN the planned envelope (ladder bounded at the
+        planned batch, planned tick as the busy tick) instead of
+        rediscovering it from hard-coded defaults."""
+        with self._lock:
+            self.config.batch_size = plan.batch_size
+            self.config.ingest_depth = plan.ingest_depth
+            self.config.tick_s = plan.tick_s
+            self.config.ingest = plan.ingest
+            self.config.egress = plan.egress
+            buckets = list(self._buckets)
+        for b in buckets:
+            with self._lock:
+                unpinned = b.frame_shape is None
+                if unpinned:
+                    b.batch_size = plan.batch_size
+                    b.ingest_mode = plan.ingest
+                    b.egress_mode = plan.egress
+            if not unpinned and b.batch_size != plan.batch_size:
+                self.request_batch_size(b.label(), plan.batch_size,
+                                        reason=reason or "autoplan")
+        self.set_tick_interval(plan.tick_s)
+        if self.control_plane is not None:
+            self.control_plane.apply_envelope(plan.envelope(),
+                                              reason=reason)
+        self.applied_plan = plan.to_doc()
+
+    def _measure_plan_candidate(self, sid: str, frame: np.ndarray,
+                                plan) -> dict:
+        """One candidate's live leg: apply its knobs through the REAL
+        actuators (batch hot swap via :meth:`request_batch_size` — the
+        same compile-aside path the controllers use — the tick write,
+        and the ingest-depth config the next assembler rebuild picks
+        up), then push a paced burst of ``autoplan_burst_frames``
+        frames through the measurement session and report sustained
+        fps. The row shape matches the bench table's A/B legs
+        (``fps`` or ``error``), so `control._ab.ab_comparison` ranks
+        the search — one shared paced-measurement path."""
+        with self._lock:
+            s = self._sessions.get(sid)
+            bucket = s.bucket if s is not None else None
+        if bucket is None:
+            return {"error": f"measurement session {sid!r} gone"}
+        self.config.ingest_depth = plan.ingest_depth
+        self.set_tick_interval(plan.tick_s)
+        if bucket.batch_size != plan.batch_size:
+            with self._lock:
+                if bucket.frame_shape is None:
+                    bucket.batch_size = plan.batch_size
+            if bucket.batch_size != plan.batch_size:
+                self.request_batch_size(
+                    bucket.label(), plan.batch_size,
+                    reason=f"autoplan candidate {plan.label()}")
+                deadline = time.time() + 30.0
+                while bucket.batch_size != plan.batch_size:
+                    if time.time() > deadline:
+                        return {"error": f"hot swap to batch "
+                                         f"{plan.batch_size} timed out"}
+                    time.sleep(0.002)
+        # Quiet the pipe first: a previous candidate's over-submitted
+        # frames may still be IN FLIGHT (not just queued for poll), and
+        # arriving mid-burst they would inflate this candidate's fps.
+        # Wait until nothing has arrived for 50 ms before measuring.
+        quiet_deadline = time.perf_counter() + 5.0
+        last_arrival = time.perf_counter()
+        while time.perf_counter() - last_arrival < 0.05:
+            if self.poll(sid):
+                last_arrival = time.perf_counter()
+            if time.perf_counter() > quiet_deadline:
+                break
+            time.sleep(0.002)
+        n = max(4, int(self.config.autoplan_burst_frames))
+        # Paced: keep ~2 batches of standing work so batching engages,
+        # but never more than the per-session ingress bound — a frame
+        # dropped at ingress never delivers, which would read as a
+        # stalled (infinitely slow) candidate instead of a paced one.
+        backlog = max(2, min(2 * plan.batch_size, self.config.queue_size))
+        delivered = in_flight = 0
+        t0 = time.perf_counter()
+        deadline = t0 + 60.0
+        last_progress = t0
+        while delivered < n:
+            while in_flight < backlog:
+                self.submit(sid, frame)
+                in_flight += 1
+            got = self.poll(sid)
+            delivered += len(got)
+            in_flight -= len(got)
+            if got:
+                last_progress = time.perf_counter()
+                continue
+            now = time.perf_counter()
+            if now > deadline:
+                return {"error": f"burst stalled at "
+                                 f"{delivered}/{n} delivered"}
+            if now - last_progress > 2.0:
+                # A shed frame (drop-oldest racing a mid-burst resize
+                # swap) never delivers; after 2 s of silence assume
+                # the standing work evaporated and re-prime rather
+                # than waiting out the deadline on ghosts. Throughput
+                # stays honest — the clock keeps running and fps is
+                # delivered-work over total wall.
+                in_flight = 0
+                last_progress = now
+            time.sleep(0.001)
+        wall = time.perf_counter() - t0
+        return {"fps": round(n / wall, 2), "frames": n,
+                "wall_s": round(wall, 4), "batch": plan.batch_size,
+                "tick_s": plan.tick_s, "depth": plan.ingest_depth}
+
+    # -- control-plane actuator surface (dvf_tpu_torch.control) ---------
+    # The ControlPlane's apply thread calls these; the decisions behind
+    # them are deterministic over the telemetry window (controllers.py).
+    # Anything that must be serialized with staging (quality rebinds,
+    # batch resizes) is handed to the dispatch thread instead of done
+    # here — the apply thread only ever pays for COMPILES, never for a
+    # lock the serving path is hot on.
+
+    def control_view(self) -> dict:
+        """The per-bucket/per-session half of a control row — what the
+        plane composes with each flat telemetry sample before the
+        controllers' decision step. Cheap: counter reads, no percentile
+        work."""
+        with self._lock:
+            buckets = [(b, len(b.sessions),
+                        sum(len(s.ingress) + len(s.pending)
+                            for s in b.sessions.values()),
+                        min((s.config.tier
+                             for s in b.sessions.values()), default=None))
+                       for b in self._buckets]
+            sessions = list(self._sessions.items())
+        b_rows = []
+        for b, n_live, qd, min_tier in buckets:
+            b_rows.append({
+                "label": b.label(),
+                "batch_size": b.batch_size,
+                "queue_depth": qd,
+                "open_sessions": n_live,
+                "inflight_batches": b.inflight_batches,
+                "mean_valid_rows": b.mean_valid_rows,
+                "tick_cost_ms": b.tick_cost_estimate(),
+                # Highest-priority tenant tier (the resize stall-guard:
+                # a bucket hosting tier 0 never shrink-resizes).
+                "min_tier": min_tier,
+                # Measured mean per-component latency (live lineage
+                # window, else the persisted stage profile): what the
+                # controllers annotate their decisions with. None until
+                # something has been measured.
+                "stage_cost_ms": self._bucket_stage_cost(b),
+            })
+        s_rows = []
+        for sid, s in sessions:
+            s_rows.append({
+                "sid": sid,
+                "tier": s.config.tier,
+                "level": s.quality_level,
+                "downshiftable": self._downshiftable(s),
+            })
+        return {"buckets": b_rows, "sessions": s_rows}
+
+    def _downshiftable(self, s: StreamSession) -> bool:
+        """Whether one more ×2 downshift step is geometrically possible
+        for this session (signature pinned, H and W divisible)."""
+        sig = s.base_sig
+        if sig is None:
+            bucket = s.bucket if s.bucket is not None else self._buckets[0]
+            sig = bucket.pinned_signature()
+        if sig is None:
+            return False
+        shape = sig[0]
+        f = 1 << (s.quality_level + 1)
+        return len(shape) >= 2 and shape[0] % f == 0 and shape[1] % f == 0
 
     def request_batch_size(self, bucket_label: str, n: int,
                            reason: Optional[str] = None) -> bool:
@@ -1753,6 +2306,65 @@ class ServeFrontend:
                     return True
         return False
 
+    def set_tick_interval(self, tick_s: float) -> None:
+        """The tick budget: how long dispatch idles between scheduling
+        passes. Tight under load (queueing delay is paid per tick),
+        relaxed when idle (a hot spin over empty queues is wasted
+        host CPU)."""
+        self._tick_s = max(1e-4, float(tick_s))
+
+    def set_admission_tier_floor(self, floor: Optional[int]) -> None:
+        """Controller-set admission floor: ``open_stream`` refuses
+        sessions with tier > floor (None admits every tier)."""
+        with self._lock:
+            self._admission_tier_floor = floor
+
+    def flight_trip(self, reason: str) -> None:
+        """Control-plane observability tap (controller saturation):
+        same off-thread flight dump as the watchdog/budget paths."""
+        self._flight_trip(reason)
+
+    def request_session_quality(self, session_id: str, level: int,
+                                reason: Optional[str] = None) -> bool:
+        """Move one session to quality ``level`` (0 = full). Builds or
+        leases the downshift bucket's program HERE (apply thread — a
+        compile must not stall sampling or dispatch), then hands the
+        actual rebind to the dispatch thread, which owns the queues
+        being flushed. False = impossible right now (session gone,
+        geometry not divisible, bucket cap with no idle victim) — the
+        controller counts it and re-decides on a later window."""
+        level = int(level)
+        if level < 0:
+            return False
+        with self._lock:
+            s = self._sessions.get(session_id)
+            if s is None or s.state != OPEN:
+                return False
+            if level == s.quality_level:
+                return True
+            if s.base_sig is None:
+                # First shift: capture the full-quality signature so
+                # recovery can route home even if the base bucket
+                # retires (its program stays warm in the pool).
+                bucket = s.bucket if s.bucket is not None \
+                    else self._buckets[0]
+                pinned = bucket.pinned_signature()
+                if pinned is None:
+                    return False  # nothing has flowed yet — no geometry
+                s.base_sig = pinned
+                s.base_chain = bucket.op_chain
+            shape, dtype = s.base_sig
+            base_chain = s.base_chain
+        key = self._quality_key(base_chain, shape, dtype, level)
+        if key is None:
+            return False
+        try:
+            self._ensure_quality_bucket(key, base_chain, level)
+        except AdmissionError:
+            return False
+        self._pending_rebinds.put((session_id, key, level, reason, None))
+        return True
+
     def morph_stream(self, session_id: str, op_chain: str,
                      reason: Optional[str] = None) -> bool:
         """Swap one live session's FILTER CHAIN mid-stream — no
@@ -1765,7 +2377,9 @@ class ServeFrontend:
         a ``swap`` event (cause=morph) with the cutover frame index.
         Indices stay monotone: frames before the ledgered
         ``cutover_index`` were filtered by the old chain, frames at and
-        after it by the new one. False = impossible right now (session gone/closing, nothing
+        after it by the new one. The adopted program carries a
+        swap-guard equivalence verdict like every other substitution.
+        False = impossible right now (session gone/closing, nothing
         flowed yet, malformed chain raises ServeError, bucket cap with
         no idle victim)."""
         try:
@@ -1873,6 +2487,45 @@ class ServeFrontend:
                 self.pool.release(key)  # raced into existence: program
                 #   stays warm, the live bucket keeps its own lease
 
+    def _warm_quality_async(self, bucket) -> None:
+        """Pre-compile the ×2 downshift program for ``bucket``'s
+        signature on a background thread (control armed only). The
+        moment the quality controller needs that program is
+        mid-overload — the worst possible time to pay a cold compile on
+        a busy host — so it is warmed through the pool at ADMISSION
+        time instead; the eventual downshift costs a pool hit. No-op
+        for an unpinned bucket (an undeclared open warms once a later
+        declared open or the running controller touches the bucket) and
+        for an already-warm or live key."""
+        if self.control_plane is None:
+            return
+        sig = bucket.pinned_signature()
+        base_chain = bucket.op_chain
+        if sig is None or base_chain is None:
+            return
+        shape, dtype = sig
+        key = self._quality_key(base_chain, shape, dtype, 1)
+        if key is None:
+            return
+        with self._lock:
+            if key in self._warmed_quality \
+                    or self._bucket_by_key.get(key) is not None:
+                return
+            self._warmed_quality.add(key)
+            self._register_quality_chain_locked(key, base_chain, 2)
+
+        def warm():
+            try:
+                self._acquire_program(key,
+                                      cause=ledger_mod.CAUSE_QUALITY)
+                self.pool.release(key)
+            except Exception:  # noqa: BLE001 — a failed warm only means
+                with self._lock:   # the first downshift pays the
+                    self._warmed_quality.discard(key)   # compile after all
+
+        threading.Thread(target=warm, name="dvf-quality-warm",
+                         daemon=True).start()
+
     def _apply_rebinds_dispatch(self) -> None:
         """Dispatch-thread half of a quality move or a live morph:
         flush the session's queued frames (OLD geometry/chain — they
@@ -1942,19 +2595,22 @@ class ServeFrontend:
                         signature=key.render(), bucket=target.label(),
                         session=sid, level=level, frames_flushed=flushed,
                         stall_ms=stall_ms, reason=reason, t0=t_c)
-            if self.audit is not None and morph_chain is not None:
+            if self.audit is not None:
                 # Equivalence verdict for the program the session was
                 # just rebound onto — vs the golden path of ITS OWN
-                # chain: a morph is by design not equivalent to the base
-                # program, but the substituted program must still
-                # compute its chain. Async: this is the dispatch thread
-                # — the probe runs on the audit worker (a raced
-                # retirement yields probe_failed, not a crash). The
-                # quality rebind's guard comes with the control plane
-                # that issues quality moves.
+                # chain: a rebind/morph is by design not equivalent to
+                # the base program, but the substituted program must
+                # still compute its chain. Async: this is the dispatch
+                # thread — the probe runs on the audit worker (the
+                # bucket keeps its engine leased; a raced retirement
+                # yields probe_failed, not a crash).
                 self.audit.swap_guard(
                     engine=target.engine, filt=target.filter,
-                    kind="morph", cause=ledger_mod.CAUSE_MORPH,
+                    kind="morph" if morph_chain is not None
+                    else "quality_rebind",
+                    cause=(ledger_mod.CAUSE_MORPH
+                           if morph_chain is not None
+                           else ledger_mod.CAUSE_QUALITY),
                     signature=key.render(), bucket=target.label(),
                     reason=reason, asynchronous=True)
 
@@ -2125,29 +2781,62 @@ class ServeFrontend:
             raise ServeError(
                 f"frontend failed: {self._error!r}") from self._error
         s = self._session(session_id)
-        # A session's bucket binding is fixed between morphs, so the hot
-        # path stays lock-free (a morph keeps the geometry); the
-        # geometry pin is the one first-frame race, double-checked under
-        # the lock. (The reference's control plane adds a locked path
-        # that decimates downshifted sessions; not ported yet.)
-        bucket = s.bucket if s.bucket is not None else self._buckets[0]
-        if bucket.frame_shape is None:
-            with self._lock:
-                if bucket.frame_shape is None:
-                    bucket.frame_shape = tuple(frame.shape)
-                    bucket.frame_dtype = np.dtype(frame.dtype)
-        if tuple(frame.shape) != tuple(bucket.frame_shape) \
-                or np.dtype(frame.dtype) != np.dtype(bucket.frame_dtype):
-            raise ValueError(
-                f"frame {frame.shape}/{frame.dtype} does not match "
-                f"this stream's pinned signature "
-                f"{tuple(bucket.frame_shape)}/"
-                f"{np.dtype(bucket.frame_dtype)} (one compiled "
-                f"program serves every session in a bucket — "
-                f"geometry is per-bucket, not per-stream; open a "
-                f"stream with frame_shape=/op_chain= to route to "
-                f"another bucket)")
-        return s.submit(frame, ts=ts, tag=tag)
+        if self.control_plane is None:
+            # No control plane → no quality rebinds: a session's bucket
+            # binding and level are fixed after open, so the hot path
+            # stays lock-free (the lock below exists only to serialize
+            # with rebind flushes). Geometry pin is the one first-frame
+            # race, double-checked under the lock.
+            bucket = s.bucket if s.bucket is not None else self._buckets[0]
+            if bucket.frame_shape is None:
+                with self._lock:
+                    if bucket.frame_shape is None:
+                        bucket.frame_shape = tuple(frame.shape)
+                        bucket.frame_dtype = np.dtype(frame.dtype)
+            if tuple(frame.shape) != tuple(bucket.frame_shape) \
+                    or np.dtype(frame.dtype) != np.dtype(
+                        bucket.frame_dtype):
+                raise ValueError(
+                    f"frame {frame.shape}/{frame.dtype} does not match "
+                    f"this stream's pinned signature "
+                    f"{tuple(bucket.frame_shape)}/"
+                    f"{np.dtype(bucket.frame_dtype)} (one compiled "
+                    f"program serves every session in a bucket — "
+                    f"geometry is per-bucket, not per-stream; open a "
+                    f"stream with frame_shape=/op_chain= to route to "
+                    f"another bucket)")
+            return s.submit(frame, ts=ts, tag=tag)
+        # ONE atomic section for the (bucket, quality_level) read, the
+        # decimation, the geometry check, AND the enqueue: quality
+        # rebinds (dispatch thread) swap bucket+level and flush the
+        # queues under this same lock, so no frame of the OLD geometry
+        # can slip into the ingress after the flush — without this, a
+        # submit racing a rebind could poison a whole device batch.
+        with self._lock:
+            bucket = s.bucket if s.bucket is not None else self._buckets[0]
+            level = s.quality_level
+            if level > 0:
+                # Downshifted session: decimate ×2^level per axis at the
+                # door (a strided VIEW — zero copy until staging); the
+                # downshift bucket's op chain ends in the matching
+                # upscale stage, so the DELIVERY is still full
+                # resolution. Bit-exactness is waived exactly while the
+                # level is > 0.
+                f = 1 << level
+                frame = frame[::f, ::f]
+            if bucket.frame_shape is None:
+                bucket.frame_shape = tuple(frame.shape)
+                bucket.frame_dtype = np.dtype(frame.dtype)
+            if tuple(frame.shape) != tuple(bucket.frame_shape) \
+                    or np.dtype(frame.dtype) != np.dtype(bucket.frame_dtype):
+                raise ValueError(
+                    f"frame {frame.shape}/{frame.dtype} does not match this "
+                    f"stream's pinned signature {tuple(bucket.frame_shape)}/"
+                    f"{np.dtype(bucket.frame_dtype)} (one compiled program "
+                    f"serves every session in a bucket — geometry is "
+                    f"per-bucket, not per-stream; open a stream with "
+                    f"frame_shape=/op_chain= to route to another bucket)")
+            return s.submit(frame, ts=ts, tag=tag)
 
     def poll(self, session_id: str, max_items: Optional[int] = None) -> list:
         """Pop completed ``Delivery`` records for one stream (works on
@@ -2258,10 +2947,14 @@ class ServeFrontend:
         if (bucket.assembler is None
                 or bucket.assembler.batch_shape != shape
                 or bucket.assembler.depth != self.config.ingest_depth):
-            # The depth check is the reference's auto-plan seam: a new
-            # ingest depth in config is picked up at the next rebuild.
+            # The depth check is the auto-plan seam: a planned (or
+            # candidate) ingest depth lands in config and the next
+            # rebuild picks it up — exactly how a batch resize already
+            # re-derives the slab layout.
             before = bucket.engine.stats.compile_count
+            self._seed_calibrations(bucket)
             bucket.engine.ensure_compiled(shape, dtype)
+            self._save_calibrations(bucket, before)
             # A compile that actually ran here is the legacy lazy pin
             # (default bucket, first traffic) — ledger it as an
             # admission-cause compile ON THE DISPATCH THREAD, which is
@@ -3014,6 +3707,10 @@ class ServeFrontend:
             "open_buckets": len(buckets),
             "buckets": {b.label(): b.stats_row() for b in buckets},
             "pool": self.pool.stats(),
+            # Auto-plan plane: the Plan doc driving this frontend (None
+            # = hand-set defaults) — provenance says cache/measured.
+            **({"plan": self.applied_plan}
+               if self.applied_plan is not None else {}),
             **self.router.stats(),
             "aggregate": LatencyStats.merged(
                 [s.latency for s in every.values()]),
@@ -3039,6 +3736,15 @@ class ServeFrontend:
                if self.ledger is not None else {}),
             **({"flight": self.flight.stats()}
                if self.flight is not None else {}),
+            **({"broadcast": self.broadcast.stats()}
+               if self.broadcast is not None else {}),
+            **({"control": {
+                    **self.control_plane.stats(),
+                    "quality_rebinds": self.quality_rebinds,
+                    "quality_rebinds_dropped": self.quality_rebinds_dropped,
+                    "resize_compile_errors": self.resize_compile_errors,
+                    "admission_tier_floor": self._admission_tier_floor,
+                }} if self.control_plane is not None else {}),
         }
 
 
@@ -3047,7 +3753,7 @@ def _fetch_whole(result) -> np.ndarray:
     had no output signature yet at dispatch): wait for the compute
     event, then copy."""
     wait_compute(result)
-    return result.device.cpu().numpy()
+    return host_array(result.device.cpu())
 
 
 class ZmqStreamBridge:

@@ -934,6 +934,14 @@ class ZmqWorker:
         try:
             if got:
                 self.drain_egress()
+                # Release the staging and delivery slabs now, as a
+                # frontend's stop() does: a closed worker that is still
+                # referenced (a caller's frame, a failed test's traceback)
+                # must not hold its host slabs until it is collected.
+                self._release_asm()
+                f, self._fetcher = self._fetcher, None
+                if f is not None:
+                    f.release()
             if self._ring is not None:
                 if got:
                     self._ring.close()

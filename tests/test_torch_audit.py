@@ -597,6 +597,66 @@ class TestSwapGuardCoverage:
         finally:
             fe.stop()
 
+    def test_resize_quality_recovery_all_audited(self):
+        """One audited run exercising all three live-path recompiles —
+        every substitution must have a swap_guard verdict in the
+        ledger (the acceptance bar item 1's hot swap inherits)."""
+        fe = _serve(sample_every=4, control=True)
+        try:
+            sid = fe.open_stream()
+            frame = _rng_frame((32, 32, 3), seed=5)
+            for _ in range(4):
+                fe.submit(sid, frame)
+            assert len(_drain_session(fe, sid, 4)) == 4
+            label = next(iter(fe.stats()["buckets"]))
+            # (1) batch resize.
+            assert fe.request_batch_size(label, 3, reason="test")
+            deadline = time.time() + 30.0
+            while time.time() < deadline:
+                b = next(iter(fe.stats()["buckets"].values()))
+                if b["batch_size"] == 3:
+                    break
+                time.sleep(0.01)
+            # (2) quality rebind (control armed → submit decimates).
+            assert fe.request_session_quality(sid, 1, reason="test")
+            deadline = time.time() + 30.0
+            while fe.quality_rebinds < 1 and time.time() < deadline:
+                time.sleep(0.01)
+            assert fe.quality_rebinds == 1
+            # (3) recovery rebuild (deterministic direct invocation —
+            # the chaos-driven path is pinned in test_chaos).
+            with fe._lock:
+                bucket = fe._buckets[0]
+            fe._recover("audit coverage test",
+                        kind=FaultKind.COMPUTE, bucket=bucket)
+            assert fe.audit.drain(30.0)
+            events = fe.ledger.snapshot()
+            # The resize substitution now lands as a hot-swap event
+            # (kind=swap, cause=resize); rebind and rebuild keep their
+            # kinds. Every one still carries a swap_guard verdict.
+            subs = [e for e in events if e["kind"] in
+                    ("swap", "quality_rebind", "engine_rebuild")]
+            guards = [e for e in events if e["kind"] == "swap_guard"]
+            kinds = {e["kind"] for e in subs}
+            assert kinds == {"swap", "quality_rebind",
+                             "engine_rebuild"}
+            # ZERO unaudited substitutions: every substitution kind has
+            # a guard verdict, and no guard mismatched on this clean
+            # run.
+            guard_kinds = {e["swap_kind"] for e in guards}
+            assert {"batch_resize", "quality_rebind",
+                    "engine_rebuild"} <= guard_kinds
+            assert len(guards) >= len(subs)
+            assert all(e["verdict"] in ("match", "skipped")
+                       for e in guards), guards
+            st = fe.stats()["audit"]
+            assert st["swap_guard_mismatches_total"] == 0
+            # Resize guard also proved old-program bit-identity.
+            rg = [e for e in guards if e["swap_kind"] == "batch_resize"]
+            assert rg and rg[0].get("old_program_match") is True
+        finally:
+            fe.stop()
+
     def test_morph_audited(self):
         """A live morph's adopted program gets its verdict against the
         golden of its own chain."""

@@ -309,12 +309,19 @@ class TestWorkerChaos:
         payloads = codec.encode_batch(frames)
         codec.close()
         # Decode events count per blob in arrival order however batches
-        # split, so event 3 is always frame 3's decode.
+        # split, so event 3 is always frame 3's decode. A corrupt JPEG
+        # drops its whole batch, so which other frame is lost depends on
+        # the split: the flush timer outlasts the test, so the worker
+        # always batches the pairs (0, 1), (2, 3), (4, 5), whatever the
+        # arrival times (a frame 1 that arrived after the default 10 ms
+        # timer shipped frame 0 alone and paired 3 with 4:
+        # test_decode_corruption_drops_its_batch_however_it_splits).
         chaos = FaultPlan().add("decode", at=(3,))
         worker = ZmqWorker(
             get_filter("invert"), host="127.0.0.1",
             distribute_port=app.dist_port, collect_port=app.coll_port,
-            batch_size=2, use_jpeg=True, chaos=chaos, device="cpu")
+            batch_size=2, use_jpeg=True, chaos=chaos, device="cpu",
+            assemble_timeout_s=60.0)
         t = threading.Thread(target=worker.run, daemon=True)
         t.start()
         sent, results = 0, {}
@@ -341,3 +348,76 @@ class TestWorkerChaos:
         assert 3 not in results
         assert worker.faults.summary()["by_kind"] == {"decode": 1}
         assert worker.errors == 1
+
+    @pytest.mark.parametrize("split,lost", [
+        ([[0, 1], [2, 3], [4, 5]], {2, 3}),
+        ([[0], [1, 2], [3, 4], [5]], {3, 4}),
+        ([[0], [1], [2], [3], [4], [5]], {3}),
+    ])
+    def test_decode_corruption_drops_its_batch_however_it_splits(
+            self, split, lost):
+        """The batch step without sockets, at each way the socket loop
+        may split six frames into batches of at most two: the corrupt
+        frame 3 takes exactly its own batch down (the reference's
+        contract: a corrupt JPEG drops the batch), counted once; every
+        other frame is served, inverted. A frame 1 that reaches the
+        worker after its flush timer ships frame 0 alone and pairs 3
+        with 4 (the second split), which a socket test expecting frame
+        4 can then never see."""
+        from dvf_tpu_torch.transport.codec import make_codec
+        from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
+
+        rng = np.random.default_rng(0)
+        codec = make_codec()
+        frames = [rng.integers(0, 255, (16, 16, 3), np.uint8)
+                  for _ in range(6)]
+        payloads = codec.encode_batch(frames)
+        worker = ZmqWorker(get_filter("invert"), batch_size=2, use_jpeg=True,
+                           chaos=FaultPlan().add("decode", at=(3,)),
+                           device="cpu", connect=False)
+        got = {}
+        try:
+            for part in split:
+                worker.process_batch(
+                    [(i, payloads[i]) for i in part],
+                    lambda i, t0, t1, p: got.__setitem__(i, p))
+            worker.drain_egress()
+            served = {i: codec.decode(p).astype(np.float64)
+                      for i, p in got.items()}
+            want = [255.0 - codec.decode(p) for p in payloads]
+        finally:
+            worker.close()
+            codec.close()
+        assert set(got) == set(range(6)) - lost
+        assert worker.faults.summary()["by_kind"] == {"decode": 1}
+        assert worker.errors == 1
+        for i, out in served.items():
+            # Each payload is frame i inverted (through one more JPEG
+            # round trip of noise): nearest its own inverted input.
+            dist = [np.abs(out - w).mean() for w in want]
+            assert int(np.argmin(dist)) == i, dist
+
+    def test_close_releases_the_workers_slabs(self):
+        """close() releases the worker's staging and delivery slabs at
+        once, while the worker object is still referenced."""
+        from dvf_tpu_torch.runtime import egress, ingest
+        from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
+
+        worker = ZmqWorker(get_filter("invert"), batch_size=2,
+                           use_jpeg=False, raw_size=16, device="cpu",
+                           connect=False)
+        frame = np.full((16, 16, 3), 9, np.uint8)
+        got = []
+        worker.process_batch([(0, frame.tobytes()), (1, frame.tobytes())],
+                             lambda i, t0, t1, p: got.append(i))
+        worker.drain_egress()
+        assert got == [0, 1]
+        assert worker._asm is not None and worker._asm.slab_bytes() > 0
+        asm, fetcher = worker._asm, worker._fetcher
+        worker.close()
+        assert asm.slab_bytes() == 0
+        assert fetcher is None or fetcher.slab_bytes() == 0
+        assert worker._asm is None and worker._fetcher is None
+        del asm, fetcher
+        assert ingest.occupied_slab_bytes() == 0
+        assert egress.occupied_slab_bytes() == 0

@@ -825,3 +825,86 @@ def test_audited_serving_launches_k3_per_batch_and_per_replay(dev):
     assert st["replays_sampled_total"] == n // 3
     assert st["replays_ok_total"] == n // 3
     assert launches == batches + n // 3
+
+
+def test_quality_downshift_on_the_card_matches_the_plain_program(dev):
+    """A sobel_bilateral session on cuda:0 with the control plane armed
+    (its controllers idle: manual actuation): frames before a downshift
+    and after the recovery within 1 LSB of the plain full program, the
+    downshifted ones within 1 LSB of the plain frame[::2, ::2] ->
+    sobel_bilateral -> nearest x2, every delivery full size; the
+    downshift program, warmed at admission, serves at half size with
+    K3 launched once per batch of each bucket."""
+    import time
+
+    from dvf_tpu_torch.control import ControlConfig
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    shape, per = (64, 96, 3), 8
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    fe = dvf_tpu_torch.ServeFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        dvf_tpu_torch.ServeConfig(
+            batch_size=4, queue_size=64, out_queue_size=64,
+            slo_ms=600_000.0, control=True,
+            control_config=ControlConfig(interval_s=3600.0)))
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for _ in range(3 * per)]
+    got = []
+    with fe:
+        sid = fe.open_stream(op_chain="sobel_bilateral", frame_shape=shape)
+        deadline = time.time() + 60.0
+        while len(fe.pool) < 2:   # the x2 program's admission warm-up
+            assert time.time() < deadline
+            time.sleep(0.01)
+        tk.reset_launches()
+        for k, level in enumerate((0, 1, 0)):
+            if level != fe._session(sid).quality_level:
+                assert fe.request_session_quality(sid, level)
+                while fe._session(sid).quality_level != level:
+                    assert time.time() < deadline
+                    time.sleep(0.002)
+            for f in frames[k * per:(k + 1) * per]:
+                fe.submit(sid, f)
+            while len(got) < (k + 1) * per:
+                assert time.time() < deadline
+                got += fe.poll(sid)
+                time.sleep(0.002)
+        launches = tk.LAUNCHES["sobel_bilateral"]
+        batches = sum(b.engine.stats.batches for b in fe._buckets
+                      if b.op_chain and b.op_chain.startswith(
+                          "sobel_bilateral"))
+        labels = sorted(fe.stats()["buckets"])
+    assert fe.quality_rebinds == 2
+    assert "sobel_bilateral|upscale(scale=2)|32x48x3|uint8" in labels
+    assert launches == batches > 0
+    assert [d.index for d in got] == list(range(3 * per))
+    x = torch.from_numpy(np.stack(frames)).to(dev)
+    full = to_uint8(chain.fn(to_float(x), None)[0]).cpu().numpy()
+    half = to_uint8(chain.fn(to_float(x[:, ::2, ::2].contiguous()),
+                             None)[0]).cpu().numpy()
+    down = half.repeat(2, axis=1).repeat(2, axis=2)
+    for i, d in enumerate(got):
+        assert d.frame.shape == shape
+        want = down[i] if per <= i < 2 * per else full[i]
+        diff = np.abs(d.frame.astype(np.int16) - want.astype(np.int16))
+        assert diff.max() <= 1, (i, int(diff.max()))
+
+
+def test_meshless_fingerprint_equals_the_engines_and_names_the_card(dev):
+    from dvf_tpu_torch.control import plan_cache
+
+    name = torch.cuda.get_device_name(0)
+    meshless = plan_cache.topology_fingerprint()
+    fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"),
+                                     dvf_tpu_torch.ServeConfig(batch_size=2))
+    try:
+        assert fe._topology_fingerprint() == meshless
+        assert plan_cache.topology_fingerprint(fe.engine.device) == meshless
+    finally:
+        fe.pool.close()
+        fe.engine.free()
+    assert meshless.startswith(f"torch-cuda/{name}/n{torch.cuda.device_count()}/")
+    assert f"cuda={torch.version.cuda}" in meshless
+    assert plan_cache.topology_fingerprint("cpu") != meshless

@@ -1,6 +1,7 @@
 """The port stands alone: importing it (and chip_smoke.py) pulls in
-neither jax nor any part of the JAX package; chip_smoke.py prints no
-result where it cannot run the port on a card."""
+neither jax nor any part of the JAX package nor the repo-root
+``benchtools`` of its bench harness; chip_smoke.py prints no result
+where it cannot run the port on a card."""
 
 import json
 import os
@@ -25,7 +26,8 @@ for m in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "dvf_tpu" or m.startswith("dvf_tpu."))
+             or m == "dvf_tpu" or m.startswith("dvf_tpu.")
+             or m == "benchtools")
 print(json.dumps({{"imported": mods, "bad": bad}}))
 """
 
@@ -57,6 +59,36 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"dvf_tpu_torch.obs.audit", "dvf_tpu_torch.obs.lineage",
             "dvf_tpu_torch.obs.viewer", "dvf_tpu_torch.obs.trace",
             "dvf_tpu_torch.obs.export"} <= set(res["imported"])
+    # The control plane, auto-plan with its plan cache, and broadcast.
+    assert {"dvf_tpu_torch.control.controllers",
+            "dvf_tpu_torch.control.plane", "dvf_tpu_torch.control.planner",
+            "dvf_tpu_torch.control.plan_cache", "dvf_tpu_torch.control._ab",
+            "dvf_tpu_torch.control.fleet_elastic",
+            "dvf_tpu_torch.broadcast.abr", "dvf_tpu_torch.broadcast.channel",
+            "dvf_tpu_torch.broadcast.relay",
+            "dvf_tpu_torch.broadcast.plane"} <= set(res["imported"])
+
+
+def test_planner_ranks_with_its_own_copy_of_ab_comparison():
+    """The planner ranks its legs with the port's copy of the repo-root
+    ``benchtools.ab_comparison`` (``control._ab``), which computes what
+    the original does: the same comparison for the same legs, seeded
+    priors and aborts."""
+    import benchtools
+
+    from dvf_tpu_torch.control import _ab, planner
+
+    assert planner.ab_comparison is _ab.ab_comparison
+    legs = [("a", 1), ("b", 2), ("c", 3), ("d", 0)]
+
+    def measure(_label, v):
+        return {"error": "stalled"} if v == 0 else {"fps": 10.0 * v % 25}
+
+    for kw in ({}, {"prior": {"a": {"fps": 99.0}},
+                    "keep_leg": lambda e: "fps" in e},
+               {"abort": lambda r: True}, {"meta": {"run": "x"}}):
+        assert _ab.ab_comparison(legs, measure, **kw) == \
+            benchtools.ab_comparison(legs, measure, **kw)
 
 
 def test_ring_source_is_the_ports_own_copy():
@@ -79,7 +111,7 @@ def test_ring_source_is_the_ports_own_copy():
 
 
 @pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
-                                 "obs"])
+                                 "obs", "control", "broadcast"])
 def test_package_exports_the_references_names(pkg):
     """Each package re-exports the names its JAX counterpart exports
     (minus the file and webcam sources, which wait for their slice)."""
@@ -123,7 +155,8 @@ def test_import_creates_no_cuda_context():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+dvf_tpu(\.|\s|$)|"
-    r"from\s+dvf_tpu(\.|\s))", re.M)
+    r"from\s+dvf_tpu(\.|\s)|import\s+benchtools\b|from\s+benchtools\b)",
+    re.M)
 
 
 def test_sources_name_no_jax_or_reference_import():

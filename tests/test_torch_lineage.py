@@ -456,6 +456,62 @@ class TestServeLineage:
         finally:
             fe.stop()
 
+    def test_control_decisions_annotated_with_stage_cost(self):
+        """The reference's decision-log annotation, through the port's
+        plane: a bucket-targeted decision records that bucket's measured
+        stage costs."""
+        from dvf_tpu_torch.control import ControlConfig, ControlPlane
+        from dvf_tpu_torch.control.controllers import Action
+
+        plane = ControlPlane(actuator=None, config=ControlConfig())
+        plane.batch.step = lambda row, prev, floor=None: [
+            Action("resize", "bkt|16x24x3|uint8", 4, "occupancy")]
+        plane.quality.step = lambda row, prev, floor=None: []
+        plane.tiers.step = lambda row, prev: []
+        cost = {"queue_bucket": 12.5, "device": 3.0}
+        actions = plane.decide({
+            "buckets": [{"label": "bkt|16x24x3|uint8",
+                         "stage_cost_ms": cost}],
+            "sessions": []})
+        assert len(actions) == 1
+        entry = plane.stats()["decisions"][-1]
+        assert entry["kind"] == "resize"
+        assert entry["stage_cost_ms"] == cost
+
+    def test_control_view_stage_cost_live_then_persisted(self, tmp_path):
+        """``control_view()``'s ``stage_cost_ms``: the live attribution
+        window's per-component means while lineage runs, else the
+        persisted profile's means (rounded as the reference rounds)."""
+        from dvf_tpu_torch.control import ControlConfig
+
+        prof_dir = str(tmp_path / "profiles")
+        ctl = dict(control=True,
+                   control_config=ControlConfig(interval_s=30.0))
+        fe = self._frontend(profile_dir=prof_dir, **ctl)
+        with fe:
+            sid = fe.open_stream(op_chain="invert", frame_shape=(H, W, 3))
+            for j in range(6):
+                fe.submit(sid, frame_u8(0, j))
+            assert len(drain(fe, sid, 6)) == 6
+            row = fe.control_view()["buckets"][0]
+            live = fe.attribution.bucket_stage_cost_ms(row["label"])
+            assert live and row["stage_cost_ms"] == live
+            assert "device" in live
+        sig = "invert|16x24x3|uint8"
+        doc = load_stage_profile(prof_dir, sig)
+        cfg = ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                          profile_dir=prof_dir, **ctl)
+        fe2 = ServeFrontend(get_filter("invert"), cfg)
+        try:
+            fe2.open_stream(op_chain="invert", frame_shape=(H, W, 3))
+            row = next(b for b in fe2.control_view()["buckets"]
+                       if b["label"] == sig)
+            assert row["stage_cost_ms"] == {
+                k: round(float(v["mean_ms"]), 4)
+                for k, v in doc["components_ms"].items()}
+        finally:
+            fe2.stop()
+
 
 # ---------------------------------------------------------------------------
 # Chaos acceptance: SLO-breach dump attributes the injected stage

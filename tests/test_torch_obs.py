@@ -622,6 +622,61 @@ class TestServeLedger:
         got = drain(fe, sid, 0, deadline_s=0.1)
         assert [d.index for d in got] == sorted(d.index for d in got)
 
+    def test_chaos_mix_quality_downshift_leg(self, tmp_path):
+        """The reference acceptance run's third leg: a quality downshift
+        rebinds the session WITHOUT a bucket pause (the target program
+        was compiled aside at cause=quality; the cutover cost is the
+        measured binding swing), lands on the ledger's trace lane, and
+        the flight dump's ledger.json carries it."""
+        from dvf_tpu_torch.control import ControlConfig
+        from dvf_tpu_torch.obs.viewer import render_text, summarize
+
+        fe = _frontend(stall_timeout_s=0.0, trace=True,
+                       flight_dir=str(tmp_path / "flight"),
+                       flight_min_interval_s=0.0, control=True,
+                       control_config=ControlConfig(interval_s=30.0),
+                       out_queue_size=500)
+        with fe:
+            sid = fe.open_stream(frame_shape=(H, W, 3))
+            for j in range(3):
+                _drive_sync(fe, sid, frame_u8(0, j))
+            assert fe.request_session_quality(sid, 1,
+                                              reason="test downshift")
+            _wait(lambda: _events(fe, ledger_mod.QUALITY_REBIND),
+                  msg="rebind event never landed")
+            for j in range(3, 6):
+                _drive_sync(fe, sid, frame_u8(0, j))
+            rebind = _events(fe, ledger_mod.QUALITY_REBIND)[0]
+            assert rebind["cause"] == "quality"
+            assert rebind["level"] == 1 and rebind["session"] == sid
+            assert 0 <= rebind["stall_ms"] < 1000.0  # measured swing
+            qcompiles = [e for e in _events(fe, ledger_mod.COMPILE)
+                         if e["cause"] == "quality"]
+            assert qcompiles and qcompiles[0]["compile_ms"] > 0
+            summary = fe.ledger.summary()
+            assert summary["stall_events_total"] == 0  # no quiesce
+            assert not walk_export(summary), walk_export(summary)
+            from dvf_tpu_torch.obs.trace import merge_tracer_snapshots
+
+            doc = merge_tracer_snapshots([fe.tracer.snapshot()])
+            names = {e.get("name") for e in doc["traceEvents"]}
+            assert "reconfig:quality_rebind" in names
+            lanes = {e.get("pid") for e in doc["traceEvents"]
+                     if str(e.get("name", "")).startswith("reconfig")}
+            assert lanes == {ledger_mod.TRACK_LEDGER}
+            dump = fe.flight.trigger("test: quality downshift")
+            assert dump is not None
+            with open(os.path.join(dump, "ledger.json")) as f:
+                led_doc = json.load(f)
+            assert "quality_rebind" in {e["kind"] for e in led_doc["events"]}
+            view = summarize(dump)
+            assert "quality_rebind" in {
+                e["kind"] for e in view["reconfigurations"]}
+            assert "reconfiguration events" in render_text(view)
+        got = drain(fe, sid, 0, deadline_s=0.1)
+        assert [d.index for d in got] == sorted(d.index for d in got)
+        assert all(d.frame.shape == (H, W, 3) for d in got)
+
     def test_ledger_endpoint(self):
         fe = _frontend()
         with fe:
@@ -735,62 +790,116 @@ def test_scripted_ledger_kinds_and_causes_match_reference():
     assert kinds.count(ledger_mod.COMPILE) == 2
 
 
-# The plane options of ServeConfig: the five observability planes are
-# ported (they construct and serve); the rest still wait for their item.
-_PORTED_PLANE_OPTIONS = {"audit", "lineage", "flight_dir",
-                         "flight_profile_s", "profile_dir"}
+def _scripted_quality_ledger(fe, drive) -> list:
+    """admission → traffic → downshift → traffic → recovery → traffic:
+    the ledgered (kind, cause, level) sequence and the delivered
+    frames."""
+    with fe:
+        sid = fe.open_stream(op_chain="invert", frame_shape=(H, W, 3))
+        out = []
+        for level, j in ((0, 0), (1, 1), (1, 2), (0, 3)):
+            if level != fe._session(sid).quality_level:
+                assert fe.request_session_quality(sid, level,
+                                                  reason="scripted")
+                _wait(lambda: fe._session(sid).quality_level == level)
+            drive(fe, sid, frame_u8(0, j))
+        out = [d.frame for d in drain(fe, sid, 4)]
+        return ([(e["kind"], e.get("cause"), e.get("level"))
+                 for e in fe.ledger.snapshot()], out)
 
 
+def test_scripted_quality_ledger_matches_reference():
+    """The quality-downshift leg on both frontends: the same ledger
+    (kind, cause, level) sequence and bit-identical frames (invert)."""
+    import dvf_tpu
+    from dvf_tpu.control import ControlConfig as JaxControlConfig
+    from dvf_tpu.serve import ServeConfig as JaxConfig
+    from dvf_tpu.serve import ServeFrontend as JaxFrontend
+
+    from dvf_tpu_torch.control import ControlConfig
+
+    kw = dict(batch_size=2, queue_size=100, out_queue_size=100,
+              slo_ms=60_000.0, control=True)
+    got, frames = _scripted_quality_ledger(
+        ServeFrontend(get_filter("invert"), ServeConfig(
+            control_config=ControlConfig(interval_s=30.0), **kw)),
+        _drive_sync)
+    ref, ref_frames = _scripted_quality_ledger(
+        JaxFrontend(dvf_tpu.get_filter("invert"), JaxConfig(
+            control_config=JaxControlConfig(interval_s=30.0), **kw)),
+        _drive_sync)
+    # The downshift program's warm compile runs on its own thread beside
+    # the admission, so the two compile events may land in either order.
+    assert sorted(got, key=repr) == sorted(ref, key=repr)
+    rebinds = [e for e in got if e[0] == ledger_mod.QUALITY_REBIND]
+    assert rebinds == [e for e in ref if e[0] == ledger_mod.QUALITY_REBIND]
+    assert [lv for _, _, lv in rebinds] == [1, 0]
+    assert len(frames) == len(ref_frames) == 4
+    for a, b in zip(frames, ref_frames):
+        assert np.array_equal(a, b)
+
+
+# The plane options of ServeConfig: every plane of the reference frontend
+# is ported (the five observability planes, the control plane, auto-plan
+# and the plan cache); each constructs, and a frontend built with it
+# serves.
 @pytest.mark.parametrize("option,value", [
     ("audit", True), ("lineage", True), ("flight_dir", "flight"),
     ("flight_profile_s", 1.0), ("profile_dir", "profiles"),
     ("control", True), ("autoplan", True), ("plan_cache_dir", "plans"),
 ])
 def test_unported_plane_options_raise(option, value, tmp_path):
-    """Every ServeConfig option whose plane is not ported raises at
-    construction, naming the ROADMAP item that ports it — never runs
-    silently without its plane; the default config runs. A ported plane's
-    option constructs, and a frontend built with it serves."""
+    """No ServeConfig option raises NotImplementedError any more: each
+    plane option constructs, set at construction or changed after it,
+    and a frontend built with it serves (the port's frontend has every
+    option the reference frontend has)."""
     if isinstance(value, str):
         value = str(tmp_path / value)
-    if option in _PORTED_PLANE_OPTIONS:
-        cfg = ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
-                          flight_min_interval_s=0.0, **{option: value})
-        fe = ServeFrontend(get_filter("invert"), cfg)
+    cfg = ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                      flight_min_interval_s=0.0, **{option: value})
+    late = ServeConfig(batch_size=2, queue_size=100, slo_ms=60_000.0,
+                       flight_min_interval_s=0.0)
+    setattr(late, option, value)   # changed after construction
+    for c in (cfg, late):
+        fe = ServeFrontend(get_filter("invert"), c)
         with fe:
             sid = fe.open_stream()
             fe.submit(sid, tagged_frame(0, 0))
             got = drain(fe, sid, 1)
         assert len(got) == 1
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        ServeConfig(**{option: value})
-    cfg = ServeConfig()
-    setattr(cfg, option, value)   # changed after construction: the
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # frontend
-        ServeFrontend(get_filter("invert"), cfg)                # refuses
+        assert np.array_equal(got[0].frame, 255 - tagged_frame(0, 0))
 
 
 def test_unported_surfaces_raise():
-    """Broadcast still waits for its item; the audit probe and explain
-    are ported and answer as the reference's do on an unarmed frontend."""
-    fe = ServeFrontend(get_filter("invert"), ServeConfig(batch_size=2))
-    with fe:
-        for call in (lambda: fe.subscribe("ch"),
-                     lambda: fe.open_stream(publish="ch")):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
-        with pytest.raises(ServeError, match="no compiled program"):
-            fe.audit_probe()
-        assert fe.explain() == {
-            "lineage": False,
-            "hint": "arm ServeConfig.lineage / --lineage to collect "
-                    "frame-lineage attribution"}
+    """The broadcast surfaces, the audit probe and explain answer as the
+    reference's do on an unarmed frontend: subscribing to a channel no
+    session publishes is a KeyError, publishing builds the plane."""
+    import dvf_tpu
+    from dvf_tpu.serve import ServeConfig as JaxConfig
+    from dvf_tpu.serve import ServeFrontend as JaxFrontend
 
-
-# ---------------------------------------------------------------------------
-# Ledger × lineage × flight (tests/test_ledger.py's plane cases)
-# ---------------------------------------------------------------------------
+    for fe in (ServeFrontend(get_filter("invert"), ServeConfig(batch_size=2)),
+               JaxFrontend(dvf_tpu.get_filter("invert"),
+                           JaxConfig(batch_size=2))):
+        with fe:
+            with pytest.raises(KeyError, match="ch"):
+                fe.subscribe("ch")
+            assert fe.broadcast is not None   # built lazily by subscribe
+            sid = fe.open_stream(publish="ch")
+            with pytest.raises(ValueError, match="no tiers"):
+                fe.subscribe("ch")   # published without a ladder
+            sub = fe.subscribe("ch", tier="native/raw")
+            assert sub.tier.label() == "native/q90/raw"
+            fe.unsubscribe(sub)
+            assert fe.stats()["broadcast"]["channels"]["ch"]
+            assert sid in fe.stats()["sessions"]
+            with pytest.raises(Exception, match="no compiled program") as ei:
+                fe.audit_probe()   # each package's own ServeError
+            assert type(ei.value).__name__ == "ServeError"
+            assert fe.explain() == {
+                "lineage": False,
+                "hint": "arm ServeConfig.lineage / --lineage to collect "
+                        "frame-lineage attribution"}
 
 
 class TestServeLedgerPlanes:
