@@ -156,6 +156,26 @@ which raises (and so exits non-zero) on failure:
    lane per frame, the slow one evicted, payloads byte-identical to the
    delivered frames downscaled, the relay verbatim; and one session's fps
    with publishing off, on, on, off;
+11. the fleet tier (``fleet_phase``), 1080p at batch 16: (a) a local
+   fleet of 2 replicas sharing the card serving 2 sobel_bilateral and 2
+   gaussian_blur(ksize=9) sessions, 32 frames each, placed on both
+   replicas, every frame in order within 1 LSB of the plain version,
+   K1/K3 launched once per batch of their buckets; beside one
+   ServeFrontend serving the same mix (single, fleet, fleet, single), and
+   the fleet's /metrics scrape (merged p50/p99, per-replica labels); (b)
+   2 process replicas on the card serving sessions A and B
+   (sobel_bilateral), fault-free and with B's replica SIGKILLed after
+   frame 10: A bit-identical to the fault-free run, B migrated and
+   monotone, the victim restarted and healthy, a new session served; each
+   child's spawn-to-ready ms and the RPC ms per 1080p frame; (c) a local
+   fleet's warm standby taken by spawn_replica() beside a cold spawn,
+   each timed to its first frame, retire_replica() migrating the spawned
+   replica's session, memory_allocated back after the retire and after
+   stop(); (d) 3 local replicas warm on the sobel_bilateral signature: a
+   divergence check matching with 3 probed (K3 once per replica), then a
+   rigged replica outvoted, quarantined and retired; (e) a process fleet
+   with a state file crash()ed and a resume_state front door adopting its
+   live worker and session;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -171,12 +191,12 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
-``planes_only()`` and ``control_only()`` run the build and phase 7, 8, 9
-or 10 alone.
+``planes_only()``, ``control_only()`` and ``fleet_only()`` run the build
+and phase 7, 8, 9, 10 or 11 alone.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
-[...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+[...]}``, ``{"fleet": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -891,6 +911,10 @@ def main() -> int:
     control_rows, delta = control_phase(dev, plain_of)
     for k, v in delta.items():
         launches[k] += v
+    # 11. the fleet tier (K1/K3 through local replicas' buckets and probes)
+    fleet_rows, delta = fleet_phase(dev, plain_of)
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -922,6 +946,7 @@ def main() -> int:
     print(json.dumps({"ring": ring_rows}))
     print(json.dumps({"planes": planes_rows}))
     print(json.dumps({"control": control_rows}))
+    print(json.dumps({"fleet": fleet_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -2777,9 +2802,10 @@ def serve_leg_bridge(dev):
     return dict(leg="e_bridge", wires=rows, launches=delta), delta
 
 
-def serve_only() -> None:
-    """The build and phase 7 alone (a quick check of the serving legs):
-    ``python3 -c 'import chip_smoke; chip_smoke.serve_only()'``."""
+def _only_setup():
+    """The bring-up every ``*_only()`` shares: the port on the path, TF32
+    off, the card, the host and the build logged. Returns (the card, the
+    plain versions of K1-K3 by kernel name, the host environment)."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2790,14 +2816,23 @@ def serve_only() -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}")
+    env = host_env()
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
+        f"environment: {json.dumps(env)}; torch {torch.__version__}")
     log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
     k9 = gaussian_kernel_1d(9, 0.0)
     chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
     plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
                 "bilateral": lambda x: bilateral_nhwc(x),
                 "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
-    rows, _ = serve_phase(torch.device("cuda", 0), plain_of)
+    return torch.device("cuda", 0), plain_of, env
+
+
+def serve_only() -> None:
+    """The build and phase 7 alone (a quick check of the serving legs):
+    ``python3 -c 'import chip_smoke; chip_smoke.serve_only()'``."""
+    dev, plain_of, _ = _only_setup()
+    rows, _ = serve_phase(dev, plain_of)
     print(json.dumps({"serve": rows}))
 
 
@@ -3232,26 +3267,8 @@ def ring_phase(dev, plain_of: dict, have_jpeg: bool):
 def ring_only() -> None:
     """The build and phase 8 alone (the supervised rebuild and the ring
     legs): ``python3 -c 'import chip_smoke; chip_smoke.ring_only()'``."""
-    import torch
-
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import dvf_tpu_torch
-    from dvf_tpu_torch.ops import _build
-    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
-    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = host_env()
-    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
-        f"environment: {json.dumps(env)}")
-    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
-    k9 = gaussian_kernel_1d(9, 0.0)
-    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
-    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
-                "bilateral": lambda x: bilateral_nhwc(x),
-                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
-    rows, _ = ring_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
+    dev, plain_of, env = _only_setup()
+    rows, _ = ring_phase(dev, plain_of, env["libjpeg"])
     print(json.dumps({"ring": rows}))
 
 # ---------------------------------------------------------------------------
@@ -3334,13 +3351,17 @@ def _count_replays(fe) -> dict:
     return counts
 
 
-def _get_json(url: str) -> dict:
+def _get_text(url: str) -> str:
     import urllib.request
 
     with urllib.request.urlopen(url, timeout=30) as r:
         if r.status != 200:
             raise AssertionError(f"{url}: HTTP {r.status}")
-        return json.loads(r.read().decode())
+        return r.read().decode()
+
+
+def _get_json(url: str) -> dict:
+    return json.loads(_get_text(url))
 
 
 def planes_leg_audit(dev, plain_of: dict, tmp: str):
@@ -3954,26 +3975,8 @@ def planes_phase(dev, plain_of: dict, have_jpeg: bool):
 def planes_only() -> None:
     """The build and phase 9 alone (the observability planes):
     ``python3 -c 'import chip_smoke; chip_smoke.planes_only()'``."""
-    import torch
-
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import dvf_tpu_torch
-    from dvf_tpu_torch.ops import _build
-    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
-    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = host_env()
-    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
-        f"environment: {json.dumps(env)}; torch {torch.__version__}")
-    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
-    k9 = gaussian_kernel_1d(9, 0.0)
-    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
-    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
-                "bilateral": lambda x: bilateral_nhwc(x),
-                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
-    rows, _ = planes_phase(torch.device("cuda", 0), plain_of, env["libjpeg"])
+    dev, plain_of, env = _only_setup()
+    rows, _ = planes_phase(dev, plain_of, env["libjpeg"])
     print(json.dumps({"planes": rows}))
 
 
@@ -4002,7 +4005,8 @@ def _mem_after_stop(label: str) -> int:
     return b
 
 
-def _control_config(**kw):
+def _serve_config(**kw):
+    """A ServeConfig over SERVE_KW (every frame kept) with ``kw`` on top."""
     import dvf_tpu_torch
 
     return dvf_tpu_torch.ServeConfig(**{**SERVE_KW, **kw})
@@ -4016,11 +4020,12 @@ def plain_down(chain: str, frames: list, dev, plain_of: dict) -> np.ndarray:
     return half.repeat(2, axis=1).repeat(2, axis=2)
 
 
-def _wait(pred, what: str, deadline_s: float = 60.0) -> None:
+def _wait(pred, what: str, deadline_s: float = 60.0,
+          phase: str = "control") -> None:
     deadline = time.time() + deadline_s
     while not pred():
         if time.time() > deadline:
-            raise AssertionError(f"control: timed out waiting for {what}")
+            raise AssertionError(f"{phase}: timed out waiting for {what}")
         time.sleep(0.002)
 
 
@@ -4060,7 +4065,7 @@ def control_leg_quality(dev, plain_of: dict):
     from dvf_tpu_torch.ops import kernels as tk
 
     n = CONTROL_FRAMES
-    cfg = _control_config(
+    cfg = _serve_config(
         max_buckets=5, pool_capacity=6, control=True,
         control_config=ControlConfig(interval_s=3600.0),
         broadcast_audit_wire=True, broadcast_ingest_depth=n + 8,
@@ -4328,7 +4333,7 @@ def control_leg_loop(dev, plain_of: dict):
     from dvf_tpu_torch.ops import kernels as tk
     from dvf_tpu_torch.serve import AdmissionError
 
-    cfg = _control_config(max_buckets=3, pool_capacity=4, queue_size=8,
+    cfg = _serve_config(max_buckets=3, pool_capacity=4, queue_size=8,
                           out_queue_size=LOOP_WAVES, slo_ms=LOOP_SLO_MS,
                           control=True)
     fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"), cfg)
@@ -4461,7 +4466,7 @@ def control_leg_plan(dev, tmp: str):
     def frontend():
         return dvf_tpu_torch.ServeFrontend(
             dvf_tpu_torch.get_filter("invert"),
-            _control_config(batch_size=PLAN_BATCH, queue_size=4 * PLAN_BATCH,
+            _serve_config(batch_size=PLAN_BATCH, queue_size=4 * PLAN_BATCH,
                             out_queue_size=4 * PLAN_BATCH, autoplan=True,
                             plan_cache_dir=cache,
                             autoplan_burst_frames=PLAN_BURST))
@@ -4569,7 +4574,7 @@ def control_leg_publish_fps(dev):
 
     n = BCAST_FPS_FRAMES
     fe = dvf_tpu_torch.ServeFrontend(dvf_tpu_torch.get_filter("invert"),
-                                     _control_config(max_buckets=2))
+                                     _serve_config(max_buckets=2))
     base = serve_bases(SERVE_HD, 1, 120)[0]
     runs = []
     with fe:
@@ -4661,27 +4666,551 @@ def control_phase(dev, plain_of: dict):
 def control_only() -> None:
     """The build and phase 10 alone (control, auto-plan, broadcast):
     ``python3 -c 'import chip_smoke; chip_smoke.control_only()'``."""
+    dev, plain_of, _ = _only_setup()
+    rows, _ = control_phase(dev, plain_of)
+    print(json.dumps({"control": rows}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fleet tier (local and process replicas on the one card)
+# ---------------------------------------------------------------------------
+
+FLEET_HD = SERVE_HD              # 1080 x 1920 x 3, phase 7 (a)'s geometry
+FLEET_FRAMES = 32                # leg (a): frames per session
+KILL_FRAMES, KILL_AT = 40, 10    # leg (b): frames per session, SIGKILL after 10
+SNAP_FRAMES = 4                  # leg (e): frames before the front door's crash
+
+
+def _manifest(chains) -> list:
+    return [{"op_chain": c, "frame_shape": list(FLEET_HD)} for c in chains]
+
+
+def fleet_drive(fleet, plan: dict, frames, deadline_s: float = 180.0):
+    """Submit ``frames`` (a range of indices) to every session of ``plan``
+    ({sid: base}) round robin, then poll until each has them all. Returns
+    ({sid: [Delivery]}, wall seconds, submit seconds, poll seconds)."""
+    frames = list(frames)
+    got = {sid: [] for sid in plan}
+    t0 = time.perf_counter()
+    for j in frames:
+        for sid, base in plan.items():
+            fleet.submit(sid, tagged(base, j))
+    t_submit = time.perf_counter() - t0
+    t_poll = 0.0
+    deadline = time.time() + deadline_s
+    while any(len(v) < len(frames) for v in got.values()):
+        if time.time() > deadline:
+            raise AssertionError(
+                f"fleet stalled: { {s: len(v) for s, v in got.items()} } of "
+                f"{len(frames)}; replicas {fleet.stats()['replicas']}")
+        for sid in plan:
+            t = time.perf_counter()
+            fresh = fleet.poll(sid)
+            if fresh:
+                t_poll += time.perf_counter() - t
+            got[sid].extend(fresh)
+        time.sleep(0.002)
+    return got, time.perf_counter() - t0, t_submit, t_poll
+
+
+def fleet_counted(delta: dict, want: dict, label: str) -> None:
+    """K1/K3 launched exactly ``want`` times, and both at least once."""
+    serve_counted(delta, want, label)
+    if not all(delta[k] for k in want):
+        raise AssertionError(f"{label}: a kernel never launched: {delta}")
+
+
+def _replica_batches(fleet, sids: dict) -> dict:
+    """Device batches per chain, summed over the buckets the sessions'
+    replicas served them in ({sid: chain})."""
+    out, seen = {}, set()
+    for sid, chain in sids.items():
+        s = fleet._sessions[sid]
+        fe = fleet._replicas[s.replica_id].frontend
+        eng = fe._session(s.replica_sid).bucket.engine
+        if id(eng) not in seen:
+            seen.add(id(eng))
+            out[chain] = out.get(chain, 0) + eng.stats.batches
+    return out
+
+
+def fleet_leg_local(dev, plain_of: dict):
+    """(a) Two local replicas on the card serving 2 sobel_bilateral and 2
+    gaussian_blur(ksize=9) sessions at 1080p (declared by op_chain), 32
+    frames each, beside one ServeFrontend serving the same mix: single,
+    fleet, fleet, single in one call. The fleet runs are counted (K1/K3
+    launches against their buckets' batches) and checked frame by frame;
+    the first one's registry is scraped (leg (e))."""
     import torch
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import dvf_tpu_torch
-    from dvf_tpu_torch.ops import _build
-    from dvf_tpu_torch.ops.bilateral import bilateral_nhwc
-    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend
+    from dvf_tpu_torch.obs.export import MetricsExporter
+    from dvf_tpu_torch.ops import kernels as tk
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    env = host_env()
-    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; "
-        f"environment: {json.dumps(env)}; torch {torch.__version__}")
-    log(f"build: {json.dumps({k: round(v, 2) for k, v in _build.build_all().items()})}")
-    k9 = gaussian_kernel_1d(9, 0.0)
-    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
-    plain_of = {"sep_blur": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
-                "bilateral": lambda x: bilateral_nhwc(x),
-                "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
-    rows, _ = control_phase(torch.device("cuda", 0), plain_of)
-    print(json.dumps({"control": rows}))
+    tenants = [("sobel_bilateral", 2), ("gaussian_blur(ksize=9)", 2)]
+    runs, delta_total, scrape = [], {}, None
+    for k, kind in enumerate(("single", "fleet", "fleet", "single")):
+        if kind == "fleet":
+            front = FleetFrontend(
+                dvf_tpu_torch.get_filter("invert"),
+                FleetConfig(replicas=2, mode="local",
+                            serve=_serve_config(max_buckets=3,
+                                                      pool_capacity=3)),
+                device=dev)
+        else:
+            front = dvf_tpu_torch.ServeFrontend(
+                dvf_tpu_torch.get_filter("invert"),
+                _serve_config(max_buckets=3, pool_capacity=3), device=dev)
+        plan, chain_of = {}, {}
+        with front:
+            t = time.perf_counter()
+            seed = 110
+            for chain, n in tenants:
+                for base in serve_bases(FLEET_HD, n, seed):
+                    sid = front.open_stream(op_chain=chain, frame_shape=FLEET_HD)
+                    plan[sid], chain_of[sid] = base, chain
+                seed += 1
+            admit_ms = (time.perf_counter() - t) * 1e3
+            load = os.getloadavg()
+            tk.reset_launches()
+            got, wall, _, _ = fleet_drive(front, plan, range(FLEET_FRAMES))
+            delta = dict(tk.LAUNCHES)
+            row = dict(run=k, kind=kind, frames=FLEET_FRAMES * len(plan),
+                       wall_s=wall, fps=FLEET_FRAMES * len(plan) / wall,
+                       admit_ms=admit_ms, loadavg=list(load), launches=delta)
+            if kind == "fleet":
+                st = front.stats()
+                placed = {sid: st["sessions"][sid]["replica"] for sid in plan}
+                if set(placed.values()) != {"r0", "r1"}:
+                    raise AssertionError(f"fleet (a): placements {placed}")
+                batches = _replica_batches(front, chain_of)
+                fleet_counted(delta, {"sobel_bilateral": batches["sobel_bilateral"],
+                                      "sep_blur": batches["gaussian_blur(ksize=9)"]},
+                              f"fleet (a) run {k}")
+                if st["order_violations"] or st["replica_losses"]:
+                    raise AssertionError(f"fleet (a): {st['order_violations']} "
+                                         f"order violations, "
+                                         f"{st['replica_losses']} losses")
+                row.update(placements=placed, batches=batches,
+                           aggregate=st["aggregate"],
+                           replicas={rid: {x: r.get(x) for x in (
+                               "sessions", "engine_batches", "engine_frames")}
+                               for rid, r in st["replicas"].items()})
+                for key, v in delta.items():
+                    delta_total[key] = delta_total.get(key, 0) + v
+                if scrape is None:
+                    with MetricsExporter(front.registry, ring=front.telemetry) as ex:
+                        text = _get_text(f"{ex.url}/metrics")
+                    want = ["dvf_fleet_p50_ms ", "dvf_fleet_p99_ms "] + [
+                        f'dvf_fleet_replica_up{{replica="{r}"}} 1' for r in ("r0", "r1")]
+                    missing = [w for w in want if w not in text]
+                    if missing:
+                        raise AssertionError(f"fleet (e) scrape: missing {missing}")
+                    scrape = dict(
+                        series=sum(1 for ln in text.splitlines()
+                                   if ln.startswith("dvf_fleet")),
+                        lines=[ln for ln in text.splitlines() if ln.startswith((
+                            "dvf_fleet_p50_ms", "dvf_fleet_p99_ms",
+                            "dvf_fleet_replica_up", "dvf_fleet_replica_sessions"))])
+            lsb = max(serve_check(f"fleet (a) {kind} {chain_of[sid]} {sid}",
+                                  chain_of[sid], plan[sid], got[sid],
+                                  FLEET_FRAMES, dev, plain_of) for sid in plan)
+            row["max_lsb"] = lsb
+        runs.append(row)
+        log(f"fleet (a) run {k} {kind}: {row['frames']} frames in {wall:.3f} s "
+            f"({row['fps']:.1f} fps), admission {admit_ms:.1f} ms, loadavg "
+            f"{load}, launches {delta}, max {lsb} LSB"
+            + (f", placements {row['placements']}, batches {row['batches']}"
+               if kind == "fleet" else ""))
+        del front
+        torch.cuda.empty_cache()
+    fps = {kind: [r["fps"] for r in runs if r["kind"] == kind]
+           for kind in ("single", "fleet")}
+    ratio = statistics.mean(fps["fleet"]) / statistics.mean(fps["single"])
+    log(f"fleet (a): fleet / single fps {ratio:.3f} ({fps}); scrape "
+        f"{json.dumps(scrape)}")
+    return dict(leg="a_local", runs=runs, fleet_over_single=ratio,
+                scrape=scrape), delta_total
+
+
+def _process_fleet(**kw):
+    """A process fleet on the card (its default device, cuda:0), each
+    child precompiling the 1080p sobel_bilateral signature before ready."""
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend
+
+    return FleetFrontend(config=FleetConfig(
+        mode="process", filter_spec=("sobel_bilateral", {}),
+        serve=_serve_config(), startup_timeout_s=300.0,
+        precompile=_manifest(["sobel_bilateral"]), **kw))
+
+
+def _kill_scenario(kill: bool, bases: dict):
+    """Two process replicas serving sessions A and B (sobel_bilateral,
+    undeclared: least-loaded placement); with ``kill`` B's replica gets a
+    real SIGKILL after frame 10, then A and B keep streaming to 40 and a
+    new session C is served after the loss. Returns (deliveries, stats,
+    spawn-to-ready ms per replica, RPC seconds)."""
+    fleet = _process_fleet(replicas=2, health_poll_s=0.1, max_restarts=1)
+    t0 = time.monotonic()
+    got = {"A": [], "B": []}
+    rpc = {"submit_s": 0.0, "poll_s": 0.0, "frames": 0}
+    with fleet:
+        ready_ms = {rid: (r.started_at - t0) * 1e3
+                    for rid, r in fleet._replicas.items()}
+        a, b = fleet.open_stream("A"), fleet.open_stream("B")
+        st = fleet.stats()
+        rb = st["sessions"]["B"]["replica"]
+        if st["sessions"]["A"]["replica"] == rb:
+            raise AssertionError(f"fleet (b): A and B share {rb}")
+
+        def drive(sids, frames):
+            g, _, ts, tp = fleet_drive(fleet, {s: bases[s] for s in sids}, frames)
+            for s in sids:
+                got[s].extend(g[s])
+            rpc["submit_s"] += ts
+            rpc["poll_s"] += tp
+            rpc["frames"] += len(list(frames)) * len(sids)
+
+        drive(["A", "B"], range(KILL_AT))
+        if kill:
+            fleet._replicas[rb].kill()   # a real SIGKILL
+            # frames submitted into the loss window: A's all arrive, B's
+            # at most once
+            for j in range(KILL_AT, 2 * KILL_AT):
+                fleet.submit(a, tagged(bases["A"], j))
+                fleet.submit(b, tagged(bases["B"], j))
+                time.sleep(0.02)
+            _wait(lambda: fleet.stats()["migrated_sessions"] >= 1,
+                  "the migration", 120.0, phase="fleet (b)")
+            for j in range(2 * KILL_AT, KILL_FRAMES):
+                fleet.submit(a, tagged(bases["A"], j))
+                fleet.submit(b, tagged(bases["B"], j))
+
+            def done():
+                for s in ("A", "B"):
+                    got[s].extend(fleet.poll(s))
+                return (len(got["A"]) >= KILL_FRAMES and got["B"]
+                        and got["B"][-1].index == KILL_FRAMES - 1)
+
+            _wait(done, "A's and B's last frames", 180.0, phase="fleet (b)")
+        else:
+            drive(["A", "B"], range(KILL_AT, KILL_FRAMES))
+        c = fleet.open_stream("C")
+        fleet.submit(c, tagged(bases["C"], 0))
+        got["C"] = []
+        _wait(lambda: got["C"].extend(fleet.poll(c)) or got["C"],
+              "session C", 120.0, phase="fleet (b)")
+        if kill:
+            _wait(lambda: any(r["restarts"] >= 1 and r["state"] == "healthy"
+                              for r in fleet.stats()["replicas"].values()),
+                  "the victim's restart", 180.0, phase="fleet (b)")
+        st = fleet.stats()
+    return got, st, ready_ms, rpc
+
+
+def fleet_leg_process(dev, plain_of: dict):
+    """(b) Process replicas on the card: a fault-free run and one whose
+    replica of session B is SIGKILLed after frame 10."""
+    from dvf_tpu_torch.fleet.replica import live_worker_processes
+
+    bases = dict(zip("ABC", serve_bases(FLEET_HD, 3, 120)))
+    clean, clean_st, ready_clean, rpc = _kill_scenario(False, bases)
+    faulted, st, ready_faulted, rpc_f = _kill_scenario(True, bases)
+    if live_worker_processes():
+        raise AssertionError("fleet (b): worker processes outlived the fleet")
+    for s in ("A", "B"):
+        serve_check(f"fleet (b) clean {s}", "sobel_bilateral", bases[s],
+                    clean[s], KILL_FRAMES, dev, plain_of)
+    if clean_st["faults"]["by_kind"] or clean_st["replica_losses"]:
+        raise AssertionError(f"fleet (b) clean: faults {clean_st['faults']}")
+    # the survivor: complete and bit-identical to the fault-free run
+    lsb_a = serve_check("fleet (b) survivor A", "sobel_bilateral", bases["A"],
+                        faulted["A"], KILL_FRAMES, dev, plain_of)
+    identical = all(np.array_equal(x.frame, y.frame)
+                    for x, y in zip(clean["A"], faulted["A"]))
+    if not identical:
+        raise AssertionError("fleet (b): the survivor's frames differ from "
+                             "the fault-free run")
+    bi = [d.index for d in faulted["B"]]
+    if bi != sorted(set(bi)) or bi[:KILL_AT] != list(range(KILL_AT)) \
+            or bi[-1] != KILL_FRAMES - 1:
+        raise AssertionError(f"fleet (b): victim B delivered {bi}")
+    want_b = serve_plain("sobel_bilateral",
+                         [tagged(bases["B"], j) for j in bi], dev, plain_of)
+    lsb_b = max_lsb(np.stack([d.frame for d in faulted["B"]]), want_b)
+    if lsb_b > 1:
+        raise AssertionError(f"fleet (b): victim B off by {lsb_b} LSB")
+    restarted = [rid for rid, r in st["replicas"].items() if r["restarts"] >= 1]
+    if not (st["replica_losses"] == 1 and st["migrated_sessions"] == 1
+            and st["sessions"]["B"]["migrations"] == 1
+            and st["order_violations"] == 0 and len(restarted) == 1
+            and st["replicas"][restarted[0]]["state"] == "healthy"
+            and len(faulted["C"]) == 1):
+        raise AssertionError(f"fleet (b): losses {st['replica_losses']}, "
+                             f"migrated {st['migrated_sessions']}, replicas "
+                             f"{st['replicas']}, C {len(faulted['C'])}")
+    rpc_ms = {"submit_ms_per_frame": rpc["submit_s"] * 1e3 / rpc["frames"],
+              "poll_ms_per_frame": rpc["poll_s"] * 1e3 / rpc["frames"]}
+    lost_b = KILL_FRAMES - len(bi)
+    log(f"fleet (b): spawn-to-ready ms (torch import, CUDA context, kernel "
+        f"load, 1080p precompile) clean {ready_clean}, faulted {ready_faulted}; "
+        f"RPC per 1080p frame {json.dumps(rpc_ms)} over {rpc['frames']} frames "
+        f"(6.2 MB pickled each way); survivor A bit-identical, max {lsb_a} LSB; "
+        f"victim B {len(bi)} of {KILL_FRAMES} delivered (lost {lost_b} in the "
+        f"loss window), max {lsb_b} LSB; restarted {restarted}; C served")
+    return dict(leg="b_process", spawn_to_ready_ms=dict(clean=ready_clean,
+                                                         faulted=ready_faulted),
+                rpc=rpc_ms, rpc_frames=rpc["frames"], victim_delivered=len(bi),
+                victim_lost=lost_b, survivor_identical=identical,
+                max_lsb=max(lsb_a, lsb_b), restarted=restarted,
+                faults=st["faults"]["by_kind"]), {}
+
+
+def _mem(label: str) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    b = torch.cuda.memory_allocated()
+    log(f"fleet {label}: memory_allocated {b} B")
+    return b
+
+
+def _serve_one(fleet, sid, frame, got: list, label: str) -> None:
+    n = len(got)
+    fleet.submit(sid, frame)
+    _wait(lambda: got.extend(fleet.poll(sid)) or len(got) > n, label, 120.0,
+          phase="fleet (c)")
+
+
+def fleet_leg_elastic(dev, plain_of: dict):
+    """(c) A local fleet with one warm standby: spawn_replica() takes it,
+    and a fleet without a pool spawns cold, each timed to the spawned
+    replica's first delivered frame; retire_replica() drains that
+    replica's session onto the survivor. memory_allocated is back at its
+    value before the spawn after the retire (the pool's refill stands in
+    for the standby taken) and after a served replica's kill(), and at its
+    value before the fleet after stop()."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend
+    from dvf_tpu_torch.obs.memory import memory_summary
+
+    base0, base = serve_bases(FLEET_HD, 2, 130)
+    m_base = _mem("(c) before")
+    out = {}
+    for warm in (1, 0):
+        kind = "warm" if warm else "cold"
+        fleet = FleetFrontend(
+            dvf_tpu_torch.get_filter("invert"),
+            FleetConfig(replicas=1, mode="local", standby_warm=warm,
+                        serve=_serve_config(),
+                        precompile=_manifest(["sobel_bilateral"])),
+            device=dev)
+        with fleet:
+            # r0 serves a frame first, so the spawn's memory is the only
+            # difference the retire must take back
+            s0 = fleet.open_stream(op_chain="sobel_bilateral", frame_shape=FLEET_HD)
+            _serve_one(fleet, s0, tagged(base0, 0), [], "r0's first frame")
+            if warm:
+                _wait(lambda: fleet.standby.warm_count == 1, "the warm standby",
+                      120.0, phase="fleet (c)")
+            m0 = _mem(f"(c) {kind}: before the spawn")
+            t0 = time.perf_counter()
+            rid = fleet.spawn_replica()
+            spawn_ms = (time.perf_counter() - t0) * 1e3
+            sid = fleet.open_stream(op_chain="sobel_bilateral", frame_shape=FLEET_HD)
+            if fleet._sessions[sid].replica_id != rid:
+                raise AssertionError(f"fleet (c): the open went to "
+                                     f"{fleet._sessions[sid].replica_id}, not {rid}")
+            got = []
+            _serve_one(fleet, sid, tagged(base, 0), got, f"{rid}'s first frame")
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if fleet.standby_adoptions != warm:
+                raise AssertionError(f"fleet (c): standby adoptions "
+                                     f"{fleet.standby_adoptions}, want {warm}")
+            if warm:
+                _wait(lambda: fleet.standby.warm_count == 1, "the pool's refill",
+                      120.0, phase="fleet (c)")
+            for j in range(1, 5):
+                fleet.submit(sid, tagged(base, j))
+            t = time.perf_counter()
+            if not fleet.retire_replica(rid):
+                raise AssertionError(f"fleet (c): retire of {rid} refused")
+            retire_ms = (time.perf_counter() - t) * 1e3
+            _wait(lambda: got.extend(fleet.poll(sid)) or len(got) >= 5,
+                  "the migrated session's frames", 120.0, phase="fleet (c)")
+            _serve_one(fleet, sid, tagged(base, 5), got, "a frame after the retire")
+            serve_check(f"fleet (c) {kind}", "sobel_bilateral", base, got, 6,
+                        dev, plain_of)
+            st = fleet.stats()
+            if rid in st["replicas"] or st["sessions"][sid]["migrations"] != 1:
+                raise AssertionError(f"fleet (c): {rid} not retired cleanly")
+            m_retired = _mem(f"(c) {kind}: after the retire")
+            # a killed local replica (abandoned, as on a loss) frees its
+            # frontend's device memory too
+            h = fleet._make_replica("rk", 9).start()
+            h.open_stream("k0", op_chain="sobel_bilateral", frame_shape=FLEET_HD)
+            h.submit("k0", tagged(base, 0), tag=(0, None))
+            _wait(lambda: h.poll("k0"), "the killed replica's frame", 120.0,
+                  phase="fleet (c)")
+            m_served = _mem(f"(c) {kind}: a replica outside the fleet served")
+            h.kill()
+            m_killed = _mem(f"(c) {kind}: after its kill()")
+        m_stop = _mem(f"(c) {kind}: after stop()")
+        log(f"fleet (c) {kind}: memory_summary after stop() "
+            f"{json.dumps(memory_summary())}")
+        out[kind] = dict(spawn_ms=spawn_ms, spawn_to_first_frame_ms=first_ms,
+                         retire_ms=retire_ms, memory_before_spawn=m0,
+                         memory_after_retire=m_retired,
+                         memory_kill_served=m_served,
+                         memory_after_kill=m_killed, memory_after_stop=m_stop)
+        log(f"fleet (c) {kind} spawn: spawn_replica {spawn_ms:.1f} ms, "
+            f"spawn-to-first-frame {first_ms:.1f} ms, retire (drain + migrate "
+            f"+ stop) {retire_ms:.1f} ms")
+        if m_retired != m0 or m_killed != m_retired or m_stop != m_base:
+            raise AssertionError(f"fleet (c) {kind}: memory_allocated {m0} "
+                                 f"before the spawn, {m_retired} after the "
+                                 f"retire, {m_killed} after a kill, {m_stop} "
+                                 f"after stop() (before the fleet {m_base})")
+    return dict(leg="c_elastic", **out), {}
+
+
+def fleet_leg_divergence(dev):
+    """(d) Three local replicas warm on the 1080p sobel_bilateral
+    signature: a divergence check matches with 3 probed (K3 once per
+    replica), then one replica's probe is rigged (the reference test's
+    rig: the corrupt_device chaos site acts on served batches after the
+    fetch and does not reach the probe) and is outvoted, quarantined and
+    retired."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend
+    from dvf_tpu_torch.ops import kernels as tk
+
+    fleet = FleetFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        FleetConfig(replicas=3, mode="local", audit_quarantine=True,
+                    serve=_serve_config(),
+                    precompile=_manifest(["sobel_bilateral"])),
+        device=dev)
+    with fleet:
+        # the monitor learns each replica's warm signatures from its health
+        key = fleet._signature_render("sobel_bilateral", FLEET_HD, "uint8")
+        _wait(lambda: sum(key in w for w in list(fleet._warm.values())) == 3,
+              "3 replicas warm on the signature", 60.0, phase="fleet (d)")
+        m0 = _mem("(d) 3 replicas")
+        tk.reset_launches()
+        t = time.perf_counter()
+        ev = fleet.audit_divergence_check()
+        check_ms = (time.perf_counter() - t) * 1e3
+        delta = dict(tk.LAUNCHES)
+        if ev["verdict"] != "match" or ev["replicas_probed"] != 3:
+            raise AssertionError(f"fleet (d): {ev}")
+        serve_counted(delta, {"sobel_bilateral": 3}, "fleet (d) probes")
+        victim = sorted(fleet._replicas)[-1]
+        fleet._replicas[victim].audit_probe = (
+            lambda sig=None: {"signature": sig, "digest": "deadbeefdeadbeef"})
+        ev2 = fleet.audit_divergence_check()
+        st = fleet.stats()["audit"]
+        if not (ev2["verdict"] == "mismatch" and ev2["divergent"] == [victim]
+                and st["quarantined_total"] == 1
+                and victim not in fleet._replicas):
+            raise AssertionError(f"fleet (d): {ev2}, {st}")
+        m1 = _mem("(d) after the quarantine")
+    torch.cuda.empty_cache()
+    log(f"fleet (d): check {check_ms:.1f} ms over 3 replicas, launches "
+        f"{delta}; {victim} outvoted ({ev2['verdict']}), quarantined and "
+        f"retired (rig: the probe's digest replaced); memory_allocated "
+        f"{m0} -> {m1} B")
+    return dict(leg="d_divergence", check_ms=check_ms, launches=delta,
+                divergent=ev2["divergent"], rig="probe digest replaced",
+                memory_before=m0, memory_after_quarantine=m1), delta
+
+
+def fleet_leg_snapshot(dev, plain_of: dict):
+    """(e) The snapshot plane: a process fleet with ``state_path`` serves
+    a session, crash()es (its worker lives on), and a new front door with
+    ``resume_state=True`` adopts the worker; the session delivers again."""
+    import dataclasses
+    import tempfile
+
+    from dvf_tpu_torch.fleet import FleetFrontend
+
+    base = serve_bases(FLEET_HD, 1, 140)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        f1 = _process_fleet(replicas=1, state_path=os.path.join(tmp, "s.json"),
+                            snapshot_interval_s=0.05, reattach_grace_s=60.0)
+        f2, got = None, []
+        try:
+            f1.start()
+            sid = f1.open_stream()
+            g, _, _, _ = fleet_drive(f1, {sid: base}, range(SNAP_FRAMES))
+            got += g[sid]
+            time.sleep(0.3)   # the snapshot thread sees the traffic
+            f1.crash()
+            t = time.perf_counter()
+            f2 = FleetFrontend(config=dataclasses.replace(f1.config,
+                                                          resume_state=True),
+                               device=f1.device)
+            f2.start()
+            adopt_ms = (time.perf_counter() - t) * 1e3
+            if (f2.continuity.get("adopted_replicas") != 1
+                    or f2.continuity.get("adopted_sessions") != 1):
+                raise AssertionError(f"fleet (e): {f2.stats()['continuity']}")
+            g, _, _, _ = fleet_drive(f2, {sid: base},
+                                     range(SNAP_FRAMES, SNAP_FRAMES + 2))
+            got += g[sid]
+        finally:
+            (f2 if f2 is not None else f1).stop()
+    serve_check("fleet (e) adopted session", "sobel_bilateral", base, got,
+                SNAP_FRAMES + 2, dev, plain_of)
+    log(f"fleet (e): crash, then a resume_state front door adopted the live "
+        f"worker and its session in {adopt_ms:.1f} ms; "
+        f"{len(got)} frames in order")
+    return dict(leg="e_snapshot", adopt_ms=adopt_ms, frames=len(got)), {}
+
+
+def fleet_phase(dev, plain_of: dict):
+    """Phase 11: legs (a)-(e) of the fleet tier. Returns (rows, the summed
+    launch counts of the in-process legs' counted runs; the process
+    replicas' launches happen in their own processes)."""
+    import torch
+
+    from dvf_tpu_torch.fleet.elastic import live_standby_handles
+    from dvf_tpu_torch.fleet.replica import live_worker_processes
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    os.environ.setdefault("DVF_FLEET_WORKER_STDERR", "1")
+    t0 = time.perf_counter()
+    rows, total = [], {}
+    log(f"fleet phase on {nvidia_smi()}")
+    for leg in (lambda: fleet_leg_local(dev, plain_of),
+                lambda: fleet_leg_process(dev, plain_of),
+                lambda: fleet_leg_elastic(dev, plain_of),
+                lambda: fleet_leg_divergence(dev),
+                lambda: fleet_leg_snapshot(dev, plain_of)):
+        t = time.perf_counter()
+        row, delta = leg()
+        row["wall_s"] = time.perf_counter() - t
+        rows.append(row)
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+        log(f"fleet leg {row['leg']}: {row['wall_s']:.1f} s")
+    if live_pool_engines() or live_worker_processes() or live_standby_handles():
+        raise AssertionError("fleet: engines, workers or standbys outlived "
+                             "their fleets")
+    torch.cuda.empty_cache()
+    log(f"fleet phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def fleet_only() -> None:
+    """The build and phase 11 alone (the fleet tier):
+    ``python3 -c 'import chip_smoke; chip_smoke.fleet_only()'``."""
+    dev, plain_of, _ = _only_setup()
+    rows, _ = fleet_phase(dev, plain_of)
+    print(json.dumps({"fleet": rows}))
 
 
 if __name__ == "__main__":

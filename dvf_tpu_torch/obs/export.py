@@ -1,5 +1,4 @@
-"""Scrape endpoints + SLO flight recorder (port of ``dvf_tpu.obs.export``
-but its fleet scrape).
+"""Scrape endpoints + SLO flight recorder (port of ``dvf_tpu.obs.export``).
 
 The push half of the telemetry plane: `obs.registry` holds the samples,
 this module gets them out of the process.
@@ -41,9 +40,10 @@ this module gets them out of the process.
     a short ``torch.profiler`` window (CPU and CUDA activity) so the
     dump carries device lanes too.
 
-Not ported yet: the fleet scrape (``fleet_samples``,
-``attach_fleet_provider``), which comes with the fleet (ROADMAP Queue 1
-item 3b).
+:func:`fleet_samples` / :func:`attach_fleet_provider`
+    The fleet scrape: the fleet's merged aggregate and per-replica rows
+    (``replica=…`` labels), registered behind a freshness cache so
+    concurrent scrapers share one stats fan-out.
 """
 
 from __future__ import annotations
@@ -129,6 +129,119 @@ def attach_signal_provider(
     ``prefix`` — the standard wiring for serve/pipeline/worker tiers."""
     registry.register_provider(
         lambda: samples_from_signals(signals_fn(), prefix, labels))
+
+
+def fleet_samples(fleet) -> List[MetricSample]:
+    """The fleet scrape: merged aggregate + per-replica rows, every
+    per-replica series labeled ``replica=…``. Rides the existing
+    ``stats()`` merge discipline (``LatencyStats.merge_snapshots`` /
+    ``FaultStats.absorb_summary``) — per-replica data already crossed
+    the ``ProcessReplica`` RPC inside ``fleet.stats()``."""
+    st = fleet.stats()
+    agg = st.get("aggregate") or {}
+    rows = st.get("replicas") or {}
+    # delivered_total comes from the replicas' monotone lifetime
+    # counters (signals() — evicted-session floor included), NOT from
+    # the windowed aggregate.count: the latter shrinks when a replica
+    # evicts retired sessions, which a Prometheus counter must never do.
+    # (A replica restart still resets its share — the idiomatic counter
+    # reset rate() handles.)
+    delivered = [row.get("delivered_total") for row in rows.values()]
+    delivered = [d for d in delivered if d is not None]
+    out = samples_from_signals({
+        "p50_ms": agg.get("p50_ms"),
+        "p90_ms": agg.get("p90_ms"),
+        "p99_ms": agg.get("p99_ms"),
+        "fps": agg.get("fps"),
+        "delivered_total": sum(delivered) if delivered else None,
+        "open_sessions": st.get("open_sessions"),
+        "replica_losses_total": st.get("replica_losses"),
+        "migrated_sessions_total": st.get("migrated_sessions"),
+        "orphaned_sessions_total": st.get("orphaned_sessions"),
+        "order_violations_total": st.get("order_violations"),
+        "spillovers_total": st.get("spillovers"),
+        "rejections_total": st.get("rejections"),
+        "tier_rejections_total": st.get("tier_rejections"),
+        "replica_restarts_total": st.get("replica_restarts"),
+        # Elastic fleet: how many replicas are serving vs wanted vs
+        # pre-warmed, and the scale actions applied so far — the
+        # autoscaler's observable surface (dvf_fleet_replicas_live /
+        # _desired / dvf_fleet_standby_warm gauges, dvf_fleet_scale_*
+        # counters).
+        "replicas_live": st.get("replicas_live"),
+        "replicas_desired": st.get("replicas_desired"),
+        "standby_warm": st.get("standby_warm"),
+        "scale_out_total": st.get("scale_outs"),
+        "scale_in_total": st.get("scale_ins"),
+        "standby_adoptions_total": st.get("standby_adoptions"),
+        # Audit plane: the cross-replica divergence detector's counters
+        # (per-replica shadow-replay/wire counters live on each
+        # replica's own scrape).
+        "audit_divergence_checks_total": (st.get("audit") or {}).get(
+            "checks_total"),
+        "audit_divergences_total": (st.get("audit") or {}).get(
+            "divergences_total"),
+        "audit_quarantined_total": (st.get("audit") or {}).get(
+            "quarantined_total"),
+    }, prefix="fleet")
+    if st.get("rejections_by_tier"):
+        # One tier vocabulary across surfaces: the ring/signals names
+        # use TIER_NAMES ("standard"), so the label must too.
+        from dvf_tpu_torch.control.controllers import TIER_NAMES
+
+        for tier, n in st["rejections_by_tier"].items():
+            label = TIER_NAMES.get(tier, f"tier{tier}")
+            out.append(MetricSample(
+                "fleet_admission_refusals_total", float(n),
+                (("tier", label),), COUNTER))
+    faults = st.get("faults") or {}
+    for kind, n in (faults.get("by_kind") or {}).items():
+        out.append(MetricSample("fleet_faults_total", float(n),
+                                (("kind", str(kind)),), COUNTER))
+    for rid, kinds in (faults.get("by_replica") or {}).items():
+        for kind, n in kinds.items():
+            out.append(MetricSample(
+                "fleet_replica_faults_total", float(n),
+                (("kind", str(kind)), ("replica", str(rid))), COUNTER))
+    for rid, row in rows.items():
+        ragg = row.get("aggregate") or {}
+        out.extend(samples_from_signals({
+            "up": 1.0 if row.get("state") == "healthy" else 0.0,
+            "sessions": row.get("sessions"),
+            "restarts_total": row.get("restarts"),
+            "delivered_total": row.get("delivered_total"),
+            "engine_frames_total": row.get("engine_frames"),
+            "engine_batches_total": row.get("engine_batches"),
+            "errors_total": row.get("errors"),
+            "recoveries_total": row.get("recoveries"),
+            "queue_depth": row.get("queue_depth"),
+            "p50_ms": ragg.get("p50_ms"),
+            "p99_ms": ragg.get("p99_ms"),
+            "fps": ragg.get("fps"),
+        }, prefix="fleet_replica", labels={"replica": rid}))
+    return out
+
+
+def attach_fleet_provider(registry: MetricsRegistry, fleet,
+                          min_interval_s: float = 1.0) -> None:
+    """Register the fleet provider with a freshness cache: one
+    ``fleet.stats()`` costs a stats RPC per replica (each briefly
+    holding that replica's serial channel lock against its submit hot
+    path) plus a full percentile merge — concurrent or tight-loop
+    scrapers must coalesce onto one fan-out per ``min_interval_s``
+    rather than multiplying it."""
+    lock = threading.Lock()
+    cache: Dict[str, Any] = {"t": float("-inf"), "samples": []}
+
+    def provider() -> List[MetricSample]:
+        with lock:  # one fan-out at a time; followers reuse its result
+            now = time.monotonic()
+            if now - cache["t"] >= min_interval_s:
+                cache["samples"] = fleet_samples(fleet)
+                cache["t"] = now
+            return cache["samples"]
+
+    registry.register_provider(provider)
 
 
 # ---------------------------------------------------------------------------

@@ -2888,6 +2888,14 @@ class ServeFrontend:
         session once it has drained. Other sessions are untouched."""
         self._session(session_id).close(drain=drain)
 
+    def session_drained(self, session_id: str) -> bool:
+        """True once a closed session has delivered everything it ever
+        will: the dispatch thread finalized it (nothing queued or in
+        flight, the reorder tail handed to its out-queue). What a
+        fleet's graceful migration waits for before its last salvage
+        poll, instead of a quiet window a slow batch can outlast."""
+        return self._session(session_id).state == CLOSED
+
     def open_count(self) -> int:
         """Number of non-retired sessions — cheap (no percentile work),
         for polling loops that just watch for drain/retirement."""

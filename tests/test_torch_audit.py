@@ -1,6 +1,6 @@
 """The port's audit plane (``dvf_tpu_torch.obs.audit``) on the CPU:
-counterparts of ``tests/test_audit.py`` (its fleet-divergence case waits
-for the fleet, its bench case for the benchmark harness, the quality
+counterparts of ``tests/test_audit.py`` (its fleet-divergence case
+included; its bench case waits for the benchmark harness, the quality
 rebind leg of its swap-guard case for the control plane), plus the
 cross-package checks: wire envelopes, digests and probe frames byte-equal
 to ``dvf_tpu``'s, and the eager golden equal to the JAX golden within
@@ -35,7 +35,13 @@ from dvf_tpu_torch.ops import get_filter
 from dvf_tpu_torch.resilience.chaos import FaultPlan
 from dvf_tpu_torch.resilience.faults import FaultKind
 from dvf_tpu_torch.serve import ServeConfig
-from torch_serve_util import Engine, ServeFrontend, port_leak_guard  # noqa: F401
+from torch_serve_util import (  # noqa: F401
+    Engine,
+    FleetFrontend,
+    ServeFrontend,
+    port_fleet_guard,
+    port_leak_guard,
+)
 
 pytestmark = pytest.mark.audit
 
@@ -861,3 +867,46 @@ class TestEndpoints:
         ref = keys(JaxFrontend(dvf_tpu.get_filter("invert"),
                                JaxConfig(**kw)).start())
         assert ours == ref
+
+
+@pytest.mark.fleet
+def test_fleet_divergence_and_quarantine():
+    """3 local replicas serving one signature: identical probes match; a
+    rigged replica is flagged by majority vote and, quarantine armed,
+    retired through the scale-in seam."""
+    from dvf_tpu_torch.fleet import FleetConfig
+
+    cfg = FleetConfig(
+        replicas=3, mode="local", audit_quarantine=True,
+        serve=ServeConfig(batch_size=2, queue_size=64, slo_ms=60_000.0))
+    fl = FleetFrontend(get_filter("invert"), cfg).start()
+    try:
+        frame = _rng_frame()
+        for i in range(6):
+            fl.open_stream(frame_shape=(32, 32, 3), frame_dtype="uint8",
+                           session_id=f"s{i}")
+        for _ in range(3):
+            for i in range(6):
+                fl.submit(f"s{i}", frame)
+        deadline = time.time() + 30.0
+        while time.time() < deadline:
+            ev = fl.audit_divergence_check()
+            if ev["replicas_probed"] == 3:
+                break
+            time.sleep(0.2)
+        assert ev["verdict"] == "match", ev
+        assert ev["replicas_probed"] == 3
+        victim = sorted(fl._replicas)[-1]
+        fl._replicas[victim].audit_probe = (
+            lambda sig=None: {"signature": sig,
+                              "digest": "deadbeefdeadbeef"})
+        ev = fl.audit_divergence_check()
+        assert ev["verdict"] == "mismatch"
+        assert ev["divergent"] == [victim]
+        st = fl.stats()["audit"]
+        assert st["divergences_total"] == 1
+        assert st["quarantined_total"] == 1
+        assert victim not in fl._replicas  # retired for real
+        assert fl.signals()["audit_divergences_total"] == 1.0
+    finally:
+        fl.stop()

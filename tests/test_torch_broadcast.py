@@ -1,5 +1,5 @@
-"""Broadcast plane on the port (counterpart of ``tests/test_broadcast.py``
-without its fleet-tier class, whose fleet is not ported yet).
+"""Broadcast plane on the port (counterpart of ``tests/test_broadcast.py``,
+its fleet-tier class included).
 
 The reference's tests run against ``dvf_tpu_torch.broadcast`` and the
 port's frontend on the CPU, where the native JPEG shim builds (the delta
@@ -40,7 +40,12 @@ from dvf_tpu_torch.obs.registry import check_metric_name, walk_export
 from dvf_tpu_torch.resilience.chaos import FaultPlan
 from dvf_tpu_torch.transport.codec import make_wire_codec
 from torch_ring_util import jax_native_isolated  # noqa: F401
-from torch_serve_util import ServeFrontend, port_leak_guard  # noqa: F401
+from torch_serve_util import (  # noqa: F401
+    FleetFrontend,
+    ServeFrontend,
+    port_fleet_guard,
+    port_leak_guard,
+)
 
 pytestmark = pytest.mark.broadcast
 
@@ -886,3 +891,63 @@ class TestParity:
                             for s in subs])
         assert out[0] == out[1]
         assert out[0][0] == [(255 - f).tobytes() for f in fs]
+
+
+# ---------------------------------------------------------------------------
+# Fleet-tier integration (publish pump + relay actuators)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.fleet
+class TestFleetIntegration:
+    def _fleet(self):
+        from dvf_tpu_torch.fleet import FleetConfig
+        from dvf_tpu_torch.ops import get_filter
+        from dvf_tpu_torch.serve import ServeConfig
+
+        return FleetFrontend(
+            get_filter("invert"),
+            FleetConfig(replicas=1, mode="local",
+                        serve=ServeConfig(
+                            batch_size=4, queue_size=1000,
+                            out_queue_size=1000, slo_ms=60_000.0,
+                            broadcast_ingest_depth=512,
+                            broadcast_sub_queue=512)))
+
+    def test_publish_pump_relay_spawn_retire(self):
+        """Fleet front door: the publish pump owns polling the
+        published session, watchers and a relay-only egress replica
+        both see the stream, and the relay actuators land in signals
+        and the reconfiguration ledger."""
+        from dvf_tpu_torch.obs import ledger as ledger_mod
+
+        n = 10
+        fleet = self._fleet()
+        with fleet:
+            sid = fleet.open_stream()
+            fleet.publish_stream(sid, "cam", tiers=[JPEG])
+            sub = fleet.subscribe("cam")
+            for f in frames(n, h=16, w=24):
+                fleet.submit(sid, f)
+            got = poll_until(sub, n, deadline_s=20.0)
+            assert [d.seq for d in got] == list(range(n))
+
+            node = fleet.spawn_broadcast_relay()  # busiest channel
+            rsub = node.subscribe()
+            for f in frames(4, h=16, w=24, seed=2):
+                fleet.submit(sid, f)
+            rgot = poll_until(rsub, 4, deadline_s=20.0)
+            assert len(rgot) == 4
+
+            sig = fleet.signals()
+            assert sig["relay_spawns_total"] == 1.0
+            assert sig["broadcast_pump_errors_total"] == 0.0
+            assert fleet.retire_broadcast_relay(node.id) is True
+            assert fleet.signals()["relay_retires_total"] == 1.0
+            kinds = fleet.stats()["ledger"]["by_kind"]
+            assert kinds.get(ledger_mod.RELAY_SPAWN) == 1
+            assert kinds.get(ledger_mod.RELAY_RETIRE) == 1
+            ev = fleet.elastic_view()
+            assert ev["broadcast_subscribers"] >= 1.0
+            assert ev["relays_live"] == 0.0
+            assert walk_export(fleet.stats()) == []

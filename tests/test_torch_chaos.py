@@ -400,9 +400,18 @@ class TestWorkerChaos:
     def test_close_releases_the_workers_slabs(self):
         """close() releases the worker's staging and delivery slabs at
         once, while the worker object is still referenced."""
+        import gc
+
         from dvf_tpu_torch.runtime import egress, ingest
         from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
 
+        # Collect what earlier modules left for the collector (a
+        # test_torch_stream.py pipeline's slabs wait in a reference
+        # cycle): the checks below are process-wide, and no collection
+        # runs between close() and them.
+        gc.collect()
+        assert ingest.occupied_slab_bytes() == 0
+        assert egress.occupied_slab_bytes() == 0
         worker = ZmqWorker(get_filter("invert"), batch_size=2,
                            use_jpeg=False, raw_size=16, device="cpu",
                            connect=False)

@@ -1,8 +1,8 @@
 """The port's session-continuity plane (``dvf_tpu_torch.resilience.
 continuity``) on the CPU: counterparts of ``tests/test_continuity.py``
-(without its fleet, subscribe and worker-SIGTERM cases, whose tiers are
-not ported yet), plus parity of the tokens and backoff ladder with the
-JAX package.
+(its fleet cases included; without its subscribe and worker-SIGTERM
+cases, whose CLI tiers are not ported yet), plus parity of the tokens
+and backoff ladder with the JAX package.
 """
 
 import os
@@ -29,7 +29,12 @@ from dvf_tpu_torch.resilience.continuity import (
     new_secret,
 )
 from dvf_tpu_torch.serve import ServeConfig, ServeError
-from torch_serve_util import ServeFrontend, port_leak_guard  # noqa: F401
+from torch_serve_util import (  # noqa: F401
+    FleetFrontend,
+    ServeFrontend,
+    port_fleet_guard,
+    port_leak_guard,
+)
 
 H, W = 16, 24
 
@@ -382,3 +387,156 @@ def test_tokens_and_backoff_match_reference():
     a, b = ReconnectPolicy(cfg, seed=5), ref.ReconnectPolicy(rcfg, seed=5)
     assert [a.next_delay() for _ in range(8)] == \
         [b.next_delay() for _ in range(8)]
+
+
+# -- fleet-level continuity ----------------------------------------------
+
+
+@pytest.mark.fleet
+def test_fleet_net_chaos_exactly_once_assembly():
+    """Seeded net chaos on the fleet poll path (dup + reorder +
+    partition): a ``ResumableStream`` client still assembles the stream
+    gap-free and bit-identical, with zero order violations charged."""
+    from dvf_tpu_torch.fleet import FleetConfig
+
+    n = 20
+    plan = FaultPlan.parse(
+        "net_partition:every=7,net_dup:every=3,net_reorder:every=4",
+        seed=11)
+    fleet = FleetFrontend(
+        get_filter("invert"),
+        FleetConfig(replicas=2, mode="local", serve=serve_cfg(),
+                    chaos=plan))
+    rs = ResumableStream()
+    src = {j: tagged_frame(2, j) for j in range(n)}
+    with fleet:
+        sid = fleet.open_stream()
+        for j in range(n):
+            rs.note_submit(fleet.submit(sid, src[j]), j)
+        deadline = time.time() + 30.0
+        last_move = time.time()
+        # Two deliveries a poll: at least ten polls whatever the timing,
+        # so the seeded partition (every 7th poll) always fires — the
+        # port's replicas can deliver all 20 frames within 6 polls.
+        while time.time() < deadline and rs.delivered_count() < n:
+            if rs.absorb(fleet.poll(sid, max_items=2)):
+                last_move = time.time()
+            elif time.time() - last_move > 2.0:
+                for j in rs.missing(n):   # partition-window loss, if any
+                    rs.note_submit(fleet.submit(sid, src[j]), j)
+                last_move = time.time()
+            time.sleep(0.005)
+        st = fleet.stats()
+
+        assert rs.missing(n) == [], f"gaps after chaos: {rs.missing(n)}"
+        for j, d in enumerate(rs.assembled()):
+            np.testing.assert_array_equal(d.frame, 255 - src[j])
+        assert st["order_violations"] == 0
+        fired = plan.summary()["fired"]
+        assert any(k.startswith("net_partition:") for k in fired), fired
+
+        token = fleet.resume_token(sid)
+        replayed = fleet.resume_stream(sid, token, from_index=0)
+        assert replayed, "replay ring retained nothing"
+        idxs = [d.index for d in replayed]
+        assert idxs == sorted(idxs)
+        assert rs.absorb(replayed) == []
+        assert fleet.continuity.get("resumes") == 1
+
+        with pytest.raises(ServeError):
+            fleet.resume_stream(sid, "ct1.0.deadbeef")
+        assert fleet.continuity.get("resume_rejected") == 1
+
+
+@pytest.mark.fleet
+def test_fleet_snapshot_document(tmp_path):
+    """``snapshot_now`` writes a crash-consistent document carrying
+    everything resume needs: session registry (placement, indices),
+    replica incarnations and the token-signing secret."""
+    from dvf_tpu_torch.fleet import FleetConfig
+
+    path = str(tmp_path / "fleet_state.json")
+    fleet = FleetFrontend(
+        get_filter("invert"),
+        FleetConfig(replicas=2, mode="local", serve=serve_cfg(),
+                    state_path=path, snapshot_interval_s=60.0))
+    with fleet:
+        sid = fleet.open_stream()
+        rs = ResumableStream()
+        rs.note_submit(fleet.submit(sid, tagged_frame(0, 0)), 0)
+        deadline = time.time() + 30.0
+        while time.time() < deadline and rs.delivered_count() < 1:
+            rs.absorb(fleet.poll(sid))
+            time.sleep(0.005)
+        token = fleet.resume_token(sid)
+        assert fleet.snapshot_now() == path
+        assert fleet.continuity.get("snapshots") >= 1
+
+    doc = load_json(path)
+    assert doc is not None and doc["version"] == 1
+    assert sid in doc["sessions"]
+    row = doc["sessions"][sid]
+    assert row["replica_id"] in doc["replicas"]
+    assert row["next_index"] >= 1
+    assert check_resume_token(token, sid,
+                              bytes.fromhex(doc["secret"])) is not None
+    assert [f for f in os.listdir(tmp_path) if ".tmp" in f] == []
+
+
+@pytest.mark.fleet
+@pytest.mark.slow
+def test_fleet_process_crash_resume(tmp_path):
+    """Front-door kill -9 (``crash()`` abandons live workers) followed
+    by ``resume_state=True``: the still-live process replica is
+    re-adopted, the open session survives with monotone indices, and
+    the pre-crash resume token still verifies."""
+    import dataclasses
+
+    from dvf_tpu_torch.fleet import FleetConfig
+
+    path = str(tmp_path / "fleet_state.json")
+    cfg = FleetConfig(
+        replicas=1, mode="process", filter_spec=("invert", {}),
+        serve=serve_cfg(), state_path=path, snapshot_interval_s=0.05,
+        reattach_grace_s=30.0, startup_timeout_s=120.0)
+    f1 = FleetFrontend(get_filter("invert"), cfg)
+    f2 = None
+    rs = ResumableStream()
+    n_warm = 4
+    try:
+        f1.start()
+        sid = f1.open_stream()
+        for j in range(n_warm):
+            rs.note_submit(f1.submit(sid, tagged_frame(3, j)), j)
+        deadline = time.time() + 60.0
+        while time.time() < deadline and rs.delivered_count() < n_warm:
+            rs.absorb(f1.poll(sid))
+            time.sleep(0.01)
+        assert rs.missing(n_warm) == []
+        pre_max = max(d.index for d in rs.assembled())
+        token = f1.resume_token(sid)
+        time.sleep(0.3)   # let the snapshot thread catch the traffic
+        f1.crash()        # front door dies; the worker process lives on
+
+        f2 = FleetFrontend(get_filter("invert"),
+                           dataclasses.replace(cfg, resume_state=True))
+        f2.start()
+        assert f2.continuity.get("adopted_replicas") == 1
+        assert f2.continuity.get("adopted_sessions") == 1
+        for j in range(n_warm, n_warm + 2):
+            rs.note_submit(f2.submit(sid, tagged_frame(3, j)), j)
+        deadline = time.time() + 60.0
+        while time.time() < deadline and rs.delivered_count() < n_warm + 2:
+            rs.absorb(f2.poll(sid))
+            time.sleep(0.01)
+        assert rs.missing(n_warm + 2) == []
+        post = [d.index for d in rs.assembled()[n_warm:]]
+        assert min(post) > pre_max, (pre_max, post)
+        for j, d in enumerate(rs.assembled()):
+            np.testing.assert_array_equal(d.frame, 255 - tagged_frame(3, j))
+        assert f2.resume_stream(sid, token, from_index=0) is not None
+    finally:
+        if f2 is not None:
+            f2.stop()
+        else:
+            f1.stop()

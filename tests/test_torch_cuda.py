@@ -908,3 +908,71 @@ def test_meshless_fingerprint_equals_the_engines_and_names_the_card(dev):
     assert meshless.startswith(f"torch-cuda/{name}/n{torch.cuda.device_count()}/")
     assert f"cuda={torch.version.cuda}" in meshless
     assert plan_cache.topology_fingerprint("cpu") != meshless
+
+
+def test_local_fleet_runs_the_kernels_on_the_card(dev):
+    """A 2-replica local fleet on cuda:0 (both replicas share the card,
+    each with its own engines): sobel_bilateral (K3) and gaussian_blur(9)
+    (K1) sessions placed on both replicas (each precompiled both), every
+    frame in order and within 1 LSB of the plain version of its own
+    input, K1 and K3 launched by the serving batches, and one kernel
+    launch per replica by a divergence check."""
+    import time
+
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend
+    from dvf_tpu_torch.ops.conv import sep_conv2d
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    shape, n = (48, 72, 3), 12
+    rng = np.random.default_rng(5)
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain = {"gaussian_blur(ksize=9)": lambda x: sep_conv2d(x, k9, k9, impl="shift"),
+             "sobel_bilateral": lambda x: chain.fn(x, None)[0]}
+    fleet = FleetFrontend(
+        dvf_tpu_torch.get_filter("invert"),
+        FleetConfig(replicas=2, mode="local", serve=dvf_tpu_torch.ServeConfig(
+            batch_size=4, queue_size=64, out_queue_size=64, slo_ms=600_000.0),
+            precompile=[{"op_chain": c, "frame_shape": list(shape)}
+                        for c in plain]))
+    assert fleet.device == dev
+    frames, got, sids = {}, {}, {}
+    with fleet:
+        for c in plain:
+            for k in range(2):
+                sid = fleet.open_stream(op_chain=c, frame_shape=shape)
+                sids[sid] = c
+                frames[sid] = [rng.integers(0, 256, shape, dtype=np.uint8)
+                               for _ in range(n)]
+                got[sid] = []
+        placed = {fleet.stats()["sessions"][s]["replica"] for s in sids}
+        tk.reset_launches()
+        for j in range(n):
+            for s in sids:
+                fleet.submit(s, frames[s][j])
+        deadline = time.time() + 120.0
+        while any(len(v) < n for v in got.values()):
+            assert time.time() < deadline, fleet.stats()["replicas"]
+            for s in sids:
+                got[s].extend(fleet.poll(s))
+            time.sleep(0.002)
+        served = dict(tk.LAUNCHES)
+        # the health monitor learns both replicas' warm signatures
+        while fleet._audit_signature() is None:
+            assert time.time() < deadline, fleet._warm
+            time.sleep(0.01)
+        tk.reset_launches()
+        ev = fleet.audit_divergence_check()
+        probes = dict(tk.LAUNCHES)
+    assert placed == {"r0", "r1"}
+    assert served["sobel_bilateral"] > 0 and served["sep_blur"] > 0
+    assert ev["verdict"] == "match" and ev["replicas_probed"] == 2, ev
+    assert probes["sobel_bilateral"] + probes["sep_blur"] == 2, probes
+    for s, c in sids.items():
+        assert [d.index for d in got[s]] == list(range(n))
+        x = to_float(torch.from_numpy(np.stack(frames[s])).to(dev))
+        want = to_uint8(plain[c](x)).cpu().numpy().astype(np.int16)
+        diff = np.abs(np.stack([d.frame for d in got[s]]).astype(np.int16) - want)
+        assert diff.max() <= 1, (c, int(diff.max()))
+    assert live_pool_engines() == []

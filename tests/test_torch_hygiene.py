@@ -67,6 +67,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "dvf_tpu_torch.broadcast.abr", "dvf_tpu_torch.broadcast.channel",
             "dvf_tpu_torch.broadcast.relay",
             "dvf_tpu_torch.broadcast.plane"} <= set(res["imported"])
+    # The fleet tier: the front door, its replicas and their worker.
+    assert {"dvf_tpu_torch.fleet", "dvf_tpu_torch.fleet.stats",
+            "dvf_tpu_torch.fleet.admission", "dvf_tpu_torch.fleet.replica",
+            "dvf_tpu_torch.fleet._worker", "dvf_tpu_torch.fleet.elastic",
+            "dvf_tpu_torch.fleet.router"} <= set(res["imported"])
 
 
 def test_planner_ranks_with_its_own_copy_of_ab_comparison():
@@ -111,10 +116,12 @@ def test_ring_source_is_the_ports_own_copy():
 
 
 @pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
-                                 "obs", "control", "broadcast"])
+                                 "obs", "control", "broadcast", "fleet"])
 def test_package_exports_the_references_names(pkg):
     """Each package re-exports the names its JAX counterpart exports
-    (minus the file and webcam sources, which wait for their slice)."""
+    (minus the file and webcam sources, which wait for their slice, and
+    the fleet's multi-host flavor, which waits for the multi-device
+    mesh)."""
     import importlib
     import types
 
@@ -122,7 +129,8 @@ def test_package_exports_the_references_names(pkg):
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
-    want -= {"VideoFileSource", "WebcamSource"}
+    want -= {"VideoFileSource", "WebcamSource", "MultiHostEngine",
+             "MultiHostReplica"}
     assert want
     got = importlib.import_module(f"dvf_tpu_torch.{pkg}")
     missing = sorted(n for n in want if not hasattr(got, n))
@@ -188,3 +196,58 @@ def test_chip_smoke_fails_and_prints_no_result(tmp_path, where, cuda):
     assert '"ok"' not in out.stdout
     if cuda:
         assert "dvf_tpu_torch" in out.stderr
+
+
+def test_worker_runs_as_a_child_without_jax():
+    """``python -m dvf_tpu_torch.fleet._worker`` speaks the wire to a
+    bare listener (hello, config, ready, an op, stop) and imports
+    neither jax nor the JAX package."""
+    probe = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['_worker'] + sys.argv[1:]\n"
+        "try:\n"
+        "    runpy.run_module('dvf_tpu_torch.fleet._worker', "
+        "run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'dvf_tpu' or "
+        "m.startswith('dvf_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    import socket
+
+    from dvf_tpu_torch.fleet.replica import recv_msg, send_msg
+
+    root = str(ROOT)
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    lst.settimeout(120)
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", probe, "--port",
+         str(lst.getsockname()[1]), "--replica-id", "r0"],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        sock, _ = lst.accept()
+        sock.settimeout(120)
+        assert recv_msg(sock)[0] == "hello"
+        send_msg(sock, ("config", {"filter": ("invert", {}),
+                                   "serve": {"batch_size": 2},
+                                   "device": "cpu", "replica_id": "r0"}))
+        assert recv_msg(sock)[0] == "ready"
+        send_msg(sock, ("health",))
+        reply = recv_msg(sock)
+        assert reply[0] == "ok" and reply[1]["ok"] is True
+        send_msg(sock, ("stop",))
+        assert recv_msg(sock) == ("ok", None)
+        sock.close()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        lst.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1]) == []

@@ -1,8 +1,7 @@
 """The port's frame lineage and latency attribution
 (``dvf_tpu_torch.obs.lineage``) on the CPU: counterparts of
-``tests/test_lineage.py`` (its control-annotation case and the fleet
-cases wait for the control plane and the fleet, its CLI case for the
-CLI), plus the cross-package checks: lineage documents, aggregate
+``tests/test_lineage.py`` (its fleet cases included; its CLI case
+waits for the CLI), plus the cross-package checks: lineage documents, aggregate
 summaries and explain lines, and stage-profile JSON byte-equal to
 ``dvf_tpu``'s for the same inputs, and profile files that the two
 packages never share.
@@ -26,7 +25,12 @@ from dvf_tpu_torch.obs.lineage import (
 )
 from dvf_tpu_torch.ops import get_filter
 from dvf_tpu_torch.serve import ServeConfig
-from torch_serve_util import ServeFrontend, port_leak_guard  # noqa: F401
+from torch_serve_util import (  # noqa: F401
+    FleetFrontend,
+    ServeFrontend,
+    port_fleet_guard,
+    port_leak_guard,
+)
 
 pytestmark = pytest.mark.lineage
 
@@ -673,3 +677,73 @@ class TestTraceView:
         b.pop("dump")
         assert a == b
         assert ours.render_text(a) == ref.render_text(b)
+
+
+# ---------------------------------------------------------------------------
+# Cross-process: lineage over the ProcessReplica RPC
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.fleet
+class TestFleetLineage:
+    def test_additivity_across_a_process_replica_hop(self):
+        """Lineage crosses the ProcessReplica RPC, is re-based onto the
+        front door's clock, gains the rpc component, and the components
+        still sum to the end-to-end latency within tolerance."""
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(config=FleetConfig(
+            replicas=1, mode="process", filter_spec=("invert", {}),
+            serve=ServeConfig(batch_size=2, queue_size=100,
+                              slo_ms=60_000.0, lineage=True,
+                              telemetry_sample_s=0.0),
+            startup_timeout_s=180.0))
+        with fleet:
+            sid = fleet.open_stream()
+            submit_ts = {}
+            for j in range(4):
+                ts = time.time()
+                idx = fleet.submit(sid, frame_u8(0, j), ts=ts)
+                submit_ts[idx] = ts
+            deliveries = []
+            deadline = time.time() + 60.0
+            while len(deliveries) < 4 and time.time() < deadline:
+                deliveries += fleet.poll(sid)
+                time.sleep(0.01)
+            assert len(deliveries) == 4
+        for d in deliveries:
+            lin = d.lineage
+            assert lin is not None
+            comps = lin.components_ms()
+            assert set(SERVE_COMPONENTS) <= set(comps), comps
+            assert "rpc" in comps
+            assert sum(comps.values()) == pytest.approx(lin.total_ms(),
+                                                        abs=1e-6)
+            wall_ms = (lin.marks[-1][1] - submit_ts[d.index]) * 1e3
+            assert lin.total_ms() == pytest.approx(wall_ms, abs=250.0)
+
+    def test_fleet_explain_fans_out_replicas(self):
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(
+            get_filter("invert"),
+            FleetConfig(replicas=1, mode="local",
+                        serve=ServeConfig(batch_size=2, queue_size=100,
+                                          slo_ms=60_000.0, lineage=True,
+                                          telemetry_sample_s=0.0)))
+        with fleet:
+            sid = fleet.open_stream()
+            for j in range(4):
+                fleet.submit(sid, frame_u8(0, j))
+            got = []
+            deadline = time.time() + 30.0
+            while len(got) < 4 and time.time() < deadline:
+                got += fleet.poll(sid)
+                time.sleep(0.01)
+            assert len(got) == 4
+            doc = fleet.explain()
+            st = fleet.stats()
+        assert doc["lineage"] is True
+        assert "r0" in doc["replicas"], doc
+        assert doc["replicas"]["r0"]["text"].startswith("p")
+        assert "attribution" in st["replicas"]["r0"]

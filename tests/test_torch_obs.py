@@ -1,8 +1,8 @@
 """The port's observability planes (``dvf_tpu_torch.obs``) on the CPU:
 counterparts of ``tests/test_obs.py``'s metric-name, registry,
 time-series-ring, serve-endpoint, tracer-ring, trace-merge, flight
-recorder, flight-trigger and export-schema tests (not its fleet cases and
-bench writers) and of ``tests/test_ledger.py``'s ledger, leak-trend and
+recorder, flight-trigger, export-schema and fleet tests (not its bench writers)
+and of ``tests/test_ledger.py``'s ledger, leak-trend and
 serve-ledger tests, plus parity with the JAX package: the ledger's event
 kinds and causes, and the flight dump's file set and document keys. The
 device-trace merge is held to a hand-written Kineto trace and to a real
@@ -46,7 +46,12 @@ from dvf_tpu_torch.ops import get_filter
 from dvf_tpu_torch.resilience import FaultPlan
 from dvf_tpu_torch.serve import ServeConfig
 from dvf_tpu_torch.serve.session import ServeError
-from torch_serve_util import ServeFrontend, port_leak_guard  # noqa: F401
+from torch_serve_util import (  # noqa: F401
+    FleetFrontend,
+    ServeFrontend,
+    port_fleet_guard,
+    port_leak_guard,
+)
 
 H, W = 16, 24
 
@@ -1484,3 +1489,156 @@ class TestExportSchemas:
             self._assert_clean("worker.audit", worker.audit_document())
         finally:
             worker.close()
+
+    @pytest.mark.fleet
+    def test_fleet_exports(self):
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(
+            get_filter("invert"),
+            FleetConfig(replicas=2, mode="local",
+                        serve=ServeConfig(telemetry_sample_s=0.0)))
+        # Unstarted: rows render with state=dead, the same shape the
+        # live export has, without building two frontends.
+        self._assert_clean("fleet.stats", fleet.stats())
+        self._assert_clean("fleet.signals", fleet.signals())
+
+
+@pytest.mark.fleet
+class TestFleetMetricsEndpoint:
+    def test_fleet_merged_metrics_with_replica_labels(self):
+        """/metrics against a running fleet returns fleet-merged
+        p50/p99, per-replica queue depth, and per-kind fault counters
+        with replica labels."""
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(
+            get_filter("invert"),
+            FleetConfig(
+                replicas=2, mode="local",
+                serve=ServeConfig(batch_size=4, queue_size=1000,
+                                  out_queue_size=1000, slo_ms=60_000.0,
+                                  telemetry_sample_s=0.0),
+                chaos_spec="compute:at=1:count=1",
+                telemetry_sample_s=0.1))
+        with fleet:
+            sids = [fleet.open_stream() for _ in range(2)]
+            for j in range(16):
+                for k, sid in enumerate(sids):
+                    fleet.submit(sid, tagged_frame(k, j))
+                time.sleep(0.01)
+            deliveries: dict = {}
+            deadline = time.time() + 30.0
+            while time.time() < deadline:
+                for sid in sids:
+                    deliveries.setdefault(sid, []).extend(fleet.poll(sid))
+                st = fleet.stats()
+                if (all(deliveries.get(s) for s in sids)
+                        and len(st["faults"].get("by_replica", {})) >= 1):
+                    break
+                time.sleep(0.02)
+            with MetricsExporter(fleet.registry, ring=fleet.telemetry) as ex:
+                text = _get(f"{ex.url}/metrics")
+        assert "dvf_fleet_p50_ms " in text
+        assert "dvf_fleet_p99_ms " in text
+        assert "dvf_fleet_delivered_total " in text
+        assert 'dvf_fleet_replica_delivered_total{replica="r0"} ' in text
+        for rid in ("r0", "r1"):
+            assert f'dvf_fleet_replica_queue_depth{{replica="{rid}"}} ' \
+                in text, (rid, text)
+            assert f'dvf_fleet_replica_up{{replica="{rid}"}} 1' in text
+        assert 'dvf_fleet_replica_faults_total{kind="compute",replica="' \
+            in text, text
+
+
+@pytest.mark.fleet
+class TestProcessReplicaTrace:
+    def test_trace_snapshot_crosses_the_rpc(self):
+        """A process replica's tracer snapshot crosses the pickle RPC
+        with a foreign pid and merges into the front door's session."""
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(config=FleetConfig(
+            replicas=1, mode="process", filter_spec=("invert", {}),
+            serve=ServeConfig(batch_size=2, queue_size=100,
+                              slo_ms=60_000.0, trace=True,
+                              telemetry_sample_s=0.0),
+            startup_timeout_s=180.0))
+        with fleet:
+            sid = fleet.open_stream()
+            for j in range(4):
+                fleet.submit(sid, tagged_frame(0, j))
+            deliveries = []
+            deadline = time.time() + 60.0
+            while len(deliveries) < 4 and time.time() < deadline:
+                deliveries += fleet.poll(sid)
+                time.sleep(0.01)
+            assert len(deliveries) == 4
+            snaps = fleet.trace_snapshots()
+        lanes = {s["process_name"]: s for s in snaps}
+        assert "serve:r0" in lanes, lanes.keys()
+        worker_snap = lanes["serve:r0"]
+        assert worker_snap["pid"] != os.getpid()  # crossed the boundary
+        assert any(e["name"] == "batch_complete"
+                   for e in worker_snap["events"])
+        assert merge_tracer_snapshots(snaps) is not None
+
+
+@pytest.mark.fleet
+@pytest.mark.chaos
+class TestFleetFlightAcceptance:
+    def test_chaos_watchdog_trip_dumps_two_replica_lanes(self, tmp_path):
+        """A chaos-induced watchdog trip (a frozen collect in a replica,
+        recovered by its supervision) produces a fleet flight-recorder
+        dump whose merged trace holds lanes from >= 2 replicas on one
+        aligned clock."""
+        from dvf_tpu_torch.fleet import FleetConfig
+
+        fleet = FleetFrontend(
+            get_filter("invert"),
+            FleetConfig(
+                replicas=2, mode="local",
+                serve=ServeConfig(batch_size=4, queue_size=1000,
+                                  out_queue_size=1000, slo_ms=60_000.0,
+                                  stall_timeout_s=0.35, trace=True,
+                                  telemetry_sample_s=0.0),
+                # each replica parses its own freeze plan: its collect
+                # thread wedges 1.2 s on the 4th iteration, outliving the
+                # 0.35 s stall budget
+                chaos_spec="freeze:at=3:delay=1.2",
+                health_poll_s=0.05,
+                flight_dir=str(tmp_path),
+                flight_min_interval_s=0.0))
+        with fleet:
+            sids = [fleet.open_stream() for _ in range(2)]
+            i = 0
+            deadline = time.time() + 40.0
+            while fleet.flight.stats()["dumps"] == 0:
+                assert time.time() < deadline, "no flight dump"
+                for k, sid in enumerate(sids):
+                    fleet.submit(sid, tagged_frame(k, i))
+                for sid in sids:
+                    fleet.poll(sid)
+                i += 1
+                time.sleep(0.01)
+            st = fleet.stats()
+        assert st["flight"]["dumps"] >= 1
+        assert "stall" in st["flight"]["last_reason"]
+        dump = next(p for p in sorted(tmp_path.iterdir())
+                    if "stall" in p.name)
+        merged = json.loads((dump / "trace.pftrace").read_text())
+        lanes = merged["dvfTraceLanes"]
+        replica_lanes = [ln for ln in lanes
+                         if ln["process_name"].startswith("serve:r")]
+        assert len({ln["process_name"] for ln in replica_lanes}) >= 2, lanes
+        assert all(ln["events"] >= 1 for ln in replica_lanes)
+        spans = {}
+        for ln in replica_lanes:
+            base = ln["pid_base"]
+            ts = [e["ts"] for e in merged["traceEvents"]
+                  if e.get("ph") in ("X", "i")
+                  and base <= e.get("pid", -1) < base + LANE_STRIDE]
+            assert ts and min(ts) >= 0
+            spans[ln["process_name"]] = (min(ts), max(ts))
+        (a0, a1), (b0, b1) = list(spans.values())[:2]
+        assert max(a0, b0) <= min(a1, b1), spans

@@ -1,6 +1,6 @@
 """Shared pieces of the port's serving tests (``tests/test_torch_*.py``
-over ``dvf_tpu_torch.serve``): the frontend and engine on the CPU, and
-the port-side leak guard.
+over ``dvf_tpu_torch.serve`` and ``dvf_tpu_torch.fleet``): the frontend,
+engine and fleet on the CPU, and the port-side leak guards.
 
 The guard mirrors ``tests/conftest.py``'s session-end pool and memory
 guards, which look only at ``dvf_tpu.*``: after each module that
@@ -27,6 +27,13 @@ def ServeFrontend(filt, config=None, engine=None):  # noqa: N802 — the class's
 def Engine(filt, **kw):  # noqa: N802 — the class's name
     """The port's engine on the CPU."""
     return _Engine(filt, device="cpu", **kw)
+
+
+def FleetFrontend(filt=None, config=None):  # noqa: N802 — the class's name
+    """The port's fleet on the CPU: every replica, local or process."""
+    from dvf_tpu_torch.fleet import FleetFrontend as _Fleet
+
+    return _Fleet(filt, config, device="cpu")
 
 
 def _residual() -> dict:
@@ -56,3 +63,32 @@ def port_leak_guard():
     assert not leaked, (
         f"the port's serving state outlived its frontends (stop() not "
         f"called, or no longer freeing?): {leaked}")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_fleet_guard():
+    """The port's fleet tests leak no replica worker process and no warm
+    standby past their module (``tests/conftest.py``'s session guard
+    watches only the JAX package's fleet; it does catch the port's
+    ``dvf-fleet*`` threads by name)."""
+    yield
+    import sys
+
+    replica = sys.modules.get("dvf_tpu_torch.fleet.replica")
+    elastic = sys.modules.get("dvf_tpu_torch.fleet.elastic")
+    deadline = time.time() + 10.0
+
+    def leaked():
+        out = {}
+        if replica is not None and replica.live_worker_processes():
+            out["workers"] = [p.pid for p in replica.live_worker_processes()]
+        if elastic is not None and elastic.live_standby_handles():
+            out["standbys"] = [h.id for h in elastic.live_standby_handles()]
+        return out
+
+    left = leaked()
+    while left and time.time() < deadline:
+        time.sleep(0.1)
+        left = leaked()
+    assert not left, (f"the port's fleet outlived its FleetFrontend "
+                      f"(stop() not called?): {left}")
