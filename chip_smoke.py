@@ -176,6 +176,36 @@ which raises (and so exits non-zero) on failure:
    rigged replica outvoted, quarantined and retired; (e) a process fleet
    with a state file crash()ed and a resume_state front door adopting its
    live worker and session;
+12. the command line (``cli_phase``), each leg through
+   ``dvf_tpu_torch.cli.main`` in this process where its launches are
+   counted, and through ``python -m dvf_tpu_torch`` where the process
+   boundary is the point: (a) ``serve`` of sobel_bilateral and of
+   gaussian_blur(ksize=9) at 1080p batch 16, 160 frames: all delivered,
+   the kernel launched once per device batch besides its compile's
+   warm-up and calibration launches (counted apart) and no other kernel;
+   again with ``--display --headless``, every frame the sink composes in
+   order and within 1 LSB of the plain version; the fps beside phase 5's
+   Pipeline leg; (b) ``serve --sessions 4`` of gaussian_blur(ksize=9) at
+   1080p, 32 frames each: every session's deliveries complete, in order
+   and within 1 LSB, K1 once per batch, the reference's per-session keys;
+   (c) ``camera --shm`` -> ``serve --source shm:NAME --transport ring``,
+   two processes at 1080p with sobel_bilateral (the ring sized to
+   /dev/shm): delivered = pushed - drops, each process's start-up (torch
+   import, CUDA context, kernel load from the build cache) and first
+   frame timed; (d) ``python -m dvf_tpu_torch worker`` with
+   gaussian_blur(ksize=9) on the raw wire at 512 x 512, against a small
+   app on the reference's socket pair: every frame back within 1 LSB,
+   SIGTERM's stats line and rc 0; (e) ``fleet --mode local --replicas 2
+   --sessions 4`` of sobel_bilateral at 1080p: both replicas used, no
+   order violation or loss, K3 once per replica batch; (f) ``doctor``
+   (a CUDA backend of one H100, the ring shim built, the JPEG shim's
+   status printed) and ``filters`` as processes; (g) ``serve
+   --compile-cache-dir`` twice on a fresh directory: the three kernel
+   libraries built there, then loaded with 0.0 s of build, the default
+   build directory untouched; (h) ``trace-view`` of a traced (a) run's
+   host trace and merged host + device trace; (i) where cv2 and a
+   surfaceless EGL are present, ``serve --source <video file>`` and
+   ``--display-backend gl``;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -191,12 +221,12 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
-``planes_only()``, ``control_only()`` and ``fleet_only()`` run the build
-and phase 7, 8, 9, 10 or 11 alone.
+``planes_only()``, ``control_only()``, ``fleet_only()`` and ``cli_only()``
+run the build and phase 7, 8, 9, 10, 11 or 12 alone.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
-[...]}``, ``{"fleet": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+[...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -915,6 +945,12 @@ def main() -> int:
     fleet_rows, delta = fleet_phase(dev, plain_of)
     for k, v in delta.items():
         launches[k] += v
+    # 12. the command line (K1/K3 through serve, --sessions, fleet, trace)
+    fps_of = {r["filter"]: r["fps"] for r in pipe_rows
+              if r.get("mode") == "streamed" and "fps" in r and "filter" in r}
+    cli_rows, delta = cli_phase(dev, plain_of, fps_of, kind)
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -947,6 +983,7 @@ def main() -> int:
     print(json.dumps({"planes": planes_rows}))
     print(json.dumps({"control": control_rows}))
     print(json.dumps({"fleet": fleet_rows}))
+    print(json.dumps({"cli": cli_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -5211,6 +5248,713 @@ def fleet_only() -> None:
     dev, plain_of, _ = _only_setup()
     rows, _ = fleet_phase(dev, plain_of)
     print(json.dumps({"fleet": rows}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the command line (python -m dvf_tpu_torch)
+# ---------------------------------------------------------------------------
+
+CLI_HD = ("--height", str(MAIN_SHAPE[1]), "--width", str(MAIN_SHAPE[2]))
+CLI_FRAMES = 160                 # leg (a): frames per 1080p batch-16 serve
+CLI_SESSION_FRAMES = 32          # leg (b): frames per session
+CLI_SHM_FRAMES = 64              # leg (c): frames the camera pushes
+CLI_WORKER_FRAMES = 64           # leg (d): 512 x 512 raw frames, batch 8
+CLI_FLEET_FRAMES = 32            # leg (e): frames per session
+CLI_TRACE_FRAMES = 64            # leg (h): the traced 1080p serve
+CLI_BLUR = ("--filter", "gaussian_blur", "--filter-config", '{"ksize": 9}')
+# serve --sessions N: the per-session keys of the JAX package's line
+# (dvf_tpu/cli.py:515)
+CLI_SESSION_KEYS = {"submitted", "delivered", "shed", "slo_miss", "fps",
+                    "p50_ms", "p99_ms"}
+
+# A CLI process with its start-up taken apart: torch import, (serve) the
+# CUDA context and the kernel libraries loaded from the build cache, the
+# CLI imported (ready_s), then the first frame the sink (serve) or the
+# ring (camera) sees. Prints
+# "[ready]" before the CLI starts and one "[timing] {...}" line at exit,
+# both on stderr; argv: role, kernel libraries, then the CLI's own argv.
+_TIMED_CLI = r"""
+import json, os, sys, time
+t0 = time.time()
+sys.path.insert(0, os.getcwd())
+import torch
+marks = {"start": t0, "torch_import_s": time.time() - t0}
+role, libs, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+if role == "serve":
+    t = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda_context_s"] = time.time() - t
+    from dvf_tpu_torch.ops import _build
+    t = time.time()
+    for name in libs.split(","):
+        _build.load(name)
+    marks["kernel_load_s"] = time.time() - t
+    import dvf_tpu_torch.io.sinks as hook
+    cls, meth = hook.NullSink, "emit"
+else:
+    import dvf_tpu_torch.transport.ring as hook
+    cls, meth = hook.FrameRing, "push"
+real = getattr(cls, meth)
+def first(self, *a, **k):
+    marks.setdefault("first_frame", time.time())
+    return real(self, *a, **k)
+setattr(cls, meth, first)
+from dvf_tpu_torch.cli import main
+marks["ready_s"] = time.time() - t0
+print("[ready]", file=sys.stderr, flush=True)
+rc = main(argv)
+print("[timing] " + json.dumps(marks), file=sys.stderr, flush=True)
+sys.exit(rc)
+"""
+
+
+def _cli(argv, cwd=None):
+    """``dvf_tpu_torch.cli.main(argv)`` in this process (so its launches
+    are counted here). Returns (rc, stdout, stderr)."""
+    import io
+
+    from dvf_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    here = os.getcwd()
+    if cwd is not None:
+        os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(list(argv))
+    finally:
+        os.chdir(here)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _cli_json(label: str, argv, cwd=None) -> dict:
+    rc, out, err = _cli(argv, cwd)
+    if rc != 0:
+        raise AssertionError(f"cli ({label}): rc {rc}; stderr tail:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+class _EngineLedger:
+    """While active: every Engine built, and the launches made inside
+    Engine.compile (its warm-up and calibration steps) counted apart, on
+    the thread that compiles, so the launches of the serving batches can
+    be told from the compiles' even when compiles overlap serving."""
+
+    def __init__(self):
+        self.engines, self.compile = [], {}
+
+    def __enter__(self):
+        import threading
+
+        from dvf_tpu_torch.ops import kernels as tk
+        from dvf_tpu_torch.runtime import engine as em
+
+        self._saved = (em.Engine.__init__, em.Engine.compile, tk._count)
+        real_init, real_compile, real_count = self._saved
+        lock, here, ledger = threading.Lock(), threading.local(), self
+
+        def init(eng, *a, **k):
+            real_init(eng, *a, **k)
+            with lock:
+                ledger.engines.append(eng)
+
+        def compile_(eng, *a, **k):
+            here.depth = getattr(here, "depth", 0) + 1
+            try:
+                return real_compile(eng, *a, **k)
+            finally:
+                here.depth -= 1
+
+        def count(lib, fn, counter, rc):
+            real_count(lib, fn, counter, rc)   # raises on a refused launch
+            if getattr(here, "depth", 0):
+                with lock:
+                    ledger.compile[counter] = ledger.compile.get(counter, 0) + 1
+
+        em.Engine.__init__, em.Engine.compile, tk._count = init, compile_, count
+        return self
+
+    def __exit__(self, *exc):
+        from dvf_tpu_torch.ops import kernels as tk
+        from dvf_tpu_torch.runtime import engine as em
+
+        em.Engine.__init__, em.Engine.compile, tk._count = self._saved
+        return False
+
+    def batches(self) -> int:
+        """Device batches of every engine built (each leg serves one
+        filter)."""
+        return sum(e.stats.batches for e in self.engines)
+
+
+def _cli_counted(label: str, delta: dict, ledger: "_EngineLedger", counter: str,
+                 batches_json=None) -> dict:
+    """The serving launches (all launches less the compiles') of
+    ``counter``: once per device batch of the engines built in the run;
+    no other kernel launched at all."""
+    serving = delta[counter] - ledger.compile.get(counter, 0)
+    batches = ledger.batches()
+    others = {k: v for k, v in delta.items() if k != counter and v}
+    if serving != batches or others or not serving:
+        raise AssertionError(
+            f"cli ({label}): {counter} launched {delta[counter]} times, "
+            f"{ledger.compile.get(counter, 0)} in compiles, {serving} serving "
+            f"for {batches} batches; other kernels {others}")
+    if batches_json is not None and batches_json != batches:
+        raise AssertionError(f"cli ({label}): the JSON line says {batches_json} "
+                             f"engine batches, the engines {batches}")
+    return dict(launches=delta[counter], compile_launches=ledger.compile.get(counter, 0),
+                serving_launches=serving, batches=batches)
+
+
+def _synthetic_plain(dev, plain, h: int, w: int, n: int, seed: int) -> list:
+    """The plain version on the card of a SyntheticSource's distinct
+    frames (its cycle of min(16, n)): uint8 host frames, frame i of the
+    stream being entry i % len."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        h, w, n_frames=min(16, n), seed=seed)][:-1]
+    out = []
+    for f in frames:
+        x = torch.from_numpy(np.array(f)[None]).to(dev)
+        out.append(to_uint8(plain(to_float(x))).cpu().numpy()[0].astype(np.int16))
+    return out
+
+
+def cli_leg_serve(dev, plain_of: dict, name: str, counter: str, fps_of: dict):
+    """(a) ``serve`` at 1080p batch 16, 160 frames, through main(): every
+    frame delivered, the kernel launched once per device batch and no
+    other; again with --display --headless, the frames the sink composes
+    read in order and each within 1 LSB of the plain version."""
+    from dvf_tpu_torch.io import display
+    from dvf_tpu_torch.ops import kernels as tk
+
+    flt = CLI_BLUR if name == "gaussian_blur" else ("--filter", name)
+    argv = ["serve", *flt, *CLI_HD, "--batch", str(MAIN_SHAPE[0]), "--frames",
+            str(CLI_FRAMES), "--frame-delay", "0", "--queue-size",
+            str(CLI_FRAMES + 1), "--quiet"]
+    label = f"a {name}"
+    with _EngineLedger() as ledger:
+        tk.reset_launches()
+        stats = _cli_json(label, argv)
+        delta = dict(tk.LAUNCHES)
+    if stats["delivered"] != CLI_FRAMES or stats["dropped_at_ingest"]:
+        raise AssertionError(f"cli ({label}): delivered {stats['delivered']} of "
+                             f"{CLI_FRAMES}, dropped {stats['dropped_at_ingest']}")
+    counts = _cli_counted(label, delta, ledger, counter, stats["engine_batches"])
+    plain = _synthetic_plain(dev, plain_of[counter], *MAIN_SHAPE[1:3], CLI_FRAMES, 0)
+    order, worst = [], [0]
+    real = display.SideBySideSink.emit
+
+    def emit(sink, index, processed, capture_ts):
+        order.append(index)
+        d = np.abs(processed.astype(np.int16) - plain[index % len(plain)])
+        worst[0] = max(worst[0], int(d.max()))
+        return real(sink, index, processed, capture_ts)
+
+    display.SideBySideSink.emit = emit
+    try:
+        with _EngineLedger() as ledger2:
+            tk.reset_launches()
+            shown = _cli_json(label + " display", argv + ["--display", "--headless"])
+            delta2 = dict(tk.LAUNCHES)
+    finally:
+        display.SideBySideSink.emit = real
+    counts2 = _cli_counted(label + " display", delta2, ledger2, counter,
+                           shown["engine_batches"])
+    if order != list(range(CLI_FRAMES)) or worst[0] > 1:
+        raise AssertionError(f"cli ({label} display): {len(order)} frames, in order "
+                             f"{order == sorted(order)}, max {worst[0]} LSB vs plain")
+    ref = fps_of.get(name)
+    log(f"cli (a) serve {name} {MAIN_SHAPE}: {stats['delivered']} frames, "
+        f"{counts['batches']} batches, {stats['fps']:.1f} fps (phase 5 Pipeline "
+        f"leg: {ref if ref is None else round(ref, 1)} fps), p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, launches "
+        f"{counts}; --display --headless: {len(order)} frames in order, max "
+        f"{worst[0]} LSB vs plain, {shown['fps']:.1f} fps with the sink's "
+        f"per-frame check")
+    total = {k: delta[k] + delta2[k] for k in delta}
+    return dict(leg=f"a_serve_{name}", filter=name, frames=CLI_FRAMES,
+                fps=stats["fps"], p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+                pipeline_fps_phase5=ref, display_checked_fps=shown["fps"],
+                max_lsb_vs_plain=worst[0], **counts), total
+
+
+def cli_leg_sessions(dev, plain_of: dict):
+    """(b) ``serve --sessions 4`` at 1080p, gaussian_blur(ksize=9): each
+    session's deliveries (read through the frontend's poll) complete, in
+    order and within 1 LSB of the plain version of its own synthetic
+    stream; K1 once per device batch; the per-session keys the JAX
+    package's line carries."""
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.serve import server
+
+    n, frames = 4, CLI_SESSION_FRAMES
+    plains = [_synthetic_plain(dev, plain_of["sep_blur"], *MAIN_SHAPE[1:3], frames, i)
+              for i in range(n)]
+    seen, worst = {}, [0]
+    real = server.ServeFrontend.poll
+
+    def poll(fe, sid, *a, **k):
+        got = real(fe, sid, *a, **k)
+        plain = plains[int(sid[1:])]   # session i is "s<i>", fed seed i
+        for d in got:
+            seen.setdefault(sid, []).append(d.index)
+            diff = np.abs(d.frame.astype(np.int16) - plain[d.index % len(plain)])
+            worst[0] = max(worst[0], int(diff.max()))
+        return got
+
+    argv = ["serve", "--sessions", str(n), *CLI_BLUR, *CLI_HD, "--batch",
+            str(MAIN_SHAPE[0]), "--frames", str(frames), "--rate", "120",
+            "--queue-size", "64", "--slo-ms", "60000", "--quiet"]
+    server.ServeFrontend.poll = poll
+    try:
+        with _EngineLedger() as ledger:
+            tk.reset_launches()
+            out = _cli_json("b", argv)
+            delta = dict(tk.LAUNCHES)
+    finally:
+        server.ServeFrontend.poll = real
+    counts = _cli_counted("b", delta, ledger, "sep_blur", out["engine_batches"])
+    for sid, row in out["sessions"].items():
+        if set(row) != CLI_SESSION_KEYS:
+            raise AssertionError(f"cli (b): session keys {sorted(row)}")
+        if seen.get(sid) != list(range(frames)) or out["polled"][sid] != frames:
+            raise AssertionError(f"cli (b): {sid} delivered {seen.get(sid)}")
+    if len(out["sessions"]) != n or worst[0] > 1 or out["shed_total"]:
+        raise AssertionError(f"cli (b): {len(out['sessions'])} sessions, max "
+                             f"{worst[0]} LSB, shed {out['shed_total']}")
+    log(f"cli (b) serve --sessions {n} gaussian_blur(ksize=9) {MAIN_SHAPE[1:]}: "
+        f"{n} x {frames} frames in order, max {worst[0]} LSB vs plain, aggregate "
+        f"{out['aggregate']['fps']:.1f} fps, p50 {out['aggregate']['p50_ms']:.1f} ms, "
+        f"p99 {out['aggregate']['p99_ms']:.1f} ms, launches {counts}")
+    return dict(leg="b_sessions", sessions=n, frames=frames,
+                aggregate=out["aggregate"], max_lsb_vs_plain=worst[0], **counts), delta
+
+
+def _spawn_timed(role: str, libs: str, argv, env):
+    import subprocess
+
+    t = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _TIMED_CLI, role, libs, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, t
+
+
+def _timing(label: str, err: str, spawned: float) -> dict:
+    lines = [ln for ln in err.splitlines() if ln.startswith("[timing] ")]
+    if not lines:
+        raise AssertionError(f"cli ({label}): no timing line; stderr:\n{err[-3000:]}")
+    marks = json.loads(lines[-1][len("[timing] "):])
+    if "first_frame" not in marks:
+        raise AssertionError(f"cli ({label}): no frame reached the {label}")
+    row = {k: v for k, v in marks.items() if k.endswith("_s")}
+    row["start_to_first_frame_s"] = marks["first_frame"] - marks["start"]
+    row["spawn_to_first_frame_s"] = marks["first_frame"] - spawned
+    return row
+
+
+def _shm_frames(frame_bytes: int) -> int:
+    """Ring capacity in frames that /dev/shm holds with room to spare."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    return max(0, min(16, int(free * 0.8) // (frame_bytes + 64) - 1)), free
+
+
+def cli_leg_shm(dev):
+    """(c) ``camera --shm NAME`` → ``serve --source shm:NAME --transport
+    ring``: two processes at 1080p, sobel_bilateral. The consumer is
+    started first (it waits for the ring) and delivers every frame the
+    producer pushed less the ring's and its ingest's drops; each
+    process's start-up and first frame timed."""
+    import uuid
+
+    frame_bytes = int(np.prod(MAIN_SHAPE[1:]))
+    cap, free = _shm_frames(frame_bytes)
+    if cap < 2:
+        raise AssertionError(f"cli (c): /dev/shm has {free} bytes free, not two "
+                             f"1080p frames")
+    name = f"/dvf_chip_{uuid.uuid4().hex[:8]}"
+    env = dict(os.environ)
+    consumer, t_c = _spawn_timed("serve", "stencils", [
+        "serve", "--source", f"shm:{name}", "--filter", "sobel_bilateral", *CLI_HD,
+        "--batch", str(MAIN_SHAPE[0]), "--frame-delay", "0", "--queue-size", "64",
+        "--transport", "ring", "--quiet"], env)
+    producer = None
+    try:
+        ready = consumer.stderr.readline()
+        if "[ready]" not in ready:
+            raise AssertionError(f"cli (c): the consumer did not start: {ready}"
+                                 f"{consumer.stderr.read()[-3000:]}")
+        producer, t_p = _spawn_timed("camera", "", [
+            "camera", "--shm", name, "--source", "synthetic", *CLI_HD,
+            "--frames", str(CLI_SHM_FRAMES), "--rate", "30",
+            "--queue-size", str(cap)], env)
+        pout, perr = producer.communicate(timeout=180)
+        cout, cerr = consumer.communicate(timeout=180)
+    finally:
+        for proc in (producer, consumer):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        try:
+            os.unlink(f"/dev/shm{name}")
+        except OSError:
+            pass
+    if producer.returncode != 0 or consumer.returncode != 0:
+        raise AssertionError(f"cli (c): camera rc {producer.returncode}, serve rc "
+                             f"{consumer.returncode}:\n{perr[-2000:]}\n{cerr[-3000:]}")
+    p, c = json.loads(pout.strip().splitlines()[-1]), json.loads(cout.strip().splitlines()[-1])
+    want = p["pushed"] - p["dropped"] - c["dropped_at_ingest"]
+    if (p["pushed"] != CLI_SHM_FRAMES or c["delivered"] != want
+            or c["completed_total"] != c["delivered"] or c["errors"]):
+        raise AssertionError(f"cli (c): camera {p}, serve delivered "
+                             f"{c['delivered']} (want {want}), {c}")
+    tc, tp = _timing("serve", cerr, t_c), _timing("camera", perr, t_p)
+    log(f"cli (c) camera -> serve over shm ({cap}-frame ring, /dev/shm {free} bytes "
+        f"free), sobel_bilateral {MAIN_SHAPE[1:]}: pushed {p['pushed']}, ring drops "
+        f"{p['dropped']}, ingest drops {c['dropped_at_ingest']}, delivered "
+        f"{c['delivered']} at {c['fps']:.1f} fps; serve start-up {json.dumps(tc)}; "
+        f"camera start-up {json.dumps(tp)}")
+    return dict(leg="c_shm", ring_frames=cap, pushed=p["pushed"],
+                ring_dropped=p["dropped"], ingest_dropped=c["dropped_at_ingest"],
+                delivered=c["delivered"], fps=c["fps"], serve_timing=tc,
+                camera_timing=tp), {}
+
+
+def cli_leg_worker(dev, plain_of: dict):
+    """(d) ``python -m dvf_tpu_torch worker --filter gaussian_blur
+    --no-jpeg`` (the raw wire: the card machine has no libjpeg) against a
+    small app speaking the reference's socket pair (a ROUTER handing one
+    frame per READY, a PULL collecting): every frame back, within 1 LSB of
+    the plain version; SIGTERM gives the stats line and rc 0."""
+    import signal
+    import subprocess
+
+    import zmq
+
+    import dvf_tpu_torch
+
+    size, n = WIRE_SIZE, CLI_WORKER_FRAMES
+    frames = [np.ascontiguousarray(f) for f, _ in dvf_tpu_torch.SyntheticSource(
+        size, size, n_frames=n, seed=0)][:-1]
+    plain = _synthetic_plain(dev, plain_of["sep_blur"], size, size, n, 0)
+    ctx = zmq.Context()
+    router, pull = ctx.socket(zmq.ROUTER), ctx.socket(zmq.PULL)
+    p_dist = router.bind_to_random_port("tcp://127.0.0.1")
+    p_coll = pull.bind_to_random_port("tcp://127.0.0.1")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dvf_tpu_torch", "worker", *CLI_BLUR, "--no-jpeg",
+         "--host", "127.0.0.1", "--distribute-port", str(p_dist),
+         "--collect-port", str(p_coll), "--batch", str(WIRE_BATCH),
+         "--target-size", str(size)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    results, first = {}, None
+    try:
+        todo = list(range(n))
+        deadline = time.time() + 180
+        while len(results) < n:
+            if time.time() > deadline or proc.poll() is not None:
+                raise AssertionError(f"cli (d): {len(results)} of {n} frames back, "
+                                     f"worker rc {proc.poll()}")
+            if router.poll(5):
+                client = router.recv_multipart()[0]
+                if todo:
+                    i = todo.pop(0)
+                    router.send_multipart([client, str(i).encode(), frames[i].tobytes()])
+            if pull.poll(5):
+                idx, *_mid, payload = pull.recv_multipart()
+                first = first or time.time()
+                results[int(idx.decode())] = payload
+        wall = time.time() - first
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        router.close(0)
+        pull.close(0)
+        ctx.term()
+    worst = max(int(np.abs(np.frombuffer(results[i], np.uint8).reshape(size, size, 3)
+                           .astype(np.int16) - plain[i % len(plain)]).max())
+                for i in range(n))
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    stats = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or "draining" not in err or stats.get("frames_processed") != n \
+            or stats.get("errors") or worst > 1:
+        raise AssertionError(f"cli (d): rc {proc.returncode}, max {worst} LSB, "
+                             f"stats {str(stats)[:400]}; stderr:\n{err[-3000:]}")
+    log(f"cli (d) worker gaussian_blur(ksize=9) raw wire {size}x{size} batch "
+        f"{WIRE_BATCH}: {n} frames back, max {worst} LSB vs plain, "
+        f"{n / max(wall, 1e-9):.1f} fps after the first result, spawn to first "
+        f"result {first - t0:.2f} s; SIGTERM: rc 0, frames_processed "
+        f"{stats['frames_processed']}, batches {stats.get('batches')}")
+    return dict(leg="d_worker", frames=n, max_lsb_vs_plain=worst,
+                spawn_to_first_result_s=first - t0, fps=n / max(wall, 1e-9),
+                batches=stats.get("batches")), {}
+
+
+def cli_leg_fleet(dev):
+    """(e) ``fleet --mode local --replicas 2 --sessions 4 --filter
+    sobel_bilateral`` at 1080p batch 16 through main(): both replicas
+    used, every frame polled, no order violation, no replica lost, K3
+    once per device batch of the replicas' engines."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    argv = ["fleet", "--mode", "local", "--replicas", "2", "--sessions", "4",
+            "--filter", "sobel_bilateral", *CLI_HD, "--batch", str(MAIN_SHAPE[0]),
+            "--frames", str(CLI_FLEET_FRAMES), "--rate", "120", "--queue-size",
+            "64", "--slo-ms", "60000"]
+    with _EngineLedger() as ledger:
+        tk.reset_launches()
+        out = _cli_json("e", argv)
+        delta = dict(tk.LAUNCHES)
+    counts = _cli_counted("e", delta, ledger, "sobel_bilateral")
+    replicas = {s["replica"] for s in out["sessions"].values()}
+    if (replicas != {"r0", "r1"} or out["order_violations"] or out["replica_losses"]
+            or any(v != CLI_FLEET_FRAMES for v in out["polled"].values())):
+        raise AssertionError(f"cli (e): replicas {replicas}, polled {out['polled']}, "
+                             f"order violations {out['order_violations']}, losses "
+                             f"{out['replica_losses']}")
+    log(f"cli (e) fleet --mode local --replicas 2, 4 sessions of sobel_bilateral "
+        f"{MAIN_SHAPE[1:]}: placed on {sorted(replicas)}, every frame polled, "
+        f"aggregate {out['aggregate']['fps']:.1f} fps, p50 "
+        f"{out['aggregate']['p50_ms']:.1f} ms, launches {counts}")
+    return dict(leg="e_fleet", replicas=sorted(replicas), aggregate=out["aggregate"],
+                **counts), delta
+
+
+def cli_leg_doctor(kind: str):
+    """(f) ``doctor`` and ``filters`` as processes: the backend CUDA with
+    one card, of this card's kind (an H100), the ring shim built; the
+    filters those of dvf_tpu_torch.list_filters()."""
+    import subprocess
+
+    import dvf_tpu_torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.time()
+    r = subprocess.run([sys.executable, "-m", "dvf_tpu_torch", "doctor"], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    doc_s = time.time() - t
+    doc = json.loads(r.stdout)
+    be = doc.get("backend", {})
+    if (r.returncode != 0 or be.get("platform") != "cuda" or be.get("n_devices") != 1
+            or be.get("kinds") != [kind] or "H100" not in kind
+            or doc.get("ring_shim") != "ok" or "data" not in doc.get("mesh_suggestions", {})):
+        raise AssertionError(f"cli (f): doctor rc {r.returncode}: {r.stdout[-2000:]}"
+                             f"{r.stderr[-2000:]}")
+    f = subprocess.run([sys.executable, "-m", "dvf_tpu_torch", "filters"], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    if f.returncode != 0 or f.stdout.split() != dvf_tpu_torch.list_filters():
+        raise AssertionError(f"cli (f): filters rc {f.returncode}: {f.stdout[:500]}")
+    log(f"cli (f) doctor ({doc_s:.1f} s): backend {json.dumps(be)}, ring_shim "
+        f"{doc['ring_shim']}, jpeg_shim {doc['jpeg_shim']!r}, compile_cache "
+        f"{json.dumps(doc['compile_cache'])}; filters: {len(f.stdout.split())} names, "
+        f"equal to list_filters()")
+    return dict(leg="f_doctor", backend=be, ring_shim=doc["ring_shim"],
+                jpeg_shim=doc["jpeg_shim"], doctor_s=doc_s), {}
+
+
+def _dir_state(path: str) -> dict:
+    if not os.path.isdir(path):
+        return {}
+    return {n: os.stat(os.path.join(path, n)).st_mtime_ns for n in os.listdir(path)}
+
+
+def cli_leg_cache(tmp: str):
+    """(g) ``serve --compile-cache-dir DIR`` in two processes on one fresh
+    directory: the first builds the three kernel libraries there (its
+    build seconds printed), the second loads them with 0.0 s of build;
+    the default dvf_tpu_torch/_build/ is written by neither."""
+    import subprocess
+
+    from dvf_tpu_torch.runtime.engine import DEFAULT_COMPILE_CACHE_DIR
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(tmp, "kernel-cache")
+    before = _dir_state(DEFAULT_COMPILE_CACHE_DIR)
+    builds, walls = [], []
+    for _ in range(2):
+        t = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "dvf_tpu_torch", "serve", "--filter",
+             "sobel_bilateral", "--height", "64", "--width", "64", "--frames", "16",
+             "--batch", "4", "--frame-delay", "0", "--queue-size", "17", "--quiet",
+             "--compile-cache-dir", cache],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        walls.append(time.time() - t)
+        line = [ln for ln in r.stderr.splitlines() if "kernel builds (s): " in ln]
+        if r.returncode != 0 or not line:
+            raise AssertionError(f"cli (g): rc {r.returncode}: {r.stderr[-3000:]}")
+        builds.append(json.loads(line[-1].split("kernel builds (s): ", 1)[1]))
+    names = {"stencils", "warp", "codec"}
+    libs = sorted(n for n in os.listdir(cache) if n.endswith(".so"))
+    if (set(builds[0]) != names or not all(v > 0 for v in builds[0].values())
+            or builds[1] != {n: 0.0 for n in names}
+            or not {n.split("-")[0][3:] for n in libs} >= names):
+        raise AssertionError(f"cli (g): builds {builds}, libraries {libs}")
+    if _dir_state(DEFAULT_COMPILE_CACHE_DIR) != before:
+        raise AssertionError("cli (g): the default build directory was written")
+    log(f"cli (g) --compile-cache-dir (fresh dir): first process built {builds[0]} "
+        f"s ({walls[0]:.1f} s wall), second {builds[1]} ({walls[1]:.1f} s wall); "
+        f"libraries {libs}; the default build directory untouched")
+    return dict(leg="g_cache", first_build_s=builds[0], second_build_s=builds[1],
+                walls_s=walls), {}
+
+
+def cli_leg_trace(tmp: str):
+    """(h) A traced (a) run (--trace --device-trace DIR, 1080p batch 16,
+    sobel_bilateral) and ``trace-view`` over its host trace and its
+    merged host + device trace: rc 0, the text naming host and device
+    lanes. K3 once per device batch."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    d = os.path.join(tmp, "cli-trace")
+    os.makedirs(d, exist_ok=True)
+    argv = ["serve", "--filter", "sobel_bilateral", *CLI_HD, "--batch",
+            str(MAIN_SHAPE[0]), "--frames", str(CLI_TRACE_FRAMES), "--frame-delay",
+            "0", "--queue-size", str(CLI_TRACE_FRAMES + 1), "--quiet", "--trace",
+            "--device-trace", os.path.join(d, "device")]
+    with _EngineLedger() as ledger:
+        tk.reset_launches()
+        stats = _cli_json("h", argv, cwd=d)
+        delta = dict(tk.LAUNCHES)
+    counts = _cli_counted("h", delta, ledger, "sobel_bilateral",
+                          stats["engine_batches"])
+    host = os.path.join(d, "dvf_frame_timing.pftrace")
+    merged = os.path.join(d, "device", "dvf_merged_timing.pftrace")
+    texts = {}
+    for label, path in (("host", host), ("merged", merged)):
+        rc, out, err = _cli(["trace-view", path])
+        if rc != 0:
+            raise AssertionError(f"cli (h): trace-view {label} rc {rc}: {err[-2000:]}")
+        texts[label] = out
+    from dvf_tpu_torch.obs.viewer import summarize
+
+    lanes = [row["lane"] for row in summarize(merged)["lanes"]]
+    dev_lanes = [ln for ln in lanes if ln.startswith("device")]
+    host_lanes = [ln for ln in lanes if not ln.startswith("device") and not ln.isdigit()]
+    if not dev_lanes or not host_lanes or not all(
+            ln in texts["merged"] for ln in dev_lanes[:1] + host_lanes[:1]):
+        raise AssertionError(f"cli (h): lanes {lanes}; text:\n{texts['merged'][:2000]}")
+    log(f"cli (h) traced serve sobel_bilateral: {stats['delivered']} frames, "
+        f"{stats['fps']:.1f} fps, launches {counts}; trace-view: host lanes "
+        f"{host_lanes[:4]}, device lanes {dev_lanes[:4]} ({len(lanes)} lanes)")
+    for line in texts["merged"].splitlines()[:12]:
+        log(f"  trace-view: {line}")
+    return dict(leg="h_trace", fps=stats["fps"], lanes=lanes, **counts), delta
+
+
+def cli_leg_host(tmp: str):
+    """(i) The host-only legs, where the machine allows them: ``serve
+    --source <file>`` on a short video that cv2 writes, and
+    ``--display-backend gl``. Each library is probed first; a missing one
+    skips its leg with a printed line, a leg that runs and fails fails."""
+    rows = {}
+    try:
+        import cv2
+    except ImportError as e:
+        log(f"cli (i) video file: skipped, cv2 is not importable here ({e})")
+        cv2 = None
+    if cv2 is not None:
+        path = os.path.join(tmp, "clip.avi")
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (320, 240))
+        if not wr.isOpened():
+            log(f"cli (i) video file: skipped, cv2 {cv2.__version__} cannot write MJPG")
+        else:
+            for i in range(24):
+                frame = np.full((240, 320, 3), i * 8, np.uint8)
+                frame[:, : i * 10, 0] = 255
+                wr.write(frame)
+            wr.release()
+            stats = _cli_json("i file", ["serve", "--filter", "invert", "--source", path,
+                                         "--target-size", "128", "--batch", "4",
+                                         "--frame-delay", "0", "--queue-size", "64",
+                                         "--quiet", "--transport", "ring"])
+            if stats["delivered"] != 24:
+                raise AssertionError(f"cli (i): the file served {stats['delivered']} of 24")
+            rows["file"] = stats["delivered"]
+            log(f"cli (i) video file (cv2 {cv2.__version__}): 24 frames decoded, cropped "
+                f"to 128x128, served over the ring: delivered {stats['delivered']}")
+    try:
+        from dvf_tpu_torch.io.gl_display import GLRenderer, GLUnavailable
+
+        GLRenderer(8, 8).close()
+        gl = True
+    except GLUnavailable as e:
+        log(f"cli (i) --display-backend gl: skipped, no surfaceless EGL/GL here ({e})")
+        gl = False
+    if gl:
+        stats = _cli_json("i gl", ["serve", "--filter", "invert", "--height", "96",
+                                   "--width", "128", "--frames", "16", "--batch", "4",
+                                   "--frame-delay", "2", "--queue-size", "64", "--quiet",
+                                   "--display", "--display-backend", "gl", "--headless"])
+        if stats["delivered"] != 16:
+            raise AssertionError(f"cli (i): the GL sink saw {stats['delivered']} of 16")
+        rows["gl"] = stats["delivered"]
+        log(f"cli (i) --display-backend gl --headless: delivered {stats['delivered']}")
+    return dict(leg="i_host", **rows), {}
+
+
+def cli_phase(dev, plain_of: dict, fps_of: dict, kind: str):
+    """Phase 12: legs (a)-(i) of the command line. Returns (rows, the
+    summed launch counts of the in-process legs' runs; the subprocess
+    legs' launches happen in their own processes)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    rows, total = [], {}
+    log(f"cli phase on {nvidia_smi()}")
+    with tempfile.TemporaryDirectory(prefix="dvf-cli-") as tmp:
+        for leg in (lambda: cli_leg_serve(dev, plain_of, "sobel_bilateral",
+                                          "sobel_bilateral", fps_of),
+                    lambda: cli_leg_serve(dev, plain_of, "gaussian_blur", "sep_blur",
+                                          fps_of),
+                    lambda: cli_leg_sessions(dev, plain_of),
+                    lambda: cli_leg_shm(dev),
+                    lambda: cli_leg_worker(dev, plain_of),
+                    lambda: cli_leg_fleet(dev),
+                    lambda: cli_leg_doctor(kind),
+                    lambda: cli_leg_cache(tmp),
+                    lambda: cli_leg_trace(tmp),
+                    lambda: cli_leg_host(tmp)):
+            t = time.perf_counter()
+            row, delta = leg()
+            row["wall_s"] = time.perf_counter() - t
+            rows.append(row)
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            log(f"cli leg {row['leg']}: {row['wall_s']:.1f} s")
+            torch.cuda.empty_cache()
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines():
+        raise AssertionError("cli: pool engines outlived their frontends")
+    log(f"cli phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def cli_only() -> None:
+    """The build and phase 12 alone (the command line):
+    ``python3 -c 'import chip_smoke; chip_smoke.cli_only()'``."""
+    import torch
+
+    dev, plain_of, _ = _only_setup()
+    rows, _ = cli_phase(dev, plain_of, {}, torch.cuda.get_device_name(0))
+    print(json.dumps({"cli": rows}))
 
 
 if __name__ == "__main__":

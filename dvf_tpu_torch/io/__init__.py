@@ -1,4 +1,9 @@
 """Frame sources and sinks."""
 
-from dvf_tpu_torch.io.sources import ShmRingSource, SyntheticSource  # noqa: F401
+from dvf_tpu_torch.io.sources import (  # noqa: F401
+    ShmRingSource,
+    SyntheticSource,
+    VideoFileSource,
+    WebcamSource,
+)
 from dvf_tpu_torch.io.sinks import CallbackSink, NullSink  # noqa: F401

@@ -2,9 +2,11 @@
 
 A source yields ``(frame_u8, timestamp)``; a ``None`` frame ends the
 stream. ``SyntheticSource`` is a copy of the reference's: the same seed
-gives the same bytes. ``ShmRingSource`` reads frames another process
-pushes into a shared-memory ring. The file and webcam sources wait for a
-later slice.
+gives the same bytes. ``VideoFileSource`` and ``WebcamSource`` decode
+through cv2, which each imports when it is iterated, so importing this
+module needs no cv2; both are host code and touch no device.
+``ShmRingSource`` reads frames another process pushes into a
+shared-memory ring.
 """
 
 from __future__ import annotations
@@ -144,6 +146,104 @@ class SyntheticSource:
             if period:
                 next_t = _pace(next_t, period)
             yield self._cycle[i % n_cycle], time.time()
+        yield None, time.time()
+
+
+def center_square(frame: "np.ndarray", size: int) -> "np.ndarray":
+    """Center-crop to ``size``² (the reference's crop, webcam_app.py:97-101),
+    upscaling first when the frame is smaller than the target so any input
+    geometry yields the fixed shape consumers like the ring transport need."""
+    import cv2
+
+    h, w = frame.shape[:2]
+    if h < size or w < size:
+        scale = max(size / h, size / w)
+        frame = cv2.resize(
+            frame, (int(np.ceil(w * scale)), int(np.ceil(h * scale))))
+        h, w = frame.shape[:2]
+    top, left = (h - size) // 2, (w - size) // 2
+    return frame[top: top + size, left: left + size]
+
+
+class VideoFileSource:
+    """Decode a video file via cv2 (RGB uint8).
+
+    ``target_size`` center-crops every frame to a fixed square — required
+    for fixed-geometry consumers (``--transport ring``); None yields the
+    file's native geometry.
+    """
+
+    def __init__(self, path: str, loop: bool = False, rate: float = 0.0,
+                 target_size: Optional[int] = None):
+        self.path = path
+        self.loop = loop
+        self.rate = rate
+        self.target_size = target_size
+
+    def __iter__(self) -> Iterator[Frame]:
+        import cv2
+
+        period = 1.0 / self.rate if self.rate > 0 else 0.0
+        next_t = time.perf_counter()
+        while True:
+            cap = cv2.VideoCapture(self.path)
+            ok, frame = cap.read()
+            while ok:
+                if period:
+                    next_t = _pace(next_t, period)
+                rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                if self.target_size:
+                    rgb = center_square(rgb, self.target_size)
+                yield rgb, time.time()
+                ok, frame = cap.read()
+            cap.release()
+            if not self.loop:
+                break
+        yield None, time.time()
+
+
+class WebcamSource:
+    """Live webcam capture — the reference's source (webcam_app.py:67-116).
+
+    Same settings: 1280x720@30 with a 1-frame driver buffer to minimize
+    latency (webcam_app.py:69-75), optional center-crop to ``target_size``²
+    (webcam_app.py:97-101), BGR→RGB (webcam_app.py:102).
+    """
+
+    def __init__(
+        self,
+        device: int = 0,
+        capture_size: Tuple[int, int] = (1280, 720),
+        fps: int = 30,
+        target_size: Optional[int] = 512,
+    ):
+        self.device = device
+        self.capture_size = capture_size
+        self.fps = fps
+        self.target_size = target_size
+
+    def __iter__(self) -> Iterator[Frame]:
+        import cv2
+
+        cap = cv2.VideoCapture(self.device)
+        cap.set(cv2.CAP_PROP_FRAME_WIDTH, self.capture_size[0])
+        cap.set(cv2.CAP_PROP_FRAME_HEIGHT, self.capture_size[1])
+        cap.set(cv2.CAP_PROP_FPS, self.fps)
+        cap.set(cv2.CAP_PROP_BUFFERSIZE, 1)
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                if self.target_size:
+                    # center_square also upscales when the camera ignores
+                    # the capture-size request and delivers smaller frames
+                    # — a naive negative-offset crop would emit wrong-shape
+                    # frames and kill fixed-geometry consumers (ring).
+                    frame = center_square(frame, self.target_size)
+                yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB), time.time()
+        finally:
+            cap.release()
         yield None, time.time()
 
 

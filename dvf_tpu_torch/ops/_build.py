@@ -3,7 +3,9 @@ use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ctypes. The
-library lands in ``dvf_tpu_torch/_build/`` (git-ignored) under a name that
+library lands in ``dvf_tpu_torch/_build/`` (git-ignored; the
+``DVF_COMPILE_CACHE_DIR`` variable or
+``runtime.engine.enable_compilation_cache`` move it) under a name that
 carries a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
 source, all together. A missing ``nvcc`` or a failed build raises with the
@@ -24,7 +26,7 @@ from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(os.environ.get("DVF_COMPILE_CACHE_DIR") or _PKG / "_build")
 
 # No --use_fast_math: the kernels rely on IEEE division/sqrt and the
 # accurate expf to stay within 1e-5 of their plain versions.
@@ -98,6 +100,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         return secs
+
+
+def loaded_paths() -> set:
+    """The files of the libraries this process has loaded."""
+    with _lock:
+        return {lib._name for lib in _libs.values()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -41,14 +41,17 @@ Multi-signature serving adds the double-buffered hot swap
 in place between ticks, ``abort_swap`` drops it) and the
 :class:`ProgramPool`, a bounded LRU of compiled engines keyed by
 canonical signature, with its registry of live pool engines and the
-freed-bytes counter. Not ported yet: the mesh and halo routing, the
-compile-cache helpers and XLA's ``cost_analysis``.
+freed-bytes counter. The compile-cache helpers
+(:func:`enable_compilation_cache`) arm the kernel-build cache, the port's
+counterpart of XLA's persistent compilation cache. Not ported yet: the
+mesh and halo routing and XLA's ``cost_analysis``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 import time
 from contextlib import nullcontext
@@ -1058,3 +1061,89 @@ class ProgramPool:
                 "misses": self.misses,
                 "evictions": self.evictions,
             }
+
+
+# ---------------------------------------------------------------------------
+# Kernel-build cache (the counterpart of the reference's persistent
+# compilation cache)
+# ---------------------------------------------------------------------------
+
+# The port compiles no XLA program: what it compiles is its CUDA kernels
+# (ops/_build.py, nvcc) and its host shims (transport/_native.py, g++).
+# Both build into one directory under names keyed by a hash of source and
+# flags, so the directory is a cache: one serves every checkout state and
+# every process. The environment variable (read when the two modules are
+# imported) hands a chosen directory to child processes, as the fleet's
+# process replicas get it through ``FleetConfig.replica_env``.
+COMPILE_CACHE_ENV = "DVF_COMPILE_CACHE_DIR"
+DEFAULT_COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+DEFAULT_COMPILE_CACHE_BYTES = 512 * 1024 * 1024
+
+
+def prune_compilation_cache(cache_dir: str,
+                            max_bytes: int = DEFAULT_COMPILE_CACHE_BYTES,
+                            keep=()) -> int:
+    """Bound the cache dir: delete oldest-mtime files until the total is
+    under ``max_bytes``. Returns files removed. Files in ``keep``
+    (absolute paths of loaded libraries) and the ``.tmp`` files of builds
+    in flight are never deleted. Best-effort (a concurrent process may be
+    writing)."""
+    keep = {os.path.abspath(k) for k in keep}
+    files = []
+    try:
+        names = os.listdir(cache_dir)
+    except OSError:
+        return 0
+    for name in names:
+        path = os.path.join(cache_dir, name)
+        if name.endswith(".tmp") or not os.path.isfile(path):
+            continue
+        try:
+            st = os.stat(path)
+        except OSError:
+            continue
+        files.append((st.st_mtime, st.st_size, path))
+    total = sum(size for _, size, _ in files)
+    removed = 0
+    for _, size, path in sorted(files):
+        if total <= max_bytes:
+            break
+        if os.path.abspath(path) in keep:
+            continue
+        try:
+            os.remove(path)
+            removed += 1
+            total -= size
+        except OSError:
+            pass
+    return removed
+
+
+def enable_compilation_cache(
+    cache_dir: Optional[str] = None,
+    max_bytes: int = DEFAULT_COMPILE_CACHE_BYTES,
+) -> str:
+    """Point the kernel and shim builds at ``cache_dir`` (default: the
+    ``DVF_COMPILE_CACHE_DIR`` variable, else ``dvf_tpu_torch/_build/``)
+    and bound it by :func:`prune_compilation_cache`, oldest first.
+
+    A library already loaded stays loaded as it is: it is neither
+    reloaded from the new directory nor deleted by the prune. Later
+    builds land in the new directory, and a library already built there
+    loads without a build. Returns the directory used.
+    """
+    from pathlib import Path
+
+    from dvf_tpu_torch.ops import _build
+    from dvf_tpu_torch.transport import _native
+
+    cache_dir = os.path.abspath(cache_dir
+                                or os.environ.get(COMPILE_CACHE_ENV)
+                                or DEFAULT_COMPILE_CACHE_DIR)
+    os.makedirs(cache_dir, exist_ok=True)
+    prune_compilation_cache(cache_dir, max_bytes,
+                            keep=_build.loaded_paths() | _native.loaded_paths())
+    _build.BUILD_DIR = Path(cache_dir)
+    _native.BUILD_DIR = Path(cache_dir)
+    return cache_dir

@@ -2,8 +2,10 @@
 ``ring.cpp``), port of ``dvf_tpu/transport/_native.py``.
 
 The source is compiled with g++ at first use (ctypes keeps the binding
-free of any build dependency) into ``dvf_tpu_torch/_build/`` (git-ignored),
-never next to the source. The library's name carries a hash of the source
+free of any build dependency) into ``dvf_tpu_torch/_build/`` (git-ignored;
+the ``DVF_COMPILE_CACHE_DIR`` variable or
+``runtime.engine.enable_compilation_cache`` move it), never next to the
+source. The library's name carries a hash of the source
 and the compile command, so an edited source or a changed flag is rebuilt
 and an unchanged one is loaded as it is. A missing g++, a missing library
 to link (``-ljpeg``) or a failed compile raises with the compiler's output.
@@ -20,10 +22,19 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence, Type
 
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = Path(os.environ.get("DVF_COMPILE_CACHE_DIR")
+                 or Path(__file__).resolve().parent.parent / "_build")
 
 _lock = threading.Lock()
-_loaded: Dict[Path, ctypes.CDLL] = {}
+# Keyed by the library's file name (it carries the hash), so a library
+# loaded before the build directory moved is not loaded a second time.
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def loaded_paths() -> set:
+    """The files of the libraries this process has loaded."""
+    with _lock:
+        return {lib._name for lib in _loaded.values()}
 
 
 def library_path(src: str, extra_flags: Sequence[str] = ()) -> Path:
@@ -50,7 +61,7 @@ def load_native(src: str, extra_flags: Sequence[str] = (),
     ring's sub-microsecond calls)."""
     out = library_path(src, extra_flags)
     with _lock:
-        lib = _loaded.get(out)
+        lib = _loaded.get(out.name)
         if lib is not None:
             return lib
         if not out.exists():
@@ -66,5 +77,5 @@ def load_native(src: str, extra_flags: Sequence[str] = (),
                     f"g++ failed to build {src} (exit {proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
-        lib = _loaded[out] = cdll_cls(str(out))
+        lib = _loaded[out.name] = cdll_cls(str(out))
         return lib

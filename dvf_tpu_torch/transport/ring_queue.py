@@ -79,6 +79,9 @@ class RingFrameQueue:
         self.frame_dtype = np.dtype(np.uint8)
         self._frame_bytes = int(np.prod(self.frame_shape))
         self.wire = wire
+        # Exposed so serve's wire-budget check budgets against the pool
+        # the pipeline actually runs, not the host's total core count.
+        self.codec_pool_threads = codec_threads
         self.codec = None
         self._dec_codec = None
         # codec_assist is provenance here, not behaviour: this ring is an

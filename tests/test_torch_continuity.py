@@ -540,3 +540,99 @@ def test_fleet_process_crash_resume(tmp_path):
             f2.stop()
         else:
             f1.stop()
+
+
+# -- CLI surfaces ---------------------------------------------------------
+
+
+def test_subscribe_dead_gate_exits_3():
+    """A gate that answers the hello then goes silent is declared dead
+    after --idle-timeout: exit 3, promptly — not a zero-frame success
+    after the full --timeout deadline."""
+    import json
+
+    zmq = pytest.importorskip("zmq")
+
+    from benchtools import free_port
+    from dvf_tpu_torch.cli import main as cli_main
+
+    port = free_port()
+    ctx = zmq.Context()
+    router = ctx.socket(zmq.ROUTER)
+    router.bind(f"tcp://127.0.0.1:{port}")
+    done = threading.Event()
+
+    def gate():
+        if not router.poll(10_000):
+            return
+        ident, payload = router.recv_multipart()
+        assert json.loads(payload)["op"] == "hello"
+        router.send_multipart([ident, json.dumps(
+            {"ok": True, "wire": "raw", "quality": 0,
+             "tier": "native/q0/raw"}).encode()])
+        while not done.is_set():   # swallow heartbeats, answer nothing
+            if router.poll(50):
+                router.recv_multipart()
+
+    gt = threading.Thread(target=gate, daemon=True)
+    gt.start()
+    t0 = time.time()
+    try:
+        rc = cli_main([
+            "subscribe", f"tcp://127.0.0.1:{port}", "--channel", "demo",
+            "--frames", "3", "--timeout", "30", "--idle-timeout", "0.6"])
+    finally:
+        done.set()
+        gt.join(timeout=5.0)
+        router.close(0)
+        ctx.term()
+    assert rc == 3
+    assert time.time() - t0 < 15.0, "exit 3 must beat the --timeout deadline"
+
+
+def test_worker_sigterm_graceful_stats_line():
+    """SIGTERM on `python -m dvf_tpu_torch worker`: the run loop drains
+    the egress plane and the final stats JSON lands on stdout with exit
+    0 — a supervisor's kill gets the same accounting as a max_frames
+    exit."""
+    import json
+    import signal
+    import subprocess
+    import sys
+
+    pytest.importorskip("zmq")
+
+    from benchtools import free_port
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dvf_tpu_torch", "worker", "--filter", "invert",
+         "--platform", "cpu", "--distribute-port", str(free_port()),
+         "--collect-port", str(free_port())],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        ready = False
+        deadline = time.time() + 90.0
+        while time.time() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            if "serving" in line:
+                ready = True
+                break
+        assert ready, "worker never reached the serving banner"
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60.0)
+    except Exception:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, f"worker exit {proc.returncode}: {err}"
+    assert "draining" in err
+    stats_lines = [ln for ln in out.splitlines() if ln.strip()]
+    assert stats_lines, f"no stats line on stdout; stderr: {err}"
+    stats = json.loads(stats_lines[-1])
+    assert "frames_processed" in stats
+    assert stats["errors"] == 0

@@ -976,3 +976,102 @@ def test_local_fleet_runs_the_kernels_on_the_card(dev):
         diff = np.abs(np.stack([d.frame for d in got[s]]).astype(np.int16) - want)
         assert diff.max() <= 1, (c, int(diff.max()))
     assert live_pool_engines() == []
+
+
+# -- the command line (python -m dvf_tpu_torch) on the card -----------------
+
+
+@pytest.mark.parametrize("name,counter,cfg", [
+    ("sobel_bilateral", "sobel_bilateral", None),
+    ("gaussian_blur", "sep_blur", '{"ksize": 9}'),
+])
+def test_cli_serve_launches_the_kernel_once_per_batch(dev, monkeypatch, capsys,
+                                                      name, counter, cfg):
+    """``serve`` with no --platform runs on cuda:0: the kernel launched
+    once per device batch besides its compile's warm-up and calibration
+    launches, no other kernel, and every frame the display sink composes
+    in order and within 1 LSB of the plain version."""
+    import json
+    import os
+
+    from dvf_tpu_torch import cli
+    from dvf_tpu_torch.io import display
+    from dvf_tpu_torch.ops.conv import sep_conv2d
+    from dvf_tpu_torch.runtime import engine as em
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
+    assert cli._force_platform() == "cuda:0"
+    h, w, b, n = 48, 72, 4, 16
+    flt = ["--filter", name] + (["--filter-config", cfg] if cfg else [])
+    k9 = gaussian_kernel_1d(9, 0.0)
+    chain = dvf_tpu_torch.get_filter("sobel_bilateral", impl="chain")
+    plain = (lambda x: sep_conv2d(x, k9, k9, impl="shift")) if cfg else \
+        (lambda x: chain.fn(x, None)[0])
+    probe = em.Engine(cli._parse_filter_arg(name, cfg), device=dev)
+    tk.reset_launches()
+    probe.compile((b, h, w, 3))
+    per_compile = tk.LAUNCHES[counter]
+    probe.free()
+    compiles, devices, got = [], [], []
+    real_compile, real_emit = em.Engine.compile, display.SideBySideSink.emit
+
+    def compile_(eng, *a, **k):
+        compiles.append(1)
+        devices.append(eng.device)
+        return real_compile(eng, *a, **k)
+
+    def emit(sink, index, processed, ts):
+        got.append((index, np.array(processed)))
+        return real_emit(sink, index, processed, ts)
+
+    monkeypatch.setattr(em.Engine, "compile", compile_)
+    monkeypatch.setattr(display.SideBySideSink, "emit", emit)
+    tk.reset_launches()
+    rc = cli.main(["serve", *flt, "--height", str(h), "--width", str(w),
+                   "--batch", str(b), "--frames", str(n), "--frame-delay", "0",
+                   "--queue-size", str(n + 1), "--quiet", "--display",
+                   "--headless"])
+    assert rc == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["delivered"] == n
+    assert set(devices) == {torch.device("cuda", 0)}
+    want = {k: 0 for k in tk.LAUNCHES}
+    want[counter] = stats["engine_batches"] + per_compile * len(compiles)
+    assert dict(tk.LAUNCHES) == want
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(h, w, n_frames=n)][:-1]
+    x = to_float(torch.from_numpy(np.stack(frames)).to(dev))
+    ref = to_uint8(plain(x)).cpu().numpy().astype(np.int16)
+    assert [i for i, _ in got] == list(range(n))
+    diff = np.abs(np.stack([f for _, f in got]).astype(np.int16) - ref)
+    assert diff.max() <= 1
+    assert os.environ.get("DVF_FORCE_PLATFORM") is None
+
+
+def test_cli_compile_cache_dir_builds_then_loads(dev, tmp_path):
+    """``serve --compile-cache-dir DIR`` in a fresh process builds every
+    kernel library into DIR; a second process on DIR loads them with 0.0
+    s of build."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cache = tmp_path / "kernels"
+    builds = []
+    for _ in range(2):
+        r = subprocess.run(
+            [sys.executable, "-m", "dvf_tpu_torch", "serve", "--filter",
+             "sobel_bilateral", "--height", "32", "--width", "32", "--frames",
+             "8", "--batch", "4", "--frame-delay", "0", "--queue-size", "9",
+             "--quiet", "--compile-cache-dir", str(cache)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=900)
+        assert r.returncode == 0, r.stderr[-3000:]
+        line = [ln for ln in r.stderr.splitlines() if "kernel builds (s): " in ln][-1]
+        builds.append(json.loads(line.split("kernel builds (s): ", 1)[1]))
+    names = {"stencils", "warp", "codec"}
+    assert set(builds[0]) == names and all(v > 0 for v in builds[0].values())
+    assert builds[1] == {k: 0.0 for k in names}
+    assert {p.name.split("-")[0][3:] for p in cache.glob("lib*.so")} >= names

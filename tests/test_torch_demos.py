@@ -176,3 +176,52 @@ def test_sr128_beats_nearest_baseline():
     assert p_sr > p_near + 2.5, (
         f"SR ({p_sr:.2f} dB) does not clearly beat nearest ({p_near:.2f} dB)")
     _near_jax(out, _jax_run("load_sr_filter", "sr2x_128", lr))
+
+
+# -- serve --style-checkpoint / --sr-checkpoint (the port's .npz checkpoints)
+
+
+def _serve_checkpoint(flag: str, name: str, size: int, frames: int,
+                      batch: int, capsys) -> dict:
+    from dvf_tpu_torch.cli import main
+
+    rc = main([
+        "serve", flag, os.path.join(CHECKPOINT_ROOT, name),
+        "--source", "synthetic", "--height", str(size), "--width", str(size),
+        "--frames", str(frames), "--batch", str(batch), "--frame-delay", "0",
+        "--queue-size", "64", "--platform", "cpu",
+    ])
+    assert rc == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_serve_loads_style_checkpoint(capsys):
+    stats = _serve_checkpoint("--style-checkpoint", "style_stripes_64", 64,
+                              8, 4, capsys)
+    assert stats["delivered"] == 8
+
+
+def test_serve_loads_256_checkpoint(capsys):
+    stats = _serve_checkpoint("--style-checkpoint", "style_stripes_256", 128,
+                              4, 2, capsys)
+    assert stats["delivered"] == 4
+
+
+@pytest.mark.parametrize("name", ["sr2x_64", "sr2x_128"])
+def test_serve_loads_sr_checkpoint(capsys, name):
+    stats = _serve_checkpoint("--sr-checkpoint", name, 64, 8, 4, capsys)
+    assert stats["delivered"] == 8
+
+
+def test_serve_checkpoint_flags_fail_cleanly(tmp_path, capsys):
+    """Both flags at once, or a path with no checkpoint: rc 2 and one
+    error line, as the reference answers."""
+    from dvf_tpu_torch.cli import main
+
+    ckpt = os.path.join(CHECKPOINT_ROOT, "style_stripes_64")
+    assert main(["serve", "--style-checkpoint", ckpt, "--sr-checkpoint", ckpt,
+                 "--platform", "cpu"]) == 2
+    assert "mutually exclusive" in capsys.readouterr().err
+    assert main(["serve", "--style-checkpoint", str(tmp_path / "absent"),
+                 "--platform", "cpu"]) == 2
+    assert "does not exist" in capsys.readouterr().err

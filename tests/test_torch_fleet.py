@@ -737,3 +737,30 @@ def test_pinned_spawn_starts_the_child_on_its_core():
         assert h.health()["ok"] is True
     finally:
         h.stop(timeout=10.0)
+
+
+def test_cli_fleet_demo(capsys):
+    """`python -m dvf_tpu_torch fleet --mode local` runs the multi-replica
+    demo end to end: sessions spread over replicas, everything delivered,
+    one JSON line out with fleet-level accounting."""
+    import json
+
+    from dvf_tpu_torch.cli import main
+
+    rc = main([
+        "fleet", "--mode", "local", "--replicas", "2", "--sessions", "4",
+        "--filter", "invert", "--height", str(H), "--width", str(W),
+        "--frames", "10", "--rate", "120", "--batch", "4",
+        "--queue-size", "1000", "--slo-ms", "60000", "--platform", "cpu",
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(out["replicas"]) == 2
+    assert len(out["sessions"]) == 4
+    assert {s["replica"] for s in out["sessions"].values()} == {"r0", "r1"}
+    for sid, n in out["polled"].items():
+        assert n == 10, (sid, out["polled"])
+    assert out["aggregate"]["count"] == 40
+    assert out["order_violations"] == 0
+    assert out["replica_losses"] == 0
+    assert out["faults"] == {}

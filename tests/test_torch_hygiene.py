@@ -72,6 +72,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "dvf_tpu_torch.fleet.admission", "dvf_tpu_torch.fleet.replica",
             "dvf_tpu_torch.fleet._worker", "dvf_tpu_torch.fleet.elastic",
             "dvf_tpu_torch.fleet.router"} <= set(res["imported"])
+    # The command line, its sources' display and the mesh arithmetic.
+    assert {"dvf_tpu_torch.cli", "dvf_tpu_torch.__main__",
+            "dvf_tpu_torch.io.display", "dvf_tpu_torch.io.gl_display",
+            "dvf_tpu_torch.parallel.mesh"} <= set(res["imported"])
 
 
 def test_planner_ranks_with_its_own_copy_of_ab_comparison():
@@ -119,9 +123,8 @@ def test_ring_source_is_the_ports_own_copy():
                                  "obs", "control", "broadcast", "fleet"])
 def test_package_exports_the_references_names(pkg):
     """Each package re-exports the names its JAX counterpart exports
-    (minus the file and webcam sources, which wait for their slice, and
-    the fleet's multi-host flavor, which waits for the multi-device
-    mesh)."""
+    (minus the fleet's multi-host flavor, which waits for the
+    multi-device mesh)."""
     import importlib
     import types
 
@@ -129,8 +132,7 @@ def test_package_exports_the_references_names(pkg):
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
-    want -= {"VideoFileSource", "WebcamSource", "MultiHostEngine",
-             "MultiHostReplica"}
+    want -= {"MultiHostEngine", "MultiHostReplica"}
     assert want
     got = importlib.import_module(f"dvf_tpu_torch.{pkg}")
     missing = sorted(n for n in want if not hasattr(got, n))
@@ -159,6 +161,46 @@ def test_import_creates_no_cuda_context():
                          capture_output=True, text=True, timeout=120,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
+
+
+_HELP_PROBE = r"""
+import json, runpy, sys
+sys.path.insert(0, {root!r})
+import torch
+inits = []
+real = torch.cuda._lazy_init
+torch.cuda._lazy_init = lambda: inits.append(1) or real()
+sys.argv = ["dvf_tpu_torch", "--help"]
+try:
+    runpy.run_module("dvf_tpu_torch", run_name="__main__", alter_sys=True)
+    code = None
+except SystemExit as e:
+    code = e.code
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "dvf_tpu" or m.startswith("dvf_tpu."))
+print(json.dumps({{"code": code, "bad": bad, "cuda": bool(inits)
+                   or torch.cuda.is_initialized()}}))
+"""
+
+
+def test_main_help_imports_no_jax_and_touches_no_card():
+    """``python -m dvf_tpu_torch --help`` in a fresh interpreter exits 0,
+    lists every subcommand the port has (and no bench or training), and
+    imports neither jax nor the JAX package, nor creates a CUDA context."""
+    out = subprocess.run([sys.executable, "-c", _HELP_PROBE.format(root=str(ROOT))],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"code": 0, "bad": [], "cuda": False}
+    subs = re.search(r"\{([a-z,-]+)\}", out.stdout).group(1).split(",")
+    assert subs == ["filters", "doctor", "serve", "subscribe", "fleet",
+                    "camera", "worker", "trace-view"]
+    direct = subprocess.run([sys.executable, "-m", "dvf_tpu_torch", "--help"],
+                            capture_output=True, text=True, timeout=120,
+                            cwd=str(ROOT))
+    assert direct.returncode == 0 and "trace-view" in direct.stdout
 
 
 _FORBIDDEN = re.compile(

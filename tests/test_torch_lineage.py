@@ -678,6 +678,29 @@ class TestTraceView:
         assert a == b
         assert ours.render_text(a) == ref.render_text(b)
 
+    def test_cli_subcommand(self, tmp_path, capsys):
+        """`python -m dvf_tpu_torch trace-view`: the text view, --json, and
+        rc 2 on a missing or a bad path; the same text as the reference
+        CLI on the same file."""
+        from dvf_tpu.cli import main as ref_main
+        from dvf_tpu_torch.cli import main
+
+        path = self._trace_file(tmp_path)
+        assert main(["trace-view", path]) == 0
+        out = capsys.readouterr().out
+        assert "serve:r0" in out and "slowest spans:" in out
+        assert ref_main(["trace-view", path]) == 0
+        assert capsys.readouterr().out == out
+        assert main(["trace-view", path, "--json"]) == 0
+        doc = json.loads(capsys.readouterr().out)
+        assert doc["events"] == 3
+        assert main(["trace-view", str(tmp_path / "missing")]) == 2
+        bad = tmp_path / "bad.json"
+        bad.write_text("{}")
+        assert main(["trace-view", str(bad)]) == 2
+        assert main(["trace-view", str(self._dump(tmp_path))]) == 0
+        assert "SLO-BREACH" in capsys.readouterr().out
+
 
 # ---------------------------------------------------------------------------
 # Cross-process: lineage over the ProcessReplica RPC

@@ -864,3 +864,30 @@ def test_bridge_audit_wire_and_lineage():
     wire = st["attribution"]["wire"]
     assert set(wire["components"]) == {"encode", "send"}
     assert wire["count"] == n - 1
+
+
+def test_cli_serve_multi_demo(capsys):
+    """`python -m dvf_tpu_torch serve --sessions 4` runs the local
+    multi-stream demo end to end: 4 synthetic streams at different rates
+    through one shared engine, one JSON line out."""
+    import json
+
+    from dvf_tpu_torch.cli import main
+
+    rc = main([
+        "serve", "--sessions", "4", "--filter", "invert",
+        "--height", str(H), "--width", str(W), "--frames", "12",
+        "--rate", "120", "--batch", "4", "--queue-size", "1000",
+        "--slo-ms", "60000", "--quiet", "--platform", "cpu",
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(out["sessions"]) == 4
+    assert len(set(out["rates"].values())) == 4  # genuinely different rates
+    for sid, s in out["sessions"].items():
+        assert s["submitted"] == 12
+        assert s["delivered"] == 12          # big queues + big SLO: lossless
+        assert out["polled"][sid] == 12
+    assert out["aggregate"]["count"] == 48
+    assert out["admission_rejections"] == 0
+    assert out["errors"] == 0

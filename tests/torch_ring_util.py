@@ -23,3 +23,15 @@ def jax_native_isolated(tmp_path_factory):
     if jax_codec._shim is None and jax_codec._shim_error is None:
         jax_codec._SHIM_LIB = str(build / "_jpeg_shim.so")
     yield
+
+
+# A JAX-package CLI run in a child process, its ring shim built into the
+# directory given as the first argument (never into ``dvf_tpu/``):
+# ``[sys.executable, "-c", JAX_CLI_ISOLATED, lib_dir, "camera", ...]``.
+JAX_CLI_ISOLATED = (
+    "import os, sys\n"
+    "import dvf_tpu.transport.ring as ring\n"
+    "ring._LIB = os.path.join(sys.argv[1], '_ring.so')\n"
+    "from dvf_tpu.cli import main\n"
+    "sys.exit(main(sys.argv[2:]))\n"
+)
