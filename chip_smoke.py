@@ -206,6 +206,28 @@ which raises (and so exits non-zero) on failure:
    host trace and merged host + device trace; (i) where cv2 and a
    surfaceless EGL are present, ``serve --source <video file>`` and
    ``--display-backend gl``;
+13. training (``train_phase``), no hand kernel on its path (every launch
+   count stays 0): (a) the default StyleTrainConfig (the style net at c
+   32, r 5, the VGG encoder at its default blocks, bf16) on one batch of
+   8 x 256 x 256 SyntheticSource frames with the stripes target, 30
+   steps with an AsyncSaver checkpoint at step 15: every loss finite and
+   the last below the first, the median step ms over steps 5-30 (CUDA
+   events), a torch.profiler window of 5 steps (device ms and kernels
+   per step, busy share, top kernels), the share of the step's bound
+   (bf16 tensor-core MACs, float32 Gram MACs, bytes), then the final
+   checkpoint; (b) one float32 step of each family at 2 x 64 x 64 on the
+   card and on the CPU from the same state and batch, cuDNN's TF32
+   switched on globally: the loss, every gradient leaf (<= 1e-4 of its
+   largest element) and the params after the step; (c) the default
+   SrTrainConfig (ESPCN x2) on 16 structured 128 x 128 HR frames, 30
+   steps: the loss falls, the PSNR rises, step ms, profile, bound; (d)
+   (a)'s two checkpoints restored onto templates from another seed: the
+   steps, params bitwise, one more step against the uninterrupted run's,
+   and the trained weights through ``load_style_filter`` and an Engine
+   at 8 x 720 x 1280, within 1 LSB of a direct call; (e) ``python -m
+   dvf_tpu_torch train`` (4 steps, checkpoints every 2, then resumed to
+   6) and ``train-sr`` (4 steps with --eval; 0 steps from the committed
+   sr2x_64 state with --eval, delta > 2.5 dB) as processes on cuda:0;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -221,12 +243,14 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 ``dct_times_of(checkout)`` print another checkout's K4 and K6 device
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
-``planes_only()``, ``control_only()``, ``fleet_only()`` and ``cli_only()``
-run the build and phase 7, 8, 9, 10, 11 or 12 alone.
+``planes_only()``, ``control_only()``, ``fleet_only()``, ``cli_only()``
+and ``train_only()`` run the build and phase 7, 8, 9, 10, 11, 12 or 13
+alone.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
-[...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+[...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"train": [...]}``,
+``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -617,7 +641,10 @@ def profile_call(fn, per: int, match=None) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
+        # A user annotation's device range (torch.optim's
+        # "Optimizer.step#...") spans kernels counted on their own.
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and (match is None or match in e.key)]
         dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
         if dev_ms > 0:
@@ -951,6 +978,10 @@ def main() -> int:
     cli_rows, delta = cli_phase(dev, plain_of, fps_of, kind)
     for k, v in delta.items():
         launches[k] += v
+    # 13. training (no hand kernel on its path: every count stays 0)
+    train_rows, delta = train_phase(dev)
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -984,6 +1015,7 @@ def main() -> int:
     print(json.dumps({"control": control_rows}))
     print(json.dumps({"fleet": fleet_rows}))
     print(json.dumps({"cli": cli_rows}))
+    print(json.dumps({"train": train_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -5955,6 +5987,476 @@ def cli_only() -> None:
     dev, plain_of, _ = _only_setup()
     rows, _ = cli_phase(dev, plain_of, {}, torch.cuda.get_device_name(0))
     print(json.dumps({"cli": rows}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: training (the style net's perceptual-loss step with its VGG
+# encoder, the ESPCN step, checkpoint and resume, train / train-sr)
+# ---------------------------------------------------------------------------
+
+TRAIN_STYLE_SHAPE = (8, 256, 256, 3)   # the committed style_stripes_256's geometry
+TRAIN_SR_SHAPE = (16, 128, 128, 3)     # HR frames: the committed sr2x_128's geometry
+TRAIN_STEPS = 30
+TRAIN_TIMED_FROM = 5                   # step ms: the median over steps 5..30
+TRAIN_PROFILED = 5                     # steps in the profiler window
+TRAIN_CHECK_SHAPE = (2, 64, 64, 3)     # (b): one float32 step, card vs CPU
+TRAIN_SERVE_SHAPE = (8, 720, 1280, 3)  # (d): the trained weights served
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), FLOP/s:
+# the Gram matrices are float32 products (TF32 off).
+PEAK_F32_S = 67e12
+
+
+def vgg_macs_per_pixel(blocks=((1, 32), (1, 64), (2, 128))) -> int:
+    """Multiply-adds of the VGG encoder per full-resolution pixel: 3x3 SAME
+    convs, block b at 1/4^b of the pixels. 19,296 at the default blocks."""
+    total, cin = 0, 3
+    for bi, (n, c) in enumerate(blocks):
+        for _ in range(n):
+            total += 9 * cin * c // 4 ** bi
+            cin = c
+    return total
+
+
+def style_train_macs_per_pixel(c: int = 32, r: int = 5,
+                               blocks=((1, 32), (1, 64), (2, 128))) -> dict:
+    """Multiply-adds of one style train step per full-resolution pixel, by
+    dtype. bf16: the net forward, its weight gradient and its data
+    gradient (less the stem's, which the input does not need), the VGG
+    over the output forward and data gradient (frozen: no weight
+    gradient), the VGG over the content batch forward. float32: the Gram
+    matrices of the output's features, forward and backward (HW·C² each
+    per block)."""
+    net, vgg = style_macs_per_pixel(c, r), vgg_macs_per_pixel(blocks)
+    grams = sum(ch * ch // 4 ** bi for bi, (_, ch) in enumerate(blocks))
+    return {"bf16": 3 * net - 81 * 3 * c + 3 * vgg, "f32": 2 * grams,
+            "every_data_grad_no_grams": 3 * net + 3 * vgg}
+
+
+def sr_train_macs_per_lr_pixel(c1: int = 64, c2: int = 32, scale: int = 2) -> int:
+    """Multiply-adds of one ESPCN train step per low-resolution pixel:
+    forward, weight gradient and data gradient, less the first conv's data
+    gradient (the input needs none)."""
+    return 3 * espcn_macs_per_pixel(c1, c2, scale) - 25 * 3 * c1
+
+
+def _n_params(params) -> int:
+    from dvf_tpu_torch.train import optim
+
+    return sum(t.numel() for t in optim.flatten(params).values())
+
+
+def train_bound(macs: dict, pixels: int, in_bytes: int, n_params: int):
+    """(bound ms, bound_by, the parts): operations at their dtype's peak
+    (bf16 tensor cores, float32 CUDA cores) against the bytes a step must
+    move — the batch read once and, per parameter, the param read and
+    written, its gradient read, both Adam moments read and written (7
+    float32 words)."""
+    t_bf16 = 2 * macs["bf16"] * pixels / PEAK_BF16_S * 1e3
+    t_f32 = 2 * macs.get("f32", 0) * pixels / PEAK_F32_S * 1e3
+    t_bytes = (in_bytes + 7 * 4 * n_params) / PEAK_BYTES_S * 1e3
+    parts = {"bf16_ms": t_bf16, "f32_ms": t_f32, "bytes_ms": t_bytes}
+    b_ms = max(parts.values())
+    return b_ms, "bytes" if b_ms == t_bytes else "operations", parts
+
+
+def _timed_steps(step, state, batch, n: int, on_step=None):
+    """``n`` steps back to back, each bracketed by CUDA events; metrics
+    kept on the card until the end. Returns (state, per-step ms, per-step
+    metrics as floats, host wall s)."""
+    import torch
+
+    evs, ms = [], []
+    t = time.perf_counter()
+    for i in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        evs.append((a, b))
+        ms.append(m)
+        if on_step is not None:
+            on_step(i + 1, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (state, [a.elapsed_time(b) for a, b in evs],
+            [{k: float(v) for k, v in m.items()} for m in ms], wall)
+
+
+def _train_profile(step, state, batch) -> dict:
+    """A torch.profiler window over TRAIN_PROFILED steps: device ms and
+    kernels per step, the busy share, the top kernels."""
+    return profile_call(lambda: [step(state, batch) for _ in range(TRAIN_PROFILED)],
+                        TRAIN_PROFILED)
+
+
+def _train_row(label: str, ms: list, wall: float, prof: dict, bound) -> dict:
+    b_ms, b_by, parts = bound
+    med = statistics.median(ms[TRAIN_TIMED_FROM - 1:])
+    row = dict(leg=label, step_ms_median=med, step_ms_first=ms[0],
+               host_wall_ms_per_step=wall * 1e3 / len(ms),
+               bound_ms=b_ms, bound_by=b_by, bound_parts_ms=parts,
+               share_of_bound=b_ms / med,
+               share_of_bound_device=b_ms / prof["device_ms_per_batch"], **prof)
+    log(f"train {label}: step {med:.3f} ms median over steps {TRAIN_TIMED_FROM}-"
+        f"{len(ms)} (CUDA events; first {ms[0]:.1f} ms, host {row['host_wall_ms_per_step']:.3f}"
+        f" ms/step); profiled: {prof['device_ms_per_batch']:.3f} ms device and "
+        f"{prof['device_kernels_per_batch']:.0f} kernels per step, busy "
+        f"{prof['device_busy_share']:.3f}; bound {b_ms:.4f} ms ({b_by}: "
+        f"{json.dumps({k: round(v, 5) for k, v in parts.items()})}), share of bound "
+        f"{row['share_of_bound']:.4f} of the step, {row['share_of_bound_device']:.4f} "
+        f"of its device time; top [name, ms, count] per step: "
+        f"{json.dumps(prof['top_device_ms_per_batch'])}")
+    return row
+
+
+def train_leg_style(dev, tmp: str):
+    """(a) the default StyleTrainConfig (c 32, r 5, the VGG's default
+    blocks, bf16) on one 8 x 256 x 256 batch of SyntheticSource frames
+    with the stripes target: 30 timed steps with an AsyncSaver checkpoint
+    at step 15, 5 profiled steps, then the final checkpoint (step 35).
+    Returns (row, state, step, batch, checkpoint dir)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.train import StyleTrainConfig, init_train_state, make_train_step
+    from dvf_tpu_torch.train.checkpoint import AsyncSaver, save_checkpoint
+
+    b, h, w, _ = TRAIN_STYLE_SHAPE
+    cfg = StyleTrainConfig()
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(h, w, n_frames=b, seed=0)][:-1]
+    batch = (torch.from_numpy(np.stack(frames).astype(np.float32) / 255.0)
+             .pin_memory().to(dev, non_blocking=True))
+    state = init_train_state(0, make_style_image("stripes", h), cfg, device=dev)
+    step = make_train_step(None, cfg, state_template=state)
+    ck = os.path.join(tmp, "style")
+    os.makedirs(ck)
+    with open(os.path.join(ck, "config.json"), "w") as f:
+        json.dump({"base_channels": cfg.net.base_channels,
+                   "n_residual": cfg.net.n_residual, "style": "stripes", "size": h,
+                   "steps": TRAIN_STEPS}, f)
+    saver = AsyncSaver()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def mid(i, st):
+        if i == TRAIN_STEPS // 2:
+            saver.save(os.path.join(ck, f"step_{i:06d}"), st)
+
+    try:
+        state, ms, metrics, wall = _timed_steps(step, state, batch, TRAIN_STEPS, mid)
+    finally:
+        saver.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train (a): losses {losses}")
+    macs = style_train_macs_per_pixel()
+    log(f"train (a) MAC per pixel: {json.dumps(macs)} (3 x net + 3 x VGG would count "
+        f"the stem's data gradient, which autograd skips, and no Gram matrices)")
+    prof = _train_profile(step, state, batch)
+    save_checkpoint(os.path.join(ck, "final"), state)   # after the profiled steps
+    row = _train_row("a_style", ms, wall, prof,
+                     train_bound(macs, b * h * w, batch.numel() * 4, _n_params(state.params)))
+    row.update(shape=list(TRAIN_STYLE_SHAPE), losses=losses, peak_allocated_bytes=peak,
+               macs_per_pixel=macs, terms_last={k: metrics[-1][k] for k in
+                                                ("content", "style", "tv")})
+    log(f"train (a): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps "
+        f"(content/style/tv at the end {json.dumps(row['terms_last'])}); peak "
+        f"allocated {peak / 2**30:.2f} GiB")
+    return row, state, step, batch, ck
+
+
+def _zero_grad_leaf(k: str) -> bool:
+    """Leaves whose exact gradient is zero: the conv biases an instance
+    norm follows, and the residual norms' biases (a per-channel constant
+    on the trunk reaches only such convs)."""
+    return (k.endswith("/b") and k != "out/b") or (k.startswith("res") and
+                                                  k.endswith("_bn/bias"))
+
+
+def train_leg_card_vs_cpu(dev):
+    """(b) one float32 step of each family from the same state and batch
+    (2 x 64 x 64) on the card and on the CPU, cuDNN's TF32 switched on
+    globally (the step turns it off for forward and backward): the loss's
+    relative error, every gradient leaf's error against its largest
+    element, the largest parameter difference after the step."""
+    import torch
+
+    from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.models import EspcnConfig, StyleNetConfig
+    from dvf_tpu_torch.models.vgg import VGGConfig
+    from dvf_tpu_torch.train import optim
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    f32 = torch.float32
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random(TRAIN_CHECK_SHAPE, dtype=np.float32))
+    style_cfg = tst.StyleTrainConfig(net=StyleNetConfig(compute_dtype=f32),
+                                     vgg=VGGConfig(compute_dtype=f32))
+    sr_cfg = tsr.SrTrainConfig(net=EspcnConfig(compute_dtype=f32))
+    img = make_style_image("stripes", TRAIN_CHECK_SHAPE[1])
+    rows = []
+    for family, init, make, cfg in (
+            ("style", lambda d: tst.init_train_state(0, img, style_cfg, device=d),
+             tst.make_train_step, style_cfg),
+            ("sr", lambda d: tsr.init_train_state(0, sr_cfg, device=d),
+             tsr.make_train_step, sr_cfg)):
+        out = {}
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            for where in ("card", "cpu"):
+                state = init(dev if where == "card" else "cpu")
+                state, m = make(None, cfg, state_template=state)(state, x)
+                out[where] = (state, float(m["loss"]))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        (card, lc), (cpu, lp) = out["card"], out["cpu"]
+        pc, pp = optim.flatten(card.params), optim.flatten(cpu.params)
+        big = max(float(t.grad.abs().max()) for t in pp.values())
+        grad_err, zero_max, dp, dp_clear = 0.0, 0.0, 0.0, 0.0
+        lr = cfg.learning_rate
+        for k in pp:
+            gc, gp = pc[k].grad.cpu(), pp[k].grad
+            d = (pc[k].detach().cpu() - pp[k].detach()).abs()
+            dp = max(dp, float(d.max()))
+            clear = gp.abs() >= 1e-4 * big
+            if clear.any():
+                dp_clear = max(dp_clear, float(d[clear].max()))
+            if family == "style" and _zero_grad_leaf(k):
+                zero_max = max(zero_max, float(gc.abs().max()), float(gp.abs().max()))
+            else:
+                grad_err = max(grad_err, float((gc - gp).abs().max() / gp.abs().max()))
+        loss_rel = abs(lc - lp) / abs(lp)
+        row = dict(leg=f"b_{family}_card_vs_cpu", shape=list(TRAIN_CHECK_SHAPE),
+                   loss_card=lc, loss_cpu=lp, loss_rel_err=loss_rel,
+                   grad_max_rel_err=grad_err, zero_grad_leaves_max_abs=zero_max,
+                   largest_grad=big, param_max_abs_diff=dp,
+                   param_max_abs_diff_clear=dp_clear, lr=lr)
+        log(f"train (b) {family} float32 step, card vs CPU at {TRAIN_CHECK_SHAPE} (TF32 "
+            f"on globally): loss rel err {loss_rel:.3e}, gradient max rel err per leaf "
+            f"{grad_err:.3e} (bar 1e-4), zero-gradient leaves max |g| {zero_max:.3e} "
+            f"(largest |g| {big:.3e}), params after the step max |d| {dp:.3e} = "
+            f"{dp / lr:.3f} lr ({dp_clear / lr:.2e} lr where |g| >= 1e-4 of the largest)")
+        if not (loss_rel <= 1e-5 and grad_err <= 1e-4 and zero_max <= 1e-5 * big
+                and dp <= 2 * lr * (1 + 1e-5) and dp_clear <= 1e-3 * lr):
+            raise AssertionError(f"train (b) {family}: the card's float32 step differs "
+                                 f"from the CPU's: {row}")
+        rows.append(row)
+    return rows
+
+
+def train_leg_sr(dev):
+    """(c) the default SrTrainConfig (ESPCN x2, bf16) on one batch of 16
+    structured 128 x 128 HR frames, 30 steps: the loss falls and the PSNR
+    rises; step ms, profile, bound."""
+    import torch
+
+    from dvf_tpu_torch.train import sr as tsr
+
+    b, h, w, _ = TRAIN_SR_SHAPE
+    cfg = tsr.SrTrainConfig()
+    hr = tsr.synthesize_structured_batch(np.random.default_rng(1), b, h)
+    batch = (torch.from_numpy(hr.astype(np.float32) / 255.0).pin_memory()
+             .to(dev, non_blocking=True))
+    state = tsr.init_train_state(0, cfg, device=dev)
+    step = tsr.make_train_step(None, cfg, state_template=state)
+    state, ms, metrics, wall = _timed_steps(step, state, batch, TRAIN_STEPS)
+    losses, psnrs = [m["loss"] for m in metrics], [m["psnr"] for m in metrics]
+    if not (losses[-1] < losses[0] and psnrs[-1] > psnrs[0]):
+        raise AssertionError(f"train (c): loss {losses}, psnr {psnrs}")
+    macs = {"bf16": sr_train_macs_per_lr_pixel()}
+    prof = _train_profile(step, state, batch)
+    row = _train_row("c_sr", ms, wall, prof,
+                     train_bound(macs, b * (h // 2) * (w // 2), batch.numel() * 4,
+                                 _n_params(state.params)))
+    row.update(shape=list(TRAIN_SR_SHAPE), losses=losses, psnrs=psnrs,
+               macs_per_lr_pixel=macs["bf16"])
+    log(f"train (c): loss {losses[0]:.4f} -> {losses[-1]:.4f}, psnr {psnrs[0]:.2f} -> "
+        f"{psnrs[-1]:.2f} dB over {TRAIN_STEPS} steps; {macs['bf16']} MAC per LR pixel")
+    return row
+
+
+def train_leg_resume(dev, state, step, batch, ck: str):
+    """(d) the (a) run's checkpoints restored on the card into templates
+    from another seed: step and params bitwise; one more step of the
+    restored state against the uninterrupted run's next step; the trained
+    weights served by an Engine at 8 x 720 x 1280."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.train import StyleTrainConfig, init_train_state, optim
+    from dvf_tpu_torch.train.checkpoint import load_style_filter, restore_checkpoint
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    cfg = StyleTrainConfig()
+    img = make_style_image("stripes", TRAIN_STYLE_SHAPE[1])
+
+    def template():
+        return init_train_state(1, img, cfg, device=dev)
+
+    t = time.perf_counter()
+    mid = restore_checkpoint(os.path.join(ck, f"step_{TRAIN_STEPS // 2:06d}"), template())
+    restored = restore_checkpoint(os.path.join(ck, "final"), template())
+    restore_s = (time.perf_counter() - t) / 2
+    final_step = TRAIN_STEPS + TRAIN_PROFILED
+    if int(mid.step) != TRAIN_STEPS // 2 or int(restored.step) != final_step:
+        raise AssertionError(f"train (d): restored steps {int(mid.step)}, "
+                             f"{int(restored.step)}")
+    saved = optim.flatten(state.params)
+    n_diff = sum(int((optim.flatten(restored.params)[k] != v).sum()) for k, v in saved.items())
+    if n_diff:
+        raise AssertionError(f"train (d): {n_diff} restored param elements differ")
+    del mid
+    state, m1 = step(state, batch)
+    restored, m2 = step(restored, batch)
+    dp = max(float((optim.flatten(restored.params)[k] - v).detach().abs().max())
+             for k, v in optim.flatten(state.params).items())
+    dl = abs(float(m1["loss"]) - float(m2["loss"]))
+    log(f"train (d): the mid-run (async) and final checkpoints restored at steps "
+        f"{TRAIN_STEPS // 2} and {final_step}, params bitwise equal to the saved "
+        f"ones ({restore_s:.2f} s per restore); the next step resumed vs "
+        f"uninterrupted: loss |d| {dl:.3e}, params max |d| {dp:.3e}")
+    filt = load_style_filter(ck)
+    eng = dvf_tpu_torch.Engine(filt, device=dev)
+    eng.compile(TRAIN_SERVE_SHAPE)
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
+        *TRAIN_SERVE_SHAPE[1:], n_frames=TRAIN_SERVE_SHAPE[0], seed=0)][:-1]
+    x = np.stack(frames)
+    t = time.perf_counter()
+    got = eng.submit(x).fetch()
+    serve_ms = (time.perf_counter() - t) * 1e3
+    direct = to_uint8(_filter_out(filt, to_float(torch.from_numpy(x).to(dev)), dev))
+    lsb = max_lsb(got, direct.cpu().numpy())
+    if got.shape != TRAIN_SERVE_SHAPE or got.dtype != np.uint8 or lsb > 1:
+        raise AssertionError(f"train (d): served {got.shape} {got.dtype}, {lsb} LSB "
+                             f"from a direct call")
+    log(f"train (d): load_style_filter -> Engine on the card served {TRAIN_SERVE_SHAPE} "
+        f"in {serve_ms:.1f} ms, max {lsb} LSB from a direct call, mean "
+        f"{float(got.mean()):.1f}")
+    eng.free()
+    return dict(leg="d_resume", restored_steps=[TRAIN_STEPS // 2, final_step],
+                params_differing=0, restore_s=restore_s,
+                next_step_loss_abs_diff=dl, next_step_param_max_abs_diff=dp,
+                served_shape=list(got.shape), served_max_lsb_vs_direct=lsb,
+                served_ms=serve_ms)
+
+
+def _train_proc(argv, env):
+    return subprocess.Popen([sys.executable, "-m", "dvf_tpu_torch", *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _train_procs(label_argv: list, env) -> dict:
+    """Start every (label, argv) process together; each must exit 0 with a
+    JSON last line. Returns {label: (JSON, stderr, wall s)}; kills every
+    process left on the way out."""
+    t = time.perf_counter()
+    procs = [(label, _train_proc(argv, env)) for label, argv in label_argv]
+    res = {}
+    try:
+        for label, p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"train (e) {label}: rc {p.returncode}; "
+                                     f"stderr tail:\n{err[-3000:]}")
+            res[label] = (json.loads(out.strip().splitlines()[-1]), err,
+                          time.perf_counter() - t)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def train_leg_cli(tmp: str):
+    """(e) ``python -m dvf_tpu_torch train`` / ``train-sr`` as processes
+    on cuda:0 (no --platform): train 4 steps with checkpoints every 2,
+    then resumed to 6; train-sr 4 steps with --eval; train-sr --steps 0
+    from the committed sr2x_64 state with --eval (delta > 2.5 dB)."""
+    env = dict(os.environ)
+    env.pop("DVF_FORCE_PLATFORM", None)
+    d = os.path.join(tmp, "cli")
+    train = ["train", "--steps", "4", "--batch", "4", "--size", "64",
+             "--checkpoint-dir", d, "--checkpoint-every", "2", "--log-every", "2"]
+    sr64 = os.path.join("dvf_tpu_torch", "checkpoints", "sr2x_64", "final")
+    first = _train_procs([
+        ("train", train),
+        ("train_sr", ["train-sr", "--steps", "4", "--eval", "--log-every", "2"]),
+        ("train_sr_eval", ["train-sr", "--steps", "0", "--resume", sr64, "--eval"]),
+    ], env)
+    second = _train_procs([
+        ("train_resumed", ["train", "--steps", "6", "--batch", "4", "--size", "64",
+                           "--checkpoint-dir", d, "--resume", os.path.join(d, "final"),
+                           "--log-every", "2"])], env)
+    res = {**first, **second}
+    j, err, _ = res["train"]
+    if j["steps"] != 4 or "(async)" not in err or not np.isfinite(j["final_loss"]):
+        raise AssertionError(f"train (e) train: {j}; {err[-2000:]}")
+    j, err, _ = res["train_resumed"]
+    if j["steps"] != 6 or "at step 4" not in err:
+        raise AssertionError(f"train (e) resumed: {j}; {err[-2000:]}")
+    held = res["train_sr"][0]["held_out"]
+    if not all(np.isfinite(v) for v in held.values()):
+        raise AssertionError(f"train (e) train-sr --eval: {held}")
+    claim = res["train_sr_eval"][0]["held_out"]
+    if not claim["delta_db"] > 2.5 or "at step 6000" not in res["train_sr_eval"][1]:
+        raise AssertionError(f"train (e) the sr2x_64 claim: {claim}")
+    for label, (j, _, wall) in res.items():
+        log(f"train (e) {label}: {json.dumps(j)} ({wall:.1f} s from the start of its "
+            f"group)")
+    return dict(leg="e_cli", **{k: v[0] for k, v in res.items()},
+                wall_s={k: v[2] for k, v in res.items()})
+
+
+def train_phase(dev):
+    """Phase 13: legs (a)-(e) of training. Returns (rows, the launch counts
+    of the phase: the train path runs no hand kernel, so all 0)."""
+    import tempfile
+
+    import torch
+
+    from dvf_tpu_torch.ops import kernels as tk
+
+    t0 = time.perf_counter()
+    log(f"train phase on {nvidia_smi()}")
+    tk.reset_launches()
+    rows = []
+
+    def timed(leg, *args):
+        t = time.perf_counter()
+        out = leg(*args)
+        new = out[0] if isinstance(out, tuple) else out
+        for row in new if isinstance(new, list) else [new]:
+            row["wall_s"] = time.perf_counter() - t
+            rows.append(row)
+        log(f"train leg {rows[-1]['leg']}: {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="dvf-train-") as tmp:
+        _, state, step, batch, ck = timed(train_leg_style, dev, tmp)
+        timed(train_leg_resume, dev, state, step, batch, ck)
+        del state, step, batch
+        timed(train_leg_card_vs_cpu, dev)
+        timed(train_leg_sr, dev)
+        timed(train_leg_cli, tmp)
+    delta = dict(tk.LAUNCHES)
+    if any(delta.values()):
+        raise AssertionError(f"train: the train path launched a hand kernel: {delta}")
+    log(f"train phase: {time.perf_counter() - t0:.1f} s, launches {delta}")
+    return rows, delta
+
+
+def train_only() -> None:
+    """The build and phase 13 alone (training):
+    ``python3 -c 'import chip_smoke; chip_smoke.train_only()'``."""
+    dev, _, _ = _only_setup()
+    rows, _ = train_phase(dev)
+    print(json.dumps({"train": rows}))
 
 
 if __name__ == "__main__":

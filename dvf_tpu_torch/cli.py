@@ -11,6 +11,8 @@ tiers:
   python -m dvf_tpu_torch serve  --filter invert  # pipeline: source→GPU→sink
   python -m dvf_tpu_torch worker --filter invert  # ZMQ worker for the ref app
   python -m dvf_tpu_torch doctor                  # environment diagnostics
+  python -m dvf_tpu_torch train  --steps 50       # train the style net
+  python -m dvf_tpu_torch train-sr --eval         # train the SR net
 
 Every device-touching subcommand runs on ``cuda:0`` unless ``--platform
 cpu`` (or ``DVF_FORCE_PLATFORM=cpu``) asks for the CPU; without a CUDA
@@ -18,9 +20,8 @@ device it exits 2 and never carries on on the CPU by itself. The
 ``worker`` subcommand keeps the reference's flag names
 (--distribute-port, --collect-port, --delay) so launch scripts written for
 ``python inverter.py`` port over by changing only the module name.
-Not here yet: ``bench`` (the bench harness), ``train`` and ``train-sr``
-(training), ``fleet --scaling`` and a ``--mesh`` over more than one
-device (multi-GPU).
+Not here yet: ``bench`` (the bench harness), ``fleet --scaling`` and a
+``--mesh`` over more than one device (multi-GPU).
 """
 
 from __future__ import annotations
@@ -1408,6 +1409,235 @@ def cmd_camera(args) -> int:
     return 0
 
 
+def make_style_image(kind: str, size: int):
+    """Deterministic style targets for training. A flat image has trivial
+    Gram statistics (training just desaturates); the textured presets carry
+    strong orientation/color correlations that produce VISIBLE stylization
+    even with the random-init VGG feature extractor."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    if kind == "gray":
+        img = np.full((size, size, 3), 0.3, np.float32)
+    elif kind == "stripes":
+        # Bold diagonal stripes, alternating warm/cool — strong directional
+        # second-order statistics at every feature scale.
+        phase = np.sin((xx + yy) * (2.0 * np.pi / 12.0))
+        warm = np.stack([0.9 + 0 * phase, 0.4 + 0 * phase, 0.1 + 0 * phase], -1)
+        cool = np.stack([0.1 + 0 * phase, 0.3 + 0 * phase, 0.9 + 0 * phase], -1)
+        img = np.where(phase[..., None] > 0, warm, cool).astype(np.float32)
+    elif kind == "checker":
+        c = (((xx // 8).astype(int) + (yy // 8).astype(int)) % 2).astype(np.float32)
+        img = np.stack([c, 1.0 - c, 0.5 + 0 * c], -1)
+    elif kind == "noise":
+        img = np.random.default_rng(7).random((size, size, 3)).astype(np.float32)
+    else:
+        raise ValueError(f"unknown style preset {kind!r}")
+    return img[None]  # (1, size, size, 3)
+
+
+def cmd_train(args) -> int:
+    """Train the style net on synthetic frames; checkpoint and resume.
+    One device: ``cuda:0``, or the CPU with ``--platform cpu``."""
+    device = _force_platform()
+
+    from dvf_tpu_torch.io.sources import SyntheticSource
+    from dvf_tpu_torch.models import StyleNetConfig
+    from dvf_tpu_torch.models.vgg import VGGConfig
+    from dvf_tpu_torch.train import StyleTrainConfig, init_train_state, make_train_step
+    from dvf_tpu_torch.train.checkpoint import restore_checkpoint
+
+    config = StyleTrainConfig(
+        net=StyleNetConfig(base_channels=args.base_channels, n_residual=args.n_residual),
+        vgg=VGGConfig(),
+        learning_rate=args.lr,
+        **({"style_weight": args.style_weight}
+           if args.style_weight is not None else {}),
+    )
+    src = SyntheticSource(height=args.size, width=args.size,
+                          n_frames=args.steps * args.batch, rate=0.0)
+    frames = iter(src)
+
+    state = init_train_state(args.seed, make_style_image(args.style, args.size),
+                             config, device=device)
+    if args.resume:
+        if not os.path.isdir(args.resume):
+            # A typo'd path must not silently restart from scratch.
+            print(f"error: --resume path {args.resume!r} does not exist",
+                  file=sys.stderr)
+            return 2
+        state = restore_checkpoint(args.resume, state)
+        print(f"resumed from {args.resume} at step {int(state.step)}", file=sys.stderr)
+    step_fn = make_train_step(None, config, state_template=state)
+
+    if args.checkpoint_dir:
+        # Sidecar net config so inference (serve --style-checkpoint) can
+        # rebuild the exact architecture without guessing flags. Written
+        # BEFORE the loop (it depends only on argv): a run killed
+        # mid-training must still leave loadable step_* checkpoints.
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "config.json"), "w") as f:
+            json.dump({"base_channels": args.base_channels,
+                       "n_residual": args.n_residual,
+                       "style": args.style, "size": args.size,
+                       "steps": args.steps}, f)
+
+    return _run_train_loop(
+        args, device, state, step_fn, frames,
+        log_line=lambda m: f"loss={float(m['loss']):.5f}",
+        final_json=lambda _state, m: {
+            "steps": args.steps,
+            "final_loss": float(m["loss"]) if m else float("nan"),
+        },
+    )
+
+
+def _run_train_loop(args, device, state, step_fn, frames, log_line, final_json):
+    """The training loop both families share: stack a float32 batch on
+    the host → pinned → copied to the device without blocking → step →
+    periodic log (the only place the loop waits for the device, besides
+    the checkpoints) → periodic ASYNC checkpoint → final blocking
+    checkpoint + JSON. ``log_line(metrics)`` and ``final_json(state,
+    metrics)`` are the family's pieces."""
+    import numpy as np
+    import torch
+
+    from dvf_tpu_torch.train.checkpoint import AsyncSaver, save_checkpoint
+
+    pin = torch.device(device).type == "cuda"
+    saver = AsyncSaver() if args.checkpoint_dir else None
+    start = int(state.step)
+    metrics = {}
+    try:
+        for i in range(start, args.steps):
+            batch_np = np.stack([
+                next(frames)[0] for _ in range(args.batch)
+            ]).astype(np.float32) / 255.0
+            batch = torch.from_numpy(batch_np)
+            if pin:
+                batch = batch.pin_memory()
+            state, metrics = step_fn(state, batch.to(device, non_blocking=True))
+            if (i + 1) % args.log_every == 0:
+                print(f"step {i + 1}: {log_line(metrics)}", file=sys.stderr)
+            if saver is not None and (i + 1) % args.checkpoint_every == 0:
+                path = os.path.join(args.checkpoint_dir, f"step_{i + 1:06d}")
+                saver.save(path, state)
+                print(f"checkpointed {path} (async)", file=sys.stderr)
+    finally:
+        if saver is not None:
+            try:
+                saver.close()  # drain the in-flight write before final save
+            except Exception as e:  # noqa: BLE001 — a failed background
+                # write must not mask the training exception propagating
+                # through this finally (the blocking final save below
+                # still surfaces a genuinely broken disk on the happy path).
+                print(f"[train] async checkpoint drain failed: {e!r}",
+                      file=sys.stderr)
+    if args.checkpoint_dir:
+        path = os.path.join(args.checkpoint_dir, "final")
+        save_checkpoint(path, state)
+        print(f"checkpointed {path}", file=sys.stderr)
+    print(json.dumps(final_json(state, metrics)))
+    return 0
+
+
+def _sr_held_out_eval(state, config) -> dict:
+    """Held-out generalization check on the state's device: PSNR of the
+    trained net vs the nearest-neighbor baseline on fresh structured
+    draws at an UNSEEN geometry (80x80; eval seed 12345 is never used by
+    training, which derives its stream from args.seed + 1)."""
+    import numpy as np
+    import torch
+
+    from dvf_tpu_torch.models.espcn import apply_espcn
+    from dvf_tpu_torch.models.layers import upsample_nearest
+    from dvf_tpu_torch.train.sr import downscale_area, synthesize_structured_batch
+
+    rng = np.random.default_rng(12345)
+    hr = torch.from_numpy(synthesize_structured_batch(rng, 8, 80)).to(
+        state.step.device).float() / 255.0
+    lr = downscale_area(hr, config.net.scale)
+    with torch.no_grad():
+        out = torch.clamp(apply_espcn(state.params, lr, config.net), 0.0, 1.0)
+    near = upsample_nearest(lr, config.net.scale)
+
+    def psnr(a):
+        return round(-10.0 * float(np.log10(float(torch.mean((a - hr) ** 2)) + 1e-12)), 2)
+
+    p_sr, p_near = psnr(out), psnr(near)
+    return {"psnr_sr_db": p_sr, "psnr_nearest_db": p_near,
+            "delta_db": round(p_sr - p_near, 2)}
+
+
+def cmd_train_sr(args) -> int:
+    """Train the ESPCN SR net self-supervised on synthetic frames (each HR
+    frame area-downscaled ×r on the device makes its own LR input — no
+    dataset)."""
+    device = _force_platform()
+
+    import numpy as np
+
+    from dvf_tpu_torch.models.espcn import EspcnConfig
+    from dvf_tpu_torch.train.checkpoint import restore_sr_checkpoint
+    from dvf_tpu_torch.train.sr import (
+        SrTrainConfig,
+        init_train_state,
+        make_train_step,
+        synthesize_structured_batch,
+    )
+
+    if args.size % args.scale:
+        print(f"error: --size {args.size} must be divisible by --scale {args.scale}",
+              file=sys.stderr)
+        return 2
+    config = SrTrainConfig(net=EspcnConfig(scale=args.scale), learning_rate=args.lr)
+
+    # Randomized structured frames: edge-rich content drawn fresh per
+    # frame (train.sr.synthesize_structured_batch) — iid noise is
+    # information-destroyed by downscaling, and a fixed frame cycle gets
+    # memorized instead of teaching edge reconstruction.
+    def _frame_gen():
+        rng = np.random.default_rng(args.seed + 1)
+        while True:
+            for f in synthesize_structured_batch(rng, args.batch, args.size):
+                yield f, 0.0
+
+    frames = _frame_gen()
+
+    state = init_train_state(args.seed, config, device=device)
+    if args.resume:
+        if not os.path.isdir(args.resume):
+            print(f"error: --resume path {args.resume!r} does not exist",
+                  file=sys.stderr)
+            return 2
+        state = restore_sr_checkpoint(args.resume, state)
+        print(f"resumed from {args.resume} at step {int(state.step)}", file=sys.stderr)
+    step_fn = make_train_step(None, config, state_template=state)
+
+    if args.checkpoint_dir:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "config.json"), "w") as f:
+            json.dump({"scale": args.scale, "size": args.size,
+                       "steps": args.steps}, f)
+
+    def final_json(final_state, m):
+        out = {
+            "steps": args.steps,
+            "final_loss": float(m["loss"]) if m else float("nan"),
+            "final_psnr_db": float(m["psnr"]) if m else float("nan"),
+        }
+        if args.eval:
+            out["held_out"] = _sr_held_out_eval(final_state, config)
+        return out
+
+    return _run_train_loop(
+        args, device, state, step_fn, frames,
+        log_line=lambda m: (f"loss={float(m['loss']):.5f} "
+                            f"psnr={float(m['psnr']):.2f}dB"),
+        final_json=final_json,
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="dvf_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1982,6 +2212,44 @@ def main(argv=None) -> int:
     tv.add_argument("--json", action="store_true", dest="as_json",
                     help="machine-readable JSON instead of the text view")
 
+    tp = sub.add_parser("train", parents=[plat], help="train the style net (checkpoint/resume)")
+    tp.add_argument("--steps", type=int, default=50)
+    tp.add_argument("--batch", type=int, default=4)
+    tp.add_argument("--size", type=int, default=64, help="square frame size")
+    tp.add_argument("--base-channels", type=int, default=8)
+    tp.add_argument("--n-residual", type=int, default=2)
+    tp.add_argument("--lr", type=float, default=1e-3)
+    tp.add_argument("--seed", type=int, default=0)
+    tp.add_argument("--log-every", type=int, default=10)
+    tp.add_argument("--checkpoint-dir", default=None)
+    tp.add_argument("--checkpoint-every", type=int, default=25)
+    tp.add_argument("--resume", default=None, help="checkpoint dir to resume from")
+    tp.add_argument("--style", default="stripes",
+                    choices=("gray", "stripes", "checker", "noise"),
+                    help="style-target preset (textured presets give "
+                         "visible stylization; gray was the old default)")
+    tp.add_argument("--style-weight", type=float, default=None,
+                    help="override StyleTrainConfig.style_weight")
+
+    tsp = sub.add_parser(
+        "train-sr", parents=[plat],
+        help="train the super-resolution net (self-supervised, "
+             "checkpoint/resume)")
+    tsp.add_argument("--steps", type=int, default=50)
+    tsp.add_argument("--batch", type=int, default=4)
+    tsp.add_argument("--size", type=int, default=64,
+                     help="square HR frame size (must be divisible by --scale)")
+    tsp.add_argument("--scale", type=int, default=2)
+    tsp.add_argument("--lr", type=float, default=1e-3)
+    tsp.add_argument("--seed", type=int, default=0)
+    tsp.add_argument("--log-every", type=int, default=10)
+    tsp.add_argument("--checkpoint-dir", default=None)
+    tsp.add_argument("--checkpoint-every", type=int, default=25)
+    tsp.add_argument("--resume", default=None, help="checkpoint dir to resume from")
+    tsp.add_argument("--eval", action="store_true",
+                     help="after training, report held-out PSNR vs the "
+                          "nearest-neighbor baseline (unseen seed + geometry)")
+
     args = ap.parse_args(argv)
     prior = os.environ.get("DVF_FORCE_PLATFORM")
     if getattr(args, "platform", None):
@@ -1995,7 +2263,8 @@ def main(argv=None) -> int:
             "filters": cmd_filters, "doctor": cmd_doctor,
             "serve": cmd_serve, "worker": cmd_worker, "fleet": cmd_fleet,
             "camera": cmd_camera, "trace-view": cmd_trace_view,
-            "subscribe": cmd_subscribe,
+            "subscribe": cmd_subscribe, "train": cmd_train,
+            "train-sr": cmd_train_sr,
         }[args.cmd](args)
     except PlatformError as e:
         print(f"error: {e}", file=sys.stderr)

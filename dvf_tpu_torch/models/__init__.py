@@ -1,8 +1,9 @@
 """Neural filter models (port of ``dvf_tpu.models``): the feed-forward
-style-transfer net (BASELINE.json configs[4]) and the ESPCN
-super-resolution net, as functional ``init(seed, config) -> params`` and
-``apply(params, batch) -> batch``. The VGG encoder serves only training
-and waits for the training slice."""
+style-transfer net (BASELINE.json configs[4]), the small VGG encoder that
+gives its training perceptual features, and the ESPCN super-resolution
+net, as functional ``init(seed, config) -> params`` and
+``apply(params, batch) -> batch``. The tensor-parallel spec trees
+(``param_pspecs``) wait for the multi-GPU slice."""
 
 from dvf_tpu_torch.models.style_transfer import (  # noqa: F401
     StyleNetConfig,
@@ -14,3 +15,4 @@ from dvf_tpu_torch.models.espcn import (  # noqa: F401
     apply_espcn,
     init_espcn,
 )
+from dvf_tpu_torch.models.vgg import VGGConfig, init_vgg, vgg_features  # noqa: F401

@@ -1,4 +1,18 @@
-"""Training subsystem (port of ``dvf_tpu.train``). Ported so far: the
-inference-side checkpoint loaders (``checkpoint.py``) and the SR family's
-data helpers (``sr.py``). The train steps, the optimizers and the VGG
-perceptual loss wait for the training slice."""
+"""Training subsystem (port of ``dvf_tpu.train``): the style net's
+perceptual-loss step with its VGG encoder (``style.py``), the ESPCN
+self-supervised step (``sr.py``), checkpoint and resume over ``.npz``
+files (``checkpoint.py``) and the optimizer they share (``optim.py``).
+Each step runs on one device, the state's; the mesh-sharded state waits
+for the multi-GPU slice."""
+
+from dvf_tpu_torch.train.style import (  # noqa: F401
+    StyleTrainConfig,
+    TrainState,
+    init_train_state,
+    make_train_step,
+    style_loss_fn,
+)
+from dvf_tpu_torch.train.sr import (  # noqa: F401
+    SrTrainConfig,
+    SrTrainState,
+)

@@ -1,30 +1,51 @@
-"""Inference loaders for the trained neural filters (port of the loading
-half of ``dvf_tpu.train.checkpoint``).
+"""Checkpoint / resume for the training families, and the inference
+loaders of the trained neural filters (port of
+``dvf_tpu.train.checkpoint``).
 
 The reference writes orbax checkpoints, which need JAX to read. The port's
 checkpoint is a directory laid out like the reference's::
 
-    <name>/config.json          the architecture sidecar (copied verbatim)
+    <name>/config.json          the architecture sidecar
     <name>/final/params.npz     the net params, one array per leaf, keyed
                                 "<layer>/<leaf>" (e.g. "stem/w")
+    <name>/final/state.npz      the rest of a TrainState: "opt/mu/<leaf
+                                path>", "opt/nu/<leaf path>" and
+                                "opt/count" (the Adam state), "step", and
+                                for the style family "vgg/<layer>/<leaf>"
+                                and "grams/<i>"
 
-(or ``<name>/step_NNNNNN/params.npz`` where training stopped early). The
-committed weights are the JAX package's in-repo checkpoints converted to
-that form, params only, under :data:`CHECKPOINT_ROOT`; their conversion
-(which needs orbax, and so JAX) lives in ``tests/test_torch_checkpoint.py``.
+(or ``<name>/step_NNNNNN/`` where training stopped early). The inference
+loaders read ``params.npz`` alone; :func:`restore_checkpoint` /
+:func:`restore_sr_checkpoint` read both files onto a template state. A
+write lands in a temporary directory beside its target (named
+``.<name>.<random>.tmp``, never ``step_*``) and is renamed into place; a
+target that exists is moved aside first and removed after, so a resumed
+run overwrites ``final`` as the reference's ``force=True`` does.
+
+The committed weights under :data:`CHECKPOINT_ROOT` are the JAX package's
+in-repo checkpoints converted to that form (params, and for ``sr2x_64``
+its whole train state); their conversion (which needs orbax, and so JAX)
+lives in ``tests/test_torch_checkpoint.py``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Sequence
+import shutil
+import tempfile
+import uuid
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dvf_tpu_torch.train import optim
+
 CHECKPOINT_ROOT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "checkpoints")
 PARAMS_FILE = "params.npz"
+STATE_FILE = "state.npz"
 
 
 def load_params(path: str) -> Dict[str, Any]:
@@ -38,30 +59,14 @@ def load_params(path: str) -> Dict[str, Any]:
             f"{npz} missing — the port reads params.npz checkpoints (an "
             f"orbax checkpoint of the JAX package converts with "
             f"tests/test_torch_checkpoint.py)")
-    params: Dict[str, Any] = {}
     with np.load(npz) as z:
-        for key in z.files:
-            node = params
-            *parents, leaf = key.split("/")
-            for k in parents:
-                node = node.setdefault(k, {})
-            node[leaf] = torch.from_numpy(np.array(z[key]))
-    return params
+        return optim.unflatten({k: torch.from_numpy(np.array(z[k])) for k in z.files})
 
 
 def save_params(path: str, params: Dict[str, Any]) -> str:
     """Write a nested dict of arrays or tensors as ``<path>/params.npz``."""
-    flat: Dict[str, np.ndarray] = {}
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{prefix}{k}/")
-        else:
-            t = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else node
-            flat[prefix[:-1]] = np.asarray(t)
-
-    walk(params, "")
+    flat = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in optim.flatten(params).items()}
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, PARAMS_FILE), **flat)
     return path
@@ -80,8 +85,9 @@ def resolve_checkpoint_dir(ckpt_dir: str, family: str, train_cmd: str) -> str:
     if not os.path.isdir(final):
         import re
 
-        # step_NNNNNN only (a staging 'step_*.orbax-checkpoint-tmp' dir is
-        # not a checkpoint), sorted by number, not by name.
+        # step_NNNNNN only (a staging dir, the port's '.step_*.<random>.tmp'
+        # or orbax's 'step_*.orbax-checkpoint-tmp', is not a checkpoint),
+        # sorted by number, not by name.
         steps = sorted((d for d in os.listdir(ckpt_dir)
                         if re.fullmatch(r"step_\d+", d)),
                        key=lambda d: int(d[len("step_"):]))
@@ -146,3 +152,166 @@ def load_sr_filter(ckpt_dir: str, **config):
 
     return get_filter("super_resolution", params=load_params(final),
                       scale=sc["scale"], **config)
+
+
+# ------------------------------------------------- train state: save / restore
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """An owned host copy (a CPU tensor is copied too: the step writes its
+    leaves in place while a background write may still read them)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _snapshot(state) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(params, the rest of the state) as host arrays keyed by path."""
+    params = {k: _host(v) for k, v in optim.flatten(state.params).items()}
+    count, mu, nu = optim.adam_state(state.opt_state, state.params)
+    rest = {f"opt/mu/{k}": _host(v) for k, v in mu.items()}
+    rest.update({f"opt/nu/{k}": _host(v) for k, v in nu.items()})
+    rest["opt/count"] = np.asarray(count, np.int32)
+    rest["step"] = _host(state.step).astype(np.int32)
+    if hasattr(state, "vgg_params"):
+        rest.update({f"vgg/{k}": _host(v)
+                     for k, v in optim.flatten(state.vgg_params).items()})
+        rest.update({f"grams/{i}": _host(g) for i, g in enumerate(state.style_grams)})
+    return params, rest
+
+
+def _write(path: str, params: Dict[str, np.ndarray],
+           rest: Dict[str, np.ndarray]) -> str:
+    """Both files into a temporary directory beside ``path``, then renamed
+    into place (an existing ``path`` moved aside first, then removed)."""
+    parent, name = os.path.split(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{name}.", suffix=".tmp", dir=parent)
+    try:
+        os.chmod(tmp, 0o755)   # mkdtemp's 0700 would outlive the rename
+        np.savez(os.path.join(tmp, PARAMS_FILE), **params)
+        np.savez(os.path.join(tmp, STATE_FILE), **rest)
+        old = None
+        if os.path.exists(path):
+            old = os.path.join(parent, f".{name}.{uuid.uuid4().hex}.old")
+            os.rename(path, old)
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+    return path
+
+
+def save_checkpoint(path: str, state) -> str:
+    """Write a train state (either family) to ``path``. Blocking;
+    overwrites an existing checkpoint there."""
+    return _write(os.path.abspath(path), *_snapshot(state))
+
+
+def _read(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    out = []
+    for fname in (PARAMS_FILE, STATE_FILE):
+        f = os.path.join(path, fname)
+        if not os.path.exists(f):
+            raise FileNotFoundError(
+                f"{f} missing — a train checkpoint holds {PARAMS_FILE} and "
+                f"{STATE_FILE} (an orbax checkpoint of the JAX package "
+                f"converts with tests/test_torch_checkpoint.py)")
+        with np.load(f) as z:
+            out.append({k: np.array(z[k]) for k in z.files})
+    return out[0], out[1]
+
+
+def _take(arrays: Dict[str, np.ndarray], like: Dict[str, torch.Tensor],
+          what: str, path: str) -> Dict[str, torch.Tensor]:
+    """The arrays of ``like``'s keys as tensors with ``like``'s shapes,
+    dtypes and devices; a missing or an extra key raises."""
+    if set(arrays) != set(like):
+        raise KeyError(
+            f"{path}: {what} keys differ from the template's: missing "
+            f"{sorted(set(like) - set(arrays))}, extra "
+            f"{sorted(set(arrays) - set(like))}")
+    out = {}
+    for k, t in like.items():
+        a = arrays[k]
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: {what} {k!r} has shape {a.shape}, the "
+                             f"template {tuple(t.shape)}")
+        out[k] = torch.from_numpy(a).to(t.device, t.dtype)
+    return out
+
+
+def _restore_state(path: str, template, mesh):
+    optim.single_device(mesh, "restoring a train state")
+    path = os.path.abspath(path)
+    params_np, rest_np = _read(path)
+    dev = template.step.device
+    params = optim.trainable(optim.unflatten(_take(
+        params_np, optim.flatten(template.params), "params", path)), dev)
+    tmpl = optim.flatten(template.params)
+    like = {**{f"opt/mu/{k}": v for k, v in tmpl.items()},
+            **{f"opt/nu/{k}": v for k, v in tmpl.items()},
+            "opt/count": torch.zeros((), dtype=torch.int32),
+            "step": template.step}
+    style = hasattr(template, "vgg_params")
+    if style:
+        like.update({f"vgg/{k}": v for k, v in
+                     optim.flatten(template.vgg_params).items()})
+        like.update({f"grams/{i}": g for i, g in enumerate(template.style_grams)})
+    rest = _take(rest_np, like, "state", path)
+    opt = optim.adam(params, template.opt_state.param_groups[0]["lr"])
+    optim.set_adam_state(opt, params, int(rest["opt/count"]),
+                         {k: rest[f"opt/mu/{k}"] for k in tmpl},
+                         {k: rest[f"opt/nu/{k}"] for k in tmpl})
+    fields = dict(params=params, opt_state=opt, step=rest["step"])
+    if style:
+        fields.update(
+            vgg_params=optim.unflatten(
+                {k[len("vgg/"):]: v for k, v in rest.items() if k.startswith("vgg/")}),
+            style_grams=[rest[f"grams/{i}"] for i in range(len(template.style_grams))])
+    return type(template)(**fields)
+
+
+def restore_checkpoint(path: str, template, mesh=None, config=None):
+    """Load a style TrainState from ``path``. ``template`` (e.g. a fresh
+    ``train.style.init_train_state``) gives the structure, dtypes, device
+    and learning rate; every key must match it. ``mesh`` must be None
+    (one device, the template's)."""
+    return _restore_state(path, template, mesh)
+
+
+def restore_sr_checkpoint(path: str, template, mesh=None, config=None):
+    """SR counterpart of :func:`restore_checkpoint` (template = a fresh
+    ``train.sr.init_train_state``)."""
+    return _restore_state(path, template, mesh)
+
+
+class AsyncSaver:
+    """Checkpoint writes off the training loop's thread.
+
+    One write in flight: ``save()`` first waits for the previous write
+    (re-raising its error), snapshots the state to host memory (which
+    waits for the device's pending steps), and returns once the write is
+    handed to a background thread. ``close()`` drains the last write and
+    re-raises its error."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="dvf-ckpt")
+        self._pending: Optional[Future] = None
+
+    def _drain(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def save(self, path: str, state) -> str:
+        path = os.path.abspath(path)
+        self._drain()
+        self._pending = self._pool.submit(_write, path, *_snapshot(state))
+        return path
+
+    def close(self) -> None:
+        try:
+            self._drain()
+        finally:
+            self._pool.shutdown(wait=True)

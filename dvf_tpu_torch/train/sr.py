@@ -1,12 +1,38 @@
-"""The SR family's data helpers (port of part of ``dvf_tpu.train.sr``):
-the randomized structured frames the ESPCN net was trained on and the
-area downscale that makes its low-resolution inputs. The training step
-waits for the training slice."""
+"""Self-supervised training for the ESPCN super-resolution net (port of
+``dvf_tpu.train.sr``).
+
+No dataset: each HR frame is area-downscaled ×r on the device to make the
+LR input, and the net learns to reconstruct the original. The loss is
+Charbonnier (smooth L1). The step mirrors ``train.style``: one device,
+the state's (``mesh=None``), forward + backward + ``torch.optim.Adam``,
+the state updated in place (``donate=False`` steps a copy). The mesh-
+sharded form waits for the multi-GPU slice.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Callable, Optional, Tuple, Union
+
 import numpy as np
 import torch
+
+from dvf_tpu_torch.models.espcn import EspcnConfig, apply_espcn, init_espcn
+from dvf_tpu_torch.train import optim
+
+
+@dataclasses.dataclass(frozen=True)
+class SrTrainConfig:
+    net: EspcnConfig = EspcnConfig()
+    learning_rate: float = 1e-3
+    charbonnier_eps: float = 1e-3
+
+
+@dataclasses.dataclass
+class SrTrainState:
+    params: Any                      # leaf tensors that require grad
+    opt_state: Any                   # torch.optim.Adam over params' leaves
+    step: torch.Tensor               # 0-d int32 on the state's device
 
 
 def synthesize_structured_batch(rng: np.random.Generator, batch: int,
@@ -49,3 +75,72 @@ def downscale_area(x: torch.Tensor, r: int) -> torch.Tensor:
         raise ValueError(f"({h}, {w}) not divisible by scale {r}")
     xf = x.float()
     return xf.reshape(b, h // r, r, w // r, r, c).mean(dim=(2, 4)).to(x.dtype)
+
+
+def sr_loss_fn(
+    params: Any,
+    hr_batch: torch.Tensor,
+    config: SrTrainConfig,
+    apply_fn=None,
+) -> Tuple[torch.Tensor, dict]:
+    """(Charbonnier loss, {"loss", "mse"}) of reconstructing a float NHWC
+    HR batch from its ×r area downscale. The MSE (not PSNR) goes in the
+    metrics, as in the reference: the step derives PSNR from it."""
+    apply_fn = apply_fn or (lambda p, b: apply_espcn(p, b, config.net))
+    lr_batch = downscale_area(hr_batch, config.net.scale)
+    out = apply_fn(params, lr_batch)
+    diff = out.float() - hr_batch.float()
+    loss = torch.mean(torch.sqrt(diff * diff + config.charbonnier_eps ** 2))
+    mse = torch.mean(diff * diff)
+    return loss, {"loss": loss, "mse": mse}
+
+
+def make_optimizer(config: SrTrainConfig, params: Any) -> torch.optim.Adam:
+    """``optax.adam(config.learning_rate)``'s counterpart over ``params``'
+    leaves (``train.optim.adam``)."""
+    return optim.adam(params, config.learning_rate)
+
+
+def init_train_state(rng: Union[int, torch.Generator],
+                     config: SrTrainConfig = SrTrainConfig(),
+                     device=None) -> SrTrainState:
+    """Seeded params + optimizer state on ``device`` (``cuda:0`` unless
+    the caller names the CPU; raises without CUDA)."""
+    from dvf_tpu_torch.runtime.engine import resolve_device
+
+    dev = resolve_device(device)
+    params = optim.trainable(init_espcn(rng, config.net), dev)
+    return SrTrainState(params=params, opt_state=make_optimizer(config, params),
+                        step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def copy_state(state: SrTrainState) -> SrTrainState:
+    """An independent copy: its own param leaves and optimizer moments."""
+    params, opt = optim.clone(state.params, state.opt_state)
+    return SrTrainState(params=params, opt_state=opt, step=state.step.clone())
+
+
+def make_train_step(
+    mesh=None,
+    config: SrTrainConfig = SrTrainConfig(),
+    state_template: Optional[SrTrainState] = None,
+    donate: bool = True,
+) -> Callable[[SrTrainState, torch.Tensor], Tuple[SrTrainState, dict]]:
+    """The step ``(state, hr_batch) -> (state, {"loss", "psnr"})`` on the
+    state's device; metrics are 0-d tensors (no sync). ``donate`` and
+    ``mesh`` as in :func:`dvf_tpu_torch.train.style.make_train_step`."""
+    optim.single_device(mesh, "the SR train step")
+    if state_template is None:
+        raise ValueError("make_train_step needs a state_template SrTrainState")
+
+    def step(state: SrTrainState, hr_batch: torch.Tensor):
+        if not donate:
+            state = copy_state(state)
+        hr = torch.as_tensor(hr_batch).to(state.step.device, non_blocking=True)
+        metrics = optim.descend(state.opt_state, lambda: sr_loss_fn(
+            state.params, hr, config), (config.net.compute_dtype,))
+        metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse") + 1e-12)
+        state.step.add_(1)
+        return state, metrics
+
+    return step

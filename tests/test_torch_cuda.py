@@ -1075,3 +1075,127 @@ def test_cli_compile_cache_dir_builds_then_loads(dev, tmp_path):
     assert set(builds[0]) == names and all(v > 0 for v in builds[0].values())
     assert builds[1] == {k: 0.0 for k in names}
     assert {p.name.split("-")[0][3:] for p in cache.glob("lib*.so")} >= names
+
+
+# -- training on the card ------------------------------------------------------
+
+
+def _train_family(name, dtype, device):
+    """(state, step, batch) of one family at a small float32 (or bf16)
+    size, its weights from seed 0 (drawn on the CPU: the same on every
+    device)."""
+    from dvf_tpu_torch.models import EspcnConfig, StyleNetConfig
+    from dvf_tpu_torch.models.vgg import VGGConfig
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    rng = np.random.default_rng(3)
+    if name == "style":
+        cfg = tst.StyleTrainConfig(
+            net=StyleNetConfig(base_channels=8, n_residual=2, compute_dtype=dtype),
+            vgg=VGGConfig(compute_dtype=dtype))
+        state = tst.init_train_state(0, rng.random((1, 48, 48, 3), dtype=np.float32),
+                                     cfg, device=device)
+        return state, tst.make_train_step(None, cfg, state_template=state), \
+            torch.from_numpy(rng.random((2, 48, 64, 3), dtype=np.float32))
+    cfg = tsr.SrTrainConfig(net=EspcnConfig(compute_dtype=dtype))
+    state = tsr.init_train_state(0, cfg, device=device)
+    return state, tsr.make_train_step(None, cfg, state_template=state), \
+        torch.from_numpy(rng.random((2, 48, 64, 3), dtype=np.float32))
+
+
+# Conv biases an instance norm follows: exact gradient zero, rounding noise.
+# So are the residual norms' biases: a per-channel constant on the trunk
+# reaches only convs an instance norm follows.
+_PRE_NORM = {"stem/b", "down1/b", "down2/b", "res0_a/b", "res0_b/b", "res0_bn/bias",
+             "res1_a/b", "res1_b/b", "res1_bn/bias", "up1/b", "up2/b"}
+
+
+@pytest.mark.parametrize("family", ["style", "sr"])
+def test_float32_train_step_on_the_card_matches_the_cpu(dev, family):
+    """One float32 step from the same state and batch on the card and on
+    the CPU, with cuDNN's TF32 switched on globally (the step must turn it
+    off for forward AND backward): the loss within 1e-5 relative, every
+    gradient leaf within 1e-4 of its largest element (TF32 errs ~1e-3),
+    the pre-norm biases' zero gradients below 1e-5 of the largest."""
+    from dvf_tpu_torch.train import optim
+
+    states = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in (dev, torch.device("cpu")):
+            state, step, batch = _train_family(family, torch.float32, where)
+            state, m = step(state, batch)
+            states[where.type] = (state, {k: float(v) for k, v in m.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (card, mc), (cpu, mp) = states["cuda"], states["cpu"]
+    assert abs(mc["loss"] - mp["loss"]) <= 1e-5 * abs(mp["loss"])
+    grads = {k: (v.grad.cpu(), optim.flatten(cpu.params)[k].grad)
+             for k, v in optim.flatten(card.params).items()}
+    big = max(float(b.abs().max()) for _, b in grads.values())
+    for k, (a, b) in grads.items():
+        if k in _PRE_NORM:
+            assert float(a.abs().max()) <= 1e-5 * big and float(b.abs().max()) <= 1e-5 * big
+        else:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+    assert card.step.device == dev and int(card.step) == 1
+
+
+@pytest.mark.parametrize("family", ["style", "sr"])
+def test_train_step_never_waits_on_the_host(dev, family):
+    """After a warm-up step, steps run under CUDA's sync debug mode set to
+    raise: the batch copy, forward, backward and Adam update are queued
+    without the host waiting (metrics stay on the card)."""
+    state, step, batch = _train_family(family, torch.bfloat16, dev)
+    pinned = batch.pin_memory()
+    state, _ = step(state, pinned.to(dev, non_blocking=True))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, m = step(state, pinned.to(dev, non_blocking=True))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.device == dev for v in m.values())
+    assert int(state.step) == 3 and np.isfinite(float(m["loss"]))
+
+
+def test_train_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """Save a card state, restore it onto a card template from another
+    seed: bitwise, on the card; the next steps of both agree."""
+    from dvf_tpu_torch.train import checkpoint as tc
+    from dvf_tpu_torch.train import optim
+
+    state, step, batch = _train_family("style", torch.bfloat16, dev)
+    state, _ = step(state, batch)
+    path = tc.save_checkpoint(str(tmp_path / "final"), state)
+    template, _, _ = _train_family("style", torch.bfloat16, dev)
+    restored = tc.restore_checkpoint(path, template)
+    assert int(restored.step) == 1 and restored.step.device == dev
+    for k, v in optim.flatten(state.params).items():
+        got = optim.flatten(restored.params)[k]
+        assert got.device == dev and torch.equal(got, v), k
+    for g, h in zip(state.style_grams, restored.style_grams):
+        assert torch.equal(g, h)
+
+
+def test_cli_train_runs_on_cuda0_by_default(dev, tmp_path, monkeypatch, capsys):
+    """``train`` / ``train-sr`` with no --platform run on cuda:0 and write
+    checkpoints the serving loaders read."""
+    import json
+
+    from dvf_tpu_torch import cli
+    from dvf_tpu_torch.train.checkpoint import load_sr_filter
+
+    monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
+    ck = str(tmp_path / "sr")
+    assert cli.main(["train-sr", "--steps", "3", "--batch", "2", "--size", "32",
+                     "--checkpoint-dir", ck, "--checkpoint-every", "2", "--eval"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["steps"] == 3 and np.isfinite(out["held_out"]["delta_db"])
+    filt = load_sr_filter(ck)
+    assert filt.stateful
+    assert cli.main(["train", "--steps", "2", "--batch", "2", "--size", "32",
+                     "--base-channels", "8", "--n-residual", "1"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["steps"] == 2

@@ -6,8 +6,8 @@ The held-out quality bars and the committed goldens are the reference's;
 each output is also held to the JAX package's output of the same
 checkpoint on the same input (mean < 1, max <= 8 of 255: float
 reassociation between the two frameworks' convolutions, not behaviour).
-The reference files' ``serve --*-checkpoint``, CLI-eval and style-preset
-cases wait for the port's CLI.
+The reference files' CLI-eval and style-preset cases are in
+tests/test_torch_cli.py.
 """
 
 import json

@@ -44,6 +44,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"dvf_tpu_torch.models.style_transfer", "dvf_tpu_torch.models.espcn",
             "dvf_tpu_torch.train.checkpoint", "dvf_tpu_torch.ops.histogram",
             "dvf_tpu_torch.ops.canny"} <= set(res["imported"])
+    # Training: the VGG encoder, both train steps and their optimizer.
+    assert {"dvf_tpu_torch.models.vgg", "dvf_tpu_torch.train.style",
+            "dvf_tpu_torch.train.sr", "dvf_tpu_torch.train.optim"} <= set(res["imported"])
     # The serving slice: the frontend and every module it pulls forward.
     assert {"dvf_tpu_torch.serve", "dvf_tpu_torch.serve.server",
             "dvf_tpu_torch.serve.session", "dvf_tpu_torch.serve.batcher",
@@ -120,11 +123,12 @@ def test_ring_source_is_the_ports_own_copy():
 
 
 @pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
-                                 "obs", "control", "broadcast", "fleet"])
+                                 "obs", "control", "broadcast", "fleet",
+                                 "train", "models"])
 def test_package_exports_the_references_names(pkg):
     """Each package re-exports the names its JAX counterpart exports
-    (minus the fleet's multi-host flavor, which waits for the
-    multi-device mesh)."""
+    (minus the fleet's multi-host flavor and the models' tensor-parallel
+    ``param_pspecs``, which wait for the multi-device mesh)."""
     import importlib
     import types
 
@@ -132,7 +136,7 @@ def test_package_exports_the_references_names(pkg):
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
-    want -= {"MultiHostEngine", "MultiHostReplica"}
+    want -= {"MultiHostEngine", "MultiHostReplica", "param_pspecs"}
     assert want
     got = importlib.import_module(f"dvf_tpu_torch.{pkg}")
     missing = sorted(n for n in want if not hasattr(got, n))
@@ -186,7 +190,7 @@ print(json.dumps({{"code": code, "bad": bad, "cuda": bool(inits)
 
 def test_main_help_imports_no_jax_and_touches_no_card():
     """``python -m dvf_tpu_torch --help`` in a fresh interpreter exits 0,
-    lists every subcommand the port has (and no bench or training), and
+    lists every subcommand the port has (training included, no bench), and
     imports neither jax nor the JAX package, nor creates a CUDA context."""
     out = subprocess.run([sys.executable, "-c", _HELP_PROBE.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=120,
@@ -196,7 +200,7 @@ def test_main_help_imports_no_jax_and_touches_no_card():
     assert res == {"code": 0, "bad": [], "cuda": False}
     subs = re.search(r"\{([a-z,-]+)\}", out.stdout).group(1).split(",")
     assert subs == ["filters", "doctor", "serve", "subscribe", "fleet",
-                    "camera", "worker", "trace-view"]
+                    "camera", "worker", "trace-view", "train", "train-sr"]
     direct = subprocess.run([sys.executable, "-m", "dvf_tpu_torch", "--help"],
                             capture_output=True, text=True, timeout=120,
                             cwd=str(ROOT))
