@@ -228,6 +228,32 @@ which raises (and so exits non-zero) on failure:
    dvf_tpu_torch train`` (4 steps, checkpoints every 2, then resumed to
    6) and ``train-sr`` (4 steps with --eval; 0 steps from the committed
    sr2x_64 state with --eval, delta > 2.5 dB) as processes on cuda:0;
+14. the bench harness (``bench_phase``): (a) ``bench --config C --iters
+   30`` through ``dvf_tpu_torch.cli.main`` for each of the 8 BENCH_CONFIGS
+   entries at their own shapes: the JSON line with its H100 roofline
+   fields (``hbm_roofline_frac`` and ``mfu`` each <= 1.0: above it the
+   count behind ``Engine.cost_analysis`` is wrong), K1 (gauss9_1080p), K3
+   (sobel_bilateral_1080p) and K4 (flow_720p) once per device batch
+   besides their compiles' launches and no other kernel, then one batch
+   of each config through an Engine within 1 LSB of its plain version,
+   and K1 at 3 taps (its run-time-tap instantiation) at gauss3_1080p's
+   shape within 1e-5 (gauss3_1080p itself runs plain torch ops: blurs
+   under 9 taps resolve there); (b) ``bench --e2e`` (throughput, then
+   the rate-controlled latency leg) of invert_1080p and gauss9_1080p at
+   batch 16, 320 + 160 frames, over the python queue and the ring's raw
+   wire (where libjpeg is present also the delta and jpeg wires; where
+   it is not, both exit 2 and say why), K1 once per engine batch; (c)
+   ``bench_transfer`` at 16 x 1080 x 1920 (pinned host memory) and
+   ``bench_stage_decomposition`` of invert at 1080p, batches 1, 2, 4,
+   without the encode leg (which must raise without libjpeg); (d)
+   ``fleet --scaling --sessions 2`` at its defaults (256², the 3-deep
+   gaussian_blur chain) in local mode (K1 three times per batch) and in
+   process mode, every frame of every round delivered, the host's
+   parallel capacity beside the ratio; (e) ``python -m
+   dvf_tpu_torch.bench_child`` ``--mode probe --platform cuda`` (backend
+   cuda, probe_sum 28.0) and ``--mode device``; (f) ``models.analysis``
+   of style_720p and sr2x_540p with (a)'s measured ms per frame: the gap
+   to each net's per-layer H100 bound;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -244,13 +270,15 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
 ``planes_only()``, ``control_only()``, ``fleet_only()``, ``cli_only()``
-and ``train_only()`` run the build and phase 7, 8, 9, 10, 11, 12 or 13
-alone.
+``train_only()`` and ``bench_only()`` run the build and phase 7, 8, 9,
+10, 11, 12, 13 or 14 alone. The bounds and counts come from the package's
+counters (``dvf_tpu_torch.runtime.cost``), the ones ``Engine.cost_analysis``
+and the bench's roofline read.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
 [...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"train": [...]}``,
-``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+``{"bench": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -272,9 +300,6 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 non-tensor FLOP/s.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
 TOL = 1e-5
 MAIN_SHAPE = (16, 1080, 1920, 3)
 SMALL_SHAPE = (2, 68, 40, 3)
@@ -313,12 +338,20 @@ REGISTRY_LEGS = [("style_transfer", {}, STYLE_SHAPE),
                  ("clahe", {}, MAIN_SHAPE),
                  ("canny", {}, MAIN_SHAPE)]
 CLASSICAL = ("equalize", "clahe", "canny")
-# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet), FLOP/s.
-PEAK_BF16_S = 989e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _cost():
+    """The package's work counters and H100 peaks
+    (``dvf_tpu_torch.runtime.cost``): one copy serves this script's
+    bounds and the bench's roofline (``Engine.cost_analysis``). Every
+    entry point puts the checkout on the path before it counts."""
+    from dvf_tpu_torch.runtime import cost
+
+    return cost
 
 
 def nvidia_smi() -> str:
@@ -661,40 +694,10 @@ def profile_call(fn, per: int, match=None) -> dict:
                                           e.count / per] for e in top])
 
 
-def ops_sep_blur(shape, kh: int, kw: int) -> int:
-    # a multiply and an add per tap per axis, per output element
-    return int(np.prod(shape)) * 2 * (kh + kw)
-
-
-def ops_bilateral(shape, d: int) -> int:
-    # per tap: C sub + C mul + (C-1) add (distance), mul by 1/2sc^2, exp,
-    # mul by the spatial weight, C mul-adds (numerator), 1 add
-    # (denominator); then C divisions per pixel
-    b, h, w, c = shape
-    return b * h * w * (d * d * (5 * c + 3) + c)
-
-
-def ops_sobel_bilateral(shape, d: int) -> int:
-    # per pixel: gray 5; Sobel 4 x (1 mul + 2 add) + 2 sub; magnitude
-    # 2 mul + add + sqrt + scale + 2 clip; single-channel bilateral 8 per
-    # tap (sub, square, scale, exp, spatial mul, mul-add, add); 1 division.
-    # The kernel folds the scale and the spatial weight into one
-    # multiply-add per tap; this counts the plain formula's operations.
-    b, h, w, _ = shape
-    return b * h * w * (5 + 14 + 7 + 8 * d * d + 1)
-
-
-def ops_warp(shape) -> int:
-    # per pixel: 2 flow clips (4), 2 adds, 2 coordinate clamps (4), 2
-    # floors, 2 fractions, 2 complements = 16; per channel 6 mul + 3 add
-    b, h, w, c = shape
-    return b * h * w * (16 + 9 * c)
-
-
 def bound(shape, ops: int, nbytes=None):
     if nbytes is None:
         nbytes = 2 * int(np.prod(shape)) * 4  # float32 in once, out once
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    t_bytes, t_ops = nbytes / _cost().PEAK_BYTES_S * 1e3, ops / _cost().PEAK_F32_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -781,7 +784,7 @@ def main() -> int:
              replaces="dvf_tpu/ops/pallas_kernels.py:363",
              kernel=lambda x: tk.sep_blur_nhwc_pallas(x, k9, k9),
              plain=lambda x: sep_conv2d(x, k9, k9, impl="shift"),
-             library=library_blur, ops=lambda s: ops_sep_blur(s, 9, 9),
+             library=library_blur, ops=lambda s: _cost().ops_sep_blur(s, 9, 9),
              instance="sep_blur_kernel<{},{},{}>".format(
                  *tk.sep_blur_instance(9, 9, MAIN_SHAPE[-1])),
              extra=[((1, 150, 270, 3), (9, 9), 1), ((1, 70, 130, 4), (31, 31), 0),
@@ -795,7 +798,7 @@ def main() -> int:
              replaces="dvf_tpu/ops/pallas_kernels.py:188",
              kernel=lambda x: tk.bilateral_nhwc_pallas(x),
              plain=lambda x: bilateral_nhwc(x), library=None,
-             ops=lambda s: ops_bilateral(s, 5),
+             ops=lambda s: _cost().ops_bilateral(s, 5),
              instance="bilateral_kernel<{},{}>".format(
                  *tk.bilateral_instance(5, MAIN_SHAPE[-1])),
              extra=[((1, 150, 270, 3), 5, 1), ((1, 70, 130, 4), 15, 0),
@@ -807,7 +810,7 @@ def main() -> int:
              replaces="dvf_tpu/ops/pallas_kernels.py:485",
              kernel=lambda x: tk.sobel_bilateral_nhwc_pallas(x),
              plain=lambda x: chain.fn(x, None)[0], library=None,
-             ops=lambda s: ops_sobel_bilateral(s, 5),
+             ops=lambda s: _cost().ops_sobel_bilateral(s, 5),
              instance="sobel_bilateral_kernel<{},{}>".format(
                  *tk.sobel_bilateral_instance(5, MAIN_SHAPE[-1])),
              extra=[((1, 150, 270, 3), 5, 1), ((1, 70, 130, 4), 15, 0),
@@ -982,6 +985,10 @@ def main() -> int:
     train_rows, delta = train_phase(dev)
     for k, v in delta.items():
         launches[k] += v
+    # 14. the bench harness (K1/K3/K4 through bench, e2e and fleet --scaling)
+    bench_rows, delta = bench_phase(dev, plain_of, env["libjpeg"])
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
@@ -1003,7 +1010,7 @@ def main() -> int:
             row.update(flop_per_batch=flop, bound_ms=b_ms, bound_by=b_by,
                        share_of_bound=b_ms / row["device_ms_per_batch"])
             log(f"bound {label} {shape}: {flop / 1e12:.4f} TFLOP per batch, "
-                f"bound {b_ms:.4f} ms ({b_by}, bf16 peak {PEAK_BF16_S / 1e12:.0f} "
+                f"bound {b_ms:.4f} ms ({b_by}, bf16 peak {_cost().PEAK_BF16_S / 1e12:.0f} "
                 f"TFLOP/s), share of bound {row['share_of_bound']:.3f} of the "
                 f"profiled device time")
         stage_rows.append(row)
@@ -1016,6 +1023,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet_rows}))
     print(json.dumps({"cli": cli_rows}))
     print(json.dumps({"train": train_rows}))
+    print(json.dumps({"bench": bench_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -1459,7 +1467,7 @@ def check_warp(dev, gen) -> dict:
                profiled_ms(library, None, match="grid_sampler", between=flush.zero_)[0],
                cuda_ms(library, None))
         plain_ms = cuda_ms(lambda _: plain(img, flow, r), None)
-        b_ms, b_by = bound(shape, ops_warp(shape), warp_bytes(shape))
+        b_ms, b_by = bound(shape, _cost().ops_warp(shape), warp_bytes(shape))
         timed[key] = dict(shape=list(shape), t=t, lib=lib, lib_err=lib_err,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"library warp_bounded (grid_sample) {shape}: max abs err vs plain "
@@ -1476,7 +1484,7 @@ def check_warp(dev, gen) -> dict:
         shape = tuple(img.shape)
         t = {d: profiled_ms(lambda _, d=d: tk.warp_bounded_pallas(img, flow, r, d),
                             None)[0] for d in tk.WARP_DESIGNS}
-        b_ms, _ = bound(shape, ops_warp(shape), warp_bytes(shape))
+        b_ms, _ = bound(shape, _cost().ops_warp(shape), warp_bytes(shape))
         library = grid_sample_call(img, flow, r)
         lib_err = (library(None).permute(0, 2, 3, 1) - plain(img, flow, r)).abs().max().item()
         lib_ms = profiled_ms(library, None)[0]
@@ -2034,34 +2042,17 @@ def flow_reference(frames, bsz: int, dev, inner: bool) -> np.ndarray:
     return np.concatenate(out)
 
 
-def style_macs_per_pixel(c: int = 32, r: int = 5) -> int:
-    """Multiply-adds of the style net (reference lowering) per full-resolution
-    pixel: the stem 9x9 3->c; down1 3x3 c->2c at 1/2 and down2 2c->4c at 1/4
-    resolution; 2r 3x3 4c->4c trunk convs at 1/4; up1 3x3 4c->2c at 1/2 and
-    up2 2c->c at full resolution (after each x2 upsample); out 9x9 c->3.
-    153,792 at c = 32, r = 5."""
-    return (81 * 3 * c + 9 * c * 2 * c // 4 + 9 * 2 * c * 4 * c // 16
-            + 2 * r * 9 * 16 * c * c // 16 + 9 * 4 * c * 2 * c // 4
-            + 9 * 2 * c * c + 81 * c * 3)
-
-
-def espcn_macs_per_pixel(c1: int = 64, c2: int = 32, scale: int = 2) -> int:
-    """Multiply-adds of ESPCN per low-resolution pixel: feat 5x5 3->c1, map
-    3x3 c1->c2, head 3x3 c2->3r². 26,688 at the defaults."""
-    return 25 * 3 * c1 + 9 * c1 * c2 + 9 * c2 * 3 * scale * scale
-
-
 def net_bound(label: str, shape):
     """(FLOP per batch, bound ms, bound_by) of a neural leg's batch: the
     convs' multiply-adds x 2 at the bf16 tensor-core peak, against the
     float32 batch read once and the float32 output written once."""
     b, h, w, c = shape
     if label.startswith("style_transfer"):
-        flop, out = 2 * style_macs_per_pixel() * b * h * w, b * h * w * c
+        flop, out = 2 * _cost().style_macs_per_pixel() * b * h * w, b * h * w * c
     else:
-        flop, out = 2 * espcn_macs_per_pixel() * b * h * w, 4 * b * h * w * c
-    t_ops = flop / PEAK_BF16_S * 1e3
-    t_bytes = (b * h * w * c + out) * 4 / PEAK_BYTES_S * 1e3
+        flop, out = 2 * _cost().espcn_macs_per_pixel() * b * h * w, 4 * b * h * w * c
+    t_ops = flop / _cost().PEAK_BF16_S * 1e3
+    t_bytes = (b * h * w * c + out) * 4 / _cost().PEAK_BYTES_S * 1e3
     return flop, max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -6001,9 +5992,6 @@ TRAIN_TIMED_FROM = 5                   # step ms: the median over steps 5..30
 TRAIN_PROFILED = 5                     # steps in the profiler window
 TRAIN_CHECK_SHAPE = (2, 64, 64, 3)     # (b): one float32 step, card vs CPU
 TRAIN_SERVE_SHAPE = (8, 720, 1280, 3)  # (d): the trained weights served
-# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet), FLOP/s:
-# the Gram matrices are float32 products (TF32 off).
-PEAK_F32_S = 67e12
 
 
 def vgg_macs_per_pixel(blocks=((1, 32), (1, 64), (2, 128))) -> int:
@@ -6026,7 +6014,7 @@ def style_train_macs_per_pixel(c: int = 32, r: int = 5,
     gradient), the VGG over the content batch forward. float32: the Gram
     matrices of the output's features, forward and backward (HW·C² each
     per block)."""
-    net, vgg = style_macs_per_pixel(c, r), vgg_macs_per_pixel(blocks)
+    net, vgg = _cost().style_macs_per_pixel(c, r), vgg_macs_per_pixel(blocks)
     grams = sum(ch * ch // 4 ** bi for bi, (_, ch) in enumerate(blocks))
     return {"bf16": 3 * net - 81 * 3 * c + 3 * vgg, "f32": 2 * grams,
             "every_data_grad_no_grams": 3 * net + 3 * vgg}
@@ -6036,7 +6024,7 @@ def sr_train_macs_per_lr_pixel(c1: int = 64, c2: int = 32, scale: int = 2) -> in
     """Multiply-adds of one ESPCN train step per low-resolution pixel:
     forward, weight gradient and data gradient, less the first conv's data
     gradient (the input needs none)."""
-    return 3 * espcn_macs_per_pixel(c1, c2, scale) - 25 * 3 * c1
+    return 3 * _cost().espcn_macs_per_pixel(c1, c2, scale) - 25 * 3 * c1
 
 
 def _n_params(params) -> int:
@@ -6051,9 +6039,9 @@ def train_bound(macs: dict, pixels: int, in_bytes: int, n_params: int):
     move — the batch read once and, per parameter, the param read and
     written, its gradient read, both Adam moments read and written (7
     float32 words)."""
-    t_bf16 = 2 * macs["bf16"] * pixels / PEAK_BF16_S * 1e3
-    t_f32 = 2 * macs.get("f32", 0) * pixels / PEAK_F32_S * 1e3
-    t_bytes = (in_bytes + 7 * 4 * n_params) / PEAK_BYTES_S * 1e3
+    t_bf16 = 2 * macs["bf16"] * pixels / _cost().PEAK_BF16_S * 1e3
+    t_f32 = 2 * macs.get("f32", 0) * pixels / _cost().PEAK_F32_S * 1e3
+    t_bytes = (in_bytes + 7 * 4 * n_params) / _cost().PEAK_BYTES_S * 1e3
     parts = {"bf16_ms": t_bf16, "f32_ms": t_f32, "bytes_ms": t_bytes}
     b_ms = max(parts.values())
     return b_ms, "bytes" if b_ms == t_bytes else "operations", parts
@@ -6457,6 +6445,368 @@ def train_only() -> None:
     dev, _, _ = _only_setup()
     rows, _ = train_phase(dev)
     print(json.dumps({"train": rows}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the bench harness (bench, fleet --scaling, bench_child and the
+# roofline model)
+# ---------------------------------------------------------------------------
+
+BENCH_ITERS = 30                 # (a): device-resident batches per config
+# (a): the hand kernel each BENCH_CONFIGS entry launches, and how often per
+# device batch. gauss3_1080p's 3-tap blur has none: gaussian_blur resolves
+# blurs under 9 taps to plain torch ops (ops/conv.py), as the reference's
+# measured default does on its CPU and TPU alike.
+BENCH_KERNEL = {"gauss9_1080p": ("sep_blur", 1),
+                "sobel_bilateral_1080p": ("sobel_bilateral", 1),
+                "flow_720p": ("warp_bounded", 1)}
+BENCH_E2E_BATCH = 16             # (b): the 1080p pipeline legs' batch
+BENCH_E2E_FRAMES = 320           # (b): frames of the throughput run
+BENCH_LAT_FRAMES = 160           # (b): frames of the rate-controlled run
+BENCH_STAGE_BATCHES = (1, 2, 4)  # (c)
+BENCH_CHILD_ITERS = 20           # (e): --mode device batches (1080p, 64)
+
+
+def bench_hold(dev, config: str, plain_of: dict) -> int:
+    """(a)'s check of one batch of ``config`` (the bench's own seeded
+    batch at the config's shape) through an Engine on the card against
+    the plain version: K1/K3 configs against their plain torch
+    versions, flow_720p's second batch (the first passes through)
+    against the same stream with the plain clipped warp, the others
+    against a direct ``filt.fn`` call. Returns the max |difference| in
+    LSB. For gauss3_1080p also the separable-blur kernel at 3 taps (its
+    run-time-tap instantiation) against its plain version at the
+    config's shape. Outside any counted run."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.cli import BENCH_CONFIGS
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.ops.conv import gaussian_kernel_1d, sep_conv2d
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    spec = BENCH_CONFIGS[config]
+    name, kw = spec["filter"]
+    shape = (spec["batch"], spec["h"], spec["w"], 3)
+    filt = dvf_tpu_torch.get_filter(name, **kw)
+    rng = np.random.default_rng(0)
+    eng = dvf_tpu_torch.Engine(filt, device=dev)
+    counter = BENCH_KERNEL.get(config, (None,))[0]
+    if name == "flow_warp":
+        frames = [rng.integers(0, 255, size=shape[1:], dtype=np.uint8)
+                  for _ in range(2 * shape[0])]
+        got = np.concatenate([eng.submit(np.stack(frames[s:s + shape[0]])).fetch().copy()
+                              for s in (0, shape[0])])
+        want = flow_reference(frames, shape[0], dev, inner=False)
+    else:
+        x = rng.integers(0, 255, size=shape, dtype=np.uint8)
+        got = eng.submit(x).fetch().copy()
+        xd = torch.from_numpy(x).to(dev)
+        with torch.no_grad():
+            if counter is not None:
+                want = to_uint8(plain_of[counter](to_float(xd)))
+            else:
+                want = to_uint8(_filter_out(filt, xd if filt.uint8_ok else to_float(xd),
+                                            dev))
+        want = want.cpu().numpy()
+    lsb = max_lsb(got, want)
+    if got.shape != want.shape or lsb > 1:
+        raise AssertionError(f"bench (a) {config}: one batch {lsb} LSB from the "
+                             f"plain version (bar 1)")
+    if config == "gauss3_1080p":
+        k3 = gaussian_kernel_1d(3, 0.0)
+        xf = torch.rand(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        err = (tk.sep_blur_nhwc_pallas(xf, k3, k3)
+               - sep_conv2d(xf, k3, k3, impl="shift")).abs().max().item()
+        log(f"check sep_blur k=3 (sep_blur_kernel<{','.join(map(str, tk.sep_blur_instance(3, 3, 3)))}>"
+            f", taps at run time) {shape}: max abs err {err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"sep_blur at 3 taps disagrees with its plain "
+                                 f"version at {shape}: {err} > {TOL}")
+    del eng
+    torch.cuda.empty_cache()
+    return lsb
+
+
+def bench_leg_device(dev, plain_of: dict):
+    """(a) ``bench --config C --iters BENCH_ITERS`` through main() for each
+    BENCH_CONFIGS entry, the launch counters zeroed before and read
+    after: the JSON line with its H100 roofline fields (each share <= 1.0,
+    a count being wrong otherwise), the configs' kernel launched once per
+    device batch (warm-up and timed batches) besides its compile's
+    launches, no other kernel; then one batch held to the plain version
+    (``bench_hold``). Returns (rows, launch counts, ms_per_frame by
+    config)."""
+    from dvf_tpu_torch.cli import BENCH_CONFIGS
+    from dvf_tpu_torch.ops import kernels as tk
+
+    rows, total, ms = [], {}, {}
+    for config in sorted(BENCH_CONFIGS):
+        with _EngineLedger() as ledger:
+            tk.reset_launches()
+            out = _cli_json(f"a {config}", ["bench", "--config", config,
+                                            "--iters", str(BENCH_ITERS)])
+            delta = dict(tk.LAUNCHES)
+        counter, per = BENCH_KERNEL.get(config, (None, 0))
+        batches = ledger.batches()
+        serving = {k: v - ledger.compile.get(k, 0) for k, v in delta.items()}
+        want = {k: per * batches if k == counter else 0 for k in delta}
+        if serving != want or batches != BENCH_ITERS + 1:
+            raise AssertionError(f"bench (a) {config}: serving launches {serving} "
+                                 f"for {batches} batches, want {want}")
+        shares = {k: out.get(k) for k in ("hbm_roofline_frac", "mfu")}
+        if any(v is None or not 0 <= v <= 1.0 for v in shares.values()):
+            raise AssertionError(f"bench (a) {config}: shares {shares} (a share "
+                                 f"above 1.0 means the count is wrong): {out}")
+        lsb = bench_hold(dev, config, plain_of)
+        ms[config] = out["ms_per_frame"]
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+        row = dict(leg="a_device", config=config, **out, batches=batches,
+                   launches=delta, compile_launches=dict(ledger.compile),
+                   max_lsb_vs_plain=lsb)
+        log(f"bench (a) {config}: {json.dumps(out)}; launches {delta} "
+            f"({ledger.compile} in compiles) over {batches} batches; one batch "
+            f"{lsb} LSB from the plain version")
+        rows.append(row)
+    return rows, total, ms
+
+
+def bench_leg_e2e(dev, have_jpeg: bool):
+    """(b) ``bench --e2e`` (throughput, then the rate-controlled latency
+    leg) for invert_1080p and gauss9_1080p at batch BENCH_E2E_BATCH through
+    main(), over the python queue and the ring's raw wire and, where
+    libjpeg is present, the ring's delta and jpeg wires: every frame
+    delivered, no fault, K1 once per engine batch on the gauss9 legs and
+    no other kernel. Without libjpeg both codec wires (the delta wire
+    encodes its tiles with the JPEG codec) must exit 2 and say why.
+    Returns (rows, launch counts)."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    wires = [("python", "raw"), ("ring", "raw")]
+    if have_jpeg:
+        wires += [("ring", "delta"), ("ring", "jpeg")]
+    rows, total = [], {}
+    for config, counter in (("invert_1080p", None), ("gauss9_1080p", "sep_blur")):
+        for transport, wire in wires:
+            label = f"b {config} {transport}/{wire}"
+            argv = ["bench", "--config", config, "--e2e", "--batch",
+                    str(BENCH_E2E_BATCH), "--frames", str(BENCH_E2E_FRAMES),
+                    "--lat-frames", str(BENCH_LAT_FRAMES), "--transport",
+                    transport, "--wire", wire]
+            if wire == "delta":
+                argv += ["--motion", "block"]
+            with _EngineLedger() as ledger:
+                tk.reset_launches()
+                out = _cli_json(label, argv)
+                delta = dict(tk.LAUNCHES)
+            # The throughput run's source is unthrottled into a drop-oldest
+            # queue, so it delivers what the pipeline keeps up with; the
+            # latency leg's verdict (lat_congested) says whether it kept up.
+            if (not 0 < out["frames"] <= BENCH_E2E_FRAMES or out["faults"]
+                    or not out["lat_frames"]):
+                raise AssertionError(f"bench ({label}): {out}")
+            if counter is not None:
+                counts = _cli_counted(label, delta, ledger, counter)
+            elif any(delta.values()):
+                raise AssertionError(f"bench ({label}): launched {delta}")
+            else:
+                counts = dict(launches=0, batches=ledger.batches())
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            log(f"bench ({label}): {out['value']} fps e2e ({out['frames']} of "
+                f"{BENCH_E2E_FRAMES} frames delivered), latency leg p50 "
+                f"{out['p50_ms']} / p99 {out['p99_ms']} ms at "
+                f"{out['lat_target_fps']} fps (congested {out['lat_congested']}, "
+                f"{out['lat_backoffs']} backoffs), ingest {out['ingest']} / egress "
+                f"{out['egress']}; {counts}")
+            rows.append(dict(leg="b_e2e", config=config, **out, **counts))
+    if not have_jpeg:
+        for wire in ("jpeg", "delta"):
+            rc, _, err = _cli(["bench", "--config", "invert_1080p", "--e2e",
+                               "--transport", "ring", "--wire", wire])
+            if rc != 2 or "needs the JPEG codec" not in err:
+                raise AssertionError(f"bench (b) --wire {wire} without libjpeg: rc "
+                                     f"{rc}; {err[-2000:]}")
+            log(f"bench (b) --wire {wire} without libjpeg: rc 2, "
+                f"{err.strip().splitlines()[-1][:160]}")
+        rows.append(dict(leg="b_codec_wires_without_libjpeg", rc=2))
+    return rows, total
+
+
+def bench_leg_transfer(dev, have_jpeg: bool):
+    """(c) ``bench_transfer`` at 16 x 1080 x 1920 (pinned host memory) and
+    ``bench_stage_decomposition`` of invert at 1080p, batches 1, 2 and 4,
+    without the encode leg; without libjpeg, asking for the encode leg
+    must raise. Returns (row, launch counts: none)."""
+    from dvf_tpu_torch.benchmarks import bench_stage_decomposition, bench_transfer
+    from dvf_tpu_torch.ops import get_filter
+
+    h, w = MAIN_SHAPE[1:3]
+    tr = bench_transfer(BENCH_E2E_BATCH, h, w, device=dev)
+    if tr["host_memory"] != "pinned" or not all(
+            np.isfinite(tr[k]) and tr[k] > 0 for k in ("h2d_mbps", "d2h_mbps")):
+        raise AssertionError(f"bench (c) transfer: {tr}")
+    st = bench_stage_decomposition(get_filter("invert"), BENCH_STAGE_BATCHES, h, w,
+                                   reps=25, measure_encode=False, device=dev)
+    if set(st) != {f"batch_{b}" for b in BENCH_STAGE_BATCHES}:
+        raise AssertionError(f"bench (c) stages: {st}")
+    if not have_jpeg:
+        try:
+            bench_stage_decomposition(get_filter("invert"), (1,), h, w, reps=1,
+                                      device=dev)
+        except RuntimeError as e:
+            log(f"bench (c) measure_encode=True without libjpeg raises: {e}"[:200])
+        else:
+            raise AssertionError("bench (c): the encode leg ran without libjpeg")
+    log(f"bench (c) transfer {BENCH_E2E_BATCH} x {h} x {w}: {json.dumps(tr)}")
+    for k, v in st.items():
+        log(f"bench (c) stages invert {k}: {json.dumps(v)}")
+    return dict(leg="c_transfer_stages", transfer=tr, stages=st), {}
+
+
+def bench_leg_fleet(dev):
+    """(d) ``fleet --scaling --sessions 2`` at the defaults (256², the
+    3-deep gaussian_blur chain, batch 4, 120 frames a session, 1 and 2
+    replicas) in local mode through main(), K1 three times per engine
+    batch and no other kernel, and in process mode (core-pinned children
+    on the one card); every frame delivered in each round, the host's
+    parallel capacity beside the ratio. Returns (rows, launch counts of
+    the local run)."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    rows, total = [], {}
+    for mode in ("local", "process"):
+        argv = ["fleet", "--scaling", "--mode", mode, "--sessions", "2"]
+        with _EngineLedger() as ledger:
+            tk.reset_launches()
+            out = _cli_json(f"d {mode}", argv)
+            delta = dict(tk.LAUNCHES)
+        for n, r in out["rounds"].items():
+            if r["delivered"] != r["expected"] or r["faults"]:
+                raise AssertionError(f"bench (d) {mode} round {n}: {r}")
+        if mode == "local":
+            serving = delta["sep_blur"] - ledger.compile.get("sep_blur", 0)
+            others = {k: v for k, v in delta.items() if k != "sep_blur" and v}
+            if serving != 3 * ledger.batches() or others or not serving:
+                raise AssertionError(f"bench (d) local: K1 {delta['sep_blur']} "
+                                     f"({ledger.compile} in compiles) for "
+                                     f"{ledger.batches()} batches; others {others}")
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+        log(f"bench (d) fleet --scaling --mode {mode}: fps "
+            f"{ {n: r['fps'] for n, r in out['rounds'].items()} }, scaling "
+            f"{out['scaling']}, parallel capacity {out['parallel_capacity']}, "
+            f"launches {delta}")
+        rows.append(dict(leg=f"d_fleet_{mode}", **out,
+                         launches=delta if mode == "local" else None))
+    return rows, total
+
+
+def bench_leg_child():
+    """(e) ``python -m dvf_tpu_torch.bench_child`` as processes on the card:
+    ``--mode probe --platform cuda`` (backend "cuda", probe_sum 28.0), then
+    ``--mode device`` at BENCH_CHILD_ITERS (invert, 1080p, batch 64, its
+    H100 roofline share <= 1.0, the transfer legs on pinned memory)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("DVF_FORCE_PLATFORM", None)
+    res = {}
+    for mode, extra in (("probe", []), ("device", ["--iters", str(BENCH_CHILD_ITERS)])):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "dvf_tpu_torch.bench_child",
+                            "--mode", mode, "--platform", "cuda", *extra],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"bench (e) bench_child --mode {mode}: rc "
+                                 f"{p.returncode}; {p.stderr[-2000:]}")
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        res[mode] = dict(line, wall_s=time.perf_counter() - t)
+        log(f"bench (e) bench_child --mode {mode} ({res[mode]['wall_s']:.1f} s): "
+            f"{json.dumps(line)}")
+    if res["probe"]["backend"] != "cuda" or res["probe"]["probe_sum"] != 28.0:
+        raise AssertionError(f"bench (e) probe: {res['probe']}")
+    dev_line = res["device"]
+    if (dev_line["backend"] != "cuda" or dev_line["host_memory"] != "pinned"
+            or not 0 <= dev_line["hbm_roofline_frac"] <= 1.0):
+        raise AssertionError(f"bench (e) device: {dev_line}")
+    return dict(leg="e_bench_child", **res), {}
+
+
+def bench_leg_analysis(ms: dict, tmp: str):
+    """(f) ``models.analysis`` for style_720p and sr2x_540p with (a)'s
+    measured ms per frame: each net's per-layer H100 bound and the gap of
+    the measured time to it (the measured time below the bound, or an
+    MFU above 1, would mean the model is wrong)."""
+    import io
+
+    from dvf_tpu_torch.models import analysis
+
+    argv = ["--json", "--md-out", os.path.join(tmp, "roofline.md")]
+    for config in ("style_720p", "sr2x_540p"):
+        argv += ["--measured", f"{config}={ms[config]}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        analysis.main(argv)
+    doc = json.loads(buf.getvalue().strip().splitlines()[0])
+    for config, s in doc.items():
+        if not (s["lowering_gap_x"] >= 1.0 and s["mfu_measured"] <= 1.0):
+            raise AssertionError(f"bench (f) {config}: {s}")
+        log(f"bench (f) {config}: measured {s['measured_ms_per_frame']} ms/frame, "
+            f"per-layer H100 bound {s['serial_ideal_ms']} ms (tensor "
+            f"{s['tc_floor_ms']}, HBM {s['hbm_floor_ms']}), gap "
+            f"{s['lowering_gap_x']}x, MFU {s['mfu_measured']}: {s['verdict']}")
+    return dict(leg="f_analysis", **doc), {}
+
+
+def bench_phase(dev, plain_of: dict, have_jpeg: bool):
+    """Phase 14: legs (a)-(f) of the bench harness. Returns (rows, the
+    summed launch counts of the in-process legs' runs; bench_child's and
+    the process replicas' launches happen in their own processes)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"bench phase on {nvidia_smi()}")
+    rows, total = [], {}
+
+    def timed(leg, *args):
+        t = time.perf_counter()
+        out = leg(*args)
+        new, delta = out[0], out[1]
+        for row in new if isinstance(new, list) else [new]:
+            row["wall_s"] = time.perf_counter() - t
+            rows.append(row)
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+        log(f"bench leg {rows[-1]['leg']}: {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="dvf-bench-") as tmp:
+        _, _, ms = timed(bench_leg_device, dev, plain_of)
+        timed(bench_leg_e2e, dev, have_jpeg)
+        timed(bench_leg_transfer, dev, have_jpeg)
+        timed(bench_leg_fleet, dev)
+        timed(bench_leg_child)
+        timed(bench_leg_analysis, ms, tmp)
+    from dvf_tpu_torch.runtime.engine import live_pool_engines
+
+    if live_pool_engines():
+        raise AssertionError("bench: pool engines outlived their frontends")
+    log(f"bench phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total
+
+
+def bench_only() -> None:
+    """The build and phase 14 alone (the bench harness):
+    ``python3 -c 'import chip_smoke; chip_smoke.bench_only()'``."""
+    dev, plain_of, env = _only_setup()
+    rows, _ = bench_phase(dev, plain_of, env["libjpeg"])
+    print(json.dumps({"bench": rows}))
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ tiers:
   python -m dvf_tpu_torch doctor                  # environment diagnostics
   python -m dvf_tpu_torch train  --steps 50       # train the style net
   python -m dvf_tpu_torch train-sr --eval         # train the SR net
+  python -m dvf_tpu_torch bench  --config invert_1080p [--e2e]
 
 Every device-touching subcommand runs on ``cuda:0`` unless ``--platform
 cpu`` (or ``DVF_FORCE_PLATFORM=cpu``) asks for the CPU; without a CUDA
@@ -20,8 +21,7 @@ device it exits 2 and never carries on on the CPU by itself. The
 ``worker`` subcommand keeps the reference's flag names
 (--distribute-port, --collect-port, --delay) so launch scripts written for
 ``python inverter.py`` port over by changing only the module name.
-Not here yet: ``bench`` (the bench harness), ``fleet --scaling`` and a
-``--mesh`` over more than one device (multi-GPU).
+Not here yet: a ``--mesh`` over more than one device (multi-GPU).
 """
 
 from __future__ import annotations
@@ -35,6 +35,24 @@ from typing import Optional
 
 PLATFORMS = ("cpu", "cuda")
 NO_CUDA = "no CUDA device (pass --platform cpu to run on the CPU)"
+
+
+# Benchmark configs from BASELINE.json `configs` (+ the headline): the
+# reference CLI's keys and shapes.
+BENCH_CONFIGS = {
+    "invert_1080p": dict(filter=("invert", {}), h=1080, w=1920, batch=64),
+    "invert_640x480": dict(filter=("invert", {}), h=480, w=640, batch=64),
+    "gauss3_1080p": dict(filter=("gaussian_blur", {"ksize": 3}), h=1080, w=1920, batch=16),
+    "gauss9_1080p": dict(filter=("gaussian_blur", {"ksize": 9}), h=1080, w=1920, batch=16),
+    "sobel_bilateral_1080p": dict(filter=("sobel_bilateral", {}), h=1080, w=1920, batch=16),
+    "flow_720p": dict(filter=("flow_warp", {}), h=720, w=1280, batch=8),
+    "style_720p": dict(
+        filter=("style_transfer", {"base_channels": 32, "n_residual": 5}),
+        h=720, w=1280, batch=8,
+    ),
+    # 540p -> 1080p subpixel upscale; all conv FLOPs at the LOW resolution.
+    "sr2x_540p": dict(filter=("super_resolution", {"scale": 2}), h=540, w=960, batch=8),
+}
 
 
 class PlatformError(RuntimeError):
@@ -965,14 +983,20 @@ def cmd_fleet(args) -> int:
     """Multi-replica serving demo: N synthetic client streams through a
     FleetFrontend — one front door, ``--replicas`` engine replicas with
     session affinity, spillover admission, and supervised replica
-    replacement. ``--scaling`` (the fleet scaling round of the bench
-    harness) is not ported yet and exits 2."""
-    if args.scaling:
-        print("error: fleet --scaling runs the fleet scaling round of the "
-              "bench harness, which the port does not have yet (ROADMAP "
-              "Queue 1, item 4d)", file=sys.stderr)
-        return 2
+    replacement. ``--scaling`` runs the fleet scaling round instead
+    (aggregate throughput at 1..N replicas, ``benchmarks.
+    bench_fleet_scaling``); on one card every replica shares it."""
     device = _force_platform()
+    if args.scaling:
+        from dvf_tpu_torch.benchmarks import bench_fleet_scaling
+
+        counts = tuple(sorted({1, args.replicas}))
+        out = bench_fleet_scaling(
+            sessions=args.sessions, frames_per_session=args.frames,
+            height=args.height, width=args.width, batch=args.batch,
+            replica_counts=counts, mode=args.mode, device=device)
+        print(json.dumps(out, default=float))
+        return 0
 
     import threading
 
@@ -1409,6 +1433,121 @@ def cmd_camera(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """One BENCH_CONFIGS entry: the device-resident chain and its H100
+    roofline fields, or with ``--e2e`` the pipeline's throughput and its
+    rate-controlled latency leg. One JSON line."""
+    device = _force_platform()
+
+    from dvf_tpu_torch.benchmarks import (
+        bench_device_resident,
+        bench_e2e_latency,
+        bench_e2e_streaming,
+        roofline_fields,
+    )
+    from dvf_tpu_torch.ops import get_filter
+
+    spec = BENCH_CONFIGS[args.config]
+    fname, fcfg = spec["filter"]
+    filt = get_filter(fname, **fcfg)
+    batch = args.batch or spec["batch"]
+    h, w = spec["h"], spec["w"]
+    mesh = _parse_mesh(args.mesh)  # one device, or exit 2 (item 4c)
+
+    if args.e2e:
+        if args.wire != "raw" and args.transport != "ring":
+            print("error: --wire jpeg/delta needs --transport ring "
+                  "(the codec wire rides the ring payloads)",
+                  file=sys.stderr)
+            return 2
+        if args.wire != "raw":
+            from dvf_tpu_torch.transport.codec import _load_shim
+
+            try:  # both codec wires encode with the native JPEG codec
+                _load_shim()
+            except RuntimeError as e:
+                print(f"error: --wire {args.wire} needs the JPEG codec, "
+                      f"which cannot be built here: {e}", file=sys.stderr)
+                return 2
+        r = bench_e2e_streaming(filt, args.frames, batch, h, w,
+                                collect_mode=args.collect_mode,
+                                transport=args.transport, wire=args.wire,
+                                mesh=mesh, ingest=args.ingest,
+                                ingest_depth=args.ingest_depth,
+                                egress=args.egress, motion=args.motion,
+                                device=device)
+        out = {
+            "metric": f"{args.config}_e2e_fps",
+            "value": round(r["fps"], 1),
+            "unit": "fps",
+            "frames": r["frames"],
+            "collect_mode": args.collect_mode,
+            "transport": args.transport,
+            "wire": args.wire,
+            "motion": args.motion,
+            # Delta accounting + codec provenance when a codec wire ran.
+            **({"wire_stats": r["wire"]} if "wire" in r else {}),
+            # Effective transfer path + hidden-H2D fraction.
+            "ingest": r["ingest"],
+            "ingest_depth": r["ingest_depth"],
+            "overlap_efficiency": r["overlap_efficiency"],
+            # The delivery-side mirror (runtime/egress.py).
+            "egress": r["egress"],
+            "egress_overlap_efficiency": r["egress_overlap_efficiency"],
+            # Per-kind contained-fault counters ({} = clean run).
+            "faults": r.get("faults", {}),
+        }
+        if args.lat_frames != 0 and r["fps"] > 0:
+            # p50/p99 from a SEPARATE rate-controlled leg (source at 0.8x
+            # the just-measured throughput, ingest queue ≈ one batch): the
+            # published latency is pipeline transit, not standing queue
+            # depth. The unthrottled run's percentiles are reported only
+            # under the congestion_* names. lat_congested=True means even
+            # the lowest tried rate congested and the percentiles are an
+            # upper bound, not transit.
+            target = 0.8 * r["fps"]
+            lat_frames = args.lat_frames or min(
+                args.frames, max(16, int(target * 20.0)))
+            rl = bench_e2e_latency(filt, lat_frames, batch, h, w, target,
+                                   collect_mode=args.collect_mode,
+                                   transport=args.transport, wire=args.wire,
+                                   mesh=mesh, ingest=args.ingest,
+                                   ingest_depth=args.ingest_depth,
+                                   egress=args.egress, motion=args.motion,
+                                   device=device)
+            out.update(
+                p50_ms=round(rl["p50_ms"], 3),
+                p99_ms=round(rl["p99_ms"], 3),
+                lat_frames=rl["frames"],
+                lat_target_fps=round(rl["target_fps"], 1),
+                lat_delivery_fps=round(rl["delivery_fps"], 2),
+                lat_congested=rl["congested"],
+                lat_backoffs=rl["backoffs"],
+            )
+        out.update(
+            congestion_p50_ms=round(r["p50_ms"], 3),
+            congestion_p99_ms=round(r["p99_ms"], 3),
+        )
+    else:
+        if args.transport != "python" or args.wire != "raw":
+            print("error: --transport/--wire only apply to --e2e runs "
+                  "(device-resident mode never touches the ingest path)",
+                  file=sys.stderr)
+            return 2
+        r = bench_device_resident(filt, args.iters, batch, h, w, mesh=mesh,
+                                  device=device)
+        out = {
+            "metric": f"{args.config}_device_fps",
+            "value": round(r["fps"], 1),
+            "unit": "fps",
+            "ms_per_frame": round(r["ms_per_frame"], 4),
+            "batch": batch,
+        }
+        out.update(roofline_fields(r, "cpu" if device == "cpu" else "cuda"))
+    print(json.dumps(out))
+    return 0
+
+
 def make_style_image(kind: str, size: int):
     """Deterministic style targets for training. A flat image has trivial
     Gram statistics (training just desaturates); the textured presets carry
@@ -1653,7 +1792,7 @@ def main(argv=None) -> int:
                            "DVF_FORCE_PLATFORM=NAME")
 
     # Shared by every subcommand with a batch-ingest hot path (serve,
-    # worker, fleet): the streamed shard-level assembler vs the classic
+    # worker, fleet, bench): the streamed shard-level assembler vs the classic
     # monolithic staging, and its in-flight transfer window.
     ing = argparse.ArgumentParser(add_help=False)
     ing.add_argument("--ingest", choices=("streamed", "monolithic"),
@@ -2043,9 +2182,7 @@ def main(argv=None) -> int:
     fl.add_argument("--scaling", action="store_true",
                     help="run the fleet scaling round instead of the "
                          "demo: aggregate throughput at 1 and "
-                         "--replicas replicas, core-pinned workers "
-                         "(the bench harness's round: not ported yet, "
-                         "exits 2)")
+                         "--replicas replicas, core-pinned workers")
     fl.add_argument("--lineage", action="store_true",
                     help="arm frame-lineage latency attribution on every "
                          "replica (same spelling as serve --lineage); "
@@ -2250,6 +2387,37 @@ def main(argv=None) -> int:
                      help="after training, report held-out PSNR vs the "
                           "nearest-neighbor baseline (unseen seed + geometry)")
 
+    bp = sub.add_parser("bench", parents=[plat, ing],
+                        help="run a benchmark config")
+    bp.add_argument("--config", choices=sorted(BENCH_CONFIGS), default="invert_1080p")
+    bp.add_argument("--iters", type=int, default=200)
+    bp.add_argument("--frames", type=int, default=512, help="--e2e mode")
+    bp.add_argument("--lat-frames", type=int, default=None,
+                    help="--e2e: frames for the rate-controlled latency "
+                         "leg (default ≈20 s at the measured rate; 0 "
+                         "skips the leg)")
+    bp.add_argument("--batch", type=int, default=None)
+    bp.add_argument("--e2e", action="store_true")
+    bp.add_argument("--collect-mode", choices=("thread", "inline"),
+                    default="inline",
+                    help="e2e pipeline collect mode")
+    bp.add_argument("--transport", choices=("python", "ring"), default="python",
+                    help="--e2e ingest transport (ring = native C++ ring)")
+    bp.add_argument("--mesh", default=None,
+                    help="device mesh, same forms as serve --mesh (one "
+                         "device; over several cards exits 2)")
+    bp.add_argument("--wire", choices=("raw", "jpeg", "delta"), default="raw",
+                    help="--e2e ring payload format (jpeg measures the "
+                         "codec-on-the-hot-path cost; delta the "
+                         "temporal-delta wire over it; both need libjpeg "
+                         "and exit 2 without it)")
+    bp.add_argument("--motion", choices=("roll", "block", "none"),
+                    default="roll",
+                    help="--e2e synthetic stream motion: 'roll' = every "
+                         "pixel changes per frame (full-motion worst "
+                         "case), 'block' = webcam-like low motion (the "
+                         "delta wire's target regime), 'none' = static")
+
     args = ap.parse_args(argv)
     prior = os.environ.get("DVF_FORCE_PLATFORM")
     if getattr(args, "platform", None):
@@ -2264,7 +2432,7 @@ def main(argv=None) -> int:
             "serve": cmd_serve, "worker": cmd_worker, "fleet": cmd_fleet,
             "camera": cmd_camera, "trace-view": cmd_trace_view,
             "subscribe": cmd_subscribe, "train": cmd_train,
-            "train-sr": cmd_train_sr,
+            "train-sr": cmd_train_sr, "bench": cmd_bench,
         }[args.cmd](args)
     except PlatformError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -43,8 +43,9 @@ in place between ticks, ``abort_swap`` drops it) and the
 canonical signature, with its registry of live pool engines and the
 freed-bytes counter. The compile-cache helpers
 (:func:`enable_compilation_cache`) arm the kernel-build cache, the port's
-counterpart of XLA's persistent compilation cache. Not ported yet: the
-mesh and halo routing and XLA's ``cost_analysis``.
+counterpart of XLA's persistent compilation cache. ``cost_analysis``
+counts the compiled step's work from the filter and the signature
+(``runtime.cost``). Not ported yet: the mesh and halo routing.
 """
 
 from __future__ import annotations
@@ -552,6 +553,29 @@ class Engine:
         with torch.no_grad():
             y, _ = self._step(host.to(self.device), None)
             return host_array(y.cpu())
+
+    def cost_analysis(self) -> Optional[dict]:
+        """The compiled step's work per batch, under the reference's keys:
+        ``flops_per_batch`` and ``bytes_accessed_per_batch``. There is no
+        compiler to ask, so both are counted (``runtime.cost``): the
+        operations of the filter's definition, and the least bytes it
+        must move — each input frame read once, each output frame written
+        once, plus the device state as often as the filter moves it (a
+        net's parameters once, a stateful window read and written).
+        None before the first compile and for a filter with no count."""
+        if self._signature is None or self.out_shape is None:
+            return None
+        from dvf_tpu_torch.runtime.cost import filter_cost
+
+        shape, dtype = self._signature
+        cost = filter_cost(self.filter, shape)
+        if cost is None:
+            return None
+        nbytes = (int(np.prod(shape)) * dtype.itemsize
+                  + int(np.prod(self.out_shape)) * np.dtype(self.out_dtype).itemsize
+                  + cost.state_passes * self.state_bytes)
+        return {"flops_per_batch": float(cost.flops),
+                "bytes_accessed_per_batch": float(nbytes)}
 
     def rebuild(self) -> "Engine":
         """Fresh engine for supervised recovery: same filter, device and

@@ -1,6 +1,6 @@
 """The port's command line (``python -m dvf_tpu_torch``), held to the JAX
-package's (``dvf_tpu.cli``): the counterpart of tests/test_cli.py (minus
-its ``bench`` cases) and of the CLI cases of tests/test_checkpoint.py,
+package's (``dvf_tpu.cli``): the counterpart of tests/test_cli.py (its
+``bench`` cases included) and of the CLI cases of tests/test_checkpoint.py,
 test_sr_demo.py and test_style_demo.py (training), plus the parser's surface, the final JSON lines'
 key sets, the device choice and the frames a display sink sees, on the
 CPU at small shapes. The subprocess pairs (camera → serve over shm) are
@@ -23,7 +23,7 @@ from torch_ring_util import jax_native_isolated  # noqa: F401
 from torch_serve_util import port_fleet_guard, port_leak_guard  # noqa: F401
 
 SHARED = ("filters", "doctor", "serve", "subscribe", "fleet", "camera",
-          "worker", "trace-view", "train", "train-sr")
+          "worker", "trace-view", "train", "train-sr", "bench")
 
 
 def _last_json(out: str) -> dict:
@@ -104,6 +104,101 @@ def test_serve_filter_config(capsys, cpu):
     ])
     assert rc == 0
     assert _last_json(capsys.readouterr().out)["delivered"] == 8
+
+
+def test_bench_configs_cover_baseline():
+    # BASELINE.json configs[0..4] + headline all present, with the
+    # reference's keys and shapes.
+    assert {"invert_1080p", "invert_640x480", "gauss3_1080p", "gauss9_1080p",
+            "sobel_bilateral_1080p", "flow_720p", "style_720p"} <= set(cli.BENCH_CONFIGS)
+    assert cli.BENCH_CONFIGS == ref_cli.BENCH_CONFIGS
+
+
+def test_bench_runs_small(capsys, monkeypatch, cpu):
+    # Shrink a config so the device-resident loop runs fast on the CPU.
+    monkeypatch.setitem(cli.BENCH_CONFIGS, "invert_1080p",
+                        dict(filter=("invert", {}), h=32, w=32, batch=4))
+    rc = main(["bench", "--config", "invert_1080p", "--iters", "3"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["unit"] == "fps" and out["value"] > 0
+    # On the CPU no roofline claim: the H100's peaks are not the CPU's.
+    assert "hbm_roofline_frac" not in out and "mfu" not in out
+
+
+def test_bench_with_auto_mesh(capsys, cpu):
+    """--mesh auto over the one attached device is the single-device
+    engine."""
+    rc = main(["bench", "--config", "invert_640x480", "--iters", "3",
+               "--batch", "8", "--mesh", "auto"])
+    assert rc == 0
+    out = _last_json(capsys.readouterr().out)
+    assert out["value"] > 0
+
+
+def test_bench_over_several_cards_exits_2(monkeypatch, capsys):
+    monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit) as ei:
+        main(["bench", "--config", "invert_640x480", "--mesh", "auto"])
+    assert ei.value.code == 2
+    assert "item 4c" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("e2e", [False, True], ids=["device", "e2e"])
+def test_bench_json_keys_equal_the_references(e2e, capsys, monkeypatch, cpu):
+    small = dict(filter=("gaussian_blur", {"ksize": 3}), h=16, w=24, batch=4)
+    monkeypatch.setitem(cli.BENCH_CONFIGS, "gauss3_1080p", small)
+    monkeypatch.setitem(ref_cli.BENCH_CONFIGS, "gauss3_1080p", small)
+    argv = ["bench", "--config", "gauss3_1080p", "--iters", "2",
+            "--platform", "cpu"] + (["--e2e", "--frames", "16"] if e2e else [])
+    ours = _keys_of(lambda: main(argv), capsys)
+    assert ours == _keys_of(lambda: ref_cli.main(argv), capsys)
+    assert ("p50_ms" in ours) is e2e
+
+
+@pytest.mark.parametrize("wire", ["jpeg", "delta"])
+def test_bench_codec_wire_without_the_jpeg_codec_exits_2(wire, capsys,
+                                                         monkeypatch, cpu):
+    """Both codec wires encode with the native JPEG codec: where it cannot
+    be built (no libjpeg, as on the card machine) the leg exits 2 and says
+    why; it is never skipped or swapped for another wire."""
+    from dvf_tpu_torch.transport import codec
+
+    def no_shim():
+        raise RuntimeError("jpeg_shim build failed: no libjpeg")
+
+    monkeypatch.setattr(codec, "_load_shim", no_shim)
+    rc = main(["bench", "--config", "invert_640x480", "--e2e", "--transport",
+               "ring", "--wire", wire])
+    assert rc == 2
+    assert f"--wire {wire} needs the JPEG codec" in capsys.readouterr().err
+
+
+def test_bench_wire_needs_the_ring_and_e2e(capsys, cpu):
+    assert main(["bench", "--config", "invert_640x480", "--e2e",
+                 "--wire", "jpeg"]) == 2
+    assert "needs --transport ring" in capsys.readouterr().err
+    assert main(["bench", "--config", "invert_640x480",
+                 "--transport", "ring"]) == 2
+    assert "only apply to --e2e" in capsys.readouterr().err
+
+
+def test_fleet_scaling_keys_equal_the_references(capsys):
+    argv = ["fleet", "--scaling", "--mode", "local", "--replicas", "2",
+            "--sessions", "2", "--frames", "6", "--height", "16",
+            "--width", "16", "--batch", "2", "--platform", "cpu"]
+    assert main(argv) == 0
+    ours = _last_json(capsys.readouterr().out)
+    assert ref_cli.main(argv) == 0
+    theirs = _last_json(capsys.readouterr().out)
+    assert set(ours) == set(theirs)
+    assert set(ours["rounds"]) == set(theirs["rounds"]) == {"1", "2"}
+    assert set(ours["rounds"]["2"]) == set(theirs["rounds"]["2"])
+    assert ours["rounds"]["2"]["delivered"] == ours["rounds"]["2"]["expected"] == 12
+    assert ours["scaling"]["1"] == 1.0 and ours["pinned_replicas"] is False
+    assert ours["filter"] == theirs["filter"]
 
 
 def test_serve_ring_transport(capsys, cpu):
@@ -339,8 +434,7 @@ def test_trace_view_in_help(capsys):
     assert ei.value.code == 0
     text = capsys.readouterr().out
     assert "trace-view" in text
-    assert "bench," not in text and ",bench" not in text
-    assert ",train,train-sr" in text
+    assert ",train,train-sr,bench" in text
 
 
 # ---------------------------------------------------------------------------
@@ -381,10 +475,12 @@ def _options(parser) -> dict:
 
 
 def test_subcommands_are_the_references_minus_bench(monkeypatch):
+    """The port's subcommands equal the reference's (the name is from
+    when ``bench`` was the one missing), so the option-parity test below
+    covers every one of them."""
     ours = set(_subparsers(_parser_of(main, monkeypatch)))
     ref = set(_subparsers(_parser_of(ref_cli.main, monkeypatch)))
-    assert ref - ours == {"bench"}
-    assert ours - ref == set()
+    assert ours == ref
     assert ours == set(SHARED)
 
 
@@ -412,6 +508,10 @@ _NO_CUDA_ARGV = {
     "worker": ["worker", "--filter", "invert", "--no-jpeg"],
     "train": ["train", "--steps", "1", "--batch", "1", "--size", "16"],
     "train-sr": ["train-sr", "--steps", "1", "--batch", "1", "--size", "16"],
+    "bench": ["bench", "--config", "invert_640x480", "--iters", "1"],
+    "bench-e2e": ["bench", "--config", "invert_640x480", "--e2e"],
+    "fleet-scaling": ["fleet", "--scaling", "--mode", "local", "--height", "16",
+                      "--width", "16", "--frames", "4"],
 }
 
 

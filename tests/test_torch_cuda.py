@@ -1199,3 +1199,52 @@ def test_cli_train_runs_on_cuda0_by_default(dev, tmp_path, monkeypatch, capsys):
     assert cli.main(["train", "--steps", "2", "--batch", "2", "--size", "32",
                      "--base-channels", "8", "--n-residual", "1"]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["steps"] == 2
+
+
+# ---------------------------------------------------------------------------
+# The bench harness on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,kw,counter", [
+    ("gaussian_blur", {"ksize": 9}, "sep_blur"),
+    ("sobel_bilateral", {}, "sobel_bilateral"),
+    ("flow_warp", {}, "warp_bounded"),
+    ("super_resolution", {"scale": 2}, None),
+])
+def test_bench_device_resident_on_the_card(dev, name, kw, counter):
+    """The device-resident chain launches the filter's kernel once per
+    batch (warm-up and timed) beside its compile's, and its H100 shares
+    stay at or below 1."""
+    from dvf_tpu_torch.benchmarks import bench_device_resident, roofline_fields
+
+    tk.reset_launches()
+    r = bench_device_resident(dvf_tpu_torch.get_filter(name, **kw), iters=3,
+                              batch_size=2, height=64, width=96)
+    assert r["frames"] == 6 and r["fps"] > 0
+    if counter is not None:
+        assert tk.LAUNCHES[counter] >= 4   # 1 warm-up + 3 timed, + compile's
+    out = roofline_fields(r, "cuda")
+    assert 0 <= out["hbm_roofline_frac"] <= 1.0 and 0 <= out["mfu"] <= 1.0
+
+
+def test_bench_transfer_on_the_card_times_pinned_memory(dev):
+    from dvf_tpu_torch.benchmarks import bench_transfer
+
+    r = bench_transfer(2, 64, 96)
+    assert r["host_memory"] == "pinned"
+    assert r["h2d_mbps"] > 0 and r["d2h_mbps"] > 0 and np.isfinite(r["d2h_mbps"])
+
+
+def test_cli_bench_on_cuda0_by_default(dev, monkeypatch, capsys):
+    import json
+
+    from dvf_tpu_torch import cli
+
+    monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
+    monkeypatch.setitem(cli.BENCH_CONFIGS, "gauss9_1080p",
+                        dict(filter=("gaussian_blur", {"ksize": 9}), h=64, w=96,
+                             batch=2))
+    assert cli.main(["bench", "--config", "gauss9_1080p", "--iters", "3"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["value"] > 0 and 0 <= out["hbm_roofline_frac"] <= 1.0
+    assert out["mfu_peak_tflops"] == 67.0

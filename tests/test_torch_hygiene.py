@@ -15,6 +15,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
+BENCH_MODULES = {"dvf_tpu_torch.benchmarks", "dvf_tpu_torch.bench_child",
+                 "dvf_tpu_torch.models.analysis", "dvf_tpu_torch.runtime.cost"}
+
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.path.insert(0, {root!r})
@@ -79,6 +82,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"dvf_tpu_torch.cli", "dvf_tpu_torch.__main__",
             "dvf_tpu_torch.io.display", "dvf_tpu_torch.io.gl_display",
             "dvf_tpu_torch.parallel.mesh"} <= set(res["imported"])
+    # The bench harness: benchmarks, the child process, the roofline model
+    # and the counters behind Engine.cost_analysis.
+    assert BENCH_MODULES <= set(res["imported"])
 
 
 def test_planner_ranks_with_its_own_copy_of_ab_comparison():
@@ -124,35 +130,41 @@ def test_ring_source_is_the_ports_own_copy():
 
 @pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
                                  "obs", "control", "broadcast", "fleet",
-                                 "train", "models"])
+                                 "train", "models", "runtime", "resilience",
+                                 "serve", "ops", ""])
 def test_package_exports_the_references_names(pkg):
-    """Each package re-exports the names its JAX counterpart exports
-    (minus the fleet's multi-host flavor and the models' tensor-parallel
-    ``param_pspecs``, which wait for the multi-device mesh)."""
+    """Each package (and the top-level one, ``""``) re-exports the names
+    its JAX counterpart exports (minus the fleet's multi-host flavor and
+    the models' tensor-parallel ``param_pspecs``, which wait for the
+    multi-device mesh)."""
     import importlib
     import types
 
-    ref = importlib.import_module(f"dvf_tpu.{pkg}")
+    suffix = f".{pkg}" if pkg else ""
+    ref = importlib.import_module(f"dvf_tpu{suffix}")
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
     want -= {"MultiHostEngine", "MultiHostReplica", "param_pspecs"}
     assert want
-    got = importlib.import_module(f"dvf_tpu_torch.{pkg}")
+    got = importlib.import_module(f"dvf_tpu_torch{suffix}")
     missing = sorted(n for n in want if not hasattr(got, n))
     assert missing == []
 
 
 _CUDA_PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.path.insert(0, {root!r})
 import torch
 inits = []
 real = torch.cuda._lazy_init
 torch.cuda._lazy_init = lambda: inits.append(1) or real()
 import dvf_tpu_torch
-for m in pkgutil.walk_packages(dvf_tpu_torch.__path__, "dvf_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(dvf_tpu_torch.__path__,
+                                               "dvf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps(names))
 raise SystemExit(0 if not inits and not torch.cuda.is_initialized() else 3)
 """
 
@@ -165,6 +177,7 @@ def test_import_creates_no_cuda_context():
                          capture_output=True, text=True, timeout=120,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
+    assert BENCH_MODULES <= set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
 _HELP_PROBE = r"""
@@ -190,7 +203,7 @@ print(json.dumps({{"code": code, "bad": bad, "cuda": bool(inits)
 
 def test_main_help_imports_no_jax_and_touches_no_card():
     """``python -m dvf_tpu_torch --help`` in a fresh interpreter exits 0,
-    lists every subcommand the port has (training included, no bench), and
+    lists every subcommand the reference has (training and bench), and
     imports neither jax nor the JAX package, nor creates a CUDA context."""
     out = subprocess.run([sys.executable, "-c", _HELP_PROBE.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=120,
@@ -200,7 +213,8 @@ def test_main_help_imports_no_jax_and_touches_no_card():
     assert res == {"code": 0, "bad": [], "cuda": False}
     subs = re.search(r"\{([a-z,-]+)\}", out.stdout).group(1).split(",")
     assert subs == ["filters", "doctor", "serve", "subscribe", "fleet",
-                    "camera", "worker", "trace-view", "train", "train-sr"]
+                    "camera", "worker", "trace-view", "train", "train-sr",
+                    "bench"]
     direct = subprocess.run([sys.executable, "-m", "dvf_tpu_torch", "--help"],
                             capture_output=True, text=True, timeout=120,
                             cwd=str(ROOT))
