@@ -3,8 +3,9 @@
 Port of ``dvf_tpu.api.filter``: a filter maps a whole NHWC batch at once,
 as ``(batch, state) -> (batch, state)``. State (e.g. a temporal window)
 stays on the device across batches, threaded through the call by the
-engine. The mesh hooks of the reference (``state_pspecs``,
-``specialize``) wait for the multi-GPU slice.
+engine. The mesh hooks (``state_pspecs``, ``specialize``) let a filter
+place its state over a mesh and swap in a mesh body; a mesh body names
+the layout it takes in ``sharding``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,22 @@ class Filter:
         pipeline pads short batches, so it refuses stateful filters that
         are not pad-safe.
       members: the composed stages of a FilterChain, in order.
+      state_pspecs: ``() -> PartitionSpec tree`` matching ``init_state``'s
+        tree. On a mesh the engine places the state by these specs (a
+        neural filter's weights sharded over ``model``: tensor
+        parallelism; specs naming a size-1 axis replicate) and hands each
+        block of the batch the state its device holds. Without them the
+        state is threaded: one copy per ``space`` block, carried across
+        the data blocks in batch order.
+      specialize: ``(mesh, batch_shape) -> Filter | None``, called once
+        per compile signature on a mesh; a Filter returned swaps in a
+        mesh-aware body (style transfer's tensor-parallel forward when the
+        mesh has a model axis). None keeps the generic body.
+      sharding: set on a mesh body (``parallel.mesh.NamedSharding``):
+        ``fn`` takes a ``ShardedBatch`` laid out so and returns one in the
+        same layout (or, given a whole tensor, lays it out and returns a
+        whole tensor). None: ``fn`` works on one device's tensor, and the
+        engine runs it per block.
     """
 
     name: str
@@ -46,6 +63,9 @@ class Filter:
     halo: Optional[int] = None
     pad_safe: bool = True
     members: Optional[Tuple["Filter", ...]] = None
+    state_pspecs: Optional[Callable[[], Any]] = None
+    specialize: Optional[Callable[[Any, Tuple[int, ...]], Optional["Filter"]]] = None
+    sharding: Any = None
 
     @property
     def stateful(self) -> bool:

@@ -27,8 +27,9 @@ Every entry point runs on ``cuda:0`` unless ``device`` names the CPU.
 The host memory the transfer legs time is the pipeline's: pinned on a
 card (the port's ingest and egress stage through pinned slabs), pageable
 on the CPU, where there is no link (:func:`transfer_host_memory`). The
-reference times a pageable ``device_put``. A ``mesh`` other than None
-waits for the multi-GPU slice and raises.
+reference times a pageable ``device_put``. A ``mesh``
+(``parallel.mesh.make_mesh``) runs the engine over it, the batch laid out
+in blocks on its devices.
 """
 
 from __future__ import annotations
@@ -40,19 +41,14 @@ from dvf_tpu_torch.api.filter import Filter
 from dvf_tpu_torch.runtime.cost import H100_PEAKS
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a benchmark over a multi-device mesh needs the engine's mesh "
-            "routing, the multi-GPU piece of the port (ROADMAP Queue 1, "
-            "item 4c); run on one device (mesh=None)")
-
-
 def _sync(device) -> None:
+    """Wait for the device, or for every device of a mesh engine's
+    (``device`` is then the engine)."""
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in getattr(device, "devices", [device]):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def transfer_host_memory(device) -> str:
@@ -84,23 +80,26 @@ def bench_device_resident(
     from dvf_tpu_torch.runtime.cost import filter_cost
     from dvf_tpu_torch.runtime.engine import Engine, host_tensor
 
-    _no_mesh(mesh)
     dtype = dtype or np.uint8
     shape = (batch_size, height, width, 3)
-    engine = Engine(filt, device=device)
-    dev = engine.device
+    engine = Engine(filt, device=device, mesh=mesh)
+    dev = engine
     engine.compile(shape, dtype)
 
     rng = np.random.default_rng(0)
     host_batch = rng.integers(0, 255, size=shape, dtype=np.uint8).astype(dtype)
 
+    def blocks(t):
+        return getattr(t, "shards", [t])
+
     def checksum(t) -> float:
-        return t.to(torch.float32).sum().item()   # the host fetch ends the run
+        # the host fetch ends the run
+        return sum(b.to(torch.float32).sum().item() for b in blocks(t))
 
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        batch = host_tensor(host_batch).to(dev)
+        batch = engine.upload(host_tensor(host_batch))
         _sync(dev)
         h2d_s = time.perf_counter() - t0
         h2d_mbps = host_batch.nbytes / 1e6 / h2d_s if h2d_s > 0 else float("inf")
@@ -124,7 +123,10 @@ def bench_device_resident(
             # scalar of the previous output into the fixed-shape input —
             # same no-overlap guarantee, stable signature.
             def fold(x, y):
-                return x + (y.to(torch.float32).sum() * 0).to(x.dtype)
+                z = blocks(y)[0].to(torch.float32).sum() * 0
+                if hasattr(x, "shards"):
+                    return x.map(lambda t: t + z.to(t.device).to(t.dtype))
+                return x + z.to(x.dtype)
 
             _sync(dev)
             t0 = time.perf_counter()
@@ -371,8 +373,7 @@ def _run_pipeline(filt, source, batch_size, height, width, max_inflight,
     from dvf_tpu_torch.runtime.engine import Engine
     from dvf_tpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 
-    _no_mesh(mesh)
-    engine = Engine(filt, device=device)
+    engine = Engine(filt, device=device, mesh=mesh)
     engine.compile((batch_size, height, width, 3), np.uint8)
     sink = NullSink()
     queue = None

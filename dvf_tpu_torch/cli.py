@@ -21,7 +21,9 @@ device it exits 2 and never carries on on the CPU by itself. The
 ``worker`` subcommand keeps the reference's flag names
 (--distribute-port, --collect-port, --delay) so launch scripts written for
 ``python inverter.py`` port over by changing only the module name.
-Not here yet: a ``--mesh`` over more than one device (multi-GPU).
+``serve --mesh`` and ``bench --mesh`` run the engine over a mesh of the
+attached cards; the worker's ``--mesh`` over several devices is not here
+yet (ROADMAP Queue 1 item 4c).
 """
 
 from __future__ import annotations
@@ -79,13 +81,17 @@ def _force_platform() -> str:
     return "cuda:0"
 
 
-def _attached_devices() -> int:
-    """Devices a mesh may span: the visible cards, or 1 on the CPU."""
-    if (os.environ.get("DVF_FORCE_PLATFORM") or "cuda") == "cpu":
-        return 1
+def _mesh_devices() -> list:
+    """The devices a ``--mesh`` spans: every attached card, or the CPU
+    once on the CPU platform. The command line's one device list (the CPU
+    tests put eight CPU entries here, a virtual mesh)."""
     import torch
 
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if (os.environ.get("DVF_FORCE_PLATFORM") or "cuda") == "cpu":
+        return [torch.device("cpu")]
+    from dvf_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.local_devices()
 
 
 def _parse_filter_arg(name: str, config_json: Optional[str]):
@@ -112,28 +118,42 @@ def _parse_filter_arg(name: str, config_json: Optional[str]):
     return get_filter(name, **cfg)
 
 
-def _parse_mesh(arg):
-    """Parse --mesh into its :class:`~dvf_tpu_torch.parallel.mesh.MeshConfig`
-    over the attached devices; None (the single-device engine) when no
-    mesh is asked for or the mesh spans one device.
+class _BadMesh(SystemExit):
+    """A bad ``--mesh``: the process exits 2 with the message on stderr
+    (``str()`` of the exception is the message)."""
+
+    def __init__(self, message: str):
+        super().__init__(2)
+        self.message = message
+        print(message, file=sys.stderr)
+
+    def __str__(self) -> str:
+        return self.message
+
+
+def _parse_mesh(arg, several: bool = True):
+    """Parse --mesh into a :class:`~dvf_tpu_torch.parallel.mesh.Mesh` over
+    the attached devices (``_mesh_devices``); None (the single-device
+    engine) when no mesh is asked for or the mesh spans one device.
 
     Forms: "data=2,space=2,model=2" (explicit axis sizes; omitted axes
     default to 1) or "auto" / "auto:space" / "auto:model"
     (parallel.mesh.auto_mesh_config policies over all attached devices).
-    A mesh larger than the attached devices is a bad --mesh; one over
-    several attached cards exits 2, since the engine over a multi-device
-    mesh is the multi-GPU piece the port does not have yet.
+    A bad --mesh, or one larger than the attached devices, exits 2.
+    ``several=False`` (the worker) exits 2 for a mesh over several
+    devices: the worker over a sharded batch is not ported yet.
     """
     if not arg:
         return None
-    from dvf_tpu_torch.parallel.mesh import MeshConfig, auto_mesh_config
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, auto_mesh_config, make_mesh
 
     def bad(why):
-        raise SystemExit(
+        raise _BadMesh(
             f"error: bad --mesh {arg!r} ({why}; want e.g. data=2,space=2 "
             f"or auto:space)")
 
-    have = _attached_devices()
+    devices = _mesh_devices()
+    have = len(devices)
     if arg == "auto" or arg.startswith("auto:"):
         prefer = arg.split(":", 1)[1] if ":" in arg else "data"
         if prefer not in ("data", "space", "model"):
@@ -154,12 +174,14 @@ def _parse_mesh(arg):
         bad(f"mesh {config} needs {config.n_devices} devices, have {have}")
     if config.n_devices == 1:
         return None
-    print(f"error: --mesh {arg!r} spans {config.n_devices} devices: an "
-          f"engine over a multi-device mesh is the multi-GPU piece of the "
-          f"port (ROADMAP Queue 1, item 4c), not ported yet; serve on one "
-          f"device (--mesh data=1) or run one process per card "
-          f"(fleet --mode process)", file=sys.stderr)
-    raise SystemExit(2)
+    if not several:
+        print(f"error: --mesh {arg!r} spans {config.n_devices} devices: the "
+              f"worker over a sharded batch (and its codec assist) is not "
+              f"ported yet (ROADMAP Queue 1 item 4c); run the worker on "
+              f"one device (--mesh data=1) or one worker per card",
+              file=sys.stderr)
+        raise SystemExit(2)
+    return make_mesh(config, devices=devices)
 
 
 def cmd_doctor(args) -> int:
@@ -738,8 +760,8 @@ def cmd_serve(args) -> int:
     # first open a camera / allocate the native shm ring.
     from dvf_tpu_torch.runtime.engine import Engine
 
-    _parse_mesh(args.mesh)
-    engine = Engine(filt, device=device)
+    mesh = _parse_mesh(args.mesh)
+    engine = Engine(filt, device=device, mesh=mesh)
     if args.sessions > 1:
         # Multi-tenant path: N streams through one shared engine via the
         # serving frontend (admission control, cross-session batching,
@@ -1244,7 +1266,7 @@ def cmd_worker(args) -> int:
     from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
 
     filt = _parse_filter_arg(args.filter, args.filter_config)
-    _parse_mesh(args.mesh)
+    _parse_mesh(args.mesh, several=False)
     worker = ZmqWorker(
         filt,
         engine=Engine(filt, device=device),
@@ -1452,7 +1474,7 @@ def cmd_bench(args) -> int:
     filt = get_filter(fname, **fcfg)
     batch = args.batch or spec["batch"]
     h, w = spec["h"], spec["w"]
-    mesh = _parse_mesh(args.mesh)  # one device, or exit 2 (item 4c)
+    mesh = _parse_mesh(args.mesh)
 
     if args.e2e:
         if args.wire != "raw" and args.transport != "ring":
@@ -1974,8 +1996,8 @@ def main(argv=None) -> int:
     sp.add_argument("--mesh", default=None,
                     help="device mesh for the engine: 'data=2,space=2,"
                          "model=2' (omitted axes = 1) or 'auto[:space|"
-                         ":model]'; default = all-data DP over attached "
-                         "devices")
+                         ":model]' over the attached cards; default = the "
+                         "one device")
     sp.add_argument("--collect-mode", choices=("thread", "inline"),
                     default="thread",
                     help="'inline': the dispatch thread retires results "
@@ -2333,7 +2355,9 @@ def main(argv=None) -> int:
                     help="fault injection: sleep this many seconds per batch "
                          "(simulate a slow worker, like inverter.py --delay)")
     wp.add_argument("--mesh", default=None,
-                    help="device mesh, same forms as serve --mesh")
+                    help="device mesh, same forms as serve --mesh (one "
+                         "device; over several exits 2, ROADMAP Queue 1 "
+                         "item 4c)")
 
     tv = sub.add_parser(
         "trace-view",
@@ -2404,8 +2428,7 @@ def main(argv=None) -> int:
     bp.add_argument("--transport", choices=("python", "ring"), default="python",
                     help="--e2e ingest transport (ring = native C++ ring)")
     bp.add_argument("--mesh", default=None,
-                    help="device mesh, same forms as serve --mesh (one "
-                         "device; over several cards exits 2)")
+                    help="device mesh, same forms as serve --mesh")
     bp.add_argument("--wire", choices=("raw", "jpeg", "delta"), default="raw",
                     help="--e2e ring payload format (jpeg measures the "
                          "codec-on-the-hot-path cost; delta the "

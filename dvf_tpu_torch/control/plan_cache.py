@@ -49,9 +49,8 @@ DEFAULT_PLAN_CACHE_DIR = ".dvf_plan_cache"
 # ---------------------------------------------------------------------------
 
 
-# The axis string of the port's ``Engine``: it has no mesh and runs each
-# program on one device, so every engine fingerprint carries this.
-ENGINE_AXES = "devices=1"
+def _axes(cfg) -> str:
+    return f"data={cfg[0]},space={cfg[1]},model={cfg[2]}"
 
 
 def _driver_version() -> str:
@@ -69,33 +68,42 @@ def _driver_version() -> str:
     return str(v.value) if get(ctypes.byref(v)) == 0 else "?"
 
 
-def topology_fingerprint(device: Any = None) -> str:
+def topology_fingerprint(target: Any = None) -> str:
     """A stable string for "what hardware, laid out how": the backend
     (``cuda`` or ``cpu``), on a card its name, the device count and the
-    driver and CUDA versions, and the engine's axis string. ``device`` is
-    the device an ``Engine`` runs on (``Engine.device``); None is the
-    device an engine takes by default here (``cuda:0``, or the CPU where
-    there is no card), so a meshless call equals the fingerprint of an
-    engine on that device. Every fingerprint starts with ``torch-``, so
-    an entry the JAX package wrote never matches one of the port's, and a
-    CPU entry never matches a card's. Never raises: when the device
-    cannot be enumerated the fingerprint is ``"unknown"`` (every lookup
-    misses — correct, just cold)."""
+    driver and CUDA versions, and the mesh's axis shape. ``target`` is
+    what an ``Engine`` spans: its mesh (``Engine.mesh``), or the device
+    it runs on (``Engine.device``: the axes of a one-device mesh); None
+    is the device an engine takes by default here (``cuda:0``, or the CPU
+    where there is no card), so a meshless call equals the fingerprint of
+    an engine on that device. Every fingerprint starts with ``torch-``,
+    so an entry the JAX package wrote never matches one of the port's,
+    and a CPU entry never matches a card's. Never raises: when the
+    device cannot be enumerated the fingerprint is ``"unknown"`` (every
+    lookup misses — correct, just cold)."""
     try:
         import torch
 
+        from dvf_tpu_torch.parallel.mesh import Mesh
+
+        if isinstance(target, Mesh):
+            axes = _axes(target.devices.shape)
+            device = target.first_device
+        else:
+            axes = _axes((1, 1, 1))
+            device = target
         if device is None:
             device = "cuda:0" if torch.cuda.is_available() else "cpu"
         dev = torch.device(device)
         if dev.type == "cpu":
-            return f"torch-cpu/cpu/n1/{ENGINE_AXES}"
+            return f"torch-cpu/cpu/n1/{axes}"
         if dev.type != "cuda" or not torch.cuda.is_available():
             return "unknown"
         n = torch.cuda.device_count()
         name = torch.cuda.get_device_name(
             dev.index if dev.index is not None else 0)
         return (f"torch-cuda/{name}/n{n}/driver={_driver_version()},"
-                f"cuda={torch.version.cuda}/{ENGINE_AXES}")
+                f"cuda={torch.version.cuda}/{axes}")
     except Exception:  # noqa: BLE001 — a fingerprint failure = cache cold
         return "unknown"
 

@@ -9,7 +9,7 @@ tracking with drain → migrate → restart, and fleet-merged stats.
 
 Not ported yet: the multi-host flavor (``MultiHostEngine``,
 ``MultiHostReplica``: one replica spanning a process group), which
-stands on the multi-device mesh (ROADMAP Queue 1 item 4).
+stands on the multi-process runtime (ROADMAP Queue 1 item 4c).
 """
 
 from dvf_tpu_torch.fleet.admission import SpilloverAdmission

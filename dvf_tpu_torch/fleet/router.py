@@ -38,13 +38,14 @@ fault summaries → one table with ``by_replica`` attribution
 
 **The device.** ``FleetFrontend(..., device=None)`` runs every replica on
 the card (``cuda:0`` unless the caller names the CPU) and raises without
-CUDA, as ``ServeFrontend`` does. Local replica *i* runs on
-``cuda:{i % device_count}``, so on one card every local replica shares
-it, each with its own engines, streams and slabs; process replicas get
-the device through their wire config. A replica spanning several devices
-(``devices_per_replica > 1``) and the multi-host flavor need the
-multi-device mesh, which is not ported yet (ROADMAP Queue 1 item 4), and
-raise ``NotImplementedError``.
+CUDA, as ``ServeFrontend`` does. Local replicas partition the local cards
+(``_replica_devices``: ``devices_per_replica`` each, else an equal share
+of at least one) and each runs its engines over a mesh of its slice, so
+on one card every local replica shares it, each with its own engines,
+streams and slabs; process replicas run on one device each, named in
+their wire config. The multi-host flavor needs the multi-process
+runtime, which is not ported yet (ROADMAP Queue 1 item 4c), and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -122,10 +123,9 @@ class FleetConfig:
     max_restarts: int = 2         # per replica, before it stays DEAD
     migrate: bool = True          # move a lost replica's sessions to
     #   survivors (False: they close; the client sees SessionClosedError)
-    devices_per_replica: int = 0  # local mode: devices per replica; 0
-    #   and 1 both mean one device (replica i on i % device_count). More
-    #   than one needs the multi-device mesh (not ported yet) and raises
-    #   NotImplementedError
+    devices_per_replica: int = 0  # local mode: devices per replica
+    #   (its engines span a mesh over them); 0 = an equal share of the
+    #   local cards, at least one
     replica_env: Dict[str, str] = dataclasses.field(default_factory=dict)
     #   process mode: extra env for workers (CUDA_VISIBLE_DEVICES is
     #   how a deployment gives each process replica its own card)
@@ -234,8 +234,8 @@ class FleetConfig:
     #   serve.plan_cache_dir.
     multihost_hosts: int = 0      # >= 2 would arm the BIGGER-replica
     #   axis (one replica spanning a process group, one program across
-    #   the group's devices); it needs the multi-device mesh, which is
-    #   not ported yet, so >= 2 raises NotImplementedError. 0 = the
+    #   the group's devices); it needs the multi-process runtime, which
+    #   is not ported yet, so >= 2 raises NotImplementedError. 0 = the
     #   controller's two-axis choice always picks more-replicas.
 
 
@@ -292,16 +292,11 @@ class FleetFrontend:
         raises where there is no CUDA, as ``ServeFrontend`` does."""
         self.config = config or FleetConfig()
         self.device = resolve_device(device)
-        if self.config.devices_per_replica > 1:
-            raise NotImplementedError(
-                "devices_per_replica > 1 needs a replica spanning several "
-                "devices (the multi-device mesh), which the port does not "
-                "have yet (ROADMAP Queue 1 item 4)")
         if self.config.multihost_hosts >= 2:
             raise NotImplementedError(
                 "the multi-host flavor (multihost_hosts >= 2) needs the "
-                "multi-device mesh, which the port does not have yet "
-                "(ROADMAP Queue 1 item 4)")
+                "multi-process runtime, which the port does not have yet "
+                "(ROADMAP Queue 1 item 4c)")
         if self.config.mode not in FLEET_MODES:
             raise ValueError(
                 f"mode must be one of {FLEET_MODES}, got "
@@ -653,20 +648,43 @@ class FleetFrontend:
             )
         return LocalReplica(rid, self._local_factory(rid, index))
 
+    def _replica_devices(self, index: int) -> List[torch.device]:
+        """Replica ``index``'s slice of the local cards: N local replicas
+        partition them, ``per = devices_per_replica or max(1, cards //
+        replicas)`` each from a start index that wraps (one card: every
+        replica shares ``cuda:0``). On the CPU the slice repeats the CPU
+        ``per`` times (a virtual mesh). Raises when a replica asks for
+        more cards than there are: a replica never spans fewer devices
+        than it was configured for."""
+        want = self.config.devices_per_replica
+        if self.device.type != "cuda":
+            return [self.device] * max(1, want)
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if want > len(devs):
+            raise ValueError(
+                f"devices_per_replica={want} needs {want} devices, have "
+                f"{len(devs)}")
+        per = want or max(1, len(devs) // self.config.replicas)
+        start = (index * per) % len(devs)
+        return [devs[(start + j) % len(devs)] for j in range(per)]
+
     def _replica_device(self, index: int) -> torch.device:
-        """Replica ``index``'s device: the fleet's own on the CPU, else
-        ``cuda:{index % device_count}`` (one card: every replica shares
-        ``cuda:0``)."""
+        """Process replica ``index``'s one device: the fleet's own on the
+        CPU, else ``cuda:{index % device_count}`` (one card: every replica
+        shares ``cuda:0``)."""
         if self.device.type != "cuda":
             return self.device
         return torch.device("cuda", index % torch.cuda.device_count())
 
     def _local_factory(self, rid: str, index: int):
         """Factory for one in-process replica: a frontend whose engines
-        live on this replica's device (``_replica_device``)."""
+        span this replica's slice of the local devices
+        (``_replica_devices``), as a mesh of ``auto_mesh_config`` axes."""
         config = self.config
 
         def make():
+            from dvf_tpu_torch.parallel.mesh import auto_mesh_config, make_mesh
+            from dvf_tpu_torch.runtime.engine import Engine
             from dvf_tpu_torch.serve import ServeFrontend
 
             chaos = None
@@ -677,8 +695,11 @@ class FleetFrontend:
                                         seed=config.chaos_seed + index)
             scfg = dataclasses.replace(config.serve, replica_label=rid,
                                        chaos=chaos, autoplan=False)
-            fe = ServeFrontend(self.filter, scfg,
-                               device=self._replica_device(index)).start()
+            chunk = self._replica_devices(index)
+            engine = Engine(self.filter, chaos=chaos,
+                            mesh=make_mesh(auto_mesh_config(len(chunk)),
+                                           devices=chunk))
+            fe = ServeFrontend(self.filter, scfg, engine=engine).start()
             if config.precompile:
                 fe.precompile(config.precompile)
             return fe

@@ -2,13 +2,14 @@
 style-transfer net (BASELINE.json configs[4]), the small VGG encoder that
 gives its training perceptual features, and the ESPCN super-resolution
 net, as functional ``init(seed, config) -> params`` and
-``apply(params, batch) -> batch``. The tensor-parallel spec trees
-(``param_pspecs``) wait for the multi-GPU slice."""
+``apply(params, batch) -> batch``, with the spec trees of their tensor
+parallelism over a mesh's ``model`` axis (``param_pspecs``)."""
 
 from dvf_tpu_torch.models.style_transfer import (  # noqa: F401
     StyleNetConfig,
     init_style_net,
     apply_style_net,
+    param_pspecs,
 )
 from dvf_tpu_torch.models.espcn import (  # noqa: F401
     EspcnConfig,

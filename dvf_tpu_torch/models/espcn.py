@@ -3,13 +3,15 @@
 Efficient Sub-Pixel CNN (Shi et al. 2016): every conv runs at LOW (input)
 resolution and a final subpixel rearrange (DCR order,
 ``layers.depth_to_space``, on float32 as in the reference) produces the
-×r output. The tensor-parallel body waits for the multi-GPU slice.
+×r output. Tensor parallelism over a mesh's ``model`` axis: feat is
+column-parallel, map row-parallel with one sum across the ranks, head
+replicated (:func:`param_pspecs`, :func:`tp_inner_apply`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -20,6 +22,7 @@ from dvf_tpu_torch.models.layers import (
     conv_init,
     depth_to_space,
     exact_f32_convs,
+    float32_partials,
     generator,
 )
 
@@ -50,20 +53,56 @@ def init_espcn(rng: Union[int, torch.Generator],
 def apply_espcn(params: Params, batch: torch.Tensor,
                 config: EspcnConfig = EspcnConfig()) -> torch.Tensor:
     """(B, H, W, 3) in [0, 1] → (B, H·r, W·r, 3)."""
+    return _forward(params, batch, config, row_reduce=None)
+
+
+def _forward(params: Params, batch: torch.Tensor, config: EspcnConfig,
+             row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
+    """Shared body; ``row_reduce`` (the sum across the model ranks under
+    TP, None unsharded) runs on map's pre-bias partial sums."""
     cd = config.compute_dtype
 
-    def cv(name, x):
+    def conv(name, x):
         p = params[name]
         if config.fast_convs:
-            y = conv2d_s2d(p, x, compute_dtype=cd)  # SAME zero-pad, exact
-        else:
-            y = conv2d_nb(p, x, compute_dtype=cd)
-        return y + p["b"].to(cd)
+            return conv2d_s2d(p, x, compute_dtype=cd)  # SAME zero-pad, exact
+        return conv2d_nb(p, x, compute_dtype=cd)
+
+    def cv(name, x, reduce=None):
+        if reduce is not None:
+            # The rank's partial sum in float32, rounded once after the
+            # sum across the ranks.
+            with float32_partials():
+                y = conv(name, x)
+            return reduce(y).to(cd) + params[name]["b"].to(cd)
+        return conv(name, x) + params[name]["b"].to(cd)
 
     with exact_f32_convs(cd):
         x = batch.to(cd)
         x = torch.relu(cv("feat", x))
-        x = torch.relu(cv("map", x))
+        x = torch.relu(cv("map", x, reduce=row_reduce))
         x = cv("head", x)
     y = depth_to_space(x.float(), config.scale)
     return torch.clamp(y, 0.0, 1.0).to(batch.dtype)
+
+
+def tp_inner_apply(config: EspcnConfig) -> Callable[..., torch.Tensor]:
+    """Per-rank apply under tensor parallelism: ``inner(params, batch,
+    row_reduce)`` — feat column-parallel (activations leave C-sharded),
+    map row-parallel reducing through ``row_reduce``, head replicated."""
+    return lambda params, batch, row_reduce: _forward(
+        params, batch, config, row_reduce=row_reduce)
+
+
+def param_pspecs(config: EspcnConfig = EspcnConfig()) -> Dict[str, Any]:
+    """PartitionSpec tree for TP over the ``model`` axis: feat=col
+    (output channels sharded), map=row (input channels sharded, one sum),
+    head replicated. Size-1 model axes degrade to replication, so this one
+    tree serves every mesh."""
+    from dvf_tpu_torch.parallel.mesh import P
+
+    return {
+        "feat": {"w": P(None, None, None, "model"), "b": P("model")},
+        "map": {"w": P(None, None, "model", None), "b": P()},
+        "head": {"w": P(), "b": P()},
+    }

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -72,9 +73,29 @@ def pad_nhwc(x: torch.Tensor, r: int, mode: str) -> torch.Tensor:
     return out
 
 
+_PARTIALS = threading.local()
+
+
+@contextlib.contextmanager
+def float32_partials() -> Iterator[None]:
+    """Within the block (this thread only), convolutions return float32:
+    their operands, already rounded to the compute dtype, are widened, so
+    the products are exact and the sums stay unrounded. A row-parallel
+    conv's partial sum then rounds once, after the sum across the model
+    ranks, as the unsharded conv rounds once."""
+    prev = getattr(_PARTIALS, "on", False)
+    _PARTIALS.on = True
+    try:
+        yield
+    finally:
+        _PARTIALS.on = prev
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
           padding: int = 0) -> torch.Tensor:
     """NHWC ``x`` (already in the compute dtype) by an HWIO ``w`` → NHWC."""
+    if getattr(_PARTIALS, "on", False):
+        x, w = x.float(), w.float()
     w = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)

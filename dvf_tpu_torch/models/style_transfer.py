@@ -7,9 +7,15 @@ instance norm + ReLU throughout, scaled-tanh output.
 
 The forward rounds where the reference rounds: every conv result and its
 bias add are in the compute dtype, each instance norm returns to it, and
-the final tanh is float32. The tensor-parallel and pipelined (shard_map)
-bodies wait for the multi-GPU slice; ``parallel="pp"``'s single-device
-form (:func:`to_pp_params`, :func:`pp_sequential_apply`) is here.
+the final tanh is float32.
+
+Tensor parallelism over a mesh's ``model`` axis is explicit: Megatron
+column/row alternation (:func:`param_pspecs`), each rank running
+:func:`tp_inner_apply` on its weight blocks with one sum across the ranks
+after each row-parallel conv. Layer pipelining (:func:`pp_inner_apply`)
+stacks the residual trunk (:func:`to_pp_params`) and runs it as a GPipe
+schedule over the model axis (``parallel.pp``); on one device the same
+grouping runs as a loop (:func:`pp_sequential_apply`).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from dvf_tpu_torch.models.layers import (
     conv2d_s2d,
     conv_init,
     exact_f32_convs,
+    float32_partials,
     generator,
     instance_norm,
     instance_norm_init,
@@ -83,15 +90,41 @@ def apply_style_net(params: Params, batch: torch.Tensor,
     return _forward(params, batch, config)
 
 
+def _conv_modes(config: StyleNetConfig) -> Dict[str, str]:
+    """Which convs are column- vs row-parallel (see param_pspecs)."""
+    modes = {
+        "stem": "col", "down1": "row", "down2": "col",
+        "up1": "row", "up2": "col", "out": "row",
+    }
+    for i in range(config.n_residual):
+        modes[f"res{i}_a"] = "row"
+        modes[f"res{i}_b"] = "col"
+    return modes
+
+
 def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
-             trunk_fn: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
+             trunk_fn: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None,
+             row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
              ) -> torch.Tensor:
     """Shared forward body. ``trunk_fn(params, x)`` replaces the flat
     residual loop (the PP grouping passes its loop over stacked blocks):
-    one copy of the stem/decoder wiring, however the trunk runs."""
+    one copy of the stem/decoder wiring, however the trunk runs.
+    ``row_reduce`` runs on each row-parallel conv's pre-bias output (the
+    sum across the model ranks under TP; None unsharded): that partial
+    is float32, and the sum rounds it to the compute dtype."""
     cd = config.compute_dtype
+    modes = _conv_modes(config) if row_reduce is not None else {}
 
     def cv(name, x, stride=1, upsampled=False):
+        if modes.get(name) == "row":
+            # The rank's partial sum in float32; the sum across the
+            # ranks rounds it to the compute dtype once.
+            with float32_partials():
+                y = conv(name, x, stride, upsampled)
+            return row_reduce(y).to(cd) + params[name]["b"].to(cd)
+        return conv(name, x, stride, upsampled) + params[name]["b"].to(cd)
+
+    def conv(name, x, stride, upsampled):
         p = params[name]
         if upsampled:
             # Decoder pair: nearest-x2 then conv. The fast path never
@@ -106,7 +139,7 @@ def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
             y = conv2d_s2d(p, x, compute_dtype=cd, reflect=True)
         else:
             y = conv2d_nb(p, x, stride=stride, compute_dtype=cd, reflect=True)
-        return y + p["b"].to(cd)
+        return y
 
     def norm_relu(name, y):
         return torch.relu(instance_norm(params[name], y))
@@ -183,3 +216,107 @@ def pp_sequential_apply(config: StyleNetConfig) -> Callable[[Params, torch.Tenso
         return x
 
     return lambda params, batch: _forward(params, batch, config, trunk_fn=trunk)
+
+
+def tp_inner_apply(config: StyleNetConfig) -> Callable[..., torch.Tensor]:
+    """Per-rank apply under tensor parallelism: ``inner(params, batch,
+    row_reduce)`` runs this rank's weight blocks (``param_pspecs``), and
+    each row-parallel conv's partial output goes through ``row_reduce``
+    (the sum across the model ranks, ``parallel.sharded.RankGroup``)."""
+    return lambda params, batch, row_reduce: _forward(
+        params, batch, config, row_reduce=row_reduce)
+
+
+def param_pspecs(config: StyleNetConfig = StyleNetConfig()) -> Dict[str, Any]:
+    """PartitionSpec tree for tensor parallelism over the ``model`` axis.
+
+    Megatron-style alternation: **column-parallel** convs shard output
+    channels (activations leave C-sharded), the following **row-parallel**
+    conv shards input channels (each rank consumes the channels it owns,
+    and one sum across the ranks forms the output). Collectives therefore
+    appear once per col→row pair instead of per layer. Instance norms
+    normalize over (H, W) per channel, so a norm after a column conv simply
+    shards its scale/bias with the channels; after a row conv it replicates.
+
+    Alternation map (activations C-sharded after stem, down2, res*_b, up2):
+    stem=col → down1=row → down2=col → [res_a=row, res_b=col]* →
+    up1=row → up2=col → out=row.
+    """
+    from dvf_tpu_torch.parallel.mesh import P
+
+    def col():
+        return {"w": P(None, None, None, "model"), "b": P("model")}
+
+    def row():
+        return {"w": P(None, None, "model", None), "b": P()}
+
+    def norm_spec(sharded: bool):
+        s = P("model") if sharded else P()
+        return {"scale": s, "bias": s}
+
+    specs: Dict[str, Any] = {
+        "stem": col(),
+        "stem_norm": norm_spec(True),
+        "down1": row(),
+        "down1_norm": norm_spec(False),
+        "down2": col(),
+        "down2_norm": norm_spec(True),
+        "up1": row(),
+        "up1_norm": norm_spec(False),
+        "up2": col(),
+        "up2_norm": norm_spec(True),
+        "out": row(),
+    }
+    for i in range(config.n_residual):
+        specs[f"res{i}_a"] = row()
+        specs[f"res{i}_an"] = norm_spec(False)
+        specs[f"res{i}_b"] = col()
+        specs[f"res{i}_bn"] = norm_spec(True)
+    return specs
+
+
+def pp_param_pspecs(config: StyleNetConfig = StyleNetConfig(),
+                    stage_axis: Optional[str] = "model") -> Dict[str, Any]:
+    """PartitionSpecs for the PP grouping: trunk layer-dim on
+    ``stage_axis`` (each device owns N/S contiguous blocks — the PP memory
+    win), the non-repeated stem/decoder replicated. ``stage_axis=None``
+    replicates the trunk too (the grouping run unpipelined)."""
+    from dvf_tpu_torch.parallel.mesh import P
+
+    conv_r = {"w": P(), "b": P()}
+    norm_r = {"scale": P(), "bias": P()}
+    specs: Dict[str, Any] = {
+        "stem": conv_r, "stem_norm": norm_r,
+        "down1": conv_r, "down1_norm": norm_r,
+        "down2": conv_r, "down2_norm": norm_r,
+        "up1": conv_r, "up1_norm": norm_r,
+        "up2": conv_r, "up2_norm": norm_r,
+        "out": conv_r,
+    }
+    # Stacked leaves: conv w (L,kh,kw,cin,cout) / b (L,c); norm (L,c).
+    conv_s = {"w": P(stage_axis, None, None, None, None), "b": P(stage_axis, None)}
+    norm_s = {"scale": P(stage_axis, None), "bias": P(stage_axis, None)}
+    specs["trunk"] = {"a": conv_s, "an": norm_s, "b": conv_s, "bn": norm_s}
+    return specs
+
+
+def pp_inner_apply(config: StyleNetConfig, n_microbatches: int = 0
+                   ) -> Callable[..., torch.Tensor]:
+    """Apply for ``parallel='pp'`` over one model-axis group:
+    ``inner(stage_params, batch, devices)`` with ``stage_params[s]`` the
+    PP-grouped params held by ``devices[s]`` (stage s's slice of the
+    trunk). Stem/down and up/out run on stage 0's device (the batch's);
+    the residual trunk runs as a GPipe pipeline over the stages
+    (``parallel.pp.pipeline_apply``), activations hopping devices."""
+    from dvf_tpu_torch.parallel.pp import pipeline_apply
+
+    block = _pp_res_block(config)
+
+    def inner(stage_params, batch, devices):
+        def trunk(_params, x):
+            return pipeline_apply(block, [p["trunk"] for p in stage_params], x,
+                                  devices, n_microbatches=n_microbatches)
+
+        return _forward(stage_params[0], batch, config, trunk_fn=trunk)
+
+    return inner

@@ -12,7 +12,8 @@ The forward rounds where the reference rounds: each conv in
 ``compute_dtype`` (bfloat16 by default), the bias added and the ReLU taken
 in that dtype, and the 2×2 pool a sum of the window in that dtype times
 0.25 (not ``F.avg_pool2d``, whose bfloat16 mean rounds once). The
-tensor-parallel body and its specs wait for the multi-GPU slice.
+tensor-parallel body and its specs wait for the sharded train state
+(ROADMAP Queue 1 item 4c).
 """
 
 from __future__ import annotations

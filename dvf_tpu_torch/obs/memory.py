@@ -35,18 +35,22 @@ from dvf_tpu_torch.obs.registry import GAUGE, COUNTER, MetricSample
 
 
 def device_live_stats() -> Dict[str, Optional[float]]:
-    """Live device tensors on the current CUDA device, read from the
-    caching allocator at scrape time: ``device_live_bytes`` (bytes held
-    by live tensors) and ``device_live_buffers`` (their number). None
-    values mean there is no CUDA device to read (the CPU) — a gap, not
-    a zero."""
+    """Live device tensors of this process, summed over every card it
+    sees (a meshed engine spans several), read from the caching
+    allocator at scrape time: ``device_live_bytes`` (bytes held by live
+    tensors) and ``device_live_buffers`` (their number). None values mean
+    there is no CUDA device to read (the CPU) — a gap, not a zero."""
     try:
         import torch
 
         if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return {"device_live_bytes": None, "device_live_buffers": None}
-        live = torch.cuda.memory_allocated()
-        buffers = torch.cuda.memory_stats().get("active.all.current")
+        live, buffers = 0, None
+        for i in range(torch.cuda.device_count()):
+            live += torch.cuda.memory_allocated(i)
+            n = torch.cuda.memory_stats(i).get("active.all.current")
+            if n is not None:
+                buffers = (buffers or 0) + n
     except Exception:  # noqa: BLE001 — accounting must never raise
         return {"device_live_bytes": None, "device_live_buffers": None}
     return {"device_live_bytes": float(live),

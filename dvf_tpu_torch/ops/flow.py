@@ -371,6 +371,44 @@ def _next_window(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
             "initialized": torch.ones((), dtype=torch.bool, device=batch.device)}
 
 
+def _window_specialize(name: str, fn):
+    """The mesh body of a filter whose state is the 2-frame window
+    (:func:`_window_state`): the batch is split over ``data`` (H stays
+    whole: a flow field needs the whole frame), and data block d runs
+    ``fn`` with the window its first frame would see in the unsharded
+    batch — the carried frame for block 0, the last frame of block d-1
+    otherwise — and the batch's own ``initialized`` flag (the first batch
+    of a stream passes through whole, as on one device). The new window
+    is the last block's last frame."""
+
+    def specialize(mesh, batch_shape):
+        from dvf_tpu_torch.parallel.mesh import NamedSharding, P
+        from dvf_tpu_torch.parallel.sharded import (ShardedBatch, as_sharded,
+                                                    finish)
+
+        d = mesh.axis_size("data")
+        if d <= 1 or batch_shape[0] % d != 0:
+            return None
+        sharding = NamedSharding(mesh, P("data", None, None, None))
+
+        def sharded_fn(batch, state):
+            sb, whole = as_sharded(batch, sharding)
+            out = []
+            for i, x in enumerate(sb.shards):
+                prev = state["prev"] if i == 0 else sb.shards[i - 1][-1]
+                win = {"prev": prev.to(x.device, non_blocking=True),
+                       "initialized": state["initialized"].to(x.device,
+                                                             non_blocking=True)}
+                out.append(fn(x, win)[0])
+            res = ShardedBatch(out, sharding, sharding.global_shape(out[0].shape))
+            return finish(res, whole, batch), _next_window(sb.shards[-1])
+
+        return Filter(name=f"data({name})", fn=sharded_fn,
+                      init_state=_window_state, sharding=sharding)
+
+    return specialize
+
+
 @register_filter("flow_warp")
 def flow_warp(
     levels: int = 3,
@@ -446,12 +484,14 @@ def flow_warp(
         out = torch.where(state["initialized"], warped, batch)
         return out.to(batch.dtype), _next_window(batch)
 
+    name = (f"flow_warp(levels={levels},win={win_size},warp={warp_impl}"
+            f"{',box' if win_type == 'box' else ''}"
+            f"{',pallas-inner' if inner_warp == 'pallas' else ''})")
     return Filter(
-        name=(f"flow_warp(levels={levels},win={win_size},warp={warp_impl}"
-              f"{',box' if win_type == 'box' else ''}"
-              f"{',pallas-inner' if inner_warp == 'pallas' else ''})"),
+        name=name,
         fn=fn,
         init_state=_window_state,
+        specialize=_window_specialize(name, fn),
     )
 
 
@@ -492,7 +532,8 @@ def flow_vis(levels: int = 3, win_size: int = 15, n_iters: int = 3,
                                   win_size=win_size, n_iters=n_iters)
         return flow_to_rgb(flow, max_mag).to(batch.dtype), _next_window(batch)
 
-    return Filter(name="flow_vis", fn=fn, init_state=_window_state)
+    return Filter(name="flow_vis", fn=fn, init_state=_window_state,
+                  specialize=_window_specialize("flow_vis", fn))
 
 
 @register_filter("ema_smooth")
@@ -521,14 +562,20 @@ def ema_smooth(alpha: float = 0.35) -> Filter:
         state["ema"] = torch.zeros_like(state["prev"])
         return state
 
-    def fn(batch: torch.Tensor, state) -> Tuple[torch.Tensor, Any]:
-        init = state["initialized"]
-        y = torch.where(init, state["ema"], batch[0])
-        # Repeats (x_i == x_{i-1} bit for bit) are identities; the carried
-        # "prev" extends the test across the batch boundary.
-        same0 = torch.logical_and(init, torch.all(batch[0] == state["prev"]))
-        same = torch.cat([same0[None],
+    def repeats(batch: torch.Tensor, state) -> torch.Tensor:
+        """(B,) bool: frame i equals the frame before it bit for bit (the
+        carried "prev" extends the test across the batch boundary)."""
+        same0 = torch.logical_and(state["initialized"],
+                                  torch.all(batch[0] == state["prev"]))
+        return torch.cat([same0[None],
                           (batch[1:] == batch[:-1]).flatten(1).all(dim=1)])
+
+    def fn(batch: torch.Tensor, state) -> Tuple[torch.Tensor, Any]:
+        return run(batch, state, repeats(batch, state))
+
+    def run(batch: torch.Tensor, state, same: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        # Repeats are identities of the recurrence.
+        y = torch.where(state["initialized"], state["ema"], batch[0])
         A = torch.where(same, 1.0, one_minus).to(batch.dtype)
         Bs = torch.where(same[:, None, None, None], 0.0, a32 * batch).to(batch.dtype)
         ys = []
@@ -540,5 +587,72 @@ def ema_smooth(alpha: float = 0.35) -> Filter:
         new_state["ema"] = ys[-1]
         return out.to(batch.dtype), new_state
 
-    return Filter(name=f"ema_smooth(a={alpha})", fn=fn, init_state=init_state,
-                  halo=0)
+    name = f"ema_smooth(a={alpha})"
+
+    def specialize(mesh, batch_shape):
+        """The mesh body: B over ``data`` and H over ``space`` (pointwise,
+        so no halo). Each ``space`` column carries its rows of the state
+        through the data blocks in batch order; a frame counts as a repeat
+        only when every block of it repeats (the per-block tests meet on
+        the data block's first device), as on one device."""
+        from dvf_tpu_torch.parallel.mesh import batch_sharding
+        from dvf_tpu_torch.parallel.sharded import (ShardedBatch, as_sharded,
+                                                    finish)
+
+        sharding = batch_sharding(mesh, batch_shape)
+        if sharding.parts(0) * sharding.parts(1) == 1:
+            return None
+        blocks = sharding.shards(batch_shape)
+        local = sharding.shard_shape(batch_shape)
+        n_cols = sharding.parts(1)
+
+        def col_init(batch_shape_, dtype, device):
+            return [init_state(local, dtype, blocks[k].device)
+                    for k in range(n_cols)]
+
+        def sharded_fn(batch, state):
+            sb, whole = as_sharded(batch, sharding)
+            rows = sb.grid()
+            xs = sb.shards
+            state = [_tree_move(st, xs[rows[0][k]].device) for k, st in enumerate(state)]
+            # The state each block starts from, as far as the repeat test
+            # needs it: the carried one, else the previous data block's
+            # last frame.
+            same = {}
+            for r, row in enumerate(rows):
+                local_same = []
+                for k, i in enumerate(row):
+                    if r == 0:
+                        st = state[k]
+                    else:
+                        dev = xs[i].device
+                        st = {"prev": xs[rows[r - 1][k]][-1].to(dev, non_blocking=True),
+                              "initialized": torch.ones((), dtype=torch.bool, device=dev)}
+                    local_same.append(repeats(xs[i], st))
+                home = xs[row[0]].device
+                acc = local_same[0]
+                for t in local_same[1:]:
+                    acc = torch.logical_and(acc, t.to(home, non_blocking=True))
+                for i in row:
+                    same[i] = acc.to(xs[i].device, non_blocking=True)
+            out = [None] * len(xs)
+            for k in range(n_cols):
+                st = state[k]
+                for row in rows:
+                    i = row[k]
+                    out[i], st = run(xs[i], _tree_move(st, xs[i].device), same[i])
+                state[k] = st
+            res = ShardedBatch(out, sharding, sb.shape)
+            return finish(res, whole, batch), state
+
+        return Filter(name=f"space({name})", fn=sharded_fn, init_state=col_init,
+                      halo=0, sharding=sharding)
+
+    return Filter(name=name, fn=fn, init_state=init_state, halo=0,
+                  specialize=specialize)
+
+
+def _tree_move(state, device: torch.device):
+    """A state dict's tensors on ``device`` (the same tensors when they
+    are there already)."""
+    return {k: v.to(device, non_blocking=True) for k, v in state.items()}

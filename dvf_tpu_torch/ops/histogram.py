@@ -6,8 +6,10 @@ reference sorts and binary-searches because a TPU has no fast scatter).
 The counts are exact integers, carried as float32 as in the reference,
 and every LUT step after them follows the reference's float32 operations
 in its order (``_lut_apply``, ``_clahe_luts``), so the result is
-bit-exact. The spatial-mesh ``specialize`` of ``equalize`` waits for the
-multi-GPU slice.
+bit-exact. On a mesh with a ``space`` axis, ``equalize`` specialises to
+the global-reduction pattern: each block counts its rows, the counts of
+one frame's blocks are summed (exact integers), and each block maps its
+rows through the whole-frame LUT.
 """
 
 from __future__ import annotations
@@ -57,18 +59,31 @@ def _equalize_u8_plane(plane_u8: torch.Tensor) -> torch.Tensor:
     return _lut_apply(_plane_hist(flat), flat, h * w).reshape(b, h, w)
 
 
+def _planes_of(x_u8: torch.Tensor, on_gray: bool) -> torch.Tensor:
+    """The (N, H, W) uint8 planes the histogram family works on: the luma
+    (``on_gray``, the cv2 golden mode), or the channels folded into the
+    batch axis."""
+    if on_gray:
+        gray = (x_u8 if x_u8.shape[-1] == 1
+                else to_uint8(rgb_to_gray(to_float(x_u8))))
+        return gray[..., 0]
+    b, h, w, c = x_u8.shape
+    return x_u8.permute(0, 3, 1, 2).reshape(b * c, h, w)
+
+
+def _from_planes(planes: torch.Tensor, x_u8: torch.Tensor, on_gray: bool) -> torch.Tensor:
+    """Back from :func:`_planes_of`'s layout (the luma broadcast)."""
+    if on_gray:
+        return planes[..., None].expand(x_u8.shape)
+    b, h, w, c = x_u8.shape
+    return planes.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
 def _dispatch_planes(x_u8: torch.Tensor, on_gray: bool,
                      apply_planes: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """``on_gray`` runs ``apply_planes`` on the luma and broadcasts it (the
     cv2 golden mode); otherwise the channels fold into the batch axis."""
-    if on_gray:
-        gray = (x_u8 if x_u8.shape[-1] == 1
-                else to_uint8(rgb_to_gray(to_float(x_u8))))
-        eq = apply_planes(gray[..., 0])[..., None]
-        return eq.expand(x_u8.shape)
-    b, h, w, c = x_u8.shape
-    planes = x_u8.permute(0, 3, 1, 2).reshape(b * c, h, w)
-    return apply_planes(planes).reshape(b, c, h, w).permute(0, 2, 3, 1)
+    return _from_planes(apply_planes(_planes_of(x_u8, on_gray)), x_u8, on_gray)
 
 
 @register_filter("equalize")
@@ -82,7 +97,60 @@ def equalize(on_gray: bool = False) -> Filter:
         out = _dispatch_planes(to_uint8(batch), on_gray, _equalize_u8_plane)
         return out if u8 else to_float(out, batch.dtype)
 
-    return stateless(f"equalize(gray={on_gray})", fn, uint8_ok=True, halo=None)
+    def specialize(mesh, batch_shape):
+        """Spatial sharding the global-reduction way: each block counts
+        the pixels of its H-slice (counts are additive), the counts of a
+        frame's blocks are summed once, and every block maps its rows
+        through the whole-frame LUT: 256 floats per plane cross between
+        devices, no pixel does."""
+        from dvf_tpu_torch.parallel.mesh import NamedSharding, P
+        from dvf_tpu_torch.parallel.sharded import (ShardedBatch, as_sharded,
+                                                    finish)
+
+        d, sp = mesh.axis_size("data"), mesh.axis_size("space")
+        b, h = batch_shape[0], batch_shape[1]
+        if sp <= 1 or h % sp != 0:
+            return None  # engine default: replicate H (correct, unsharded)
+        # H-sharding only needs h % space == 0; an indivisible batch just
+        # degrades the batch axis.
+        sharding = NamedSharding(
+            mesh, P("data" if b % d == 0 else None, "space", None, None))
+
+        def sharded_fn(batch, state):
+            sb, whole = as_sharded(batch, sharding)
+            out = [None] * len(sb.shards)
+            for ring in sb.grid():
+                xs = [to_uint8(sb.shards[i]) for i in ring]
+                planes = [_planes_of(x, on_gray) for x in xs]
+                flats = [p.reshape(p.shape[0], -1) for p in planes]
+                home = xs[0].device
+                total = None
+                for f in flats:
+                    hk = _plane_hist(f).to(home, non_blocking=True)
+                    total = hk if total is None else total + hk
+                n_total = h * planes[0].shape[2]
+                for i, x, p, f in zip(ring, xs, planes, flats):
+                    eq = _lut_apply(total.to(x.device, non_blocking=True), f,
+                                    n_total).reshape(p.shape)
+                    y = _from_planes(eq, x, on_gray).contiguous()
+                    src = sb.shards[i]
+                    out[i] = y if src.dtype == torch.uint8 else to_float(y, src.dtype)
+            res = ShardedBatch(out, sharding, sb.shape)
+            return finish(res, whole, batch), state
+
+        return Filter(
+            name=f"space(equalize(gray={on_gray}))",
+            fn=sharded_fn,
+            uint8_ok=True,
+            # halo=0: this body owns its spatial distribution (the summed
+            # counts); the engine must not route it through the halo
+            # machinery or replicate H.
+            halo=0,
+            sharding=sharding,
+        )
+
+    return stateless(f"equalize(gray={on_gray})", fn, uint8_ok=True, halo=None,
+                     specialize=specialize)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 ``super_resolution`` wraps :mod:`dvf_tpu_torch.models.espcn` as a
 stateful filter whose params are its state, like ``style_transfer``.
 Both filters here change the output geometry ((H, W) → (H·r, W·r)); the
-engine sizes its output from what the filter returns. The mesh hook
-(``specialize``) waits for the multi-GPU slice.
+engine sizes its output from what the filter returns. On a mesh with a
+``model`` axis, ``super_resolution``'s ``specialize`` swaps in the
+tensor-parallel body, as ``style_transfer`` does.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import torch
 import torch.nn.functional as F
 
 from dvf_tpu_torch.api.filter import Filter, stateless
-from dvf_tpu_torch.models.espcn import EspcnConfig, apply_espcn, init_espcn
+from dvf_tpu_torch.models.espcn import (EspcnConfig, apply_espcn, init_espcn,
+                                        param_pspecs, tp_inner_apply)
 from dvf_tpu_torch.models.layers import tree_to, upsample_nearest
 from dvf_tpu_torch.ops.registry import measured_default_for, register_filter
-from dvf_tpu_torch.ops.style import compute_dtype_of
+from dvf_tpu_torch.ops.style import compute_dtype_of, tp_filter
 
 
 @register_filter("upscale")
@@ -75,9 +77,19 @@ def super_resolution(
         return tree_to(params if params is not None else init_espcn(seed, config),
                        device)
 
+    name = f"super_resolution(x{scale})"
+
+    def specialize(mesh, batch_shape) -> Optional[Filter]:
+        if mesh.axis_size("model") <= 1:
+            return None  # generic body; params replicate over size-1 axis
+        return tp_filter(name, tp_inner_apply(config), param_pspecs(config),
+                         init_state, config.compute_dtype, mesh, batch_shape)
+
     return Filter(
-        name=f"super_resolution(x{scale})",
+        name=name,
         fn=fn,
         init_state=init_state,
         compute_dtype=torch.float32,
+        state_pspecs=lambda: param_pspecs(config),
+        specialize=specialize,
     )

@@ -3,8 +3,10 @@
 Wraps :mod:`dvf_tpu_torch.models.style_transfer` as a registered,
 stateful filter: the network params ARE the filter state, moved to the
 engine's device once by ``init_state`` and returned unchanged each batch
-(inference only). Covers BASELINE.json configs[4]. The mesh hooks
-(``specialize``, ``state_pspecs``) wait for the multi-GPU slice.
+(inference only). Covers BASELINE.json configs[4]. On a mesh with a
+``model`` axis, ``specialize`` swaps in the tensor-parallel forward
+(``parallel="tp"``) or the layer pipeline (``parallel="pp"``), and
+``state_pspecs`` places the weights.
 """
 
 from __future__ import annotations
@@ -15,12 +17,17 @@ import torch
 
 from dvf_tpu_torch.api.filter import Filter
 from dvf_tpu_torch.models.layers import tree_to
+from dvf_tpu_torch.models.layers import exact_f32_convs
 from dvf_tpu_torch.models.style_transfer import (
     StyleNetConfig,
     apply_style_net,
     init_style_net,
+    param_pspecs,
+    pp_inner_apply,
+    pp_param_pspecs,
     pp_sequential_apply,
     to_pp_params,
+    tp_inner_apply,
 )
 from dvf_tpu_torch.ops.registry import measured_default_for, register_filter
 
@@ -35,6 +42,66 @@ def compute_dtype_of(dtype: Optional[str]) -> torch.dtype:
         raise ValueError(
             f"dtype must be 'bfloat16' or 'float32', got {dtype!r}")
     return _DTYPES[dtype]
+
+
+def fold_sharding(mesh, batch_shape):
+    """The batch layout of a model-parallel body: B folded over (data,
+    space) on dim 0, replicated over ``model`` (whose ranks own weight
+    blocks). Degrades to whatever the batch divides: data+space → data →
+    one block."""
+    from dvf_tpu_torch.parallel.mesh import NamedSharding, P
+
+    b = batch_shape[0]
+    d, s = mesh.axis_size("data"), mesh.axis_size("space")
+    if b % (d * s) == 0:
+        spec = P(("data", "space"))
+    elif b % d == 0:
+        spec = P("data")
+    else:
+        spec = P(None)
+    return NamedSharding(mesh, spec)
+
+
+def model_groups(mesh, pos):
+    """The mesh positions of the ``model`` ranks beside ``pos``."""
+    i = mesh.axis_names.index("model")
+    return [tuple(m if a == i else p for a, p in enumerate(pos))
+            for m in range(mesh.devices.shape[i])]
+
+
+def tp_filter(name: str, inner, specs, init_state, model_dtype, mesh,
+              batch_shape) -> Filter:
+    """The tensor-parallel mesh body of a net: each batch block runs on
+    the ``model`` ranks beside it, every rank with its weight blocks
+    (the engine places the state by ``specs``), one thread per rank, the
+    row-parallel partial outputs summed across the ranks
+    (``parallel.sharded.RankGroup``). Every rank ends with the same
+    output; the block's own rank hands it on."""
+    from dvf_tpu_torch.parallel.sharded import (RankGroup, ShardedBatch,
+                                                as_sharded, finish)
+
+    sharding = fold_sharding(mesh, batch_shape)
+
+    def sharded_fn(batch, state):
+        sb, whole = as_sharded(batch, sharding)
+        out = []
+        for blk, x in zip(sb.blocks, sb.shards):
+            ranks = model_groups(mesh, blk.pos)
+            group = RankGroup([mesh.devices[p] for p in ranks])
+
+            def body(m, x=x, ranks=ranks, group=group):
+                dev = group.devices[m]
+                return inner(state.local(ranks[m]), x.to(dev, non_blocking=True),
+                             lambda y: group.psum(m, y))
+
+            with exact_f32_convs(model_dtype):
+                out.append(group.run(body)[0])
+        res = ShardedBatch(out, sharding, sharding.global_shape(out[0].shape))
+        return finish(res, whole, batch), state
+
+    return Filter(name=f"tp({name})", fn=sharded_fn, init_state=init_state,
+                  compute_dtype=torch.float32, state_pspecs=lambda: specs,
+                  sharding=sharding)
 
 
 @register_filter("style_transfer")
@@ -54,9 +121,20 @@ def style_transfer(
     ``fast_convs=None`` resolves the exact conv rewrites from the measured
     winner (``MEASURED_DEFAULTS["style_fast"]``: "ref" until an A/B on the
     card commits one). ``dtype``: "bfloat16" (default) or "float32".
-    ``parallel``: "tp" runs the flat net; "pp" carries the trunk as
-    stacked blocks (the pipeline grouping) and loops over them. On one
-    device both compute the same function.
+    ``parallel`` picks the model-axis strategy ``specialize`` builds
+    when the mesh's model axis > 1:
+
+    - ``"tp"`` — Megatron column/row tensor parallelism with an explicit
+      sum across the ranks after each row-parallel conv
+      (models.style_transfer.tp_inner_apply).
+    - ``"pp"`` — layer pipeline parallelism over the residual trunk
+      (models.style_transfer.pp_inner_apply / parallel.pp): each device
+      owns n_residual/S contiguous blocks and activations hop stages on a
+      GPipe schedule. Requires the model axis to divide n_residual; else
+      the generic body runs with replicated weights (a line on stderr).
+
+    On one device both compute the same function ("pp" loops over the
+    stacked blocks).
     """
     if parallel not in ("tp", "pp"):
         raise ValueError(f"parallel must be 'tp' or 'pp', got {parallel!r}")
@@ -85,9 +163,58 @@ def style_transfer(
         def init_state(batch_shape, dtype, device):
             return flat_params(device)
 
+    name = f"style_transfer(c={base_channels},r={n_residual},{parallel})"
+
+    def specialize(mesh, batch_shape) -> Optional[Filter]:
+        n_model = mesh.axis_size("model")
+        if n_model <= 1:
+            return None  # generic body; params replicate over size-1 axis
+        if parallel == "tp":
+            return tp_filter(name, tp_inner_apply(config), param_pspecs(config),
+                             init_state, config.compute_dtype, mesh, batch_shape)
+        if config.n_residual % n_model != 0:
+            import sys
+
+            print(
+                f"[style_transfer] pp needs model axis ({n_model}) to "
+                f"divide n_residual ({config.n_residual}); running "
+                f"unspecialized (replicated params)",
+                file=sys.stderr,
+            )
+            return None
+        return pp_filter(mesh, batch_shape)
+
+    def pp_filter(mesh, batch_shape) -> Filter:
+        from dvf_tpu_torch.parallel.sharded import ShardedBatch, as_sharded, finish
+
+        inner = pp_inner_apply(config)
+        specs = pp_param_pspecs(config)
+        sharding = fold_sharding(mesh, batch_shape)
+
+        def sharded_fn(batch, state):
+            sb, whole = as_sharded(batch, sharding)
+            out = []
+            for blk, x in zip(sb.blocks, sb.shards):
+                ranks = model_groups(mesh, blk.pos)
+                out.append(inner([state.local(p) for p in ranks], x,
+                                 [mesh.devices[p] for p in ranks]))
+            res = ShardedBatch(out, sharding, sb.shape)
+            return finish(res, whole, batch), state
+
+        return Filter(name=f"pp({name})", fn=sharded_fn, init_state=init_state,
+                      compute_dtype=torch.float32, state_pspecs=lambda: specs,
+                      sharding=sharding)
+
     return Filter(
-        name=f"style_transfer(c={base_channels},r={n_residual},{parallel})",
+        name=name,
         fn=fn,
         init_state=init_state,
         compute_dtype=torch.float32,
+        # TP specs are safe on any mesh (a size-1 model axis replicates);
+        # PP's trunk specs are not (an indivisible model axis must
+        # replicate), so the base PP filter replicates the whole grouping
+        # and only the specialised filter stage-shards the trunk.
+        state_pspecs=(lambda: pp_param_pspecs(config, stage_axis=None))
+        if parallel == "pp" else (lambda: param_pspecs(config)),
+        specialize=specialize,
     )

@@ -1,7 +1,16 @@
-"""Parallelism helpers (port of ``dvf_tpu.parallel``). Ported: the mesh
-arithmetic of ``mesh.py`` (``MeshConfig``, ``auto_mesh_config``) and the
-layer stacking of ``pp.py``. Building meshes over devices, the shardings,
-halo exchange, the pipeline schedule and the distributed runtime wait for
-the multi-GPU slice."""
+"""Parallelism over an in-host device mesh (port of ``dvf_tpu.parallel``):
+the mesh and its shardings (``mesh``), sharded batches and their
+collectives (``sharded``), halo-exchanged spatial sharding (``halo``) and
+the layer pipeline (``pp``). One process drives every device of its
+mesh. The multi-process runtime (``distributed``) is not ported yet
+(ROADMAP Queue 1 item 4c)."""
 
-from dvf_tpu_torch.parallel.mesh import MeshConfig, auto_mesh_config  # noqa: F401
+from dvf_tpu_torch.parallel.mesh import (  # noqa: F401
+    MeshConfig,
+    auto_mesh_config,
+    batch_pspec,
+    batch_sharding,
+    make_mesh,
+    replicated,
+)
+from dvf_tpu_torch.parallel.halo import halo_exchange_rows, spatial_filter  # noqa: F401

@@ -1,6 +1,6 @@
 """Streamed egress and the asynchronous codec plane (port of
 ``ShardedBatchFetcher``, ``AsyncCodecPlane`` and ``_EncodeEntry`` from
-``dvf_tpu/runtime/egress.py`` for one device).
+``dvf_tpu/runtime/egress.py``).
 
 :class:`ShardedBatchFetcher` — ``prefetch(result, slot)`` right after the
 engine's submit makes the engine's D2H stream wait for the batch's compute
@@ -11,6 +11,13 @@ first waits for the compute event (that wait is device time, not D2H),
 then for the D2H event (timed as ``wait_ms``), and returns the slab's
 numpy view; ``owns(out)`` is then True, and rows that outlive the collect
 step must be copied. No pinned allocation happens per batch.
+
+On a mesh the fetcher takes the engine's output sharding in place of a
+device and makes one device→host copy per output block, on the block's
+device's D2H stream after that device's compute event, into the block's
+rows of the slot's slab. A block that splits H (its rows are not
+contiguous in the slab) lands in its own pinned staging slab and reaches
+the host slab in ``fetch``.
 
 Fallbacks mirror the ingest assembler, recorded in the stats either way:
 
@@ -48,6 +55,8 @@ import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
 from dvf_tpu_torch.obs.trace import EGRESS_D2H, EGRESS_ENCODE
+from dvf_tpu_torch.parallel.mesh import NamedSharding
+from dvf_tpu_torch.parallel.sharded import EventGroup, ShardedBatch
 from dvf_tpu_torch.runtime.engine import (
     _torch_dtype,
     host_array,
@@ -84,17 +93,19 @@ def occupied_slab_bytes() -> int:
 class ShardedBatchFetcher:
     """Fetches engine results into preallocated host slabs.
 
-    One fetcher per output signature. ``device`` is the engine's device
-    (None: monolithic); ``stream`` the engine's D2H stream
-    (``Engine.d2h_stream``; None on the CPU). ``prefetch`` belongs right
-    after the engine's submit, ``fetch`` in the collect path.
+    One fetcher per output signature. ``device`` is the engine's device,
+    or its output sharding on a mesh (``Engine.placement``; None:
+    monolithic); ``stream`` the engine's D2H stream (``Engine.d2h_stream``;
+    None on the CPU), or a function of the device on a mesh
+    (``Engine.d2h_stream_for``). ``prefetch`` belongs right after the
+    engine's submit, ``fetch`` in the collect path.
     """
 
     def __init__(
         self,
         out_shape: Tuple[int, ...],
         dtype,
-        device: Optional[torch.device] = None,
+        device=None,
         mode: str = "streamed",
         slots: int = 5,
         stats: Optional[EgressStats] = None,
@@ -108,6 +119,9 @@ class ShardedBatchFetcher:
                              f"got {mode!r}")
         self.out_shape = tuple(out_shape)
         self.dtype = np.dtype(dtype)
+        self.sharding = device if isinstance(device, NamedSharding) else None
+        if self.sharding is not None:
+            device = self.sharding.mesh.first_device
         self.device = None if device is None else torch.device(device)
         self.mode = mode
         self.slots = max(1, slots)
@@ -115,11 +129,16 @@ class ShardedBatchFetcher:
         self.track = track
         self.chaos = chaos  # resilience.chaos.FaultPlan — the "d2h" site
         #   fires per batch fetch when armed
-        self.stream = stream
+        self._streams = stream  # a stream, or a function of the device
+        self.stream = (None if self.device is None
+                       else self.stream_for(self.device))  # the first
+        #   device's D2H stream (None on the CPU)
         self.stats = stats if stats is not None else EgressStats(
             requested_mode=mode)
         self._pool: Optional[List[torch.Tensor]] = None
         self._views: List[np.ndarray] = []
+        self._staging: List[List[Optional[torch.Tensor]]] = []  # per slot
+        #   and output block: the pinned slab an H-splitting block lands in
         self.effective_mode = self._plan()
         self.stats.effective_mode = self.effective_mode
         _LIVE_FETCHERS.add(self)
@@ -129,7 +148,13 @@ class ShardedBatchFetcher:
         after :meth:`release` and on the monolithic path."""
         if self._pool is None:
             return 0
-        return sum(t.numel() * t.element_size() for t in self._pool)
+        extra = [t for slot in self._staging for t in slot if t is not None]
+        return sum(t.numel() * t.element_size() for t in self._pool + extra)
+
+    def stream_for(self, device: torch.device):
+        if device.type != "cuda" or self._streams is None:
+            return None
+        return self._streams(device) if callable(self._streams) else self._streams
 
     def _plan(self) -> str:
         if self.mode == "monolithic" or self.device is None:
@@ -142,15 +167,25 @@ class ShardedBatchFetcher:
             self.stats.fallback_reason = "cheap_transfer"
             return "monolithic"
         tdt = _torch_dtype(self.dtype)
-        self._pool = [torch.empty(self.out_shape, dtype=tdt,
-                                  pin_memory=self.device.type == "cuda")
+        pin = self.device.type == "cuda"
+        self._pool = [torch.empty(self.out_shape, dtype=tdt, pin_memory=pin)
                       for _ in range(self.slots)]
         self._views = [host_array(t) for t in self._pool]
+        if self.sharding is not None:
+            self._staging = [
+                [None if self._pool[0][blk.index].is_contiguous()
+                 else torch.empty(self._pool[0][blk.index].shape, dtype=tdt,
+                                  pin_memory=pin)
+                 for blk in self.sharding.shards(self.out_shape)]
+                for _ in range(self.slots)]
         self.stats.pool_allocs += 1
         return "streamed"
 
     def _streamable(self, result: Any) -> bool:
         y = getattr(result, "device", None)
+        if self.sharding is not None and not (
+                isinstance(y, ShardedBatch) and y.sharding == self.sharding):
+            return False
         return (self._pool is not None  # released mid-flight (degradation):
                 #   fall back per batch, never write into freed slabs
                 and y is not None
@@ -170,12 +205,36 @@ class ShardedBatchFetcher:
             return
         y = result.device
         slab = self._pool[slot % self.slots]
+        if self.sharding is not None:
+            self._prefetch_blocks(result, y, slot % self.slots)
+            return
         self.stream.wait_event(result.compute_event)
         y.record_stream(self.stream)  # the allocator must not hand y's
         #   memory to the next batch while this copy still reads it
         with torch.cuda.stream(self.stream):
             slab.copy_(y, non_blocking=True)
         result.host, result._event = slab, record_event(self.stream)
+
+    def _prefetch_blocks(self, result: Any, y: ShardedBatch, i: int) -> None:
+        slab = self._pool[i]
+        scatter, used = [], []
+        for k, (blk, t) in enumerate(zip(y.blocks, y.shards)):
+            view = slab[blk.index]
+            staged = self._staging[i][k]
+            dst = view if staged is None else staged
+            st = self.stream_for(t.device)
+            if st is None:
+                dst.copy_(t)
+            else:
+                st.wait_event(result.compute_event.on(t.device))
+                t.record_stream(st)  # see prefetch
+                with torch.cuda.stream(st):
+                    dst.copy_(t, non_blocking=True)
+                used.append(t.device)
+            if staged is not None:
+                scatter.append((view, staged))
+        result.host, result._event = slab, EventGroup.record(used, self.stream_for)
+        result._scatter = scatter
 
     # -- collect side ---------------------------------------------------
 
@@ -188,7 +247,7 @@ class ShardedBatchFetcher:
         if not self._streamable(result):
             wait_compute(result)
             y = result.device
-            if self.stream is not None:
+            if self.stream is not None and self.sharding is None:
                 with torch.cuda.stream(self.stream):
                     out = host_array(y.cpu())
             else:
@@ -209,11 +268,15 @@ class ShardedBatchFetcher:
                 # Not prefetched here (the fetcher was rebuilt between the
                 # batch's submit and its collect): start the copy now.
                 self.prefetch(result, slot)
-            result._event.synchronize()
+            result.wait_host()
             t1 = time.perf_counter()
         else:
             t1 = time.perf_counter()
-            self._pool[i].copy_(result.device)  # CPU: the copy itself
+            if self.sharding is not None:  # CPU: the copies themselves
+                self._prefetch_blocks(result, result.device, i)
+                result.wait_host()
+            else:
+                self._pool[i].copy_(result.device)
         t2 = time.perf_counter()
         tracer = self.tracer
         if tracer is not None and tracer.enabled:
@@ -238,6 +301,7 @@ class ShardedBatchFetcher:
         A copy in flight keeps its own reference to its slab."""
         self._pool = None
         self._views = []
+        self._staging = []
 
 
 class _EncodeEntry:

@@ -1,5 +1,5 @@
-"""Device engine: batched filter execution on one device (port of the
-single-device path of ``dvf_tpu.runtime.engine``).
+"""Device engine: batched filter execution on one device or over a mesh
+(port of ``dvf_tpu.runtime.engine``).
 
 ``submit`` takes a uint8 NHWC batch from host memory (pinned, on the
 pipeline's path) and:
@@ -45,23 +45,46 @@ freed-bytes counter. The compile-cache helpers
 (:func:`enable_compilation_cache`) arm the kernel-build cache, the port's
 counterpart of XLA's persistent compilation cache. ``cost_analysis``
 counts the compiled step's work from the filter and the signature
-(``runtime.cost``). Not ported yet: the mesh and halo routing.
+(``runtime.cost``).
+
+``Engine(filt, mesh=m)`` spans a mesh (``parallel.mesh``) from one
+process. ``compile`` asks the filter for its mesh body (``specialize``),
+routes stencils through the explicit halo exchange on an H-sharded mesh
+(``parallel.halo``) and picks the batch layout (``input_sharding``).
+Each block of a batch crosses the host link on its own device's H2D
+stream and the step runs per block on each device's current stream (or
+inside the mesh body); the compute event is an ``EventGroup`` with one
+event per device, and the output comes back per block on each device's
+D2H stream. A filter's state is placed by its ``state_pspecs``; a state
+carried through the batch in order, with no mesh body, keeps the batch
+whole on the mesh's first device.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
+import sys
 import threading
 import time
-from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
+from dvf_tpu_torch.parallel.halo import spatial_filter
+from dvf_tpu_torch.parallel.mesh import NamedSharding, P, batch_pspec, batch_sharding
+from dvf_tpu_torch.parallel.sharded import (
+    EventGroup,
+    PlacedTree,
+    ShardedBatch,
+    on_streams,
+    place_tree,
+    shard_batch,
+)
 from dvf_tpu_torch.utils.image import to_float, to_uint8
 
 # compile()-time D2H and step calibrations are skipped above this size —
@@ -128,10 +151,12 @@ def record_event(stream) -> Optional[torch.cuda.Event]:
 
 
 def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a state pytree (dicts, lists, tuples, tensors), in
-    a fixed order (dict keys sorted)."""
+    """The tensors of a state pytree (dicts, lists, tuples, tensors, a
+    mesh's placed tree), in a fixed order (dict keys sorted)."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if hasattr(tree, "tensors"):  # parallel.sharded.PlacedTree
+        return tree.tensors()
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -168,6 +193,69 @@ def _build_step(filt: Filter, out_uint8: bool):
     return step
 
 
+def _build_mesh_step(filt: Filter, out_uint8: bool):
+    """The per-batch program over a mesh: ``(ShardedBatch, state) ->
+    (ShardedBatch, state)``, in the same layout. A mesh body (a filter
+    with ``sharding``) takes the whole sharded batch; any other body runs
+    once per block on the block's device — with the block's share of a
+    placed state (``state_pspecs``), or with the whole state when the
+    layout is a single block (a threaded state keeps the batch whole).
+    The casts run per block; every block stays contiguous, as the kernel
+    wrappers need."""
+
+    def pre(t: torch.Tensor) -> torch.Tensor:
+        if t.dtype == torch.uint8 and not filt.uint8_ok:
+            return to_float(t, filt.compute_dtype)
+        return t
+
+    def step(xs: "ShardedBatch", state: Any):
+        x = xs.map(pre)
+        if filt.sharding is not None:
+            y, state = filt.fn(x, state)
+            outs = y.shards
+        elif isinstance(state, PlacedTree):
+            outs = [filt.fn(t, state.local(blk.pos))[0]
+                    for blk, t in zip(x.blocks, x.shards)]
+        else:
+            outs = []
+            for t in x.shards:
+                o, state = filt.fn(t, state)
+                outs.append(o)
+        fixed = []
+        for o, xin in zip(outs, xs.shards):
+            if out_uint8 and o.dtype != torch.uint8:
+                o = to_uint8(o)
+            if o.untyped_storage().data_ptr() == xin.untyped_storage().data_ptr():
+                o = o.clone()  # see _build_step: the input is a staging buffer
+            fixed.append(o)
+        return ShardedBatch(fixed, xs.sharding,
+                            xs.sharding.global_shape(fixed[0].shape)), state
+
+    return step
+
+
+def _download(out, dst: torch.Tensor) -> None:
+    """Copy a step's output into a host tensor on the current stream(s):
+    one copy, or on a mesh one per block (a block whose rows are not
+    contiguous in ``dst`` is copied blocking)."""
+    if isinstance(out, torch.Tensor):
+        dst.copy_(out, non_blocking=True)
+        return
+    for blk, t in zip(out.blocks, out.shards):
+        view = dst[blk.index]
+        view.copy_(t, non_blocking=view.is_contiguous())
+
+
+def _side_stream(streams: Dict[torch.device, "torch.cuda.Stream"],
+                 device: torch.device) -> Optional["torch.cuda.Stream"]:
+    if device.type != "cuda":
+        return None
+    s = streams.get(device)
+    if s is None:
+        s = streams[device] = torch.cuda.Stream(device)
+    return s
+
+
 # One compile stream per CUDA device, shared by every engine's compile:
 # warm-up and calibration work runs there and compile() waits on events
 # recorded there — never on the device as a whole, which would make a
@@ -200,13 +288,27 @@ class BatchResult:
                  device: Optional[torch.Tensor] = None,
                  compute_event: Optional[torch.cuda.Event] = None):
         self.host = host
-        self.device = device
-        self.compute_event = compute_event
+        self.device = device  # a ShardedBatch on a mesh engine
+        self.compute_event = compute_event  # an EventGroup on a mesh
         self._event = event
+        self._scatter: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        #   (host view, pinned staging) pairs of a mesh batch's blocks
+        #   that are not contiguous in ``host`` (H-sharded): each block
+        #   crossed the link into its own staging buffer and lands in its
+        #   rows of ``host`` once the copies are done
 
     def is_ready(self) -> bool:
         ev = self._event if self.host is not None else self.compute_event
         return ev is None or ev.query()
+
+    def wait_host(self) -> torch.Tensor:
+        """Wait for the device→host copies and return ``host``, whole."""
+        if self._event is not None:
+            self._event.synchronize()
+        for dst, staged in self._scatter:
+            dst.copy_(staged)
+        self._scatter = []
+        return self.host
 
     def fetch(self) -> np.ndarray:
         """Wait for the device→host copy; the output as a numpy view of
@@ -214,9 +316,7 @@ class BatchResult:
         if self.host is None:
             raise RuntimeError("batch was submitted with fetch=False: no "
                                "host copy exists")
-        if self._event is not None:
-            self._event.synchronize()
-        return host_array(self.host)
+        return host_array(self.wait_host())
 
 
 def wait_compute(result) -> None:
@@ -237,16 +337,39 @@ class EngineStats:
 
 
 class Engine:
-    """Runs one filter on one device at one batch signature."""
+    """Runs one filter on one device, or over a mesh, at one batch
+    signature.
+
+    ``Engine(filt)`` runs on ``cuda:0`` (the reference's default spans
+    every device; the port's stays one card until the worker's codec
+    assist runs over a sharded batch). ``Engine(filt, mesh=m)`` spans
+    ``m``: ``device`` is the mesh's first device, and a ``device`` given
+    beside a mesh must be that device. A one-device mesh runs the
+    single-device path."""
 
     def __init__(self, filt: Filter,
                  device: Union[None, str, torch.device] = None,
                  out_uint8: bool = True,
                  chaos=None,
                  calibration_seed: Optional[dict] = None,
-                 op_chain: Optional[str] = None):
+                 op_chain: Optional[str] = None,
+                 mesh=None):
         self.filter = filt
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.first_device
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(
+                    f"device {device} and mesh disagree: the mesh's first "
+                    f"device is {first}")
+            self.device = resolve_device(first)
+        else:
+            self.device = resolve_device(device)
+        self._meshed = mesh is not None and mesh.size > 1
+        self._exec_filter: Filter = filt  # the body compile() picked:
+        #   the filter, its mesh specialisation, or its halo wrapper
+        self._sharding = None  # the batch layout over the mesh (None off
+        #   a mesh), set by compile(): what the ingest lays its blocks out by
         self.out_uint8 = out_uint8
         self.op_chain = op_chain if op_chain is not None else filt.name
         #   the signature-key spelling of what this engine computes
@@ -281,8 +404,14 @@ class Engine:
         self.freed = False  # set by free(): no state, no further submits
         self.out_shape: Optional[Tuple[int, ...]] = None  # set by compile()
         self.out_dtype: Optional[np.dtype] = None
-        self._h2d: Optional[torch.cuda.Stream] = None
-        self._d2h: Optional[torch.cuda.Stream] = None
+        self._h2d: Dict[torch.device, torch.cuda.Stream] = {}
+        self._d2h: Dict[torch.device, torch.cuda.Stream] = {}
+        # The engine's copy stream on a device (None on the CPU), one per
+        # device it spans. Plain functions over the stream tables, not
+        # bound methods: the assemblers and fetchers that hold them must
+        # not keep the engine (and its device state) alive.
+        self.h2d_stream_for = functools.partial(_side_stream, self._h2d)
+        self.d2h_stream_for = functools.partial(_side_stream, self._d2h)
         # Double-buffered hot swap: a successor compiled aside waits in
         # _staged until commit_swap adopts it; _preparing latches
         # concurrent prepares of one successor signature onto one compile.
@@ -316,33 +445,127 @@ class Engine:
 
     @property
     def h2d_stream(self) -> Optional[torch.cuda.Stream]:
-        """The engine's host→device copy stream (None on the CPU)."""
-        if self._h2d is None and self.on_cuda:
-            self._h2d = torch.cuda.Stream(self.device)
-        return self._h2d
+        """The engine's host→device copy stream (None on the CPU); on a
+        mesh, its first device's (``h2d_stream_for`` gives the others)."""
+        return self.h2d_stream_for(self.device)
 
     @property
     def d2h_stream(self) -> Optional[torch.cuda.Stream]:
         """The engine's device→host copy stream (None on the CPU)."""
-        if self._d2h is None and self.on_cuda:
-            self._d2h = torch.cuda.Stream(self.device)
-        return self._d2h
+        return self.d2h_stream_for(self.device)
 
-    def _compute_stream(self):
-        return torch.cuda.current_stream(self.device) if self.on_cuda else None
+    @property
+    def placement(self):
+        """Where a batch for this engine goes: its device, or on a mesh
+        the compiled input sharding (what the streamed ingest and egress
+        lay their blocks out by)."""
+        return self._sharding if self._meshed else self.device
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """Every distinct device the engine spans."""
+        return self.mesh.distinct_devices() if self._meshed else [self.device]
+
+    @property
+    def input_sharding(self):
+        """The batch layout the compiled step expects (None off a mesh and
+        before the first compile); may differ from the plain
+        ``batch_sharding`` when H is replicated or a mesh body owns it."""
+        return self._sharding if self._meshed else None
+
+    @property
+    def output_sharding(self):
+        """The compiled step's output layout (the input's: blocks keep
+        their place, a geometry-changing filter only scales them)."""
+        return self.input_sharding
+
+    def _compute_stream(self, device: Optional[torch.device] = None):
+        device = self.device if device is None else device
+        return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+    def _mesh_exec_filter(self, shape: Tuple[int, ...]) -> Filter:
+        """Choose the body and the batch layout for a signature on a mesh:
+        the filter's own mesh specialisation first (a tensor-parallel
+        forward on a model axis), then the H-axis halo routing."""
+
+        self._sharding = batch_sharding(self.mesh, shape)
+        base = self.filter
+        if base.specialize is not None:
+            specialized = base.specialize(self.mesh, shape)
+            if specialized is not None:
+                base = specialized
+        ef = self._pick_exec_filter(base, shape)
+        if ef.sharding is not None:
+            self._sharding = ef.sharding
+        elif ef.stateful and ef.state_pspecs is None:
+            # A threaded state runs through the batch in order: the
+            # batch stays one block, on the mesh's first device.
+
+            print(f"[engine] filter {ef.name!r} carries its state through "
+                  f"the batch in order and has no mesh body; the batch "
+                  f"stays whole on {self.device}", file=sys.stderr)
+            self._sharding = NamedSharding(self.mesh, P())
+        return ef
+
+    def _pick_exec_filter(self, filt: Filter, batch_shape) -> Filter:
+        """Choose the executed filter and H-axis layout for this signature.
+
+        On an H-sharded mesh stencil filters run through the explicit halo
+        exchange (``parallel.halo.spatial_filter``). Pointwise filters
+        (halo == 0) need no halo and keep H sharded; a mesh body owns its
+        layout. Filters that cannot halo-exchange (stateful, unknown
+        radius, slab thinner than the radius) keep H replicated, with a
+        line on stderr."""
+
+        pspec = batch_pspec(self.mesh, batch_shape)
+        if filt.sharding is not None or pspec[1] != "space" or filt.halo == 0:
+            return filt
+        n_space = self.mesh.axis_size("space")
+        can_halo = (
+            not filt.stateful
+            and filt.halo is not None
+            and batch_shape[1] // n_space > filt.halo
+        )
+        if can_halo:
+            return spatial_filter(filt, self.mesh,
+                                  data_sharded=(pspec[0] == "data"))
+        print(
+            f"[engine] filter {filt.name!r} can't halo-shard H "
+            f"(stateful={filt.stateful}, halo={filt.halo}, "
+            f"H={batch_shape[1]}, space={n_space}); replicating H",
+            file=sys.stderr,
+        )
+        self._sharding = NamedSharding(self.mesh, P(pspec[0], None, None, None))
+        return filt
+
+    def upload(self, host: torch.Tensor):
+        """Host → device on the current stream(s): the whole batch, or on
+        a mesh each block to its device."""
+        if self._meshed:
+
+            return shard_batch(host, self._sharding, non_blocking=True)
+        return host.to(self.device, non_blocking=True)
 
     def _fresh_state(self, batch_shape, dtype) -> Any:
-        f = self.filter
+        f = self._exec_filter
         if not f.stateful:
             return None
         state_dtype = (f.compute_dtype
                        if np.dtype(dtype) == np.uint8 and not f.uint8_ok
                        else _torch_dtype(dtype))
-        return f.init_state(tuple(batch_shape), state_dtype, self.device)
+        state = f.init_state(tuple(batch_shape), state_dtype, self.device)
+        if self._meshed and f.state_pspecs is not None:
+
+            state = place_tree(state, self.mesh, f.state_pspecs())
+        return state
 
     def _put(self, host: torch.Tensor) -> torch.Tensor:
         """Host → device on the H2D stream; the compute stream waits for
-        it. On the CPU the batch is used as it is."""
+        it. On the CPU the batch is used as it is. On a mesh each block
+        crosses on its own device's H2D stream (a block whose rows are not
+        contiguous in ``host`` is gathered into host memory first)."""
+        if self._meshed:
+            return self._put_blocks(host)
         if not self.on_cuda:
             return host
         h2d = self.h2d_stream
@@ -352,6 +575,49 @@ class Engine:
         compute.wait_event(record_event(h2d))
         x.record_stream(compute)
         return x
+
+    def _put_blocks(self, host: torch.Tensor) -> ShardedBatch:
+        out = []
+        for blk in self._sharding.shards(host.shape):
+            piece = host[blk.index]
+            if not piece.is_contiguous():
+                piece = piece.contiguous()
+            dev = blk.device
+            if dev.type != "cuda":
+                out.append(piece if piece.device == dev else piece.to(dev))
+                continue
+            h2d = self.h2d_stream_for(dev)
+            with torch.cuda.stream(h2d):
+                x = piece.to(dev, non_blocking=True)
+            compute = self._compute_stream(dev)
+            compute.wait_event(record_event(h2d))
+            x.record_stream(compute)
+            out.append(x)
+        return ShardedBatch(out, self._sharding, host.shape)
+
+    def _copy_out_blocks(self, y, out: torch.Tensor, compute_event):
+        """Device → host per block on each device's D2H stream after that
+        device's compute event. Returns (event group, scatter pairs): a
+        block whose rows are not contiguous in ``out`` (H-sharded) lands
+        in a pinned staging buffer, one copy per block, and reaches
+        ``out`` in ``BatchResult.wait_host``."""
+        scatter = []
+        for blk, t in zip(y.blocks, y.shards):
+            view = out[blk.index]
+            if t.device.type != "cuda":
+                view.copy_(t)
+                continue
+            d2h = self.d2h_stream_for(t.device)
+            d2h.wait_event(compute_event.on(t.device))
+            t.record_stream(d2h)
+            dst = view
+            if not view.is_contiguous():
+                dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                scatter.append((view, dst))
+            with torch.cuda.stream(d2h):
+                dst.copy_(t, non_blocking=True)
+        return EventGroup.record([t.device for t in y.shards],
+                                 self.d2h_stream_for), scatter
 
     def _copy_out(self, y: torch.Tensor, out: torch.Tensor,
                   compute_event) -> Optional[torch.cuda.Event]:
@@ -396,24 +662,28 @@ class Engine:
                   and isinstance(seed.get("h2d_block_ms"), (int, float))
                   and isinstance(seed.get("step_block_ms"), (int, float)))
         self.calibration_seeded = seeded
-        cs = _compile_stream(self.device) if self.on_cuda else None
-        self._step = _build_step(self.filter, self.out_uint8)
+        if self._meshed:
+            self._exec_filter = self._mesh_exec_filter(shape)
+            self._step = _build_mesh_step(self._exec_filter, self.out_uint8)
+        else:
+            self._exec_filter = self.filter
+            self._step = _build_step(self.filter, self.out_uint8)
+        streams = [_compile_stream(d) for d in self.devices if d.type == "cuda"]
 
         def wait_own() -> None:
-            if cs is not None:
+            for cs in streams:
                 record_event(cs).synchronize()
 
-        with torch.no_grad(), (torch.cuda.stream(cs) if cs is not None
-                               else nullcontext()):
+        with torch.no_grad(), on_streams(streams):
             state = self._fresh_state(shape, dtype)
-            warm = zeros.to(self.device, non_blocking=True)
+            warm = self.upload(zeros)
             wait_own()
             if seeded:
                 self.h2d_block_ms = float(seed["h2d_block_ms"])
             else:
                 del warm
                 t0 = time.perf_counter()
-                warm = zeros.to(self.device, non_blocking=True)
+                warm = self.upload(zeros)
                 wait_own()
                 self.h2d_block_ms = (time.perf_counter() - t0) * 1e3
             out, _ = self._step(warm, state)
@@ -430,7 +700,7 @@ class Engine:
                                   pin_memory=self.on_cuda)
                 dst.fill_(0)
                 t0 = time.perf_counter()
-                dst.copy_(out, non_blocking=True)
+                _download(out, dst)
                 wait_own()
                 self.d2h_block_ms = (time.perf_counter() - t0) * 1e3
                 del dst
@@ -469,10 +739,14 @@ class Engine:
             self.chaos.fire("compute")
 
     def _run(self, x: torch.Tensor):
-        """The step on the compute stream; returns (output, compute event)."""
+        """The step on the compute stream; returns (output, compute event:
+        on a mesh an EventGroup, one event per device)."""
         y, self._state = self._step(x, self._state)
         self.stats.batches += 1
         self.stats.frames += x.shape[0]
+        if self._meshed:
+
+            return y, EventGroup.record(self.devices, self._compute_stream)
         return y, record_event(self._compute_stream())
 
     def submit(self, batch: Union[np.ndarray, torch.Tensor],
@@ -493,16 +767,22 @@ class Engine:
             raise ValueError(f"submit takes a host batch, got one on {host.device}")
         self._enter_submit(host.shape, _torch_to_np(host.dtype))
         event = None
+        scatter = []
         with torch.no_grad():
             y, cev = self._run(self._put(host))
             if fetch:
                 if out is None:
                     out = torch.empty(y.shape, dtype=y.dtype,
                                       pin_memory=self.on_cuda)
-                event = self._copy_out(y, out, cev)
+                if self._meshed:
+                    event, scatter = self._copy_out_blocks(y, out, cev)
+                else:
+                    event = self._copy_out(y, out, cev)
             else:
                 out = None
-        return BatchResult(out, event, device=y, compute_event=cev)
+        result = BatchResult(out, event, device=y, compute_event=cev)
+        result._scatter = scatter
+        return result
 
     def submit_resident(self, batch: torch.Tensor,
                         ready: Optional[torch.cuda.Event] = None) -> BatchResult:
@@ -511,7 +791,13 @@ class Engine:
         :meth:`submit` is skipped. ``ready`` is the event recorded after
         the last chunk's copy; the compute stream waits for it before the
         step reads ``batch``. State threading, chaos sites and stats are
-        those of :meth:`submit`. The result carries no host copy."""
+        those of :meth:`submit`. The result carries no host copy.
+
+        On a mesh ``batch`` is a ShardedBatch in the compiled input layout
+        (``input_sharding``) and ``ready`` an EventGroup: each device's
+        compute stream waits for its own event."""
+        if self._meshed:
+            return self._submit_resident_blocks(batch, ready)
         if batch.device != self.device:
             raise ValueError(f"submit_resident takes a batch on {self.device}, "
                              f"got one on {batch.device}")
@@ -522,6 +808,25 @@ class Engine:
                 if ready is not None:
                     compute.wait_event(ready)
                 batch.record_stream(compute)
+            y, cev = self._run(batch)
+        return BatchResult(None, None, device=y, compute_event=cev)
+
+    def _submit_resident_blocks(self, batch, ready) -> BatchResult:
+        if not isinstance(batch, ShardedBatch):
+            raise ValueError("submit_resident on a mesh takes a ShardedBatch "
+                             "in the engine's input_sharding")
+        self._enter_submit(batch.shape, _torch_to_np(batch.dtype))
+        if batch.sharding != self._sharding:
+            raise ValueError(f"batch laid out as {batch.sharding.spec}, the "
+                             f"compiled step takes {self._sharding.spec}")
+        with torch.no_grad():
+            for t in batch.shards:
+                if t.device.type == "cuda":
+                    compute = self._compute_stream(t.device)
+                    ev = ready.on(t.device) if ready is not None else None
+                    if ev is not None:
+                        compute.wait_event(ev)
+                    t.record_stream(compute)
             y, cev = self._run(batch)
         return BatchResult(None, None, device=y, compute_event=cev)
 
@@ -551,7 +856,12 @@ class Engine:
                 f"match the compiled signature {self._signature}")
         host = host_tensor(batch)
         with torch.no_grad():
-            y, _ = self._step(host.to(self.device), None)
+            if self._meshed:
+
+                x = shard_batch(host, self._sharding)
+            else:
+                x = host.to(self.device)
+            y, _ = self._step(x, None)
             return host_array(y.cpu())
 
     def cost_analysis(self) -> Optional[dict]:
@@ -583,7 +893,8 @@ class Engine:
         so the replacement is warmed and re-calibrated before it takes
         traffic. A stateful filter's state restarts fresh."""
         fresh = Engine(self.filter, device=self.device, out_uint8=self.out_uint8,
-                       chaos=self.chaos, op_chain=self.op_chain)
+                       chaos=self.chaos, op_chain=self.op_chain,
+                       mesh=self.mesh)
         if self._signature is not None:
             shape, dtype = self._signature
             fresh.compile(shape, dtype)
@@ -639,7 +950,7 @@ class Engine:
                 #   failure — the old program must keep serving
             succ = Engine(self.filter, device=self.device,
                           out_uint8=self.out_uint8, chaos=self.chaos,
-                          op_chain=self.op_chain)
+                          op_chain=self.op_chain, mesh=self.mesh)
             succ.compile(tuple(batch_shape), dtype)
         except BaseException:
             with self._swap_lock:
@@ -706,7 +1017,8 @@ class Engine:
             except BaseException:
                 succ.free()
                 raise
-            for name in ("_step", "_signature", "_state", "out_shape",
+            for name in ("_step", "_signature", "_state", "_exec_filter",
+                         "_sharding", "out_shape",
                          "out_dtype", "h2d_block_ms", "d2h_block_ms",
                          "step_block_ms", "last_compile_ms", "state_bytes"):
                 setattr(self, name, getattr(succ, name))

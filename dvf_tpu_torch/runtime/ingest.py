@@ -1,5 +1,5 @@
 """Streamed batch ingest: overlap host staging, H2D and compute (port of
-``dvf_tpu.runtime.ingest`` for one device).
+``dvf_tpu.runtime.ingest``).
 
 The monolithic path stages the whole batch on the host and then ships it
 as one host→device copy before compute can start. Here frames are staged
@@ -21,6 +21,17 @@ device batch replaces the reference's on-device concatenation of the
 parts: there is no extra device copy. ``finish`` records the event after
 the last chunk; ``Engine.submit_resident(batch, ready=...)`` makes the
 compute stream wait for it.
+
+On a mesh the assembler takes the engine's input sharding in place of a
+device (``Engine.placement``) and plans from its blocks, as the
+reference plans from ``devices_indices_map``: each block owns a
+contiguous device buffer per slot, the rows of each data block are cut
+into ``min(depth, rows)`` chunks, and a chunk's copy sends its rows of
+every block of that data block to the block's device on that device's
+H2D stream (``stream`` is then ``Engine.h2d_stream_for``). A block that
+splits H is gathered into its own pinned slab first (one host copy), so
+every host→device copy reads contiguous pinned memory. ``finish`` hands
+over a ``ShardedBatch`` and an ``EventGroup``.
 
 ``depth`` bounds the chunk copies in flight: beyond it the builder waits
 for the oldest chunk's event, and that wait is ``wait_ms``. On the CPU the
@@ -51,6 +62,8 @@ import torch
 from dvf_tpu_torch.obs.metrics import IngestStats
 from dvf_tpu_torch.obs.trace import INGEST_H2D, INGEST_OVERLAP, INGEST_STAGE
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind
+from dvf_tpu_torch.parallel.mesh import NamedSharding
+from dvf_tpu_torch.parallel.sharded import EventGroup, ShardedBatch
 from dvf_tpu_torch.runtime.engine import _torch_dtype, host_array, record_event
 
 INGEST_MODES = ("streamed", "monolithic")
@@ -82,16 +95,18 @@ class ShardedBatchAssembler:
     """Stages batches into pinned slabs and streams them to the device.
 
     One assembler per batch signature; ``begin(slot)`` yields a
-    :class:`BatchBuilder` for one batch. ``device`` is the engine's device
-    (None: monolithic, as the reference with no sharding); ``stream`` the
-    engine's H2D stream (``Engine.h2d_stream``; None on the CPU).
+    :class:`BatchBuilder` for one batch. ``device`` is the engine's device,
+    or its input sharding on a mesh (``Engine.placement``; None:
+    monolithic, as the reference with no sharding); ``stream`` the
+    engine's H2D stream (``Engine.h2d_stream``; None on the CPU), or a
+    function of the device on a mesh (``Engine.h2d_stream_for``).
     """
 
     def __init__(
         self,
         batch_shape: Tuple[int, ...],
         dtype,
-        device: Optional[torch.device] = None,
+        device=None,
         mode: str = "streamed",
         depth: int = 4,
         slots: int = 5,
@@ -108,6 +123,9 @@ class ShardedBatchAssembler:
             raise ValueError("ingest depth must be >= 1")
         self.batch_shape = tuple(batch_shape)
         self.dtype = np.dtype(dtype)
+        self.sharding = device if isinstance(device, NamedSharding) else None
+        if self.sharding is not None:
+            device = self.sharding.mesh.first_device
         self.device = None if device is None else torch.device(device)
         self.mode = mode
         self.depth = depth
@@ -121,9 +139,15 @@ class ShardedBatchAssembler:
             requested_mode=mode, depth=depth)
         self._chunks: List[Tuple[int, int]] = []   # row ranges
         self._chunk_of_row: List[int] = []
+        self._chunk_blocks: List[List[int]] = []   # blocks each chunk feeds
         self._host: Optional[List[torch.Tensor]] = None   # per slot
         self._views: Optional[List[np.ndarray]] = None    # their numpy views
-        self._dev: Optional[List[torch.Tensor]] = None    # per slot
+        self._dev: Optional[List[List[torch.Tensor]]] = None  # per slot,
+        #   one device buffer per block (one block off a mesh)
+        self._gather: Optional[List[List[Optional[torch.Tensor]]]] = None
+        #   per slot and block: the pinned slab an H-splitting block is
+        #   gathered into before its copy (None: its rows are contiguous)
+        self._blocks = []  # the layout's blocks: (device, index)
         self.effective_mode = self._plan()
         self.stats.effective_mode = self.effective_mode
         self.stats.pool_allocs += 1
@@ -133,12 +157,18 @@ class ShardedBatchAssembler:
     def _pin(self) -> bool:
         return self.device is not None and self.device.type == "cuda"
 
+    def stream_for(self, device: torch.device):
+        if device.type != "cuda" or self.stream is None:
+            return None
+        return self.stream(device) if callable(self.stream) else self.stream
+
     def slab_bytes(self) -> int:
         """Host staging memory this assembler currently holds — 0 after
         :meth:`release`."""
         if self._host is None:
             return 0
-        return sum(t.numel() * t.element_size() for t in self._host)
+        extra = [t for slot in (self._gather or []) for t in slot if t is not None]
+        return sum(t.numel() * t.element_size() for t in list(self._host) + extra)
 
     def _plan(self) -> str:
         tdt = _torch_dtype(self.dtype)
@@ -152,20 +182,43 @@ class ShardedBatchAssembler:
             self.stats.fallback_reason = "cheap_transfer"
             return "monolithic"
         b = self.batch_shape[0]
-        n = min(self.depth, b)
-        bounds = [(b * i) // n for i in range(n)] + [b]
-        self._chunks = list(zip(bounds, bounds[1:]))
+        full = tuple(slice(0, n) for n in self.batch_shape)
+        if self.sharding is None:
+            self._blocks = [(self.device, full)]
+        else:
+            self._blocks = [(blk.device, blk.index)
+                            for blk in self.sharding.shards(self.batch_shape)]
+        # The data blocks' row ranges, each cut into up to `depth` chunks.
+        ranges = sorted({(idx[0].start, idx[0].stop) for _, idx in self._blocks})
+        self._chunks, self._chunk_blocks = [], []
+        for b0, b1 in ranges:
+            rows = b1 - b0
+            n = min(self.depth, rows)
+            bounds = [b0 + (rows * i) // n for i in range(n)] + [b1]
+            feeds = [k for k, (_, idx) in enumerate(self._blocks)
+                     if idx[0].start == b0]
+            for s, e in zip(bounds, bounds[1:]):
+                self._chunks.append((s, e))
+                self._chunk_blocks.append(feeds)
         self._chunk_of_row = [0] * b
         for i, (s, e) in enumerate(self._chunks):
             for r in range(s, e):
                 self._chunk_of_row[r] = i
-        self._dev = [torch.empty(self.batch_shape, dtype=tdt, device=self.device)
+        self._dev = [[torch.empty(_extent(idx), dtype=tdt, device=dev)
+                      for dev, idx in self._blocks]
                      for _ in range(self.slots)]
-        if self.stream is not None:
-            # The H2D stream writes these: when they are freed, the
-            # allocator waits for its work before it reuses the memory.
-            for t in self._dev:
-                t.record_stream(self.stream)
+        self._gather = [[None if _rows_contiguous(idx, self.batch_shape)
+                         else torch.empty(_extent(idx), dtype=tdt,
+                                          pin_memory=dev.type == "cuda")
+                         for dev, idx in self._blocks]
+                        for _ in range(self.slots)]
+        for slot in self._dev:
+            for (dev, _), t in zip(self._blocks, slot):
+                st = self.stream_for(dev)
+                if st is not None:
+                    # The H2D stream writes these: when they are freed, the
+                    # allocator waits for its work before it reuses them.
+                    t.record_stream(st)
         return "streamed"
 
     def begin(self, slot: int) -> "BatchBuilder":
@@ -183,8 +236,20 @@ class ShardedBatchAssembler:
         self._host = None
         self._views = None
         self._dev = None
+        self._gather = None
         self._chunks = []
         self._chunk_of_row = []
+        self._chunk_blocks = []
+
+
+def _extent(idx) -> Tuple[int, ...]:
+    return tuple(i.stop - i.start for i in idx)
+
+
+def _rows_contiguous(idx, shape) -> bool:
+    """Whether a block's rows are contiguous in a C-order batch: every
+    dimension after the batch axis is whole."""
+    return all(i.start == 0 and i.stop == n for i, n in zip(idx[1:], shape[1:]))
 
 
 class BatchBuilder:
@@ -262,14 +327,31 @@ class BatchBuilder:
         t0 = time.perf_counter()
         if self._first_put_t is None:
             self._first_put_t = t0
-        dst = asm._dev[self.slot][s:stop]
+        nbytes = 0
         try:
-            if asm.stream is not None:
-                with torch.cuda.stream(asm.stream):
-                    dst.copy_(self._host[s:stop], non_blocking=True)
+            used = []
+            for k in asm._chunk_blocks[ci]:
+                dev, idx = asm._blocks[k]
+                b0 = idx[0].start
+                dst = asm._dev[self.slot][k][s - b0:stop - b0]
+                staged = asm._gather[self.slot][k]
+                if staged is None:
+                    src = self._host[s:stop]
+                else:
+                    src = staged[s - b0:stop - b0]
+                    src.copy_(self._host[(slice(s, stop),) + tuple(idx[1:])])
+                st = asm.stream_for(dev)
+                if st is not None:
+                    with torch.cuda.stream(st):
+                        dst.copy_(src, non_blocking=True)
+                    used.append(dev)
+                else:
+                    dst.copy_(src)
+                nbytes += dst.numel() * dst.element_size()
+            if asm.sharding is None:
+                ev = record_event(asm.stream_for(asm.device))
             else:
-                dst.copy_(self._host[s:stop])
-            ev = record_event(asm.stream)
+                ev = EventGroup.record(used, asm.stream_for)
         except Exception as e:  # noqa: BLE001 — carry the fault kind so
             # containment classifies this as h2d (and can escalate to the
             # streamed→monolithic fallback) instead of guessing from site.
@@ -281,7 +363,6 @@ class BatchBuilder:
         self._put_s += t1 - t0
         tracer = asm.tracer
         if tracer is not None and tracer.enabled:
-            nbytes = dst.numel() * dst.element_size()
             off = time.time() - time.perf_counter()  # monotonic → wall
             tracer.complete(INGEST_H2D, t0 + off, t1 + off, asm.track,
                             rows=f"{s}:{stop}", bytes=nbytes)
@@ -325,7 +406,12 @@ class BatchBuilder:
                 self._launch(ci)
                 t0 = time.perf_counter()
         self._stage_s += time.perf_counter() - t0
-        self.ready = record_event(self.asm.stream)
+        asm = self.asm
+        if asm.sharding is None:
+            self.ready = record_event(asm.stream_for(asm.device))
+        else:
+            self.ready = EventGroup.record([d for d, _ in asm._blocks],
+                                           asm.stream_for)
         t_end = time.perf_counter()
         tracer = self.asm.tracer
         if tracer is not None and tracer.enabled and self._first_put_t:
@@ -336,7 +422,9 @@ class BatchBuilder:
                             self.asm.track,
                             stage_ms=round(self._stage_s * 1e3, 3))
         self._record(t_end)
-        return self.asm._dev[self.slot], True
+        if asm.sharding is None:
+            return asm._dev[self.slot][0], True
+        return ShardedBatch(asm._dev[self.slot], asm.sharding, asm.batch_shape), True
 
     def _record(self, t_end: float) -> None:
         self.asm.stats.record_batch(

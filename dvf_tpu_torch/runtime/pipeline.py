@@ -405,12 +405,12 @@ class Pipeline:
                 depth=self.config.ingest_depth,
                 h2d_block_ms=self.engine.h2d_block_ms)
             self._assembler = asm = ShardedBatchAssembler(
-                shape, dtype, self.engine.device,
+                shape, dtype, self.engine.placement,
                 mode=self._ingest_mode, depth=self.config.ingest_depth,
                 slots=self.config.max_inflight + 1,
                 tracer=self.tracer, track=TRACK_H2D,
                 stats=self._ingest_stats, chaos=self.config.chaos,
-                stream=self.engine.h2d_stream)
+                stream=self.engine.h2d_stream_for)
             if self._degrade_reason is not None:
                 self._ingest_stats.fallback_reason = self._degrade_reason
         return asm.begin(slot)
@@ -426,12 +426,12 @@ class Pipeline:
                 requested_mode=self.config.egress,
                 d2h_block_ms=self.engine.d2h_block_ms)
             self._fetcher = f = ShardedBatchFetcher(
-                shape, dtype, self.engine.device,
+                shape, dtype, self.engine.placement,
                 mode=self._egress_mode,
                 slots=self.config.max_inflight + 1,
                 stats=self._egress_stats,
                 tracer=self.tracer, track=TRACK_D2H,
-                chaos=self.config.chaos, stream=self.engine.d2h_stream)
+                chaos=self.config.chaos, stream=self.engine.d2h_stream_for)
             if self._egress_degrade_reason is not None:
                 self._egress_stats.fallback_reason = \
                     self._egress_degrade_reason

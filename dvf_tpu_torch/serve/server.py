@@ -555,7 +555,9 @@ class ServeFrontend:
     ):
         """``device`` is where every bucket's engine runs: ``cuda:0``
         when None (raises without CUDA), ``"cpu"`` for the plain torch
-        versions. A caller-built ``engine`` brings its own device."""
+        versions. A caller-built ``engine`` brings its own device, or its
+        mesh (``Engine(filt, mesh=m)``): every bucket's engine then spans
+        that mesh."""
         if filt.stateful:
             raise ValueError(
                 f"filter {filt.name!r} is stateful; a shared batch "
@@ -577,6 +579,8 @@ class ServeFrontend:
         if self.config.chaos is not None and engine.chaos is None:
             engine.chaos = self.config.chaos  # arm caller-built engine
         self.device = engine.device  # every bucket's engine runs here
+        self.mesh = engine.mesh  # ... over this mesh, when the caller's
+        #   engine spans one (None: the one device)
         # Signature buckets: the DEFAULT bucket (index 0) carries the
         # constructor filter/engine and keeps the legacy single-
         # signature behavior (geometry pinned by the first submit or
@@ -1849,7 +1853,7 @@ class ServeFrontend:
                 seed = _pc.load_calibrations(
                     self.config.plan_cache_dir,
                     self._topology_fingerprint(), cal_sig)
-            eng = Engine(filt, device=self.device,
+            eng = Engine(filt, device=self.device, mesh=self.mesh,
                          chaos=self.config.chaos, op_chain=key.op_chain,
                          calibration_seed=seed)
             eng.compile((self.config.batch_size, *key.geometry),
@@ -1911,7 +1915,8 @@ class ServeFrontend:
         the plan/calibration cache's invalidation axis."""
         if self._topology is None:
             from dvf_tpu_torch.control.plan_cache import topology_fingerprint
-            self._topology = topology_fingerprint(self.device)
+            self._topology = topology_fingerprint(
+                self.mesh if self.mesh is not None else self.device)
         return self._topology
 
     def _cal_signature(self, bucket: "_Bucket") -> Optional[str]:
@@ -2975,12 +2980,12 @@ class ServeFrontend:
                 depth=self.config.ingest_depth,
                 h2d_block_ms=bucket.engine.h2d_block_ms)
             bucket.assembler = ShardedBatchAssembler(
-                shape, dtype, bucket.engine.device,
+                shape, dtype, bucket.engine.placement,
                 mode=bucket.ingest_mode, depth=self.config.ingest_depth,
                 slots=self.config.max_inflight + 1,
                 stats=bucket.ingest_stats, chaos=self.config.chaos,
                 tracer=self.tracer, track=TRACK_H2D,
-                stream=bucket.engine.h2d_stream)
+                stream=bucket.engine.h2d_stream_for)
             if bucket.degrade_reason is not None:
                 bucket.ingest_stats.fallback_reason = bucket.degrade_reason
         return bucket.assembler.begin(seq)
@@ -3036,12 +3041,12 @@ class ServeFrontend:
                 requested_mode=self.config.egress,
                 d2h_block_ms=bucket.engine.d2h_block_ms)
             bucket.fetcher = f = ShardedBatchFetcher(
-                shape, bucket.engine.out_dtype, bucket.engine.device,
+                shape, bucket.engine.out_dtype, bucket.engine.placement,
                 mode=bucket.egress_mode,
                 slots=self.config.max_inflight + 1,
                 stats=bucket.egress_stats, chaos=self.config.chaos,
                 tracer=self.tracer, track=TRACK_D2H,
-                stream=bucket.engine.d2h_stream)
+                stream=bucket.engine.d2h_stream_for)
             if bucket.egress_degrade_reason is not None:
                 bucket.egress_stats.fallback_reason = \
                     bucket.egress_degrade_reason

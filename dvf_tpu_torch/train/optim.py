@@ -111,8 +111,8 @@ def single_device(mesh: Any, what: str) -> None:
     """The train steps run on one device, the state's: any mesh raises."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what} over a mesh is the multi-GPU piece of the port (ROADMAP "
-            f"Queue 1 item 4c), not ported yet; pass mesh=None (one device, "
+            f"{what} over a mesh (the sharded train state) is not ported "
+            f"yet (ROADMAP Queue 1 item 4c); pass mesh=None (one device, "
             f"the state's)")
 
 

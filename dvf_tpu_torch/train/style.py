@@ -10,8 +10,8 @@ backward and ``torch.optim.Adam`` in PyTorch's eager idiom. It updates
 the state in place, the port's analogue of the reference's donated
 buffers; ``donate=False`` steps a copy and leaves its input untouched.
 The reference's mesh-sharded form (``state_pspecs``,
-``shard_train_state``, ``train_batch_sharding``) waits for the multi-GPU
-slice.
+``shard_train_state``, ``train_batch_sharding``) waits for ROADMAP Queue 1
+item 4c.
 """
 
 from __future__ import annotations

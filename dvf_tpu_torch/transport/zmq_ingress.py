@@ -201,6 +201,11 @@ class ZmqWorker:
         #   "transport" sites live here; "h2d", "d2h", "compute" and "oom"
         #   ride on the assembler, the fetcher and the engine)
         self.engine = engine or Engine(filt, device=device, chaos=chaos)
+        if self.engine.mesh is not None and self.engine.mesh.size > 1:
+            raise NotImplementedError(
+                "the worker over several devices (its batches and codec "
+                "assist sharded over a mesh) is not ported yet (ROADMAP "
+                "Queue 1 item 4c); give it a one-device engine")
         if chaos is not None and self.engine.chaos is None:
             self.engine.chaos = chaos
         self.wire = wire
@@ -405,7 +410,7 @@ class ZmqWorker:
             self._asm = ShardedBatchAssembler(
                 shape, np.uint8, self.engine.device, mode=self.ingest,
                 depth=self.ingest_depth, slots=1, stats=self._ingest_stats,
-                chaos=self.chaos, stream=self.engine.h2d_stream)
+                chaos=self.chaos, stream=self.engine.h2d_stream_for)
             if self._degrade_reason is not None:
                 self._ingest_stats.fallback_reason = self._degrade_reason
         return self._asm.begin(0)
@@ -424,10 +429,10 @@ class ZmqWorker:
             if f is not None:
                 f.release()
             self._fetcher = f = ShardedBatchFetcher(
-                shape, self.engine.out_dtype, self.engine.device,
+                shape, self.engine.out_dtype, self.engine.placement,
                 mode=self.egress, slots=self.egress_depth + 1,
                 stats=self._egress_stats, chaos=self.chaos,
-                stream=self.engine.d2h_stream)
+                stream=self.engine.d2h_stream_for)
             if self._egress_degrade_reason is not None:
                 self._egress_stats.fallback_reason = self._egress_degrade_reason
             if self._plane is not None:

@@ -94,12 +94,39 @@ def test_bench_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_a_mesh_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        bench_device_resident(get_filter("invert"), 1, 1, 8, 8, mesh=object(),
-                              device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    """A mesh runs: the device-resident bench over a data=2, space=2 mesh
+    of virtual devices (a geometry-keeping and a geometry-changing
+    filter), and a device beside the mesh must be its first."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    m = make_mesh(MeshConfig(data=2, space=2), devices=[CPU] * 4)
+    r = bench_device_resident(get_filter("gaussian_blur", ksize=3), 2, 4, 16, 16,
+                              mesh=m, device=CPU)
+    assert r["frames"] == 8 and r["fps"] > 0
+    r = bench_device_resident(get_filter("upscale"), 2, 4, 16, 16, mesh=m)
+    assert r["frames"] == 8
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_e2e_latency(get_filter("invert"), 8, 4, 8, 8, 10.0,
-                          mesh=object(), device=CPU)
+                          mesh=m, device="cuda:0")
+
+
+def test_latency_bench_accepts_mesh():
+    """Counterpart of the reference's: the rate-controlled latency bench
+    over a data=2 mesh."""
+    import dvf_tpu
+    from dvf_tpu.benchmarks import bench_e2e_latency as ref_latency
+    from dvf_tpu.parallel.mesh import MeshConfig as RefMeshConfig
+    from dvf_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    kw = dict(n_frames=24, batch_size=8, height=32, width=32, target_fps=500.0)
+    r = bench_e2e_latency(get_filter("invert"),
+                          mesh=make_mesh(MeshConfig(data=2), devices=[CPU] * 2),
+                          device=CPU, **kw)
+    assert r["frames"] > 0 and r["p50_ms"] > 0
+    ref = ref_latency(dvf_tpu.get_filter("invert"),
+                      mesh=ref_make_mesh(RefMeshConfig(data=2)), **kw)
+    assert set(r) >= set(ref) - {"backend"}
 
 
 def test_e2e_streaming_throughput_mode():

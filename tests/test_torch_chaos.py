@@ -47,13 +47,21 @@ def _drive_sync(fe, sid, frame, deadline_s=30.0):
         time.sleep(0.002)
 
 
-def _run_two_session_matrix(frontend, config, chaos, n_each=6):
+def _run_two_session_matrix(frontend, config, chaos, n_each=6, mesh=None):
     """Alternate frames A,B,A,B… with one frame per batch; poll
-    everything; return (deliveries_by_sid, stats, sids)."""
-    fe = frontend(get_filter("invert") if frontend is ServeFrontend
-                  else dvf_tpu.get_filter("invert"),
+    everything; return (deliveries_by_sid, stats, sids). ``mesh``: the
+    port's engine spans it."""
+    filt = (get_filter("invert") if frontend is ServeFrontend
+            else dvf_tpu.get_filter("invert"))
+    engine = None
+    if mesh is not None:
+        from dvf_tpu_torch.runtime.engine import Engine
+
+        engine = Engine(filt, mesh=mesh)
+    fe = frontend(filt,
                   config(batch_size=8, queue_size=1000, slo_ms=60_000.0,
-                         stall_timeout_s=0.0, chaos=chaos))
+                         stall_timeout_s=0.0, chaos=chaos),
+                  **({"engine": engine} if engine is not None else {}))
     deliveries = {}
     with fe:
         a, b = fe.open_stream(), fe.open_stream()
@@ -84,9 +92,9 @@ class TestServeChaosMatrix:
     2j is A's frame j and 2j+1 is B's frame j. The rules fault B's frames
     0, 1 and 2 and never touch A."""
 
-    def _check(self, kind, chaos_builder, jax_ref):
+    def _check(self, kind, chaos_builder, jax_ref, mesh=None):
         got, stats, (a, b) = _run_two_session_matrix(
-            ServeFrontend, ServeConfig, chaos_builder())
+            ServeFrontend, ServeConfig, chaos_builder(), mesh=mesh)
         assert stats["faults"]["by_kind"] == {kind: 3}
         assert stats["errors"] == 3
         sess = stats["sessions"]
@@ -124,6 +132,23 @@ class TestServeChaosMatrix:
         self._check(FaultKind.H2D,
                     lambda: FaultPlan().add("h2d", at=(4 * 1, 4 * 3, 4 * 5)),
                     jax_fault_free)
+
+    def test_h2d_faults_over_an_8_way_data_mesh(self, monkeypatch,
+                                                jax_fault_free):
+        """The reference's own case: over an 8-way data mesh (here eight
+        virtual devices) a batch of 8 streams as one 1-row chunk per
+        device, 8 h2d events per batch, so B's frames 0–2 are events 8,
+        24 and 40."""
+        import torch
+
+        import dvf_tpu_torch.runtime.ingest as ingest_mod
+        from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+        monkeypatch.setattr(ingest_mod, "MIN_STREAM_H2D_MS", 0.0)
+        mesh = make_mesh(MeshConfig(data=8), devices=[torch.device("cpu")] * 8)
+        self._check(FaultKind.H2D,
+                    lambda: FaultPlan().add("h2d", at=(8 * 1, 8 * 3, 8 * 5)),
+                    jax_fault_free, mesh=mesh)
 
 
 class TestServeSupervision:

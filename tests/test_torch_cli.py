@@ -136,14 +136,19 @@ def test_bench_with_auto_mesh(capsys, cpu):
     assert out["value"] > 0
 
 
-def test_bench_over_several_cards_exits_2(monkeypatch, capsys):
-    monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+def test_bench_over_several_cards_exits_2(monkeypatch, capsys, cpu):
+    """bench --mesh runs the engine over a mesh of the attached devices
+    (here eight CPU entries stand in for cards); it exits 2 only when the
+    mesh needs more devices than are attached."""
+    monkeypatch.setattr(cli, "_mesh_devices", lambda: [torch.device("cpu")] * 8)
+    rc = main(["bench", "--config", "invert_640x480", "--iters", "3",
+               "--batch", "8", "--mesh", "auto"])
+    assert rc == 0
+    assert _last_json(capsys.readouterr().out)["value"] > 0
     with pytest.raises(SystemExit) as ei:
-        main(["bench", "--config", "invert_640x480", "--mesh", "auto"])
+        main(["bench", "--config", "invert_640x480", "--mesh", "data=16"])
     assert ei.value.code == 2
-    assert "item 4c" in capsys.readouterr().err
+    assert "needs 16 devices, have 8" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("e2e", [False, True], ids=["device", "e2e"])
@@ -291,20 +296,55 @@ def test_bad_mesh_arg_fails_loudly(cpu):
 
 
 def test_mesh_over_several_cards_exits_2(monkeypatch, capsys):
-    """Where enough cards are attached, a multi-device mesh exits 2 and
-    names the multi-GPU piece the port does not have yet."""
+    """Where enough cards are attached, --mesh builds a mesh over them;
+    it exits 2 when the mesh needs more cards than are attached, and for
+    the worker over several devices (ROADMAP Queue 1 item 4c)."""
     monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit) as ei:
-        cli._parse_mesh("data=2")
-    assert ei.value.code == 2
-    assert "multi-GPU" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as ei:
-        cli._parse_mesh("auto")
-    assert ei.value.code == 2
-    with pytest.raises(SystemExit, match="needs 4 devices, have 2"):
+    m = cli._parse_mesh("data=2")
+    assert list(m.devices.flat) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert m.shape == {"data": 2, "space": 1, "model": 1}
+    assert cli._parse_mesh("auto:space").shape == {"data": 1, "space": 2, "model": 1}
+    assert cli._parse_mesh("data=1") is None
+    with pytest.raises(SystemExit, match="needs 4 devices, have 2") as ei:
         cli._parse_mesh("data=4")
+    assert ei.value.code == 2
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ei:
+        cli._parse_mesh("data=2", several=False)
+    assert ei.value.code == 2
+    assert "item 4c" in capsys.readouterr().err
+    monkeypatch.setenv("DVF_FORCE_PLATFORM", "cpu")
+    with pytest.raises(SystemExit) as ei:
+        main(["worker", "--filter", "invert", "--mesh", "data=2"])
+    assert ei.value.code == 2
+    assert "needs 2 devices, have 1" in capsys.readouterr().err
+    monkeypatch.setattr(cli, "_mesh_devices", lambda: [torch.device("cpu")] * 2)
+    with pytest.raises(SystemExit) as ei:
+        main(["worker", "--filter", "invert", "--mesh", "data=2"])
+    assert ei.value.code == 2
+    assert "item 4c" in capsys.readouterr().err
+
+
+def test_serve_with_explicit_mesh(monkeypatch, capsys, cpu):
+    """Counterpart of the reference's: a data=2,space=2,model=2 mesh over
+    eight virtual devices serves the stream end to end."""
+    monkeypatch.setattr(cli, "_mesh_devices", lambda: [torch.device("cpu")] * 8)
+    rc = main([
+        "serve", "--filter", "gaussian_blur", "--filter-config",
+        '{"ksize": 3}', "--source", "synthetic", "--height", "32",
+        "--width", "32", "--frames", "16", "--batch", "8",
+        "--frame-delay", "0", "--queue-size", "64",
+        "--mesh", "data=2,space=2,model=2",
+    ])
+    assert rc == 0
+    assert _last_json(capsys.readouterr().out)["delivered"] == 16
+    rc = main(["serve", "--filter", "invert", "--source", "synthetic",
+               "--height", "32", "--width", "32", "--frames", "16",
+               "--batch", "4", "--sessions", "2", "--quiet",
+               "--mesh", "data=2,space=2"])
+    assert rc == 0
 
 
 def test_filter_pipe_composition(capsys, cpu):

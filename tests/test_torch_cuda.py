@@ -1248,3 +1248,46 @@ def test_cli_bench_on_cuda0_by_default(dev, monkeypatch, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["value"] > 0 and 0 <= out["hbm_roofline_frac"] <= 1.0
     assert out["mfu_peak_tflops"] == 67.0
+
+
+# ------------------------------------------- the in-host mesh on the card
+
+
+@pytest.mark.parametrize("name,kw,counter", [
+    ("gaussian_blur", {"ksize": 9}, "sep_blur"),
+    ("bilateral", {}, "bilateral"),
+    ("sobel_bilateral", {}, "sobel_bilateral"),
+])
+def test_stencils_over_a_virtual_mesh_equal_one_device(dev, name, kw, counter):
+    """K1–K3 over a data=2, space=4 mesh of cuda:0 eight times: every
+    block runs its kernel on its halo-extended slab, once per block per
+    batch, and the output equals the unsharded engine's bit for bit."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from dvf_tpu_torch.runtime.engine import Engine
+
+    x = np.random.default_rng(0).integers(0, 255, (4, 96, 80, 3), np.uint8)
+    one = Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
+    eng = Engine(dvf_tpu_torch.get_filter(name, **kw),
+                 mesh=make_mesh(MeshConfig(data=2, space=4), devices=[dev] * 8))
+    want = one.submit(x).fetch().copy()
+    eng.compile(x.shape, np.uint8)
+    before = tk.LAUNCHES[counter]
+    got = eng.submit(x).fetch().copy()
+    assert tk.LAUNCHES[counter] == before + 8
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrapper_refuses_a_b_and_h_sharded_view(dev):
+    """A view of a batch cut on both B and H is not contiguous: the
+    wrapper raises rather than copy it or fall back."""
+    x = torch.rand((4, 32, 16, 3), device=dev)
+    block = x[:2, 8:16]
+    assert not block.is_contiguous()
+    taps = gaussian_kernel_1d(5, 0.0)
+    for call in (lambda: tk.sep_blur_nhwc_pallas(block, taps, taps),
+                 lambda: tk.bilateral_nhwc_pallas(block),
+                 lambda: tk.sobel_bilateral_nhwc_pallas(block)):
+        before = dict(tk.LAUNCHES)
+        with pytest.raises(ValueError, match="contiguous"):
+            call()
+        assert tk.LAUNCHES == before

@@ -285,7 +285,12 @@ class TestProcessFleet:
         the linear-scaling acceptance bar, gated exactly as the
         reference's test is: replicas are core-pinned, so the claim is
         only falsifiable on a host with ≥ 3 CPUs (2 pinned replicas + the
-        front door) and a measured parallel capacity ≥ 1.8."""
+        front door) and a measured parallel capacity ≥ 1.8. The capacity is
+        read before and after the measurement, on the two cores the
+        replicas are pinned to (the probe's processes inherit this
+        thread's affinity): other work on the host can take one of those
+        cores while the 2-replica round runs, and then the bar is not
+        falsifiable in that window either."""
         from dvf_tpu_torch.benchmarks import (
             bench_fleet_scaling,
             measure_parallel_capacity,
@@ -293,13 +298,25 @@ class TestProcessFleet:
 
         if (os.cpu_count() or 1) < 3:
             pytest.skip("needs >= 3 CPUs (2 pinned replicas + front door)")
-        capacity = measure_parallel_capacity(2)
-        if capacity < 1.8:
-            pytest.skip(f"host parallel capacity {capacity} < 1.8 "
-                        f"(oversubscribed); scaling bar not falsifiable")
+        replica_cores = set(sorted(os.sched_getaffinity(0))[:2])
+
+        def capacity() -> float:
+            mine = os.sched_getaffinity(0)
+            os.sched_setaffinity(0, replica_cores)
+            try:
+                return measure_parallel_capacity(2)
+            finally:
+                os.sched_setaffinity(0, mine)
+
+        before = capacity()
         r = bench_fleet_scaling(sessions=2, frames_per_session=200,
                                 device="cpu")
+        after = capacity()
         assert r["rounds"]["2"]["delivered"] == r["rounds"]["2"]["expected"]
+        if min(before, after) < 1.8:
+            pytest.skip(f"host parallel capacity {before} before and {after} "
+                        f"after the measurement, one < 1.8 (oversubscribed); "
+                        f"scaling bar not falsifiable")
         assert r["scaling"]["2"] >= 1.8, r
 
     def test_kill_one_replica_survivor_bit_identical(self):
@@ -706,22 +723,64 @@ def test_replica_device_slice(monkeypatch):
     assert proc._make_replica("r1", 1)._wire_config["device"] == "cuda:0"
 
 
+def test_local_replicas_partition_the_cards(monkeypatch):
+    """Local replicas take slices of the local cards as the reference's
+    do: ``per = devices_per_replica or max(1, cards // replicas)`` from a
+    start index that wraps; a slice asking for more cards than there are
+    raises instead of spanning fewer."""
+    fleet = FleetFrontend(get_filter("invert"),
+                          FleetConfig(replicas=2, mode="local"))
+    fleet.device = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert [fleet._replica_devices(i) for i in range(2)] == [cuda[:2], cuda[2:]]
+    fleet.config.devices_per_replica = 3
+    assert fleet._replica_devices(1) == [cuda[3], cuda[0], cuda[1]]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    fleet.config.devices_per_replica = 2
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        fleet._replica_devices(0)
+
+
 @pytest.mark.parametrize("kw", [{"devices_per_replica": 2},
                                 {"multihost_hosts": 2}],
                          ids=["devices_per_replica", "multihost"])
 def test_multi_device_replicas_not_ported(kw):
-    """A replica spanning several devices needs the multi-device mesh:
-    the fleet refuses it with NotImplementedError (ROADMAP item 4); the
-    elastic view says no multi-host flavor is available, so the
+    """``devices_per_replica=2`` builds each local replica's engines over
+    a two-device mesh (on the CPU, the CPU twice: a virtual mesh) and
+    serves bit-exactly; the multi-host flavor still needs the
+    multi-process runtime and raises NotImplementedError naming ROADMAP
+    Queue 1 item 4c, and the elastic view says it is unavailable, so the
     controller only ever adds replicas."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        FleetFrontend(get_filter("invert"), FleetConfig(replicas=1, **kw))
-    fleet = FleetFrontend(get_filter("invert"), FleetConfig(replicas=1))
-    assert fleet.elastic_view()["multihost_available"] is False
-    import dvf_tpu_torch.fleet as fleet_pkg
+    if "multihost_hosts" in kw:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4c"):
+            FleetFrontend(get_filter("invert"), FleetConfig(replicas=1, **kw))
+        fleet = FleetFrontend(get_filter("invert"), FleetConfig(replicas=1))
+        assert fleet.elastic_view()["multihost_available"] is False
+        import dvf_tpu_torch.fleet as fleet_pkg
 
-    assert not hasattr(fleet_pkg, "MultiHostEngine")
-    assert not hasattr(fleet_pkg, "MultiHostReplica")
+        assert not hasattr(fleet_pkg, "MultiHostEngine")
+        assert not hasattr(fleet_pkg, "MultiHostReplica")
+        return
+    fleet = FleetFrontend(get_filter("invert"),
+                          FleetConfig(replicas=2, mode="local",
+                                      serve=serve_cfg(), **kw))
+    assert fleet._replica_devices(1) == [torch.device("cpu")] * 2
+    deliveries: dict = {}
+    with fleet:
+        meshes = [r.frontend.engine.mesh for r in fleet._replicas.values()]
+        assert [m.shape for m in meshes] == [
+            {"data": 2, "space": 1, "model": 1}] * 2
+        sids = [fleet.open_stream() for _ in range(2)]
+        for j in range(8):
+            for k, sid in enumerate(sids):
+                fleet.submit(sid, tagged_frame(k, j))
+        drain_fleet(fleet, sids, deliveries, 8)
+    for k, sid in enumerate(sids):
+        got = deliveries[sid]
+        assert [d.index for d in got] == list(range(8))
+        for d in got:
+            np.testing.assert_array_equal(d.frame, 255 - tagged_frame(k, d.index))
 
 
 def test_child_without_cuda_fails_start():

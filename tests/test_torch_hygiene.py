@@ -82,6 +82,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"dvf_tpu_torch.cli", "dvf_tpu_torch.__main__",
             "dvf_tpu_torch.io.display", "dvf_tpu_torch.io.gl_display",
             "dvf_tpu_torch.parallel.mesh"} <= set(res["imported"])
+    # The in-host mesh: shardings, sharded batches, halo exchange and the
+    # layer pipeline.
+    assert {"dvf_tpu_torch.parallel", "dvf_tpu_torch.parallel.sharded",
+            "dvf_tpu_torch.parallel.halo",
+            "dvf_tpu_torch.parallel.pp"} <= set(res["imported"])
     # The bench harness: benchmarks, the child process, the roofline model
     # and the counters behind Engine.cost_analysis.
     assert BENCH_MODULES <= set(res["imported"])
@@ -131,12 +136,11 @@ def test_ring_source_is_the_ports_own_copy():
 @pytest.mark.parametrize("pkg", ["api", "io", "sched", "utils", "transport",
                                  "obs", "control", "broadcast", "fleet",
                                  "train", "models", "runtime", "resilience",
-                                 "serve", "ops", ""])
+                                 "serve", "ops", "parallel", ""])
 def test_package_exports_the_references_names(pkg):
     """Each package (and the top-level one, ``""``) re-exports the names
-    its JAX counterpart exports (minus the fleet's multi-host flavor and
-    the models' tensor-parallel ``param_pspecs``, which wait for the
-    multi-device mesh)."""
+    its JAX counterpart exports (minus the fleet's multi-host flavor,
+    which waits for the multi-process runtime)."""
     import importlib
     import types
 
@@ -145,7 +149,7 @@ def test_package_exports_the_references_names(pkg):
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
-    want -= {"MultiHostEngine", "MultiHostReplica", "param_pspecs"}
+    want -= {"MultiHostEngine", "MultiHostReplica"}
     assert want
     got = importlib.import_module(f"dvf_tpu_torch{suffix}")
     missing = sorted(n for n in want if not hasattr(got, n))

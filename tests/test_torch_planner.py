@@ -261,7 +261,8 @@ def test_topology_fingerprint_meshless_matches_engine_device():
     finally:
         fe.pool.close()
         fe.engine.free()
-    assert meshless == "torch-cpu/cpu/n1/devices=1"  # no card here
+    # No card here; the axes are the one-device engine's mesh shape.
+    assert meshless == "torch-cpu/cpu/n1/data=1,space=1,model=1"
     assert meshless != jax_pc.topology_fingerprint()
     assert pc.topology_fingerprint("cuda:0") != meshless
     assert not pc.topology_fingerprint("cuda:0").startswith("torch-cpu")
