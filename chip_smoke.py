@@ -273,6 +273,23 @@ which raises (and so exits non-zero) on failure:
    process (exit 2 on one card: needs 2 devices, has 1), and a 2-replica
    local fleet with ``devices_per_replica=0`` (both replicas on cuda:0)
    delivering every frame;
+16. the multi-process runtime (``multiproc_phase``): (a) a 2-rank gloo
+   group on the card (both ranks on cuda:0, each its own process) running
+   ``MultiHostEngine`` with gaussian_blur(ksize=9) and sobel_bilateral at
+   the global 16 x 1080 x 1920 batch, 8 rows per rank, every rank's rows
+   bit-exact (row digests) to the single-process engine, K1/K3 once per
+   rank per batch, ms per step and the lockstep all_reduce's ms; (b) the
+   elastic kill: rank 1 exits at step 3 of 8, rank 0 degrades to its
+   local mesh with its rows at every step bit-exact to one process, and
+   the time from the exit to the degrade; (c) ``FleetFrontend(
+   multihost_hosts=2)`` at 1080p: spawn-to-ready ms, 32 frames of invert
+   and of gaussian_blur(ksize=9) through the group, in order and
+   bit-exact, retire draining back to r0; (d) the delta-wire worker over
+   ``[cuda:0]*2`` meshes (data=2; data=2, space=2) at 512² batch 8, 160
+   frames: the probe's payloads and Engine → FusedDeltaTransform's
+   bitmaps and coefficient blocks identical to one device, K5/K6 once per
+   block per batch (the kernels line carries the rank and per-block
+   counts);
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -289,15 +306,17 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
 ``planes_only()``, ``control_only()``, ``fleet_only()``, ``cli_only()``
-``train_only()``, ``bench_only()`` and ``mesh_only()`` run the build
-and phase 7, 8, 9, 10, 11, 12, 13, 14 or 15 alone. The bounds and counts come from the package's
+``train_only()``, ``bench_only()``, ``mesh_only()`` and
+``multiproc_only()`` run the build and phase 7, 8, 9, 10, 11, 12, 13,
+14, 15 or 16 alone; ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
 counters (``dvf_tpu_torch.runtime.cost``), the ones ``Engine.cost_analysis``
 and the bench's roofline read.
 
 Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
 [...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"train": [...]}``,
-``{"bench": [...]}``, ``{"mesh": [...]}``, ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
+``{"bench": [...]}``, ``{"mesh": [...]}``, ``{"multiproc": [...]}``,
+``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -308,6 +327,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -1012,10 +1032,21 @@ def main() -> int:
     mesh_rows, delta = mesh_phase(dev)
     for k, v in delta.items():
         launches[k] += v
+    # 16. the multi-process runtime (K1/K3 once per rank per batch in a
+    # 2-rank group) and the worker over a sharded batch (K5/K6 per block)
+    mp_rows, delta, rank_launches, per_block = multiproc_phase(dev, env["libjpeg"])
+    for k, v in delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main path")
+        if rank_launches.get(row["name"]):
+            row["multiproc_rank_launches"] = rank_launches[row["name"]]
+        blocks = {k: v["launches"][row["name"]] for k, v in per_block.items()
+                  if v["launches"].get(row["name"])}
+        if blocks:
+            row["per_block_launches"] = blocks
 
     # 6. where a pipeline batch goes (after the counted run)
     stage_rows = []
@@ -1048,6 +1079,7 @@ def main() -> int:
     print(json.dumps({"train": train_rows}))
     print(json.dumps({"bench": bench_rows}))
     print(json.dumps({"mesh": mesh_rows}))
+    print(json.dumps({"multiproc": mp_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -1842,16 +1874,20 @@ def _delta_codec(inner: str, **kw):
     return tc.DeltaCodec(base, tile=WIRE_TILE, keyframe_interval=WIRE_KEY, **kw)
 
 
-def _run_worker(dev, blobs, assist: str, inner: str):
-    """One pass of the app's stream through a socket-less ZmqWorker.
-    Returns (payloads in send order as (index, bytes), stats, seconds)."""
+def _run_worker(dev, blobs, assist: str, inner: str, mesh=None):
+    """One pass of the app's stream through a socket-less ZmqWorker (its
+    engine over ``mesh`` when one is given). Returns (payloads in send
+    order as (index, bytes), stats, seconds)."""
     import dvf_tpu_torch
 
+    filt = dvf_tpu_torch.get_filter("invert")
     worker = dvf_tpu_torch.ZmqWorker(
-        dvf_tpu_torch.get_filter("invert"), batch_size=WIRE_BATCH, wire="delta",
+        filt, batch_size=WIRE_BATCH, wire="delta",
         jpeg_quality=WIRE_QUALITY, delta_tile=WIRE_TILE,
         delta_keyframe_interval=WIRE_KEY, codec_assist=assist, device=dev,
-        codec=_delta_codec(inner, on_gap="raise"), connect=False)
+        codec=_delta_codec(inner, on_gap="raise"), connect=False,
+        engine=(dvf_tpu_torch.Engine(filt, mesh=mesh) if mesh is not None
+                else None))
     sent = []
     try:
         worker.engine.compile((WIRE_BATCH, WIRE_SIZE, WIRE_SIZE, 3))
@@ -1935,14 +1971,18 @@ def worker_leg(dev, frames: list, assist: str, inner: str):
     return row, delta
 
 
-def _fused_pass(dev, frames: list):
+def _fused_pass(dev, frames: list, mesh=None):
     """Engine(invert) → FusedDeltaTransform over the stream, each frame's
-    dirty blocks gathered (bitmap > 0) and the first frame's whole grid."""
+    dirty blocks gathered (bitmap > 0) and the first frame's whole grid
+    (the engine over ``mesh`` when one is given: the transform then runs
+    once per block)."""
     import torch
 
     import dvf_tpu_torch
 
-    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("invert"), device=dev)
+    filt = dvf_tpu_torch.get_filter("invert")
+    eng = (dvf_tpu_torch.Engine(filt, mesh=mesh) if mesh is not None
+           else dvf_tpu_torch.Engine(filt, device=dev))
     shape = (WIRE_BATCH, WIRE_SIZE, WIRE_SIZE, 3)
     eng.compile(shape)
     fused = dvf_tpu_torch.FusedDeltaTransform(tile=WIRE_TILE, quality=WIRE_QUALITY)
@@ -7252,6 +7292,494 @@ def mesh_only() -> None:
     dev, _, _ = _only_setup()
     rows, _ = mesh_phase(dev)
     print(json.dumps({"mesh": rows}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the multi-process runtime (a 2-rank gloo group on the one card:
+# MultiHostEngine with K1/K3 in each rank, the elastic kill, the fleet's
+# multi-host replica) and the worker over a sharded batch (K5/K6 per block)
+# ---------------------------------------------------------------------------
+
+MP_RANKS = 2
+MP_REPS = 5
+MP_FILTERS = [("gaussian_blur", {"ksize": 9}, "sep_blur"),
+              ("sobel_bilateral", {}, "sobel_bilateral")]
+MP_KILL_STEPS, MP_KILL_AT = 8, 3
+MP_FLEET_FRAMES = 32
+MP_FLEET_CHAINS = [("invert", {}, "invert"),
+                   ("gaussian_blur", {"ksize": 9}, "gaussian_blur(ksize=9)")]
+MP_WORKER_MESHES = [{"data": 2}, {"data": 2, "space": 2}]
+MP_TIMEOUT_S = 300
+
+
+def _digests(rows) -> list:
+    import hashlib
+
+    return [hashlib.sha256(np.ascontiguousarray(r).tobytes()).hexdigest()[:16]
+            for r in rows]
+
+
+@functools.lru_cache(maxsize=1)
+def _kill_base() -> np.ndarray:
+    return _mesh_frames(MAIN_SHAPE, 160)
+
+
+def _kill_frames(step: int) -> np.ndarray:
+    """The global batch of the kill leg's step ``step`` (every rank
+    derives the same frames)."""
+    return np.roll(_kill_base(), step, axis=0)
+
+
+def _rank_engine(rank: int) -> dict:
+    """Leg (a) in one rank: MultiHostEngine per filter at the global
+    MAIN_SHAPE batch, this rank's rows; the launch counts of one counted
+    batch, its rows' digests, then ms per step and the lockstep
+    all_reduce's ms."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.fleet.multiproc import MultiHostEngine
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.parallel.mesh import MeshConfig
+
+    x = _mesh_frames(MAIN_SHAPE, 16)
+    out = {}
+    for name, kw, counter in MP_FILTERS:
+        eng = MultiHostEngine(dvf_tpu_torch.get_filter(name, **kw),
+                              MeshConfig(data=MP_RANKS))
+        eng.compile(MAIN_SHAPE)
+        rows = np.concatenate([x[a:b] for a, b in eng.intervals[rank]])
+        torch.cuda.synchronize()
+        tk.reset_launches()
+        got = eng.submit_local(rows)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        ms, ar = [], []
+        for _ in range(MP_REPS):
+            t0 = time.perf_counter()
+            eng.submit_local(rows)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ar.append(eng.last_all_reduce_ms)
+        out[name] = dict(device=str(eng.device), intervals=eng.intervals[rank],
+                         launches=launches, digests=_digests(got),
+                         ms_per_step=ms, all_reduce_ms=ar)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_kill(rank: int, tmp: str) -> dict:
+    """Leg (b) in one rank: an ElasticMeshRunner whose step is the uint8
+    gaussian_blur(ksize=9) step per block and a lockstep all_reduce; rank
+    1 exits at step MP_KILL_AT (its wall clock written first), rank 0
+    degrades and carries on. Returns rank 0's row digests per step and
+    the detection time."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.parallel.distributed import (
+        ElasticMeshRunner, all_reduce, local_output_rows)
+    from dvf_tpu_torch.parallel.mesh import MeshConfig
+    from dvf_tpu_torch.runtime.engine import _build_step
+
+    filt = dvf_tpu_torch.get_filter("gaussian_blur", ksize=9)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+
+    def builder(mesh):
+        step = _build_step(filt, True)
+
+        def run(batch, state):
+            out = batch.map(lambda t: step(t, None)[0])
+            met = all_reduce(torch.ones(1, device=dev), mesh)
+            return out, {"count": state["count"] + 1, "met": met}
+        return run
+
+    class Runner(ElasticMeshRunner):
+        t_detect = None
+
+        def _degrade(self):
+            self.t_detect = time.time()
+            super()._degrade()
+
+    state0 = {"count": torch.zeros((), dtype=torch.int32), "met": torch.zeros(1)}
+    runner = Runner(builder, state0, MeshConfig(data=MP_RANKS))
+    digests, shapes, ms = {}, {}, {}
+    rows_of = MAIN_SHAPE[0] // MP_RANKS
+    for i in range(MP_KILL_STEPS):
+        if rank == 1 and i == MP_KILL_AT:
+            with open(os.path.join(tmp, "victim_exit"), "w") as f:
+                f.write(repr(time.time()))
+            sys.stdout.flush()
+            os._exit(42)
+        local = np.ascontiguousarray(
+            _kill_frames(i)[rank * rows_of:(rank + 1) * rows_of])
+        t0 = time.perf_counter()
+        out = runner.submit_local(local)
+        rows = local_output_rows(out)
+        ms[i] = (time.perf_counter() - t0) * 1e3
+        digests[i] = _digests(rows)
+        shapes[i] = list(out.shape)
+    with open(os.path.join(tmp, "victim_exit")) as f:
+        t_exit = float(f.read())
+    return dict(degraded=runner.degraded, dropped_on_loss=runner.dropped_on_loss,
+                count=int(runner.state["count"]), digests=digests, shapes=shapes,
+                ms=ms, detect_ms=(runner.t_detect - t_exit) * 1e3)
+
+
+def mp_rank(argv) -> int:
+    """One rank of phase 16's group: ``python3 -c 'import chip_smoke, sys;
+    sys.exit(chip_smoke.mp_rank(sys.argv[1:]))' LEG RANK PORT TMP``. It
+    joins the gloo group on ``cuda:{rank % device_count}`` and prints its
+    result as one JSON line; it ends with ``os._exit`` (a group with a
+    dead peer can hang in its shutdown)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dvf_tpu_torch.parallel.distributed import init_distributed
+
+    leg, rank, port, tmp = argv[0], int(argv[1]), argv[2], argv[3]
+    if not torch.cuda.is_available():
+        print("mp_rank: no CUDA device is available", file=sys.stderr)
+        return 2
+    init_distributed(f"127.0.0.1:{port}", MP_RANKS, rank)
+    res = _rank_engine(rank) if leg == "engine" else _rank_kill(rank, tmp)
+    print(json.dumps(res), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(leg: str, tmp: str) -> list:
+    """Start MP_RANKS ranks of ``leg`` together; returns [(rc, stdout,
+    stderr)] in rank order. Every rank is killed on the way out."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    code = "import chip_smoke, sys; sys.exit(chip_smoke.mp_rank(sys.argv[1:]))"
+    procs = [subprocess.Popen([sys.executable, "-c", code, leg, str(r), port, tmp],
+                              cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, close_fds=False)
+             for r in range(MP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MP_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _rank_json(label: str, rc: int, out: str, err: str) -> dict:
+    if rc != 0:
+        raise AssertionError(f"{label}: exit {rc}:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def mp_leg_engine(dev, smi: str, tmp: str):
+    """(a) A 2-rank gloo group on the card (both ranks on cuda:0): the
+    multi-process engine with gaussian_blur(ksize=9) and sobel_bilateral
+    at the global 16×1080×1920×3 batch, 8 rows per rank; every rank's
+    rows bit-exact to the single-process Engine, K1/K3 once per rank per
+    batch; ms per step and the lockstep all_reduce's ms."""
+    import dvf_tpu_torch
+
+    t = time.perf_counter()
+    res = [_rank_json(f"multiproc (a) rank {r}", *o)
+           for r, o in enumerate(_run_ranks("engine", tmp))]
+    wall = time.perf_counter() - t
+    x = _mesh_frames(MAIN_SHAPE, 16)
+    rows, total = [], {}
+    for name, kw, counter in MP_FILTERS:
+        want = _digests(dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw),
+                                             device=dev).submit(x).fetch())
+        for r, got in enumerate(res):
+            g = got[name]
+            exp = [d for a, b in g["intervals"] for d in want[a:b]]
+            if g["digests"] != exp:
+                raise AssertionError(f"multiproc (a) {name} rank {r}: rows differ "
+                                     f"from the single-process engine")
+            if g["launches"][counter] != 1 or sum(g["launches"].values()) != 1:
+                raise AssertionError(f"multiproc (a) {name} rank {r}: launches "
+                                     f"{g['launches']}, want {counter} once")
+            for k, v in g["launches"].items():
+                total[k] = total.get(k, 0) + v
+            log(f"multiproc (a) {name} {MAIN_SHAPE} rank {r} of {MP_RANKS} on "
+                f"{g['device']} (gloo), rows {g['intervals']}: bit-exact vs one "
+                f"process; {counter} once per rank per batch; ms per step "
+                f"(submit_local: H2D, step, all_reduce, D2H of "
+                f"{MAIN_SHAPE[0] // MP_RANKS} frames) "
+                f"{[round(v, 3) for v in g['ms_per_step']]}, all_reduce ms "
+                f"{[v if v is None else round(v, 4) for v in g['all_reduce_ms']]}; {smi}")
+            rows.append(dict(leg="a_multihost_engine", filter=name, rank=r,
+                             ranks=MP_RANKS, shape=list(MAIN_SHAPE),
+                             rows=g["intervals"], bit_exact=True,
+                             launches=g["launches"], ms_per_step=g["ms_per_step"],
+                             all_reduce_ms=g["all_reduce_ms"], card=smi))
+    log(f"multiproc (a): {wall:.1f} s wall (two rank processes, start-up included)")
+    return rows, total
+
+
+def mp_leg_kill(dev, smi: str, tmp: str):
+    """(b) The elastic kill at 1080p: rank 1 exits at step 3 of 8; rank 0
+    detects the peer loss, degrades to its local mesh, re-runs the batch
+    and carries on; its rows after the loss equal a single-process run
+    of the same frames; the time from the victim's exit to the
+    survivor's degrade."""
+    import dvf_tpu_torch
+
+    outs = _run_ranks("kill", tmp)
+    if outs[1][0] != 42:
+        raise AssertionError(f"multiproc (b): the victim exited {outs[1][0]}:\n"
+                             f"{outs[1][2][-2000:]}")
+    g = _rank_json("multiproc (b) survivor", *outs[0])
+    if not (g["degraded"] and g["dropped_on_loss"] == 1
+            and g["count"] == MP_KILL_STEPS):
+        raise AssertionError(f"multiproc (b): survivor {g['degraded']=}, "
+                             f"{g['dropped_on_loss']=}, {g['count']=}")
+    rows_of = MAIN_SHAPE[0] // MP_RANKS
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9),
+                               device=dev)
+    for i in range(MP_KILL_STEPS):
+        want = _digests(eng.submit(np.ascontiguousarray(
+            _kill_frames(i)[:rows_of])).fetch())
+        if g["digests"][str(i)] != want:
+            raise AssertionError(f"multiproc (b): survivor's rows at step {i} "
+                                 f"differ from one process")
+        shape = [MAIN_SHAPE[0] if i < MP_KILL_AT else rows_of, *MAIN_SHAPE[1:]]
+        if g["shapes"][str(i)] != shape:
+            raise AssertionError(f"multiproc (b): step {i} global shape "
+                                 f"{g['shapes'][str(i)]}, want {shape}")
+    _kill_base.cache_clear()
+    log(f"multiproc (b) elastic kill at {MAIN_SHAPE}: rank 1 exited at step "
+        f"{MP_KILL_AT}; rank 0 degraded (dropped_on_loss 1, count "
+        f"{g['count']}), its rows at every step bit-exact vs one process; "
+        f"time to detect (victim exit to degrade) {g['detect_ms']:.1f} ms; ms per "
+        f"step {json.dumps({k: round(v, 2) for k, v in g['ms'].items()})}; {smi}")
+    return [dict(leg="b_elastic_kill", shape=list(MAIN_SHAPE), kill_at=MP_KILL_AT,
+                 degraded=True, count=g["count"], detect_ms=g["detect_ms"],
+                 ms_per_step=g["ms"], bit_exact=True, card=smi)], {}
+
+
+def mp_leg_fleet(dev, smi: str):
+    """(c) FleetFrontend(multihost_hosts=2) at 1080p: spawn the multi-host
+    replica, 32 frames of invert and of gaussian_blur(ksize=9) through it,
+    bit-exact and in order; retire drains the session back to r0;
+    spawn-to-ready ms."""
+    import dvf_tpu_torch
+    from dvf_tpu_torch.fleet import FleetConfig, FleetFrontend, MultiHostReplica
+    from dvf_tpu_torch.serve import ServeConfig
+
+    h, w = MAIN_SHAPE[1:3]
+    frames = list(_mesh_frames((MP_FLEET_FRAMES, h, w, 3), 17))
+    rows = []
+    for name, kw, chain in MP_FLEET_CHAINS:
+        filt = dvf_tpu_torch.get_filter(name, **kw)
+        one = dvf_tpu_torch.Engine(filt, device=dev)
+        want = np.concatenate([one.submit(np.stack(frames[s:s + 16])).fetch()
+                               for s in range(0, MP_FLEET_FRAMES, 16)])
+        manifest = [{"op_chain": chain, "frame_shape": [h, w, 3], "dtype": "u8"}]
+        fleet = FleetFrontend(filt, FleetConfig(
+            replicas=1, mode="local", multihost_hosts=MP_RANKS, precompile=manifest,
+            serve=ServeConfig(batch_size=MAIN_SHAPE[0], queue_size=64,
+                              out_queue_size=64, slo_ms=60_000.0, max_sessions=8),
+            drain_timeout_s=60.0, startup_timeout_s=MP_TIMEOUT_S), device=dev)
+        with fleet:
+            fleet.open_stream(op_chain=chain, frame_shape=(h, w, 3))
+            t0 = time.perf_counter()
+            rid = fleet.spawn_replica(flavor="multihost")
+            spawn_ms = (time.perf_counter() - t0) * 1e3
+            if not isinstance(fleet._replicas[rid], MultiHostReplica):
+                raise AssertionError(f"multiproc (c) {chain}: {rid} is not the "
+                                     f"multi-host flavor")
+            sid = fleet.open_stream(op_chain=chain, frame_shape=(h, w, 3),
+                                    frame_dtype="u8")
+            if fleet.stats()["sessions"][sid]["replica"] != rid:
+                raise AssertionError(f"multiproc (c) {chain}: the session did "
+                                     f"not route to the group")
+            t0 = time.perf_counter()
+            for f in frames:
+                fleet.submit(sid, f)
+            got = []
+            deadline = time.time() + MP_TIMEOUT_S
+            while len(got) < MP_FLEET_FRAMES and time.time() < deadline:
+                got.extend(fleet.poll(sid))
+                time.sleep(0.005)
+            serve_s = time.perf_counter() - t0
+            if [d.index for d in got] != list(range(MP_FLEET_FRAMES)):
+                raise AssertionError(f"multiproc (c) {chain}: delivered "
+                                     f"{[d.index for d in got]}")
+            n_diff = sum(not np.array_equal(d.frame, want[d.index]) for d in got)
+            if n_diff:
+                raise AssertionError(f"multiproc (c) {chain}: {n_diff} frames "
+                                     f"differ from one process")
+            engine_frames = fleet.stats()["replicas"][rid]["engine_frames"]
+            if not fleet.retire_replica(rid):
+                raise AssertionError(f"multiproc (c) {chain}: retire refused")
+            for f in frames[:4]:
+                fleet.submit(sid, f)
+            after = []
+            deadline = time.time() + MP_TIMEOUT_S
+            while len(after) < 4 and time.time() < deadline:
+                after.extend(fleet.poll(sid))
+                time.sleep(0.005)
+            st = fleet.stats()
+        idx = [d.index for d in got + after]
+        if (len(after) != 4 or idx != sorted(set(idx)) or st["order_violations"]
+                or rid in st["replicas"]
+                or not all(np.array_equal(d.frame, want[k])
+                           for k, d in enumerate(after))):
+            raise AssertionError(f"multiproc (c) {chain}: after retire: indices "
+                                 f"{[d.index for d in after]}, order violations "
+                                 f"{st['order_violations']}")
+        log(f"multiproc (c) fleet multihost_hosts={MP_RANKS} {chain} at "
+            f"{h}x{w}: spawn-to-ready {spawn_ms:.1f} ms; {MP_FLEET_FRAMES} of "
+            f"{MP_FLEET_FRAMES} frames in order and bit-exact vs one process in "
+            f"{serve_s:.2f} s ({MP_FLEET_FRAMES / serve_s:.1f} fps through the "
+            f"RPC, group engine_frames {engine_frames}); retire drained the "
+            f"session to r0 (4 more frames, bit-exact); {smi}")
+        rows.append(dict(leg="c_fleet_multihost", chain=chain, geometry=[h, w, 3],
+                         hosts=MP_RANKS, spawn_to_ready_ms=spawn_ms,
+                         frames=MP_FLEET_FRAMES, delivered=MP_FLEET_FRAMES,
+                         in_order=True, bit_exact=True, fps=MP_FLEET_FRAMES / serve_s,
+                         retired_to_r0=True, card=smi))
+    return rows, {}
+
+
+def mp_leg_worker(dev, smi: str, have_jpeg: bool):
+    """(d) The delta-wire worker over [cuda:0]*2 meshes (data=2; data=2,
+    space=2) at 512² batch 8, 160 frames: the probe on the raw-inner
+    wire (and the full transform on the JPEG wire where libjpeg is) with
+    payloads byte-identical to the one-device worker, and Engine →
+    FusedDeltaTransform with bitmaps and coefficient blocks identical;
+    K5 and K6 once per block per batch."""
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    frames = wire_frames()
+    nb = len(frames) // WIRE_BATCH
+    legs = [("probe", "raw")] + ([("full", "jpeg")] if have_jpeg else [])
+    rows, total, per_block = [], {}, {}
+    for assist, inner in legs:
+        enc = _delta_codec(inner)
+        try:
+            blobs = [enc.encode(f) for f in frames]
+        finally:
+            enc.close()
+        one, _, _ = _run_worker(dev, blobs, assist, inner)
+        for axes in MP_WORKER_MESHES:
+            m = make_mesh(MeshConfig(**axes), devices=[dev] * int(np.prod(list(axes.values()))))
+            blocks = m.size
+            label = f"worker(delta/{inner}, {assist}) over {axes}"
+            tk.reset_launches()
+            sent, stats, secs = _run_worker(dev, blobs, assist, inner, mesh=m)
+            delta = dict(tk.LAUNCHES)
+            want = {k: 0 for k in delta}
+            want["tile_maxdiff"] = nb * blocks
+            if assist == "full":
+                want["dct8x8_quant"] = nb * blocks
+            if delta != want:
+                raise AssertionError(f"{label}: launches {delta}, want {want}")
+            if sent != one:
+                raise AssertionError(f"{label}: payloads differ from the "
+                                     f"one-device worker")
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            per_block[f"{assist}/{','.join(f'{k}={v}' for k, v in axes.items())}"] = dict(
+                blocks=blocks, batches=nb, launches=delta)
+            log(f"multiproc (d) {label}: {len(frames)} frames, payloads "
+                f"byte-identical to the one-device worker; launches {delta} "
+                f"({blocks} blocks x {nb} batches); {len(frames) / secs:.1f} fps; {smi}")
+            rows.append(dict(leg="d_worker_mesh", assist=assist, inner=inner,
+                             mesh=axes, blocks=blocks, frames=len(frames),
+                             launches=delta, payloads_differing=0,
+                             fps=len(frames) / secs, card=smi))
+    ref = _fused_pass(dev, frames)
+    for axes in MP_WORKER_MESHES:
+        m = make_mesh(MeshConfig(**axes), devices=[dev] * int(np.prod(list(axes.values()))))
+        blocks = m.size
+        label = f"engine(invert) -> FusedDeltaTransform over {axes}"
+        tk.reset_launches()
+        bms, dirty, first, _, secs, _, calls = _fused_pass(dev, frames, mesh=m)
+        delta = dict(tk.LAUNCHES)
+        want = {k: 0 for k in delta}
+        want.update(tile_maxdiff=nb * blocks, dct8x8_quant=nb * blocks)
+        if delta != want or calls != nb:
+            raise AssertionError(f"{label}: launches {delta} in {calls} calls, "
+                                 f"want {want}")
+        same = (np.array_equal(bms, ref[0])
+                and all(np.array_equal(a, b) for a, b in zip(first, ref[2]))
+                and all(np.array_equal(a, b) for f, g in zip(dirty, ref[1])
+                        for a, b in zip(f, g)))
+        if not same:
+            raise AssertionError(f"{label}: bitmaps or coefficient blocks differ "
+                                 f"from the one-device transform")
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+        per_block[f"fused/{','.join(f'{k}={v}' for k, v in axes.items())}"] = dict(
+            blocks=blocks, batches=nb, launches=delta)
+        log(f"multiproc (d) {label}: bitmaps and coefficient blocks identical to "
+            f"one device; launches {delta} ({blocks} blocks x {nb} batches); "
+            f"{len(frames) / secs:.1f} fps; {smi}")
+        rows.append(dict(leg="d_fused_mesh", mesh=axes, blocks=blocks,
+                         frames=len(frames), launches=delta, blocks_differing=0,
+                         fps=len(frames) / secs, card=smi))
+    return rows, total, per_block
+
+
+def multiproc_phase(dev, have_jpeg: bool):
+    """Phase 16: legs (a)-(d). Returns (rows, the summed launch counts of
+    the counted runs, K1/K3's launches in the ranks, K5/K6's per-block
+    counts)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    log(f"multiproc phase on {smi}")
+    rows, total = [], {}
+    with tempfile.TemporaryDirectory(prefix="dvf-mp-") as tmp:
+        for leg in (mp_leg_engine, mp_leg_kill):
+            t = time.perf_counter()
+            new, delta = leg(dev, smi, tmp)
+            rows.extend(new)
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            log(f"multiproc leg {leg.__name__}: {time.perf_counter() - t:.1f} s")
+    ranks = dict(total)
+    t = time.perf_counter()
+    new, _ = mp_leg_fleet(dev, smi)
+    rows.extend(new)
+    log(f"multiproc leg mp_leg_fleet: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    new, delta, per_block = mp_leg_worker(dev, smi, have_jpeg)
+    rows.extend(new)
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+    log(f"multiproc leg mp_leg_worker: {time.perf_counter() - t:.1f} s")
+    log(f"multiproc phase: {time.perf_counter() - t0:.1f} s, launches {total}")
+    return rows, total, ranks, per_block
+
+
+def multiproc_only() -> None:
+    """The build and phase 16 alone (the multi-process runtime and the
+    worker over a sharded batch):
+    ``python3 -c 'import chip_smoke; chip_smoke.multiproc_only()'``."""
+    dev, _, env = _only_setup()
+    rows, _, ranks, per_block = multiproc_phase(dev, env["libjpeg"])
+    print(json.dumps({"multiproc": rows, "rank_launches": ranks,
+                      "per_block": per_block}))
 
 
 if __name__ == "__main__":

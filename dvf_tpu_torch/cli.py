@@ -21,9 +21,9 @@ device it exits 2 and never carries on on the CPU by itself. The
 ``worker`` subcommand keeps the reference's flag names
 (--distribute-port, --collect-port, --delay) so launch scripts written for
 ``python inverter.py`` port over by changing only the module name.
-``serve --mesh`` and ``bench --mesh`` run the engine over a mesh of the
-attached cards; the worker's ``--mesh`` over several devices is not here
-yet (ROADMAP Queue 1 item 4c).
+``serve --mesh``, ``bench --mesh`` and ``worker --mesh`` run the engine
+over a mesh of the attached cards (the worker's codec assist once per
+block).
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ class _BadMesh(SystemExit):
         return self.message
 
 
-def _parse_mesh(arg, several: bool = True):
+def _parse_mesh(arg):
     """Parse --mesh into a :class:`~dvf_tpu_torch.parallel.mesh.Mesh` over
     the attached devices (``_mesh_devices``); None (the single-device
     engine) when no mesh is asked for or the mesh spans one device.
@@ -140,8 +140,6 @@ def _parse_mesh(arg, several: bool = True):
     default to 1) or "auto" / "auto:space" / "auto:model"
     (parallel.mesh.auto_mesh_config policies over all attached devices).
     A bad --mesh, or one larger than the attached devices, exits 2.
-    ``several=False`` (the worker) exits 2 for a mesh over several
-    devices: the worker over a sharded batch is not ported yet.
     """
     if not arg:
         return None
@@ -174,13 +172,6 @@ def _parse_mesh(arg, several: bool = True):
         bad(f"mesh {config} needs {config.n_devices} devices, have {have}")
     if config.n_devices == 1:
         return None
-    if not several:
-        print(f"error: --mesh {arg!r} spans {config.n_devices} devices: the "
-              f"worker over a sharded batch (and its codec assist) is not "
-              f"ported yet (ROADMAP Queue 1 item 4c); run the worker on "
-              f"one device (--mesh data=1) or one worker per card",
-              file=sys.stderr)
-        raise SystemExit(2)
     return make_mesh(config, devices=devices)
 
 
@@ -1117,11 +1108,7 @@ def cmd_fleet(args) -> int:
     rates = [base * 2.0 * (i + 1) / (n + 1) for i in range(n)]
     polled: dict = {}
 
-    try:
-        fleet = FleetFrontend(config=config, device=device)
-    except NotImplementedError as e:  # a replica over several devices
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    fleet = FleetFrontend(config=config, device=device)
     def fleet_health():
         s = fleet.signals()
         return dict(s, ok=s["healthy_replicas"] > 0)
@@ -1266,10 +1253,9 @@ def cmd_worker(args) -> int:
     from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
 
     filt = _parse_filter_arg(args.filter, args.filter_config)
-    _parse_mesh(args.mesh, several=False)
     worker = ZmqWorker(
         filt,
-        engine=Engine(filt, device=device),
+        engine=Engine(filt, device=device, mesh=_parse_mesh(args.mesh)),
         device=device,
         host=args.host,
         distribute_port=args.distribute_port,
@@ -2355,9 +2341,7 @@ def main(argv=None) -> int:
                     help="fault injection: sleep this many seconds per batch "
                          "(simulate a slow worker, like inverter.py --delay)")
     wp.add_argument("--mesh", default=None,
-                    help="device mesh, same forms as serve --mesh (one "
-                         "device; over several exits 2, ROADMAP Queue 1 "
-                         "item 4c)")
+                    help="device mesh, same forms as serve --mesh")
 
     tv = sub.add_parser(
         "trace-view",

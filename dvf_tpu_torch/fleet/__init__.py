@@ -7,9 +7,8 @@ routes client sessions across N complete replicas (each a
 process) with session affinity, spillover admission, replica health
 tracking with drain → migrate → restart, and fleet-merged stats.
 
-Not ported yet: the multi-host flavor (``MultiHostEngine``,
-``MultiHostReplica``: one replica spanning a process group), which
-stands on the multi-process runtime (ROADMAP Queue 1 item 4c).
+The multi-host flavor (``MultiHostEngine``, ``MultiHostReplica``) is one
+replica spanning a process group, on ``parallel.distributed``.
 """
 
 from dvf_tpu_torch.fleet.admission import SpilloverAdmission
@@ -18,6 +17,8 @@ from dvf_tpu_torch.fleet.elastic import (
     StandbyPool,
     live_standby_handles,
 )
+from dvf_tpu_torch.fleet.multihost import MultiHostReplica
+from dvf_tpu_torch.fleet.multiproc import MultiHostEngine
 from dvf_tpu_torch.fleet.replica import (
     DEAD,
     DRAINING,
@@ -39,6 +40,8 @@ __all__ = [
     "FleetFrontend",
     "HEALTHY",
     "LocalReplica",
+    "MultiHostEngine",
+    "MultiHostReplica",
     "ProcessReplica",
     "RESTARTING",
     "ReplicaHandle",

@@ -43,9 +43,10 @@ CUDA, as ``ServeFrontend`` does. Local replicas partition the local cards
 of at least one) and each runs its engines over a mesh of its slice, so
 on one card every local replica shares it, each with its own engines,
 streams and slabs; process replicas run on one device each, named in
-their wire config. The multi-host flavor needs the multi-process
-runtime, which is not ported yet (ROADMAP Queue 1 item 4c), and raises
-``NotImplementedError``.
+their wire config. The multi-host flavor (``multihost_hosts >= 2``) is
+a process group of that many members behind one replica
+(``fleet.multihost``), member *i* on ``cuda:{i % device_count}``, or on
+the CPU when the fleet runs there.
 """
 
 from __future__ import annotations
@@ -232,10 +233,12 @@ class FleetConfig:
     #   PREDICTIVE elasticity controller (slope-projected scale-out)
     #   when autoscale is on. Plan/calibration cache dir rides
     #   serve.plan_cache_dir.
-    multihost_hosts: int = 0      # >= 2 would arm the BIGGER-replica
-    #   axis (one replica spanning a process group, one program across
-    #   the group's devices); it needs the multi-process runtime, which
-    #   is not ported yet, so >= 2 raises NotImplementedError. 0 = the
+    multihost_hosts: int = 0      # >= 2 arms the BIGGER-replica axis:
+    #   a spawn_replica(flavor="multihost") builds one replica whose
+    #   worker is a MultiHostEngine process group of this many members
+    #   (torch.distributed over gloo, one program over the group's rows),
+    #   pinned to the first --precompile manifest signature (the group
+    #   compiles ONE program — the manifest names it). 0 = the
     #   controller's two-axis choice always picks more-replicas.
 
 
@@ -292,11 +295,6 @@ class FleetFrontend:
         raises where there is no CUDA, as ``ServeFrontend`` does."""
         self.config = config or FleetConfig()
         self.device = resolve_device(device)
-        if self.config.multihost_hosts >= 2:
-            raise NotImplementedError(
-                "the multi-host flavor (multihost_hosts >= 2) needs the "
-                "multi-process runtime, which the port does not have yet "
-                "(ROADMAP Queue 1 item 4c)")
         if self.config.mode not in FLEET_MODES:
             raise ValueError(
                 f"mode must be one of {FLEET_MODES}, got "
@@ -501,12 +499,12 @@ class FleetFrontend:
 
             self.standby = StandbyPool(self._spawn_standby,
                                        warm_target=self.config.standby_warm)
-        # Two-axis input, loaded ONCE at construction (the controller
+        # Two-axis inputs, loaded ONCE at construction (the controller
         # is deterministic — no file reads inside the decision loop):
-        # the manifest signatures' measured device cost from the stage
-        # profiles (--profile-dir). The other input, the multihost
-        # flavor's signature, never exists here: the flavor is not
-        # ported, so the controller always picks more replicas.
+        # the dominant signature the multihost flavor would pin to (the
+        # first --precompile manifest entry) and its measured device
+        # cost from the stage profiles (--profile-dir).
+        self._multihost_key = None
         self._profile_device_ms: Optional[float] = None
         if self.config.precompile:
             try:
@@ -515,6 +513,8 @@ class FleetFrontend:
                 entries = parse_manifest(self.config.precompile)
             except (ValueError, TypeError):
                 entries = []
+            if entries and self.config.multihost_hosts >= 2:
+                self._multihost_key = entries[0]["key"]
             if entries and self.config.serve.profile_dir:
                 from dvf_tpu_torch.obs.lineage import load_stage_profile
 
@@ -1690,24 +1690,30 @@ class FleetFrontend:
         insert — the spawn-to-first-served-frame time the elastic bench
         measures) and cold-spawns otherwise (seconds: spawn + torch import
         + CUDA context + precompile; this call blocks for it, which is
-        why the elastic plane applies off-thread). ``flavor`` only
-        labels the spawn: the BIGGER-replica flavor ("multihost") cannot
-        be armed here (``multihost_hosts >= 2`` raises at construction),
-        so every spawn is the default flavor, as in the reference when
-        its multihost leg is not configured."""
+        why the elastic plane applies off-thread). ``flavor="multihost"``
+        builds the BIGGER-replica shape instead: a MultiHostEngine
+        process group (``FleetConfig.multihost_hosts`` members, one
+        program) pinned to the first precompile-manifest signature —
+        falls back to the default flavor when the multihost leg is not
+        configured."""
         t_spawn = time.time()
         with self._scale_lock:
             if self._stop.is_set():
                 raise ServeError("fleet is stopping: no scale-out")
             warm = False
-            h = self.standby.take() if self.standby is not None else None
-            if h is not None:
-                rid = h.id
-                warm = True
-            else:
+            if flavor == "multihost" and self._multihost_key is not None:
                 rid = self._next_rid()
-                h = self._make_replica(rid, int(rid[1:]))
+                h = self._make_multihost_replica(rid)
                 h.start()
+            else:
+                h = self.standby.take() if self.standby is not None else None
+                if h is not None:
+                    rid = h.id
+                    warm = True
+                else:
+                    rid = self._next_rid()
+                    h = self._make_replica(rid, int(rid[1:]))
+                    h.start()
             if self._stop.is_set():
                 # stop() ran while the (seconds-long cold) spawn was in
                 # flight: its replica sweep snapshotted _replicas before
@@ -1751,6 +1757,31 @@ class FleetFrontend:
 
     def _live_count_locked(self) -> int:
         return sum(1 for r in self._replicas.values() if r.state != DEAD)
+
+    def _make_multihost_replica(self, rid: str):
+        from dvf_tpu_torch.fleet.multihost import MultiHostReplica
+
+        key = self._multihost_key
+        if key is None:
+            raise ServeError(
+                "multihost flavor needs multihost_hosts >= 2 and a "
+                "--precompile manifest naming the signature the group "
+                "compiles")
+        return MultiHostReplica(
+            rid,
+            op_chain=key.op_chain,
+            frame_shape=tuple(key.geometry),
+            frame_dtype=str(key.np_dtype),
+            hosts=self.config.multihost_hosts,
+            batch_size=self.config.serve.batch_size,
+            slo_ms=self.config.serve.slo_ms,
+            queue_size=self.config.serve.queue_size,
+            out_queue_size=self.config.serve.out_queue_size,
+            env=self.config.replica_env,
+            startup_timeout_s=self.config.startup_timeout_s,
+            rpc_timeout_s=self.config.rpc_timeout_s,
+            device=self.device.type,
+        )
 
     def retire_replica(self, rid: str,
                        cause: str = ledger_mod.CAUSE_MANUAL,
@@ -2110,7 +2141,7 @@ class FleetFrontend:
             "bound_sessions": float(sum(load.values())),
             "slo_ms": float(self.config.serve.slo_ms),
             "replica_rows": rows,
-            "multihost_available": False,
+            "multihost_available": self._multihost_key is not None,
             "profile_device_ms": self._profile_device_ms,
             # Relay-axis inputs (zero rows when nothing publishes:
             # relay_pressure short-circuits and the recorded window

@@ -13,7 +13,7 @@ The forward rounds where the reference rounds: each conv in
 in that dtype, and the 2×2 pool a sum of the window in that dtype times
 0.25 (not ``F.avg_pool2d``, whose bfloat16 mean rounds once). The
 tensor-parallel body and its specs wait for the sharded train state
-(ROADMAP Queue 1 item 4c).
+(ROADMAP Queue 1 item 4c-iii).
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 the mesh and its shardings (``mesh``), sharded batches and their
 collectives (``sharded``), halo-exchanged spatial sharding (``halo``) and
 the layer pipeline (``pp``). One process drives every device of its
-mesh. The multi-process runtime (``distributed``) is not ported yet
-(ROADMAP Queue 1 item 4c)."""
+mesh; the multi-process runtime (``distributed``) joins processes in a
+torch.distributed group, one mesh over all of them."""
 
 from dvf_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshConfig,

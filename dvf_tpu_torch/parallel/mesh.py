@@ -12,7 +12,8 @@ may repeat a device. That is how the CPU tests get eight devices out of
 torch's one CPU device, and how a ``space=4`` mesh runs on one card:
 shards that share a device run one after another on its current stream.
 (The reference forbids duplicate devices; its CPU gets eight from an XLA
-flag.)
+flag.) A mesh over a process group (``parallel.distributed``) records
+which rank owns each position; a process addresses only its own.
 
 A sharding (:class:`NamedSharding`) lays a batch out over the mesh by a
 :class:`PartitionSpec` that names, per dimension, the mesh axes that split
@@ -76,11 +77,32 @@ def local_devices() -> List[torch.device]:
 
 
 class Mesh:
-    """An array of devices with named axes (``AXES``)."""
+    """An array of devices with named axes (``AXES``).
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXES):
+    A mesh may span processes (``parallel.distributed.global_mesh``):
+    ``processes`` is then the rank that owns each position, and
+    ``process_id`` the rank of the process holding this object. Only the
+    positions it owns are addressable here; the devices at the others are
+    labels (the group's convention for its peers' cards), never touched.
+    A mesh of one process owns every position."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXES,
+                 processes: Optional[np.ndarray] = None, process_id: int = 0):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.processes = (np.full(devices.shape, process_id, dtype=np.int64)
+                          if processes is None
+                          else np.asarray(processes, dtype=np.int64).reshape(devices.shape))
+        self.process_id = int(process_id)
+
+    @property
+    def process_count(self) -> int:
+        """How many processes own positions of the mesh."""
+        return len(set(self.processes.flat))
+
+    def owns(self, pos: Tuple[int, ...]) -> bool:
+        """Whether the position at ``pos`` is this process's."""
+        return int(self.processes[pos]) == self.process_id
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -95,20 +117,26 @@ class Mesh:
 
     @property
     def first_device(self) -> torch.device:
-        return self.devices.flat[0]
+        """The device at this process's first position (of a mesh of one
+        process: the first position)."""
+        return self.distinct_devices()[0]
 
     def distinct_devices(self) -> List[torch.device]:
-        """The devices of the mesh, each once, in mesh order."""
+        """The devices of the mesh this process owns, each once, in mesh
+        order."""
         out: List[torch.device] = []
-        for d in self.devices.flat:
-            if d not in out:
+        for pos in np.ndindex(*self.devices.shape):
+            d = self.devices[pos]
+            if self.owns(pos) and d not in out:
                 out.append(d)
         return out
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
-                and list(self.devices.flat) == list(other.devices.flat))
+                and list(self.devices.flat) == list(other.devices.flat)
+                and np.array_equal(self.processes, other.processes)
+                and self.process_id == other.process_id)
 
     def __hash__(self) -> int:
         return hash((self.axis_names, self.devices.shape,
@@ -139,12 +167,16 @@ def _check_device(dev: Union[str, torch.device]) -> torch.device:
 def make_mesh(
     config: Optional[MeshConfig] = None,
     devices: Optional[Sequence[Union[str, torch.device]]] = None,
+    processes: Optional[Sequence[int]] = None,
+    process_id: int = 0,
 ) -> Mesh:
     """Build a Mesh with axes ('data', 'space', 'model').
 
     ``devices`` defaults to every visible card (:func:`local_devices`);
     without CUDA that list is empty and the call raises. The list may
-    repeat a device (virtual meshes)."""
+    repeat a device (virtual meshes). ``processes`` (one rank per entry
+    of ``devices``) and ``process_id`` describe a mesh over a process
+    group (:class:`Mesh`)."""
     devices = list(devices if devices is not None else local_devices())
     if config is None:
         config = auto_mesh_config(max(1, len(devices)))
@@ -156,7 +188,10 @@ def make_mesh(
     arr = np.empty(config.n_devices, dtype=object)
     for i, d in enumerate(devices):
         arr[i] = d
-    return Mesh(arr.reshape(config.data, config.space, config.model), AXES)
+    shape = (config.data, config.space, config.model)
+    procs = (None if processes is None
+             else np.asarray(list(processes)[: config.n_devices]).reshape(shape))
+    return Mesh(arr.reshape(shape), AXES, processes=procs, process_id=process_id)
 
 
 class PartitionSpec(tuple):
@@ -239,10 +274,13 @@ class NamedSharding:
                 for pos in np.ndindex(*self.mesh.devices.shape)}
 
     def shards(self, shape: Sequence[int]) -> List[Shard]:
-        """The distinct blocks in mesh order, each on the first position
-        that holds it (replicas are not materialised)."""
+        """The distinct blocks this process addresses, in mesh order, each
+        on the first of its positions that holds it (replicas are not
+        materialised)."""
         seen = {}
         for pos, idx in self.devices_indices_map(shape).items():
+            if not self.mesh.owns(pos):
+                continue
             key = tuple((s.start, s.stop) for s in idx)
             if key not in seen:
                 seen[key] = Shard(pos, self.mesh.devices[pos], idx)

@@ -19,6 +19,16 @@ output, queued on the same CUDA stream (no host sync in between):
   only dirty tiles' int16 coefficient blocks and the bitmap cross D2H;
   the host runs entropy coding and nothing else
   (``NativeJpegCodec.encode_coefficients_batch``).
+
+The probe and the fused transform also take a mesh engine's
+:class:`~dvf_tpu_torch.parallel.sharded.ShardedBatch`: they launch their
+kernels once per block, on the block's device. Row 0 of data block *k*
+diffs against the last row of data block *k−1* (a one-row copy between
+devices, ordered as the halo's copies are), and the results come back in
+global row order, byte-identical to the whole batch. Where the blocks
+split H at rows that are not a multiple of the tile (and, fused, of 16),
+a block cannot run alone: the batch is assembled on the mesh's first
+device and runs once.
 """
 
 from __future__ import annotations
@@ -29,10 +39,80 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.ops.kernels import dct8x8_quant_planes, jpeg_quant_table, tile_maxdiff
+from dvf_tpu_torch.parallel.sharded import ShardedBatch, assemble
 
 
 def _stream_of(t: torch.Tensor):
     return torch.cuda.current_stream(t.device) if t.device.type == "cuda" else None
+
+
+def _whole_or_blocks(batch, align: int):
+    """``batch`` as a list of blocks that can each run alone: a whole
+    tensor is one block; a sharded batch keeps its blocks when H is not
+    split or every H block is a multiple of ``align``, else it is
+    assembled on the mesh's first device (one block). Each entry is
+    ``(data row, (b0, b1), (h0, h1), tensor)``; rows in B order, each in
+    H order."""
+    if not isinstance(batch, ShardedBatch):
+        b, h = batch.shape[0], batch.shape[1]
+        return [(0, (0, b), (0, h), batch)]
+    h_parts = batch.sharding.parts(1)
+    if h_parts > 1 and (batch.shape[1] // h_parts) % align:
+        whole = assemble(batch, batch.device)
+        return _whole_or_blocks(whole, align)
+    out = []
+    for r, row in enumerate(batch.grid()):
+        for i in row:
+            idx = batch.blocks[i].index
+            out.append((r, (idx[0].start, idx[0].stop),
+                        (idx[1].start, idx[1].stop), batch.shards[i]))
+    return out
+
+
+class _RowChain:
+    """The predecessor chain of a block-wise frame stream: each block's
+    frames diff against the frame before them in global order. Keeps the
+    last frame of the previous batch as pieces by H slice, so the next
+    batch may come whole or in other blocks."""
+
+    def __init__(self):
+        self.pieces: Optional[list] = None  # [((h0, h1), (1, h, W, C))]
+        self.shape: Optional[Tuple[int, ...]] = None
+
+    def first(self, shape) -> bool:
+        return self.pieces is None or self.shape != tuple(shape)
+
+    def _prev_slice(self, h0: int, h1: int, device: torch.device) -> torch.Tensor:
+        parts = []
+        for (p0, p1), t in self.pieces:
+            lo, hi = max(p0, h0), min(p1, h1)
+            if lo < hi:
+                parts.append(t[:, lo - p0:hi - p0].to(device, non_blocking=True))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def chains(self, blocks, shape):
+        """Per block, ``cat([predecessor of its first row, rows[:-1]])``;
+        records the batch's last row for the next call."""
+        first = self.first(shape)
+        above = {}   # (h0, h1) -> last row of the previous data row
+        out = []
+        for r, _, hs, x in blocks:
+            if r == 0:
+                prev = x[:1] if first else self._prev_slice(*hs, x.device)
+            else:
+                prev = above[hs].to(x.device, non_blocking=True)
+            out.append(torch.cat([prev, x[:-1]], dim=0))
+            above[hs] = x[-1:]
+        last = max(r for r, _, _, _ in blocks)
+        # A view of a block's last row would alias the engine's next
+        # output buffer.
+        self.pieces = [(hs, x[-1:].clone()) for r, _, hs, x in blocks if r == last]
+        self.shape = tuple(shape)
+        return first, out
+
+    def reset(self) -> None:
+        self.pieces = None
+        self.shape = None
 
 
 class DeviceDeltaProbe:
@@ -52,30 +132,30 @@ class DeviceDeltaProbe:
 
     def __init__(self, tile: int = 32):
         self.tile = int(tile)
-        self._prev: Optional[torch.Tensor] = None  # (1, H, W, C) last row
-        self._shape: Optional[Tuple[int, ...]] = None
+        self._chain = _RowChain()
 
-    def _step(self, batch: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-        chain = torch.cat([prev, batch[:-1]], dim=0)
-        # A view of batch[-1] would alias the engine's next output buffer.
-        self._prev = batch[-1:].clone()
-        return tile_maxdiff(batch, chain, self.tile)
-
-    def bitmaps(self, batch: torch.Tensor) -> np.ndarray:
-        """One device reduction and a tiny host fetch; ``batch`` is the
-        engine's (B, H, W, C) uint8 device output."""
+    def bitmaps(self, batch) -> np.ndarray:
+        """One device reduction per block and a tiny host fetch; ``batch``
+        is the engine's (B, H, W, C) uint8 device output, whole or a
+        ShardedBatch."""
         shape = tuple(batch.shape)
-        if self._prev is None or self._shape != shape:
-            self._shape = shape
-            out = self._step(batch, batch[:1]).cpu().numpy()
+        t = self.tile
+        blocks = _whole_or_blocks(batch, t)
+        first, chains = self._chain.chains(blocks, shape)
+        tiles = [tile_maxdiff(x, c, t) for (_, _, _, x), c in zip(blocks, chains)]
+        if len(blocks) == 1:
+            out = tiles[0].cpu().numpy()
+        else:
+            out = np.empty((shape[0], -(-shape[1] // t), -(-shape[2] // t)), np.uint8)
+            for (_, (b0, b1), (h0, _), _), tl in zip(blocks, tiles):
+                out[b0:b1, h0 // t:h0 // t + tl.shape[1]] = tl.cpu().numpy()
+        if first:
             out[0] = 255
-            return out
-        return self._step(batch, self._prev).cpu().numpy()
+        return out
 
     def reset(self) -> None:
         """Drop the device state (geometry change, engine rebuild)."""
-        self._prev = None
-        self._shape = None
+        self._chain.reset()
 
 
 # -- YCbCr 4:2:0 device stages ------------------------------------------
@@ -173,8 +253,7 @@ class FusedDeltaTransform:
         self.tile = int(tile)
         self.quality = int(quality)
         self.calls = 0
-        self._prev: Optional[torch.Tensor] = None
-        self._shape: Optional[Tuple[int, ...]] = None
+        self._chain = _RowChain()
         self._ql = jpeg_quant_table(quality)
         self._qc = jpeg_quant_table(quality, chroma=True)
 
@@ -194,38 +273,63 @@ class FusedDeltaTransform:
         return (q.reshape(b, nby // bt, bt, nbx // bt, bt, 8, 8)
                 .permute(0, 1, 3, 2, 4, 5, 6).contiguous())
 
-    def process(self, batch: torch.Tensor):
+    def _block(self, x: torch.Tensor, chain: torch.Tensor):
+        """K5 and K6 (one launch each) on one block."""
+        t = self.tile
+        tiles = tile_maxdiff(x, chain, t)
+        y, cb, cr = rgb_to_ycbcr420(x)
+        yq, cbq, crq = dct8x8_quant_planes((y, cb, cr), (self._ql, self._qc, self._qc))
+        return (tiles, self._group(yq, t // 8), self._group(cbq, t // 16),
+                self._group(crq, t // 16))
+
+    def process(self, batch):
         """One batch → ``(bitmaps, coefficient_frames)``: a host (B, nty,
         ntx) uint8 bitmap array and one lazy
-        :class:`~dvf_tpu_torch.transport.codec.CoefficientFrame` per row."""
+        :class:`~dvf_tpu_torch.transport.codec.CoefficientFrame` per row.
+        ``batch`` is whole or a ShardedBatch (one launch of each kernel
+        per block)."""
         from dvf_tpu_torch.transport.codec import CoefficientFrame
 
         shape = tuple(batch.shape)
         if not self.supports(shape, self.tile):
             raise ValueError(f"geometry {shape} unsupported at tile "
                              f"{self.tile} (use supports() to gate)")
-        first = self._prev is None or self._shape != shape
-        prev = batch[:1] if first else self._prev
-        self._shape = shape
         t = self.tile
-        tiles = tile_maxdiff(batch, torch.cat([prev, batch[:-1]], dim=0), t)
-        self._prev = batch[-1:].clone()
-        y, cb, cr = rgb_to_ycbcr420(batch)
-        yq, cbq, crq = dct8x8_quant_planes((y, cb, cr), (self._ql, self._qc, self._qc))
-        yq = self._group(yq, t // 8)
-        cbq, crq = self._group(cbq, t // 16), self._group(crq, t // 16)
+        blocks = _whole_or_blocks(batch, t)
+        first, chains = self._chain.chains(blocks, shape)
+        done = [self._block(x, c) for (_, _, _, x), c in zip(blocks, chains)]
         self.calls += 1
-        bm = tiles.cpu().numpy()
+        h, w = shape[1], shape[2]
+        if len(blocks) == 1:
+            tiles, yq, cbq, crq = done[0]
+            bm = tiles.cpu().numpy()
+            stream = _stream_of(blocks[0][3])
+            frames = [CoefficientFrame(yq[i], cbq[i], crq[i], h, w, t,
+                                       self.quality, stream=stream)
+                      for i in range(shape[0])]
+        else:
+            bm = np.empty((shape[0], h // t, w // t), np.uint8)
+            rows = {}   # data row -> [(b0, b1), x, [(yq, cbq, crq) per H block]]
+            for (r, (b0, b1), (h0, _), x), (tiles, yq, cbq, crq) in zip(blocks, done):
+                bm[b0:b1, h0 // t:h0 // t + tiles.shape[1]] = tiles.cpu().numpy()
+                rows.setdefault(r, [(b0, b1), x, []])[2].append((yq, cbq, crq))
+            frames = []
+            for r in sorted(rows):
+                (b0, b1), x, planes = rows[r]
+                dev = x.device
+                # A row's H blocks join on its first block's device.
+                yq, cbq, crq = (
+                    p[0] if len(p) == 1 else torch.cat(
+                        [q.to(dev, non_blocking=True) for q in p], dim=1)
+                    for p in zip(*planes))
+                stream = _stream_of(x)
+                frames.extend(CoefficientFrame(yq[i], cbq[i], crq[i], h, w, t,
+                                               self.quality, stream=stream)
+                              for i in range(b1 - b0))
         if first:
             bm[0] = 255
-        stream = _stream_of(batch)
-        h, w = shape[1], shape[2]
-        frames = [CoefficientFrame(yq[i], cbq[i], crq[i], h, w, t,
-                                   self.quality, stream=stream)
-                  for i in range(shape[0])]
         return bm, frames
 
     def reset(self) -> None:
         """Drop the device state (geometry change, engine rebuild)."""
-        self._prev = None
-        self._shape = None
+        self._chain.reset()

@@ -341,8 +341,8 @@ class Engine:
     signature.
 
     ``Engine(filt)`` runs on ``cuda:0`` (the reference's default spans
-    every device; the port's stays one card until the worker's codec
-    assist runs over a sharded batch). ``Engine(filt, mesh=m)`` spans
+    every device; the port's stays one card until ROADMAP Queue 1 item
+    4c-iii). ``Engine(filt, mesh=m)`` spans
     ``m``: ``device`` is the mesh's first device, and a ``device`` given
     beside a mesh must be that device. A one-device mesh runs the
     single-device path."""

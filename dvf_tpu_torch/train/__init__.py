@@ -3,7 +3,7 @@ perceptual-loss step with its VGG encoder (``style.py``), the ESPCN
 self-supervised step (``sr.py``), checkpoint and resume over ``.npz``
 files (``checkpoint.py``) and the optimizer they share (``optim.py``).
 Each step runs on one device, the state's; the mesh-sharded state waits
-for the multi-process slice (ROADMAP Queue 1 item 4c)."""
+for ROADMAP Queue 1 item 4c-iii."""
 
 from dvf_tpu_torch.train.style import (  # noqa: F401
     StyleTrainConfig,

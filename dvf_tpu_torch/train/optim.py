@@ -112,7 +112,7 @@ def single_device(mesh: Any, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"{what} over a mesh (the sharded train state) is not ported "
-            f"yet (ROADMAP Queue 1 item 4c); pass mesh=None (one device, "
+            f"yet (ROADMAP Queue 1 item 4c-iii); pass mesh=None (one device, "
             f"the state's)")
 
 

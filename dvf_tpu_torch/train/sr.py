@@ -6,7 +6,7 @@ LR input, and the net learns to reconstruct the original. The loss is
 Charbonnier (smooth L1). The step mirrors ``train.style``: one device,
 the state's (``mesh=None``), forward + backward + ``torch.optim.Adam``,
 the state updated in place (``donate=False`` steps a copy). The mesh-
-sharded form waits for ROADMAP Queue 1 item 4c.
+sharded form waits for ROADMAP Queue 1 item 4c-iii.
 """
 
 from __future__ import annotations

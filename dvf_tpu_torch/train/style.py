@@ -11,7 +11,7 @@ the state in place, the port's analogue of the reference's donated
 buffers; ``donate=False`` steps a copy and leaves its input untouched.
 The reference's mesh-sharded form (``state_pspecs``,
 ``shard_train_state``, ``train_batch_sharding``) waits for ROADMAP Queue 1
-item 4c.
+item 4c-iii.
 """
 
 from __future__ import annotations

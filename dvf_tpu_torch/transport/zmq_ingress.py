@@ -201,11 +201,6 @@ class ZmqWorker:
         #   "transport" sites live here; "h2d", "d2h", "compute" and "oom"
         #   ride on the assembler, the fetcher and the engine)
         self.engine = engine or Engine(filt, device=device, chaos=chaos)
-        if self.engine.mesh is not None and self.engine.mesh.size > 1:
-            raise NotImplementedError(
-                "the worker over several devices (its batches and codec "
-                "assist sharded over a mesh) is not ported yet (ROADMAP "
-                "Queue 1 item 4c); give it a one-device engine")
         if chaos is not None and self.engine.chaos is None:
             self.engine.chaos = chaos
         self.wire = wire
@@ -408,7 +403,7 @@ class ZmqWorker:
                 requested_mode=self.ingest, depth=self.ingest_depth,
                 h2d_block_ms=self.engine.h2d_block_ms)
             self._asm = ShardedBatchAssembler(
-                shape, np.uint8, self.engine.device, mode=self.ingest,
+                shape, np.uint8, self.engine.placement, mode=self.ingest,
                 depth=self.ingest_depth, slots=1, stats=self._ingest_stats,
                 chaos=self.chaos, stream=self.engine.h2d_stream_for)
             if self._degrade_reason is not None:

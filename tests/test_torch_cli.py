@@ -297,8 +297,9 @@ def test_bad_mesh_arg_fails_loudly(cpu):
 
 def test_mesh_over_several_cards_exits_2(monkeypatch, capsys):
     """Where enough cards are attached, --mesh builds a mesh over them;
-    it exits 2 when the mesh needs more cards than are attached, and for
-    the worker over several devices (ROADMAP Queue 1 item 4c)."""
+    it exits 2 when the mesh needs more cards than are attached. The
+    worker's --mesh over several devices builds its engine over that
+    mesh (its run loop stood in for by an immediate return)."""
     monkeypatch.delenv("DVF_FORCE_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
@@ -311,20 +312,25 @@ def test_mesh_over_several_cards_exits_2(monkeypatch, capsys):
         cli._parse_mesh("data=4")
     assert ei.value.code == 2
     capsys.readouterr()
-    with pytest.raises(SystemExit) as ei:
-        cli._parse_mesh("data=2", several=False)
-    assert ei.value.code == 2
-    assert "item 4c" in capsys.readouterr().err
+    pytest.importorskip("zmq")
+    import dvf_tpu_torch.transport.zmq_ingress as zmq_mod
+
+    workers = []
+    monkeypatch.setattr(zmq_mod.ZmqWorker, "run",
+                        lambda self, *a, **k: workers.append(self))
+    worker_argv = ["worker", "--filter", "invert", "--no-jpeg", "--mesh",
+                   "data=2,space=2", "--distribute-port", str(_free_port()),
+                   "--collect-port", str(_free_port())]
     monkeypatch.setenv("DVF_FORCE_PLATFORM", "cpu")
     with pytest.raises(SystemExit) as ei:
-        main(["worker", "--filter", "invert", "--mesh", "data=2"])
+        main(worker_argv)
     assert ei.value.code == 2
-    assert "needs 2 devices, have 1" in capsys.readouterr().err
-    monkeypatch.setattr(cli, "_mesh_devices", lambda: [torch.device("cpu")] * 2)
-    with pytest.raises(SystemExit) as ei:
-        main(["worker", "--filter", "invert", "--mesh", "data=2"])
-    assert ei.value.code == 2
-    assert "item 4c" in capsys.readouterr().err
+    assert "needs 4 devices, have 1" in capsys.readouterr().err
+    monkeypatch.setattr(cli, "_mesh_devices", lambda: [torch.device("cpu")] * 4)
+    assert main(worker_argv) == 0
+    (w,) = workers
+    assert w.engine.mesh.shape == {"data": 2, "space": 2, "model": 1}
+    assert w.engine.devices == [torch.device("cpu")]
 
 
 def test_serve_with_explicit_mesh(monkeypatch, capsys, cpu):

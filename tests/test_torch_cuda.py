@@ -1291,3 +1291,56 @@ def test_wrapper_refuses_a_b_and_h_sharded_view(dev):
         with pytest.raises(ValueError, match="contiguous"):
             call()
         assert tk.LAUNCHES == before
+
+
+# --------------------------------- the multi-process runtime on the card
+
+
+@pytest.mark.parametrize("axes", [{"data": 2}, {"data": 2, "space": 2}],
+                         ids=["data=2", "data=2,space=2"])
+def test_codec_assist_per_block_equals_the_whole_batch(dev, axes):
+    """The probe and the fused transform over a ShardedBatch of cuda:0
+    (a virtual mesh): bitmaps and coefficient blocks equal the whole
+    batch's across two batches, K5 and K6 once per block per batch."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, batch_sharding, make_mesh
+    from dvf_tpu_torch.parallel.sharded import shard_batch
+    from dvf_tpu_torch.runtime.codec_assist import DeviceDeltaProbe, FusedDeltaTransform
+
+    m = make_mesh(MeshConfig(**axes), devices=[dev] * (2 * axes.get("space", 1)))
+    shape = (8, 128, 96, 3)
+    rng = np.random.default_rng(3)
+    pw, pm = DeviceDeltaProbe(32), DeviceDeltaProbe(32)
+    fw, fm = FusedDeltaTransform(32), FusedDeltaTransform(32)
+    for _ in range(2):
+        x = torch.from_numpy(rng.integers(0, 255, shape, np.uint8)).to(dev)
+        x[:, :64] = 7
+        sb = shard_batch(x, batch_sharding(m, shape))
+        want_bm, (want_fbm, want_f) = pw.bitmaps(x), fw.process(x)
+        before = dict(tk.LAUNCHES)
+        got_bm, (got_fbm, got_f) = pm.bitmaps(sb), fm.process(sb)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["tile_maxdiff"] - before["tile_maxdiff"] == 2 * m.size
+        assert tk.LAUNCHES["dct8x8_quant"] - before["dct8x8_quant"] == m.size
+        np.testing.assert_array_equal(got_bm, want_bm)
+        np.testing.assert_array_equal(got_fbm, want_fbm)
+        for a, b in zip(got_f, want_f):
+            for p, q in ((a.yq, b.yq), (a.cbq, b.cbq), (a.crq, b.crq)):
+                assert torch.equal(p, q)
+
+
+def test_multihost_engine_in_one_process_equals_the_engine(dev):
+    """MultiHostEngine in one process (no group) over a data=2 mesh of
+    cuda:0: every row is local, the rows run through the single-card
+    engine's step (K1 once per batch) and equal ``Engine`` bit for bit."""
+    from dvf_tpu_torch.fleet import MultiHostEngine
+    from dvf_tpu_torch.parallel.mesh import MeshConfig
+    from dvf_tpu_torch.runtime.engine import Engine
+
+    filt = dvf_tpu_torch.get_filter("gaussian_blur", ksize=9)
+    x = np.random.default_rng(1).integers(0, 255, (4, 96, 80, 3), np.uint8)
+    want = Engine(filt, device=dev).submit(x).fetch().copy()
+    eng = MultiHostEngine(filt, MeshConfig(data=2), devices=[dev] * 2)
+    eng.compile(x.shape)
+    assert eng.local_batch_size == 4 and eng.device == dev
+    got = _launched("sep_blur", lambda: eng.submit_local(x))
+    np.testing.assert_array_equal(got, want)

@@ -1,8 +1,9 @@
 """The port's elastic fleet (``dvf_tpu_torch.fleet.elastic``) on the CPU:
 counterparts of ``tests/test_elastic.py``'s ``TestStandbyPool``,
 ``TestElasticFleetLocal`` and ``TestScaleInChaos``. The controller's
-own cases are in ``tests/test_torch_planner.py``; the multi-host flavor
-and the elastic bench are not ported yet (ROADMAP Queue 1 item 4).
+own cases are in ``tests/test_torch_planner.py``, the multi-host flavor's
+(``TestMultiHostFlavor``) in ``tests/test_torch_fleet_multiproc.py``; the
+elastic bench is not ported yet (ROADMAP Queue 1 item 4).
 
 The warm standby pool makes ``spawn_replica`` an adoption instead of a
 cold spawn, refusal pressure grows the fleet and sustained calm shrinks

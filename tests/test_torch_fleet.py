@@ -748,19 +748,29 @@ def test_local_replicas_partition_the_cards(monkeypatch):
 def test_multi_device_replicas_not_ported(kw):
     """``devices_per_replica=2`` builds each local replica's engines over
     a two-device mesh (on the CPU, the CPU twice: a virtual mesh) and
-    serves bit-exactly; the multi-host flavor still needs the
-    multi-process runtime and raises NotImplementedError naming ROADMAP
-    Queue 1 item 4c, and the elastic view says it is unavailable, so the
-    controller only ever adds replicas."""
+    serves bit-exactly; ``multihost_hosts=2`` arms the multi-host flavor,
+    whose elastic view is available once a manifest names the signature
+    the group compiles (and not before, as in the reference), and the
+    fleet package exports its engine and replica (its spawn and serving:
+    tests/test_torch_fleet_multiproc.py)."""
     if "multihost_hosts" in kw:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4c"):
-            FleetFrontend(get_filter("invert"), FleetConfig(replicas=1, **kw))
-        fleet = FleetFrontend(get_filter("invert"), FleetConfig(replicas=1))
-        assert fleet.elastic_view()["multihost_available"] is False
         import dvf_tpu_torch.fleet as fleet_pkg
+        from dvf_tpu.fleet import FleetConfig as RefFleetConfig
+        from dvf_tpu.fleet import FleetFrontend as RefFleetFrontend
+        from dvf_tpu.ops import get_filter as ref_get_filter
 
-        assert not hasattr(fleet_pkg, "MultiHostEngine")
-        assert not hasattr(fleet_pkg, "MultiHostReplica")
+        manifest = [{"op_chain": "invert", "frame_shape": [16, 24, 3],
+                     "dtype": "u8"}]
+        for precompile, want in ((None, False), (manifest, True)):
+            fleet = FleetFrontend(get_filter("invert"),
+                                  FleetConfig(replicas=1, precompile=precompile, **kw))
+            ref = RefFleetFrontend(ref_get_filter("invert"),
+                                   RefFleetConfig(replicas=1, precompile=precompile, **kw))
+            assert fleet.elastic_view()["multihost_available"] is want
+            assert ref.elastic_view()["multihost_available"] is want
+        assert fleet._multihost_key.render() == ref._multihost_key.render()
+        assert fleet_pkg.MultiHostEngine.__module__ == "dvf_tpu_torch.fleet.multiproc"
+        assert fleet_pkg.MultiHostReplica.__module__ == "dvf_tpu_torch.fleet.multihost"
         return
     fleet = FleetFrontend(get_filter("invert"),
                           FleetConfig(replicas=2, mode="local",

@@ -17,6 +17,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 BENCH_MODULES = {"dvf_tpu_torch.benchmarks", "dvf_tpu_torch.bench_child",
                  "dvf_tpu_torch.models.analysis", "dvf_tpu_torch.runtime.cost"}
+MULTIPROC_MODULES = {"dvf_tpu_torch.parallel.distributed",
+                     "dvf_tpu_torch.fleet.multiproc",
+                     "dvf_tpu_torch.fleet.multihost",
+                     "dvf_tpu_torch.fleet._mh_worker"}
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -90,6 +94,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # The bench harness: benchmarks, the child process, the roofline model
     # and the counters behind Engine.cost_analysis.
     assert BENCH_MODULES <= set(res["imported"])
+    # The multi-process runtime: the process group, the multi-process
+    # engine, the multi-host replica and its worker.
+    assert MULTIPROC_MODULES <= set(res["imported"])
 
 
 def test_planner_ranks_with_its_own_copy_of_ab_comparison():
@@ -139,8 +146,7 @@ def test_ring_source_is_the_ports_own_copy():
                                  "serve", "ops", "parallel", ""])
 def test_package_exports_the_references_names(pkg):
     """Each package (and the top-level one, ``""``) re-exports the names
-    its JAX counterpart exports (minus the fleet's multi-host flavor,
-    which waits for the multi-process runtime)."""
+    its JAX counterpart exports."""
     import importlib
     import types
 
@@ -149,7 +155,6 @@ def test_package_exports_the_references_names(pkg):
     want = {n for n, v in vars(ref).items()
             if not n.startswith("_") and not isinstance(v, types.ModuleType)
             and getattr(v, "__module__", "").startswith("dvf_tpu.")}
-    want -= {"MultiHostEngine", "MultiHostReplica"}
     assert want
     got = importlib.import_module(f"dvf_tpu_torch{suffix}")
     missing = sorted(n for n in want if not hasattr(got, n))
@@ -181,7 +186,8 @@ def test_import_creates_no_cuda_context():
                          capture_output=True, text=True, timeout=120,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert BENCH_MODULES <= set(json.loads(out.stdout.strip().splitlines()[-1]))
+    names = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert BENCH_MODULES | MULTIPROC_MODULES <= names
 
 
 _HELP_PROBE = r"""
@@ -315,3 +321,63 @@ def test_worker_runs_as_a_child_without_jax():
             proc.wait()
     assert proc.returncode == 0, err
     assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_mh_worker_runs_as_a_child_without_jax():
+    """``python -m dvf_tpu_torch.fleet._mh_worker`` as the leader of a
+    one-member group on the CPU speaks the replica wire to a bare
+    listener (hello, config, ready, an op, stop) and imports neither jax
+    nor the JAX package; it ends with ``os._exit``."""
+    import socket
+
+    from dvf_tpu_torch.fleet.replica import recv_msg, send_msg
+
+    probe = (
+        "import json, os, runpy, sys\n"
+        "mod = runpy.run_module('dvf_tpu_torch.fleet._mh_worker')\n"
+        "rc = mod['main'](sys.argv[1:])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'dvf_tpu' or "
+        "m.startswith('dvf_tpu.'))\n"
+        "print(json.dumps({'rc': rc, 'bad': bad}), flush=True)\n"
+        "os._exit(0)\n")
+    from torch_mp_util import free_port
+
+    peer_port, coord_port = free_port(), free_port()
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    lst.settimeout(120)
+    root = str(ROOT)
+    env = dict(os.environ, PYTHONPATH=root, DVF_MH_CONFIG=json.dumps({
+        "op_chain": "invert", "frame_shape": [8, 8, 3], "frame_dtype": "uint8",
+        "batch_global": 2, "slo_ms": 1000.0, "queue_size": 8,
+        "out_queue_size": 8, "hosts": 1, "device": "cpu"}))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", probe, "--parent-port",
+         str(lst.getsockname()[1]), "--peer-port", str(peer_port),
+         "--coordinator", f"127.0.0.1:{coord_port}", "--num-processes", "1",
+         "--process-id", "0", "--replica-id", "r0"],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        sock, _ = lst.accept()
+        sock.settimeout(120)
+        assert recv_msg(sock)[0] == "hello"
+        send_msg(sock, ("config", {"mh": {}, "replica_id": "r0"}))
+        assert recv_msg(sock)[0] == "ready"
+        send_msg(sock, ("health",))
+        reply = recv_msg(sock)
+        assert reply[0] == "ok" and reply[1]["ok"] is True
+        assert reply[1]["warm_signatures"] == ["invert|8x8x3|uint8"]
+        send_msg(sock, ("stop",))
+        assert recv_msg(sock) == ("ok", None)
+        sock.close()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        lst.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1]) == {"rc": 0, "bad": []}

@@ -545,15 +545,33 @@ def test_serve_frontend_over_a_mesh(monkeypatch):
 
 
 def test_worker_over_several_devices_waits_for_4c_ii():
-    """The worker's batches and codec assist over a sharded batch are the
-    next slice: a worker handed a multi-device mesh engine raises naming
-    ROADMAP Queue 1 item 4c; a one-device mesh engine is the one device."""
+    """The worker over a multi-device mesh engine: its batches are staged
+    block by block in the engine's input layout and it sends the bytes
+    of the one-device worker, on the raw wire; a one-device mesh engine
+    is the one device (the delta wire's codec assist over a mesh:
+    tests/test_torch_worker_mesh.py)."""
     from dvf_tpu_torch.transport.zmq_ingress import ZmqWorker
 
     f = dt.get_filter("invert")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4c"):
-        ZmqWorker(f, engine=Engine(f, mesh=mesh(data=2)), device="cpu",
-                  connect=False)
-    w = ZmqWorker(f, engine=Engine(f, mesh=make_mesh(MeshConfig(), devices=[CPU])),
-                  device="cpu", connect=False)
-    w.close()
+    frames = np.random.default_rng(4).integers(0, 255, (8, 16, 16, 3), np.uint8)
+    blobs = [fr.tobytes() for fr in frames]
+    sent = {}
+    for label, eng in (("one", Engine(f, device="cpu")),
+                       ("mesh", Engine(f, mesh=mesh(data=2, space=2))),
+                       ("mesh1", Engine(f, mesh=make_mesh(MeshConfig(), devices=[CPU])))):
+        w = ZmqWorker(f, engine=eng, device="cpu", use_jpeg=False, raw_size=16,
+                      batch_size=4, connect=False)
+        got = []
+        try:
+            for s in (0, 4):
+                w.process_batch(list(enumerate(blobs))[s:s + 4],
+                                lambda i, t0, t1, p: got.append((i, p)))
+            w.drain_egress()
+            assert w.stats()["errors"] == 0
+        finally:
+            w.close()
+        sent[label] = got
+    assert [i for i, _ in sent["mesh"]] == list(range(8))
+    assert sent["mesh"] == sent["one"] == sent["mesh1"]
+    assert [np.frombuffer(p, np.uint8).reshape(16, 16, 3).tolist()
+            for _, p in sent["mesh"]] == (255 - frames).tolist()
