@@ -290,6 +290,22 @@ which raises (and so exits non-zero) on failure:
    bitmaps and coefficient blocks identical to one device, K5/K6 once per
    block per batch (the kernels line carries the rank and per-block
    counts);
+17. the sharded train state (``train_mesh_phase``): (a) the default
+   style train config (c 32, r 5, bf16) at 8 x 256 x 256 on
+   ``[cuda:0]*8`` (data=2, space=2, model=2) and ``[cuda:0]*2``
+   (model=2), and (b) ESPCN x2 at 16 x 128 x 128 HR on model=2 and
+   data=2, each against the one-device step from the same state: step
+   1's loss within 5e-3 relative, Adam's first moment (the bf16 gap
+   recorded, no weight scaled by the model axis), every copy of a block
+   bit-identical, ms per step against one device's over 10 steps; (c)
+   the model=2 state saved, restored onto the mesh, and one more step of
+   both bit for bit (cuDNN's deterministic algorithms), its ``.npz``
+   members equal to the whole state's; (d) ``dvf_tpu_torch.dryrun``:
+   ``entry()`` and ``dryrun_multichip(8)`` on ``[cuda:0]*8``, K3 and K4
+   launches per sub-check; (e) ``Engine(gaussian_blur(ksize=9))`` with
+   neither device nor mesh at 16 x 1080p bit-equal to
+   ``device="cuda:0"``, K1 once per batch; (f) ``python -m
+   dvf_tpu_torch train --steps 4 --batch 2`` as a process;
 6. a coarse split of a pipeline batch: the engine alone (pinned H2D,
    filter, D2H, back to back) against the host copies the pipeline adds
    (frames into a pinned slot, rows out of it); for the flow, style and
@@ -306,9 +322,9 @@ those sources, e.g. an older checkout's. ``warp_times_of(checkout)`` and
 times through its own wrappers, ``neural_times_of(checkout)`` its style
 and SR batches' device times; ``serve_only()``, ``ring_only()``,
 ``planes_only()``, ``control_only()``, ``fleet_only()``, ``cli_only()``
-``train_only()``, ``bench_only()``, ``mesh_only()`` and
-``multiproc_only()`` run the build and phase 7, 8, 9, 10, 11, 12, 13,
-14, 15 or 16 alone; ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
+``train_only()``, ``bench_only()``, ``mesh_only()``, ``multiproc_only()``
+and ``train_mesh_only()`` run the build and phase 7, 8, 9, 10, 11, 12,
+13, 14, 15, 16 or 17 alone; ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
 counters (``dvf_tpu_torch.runtime.cost``), the ones ``Engine.cost_analysis``
 and the bench's roofline read.
 
@@ -316,6 +332,7 @@ Output: human-readable lines, then ``{"pipeline": [...]}``, ``{"serve":
 [...]}``, ``{"ring": [...]}``, ``{"planes": [...]}``, ``{"control":
 [...]}``, ``{"fleet": [...]}``, ``{"cli": [...]}``, ``{"train": [...]}``,
 ``{"bench": [...]}``, ``{"mesh": [...]}``, ``{"multiproc": [...]}``,
+``{"train_mesh": [...]}``,
 ``{"stages": [...]}``, ``{"neural_checks": {...}}``, ``{"engine_checks": {...}}``
 and ``{"kernels": [...]}`` lines, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -1037,8 +1054,15 @@ def main() -> int:
     mp_rows, delta, rank_launches, per_block = multiproc_phase(dev, env["libjpeg"])
     for k, v in delta.items():
         launches[k] += v
+    # 17. the sharded train state (no hand kernel on the train path; K1
+    # through the engine's all-card default, K3/K4 per block in the dry run)
+    train_mesh_rows, train_mesh_delta = train_mesh_phase(dev, plain_of)
+    for k, v in train_mesh_delta.items():
+        launches[k] += v
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if train_mesh_delta.get(row["name"]):
+            row["train_mesh_launches"] = train_mesh_delta[row["name"]]
         if row["launches"] == 0:
             raise AssertionError(f"{row['name']} never launched on the main path")
         if rank_launches.get(row["name"]):
@@ -1080,6 +1104,7 @@ def main() -> int:
     print(json.dumps({"bench": bench_rows}))
     print(json.dumps({"mesh": mesh_rows}))
     print(json.dumps({"multiproc": mp_rows}))
+    print(json.dumps({"train_mesh": train_mesh_rows}))
     print(json.dumps({"stages": stage_rows}))
     print(json.dumps({"neural_checks": neural_checks}))
     print(json.dumps({"engine_checks": engine_checks}))
@@ -7780,6 +7805,341 @@ def multiproc_only() -> None:
     rows, _, ranks, per_block = multiproc_phase(dev, env["libjpeg"])
     print(json.dumps({"multiproc": rows, "rank_launches": ranks,
                       "per_block": per_block}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded train state (style and ESPCN steps over virtual
+# meshes of the card, resume onto the mesh, the dry run, the engine's
+# all-card default, train as a process)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 10                  # timed steps per leg, after one checked step
+MESH_TRAIN_STYLE = (("data=2,space=2,model=2", dict(data=2, space=2, model=2)),
+                    ("model=2", dict(model=2)))
+MESH_TRAIN_SR = (("model=2", dict(model=2)), ("data=2", dict(data=2)))
+DEFAULT_ENGINE_SHAPE = MAIN_SHAPE      # (e): gaussian_blur(ksize=9) at 16 x 1080p
+
+
+def _mu_gap(one, sharded) -> dict:
+    """Adam's first moment (0.1 x the gradient after one step) of a
+    sharded state against the one-device state's: the largest relative L2
+    over the leaves whose exact gradient is not zero, and the least and
+    largest projection ratio <mu_sharded, mu_one> / |mu_one|^2 over the
+    weight leaves (2.0 would be the reference's model-axis scaling)."""
+    from dvf_tpu_torch.train import optim
+
+    mu1 = optim.adam_state(one.opt_state, one.params)[1]
+    mu2 = optim.adam_state(sharded.opt_state, sharded.params)[1]
+    gaps = {k: float((mu1[k] - mu2[k]).float().norm() / mu1[k].float().norm())
+            for k in mu1 if not _zero_grad_leaf(k)}
+    ratios = {k: float((mu2[k] * mu1[k]).sum() / (mu1[k] * mu1[k]).sum())
+              for k in mu1 if k.endswith("/w")}
+    worst = max(gaps, key=gaps.get)
+    return dict(mu_rel_l2_max=gaps[worst], mu_rel_l2_max_leaf=worst,
+                w_ratio_min=min(ratios.values()), w_ratio_max=max(ratios.values()))
+
+
+def _copies_identical(state) -> int:
+    """Every copy of every block equal to its master bit for bit (raises
+    otherwise); returns how many copies there are beyond the masters (0
+    on a virtual mesh: one device holds each block once)."""
+    import torch
+
+    extra = 0
+    for k, _, copies in state.params.each_block():
+        if not all(torch.equal(copies[0], t) for t in copies[1:]):
+            raise AssertionError(f"train_mesh: the copies of {k} differ")
+        extra += len(copies) - 1
+    return extra
+
+
+def _mesh_train_leg(dev, smi: str, family: str, label: str, axes: dict, cfg,
+                    base, batch, one_ms: float, one_first):
+    """One family over one virtual mesh of the card: a checked first step
+    (donate=False) against the one-device step, then MESH_TRAIN_STEPS
+    timed steps (CUDA events)."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    mod = tst if family == "style" else tsr
+    mcfg = MeshConfig(**axes)
+    mesh = make_mesh(mcfg, devices=[dev] * mcfg.n_devices)
+    state = mod.shard_train_state(base, mesh, cfg)
+    step = mod.make_train_step(mesh, cfg, state_template=state)
+    first, m = mod.make_train_step(mesh, cfg, state_template=state, donate=False)(state, batch)
+    one_state, one_m = one_first
+    loss, one_loss = float(m["loss"]), float(one_m["loss"])
+    rel = abs(loss - one_loss) / abs(one_loss)
+    gap = _mu_gap(one_state, first)
+    extra = _copies_identical(first)
+    del first
+    state, ms, metrics, wall = _timed_steps(step, state, batch, MESH_TRAIN_STEPS)
+    _copies_identical(state)
+    med = statistics.median(ms[1:])
+    losses = [x["loss"] for x in metrics]
+    row = dict(leg=f"{'a' if family == 'style' else 'b'}_{family}_{label}", mesh=axes,
+               card=smi, shape=list(batch.shape), first_loss=loss,
+               first_loss_one_device=one_loss, first_loss_rel_err=rel, **gap,
+               copies_beyond_masters=extra, step_ms_median=med,
+               step_ms_one_device=one_ms, ratio_to_one_device=med / one_ms,
+               host_wall_ms_per_step=wall * 1e3 / MESH_TRAIN_STEPS, losses=losses)
+    log(f"train_mesh {row['leg']} on {smi}: step 1 loss {loss:.6f} vs one device "
+        f"{one_loss:.6f} (rel {rel:.2e}); Adam mu vs one device: rel L2 max "
+        f"{gap['mu_rel_l2_max']:.3e} ({gap['mu_rel_l2_max_leaf']}), w-leaf ratio "
+        f"{gap['w_ratio_min']:.5f}..{gap['w_ratio_max']:.5f}; copies beyond the "
+        f"masters {extra}; {med:.3f} ms/step median of steps 2-{MESH_TRAIN_STEPS} "
+        f"(CUDA events) vs {one_ms:.3f} one device ({med / one_ms:.2f}x); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not rel <= 5e-3:
+        raise AssertionError(f"train_mesh {row['leg']}: loss {loss} vs {one_loss}")
+    if not (abs(gap["w_ratio_min"] - 1) <= 0.05 and abs(gap["w_ratio_max"] - 1) <= 0.05
+            and gap["mu_rel_l2_max"] <= 0.2):
+        raise AssertionError(f"train_mesh {row['leg']}: gradient off the one-device "
+                             f"step's: {gap}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_mesh {row['leg']}: losses {losses}")
+    return row, mesh, state, step
+
+
+def _one_device(mod, cfg, base, batch):
+    """The one-device reference of a family: its first step (donate=False:
+    base stays as it was) and its ms per step over MESH_TRAIN_STEPS."""
+    step = mod.make_train_step(None, cfg, state_template=base)
+    first = mod.make_train_step(None, cfg, state_template=base, donate=False)(base, batch)
+    state = mod.copy_state(base)
+    _, ms, _, _ = _timed_steps(step, state, batch, MESH_TRAIN_STEPS)
+    return first, statistics.median(ms[1:])
+
+
+def train_mesh_leg_steps(dev, smi: str):
+    """(a) the default StyleTrainConfig (c 32, r 5, bf16) at 8 x 256 x 256
+    on ``data=2, space=2, model=2`` and ``model=2`` meshes of the card;
+    (b) ESPCN x2 at 16 x 128 x 128 HR on ``model=2`` and ``data=2``. Each
+    against the one-device step from the same state and batch. Returns
+    (rows, the model=2 style mesh, state and step for (c), the batch)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    rows = []
+    b, h, w, _ = TRAIN_STYLE_SHAPE
+    cfg = tst.StyleTrainConfig()
+    frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(h, w, n_frames=b, seed=0)][:-1]
+    batch = (torch.from_numpy(np.stack(frames).astype(np.float32) / 255.0)
+             .pin_memory().to(dev, non_blocking=True))
+    base = tst.init_train_state(0, make_style_image("stripes", h), cfg, device=dev)
+    one_first, one_ms = _one_device(tst, cfg, base, batch)
+    keep = None
+    for label, axes in MESH_TRAIN_STYLE:
+        row, mesh, state, step = _mesh_train_leg(dev, smi, "style", label, axes, cfg,
+                                                 base, batch, one_ms, one_first)
+        rows.append(row)
+        keep = (mesh, state, step, batch)
+        torch.cuda.empty_cache()
+    del one_first
+    b, h, w, _ = TRAIN_SR_SHAPE
+    scfg = tsr.SrTrainConfig()
+    hr = tsr.synthesize_structured_batch(np.random.default_rng(1), b, h)
+    sbatch = (torch.from_numpy(hr.astype(np.float32) / 255.0).pin_memory()
+              .to(dev, non_blocking=True))
+    sbase = tsr.init_train_state(0, scfg, device=dev)
+    s_first, s_ms = _one_device(tsr, scfg, sbase, sbatch)
+    for label, axes in MESH_TRAIN_SR:
+        row, *_ = _mesh_train_leg(dev, smi, "sr", label, axes, scfg, sbase, sbatch,
+                                  s_ms, s_first)
+        rows.append(row)
+    return rows, keep
+
+
+def train_mesh_leg_resume(dev, smi: str, keep, tmp: str):
+    """(c) the model=2 style state of (a) saved, restored onto the mesh from
+    a fresh template, and one more step of both (cuDNN's deterministic
+    algorithms on): loss and params bit for bit. The checkpoint's files
+    also against the same state restored whole and saved again."""
+    import torch
+
+    from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.train import optim
+    from dvf_tpu_torch.train import style as tst
+    from dvf_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    mesh, state, _, batch = keep
+    cfg = tst.StyleTrainConfig()
+    step = tst.make_train_step(mesh, cfg, state_template=state, donate=False)
+    t = time.perf_counter()
+    path = save_checkpoint(os.path.join(tmp, "mesh", "final"), state)
+    save_s = time.perf_counter() - t
+    template = tst.init_train_state(1, make_style_image("stripes", TRAIN_STYLE_SHAPE[1]),
+                                    cfg, device=dev)
+    t = time.perf_counter()
+    restored = restore_checkpoint(path, template, mesh=mesh, config=cfg)
+    restore_s = time.perf_counter() - t
+    whole = restore_checkpoint(path, template)
+    path2 = save_checkpoint(os.path.join(tmp, "mesh", "whole"), whole)
+    same_files = all(_npz_members(os.path.join(path, f)) == _npz_members(os.path.join(path2, f))
+                     for f in ("params.npz", "state.npz"))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, ma = step(state, batch)
+        b, mb = step(restored, batch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    pa, pb = optim.flatten(optim.whole(a.params)), optim.flatten(optim.whole(b.params))
+    n_diff = sum(int((pa[k] != pb[k]).sum()) for k in pa)
+    same_loss = bool(torch.equal(ma["loss"], mb["loss"]))
+    row = dict(leg="c_resume", mesh=dict(model=2), card=smi, step=int(b.step),
+               restored_step=int(restored.step), save_s=save_s, restore_s=restore_s,
+               next_step_loss_equal=same_loss, next_step_params_differing=n_diff,
+               files_equal_whole_state=same_files)
+    log(f"train_mesh (c) on {smi}: saved in {save_s:.2f} s, restored onto the mesh in "
+        f"{restore_s:.2f} s at step {int(restored.step)}; step {int(b.step)} of the "
+        f"restored vs the unrestored state: loss equal {same_loss}, params differing "
+        f"{n_diff}; the sharded checkpoint's .npz members equal the whole state's "
+        f"{same_files}")
+    if not (same_loss and n_diff == 0 and same_files
+            and int(restored.step) == int(state.step)):
+        raise AssertionError(f"train_mesh (c): {row}")
+    return row
+
+
+def _npz_members(path: str) -> list:
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return [(n, z.read(n)) for n in z.namelist()]
+
+
+def train_mesh_leg_dryrun(dev, smi: str):
+    """(d) ``dvf_tpu_torch.dryrun``: ``entry()``'s forward on the card and
+    ``dryrun_multichip(8)`` (one card: a virtual mesh of cuda:0 eight
+    times), every sub-check at the reference's tolerance, with K3's and
+    K4's launches per sub-check."""
+    from dvf_tpu_torch import dryrun
+
+    t = time.perf_counter()
+    fn, args = dryrun.entry()
+    out = fn(*args)
+    if tuple(out.shape) != tuple(args[1].shape) or not bool(out.isfinite().all()):
+        raise AssertionError(f"train_mesh (d): entry() gave {tuple(out.shape)}")
+    sub = dryrun.dryrun_multichip(8)
+    wall = time.perf_counter() - t
+    by = {r["label"]: r for r in sub}
+    k3 = by["engine-halo(sobel_bilateral)"]["launches"].get("sobel_bilateral", 0)
+    k4 = by["engine-flow(flow_warp)"]["launches"].get("warp_bounded", 0)
+    if not k3 or not k4:
+        raise AssertionError(f"train_mesh (d): K3 {k3}, K4 {k4} launches")
+    log(f"train_mesh (d) on {smi}: entry() {tuple(out.shape)}; dryrun_multichip(8) "
+        f"{len(sub)} sub-checks in {wall:.1f} s: "
+        + "; ".join(f"{r['label']} mesh {r['mesh']} "
+                    + json.dumps({k: v for k, v in r.items()
+                                  if k not in ("label", "mesh")}) for r in sub))
+    return dict(leg="d_dryrun", card=smi, entry_shape=list(out.shape), subchecks=sub,
+                wall_s_inner=wall)
+
+
+def train_mesh_leg_engine(dev, smi: str, plain_of: dict):
+    """(e) ``Engine(gaussian_blur(ksize=9))`` with neither device nor mesh
+    at 16 x 1080 x 1920 against ``device="cuda:0"``: bit-equal, K1 once per
+    batch; on one card no mesh (the single-device path)."""
+    import torch
+
+    import dvf_tpu_torch
+    from dvf_tpu_torch.ops import kernels as tk
+    from dvf_tpu_torch.utils.image import to_float, to_uint8
+
+    x = np.random.default_rng(5).integers(0, 255, DEFAULT_ENGINE_SHAPE, np.uint8)
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9))
+    pinned = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("gaussian_blur", ksize=9),
+                                  device=dev)
+    eng.compile(DEFAULT_ENGINE_SHAPE)
+    pinned.compile(DEFAULT_ENGINE_SHAPE)
+    before = tk.LAUNCHES["sep_blur"]
+    got = eng.submit(x).fetch().copy()
+    n = tk.LAUNCHES["sep_blur"] - before
+    want = pinned.submit(x).fetch().copy()
+    n_diff = int((got != want).sum())
+    plain = to_uint8(plain_of["sep_blur"](to_float(torch.from_numpy(x).to(dev))))
+    lsb = max_lsb(got, plain.cpu().numpy())
+    n_cards = torch.cuda.device_count()
+    row = dict(leg="e_engine_default", card=smi, cards=n_cards,
+               meshed=bool(eng._meshed), mesh=None if eng.mesh is None else eng.mesh.shape,
+               device=str(eng.device), launches_per_batch=n, elements_differing=n_diff,
+               max_lsb_vs_plain=lsb)
+    log(f"train_mesh (e) on {smi}: Engine(filt) with no device over {n_cards} card(s): "
+        f"mesh {row['mesh']}, device {eng.device}; K1 {n} launch(es) per batch; "
+        f"{n_diff} elements differ from device='cuda:0'; {lsb} LSB from the plain version")
+    eng.free()
+    pinned.free()
+    if n != 1 or n_diff or lsb > 1 or (n_cards == 1 and eng._meshed):
+        raise AssertionError(f"train_mesh (e): {row}")
+    return row
+
+
+def train_mesh_leg_cli(smi: str, tmp: str):
+    """(f) ``python -m dvf_tpu_torch train --steps 4 --batch 2`` (its
+    defaults otherwise: c 32, r 5, 64 x 64) as a process on the cards it
+    finds (one card: data = gcd(2, 1) = 1, the one-device step)."""
+    env = dict(os.environ)
+    env.pop("DVF_FORCE_PLATFORM", None)
+    res = _train_procs([("train", ["train", "--steps", "4", "--batch", "2",
+                                   "--checkpoint-dir", os.path.join(tmp, "cli"),
+                                   "--log-every", "2"])], env)
+    j, err, wall = res["train"]
+    if j["steps"] != 4 or not np.isfinite(j["final_loss"]):
+        raise AssertionError(f"train_mesh (f): {j}; {err[-2000:]}")
+    log(f"train_mesh (f) on {smi}: {json.dumps(j)} in {wall:.1f} s as a process")
+    return dict(leg="f_cli", card=smi, result=j, wall_s_process=wall)
+
+
+def train_mesh_phase(dev, plain_of: dict):
+    """Phase 17: legs (a)-(f). Returns (rows, the launch counts of the
+    phase: K1 from (e), K3 and K4 from (d)'s sub-checks)."""
+    import tempfile
+
+    import torch
+
+    from dvf_tpu_torch.ops import kernels as tk
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    log(f"train_mesh phase on {smi}")
+    tk.reset_launches()
+    rows = []
+
+    def timed(leg, *args):
+        t = time.perf_counter()
+        out = leg(*args)
+        new = out[0] if isinstance(out, tuple) else out
+        for row in new if isinstance(new, list) else [new]:
+            row["wall_s"] = time.perf_counter() - t
+            rows.append(row)
+        log(f"train_mesh leg {leg.__name__}: {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="dvf-train-mesh-") as tmp:
+        _, keep = timed(train_mesh_leg_steps, dev, smi)
+        timed(train_mesh_leg_resume, dev, smi, keep, tmp)
+        del keep
+        timed(train_mesh_leg_dryrun, dev, smi)
+        timed(train_mesh_leg_engine, dev, smi, plain_of)
+        timed(train_mesh_leg_cli, smi, tmp)
+    delta = dict(tk.LAUNCHES)
+    log(f"train_mesh phase: {time.perf_counter() - t0:.1f} s, launches {delta}")
+    return rows, delta
+
+
+def train_mesh_only() -> None:
+    """The build and phase 17 alone (the sharded train state):
+    ``python3 -c 'import chip_smoke; chip_smoke.train_mesh_only()'``."""
+    dev, plain_of, _ = _only_setup()
+    rows, delta = train_mesh_phase(dev, plain_of)
+    print(json.dumps({"train_mesh": rows, "launches": delta}))
 
 
 if __name__ == "__main__":

@@ -1583,9 +1583,36 @@ def make_style_image(kind: str, size: int):
     return img[None]  # (1, size, size, 3)
 
 
+def _train_devices(device: str) -> list:
+    """The devices a train run spans: every attached card, or the CPU
+    alone with ``--platform cpu`` (the reference spans its CPU's devices
+    there; the port's CPU is one device)."""
+    import torch
+
+    if torch.device(device).type == "cpu":
+        return [torch.device(device)]
+    from dvf_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.local_devices()
+
+
+def _train_mesh(batch: int, device: str):
+    """The train step's mesh, as the reference builds it: ``data`` = the
+    largest divisor of the batch the devices give (the step folds the
+    batch over data × space; spare devices idle). None on one device."""
+    import math
+
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    devices = _train_devices(device)
+    data = math.gcd(batch, len(devices))
+    return make_mesh(MeshConfig(data=data), devices=devices) if data > 1 else None
+
+
 def cmd_train(args) -> int:
     """Train the style net on synthetic frames; checkpoint and resume.
-    One device: ``cuda:0``, or the CPU with ``--platform cpu``."""
+    Every attached card (``data`` parallel, :func:`_train_mesh`), or the
+    CPU with ``--platform cpu``."""
     device = _force_platform()
 
     from dvf_tpu_torch.io.sources import SyntheticSource
@@ -1593,6 +1620,7 @@ def cmd_train(args) -> int:
     from dvf_tpu_torch.models.vgg import VGGConfig
     from dvf_tpu_torch.train import StyleTrainConfig, init_train_state, make_train_step
     from dvf_tpu_torch.train.checkpoint import restore_checkpoint
+    from dvf_tpu_torch.train.style import shard_train_state
 
     config = StyleTrainConfig(
         net=StyleNetConfig(base_channels=args.base_channels, n_residual=args.n_residual),
@@ -1605,6 +1633,7 @@ def cmd_train(args) -> int:
                           n_frames=args.steps * args.batch, rate=0.0)
     frames = iter(src)
 
+    mesh = _train_mesh(args.batch, device)
     state = init_train_state(args.seed, make_style_image(args.style, args.size),
                              config, device=device)
     if args.resume:
@@ -1613,9 +1642,11 @@ def cmd_train(args) -> int:
             print(f"error: --resume path {args.resume!r} does not exist",
                   file=sys.stderr)
             return 2
-        state = restore_checkpoint(args.resume, state)
+        state = restore_checkpoint(args.resume, state, mesh=mesh, config=config)
         print(f"resumed from {args.resume} at step {int(state.step)}", file=sys.stderr)
-    step_fn = make_train_step(None, config, state_template=state)
+    elif mesh is not None:
+        state = shard_train_state(state, mesh, config)
+    step_fn = make_train_step(mesh, config, state_template=state)
 
     if args.checkpoint_dir:
         # Sidecar net config so inference (serve --style-checkpoint) can
@@ -1698,6 +1729,7 @@ def _sr_held_out_eval(state, config) -> dict:
 
     from dvf_tpu_torch.models.espcn import apply_espcn
     from dvf_tpu_torch.models.layers import upsample_nearest
+    from dvf_tpu_torch.train.optim import whole
     from dvf_tpu_torch.train.sr import downscale_area, synthesize_structured_batch
 
     rng = np.random.default_rng(12345)
@@ -1705,7 +1737,7 @@ def _sr_held_out_eval(state, config) -> dict:
         state.step.device).float() / 255.0
     lr = downscale_area(hr, config.net.scale)
     with torch.no_grad():
-        out = torch.clamp(apply_espcn(state.params, lr, config.net), 0.0, 1.0)
+        out = torch.clamp(apply_espcn(whole(state.params), lr, config.net), 0.0, 1.0)
     near = upsample_nearest(lr, config.net.scale)
 
     def psnr(a):
@@ -1730,6 +1762,7 @@ def cmd_train_sr(args) -> int:
         SrTrainConfig,
         init_train_state,
         make_train_step,
+        shard_train_state,
         synthesize_structured_batch,
     )
 
@@ -1751,15 +1784,18 @@ def cmd_train_sr(args) -> int:
 
     frames = _frame_gen()
 
+    mesh = _train_mesh(args.batch, device)
     state = init_train_state(args.seed, config, device=device)
     if args.resume:
         if not os.path.isdir(args.resume):
             print(f"error: --resume path {args.resume!r} does not exist",
                   file=sys.stderr)
             return 2
-        state = restore_sr_checkpoint(args.resume, state)
+        state = restore_sr_checkpoint(args.resume, state, mesh=mesh, config=config)
         print(f"resumed from {args.resume} at step {int(state.step)}", file=sys.stderr)
-    step_fn = make_train_step(None, config, state_template=state)
+    elif mesh is not None:
+        state = shard_train_state(state, mesh, config)
+    step_fn = make_train_step(mesh, config, state_template=state)
 
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)

@@ -17,6 +17,7 @@ import torch
 
 from dvf_tpu_torch.models.layers import (
     Params,
+    SUM,
     conv2d_nb,
     conv2d_s2d,
     conv_init,
@@ -24,6 +25,7 @@ from dvf_tpu_torch.models.layers import (
     exact_f32_convs,
     float32_partials,
     generator,
+    run_steps,
 )
 
 
@@ -60,6 +62,14 @@ def _forward(params: Params, batch: torch.Tensor, config: EspcnConfig,
              row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
     """Shared body; ``row_reduce`` (the sum across the model ranks under
     TP, None unsharded) runs on map's pre-bias partial sums."""
+    return run_steps(_forward_steps(params, batch, config, tp=row_reduce is not None),
+                     lambda _kind, y: row_reduce(y))
+
+
+def _forward_steps(params: Params, batch: torch.Tensor, config: EspcnConfig,
+                   tp: bool):
+    """The forward as a rank program (``layers.run_steps``): under TP map
+    yields its float32 partial as a ``SUM`` request."""
     cd = config.compute_dtype
 
     def conv(name, x):
@@ -68,20 +78,21 @@ def _forward(params: Params, batch: torch.Tensor, config: EspcnConfig,
             return conv2d_s2d(p, x, compute_dtype=cd)  # SAME zero-pad, exact
         return conv2d_nb(p, x, compute_dtype=cd)
 
-    def cv(name, x, reduce=None):
-        if reduce is not None:
+    def cv(name, x, row=False):
+        if row:
             # The rank's partial sum in float32, rounded once after the
             # sum across the ranks.
             with float32_partials():
                 y = conv(name, x)
-            return reduce(y).to(cd) + params[name]["b"].to(cd)
+            y = yield SUM, y
+            return y.to(cd) + params[name]["b"].to(cd)
         return conv(name, x) + params[name]["b"].to(cd)
 
     with exact_f32_convs(cd):
         x = batch.to(cd)
-        x = torch.relu(cv("feat", x))
-        x = torch.relu(cv("map", x, reduce=row_reduce))
-        x = cv("head", x)
+        x = torch.relu((yield from cv("feat", x)))
+        x = torch.relu((yield from cv("map", x, row=tp)))
+        x = yield from cv("head", x)
     y = depth_to_space(x.float(), config.scale)
     return torch.clamp(y, 0.0, 1.0).to(batch.dtype)
 
@@ -92,6 +103,13 @@ def tp_inner_apply(config: EspcnConfig) -> Callable[..., torch.Tensor]:
     map row-parallel reducing through ``row_reduce``, head replicated."""
     return lambda params, batch, row_reduce: _forward(
         params, batch, config, row_reduce=row_reduce)
+
+
+def tp_inner_steps(config: EspcnConfig) -> Callable[..., Any]:
+    """The same per-rank forward as a rank program, ``program(params,
+    batch)``, for ``parallel.sharded.lockstep`` (the sharded train
+    step)."""
+    return lambda params, batch: _forward_steps(params, batch, config, tp=True)
 
 
 def param_pspecs(config: EspcnConfig = EspcnConfig()) -> Dict[str, Any]:

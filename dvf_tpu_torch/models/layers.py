@@ -73,6 +73,35 @@ def pad_nhwc(x: torch.Tensor, r: int, mode: str) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Rank programs (tensor parallelism)
+# ---------------------------------------------------------------------------
+#
+# A net's forward under tensor parallelism is written once, as a generator
+# (a "rank program"): where it needs the ranks of the model axis together
+# it yields a request ``(kind, tensor)`` and resumes with the collective's
+# result. ``SUM``: the row-parallel partial sums, summed across the ranks.
+# ``GATHER``: channel slices, joined on C. Unsharded, a program yields
+# nothing. :func:`run_steps` drives one program with a per-rank callback
+# (serving: ``parallel.sharded.RankGroup``, one thread per rank);
+# ``parallel.sharded.lockstep`` drives every rank's program from one
+# thread as one autograd graph (training).
+
+SUM, GATHER = "sum", "gather"
+
+
+def run_steps(program: Iterator, on_request=None) -> Any:
+    """Drive a rank program to its end: each request ``(kind, tensor)``
+    is answered by ``on_request(kind, tensor)``; returns the program's
+    value."""
+    try:
+        req = next(program)
+        while True:
+            req = program.send(on_request(*req))
+    except StopIteration as stop:
+        return stop.value
+
+
 _PARTIALS = threading.local()
 
 

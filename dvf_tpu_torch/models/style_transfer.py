@@ -27,6 +27,7 @@ import torch
 
 from dvf_tpu_torch.models.layers import (
     Params,
+    SUM,
     conv2d_nb,
     conv2d_s2d,
     conv_init,
@@ -35,6 +36,7 @@ from dvf_tpu_torch.models.layers import (
     generator,
     instance_norm,
     instance_norm_init,
+    run_steps,
     upsample2_conv,
     upsample_nearest,
 )
@@ -112,8 +114,18 @@ def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
     ``row_reduce`` runs on each row-parallel conv's pre-bias output (the
     sum across the model ranks under TP; None unsharded): that partial
     is float32, and the sum rounds it to the compute dtype."""
+    return run_steps(_forward_steps(params, batch, config, trunk_fn,
+                                    tp=row_reduce is not None),
+                     lambda _kind, y: row_reduce(y))
+
+
+def _forward_steps(params: Params, batch: torch.Tensor, config: StyleNetConfig,
+                   trunk_fn=None, tp: bool = False):
+    """The forward as a rank program (``layers.run_steps``): under TP
+    (``tp``) each row-parallel conv yields its float32 partial as a
+    ``SUM`` request and resumes with the sum across the ranks."""
     cd = config.compute_dtype
-    modes = _conv_modes(config) if row_reduce is not None else {}
+    modes = _conv_modes(config) if tp else {}
 
     def cv(name, x, stride=1, upsampled=False):
         if modes.get(name) == "row":
@@ -121,7 +133,8 @@ def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
             # ranks rounds it to the compute dtype once.
             with float32_partials():
                 y = conv(name, x, stride, upsampled)
-            return row_reduce(y).to(cd) + params[name]["b"].to(cd)
+            y = yield SUM, y
+            return y.to(cd) + params[name]["b"].to(cd)
         return conv(name, x, stride, upsampled) + params[name]["b"].to(cd)
 
     def conv(name, x, stride, upsampled):
@@ -146,19 +159,19 @@ def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
 
     with exact_f32_convs(cd):
         x = batch.to(cd)
-        x = norm_relu("stem_norm", cv("stem", x))
-        x = norm_relu("down1_norm", cv("down1", x, stride=2))
-        x = norm_relu("down2_norm", cv("down2", x, stride=2))
+        x = norm_relu("stem_norm", (yield from cv("stem", x)))
+        x = norm_relu("down1_norm", (yield from cv("down1", x, stride=2)))
+        x = norm_relu("down2_norm", (yield from cv("down2", x, stride=2)))
         if trunk_fn is not None:
             x = trunk_fn(params, x)
         else:
             for i in range(config.n_residual):
-                h = norm_relu(f"res{i}_an", cv(f"res{i}_a", x))
-                h = instance_norm(params[f"res{i}_bn"], cv(f"res{i}_b", h))
+                h = norm_relu(f"res{i}_an", (yield from cv(f"res{i}_a", x)))
+                h = instance_norm(params[f"res{i}_bn"], (yield from cv(f"res{i}_b", h)))
                 x = x + h
-        x = norm_relu("up1_norm", cv("up1", x, upsampled=True))
-        x = norm_relu("up2_norm", cv("up2", x, upsampled=True))
-        x = cv("out", x)
+        x = norm_relu("up1_norm", (yield from cv("up1", x, upsampled=True)))
+        x = norm_relu("up2_norm", (yield from cv("up2", x, upsampled=True)))
+        x = yield from cv("out", x)
     y = 0.5 * (torch.tanh(x.float()) + 1.0)
     return y.to(batch.dtype)
 
@@ -225,6 +238,13 @@ def tp_inner_apply(config: StyleNetConfig) -> Callable[..., torch.Tensor]:
     (the sum across the model ranks, ``parallel.sharded.RankGroup``)."""
     return lambda params, batch, row_reduce: _forward(
         params, batch, config, row_reduce=row_reduce)
+
+
+def tp_inner_steps(config: StyleNetConfig) -> Callable[..., Any]:
+    """The same per-rank forward as a rank program, ``program(params,
+    batch)``, for ``parallel.sharded.lockstep`` (the sharded train
+    step's differentiable TP body)."""
+    return lambda params, batch: _forward_steps(params, batch, config, tp=True)
 
 
 def param_pspecs(config: StyleNetConfig = StyleNetConfig()) -> Dict[str, Any]:

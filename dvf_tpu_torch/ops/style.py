@@ -62,13 +62,6 @@ def fold_sharding(mesh, batch_shape):
     return NamedSharding(mesh, spec)
 
 
-def model_groups(mesh, pos):
-    """The mesh positions of the ``model`` ranks beside ``pos``."""
-    i = mesh.axis_names.index("model")
-    return [tuple(m if a == i else p for a, p in enumerate(pos))
-            for m in range(mesh.devices.shape[i])]
-
-
 def tp_filter(name: str, inner, specs, init_state, model_dtype, mesh,
               batch_shape) -> Filter:
     """The tensor-parallel mesh body of a net: each batch block runs on
@@ -78,7 +71,7 @@ def tp_filter(name: str, inner, specs, init_state, model_dtype, mesh,
     (``parallel.sharded.RankGroup``). Every rank ends with the same
     output; the block's own rank hands it on."""
     from dvf_tpu_torch.parallel.sharded import (RankGroup, ShardedBatch,
-                                                as_sharded, finish)
+                                                as_sharded, finish, model_groups)
 
     sharding = fold_sharding(mesh, batch_shape)
 
@@ -185,7 +178,8 @@ def style_transfer(
         return pp_filter(mesh, batch_shape)
 
     def pp_filter(mesh, batch_shape) -> Filter:
-        from dvf_tpu_torch.parallel.sharded import ShardedBatch, as_sharded, finish
+        from dvf_tpu_torch.parallel.sharded import (ShardedBatch, as_sharded, finish,
+                                                    model_groups)
 
         inner = pp_inner_apply(config)
         specs = pp_param_pspecs(config)

@@ -289,6 +289,19 @@ def on_streams(streams: Sequence[Any]) -> contextlib.ExitStack:
     return stack
 
 
+def rank_sum(ts: Sequence[torch.Tensor], home: Union[str, torch.device]) -> torch.Tensor:
+    """The tensors added in rank order on ``home``, half precision in
+    float32 and rounded once to the first tensor's dtype (as one conv over
+    all the channels would round): the same bits however the devices'
+    streams or threads interleave."""
+    dtype = ts[0].dtype
+    wide = torch.float32 if dtype in (torch.float16, torch.bfloat16) else dtype
+    acc = ts[0].to(home, non_blocking=True).to(wide)
+    for t in ts[1:]:
+        acc = acc + t.to(home, non_blocking=True).to(wide)
+    return acc.to(dtype)
+
+
 class RankGroup:
     """The ranks of one mesh axis running one body together, one thread
     each, as the reference's all-manual ``shard_map`` runs it on every
@@ -311,15 +324,7 @@ class RankGroup:
         self._slots[rank] = y
         self._barrier.wait()
         if rank == 0:
-            # Half-precision partials add in float32 and round once, as
-            # one conv over all the channels would.
-            home = self.devices[0]
-            wide = (torch.float32 if y.dtype in (torch.float16, torch.bfloat16)
-                    else y.dtype)
-            acc = self._slots[0].to(wide)
-            for t in self._slots[1:]:
-                acc = acc + t.to(home, non_blocking=True).to(wide)
-            self._sum = acc.to(y.dtype)
+            self._sum = rank_sum(self._slots, self.devices[0])
         self._barrier.wait()
         out = self._sum.to(self.devices[rank], non_blocking=True)
         self._barrier.wait()
@@ -355,3 +360,122 @@ class RankGroup:
         if errors:
             raise errors[0]
         return results
+
+
+def model_groups(mesh: Mesh, pos: Tuple[int, ...]) -> List[Tuple[int, ...]]:
+    """The mesh positions of the ``model`` ranks beside ``pos``, in rank
+    order."""
+    i = mesh.axis_names.index("model")
+    return [tuple(m if a == i else p for a, p in enumerate(pos))
+            for m in range(mesh.devices.shape[i])]
+
+
+# ---------------------------------------------------------------------------
+# Ranks of one axis in lockstep, as one autograd graph (training)
+# ---------------------------------------------------------------------------
+#
+# The train step's tensor-parallel body runs every rank's program
+# (``models.layers`` rank programs) from the calling thread, and each
+# collective is one autograd node with one output per rank, so the
+# gradient is the one-device gradient by construction (Megatron's
+# conjugate pairs: the sum of the ranks' partials forward is the sum's
+# gradient handed to every partial backward; the copies handed to the
+# ranks forward are their gradients summed backward). Every sum runs in
+# rank order on rank 0's device, in float32 for half-precision tensors,
+# so it is the same bits however the device threads of a backward
+# interleave. No barrier and no helper thread: nothing waits inside a
+# backward.
+
+def _fan_out(x: torch.Tensor, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
+    """``x`` (on rank 0's device) once per rank: itself for rank 0, a copy
+    on its device for every other rank."""
+    return (x,) + tuple(x.to(d, non_blocking=True, copy=True) for d in devices[1:])
+
+
+def _grads_home(ctx, grads) -> Optional[torch.Tensor]:
+    """The ranks' gradients of a fanned-out tensor, summed in rank order
+    on rank 0's device (None when no rank's copy reached the loss)."""
+    present = [g for g in grads if g is not None]
+    return rank_sum(present, ctx.home) if present else None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Partial sums (one per rank, on its device) → their sum, once per
+    rank."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.home = devices[0]
+        ctx.devices = [p.device for p in parts]
+        ctx.set_materialize_grads(False)
+        return _fan_out(rank_sum(parts, devices[0]), devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = _grads_home(ctx, grads)
+        if g is None:
+            return (None,) * (1 + len(ctx.devices))
+        return (None,) + tuple(g.to(d, non_blocking=True) for d in ctx.devices)
+
+
+class _AllGather(torch.autograd.Function):
+    """Channel slices (one per rank, on its device) → joined on the last
+    dimension, once per rank."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        ctx.home = devices[0]
+        ctx.devices = [p.device for p in parts]
+        ctx.widths = [p.shape[-1] for p in parts]
+        ctx.set_materialize_grads(False)
+        whole = torch.cat([p.to(devices[0], non_blocking=True) for p in parts], dim=-1)
+        return _fan_out(whole, devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = _grads_home(ctx, grads)
+        if g is None:
+            return (None,) * (1 + len(ctx.devices))
+        return (None,) + tuple(s.to(d, non_blocking=True)
+                               for s, d in zip(g.split(ctx.widths, dim=-1), ctx.devices))
+
+
+def collective(kind: str, parts: Sequence[torch.Tensor],
+               devices: Sequence[torch.device]) -> Sequence[torch.Tensor]:
+    """One rank program request answered for every rank at once:
+    ``"sum"`` or ``"gather"`` (``models.layers.SUM`` / ``GATHER``)."""
+    if len(parts) == 1:
+        return list(parts)
+    if kind == "sum":
+        return _AllReduce.apply(list(devices), *parts)
+    if kind == "gather":
+        return _AllGather.apply(list(devices), *parts)
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def lockstep(programs: Sequence[Any], devices: Sequence[torch.device]) -> List[Any]:
+    """Run one rank program per rank of a model axis (rank r's on
+    ``devices[r]``) from this thread: every program up to its next
+    request, the collective formed once for all (:func:`collective`),
+    each program resumed with its result. Returns the programs' values
+    in rank order. The programs are the same program on other blocks,
+    so they request the same collectives in the same order and end
+    together; anything else raises."""
+    n = len(programs)
+
+    def advance(r: int, value, first: bool):
+        try:
+            return False, (next(programs[r]) if first else programs[r].send(value))
+        except StopIteration as stop:
+            return True, stop.value
+
+    state = [advance(r, None, True) for r in range(n)]
+    while True:
+        done = {d for d, _ in state}
+        if done == {True}:
+            return [v for _, v in state]
+        kinds = {v[0] for d, v in state if not d}
+        if len(done) != 1 or len(kinds) != 1:
+            raise RuntimeError(f"the ranks' programs diverged: {state!r}")
+        outs = collective(kinds.pop(), [v[1] for _, v in state], devices)
+        state = [advance(r, outs[r], False) for r in range(n)]

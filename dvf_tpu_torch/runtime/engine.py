@@ -76,6 +76,7 @@ import torch
 
 from dvf_tpu_torch.api.filter import Filter
 from dvf_tpu_torch.parallel.halo import spatial_filter
+from dvf_tpu_torch.parallel import mesh as mesh_mod
 from dvf_tpu_torch.parallel.mesh import NamedSharding, P, batch_pspec, batch_sharding
 from dvf_tpu_torch.parallel.sharded import (
     EventGroup,
@@ -340,12 +341,14 @@ class Engine:
     """Runs one filter on one device, or over a mesh, at one batch
     signature.
 
-    ``Engine(filt)`` runs on ``cuda:0`` (the reference's default spans
-    every device; the port's stays one card until ROADMAP Queue 1 item
-    4c-iii). ``Engine(filt, mesh=m)`` spans
-    ``m``: ``device`` is the mesh's first device, and a ``device`` given
-    beside a mesh must be that device. A one-device mesh runs the
-    single-device path."""
+    ``Engine(filt)``, with neither ``device`` nor ``mesh``, spans every
+    attached card (``make_mesh()`` over ``parallel.mesh.local_devices()``,
+    all ``data``, as the reference's default spans every device): on one
+    card that is ``cuda:0`` with no mesh, the single-device path; with no
+    card it raises. A ``device`` given alone is that one device.
+    ``Engine(filt, mesh=m)`` spans ``m``: ``device`` is the mesh's first
+    device, and a ``device`` given beside a mesh must be that device. A
+    one-device mesh runs the single-device path."""
 
     def __init__(self, filt: Filter,
                  device: Union[None, str, torch.device] = None,
@@ -355,6 +358,12 @@ class Engine:
                  op_chain: Optional[str] = None,
                  mesh=None):
         self.filter = filt
+        if mesh is None and device is None:
+            cards = mesh_mod.local_devices()
+            if len(cards) > 1:
+                mesh = mesh_mod.make_mesh(devices=cards)
+            elif cards:
+                device = cards[0]
         self.mesh = mesh
         if mesh is not None:
             first = mesh.first_device

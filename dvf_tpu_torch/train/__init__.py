@@ -2,8 +2,9 @@
 perceptual-loss step with its VGG encoder (``style.py``), the ESPCN
 self-supervised step (``sr.py``), checkpoint and resume over ``.npz``
 files (``checkpoint.py``) and the optimizer they share (``optim.py``).
-Each step runs on one device, the state's; the mesh-sharded state waits
-for ROADMAP Queue 1 item 4c-iii."""
+Each step runs on the state's device, or over a mesh (batch data-parallel
+over ``data`` × ``space``, params tensor-parallel over ``model``) once
+the state is placed there by its family's ``shard_train_state``."""
 
 from dvf_tpu_torch.train.style import (  # noqa: F401
     StyleTrainConfig,

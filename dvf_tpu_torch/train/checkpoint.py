@@ -16,7 +16,10 @@ checkpoint is a directory laid out like the reference's::
 
 (or ``<name>/step_NNNNNN/`` where training stopped early). The inference
 loaders read ``params.npz`` alone; :func:`restore_checkpoint` /
-:func:`restore_sr_checkpoint` read both files onto a template state. A
+:func:`restore_sr_checkpoint` read both files onto a template state, and
+place it on a mesh when given one. A state sharded over a mesh is saved
+whole (its blocks joined), so its files hold what the equal one-device
+state's hold. A
 write lands in a temporary directory beside its target (named
 ``.<name>.<random>.tmp``, never ``step_*``) and is renamed into place; a
 target that exists is moved aside first and removed after, so a resumed
@@ -163,8 +166,9 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _snapshot(state) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """(params, the rest of the state) as host arrays keyed by path."""
-    params = {k: _host(v) for k, v in optim.flatten(state.params).items()}
+    """(params, the rest of the state) as host arrays keyed by path, each
+    leaf whole."""
+    params = {k: _host(v) for k, v in optim.flatten(optim.whole(state.params)).items()}
     count, mu, nu = optim.adam_state(state.opt_state, state.params)
     rest = {f"opt/mu/{k}": _host(v) for k, v in mu.items()}
     rest.update({f"opt/nu/{k}": _host(v) for k, v in nu.items()})
@@ -172,7 +176,7 @@ def _snapshot(state) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     rest["step"] = _host(state.step).astype(np.int32)
     if hasattr(state, "vgg_params"):
         rest.update({f"vgg/{k}": _host(v)
-                     for k, v in optim.flatten(state.vgg_params).items()})
+                     for k, v in optim.flatten(optim.whole(state.vgg_params)).items()})
         rest.update({f"grams/{i}": _host(g) for i, g in enumerate(state.style_grams)})
     return params, rest
 
@@ -240,14 +244,13 @@ def _take(arrays: Dict[str, np.ndarray], like: Dict[str, torch.Tensor],
     return out
 
 
-def _restore_state(path: str, template, mesh):
-    optim.single_device(mesh, "restoring a train state")
+def _restore_state(path: str, template):
+    """The state at ``path`` on the template's (first) device, whole."""
     path = os.path.abspath(path)
     params_np, rest_np = _read(path)
     dev = template.step.device
-    params = optim.trainable(optim.unflatten(_take(
-        params_np, optim.flatten(template.params), "params", path)), dev)
-    tmpl = optim.flatten(template.params)
+    tmpl = optim.flatten(optim.whole(template.params))
+    params = optim.trainable(optim.unflatten(_take(params_np, tmpl, "params", path)), dev)
     like = {**{f"opt/mu/{k}": v for k, v in tmpl.items()},
             **{f"opt/nu/{k}": v for k, v in tmpl.items()},
             "opt/count": torch.zeros((), dtype=torch.int32),
@@ -255,7 +258,7 @@ def _restore_state(path: str, template, mesh):
     style = hasattr(template, "vgg_params")
     if style:
         like.update({f"vgg/{k}": v for k, v in
-                     optim.flatten(template.vgg_params).items()})
+                     optim.flatten(optim.whole(template.vgg_params)).items()})
         like.update({f"grams/{i}": g for i, g in enumerate(template.style_grams)})
     rest = _take(rest_np, like, "state", path)
     opt = optim.adam(params, template.opt_state.param_groups[0]["lr"])
@@ -274,15 +277,26 @@ def _restore_state(path: str, template, mesh):
 def restore_checkpoint(path: str, template, mesh=None, config=None):
     """Load a style TrainState from ``path``. ``template`` (e.g. a fresh
     ``train.style.init_train_state``) gives the structure, dtypes, device
-    and learning rate; every key must match it. ``mesh`` must be None
-    (one device, the template's)."""
-    return _restore_state(path, template, mesh)
+    and learning rate; every key must match it. With ``mesh`` (and
+    ``config``, the default ``StyleTrainConfig()`` otherwise) the state
+    is placed straight onto the mesh per ``state_pspecs``."""
+    from dvf_tpu_torch.train.style import StyleTrainConfig, shard_train_state
+
+    state = _restore_state(path, template)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, config or StyleTrainConfig())
+    return state
 
 
 def restore_sr_checkpoint(path: str, template, mesh=None, config=None):
     """SR counterpart of :func:`restore_checkpoint` (template = a fresh
     ``train.sr.init_train_state``)."""
-    return _restore_state(path, template, mesh)
+    from dvf_tpu_torch.train.sr import SrTrainConfig, shard_train_state
+
+    state = _restore_state(path, template)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, config or SrTrainConfig())
+    return state
 
 
 class AsyncSaver:

@@ -3,10 +3,12 @@
 
 No dataset: each HR frame is area-downscaled ×r on the device to make the
 LR input, and the net learns to reconstruct the original. The loss is
-Charbonnier (smooth L1). The step mirrors ``train.style``: one device,
-the state's (``mesh=None``), forward + backward + ``torch.optim.Adam``,
-the state updated in place (``donate=False`` steps a copy). The mesh-
-sharded form waits for ROADMAP Queue 1 item 4c-iii.
+Charbonnier (smooth L1). The step mirrors ``train.style``: forward +
+backward + ``torch.optim.Adam``, the state updated in place
+(``donate=False`` steps a copy), on the state's device (``mesh=None``) or
+over a mesh (the batch over ``data`` × ``space``, feat column- and map
+row-parallel over ``model``, head replicated; PSNR derived once, from the
+groups' mean MSE).
 """
 
 from __future__ import annotations
@@ -17,7 +19,13 @@ from typing import Any, Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from dvf_tpu_torch.models.espcn import EspcnConfig, apply_espcn, init_espcn
+from dvf_tpu_torch.models.espcn import (
+    EspcnConfig,
+    apply_espcn,
+    init_espcn,
+    param_pspecs,
+    tp_inner_steps,
+)
 from dvf_tpu_torch.train import optim
 
 
@@ -30,9 +38,10 @@ class SrTrainConfig:
 
 @dataclasses.dataclass
 class SrTrainState:
-    params: Any                      # leaf tensors that require grad
+    params: Any                      # leaf tensors that require grad (a
+    #   train.optim.MeshParams over a mesh)
     opt_state: Any                   # torch.optim.Adam over params' leaves
-    step: torch.Tensor               # 0-d int32 on the state's device
+    step: torch.Tensor               # 0-d int32 on the state's (first) device
 
 
 def synthesize_structured_batch(rng: np.random.Generator, batch: int,
@@ -87,8 +96,13 @@ def sr_loss_fn(
     HR batch from its ×r area downscale. The MSE (not PSNR) goes in the
     metrics, as in the reference: the step derives PSNR from it."""
     apply_fn = apply_fn or (lambda p, b: apply_espcn(p, b, config.net))
-    lr_batch = downscale_area(hr_batch, config.net.scale)
-    out = apply_fn(params, lr_batch)
+    out = apply_fn(params, downscale_area(hr_batch, config.net.scale))
+    return charbonnier(out, hr_batch, config)
+
+
+def charbonnier(out: torch.Tensor, hr_batch: torch.Tensor,
+                config: SrTrainConfig) -> Tuple[torch.Tensor, dict]:
+    """The loss terms of :func:`sr_loss_fn` from the net's output."""
     diff = out.float() - hr_batch.float()
     loss = torch.mean(torch.sqrt(diff * diff + config.charbonnier_eps ** 2))
     mse = torch.mean(diff * diff)
@@ -120,25 +134,76 @@ def copy_state(state: SrTrainState) -> SrTrainState:
     return SrTrainState(params=params, opt_state=opt, step=state.step.clone())
 
 
+def state_pspecs(state: SrTrainState, config: SrTrainConfig) -> SrTrainState:
+    """Spec tree mirroring an SrTrainState: Adam's moments take each param
+    leaf's TP spec, the count and the step replicate."""
+    from dvf_tpu_torch.parallel.mesh import P
+
+    p_specs = param_pspecs(config.net)
+    return SrTrainState(params=p_specs,
+                        opt_state={"count": P(), "mu": p_specs, "nu": p_specs},
+                        step=P())
+
+
+def shard_train_state(state: SrTrainState, mesh, config: SrTrainConfig) -> SrTrainState:
+    """Place a one-device SrTrainState onto ``mesh`` per ``state_pspecs``
+    (as ``train.style.shard_train_state``)."""
+    dev = mesh.first_device
+    whole = optim.whole(state.params)
+    count, mu, nu = optim.adam_state(state.opt_state, state.params)
+    params = (optim.trainable(whole, dev) if mesh.size == 1
+              else optim.place(whole, mesh, state_pspecs(state, config).params))
+    opt = optim.adam(params, state.opt_state.param_groups[0]["lr"])
+    optim.set_adam_state(opt, params, count, mu, nu)
+    return SrTrainState(params=params, opt_state=opt, step=state.step.to(dev).clone())
+
+
+def train_batch_sharding(mesh):
+    """The batch layout of the sharded step (``train.style``'s)."""
+    from dvf_tpu_torch.train.style import train_batch_sharding as style_sharding
+
+    return style_sharding(mesh)
+
+
 def make_train_step(
     mesh=None,
     config: SrTrainConfig = SrTrainConfig(),
     state_template: Optional[SrTrainState] = None,
     donate: bool = True,
 ) -> Callable[[SrTrainState, torch.Tensor], Tuple[SrTrainState, dict]]:
-    """The step ``(state, hr_batch) -> (state, {"loss", "psnr"})`` on the
-    state's device; metrics are 0-d tensors (no sync). ``donate`` and
-    ``mesh`` as in :func:`dvf_tpu_torch.train.style.make_train_step`."""
-    optim.single_device(mesh, "the SR train step")
+    """The step ``(state, hr_batch) -> (state, {"loss", "psnr"})``;
+    metrics are 0-d tensors (no sync). ``donate`` and ``mesh`` as in
+    :func:`dvf_tpu_torch.train.style.make_train_step`."""
     if state_template is None:
         raise ValueError("make_train_step needs a state_template SrTrainState")
+    dtypes = (config.net.compute_dtype,)
+    if mesh is not None and mesh.size > 1:
+        from dvf_tpu_torch.parallel.sharded import lockstep
 
-    def step(state: SrTrainState, hr_batch: torch.Tensor):
+        sharding = train_batch_sharding(mesh)
+        net = tp_inner_steps(config.net)
+
+        def loss_fn(state, hr_batch):
+            def group_loss(ranks, hr):
+                devs = [mesh.devices[p] for p in ranks]
+                hrs = [hr.to(d, non_blocking=True) for d in devs]
+                out = lockstep([net(state.params.local(p),
+                                    downscale_area(h, config.net.scale))
+                                for p, h in zip(ranks, hrs)], devs)[0]
+                return charbonnier(out, hrs[0], config)
+
+            optim.check_placed(state, mesh)
+            return lambda: optim.group_mean(mesh, sharding, hr_batch, group_loss)
+    else:
+        def loss_fn(state, hr_batch):
+            hr = torch.as_tensor(hr_batch).to(state.step.device, non_blocking=True)
+            return lambda: sr_loss_fn(state.params, hr, config)
+
+    def step(state: SrTrainState, hr_batch):
         if not donate:
             state = copy_state(state)
-        hr = torch.as_tensor(hr_batch).to(state.step.device, non_blocking=True)
-        metrics = optim.descend(state.opt_state, lambda: sr_loss_fn(
-            state.params, hr, config), (config.net.compute_dtype,))
+        metrics = optim.descend(state.opt_state, loss_fn(state, hr_batch), dtypes,
+                                params=state.params)
         metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse") + 1e-12)
         state.step.add_(1)
         return state, metrics

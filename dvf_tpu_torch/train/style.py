@@ -5,13 +5,31 @@ Loss = content (VGG feature MSE against the input) + style (relative
 Gram-matrix error against a fixed style image's Grams) + total-variation
 smoothness: the Johnson et al. recipe, computed on the device.
 
-The step runs on one device, the state's (``mesh=None``): forward, loss,
-backward and ``torch.optim.Adam`` in PyTorch's eager idiom. It updates
-the state in place, the port's analogue of the reference's donated
-buffers; ``donate=False`` steps a copy and leaves its input untouched.
-The reference's mesh-sharded form (``state_pspecs``,
-``shard_train_state``, ``train_batch_sharding``) waits for ROADMAP Queue 1
-item 4c-iii.
+The step is forward, loss, backward and ``torch.optim.Adam`` in PyTorch's
+eager idiom. It updates the state in place, the port's analogue of the
+reference's donated buffers; ``donate=False`` steps a copy and leaves its
+input untouched. ``mesh=None`` (or a one-position mesh) runs it on the
+state's device.
+
+Over a mesh (the reference's all-manual ``shard_map``), from one thread:
+
+- batch: dim 0 split over ``data`` and ``space`` folded together
+  (:func:`train_batch_sharding`); both axes act as data parallelism, and
+  the loss is the mean of the groups' losses;
+- net and encoder params, and Adam's moments: Megatron column/row specs
+  over ``model`` (:func:`state_pspecs`), placed by
+  :func:`shard_train_state` (``train.optim.MeshParams``). Each group's
+  ranks run their rank programs in lockstep
+  (``parallel.sharded.lockstep``), every collective a differentiable
+  node, so the gradient is the one-device gradient;
+- a block held on several devices gets the sum of its copies' gradients,
+  Adam steps it once, and the result is copied back to every copy.
+
+The reference's sharded step does not sum the input gradient of a
+column-parallel conv across the ranks (its ``psum`` transposes to a
+``psum``), so under ``model=2`` its gradients differ from its own
+one-device step's; the port's do not (ROADMAP, "Differences of the
+reference").
 """
 
 from __future__ import annotations
@@ -27,8 +45,16 @@ from dvf_tpu_torch.models.style_transfer import (
     StyleNetConfig,
     apply_style_net,
     init_style_net,
+    param_pspecs,
+    tp_inner_steps,
 )
-from dvf_tpu_torch.models.vgg import VGGConfig, init_vgg, vgg_features
+from dvf_tpu_torch.models.vgg import (
+    VGGConfig,
+    init_vgg,
+    tp_inner_features,
+    vgg_features,
+    vgg_param_pspecs,
+)
 from dvf_tpu_torch.train import optim
 
 
@@ -44,11 +70,13 @@ class StyleTrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    params: Any                      # leaf tensors that require grad
+    params: Any                      # leaf tensors that require grad (a
+    #   train.optim.MeshParams over a mesh)
     opt_state: Any                   # torch.optim.Adam over params' leaves
+    #   (their blocks over a mesh)
     vgg_params: Any                  # frozen perceptual encoder
     style_grams: List[torch.Tensor]  # target Grams, one per VGG block
-    step: torch.Tensor               # 0-d int32 on the state's device
+    step: torch.Tensor               # 0-d int32 on the state's (first) device
 
 
 def _tv_loss(img: torch.Tensor) -> torch.Tensor:
@@ -77,6 +105,15 @@ def style_loss_fn(
     out_feats = features_fn(vgg_params, out)
     with torch.no_grad():
         content_feats = features_fn(vgg_params, batch)
+    return perceptual_loss(out, out_feats, content_feats, style_grams, config)
+
+
+def perceptual_loss(out: torch.Tensor, out_feats: List[torch.Tensor],
+                    content_feats: List[torch.Tensor],
+                    style_grams: List[torch.Tensor],
+                    config: StyleTrainConfig) -> Tuple[torch.Tensor, dict]:
+    """The loss terms of :func:`style_loss_fn` from the net's output and
+    the encoder's features of it and of the content batch."""
     content = sum(
         torch.mean((a.float() - b.float()) ** 2)
         for a, b in zip(out_feats, content_feats)
@@ -135,11 +172,60 @@ def init_train_state(
 
 
 def copy_state(state: TrainState) -> TrainState:
-    """An independent copy: its own param leaves and optimizer moments
-    (the frozen encoder and the Grams, which no step writes, are shared)."""
+    """An independent copy: its own param leaves (blocks) and optimizer
+    moments (the frozen encoder and the Grams, which no step writes, are
+    shared)."""
     params, opt = optim.clone(state.params, state.opt_state)
     return TrainState(params=params, opt_state=opt, vgg_params=state.vgg_params,
                       style_grams=state.style_grams, step=state.step.clone())
+
+
+def state_pspecs(state: TrainState, config: StyleTrainConfig) -> TrainState:
+    """PartitionSpec tree mirroring a TrainState (TP over ``model``):
+    Adam's moments (``mu``, ``nu``) take their param leaf's spec, the
+    count and the step replicate (the reference's ``opt_spec`` rule)."""
+    from dvf_tpu_torch.parallel.mesh import P
+
+    p_specs = param_pspecs(config.net)
+    return TrainState(
+        params=p_specs,
+        opt_state={"count": P(), "mu": p_specs, "nu": p_specs},
+        vgg_params=vgg_param_pspecs(config.vgg),
+        style_grams=[P() for _ in state.style_grams],
+        step=P(),
+    )
+
+
+def shard_train_state(state: TrainState, mesh, config: StyleTrainConfig) -> TrainState:
+    """Place a one-device TrainState onto ``mesh`` per ``state_pspecs``:
+    params and the encoder as ``train.optim.MeshParams``, Adam over the
+    param blocks with its moments cut likewise, the Grams and the step on
+    the mesh's first device (the Grams are read by every group from
+    there). A one-position mesh gives a one-device state on its device."""
+    dev = mesh.first_device
+    whole = optim.whole(state.params)
+    count, mu, nu = optim.adam_state(state.opt_state, state.params)
+    vgg = optim.whole(state.vgg_params)
+    if mesh.size == 1:
+        params = optim.trainable(whole, dev)
+        vgg_params = tree_to(vgg, dev)
+    else:
+        specs = state_pspecs(state, config)
+        params = optim.place(whole, mesh, specs.params)
+        vgg_params = optim.MeshParams(vgg, mesh, specs.vgg_params, requires_grad=False)
+    opt = optim.adam(params, state.opt_state.param_groups[0]["lr"])
+    optim.set_adam_state(opt, params, count, mu, nu)
+    return TrainState(params=params, opt_state=opt, vgg_params=vgg_params,
+                      style_grams=[g.to(dev) for g in state.style_grams],
+                      step=state.step.to(dev).clone())
+
+
+def train_batch_sharding(mesh):
+    """The batch layout of the sharded step: dim 0 over ``data`` and
+    ``space`` folded together."""
+    from dvf_tpu_torch.parallel.mesh import NamedSharding, P
+
+    return NamedSharding(mesh, P(("data", "space")))
 
 
 def make_train_step(
@@ -148,15 +234,19 @@ def make_train_step(
     state_template: Optional[TrainState] = None,
     donate: bool = True,
 ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, dict]]:
-    """The step ``(state, batch) -> (state, metrics)`` on the state's
-    device: the loss of a float NHWC batch in [0, 1], its gradient and one
-    Adam update; metrics are 0-d tensors on the device (no sync). With
-    ``donate`` the state is updated in place and returned; without it a
-    copy is stepped. ``mesh`` must be None (one device)."""
-    optim.single_device(mesh, "the style train step")
+    """The step ``(state, batch) -> (state, metrics)``: the loss of a
+    float NHWC batch in [0, 1], its gradient and one Adam update; metrics
+    are 0-d tensors on the (first) device (no sync). With ``donate`` the
+    state is updated in place and returned; without it a copy is
+    stepped. ``mesh=None`` or a one-position mesh: the state's device.
+    Over a mesh of more positions the state must be placed on it
+    (:func:`shard_train_state`), and the batch (a whole tensor, or a
+    ``ShardedBatch``) is cut per :func:`train_batch_sharding`."""
     if state_template is None:
         raise ValueError("make_train_step needs a state_template TrainState")
     dtypes = (config.net.compute_dtype, config.vgg.compute_dtype)
+    if mesh is not None and mesh.size > 1:
+        return _sharded_step(mesh, config, donate, dtypes)
 
     def step(state: TrainState, batch: torch.Tensor):
         if not donate:
@@ -164,6 +254,42 @@ def make_train_step(
         batch = torch.as_tensor(batch).to(state.step.device, non_blocking=True)
         metrics = optim.descend(state.opt_state, lambda: style_loss_fn(
             state.params, batch, state.vgg_params, state.style_grams, config), dtypes)
+        state.step.add_(1)
+        return state, metrics
+
+    return step
+
+
+def _sharded_step(mesh, config: StyleTrainConfig, donate: bool, dtypes):
+    from dvf_tpu_torch.parallel.sharded import lockstep
+
+    sharding = train_batch_sharding(mesh)
+    net = tp_inner_steps(config.net)
+    features = tp_inner_features(config.vgg)
+
+    def rank_program(params, vgg_params, x):
+        out = yield from net(params, x)
+        feats = yield from features(vgg_params, out)
+        return out, feats
+
+    def step(state: TrainState, batch):
+        optim.check_placed(state, mesh)
+        if not donate:
+            state = copy_state(state)
+
+        def group_loss(ranks, x):
+            devs = [mesh.devices[p] for p in ranks]
+            xs = [x.to(d, non_blocking=True) for d in devs]
+            vgg = [state.vgg_params.local(p) for p in ranks]
+            with torch.no_grad():
+                content = lockstep([features(v, xr) for v, xr in zip(vgg, xs)], devs)[0]
+            out, feats = lockstep([rank_program(state.params.local(p), v, xr)
+                                   for p, v, xr in zip(ranks, vgg, xs)], devs)[0]
+            grams = [g.to(devs[0], non_blocking=True) for g in state.style_grams]
+            return perceptual_loss(out, feats, content, grams, config)
+
+        metrics = optim.descend(state.opt_state, lambda: optim.group_mean(
+            mesh, sharding, batch, group_loss), dtypes, params=state.params)
         state.step.add_(1)
         return state, metrics
 

@@ -298,9 +298,11 @@ def _states_equal(a, b):
     ca, mua, nua = optim.adam_state(a.opt_state, a.params)
     cb, mub, nub = optim.adam_state(b.opt_state, b.params)
     assert ca == cb and int(a.step) == int(b.step) and a.step.dtype == b.step.dtype
-    pairs = [(optim.flatten(a.params), optim.flatten(b.params)), (mua, mub), (nua, nub)]
+    pairs = [(optim.flatten(optim.whole(a.params)), optim.flatten(optim.whole(b.params))),
+             (mua, mub), (nua, nub)]
     if hasattr(a, "vgg_params"):
-        pairs.append((optim.flatten(a.vgg_params), optim.flatten(b.vgg_params)))
+        pairs.append((optim.flatten(optim.whole(a.vgg_params)),
+                      optim.flatten(optim.whole(b.vgg_params))))
         pairs.append((dict(enumerate(a.style_grams)), dict(enumerate(b.style_grams))))
     for x, y in pairs:
         assert sorted(x) == sorted(y)
@@ -354,12 +356,17 @@ def test_resume_training_continues_from_step(tmp_path):
 
 
 def test_restore_refuses_a_mesh_and_mismatched_keys(tmp_path):
+    """A mesh is taken (the state placed on it per ``state_pspecs``, the
+    same state whole); mismatched keys and a missing file are refused."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from dvf_tpu_torch.train import optim
 
     state = _fresh_sr()
     path = tc.save_checkpoint(str(tmp_path / "ckpt"), state)
-    with pytest.raises(NotImplementedError, match="4c"):
-        tc.restore_sr_checkpoint(path, state, mesh=object())
+    mesh = make_mesh(MeshConfig(model=2), devices=[torch.device("cpu")] * 2)
+    placed = tc.restore_sr_checkpoint(path, state, mesh=mesh)
+    assert isinstance(placed.params, optim.MeshParams) and placed.params.mesh == mesh
+    _states_equal(state, placed)
     with pytest.raises(KeyError, match="missing"):   # an SR state onto a style template
         tc.restore_checkpoint(path, _fresh_state())
     rest = dict(np.load(os.path.join(path, tc.STATE_FILE)))
@@ -369,7 +376,7 @@ def test_restore_refuses_a_mesh_and_mismatched_keys(tmp_path):
         tc.restore_sr_checkpoint(path, state)
     shutil.rmtree(path)
     with pytest.raises(FileNotFoundError, match="params.npz"):
-        tc.restore_sr_checkpoint(path, state)
+        tc.restore_sr_checkpoint(path, state, mesh=mesh)
     assert optim.adam_state(state.opt_state, state.params)[0] == 0
 
 

@@ -1080,25 +1080,33 @@ def test_cli_compile_cache_dir_builds_then_loads(dev, tmp_path):
 # -- training on the card ------------------------------------------------------
 
 
-def _train_family(name, dtype, device):
-    """(state, step, batch) of one family at a small float32 (or bf16)
-    size, its weights from seed 0 (drawn on the CPU: the same on every
-    device)."""
+def _train_config(name, dtype):
     from dvf_tpu_torch.models import EspcnConfig, StyleNetConfig
     from dvf_tpu_torch.models.vgg import VGGConfig
     from dvf_tpu_torch.train import sr as tsr
     from dvf_tpu_torch.train import style as tst
 
-    rng = np.random.default_rng(3)
     if name == "style":
-        cfg = tst.StyleTrainConfig(
+        return tst.StyleTrainConfig(
             net=StyleNetConfig(base_channels=8, n_residual=2, compute_dtype=dtype),
             vgg=VGGConfig(compute_dtype=dtype))
+    return tsr.SrTrainConfig(net=EspcnConfig(compute_dtype=dtype))
+
+
+def _train_family(name, dtype, device):
+    """(state, step, batch) of one family at a small float32 (or bf16)
+    size, its weights from seed 0 (drawn on the CPU: the same on every
+    device)."""
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    rng = np.random.default_rng(3)
+    cfg = _train_config(name, dtype)
+    if name == "style":
         state = tst.init_train_state(0, rng.random((1, 48, 48, 3), dtype=np.float32),
                                      cfg, device=device)
         return state, tst.make_train_step(None, cfg, state_template=state), \
             torch.from_numpy(rng.random((2, 48, 64, 3), dtype=np.float32))
-    cfg = tsr.SrTrainConfig(net=EspcnConfig(compute_dtype=dtype))
     state = tsr.init_train_state(0, cfg, device=device)
     return state, tsr.make_train_step(None, cfg, state_template=state), \
         torch.from_numpy(rng.random((2, 48, 64, 3), dtype=np.float32))
@@ -1344,3 +1352,84 @@ def test_multihost_engine_in_one_process_equals_the_engine(dev):
     assert eng.local_batch_size == 4 and eng.device == dev
     got = _launched("sep_blur", lambda: eng.submit_local(x))
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------- the sharded train state on the card
+
+
+def _sharded_family(name, dtype, dev, axes):
+    """(one-device state, step; the same state placed on a virtual mesh of
+    ``dev``, its step; the batch): ``_train_family`` at batch 4."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from dvf_tpu_torch.train import sr as tsr
+    from dvf_tpu_torch.train import style as tst
+
+    state, step, batch = _train_family(name, dtype, dev)
+    mod, cfg = (tst if name == "style" else tsr), _train_config(name, dtype)
+    mcfg = MeshConfig(**axes)
+    mesh = make_mesh(mcfg, devices=[dev] * mcfg.n_devices)
+    placed = mod.shard_train_state(state, mesh, cfg)
+    return (state, step, placed, mod.make_train_step(mesh, cfg, state_template=placed),
+            torch.cat([batch, batch.flip(1)]).to(dev))
+
+
+@pytest.mark.parametrize("family,axes", [
+    ("style", {"model": 2}), ("style", {"data": 2}),
+    ("sr", {"model": 2}), ("sr", {"data": 2})],
+    ids=["style-model=2", "style-data=2", "sr-model=2", "sr-data=2"])
+def test_sharded_train_step_on_a_virtual_mesh_is_the_one_device_step(dev, family, axes):
+    """float32 on ``[cuda:0] * 2``: the sharded step's loss within 1e-5
+    relative of the one-device step's and every gradient leaf (the
+    masters' summed gradients) within 1e-4 of its largest element, the
+    pre-norm biases' zero gradients below 1e-5 of the largest."""
+    from dvf_tpu_torch.train import optim
+
+    state, step, placed, mstep, batch = _sharded_family(family, torch.float32, dev, axes)
+    _, m1 = step(state, batch)
+    _, m2 = mstep(placed, batch)
+    assert abs(float(m1["loss"]) - float(m2["loss"])) <= 1e-5 * abs(float(m1["loss"]))
+    one = {k: v.grad for k, v in optim.flatten(state.params).items()}
+    got = placed.params.assemble(lambda t: t.grad)
+    big = max(float(g.abs().max()) for g in one.values())
+    for k, g in one.items():
+        if k in _PRE_NORM:
+            assert float(g.abs().max()) <= 1e-5 * big and float(got[k].abs().max()) <= 1e-5 * big
+        else:
+            assert float((got[k] - g).abs().max()) <= 1e-4 * float(g.abs().max()), k
+    assert int(placed.step) == 1 and placed.step.device == dev
+
+
+@pytest.mark.parametrize("family", ["style", "sr"])
+def test_sharded_train_step_never_waits_on_the_host(dev, family):
+    """After a warm-up step, sharded steps on ``data=2, model=2`` of the
+    card run under CUDA's sync debug mode set to raise: the batch cut,
+    the ranks' lockstep, the collectives, the copies' gradient sums and
+    Adam are queued without the host waiting."""
+    _, _, placed, mstep, batch = _sharded_family(family, torch.bfloat16, dev,
+                                                 {"data": 2, "model": 2})
+    placed, _ = mstep(placed, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            placed, m = mstep(placed, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.device == dev for v in m.values())
+    assert int(placed.step) == 3 and np.isfinite(float(m["loss"]))
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    """``dryrun_multichip(8)`` with no device: the attached cards, or a
+    virtual mesh of cuda:0 eight times; every sub-check passes, K3 runs
+    in the halo and pipeline checks and K4 in the flow check."""
+    from dvf_tpu_torch.dryrun import dryrun_devices, dryrun_multichip, entry
+
+    assert dryrun_devices(8)[0] == dev
+    rows = {r["label"]: r for r in dryrun_multichip(8)}
+    assert rows["engine-halo(sobel_bilateral)"]["launches"].get("sobel_bilateral", 0) >= 9
+    assert rows["engine-pipeline(Pipeline.run)"]["launches"].get("sobel_bilateral", 0) > 0
+    assert rows["engine-flow(flow_warp)"]["launches"].get("warp_bounded", 0) > 0
+    assert np.isfinite(rows["train-step"]["loss"])
+    fn, args = entry()
+    assert fn(*args).shape == args[1].shape

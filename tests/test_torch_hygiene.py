@@ -54,6 +54,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     # Training: the VGG encoder, both train steps and their optimizer.
     assert {"dvf_tpu_torch.models.vgg", "dvf_tpu_torch.train.style",
             "dvf_tpu_torch.train.sr", "dvf_tpu_torch.train.optim"} <= set(res["imported"])
+    # The compile check and multi-device dry run (``__graft_entry__``'s).
+    assert "dvf_tpu_torch.dryrun" in res["imported"]
     # The serving slice: the frontend and every module it pulls forward.
     assert {"dvf_tpu_torch.serve", "dvf_tpu_torch.serve.server",
             "dvf_tpu_torch.serve.session", "dvf_tpu_torch.serve.batcher",

@@ -89,10 +89,27 @@ def test_repeated_devices_are_a_virtual_mesh():
 
 
 def test_engine_default_stays_one_card(monkeypatch):
-    """Divergence from the reference (whose Engine spans every device by
-    default): ``Engine(filt)`` is ``cuda:0``, with no mesh; it raises
-    where there is no card. ``Engine(mesh=m)`` spans m, and a device
-    given beside the mesh must be its first."""
+    """As the reference's, ``Engine(filt)`` with neither device nor mesh
+    spans every attached card: ``make_mesh()`` (all ``data``) over
+    ``parallel.mesh.local_devices()`` where there are several, that card
+    alone, with no mesh, where there is one, and it raises where there is
+    none. A device given alone stays that one device. ``Engine(mesh=m)``
+    spans m, and a device given beside the mesh must be its first."""
+    from dvf_tpu_torch.parallel import mesh as mesh_mod
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(dt.get_filter("invert"))
+    monkeypatch.setattr(mesh_mod, "local_devices", lambda: [CPU] * 4)
+    eng = Engine(dt.get_filter("invert"))
+    assert eng.mesh.shape == {"data": 4, "space": 1, "model": 1}
+    assert eng.mesh == mesh_mod.make_mesh(devices=[CPU] * 4) and eng.device == CPU
+    x = np.random.default_rng(0).integers(0, 255, (4, 8, 8, 3), np.uint8)
+    np.testing.assert_array_equal(eng.submit(x).fetch(), 255 - x)
+    assert len(eng.submit(x).device.shards) == 4
+    monkeypatch.setattr(mesh_mod, "local_devices", lambda: [CPU])
+    eng = Engine(dt.get_filter("invert"))
+    assert eng.mesh is None and eng.devices == [CPU] and not eng._meshed
+    monkeypatch.setattr(mesh_mod, "local_devices", lambda: [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(dt.get_filter("invert"))
     eng = Engine(dt.get_filter("invert"), device="cpu")

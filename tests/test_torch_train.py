@@ -4,10 +4,10 @@ The same seeded numpy inputs go through ``dvf_tpu`` and ``dvf_tpu_torch``:
 the VGG encoder, both loss functions with their gradients, and whole
 train steps (the port's ``torch.optim.Adam`` against ``optax.adam``), the
 JAX state carried across by ``convert.train_state_from_jax``. Then the
-counterparts of tests/test_train.py (bar its two sharded cases and the
-two ``__graft_entry__`` cases, which wait for the multi-GPU slice) and
-the port's own contract: in-place steps, ``donate=False``, one device,
-TF32 off in the backward.
+counterparts of tests/test_train.py (its two sharded cases and the two
+``__graft_entry__`` cases are in tests/test_torch_train_mesh.py) and the
+port's own contract: in-place steps, ``donate=False``, one device per
+state, TF32 off in the backward.
 
 Tolerances, stated per test: float32 features and losses to 1e-5
 relative, float32 gradients to 1e-4 of each leaf's largest element;
@@ -429,11 +429,26 @@ def test_step_updates_in_place_and_returns_device_tensors(family):
 
 
 def test_steps_run_on_one_device_only():
-    state = _mk_state()
-    with pytest.raises(NotImplementedError, match="4c"):
-        make_train_step(make_mesh(MeshConfig()), TINY, state_template=state)
-    with pytest.raises(NotImplementedError, match="4c"):
-        tsr.make_train_step(object(), SrTrainConfig(), state_template=state)
+    """A step runs where its state is: ``mesh=None`` and a one-position
+    mesh are the state's device (bitwise the same step), and a sharded
+    step refuses a state not placed on its mesh."""
+    from dvf_tpu_torch.parallel.mesh import MeshConfig as PortMesh
+    from dvf_tpu_torch.parallel.mesh import make_mesh as port_mesh
+
+    cpu = torch.device("cpu")
+    batch = _uniform(3, (2, 32, 32, 3))
+    a, ma = make_train_step(None, TINY, state_template=_mk_state())(_mk_state(), batch)
+    one = port_mesh(PortMesh(), devices=[cpu])
+    placed = tst.shard_train_state(_mk_state(), one, TINY)
+    b, mb = make_train_step(one, TINY, state_template=placed)(placed, batch)
+    assert torch.equal(ma["loss"], mb["loss"])
+    _same(_snapshot(a), _snapshot(b))
+    two = port_mesh(PortMesh(data=2), devices=[cpu] * 2)
+    with pytest.raises(ValueError, match="placed"):
+        make_train_step(two, TINY, state_template=a)(a, batch)
+    with pytest.raises(ValueError, match="placed"):
+        tsr.make_train_step(two, SrTrainConfig(), state_template=a)(
+            tsr.init_train_state(0, device="cpu"), batch)
     with pytest.raises(ValueError, match="state_template"):
         make_train_step(None, TINY)
 
