@@ -201,8 +201,8 @@ class ReconfigLedger:
             args = {k: v for k, v in ev.items()
                     if k not in ("t", "kind") and isinstance(
                         v, (str, int, float, bool))}
-            tracer.complete(f"reconfig:{kind}", start, now,
-                            self.track, **args)
+            tracer.complete(f"reconfig:{kind}", tracer.perf_of_wall(start),
+                            tracer.perf_of_wall(now), self.track, **args)
         return ev
 
     def note_dispatch(self, bucket_label: str,
@@ -232,7 +232,7 @@ class ReconfigLedger:
         tracer = self.tracer
         if tracer is not None and getattr(tracer, "enabled", False):
             for ev in closed:
-                tracer.instant("reconfig_stall_closed", ts=t,
+                tracer.instant("reconfig_stall_closed", ts=tracer.perf_of_wall(t),
                                track=self.track, bucket=bucket_label,
                                stall_ms=ev["stall_ms"])
 

@@ -273,6 +273,7 @@ class IngestStats:
             "stage_ms": round(self.stage_ms_total / n, 4),
             "h2d_put_ms": round(self.put_ms_total / n, 4),
             "h2d_wait_ms": round(self.wait_ms_total / n, 4),
+            "span_ms": round(self.span_ms_total / n, 4),
             "h2d_block_ms": (round(self.h2d_block_ms, 4)
                              if self.h2d_block_ms else None),
             "overlap_efficiency": (round(eff, 4)
@@ -300,7 +301,9 @@ class EgressStats:
     streamed fetch actually spent blocked on the host copy
     (``d2h_wait_ms``) plus copying into the output slab (``copy_ms``; 0
     on a card, where the copy lands in the slab itself). None when no
-    calibration exists or the monolithic path ran.
+    calibration exists or the monolithic path ran. On the monolithic path
+    ``d2h_wait_ms`` is the blocking copy itself. ``span_ms`` is the whole
+    fetch, the wait for the batch's compute included.
 
     The codec-plane half: ``encode_ms`` is the wall span of one batch's
     encode inside the pool (submit → last future done), ``encode_wait_ms``
@@ -377,6 +380,7 @@ class EgressStats:
             "batches": self.batches,
             "d2h_wait_ms": round(self.d2h_wait_ms_total / n, 4),
             "copy_ms": round(self.copy_ms_total / n, 4),
+            "span_ms": round(self.span_ms_total / n, 4),
             "d2h_block_ms": (round(self.d2h_block_ms, 4)
                              if self.d2h_block_ms else None),
             "overlap_efficiency": (round(eff, 4)

@@ -4,26 +4,41 @@ export format).
 
 Instant events at capture ('i', ``frame_captured``), complete events
 ('X') spanning processing with a *track id* mapped to the trace ``pid``
-field so each stage gets its own lane. Timestamps are µs relative to the
-tracer's wall-clock start. Event names follow the frame lifecycle:
-frame_captured → batch_complete → frame_delivered; the streamed ingest
-path (runtime/ingest.py) adds a transfer lane:
+field so each stage gets its own lane. Callers stamp events with
+``time.perf_counter()``, the one monotonic clock the benchmark's device
+trace is aligned to; the export writes µs past the tracer's wall-clock
+``start_time`` through one ``(wall, perf)`` anchor taken at construction.
+Event names follow the frame lifecycle: frame_captured → batch_complete →
+frame_delivered; the ingest (runtime/ingest.py) adds a transfer lane:
 
 - ``ingest_h2d`` — one span per row chunk's host→device copy launch (args:
-  the batch-row range and bytes shipped);
+  the batch-row range and bytes shipped), streamed path;
 - ``ingest_stage`` — the whole host-staging window of one batch (args:
-  the cumulative host-copy time inside it);
+  the cumulative host-copy time inside it), either path;
 - ``ingest_overlap`` — first chunk copy launched → batch assembly complete:
   the window in which copies ran under the staging of later chunks and
   the device compute of the previous batch.
 
-The streamed egress path (runtime/egress.py) mirrors it on the delivery
-side:
+The egress (runtime/egress.py) mirrors it on the delivery side:
 
-- ``egress_d2h`` — one span per batch's host copy wait (args: the
-  batch-row range and bytes fetched);
+- ``egress_d2h`` — one span per batch's host copy wait, on the streamed
+  and the monolithic path (args: the batch-row range and bytes fetched);
 - ``egress_encode`` / ``egress_send`` — the codec plane's spans (names
   kept for the reference's consumers).
+
+Inside the port's own threads, each span carrying the batch's ``seq`` (or
+the train step's ``step``):
+
+- ``pipeline.assemble`` (waiting for frames), ``pipeline.window_wait``
+  (blocked on the in-flight window) and ``engine.launch`` (the step's
+  launch, ``runtime/engine.py``) on the pipeline's dispatch lane;
+- ``egress.fetch``, with ``egress.wait_compute`` and ``egress_d2h``
+  inside it, and ``pipeline.deliver`` (reorder, row copies, sink) on its
+  collect lane;
+- ``train.step`` with ``train.optim`` (``zero_grad``), ``train.forward``,
+  ``train.backward`` and ``train.optim`` (Adam's update) inside it
+  (``train/optim.py``), each phase also timed on the device by a pair of
+  CUDA events (:meth:`Tracer.device_span`).
 
 :func:`merge_with_device_trace` fuses the host trace with a
 ``torch.profiler`` (Kineto) Chrome trace into one file; it is the
@@ -39,7 +54,7 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 # Streamed-ingest span names (runtime/ingest.py emits these; one place
 # owns the strings so trace consumers can match on them).
@@ -64,6 +79,18 @@ EGRESS_SEND = "egress_send"
 RECONFIG_PREFIX = "reconfig:"
 RECONFIG_STALL_CLOSED = "reconfig_stall_closed"
 
+# Spans of the port's dispatch, collect and train-step threads.
+PIPELINE_ASSEMBLE = "pipeline.assemble"
+PIPELINE_WINDOW_WAIT = "pipeline.window_wait"
+PIPELINE_DELIVER = "pipeline.deliver"
+ENGINE_LAUNCH = "engine.launch"
+EGRESS_FETCH = "egress.fetch"
+EGRESS_WAIT_COMPUTE = "egress.wait_compute"
+TRAIN_STEP = "train.step"
+TRAIN_FORWARD = "train.forward"
+TRAIN_BACKWARD = "train.backward"
+TRAIN_OPTIM = "train.optim"
+
 
 class Tracer:
     """Frame-lifecycle tracer with a BOUNDED event ring.
@@ -76,10 +103,12 @@ class Tracer:
     bound it covers the last ~10⁵ events, minutes of serving at frame
     rates, for a few tens of MB worst case.
 
-    ``start_time`` is a WALL-CLOCK epoch (``time.time()``): event
-    timestamps are µs relative to it, so snapshots from different
-    processes merge onto one clock by offsetting each tracer's events by
-    its epoch delta (:func:`merge_tracer_snapshots`).
+    Stamps are ``time.perf_counter()`` seconds. ``start_time`` is the
+    WALL-CLOCK epoch (``time.time()``) read beside ``perf_start`` at
+    construction: event timestamps are µs past it, so snapshots from
+    different processes merge onto one clock by offsetting each tracer's
+    events by its epoch delta (:func:`merge_tracer_snapshots`). A wall
+    time (a frame's capture stamp) enters through :meth:`perf_of_wall`.
     """
 
     def __init__(self, enabled: bool = False, process_name: str = "dvf_tpu",
@@ -87,14 +116,24 @@ class Tracer:
         self.enabled = enabled
         self.process_name = process_name
         self.start_time = time.time()
+        self.perf_start = time.perf_counter()
         self.max_events = max_events
         self.dropped = 0
         self._events: "collections.deque[Dict[str, Any]]" = (
             collections.deque(maxlen=max_events))
+        self._device: "collections.deque[tuple]" = collections.deque(
+            maxlen=max_events)  # (name, start event, end event, track,
+        #   args) not yet resolved to ms
+        self._device_ms: "collections.deque[tuple]" = collections.deque(
+            maxlen=max_events)  # (name, ms, track, args), resolved
         self._lock = threading.Lock()
 
     def _us(self, t: float) -> int:
-        return int((t - self.start_time) * 1e6)
+        return int((t - self.perf_start) * 1e6)
+
+    def perf_of_wall(self, wall: float) -> float:
+        """A ``time.time()`` stamp on the tracer's ``perf_counter`` clock."""
+        return wall - self.start_time + self.perf_start
 
     def instant(self, name: str, ts: Optional[float] = None, track: int = 0, **args) -> None:
         """'i' event — e.g. frame_captured at enqueue (distributor.py:63-73)."""
@@ -103,7 +142,7 @@ class Tracer:
         ev = {
             "name": name,
             "ph": "i",
-            "ts": self._us(ts if ts is not None else time.time()),
+            "ts": self._us(ts if ts is not None else time.perf_counter()),
             "pid": track,
             "tid": 0,
             "s": "g",
@@ -136,7 +175,36 @@ class Tracer:
                 self.dropped += 1
             self._events.append(ev)
 
+    def device_span(self, name: str, start, end, track: int = 0, **args) -> None:
+        """Device time between two CUDA events recorded with
+        ``enable_timing=True`` on one stream; kept unresolved, so the
+        caller never waits here (:meth:`device_spans` reads them)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._device.append((name, start, end, track, args))
+
     # ------------------------------------------------------------------
+
+    def spans(self) -> List[Tuple[str, float, float, int, Dict[str, Any]]]:
+        """The retained 'X' events as ``(name, t0, t1, track, args)``,
+        ``t0`` and ``t1`` in ``perf_counter`` seconds (to the µs)."""
+        with self._lock:
+            events = list(self._events)
+        base = self.perf_start
+        return [(e["name"], base + e["ts"] * 1e-6, base + (e["ts"] + e["dur"]) * 1e-6,
+                 e["pid"], e.get("args", {})) for e in events if e["ph"] == "X"]
+
+    def device_spans(self) -> List[Tuple[str, float, int, Dict[str, Any]]]:
+        """``(name, ms, track, args)`` of each retained :meth:`device_span`
+        whose end event has completed: read after the caller's own
+        synchronise, every one. Resolving waits for nothing; a span still
+        running is resolved by a later read."""
+        with self._lock:
+            while self._device and self._device[0][2].query():
+                name, start, end, track, args = self._device.popleft()
+                self._device_ms.append((name, start.elapsed_time(end), track, args))
+            return list(self._device_ms)
 
     def snapshot(self, max_events: Optional[int] = None) -> Dict[str, Any]:
         """This tracer's mergeable export: the retained event window plus
@@ -208,7 +276,8 @@ class Tracer:
             mean_us = sum(ivals) / len(ivals)
             if mean_us > 0:
                 out["capture_fps"] = 1e6 / mean_us
-        durs = [e["dur"] for e in events if e["ph"] == "X" and e.get("dur", 0) > 0]
+        durs = [e["dur"] for e in events
+                if e["name"] == "batch_complete" and e.get("dur", 0) > 0]
         if durs:
             out["mean_process_ms"] = sum(durs) / len(durs) / 1e3
         return out

@@ -10,7 +10,11 @@ the next batch's staging. ``fetch(result, slot)`` in the collect path
 first waits for the compute event (that wait is device time, not D2H),
 then for the D2H event (timed as ``wait_ms``), and returns the slab's
 numpy view; ``owns(out)`` is then True, and rows that outlive the collect
-step must be copied. No pinned allocation happens per batch.
+step must be copied. No pinned allocation happens per batch. The
+monolithic fetch times its blocking device→host copy as ``wait_ms`` too.
+With an enabled tracer each fetch is an ``egress.fetch`` span holding an
+``egress.wait_compute`` and an ``egress_d2h`` span, all tagged with the
+batch's slot id (``seq``).
 
 On a mesh the fetcher takes the engine's output sharding in place of a
 device and makes one device→host copy per output block, on the block's
@@ -54,7 +58,12 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.obs.metrics import EgressStats
-from dvf_tpu_torch.obs.trace import EGRESS_D2H, EGRESS_ENCODE
+from dvf_tpu_torch.obs.trace import (
+    EGRESS_D2H,
+    EGRESS_ENCODE,
+    EGRESS_FETCH,
+    EGRESS_WAIT_COMPUTE,
+)
 from dvf_tpu_torch.parallel.mesh import NamedSharding
 from dvf_tpu_torch.parallel.sharded import EventGroup, ShardedBatch
 from dvf_tpu_torch.runtime.engine import (
@@ -244,19 +253,26 @@ class ShardedBatchFetcher:
         slab (valid until the slot is revisited). Monolithic or a result
         the pool cannot take: a fresh host array."""
         t_begin = time.perf_counter()
+        tracer = self.tracer
+        if tracer is not None and not tracer.enabled:
+            tracer = None
         if not self._streamable(result):
             wait_compute(result)
+            t0 = time.perf_counter()
             y = result.device
             if self.stream is not None and self.sharding is None:
                 with torch.cuda.stream(self.stream):
                     out = host_array(y.cpu())
             else:
                 out = host_array(y.cpu())
-            self.stats.record_fetch(
-                wait_ms=0.0, copy_ms=0.0,
-                span_ms=(time.perf_counter() - t_begin) * 1e3)
+            t2 = time.perf_counter()
+            if tracer is not None:
+                self._trace(tracer, slot, t_begin, t0, t0, t2, out.nbytes)
+            self.stats.record_fetch(wait_ms=(t2 - t0) * 1e3, copy_ms=0.0,
+                                    span_ms=(t2 - t_begin) * 1e3)
             return out
         wait_compute(result)
+        t_computed = time.perf_counter() if tracer is not None else 0.0
         if self.chaos is not None:
             # Injection site "d2h": a delay rule stalls this fetch (a
             # congested link), a raise rule denies it.
@@ -278,16 +294,19 @@ class ShardedBatchFetcher:
             else:
                 self._pool[i].copy_(result.device)
         t2 = time.perf_counter()
-        tracer = self.tracer
-        if tracer is not None and tracer.enabled:
-            off = time.time() - time.perf_counter()  # monotonic → wall
-            tracer.complete(EGRESS_D2H, t0 + off, t2 + off, self.track,
-                            rows=f"0:{self.out_shape[0]}",
-                            bytes=self._views[i].nbytes)
+        if tracer is not None:
+            self._trace(tracer, slot, t_begin, t_computed, t0, t2, self._views[i].nbytes)
         self.stats.record_fetch(
             wait_ms=(t1 - t0) * 1e3, copy_ms=(t2 - t1) * 1e3,
-            span_ms=(time.perf_counter() - t_begin) * 1e3)
+            span_ms=(t2 - t_begin) * 1e3)
         return self._views[i]
+
+    def _trace(self, tracer, seq: int, t_begin: float, t_computed: float,
+               t_copy: float, t_end: float, nbytes: int) -> None:
+        tracer.complete(EGRESS_FETCH, t_begin, t_end, self.track, seq=seq)
+        tracer.complete(EGRESS_WAIT_COMPUTE, t_begin, t_computed, self.track, seq=seq)
+        tracer.complete(EGRESS_D2H, t_copy, t_end, self.track, seq=seq,
+                        rows=f"0:{self.out_shape[0]}", bytes=nbytes)
 
     def owns(self, out: np.ndarray) -> bool:
         """True when ``out`` is one of this fetcher's pooled slabs — it is
@@ -460,9 +479,8 @@ class AsyncCodecPlane:
                         self.stats.record_entropy(ms)
             tracer = self.tracer
             if tracer is not None and tracer.enabled and entry.futures:
-                off = time.time() - time.perf_counter()
-                tracer.complete(EGRESS_ENCODE, entry.t_submit + off,
-                                max(entry.t_done, entry.t_submit) + off,
+                tracer.complete(EGRESS_ENCODE, entry.t_submit,
+                                max(entry.t_done, entry.t_submit),
                                 self.track, rows=len(entry.metas))
             out.append(entry.collect())
         return out

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
+from dvf_tpu_torch.obs.trace import ENGINE_LAUNCH
 from dvf_tpu_torch.parallel.halo import spatial_filter
 from dvf_tpu_torch.parallel import mesh as mesh_mod
 from dvf_tpu_torch.parallel.mesh import NamedSharding, P, batch_pspec, batch_sharding
@@ -292,6 +293,9 @@ class BatchResult:
         self.device = device  # a ShardedBatch on a mesh engine
         self.compute_event = compute_event  # an EventGroup on a mesh
         self._event = event
+        self.timing_start: Optional[torch.cuda.Event] = None  # traced
+        #   batches: a timing event before the step; ``compute_event``
+        #   then times too (Engine.settle_timing reads the pair)
         self._scatter: List[Tuple[torch.Tensor, torch.Tensor]] = []
         #   (host view, pinned staging) pairs of a mesh batch's blocks
         #   that are not contiguous in ``host`` (H-sharded): each block
@@ -335,6 +339,9 @@ class EngineStats:
     batches: int = 0
     frames: int = 0
     compile_count: int = 0
+    device_ms: float = 0.0    # traced batches' step time on the device
+    #   (CUDA events around the step), summed by Engine.settle_timing
+    timed_batches: int = 0    # the batches device_ms covers
 
 
 class Engine:
@@ -404,6 +411,10 @@ class Engine:
         #   last compile(): warm-up and calibrations included
         self.state_bytes: int = 0  # device bytes of the filter state
         self.stats = EngineStats()
+        self.tracer = None  # obs.trace.Tracer: when enabled, each step
+        #   records an engine.launch span on trace_track and, on one card,
+        #   a pair of timing events (settle_timing)
+        self.trace_track = 0
         self._signature: Optional[Tuple] = None
         self._state: Any = None
         self._step: Optional[Callable] = None  # the compiled per-batch
@@ -747,20 +758,52 @@ class Engine:
             self.chaos.fire("oom")
             self.chaos.fire("compute")
 
-    def _run(self, x: torch.Tensor):
+    def _run(self, x: torch.Tensor, seq: Optional[int] = None):
         """The step on the compute stream; returns (output, compute event:
-        on a mesh an EventGroup, one event per device)."""
+        on a mesh an EventGroup, one event per device; timing start event
+        or None). With an enabled tracer the launch is an
+        ``engine.launch`` span carrying ``seq``, and on one card the
+        step sits between two timing events, the second the compute
+        event."""
+        tracer = self.tracer
+        traced = tracer is not None and tracer.enabled
+        t0 = time.perf_counter() if traced else 0.0
+        start = self._timing_event() if traced else None
         y, self._state = self._step(x, self._state)
         self.stats.batches += 1
         self.stats.frames += x.shape[0]
         if self._meshed:
+            cev = EventGroup.record(self.devices, self._compute_stream)
+        elif start is not None:
+            cev = self._timing_event()
+        else:
+            cev = record_event(self._compute_stream())
+        if traced:
+            tracer.complete(ENGINE_LAUNCH, t0, time.perf_counter(), self.trace_track, seq=seq)
+        return y, cev, start
 
-            return y, EventGroup.record(self.devices, self._compute_stream)
-        return y, record_event(self._compute_stream())
+    def _timing_event(self) -> Optional[torch.cuda.Event]:
+        """A timing event recorded on the compute stream now; None on the
+        CPU and on a mesh."""
+        stream = None if self._meshed else self._compute_stream()
+        if stream is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def settle_timing(self, result: BatchResult) -> None:
+        """Add a traced batch's step time on the device to
+        ``stats.device_ms``. Call once the host has waited for the
+        batch's compute event, so reading the pair waits for nothing."""
+        start, result.timing_start = result.timing_start, None
+        if start is not None:
+            self.stats.device_ms += start.elapsed_time(result.compute_event)
+            self.stats.timed_batches += 1
 
     def submit(self, batch: Union[np.ndarray, torch.Tensor],
                out: Optional[torch.Tensor] = None,
-               fetch: bool = True) -> BatchResult:
+               fetch: bool = True, seq: Optional[int] = None) -> BatchResult:
         """Dispatch one host batch; returns at once with a BatchResult.
 
         ``batch`` should sit in pinned memory for the copy to be
@@ -768,7 +811,8 @@ class Engine:
         (pinned, shape ``out_shape``); None allocates one. ``fetch=False``
         skips the device→host copy (the egress fetcher or the coefficient
         wire reads ``BatchResult.device``). The caller must not rewrite
-        ``batch`` or read ``out`` before the result is ready.
+        ``batch`` or read ``out`` before the result is ready. ``seq``
+        tags the traced launch.
         """
         host = batch if isinstance(batch, torch.Tensor) else host_tensor(
             batch)
@@ -778,7 +822,7 @@ class Engine:
         event = None
         scatter = []
         with torch.no_grad():
-            y, cev = self._run(self._put(host))
+            y, cev, start = self._run(self._put(host), seq)
             if fetch:
                 if out is None:
                     out = torch.empty(y.shape, dtype=y.dtype,
@@ -791,10 +835,12 @@ class Engine:
                 out = None
         result = BatchResult(out, event, device=y, compute_event=cev)
         result._scatter = scatter
+        result.timing_start = start
         return result
 
     def submit_resident(self, batch: torch.Tensor,
-                        ready: Optional[torch.cuda.Event] = None) -> BatchResult:
+                        ready: Optional[torch.cuda.Event] = None,
+                        seq: Optional[int] = None) -> BatchResult:
         """Serving entry for a batch already on the device: the streamed
         ingest path copied its chunks on the H2D stream, so the copy of
         :meth:`submit` is skipped. ``ready`` is the event recorded after
@@ -806,7 +852,7 @@ class Engine:
         (``input_sharding``) and ``ready`` an EventGroup: each device's
         compute stream waits for its own event."""
         if self._meshed:
-            return self._submit_resident_blocks(batch, ready)
+            return self._submit_resident_blocks(batch, ready, seq)
         if batch.device != self.device:
             raise ValueError(f"submit_resident takes a batch on {self.device}, "
                              f"got one on {batch.device}")
@@ -817,10 +863,12 @@ class Engine:
                 if ready is not None:
                     compute.wait_event(ready)
                 batch.record_stream(compute)
-            y, cev = self._run(batch)
-        return BatchResult(None, None, device=y, compute_event=cev)
+            y, cev, start = self._run(batch, seq)
+        result = BatchResult(None, None, device=y, compute_event=cev)
+        result.timing_start = start
+        return result
 
-    def _submit_resident_blocks(self, batch, ready) -> BatchResult:
+    def _submit_resident_blocks(self, batch, ready, seq=None) -> BatchResult:
         if not isinstance(batch, ShardedBatch):
             raise ValueError("submit_resident on a mesh takes a ShardedBatch "
                              "in the engine's input_sharding")
@@ -836,7 +884,7 @@ class Engine:
                     if ev is not None:
                         compute.wait_event(ev)
                     t.record_stream(compute)
-            y, cev = self._run(batch)
+            y, cev, _ = self._run(batch, seq)
         return BatchResult(None, None, device=y, compute_event=cev)
 
     def run_device_resident(self, batch: torch.Tensor,
@@ -904,6 +952,7 @@ class Engine:
         fresh = Engine(self.filter, device=self.device, out_uint8=self.out_uint8,
                        chaos=self.chaos, op_chain=self.op_chain,
                        mesh=self.mesh)
+        fresh.tracer, fresh.trace_track = self.tracer, self.trace_track
         if self._signature is not None:
             shape, dtype = self._signature
             fresh.compile(shape, dtype)

@@ -363,8 +363,7 @@ class BatchBuilder:
         self._put_s += t1 - t0
         tracer = asm.tracer
         if tracer is not None and tracer.enabled:
-            off = time.time() - time.perf_counter()  # monotonic → wall
-            tracer.complete(INGEST_H2D, t0 + off, t1 + off, asm.track,
+            tracer.complete(INGEST_H2D, t0, t1, asm.track,
                             rows=f"{s}:{stop}", bytes=nbytes)
         self._inflight.append(ev)
         if len(self._inflight) > asm.depth:
@@ -392,8 +391,13 @@ class BatchBuilder:
         t0 = time.perf_counter()
         if not self._streamed:
             self._view[valid:] = self._view[valid - 1]
-            self._stage_s += time.perf_counter() - t0
-            self._record(time.perf_counter())
+            t_end = time.perf_counter()
+            self._stage_s += t_end - t0
+            tracer = self.asm.tracer
+            if tracer is not None and tracer.enabled:
+                tracer.complete(INGEST_STAGE, self._t_begin, t_end, self.asm.track,
+                                stage_ms=round(self._stage_s * 1e3, 3))
+            self._record(t_end)
             return self._host, False
         # The source row's chunk may already be launched (its slab rows
         # are only read); the destination rows are in chunks not launched.
@@ -415,10 +419,9 @@ class BatchBuilder:
         t_end = time.perf_counter()
         tracer = self.asm.tracer
         if tracer is not None and tracer.enabled and self._first_put_t:
-            off = time.time() - time.perf_counter()  # monotonic → wall
-            tracer.complete(INGEST_OVERLAP, self._first_put_t + off,
-                            t_end + off, self.asm.track, valid=valid)
-            tracer.complete(INGEST_STAGE, self._t_begin + off, t_end + off,
+            tracer.complete(INGEST_OVERLAP, self._first_put_t,
+                            t_end, self.asm.track, valid=valid)
+            tracer.complete(INGEST_STAGE, self._t_begin, t_end,
                             self.asm.track,
                             stage_ms=round(self._stage_s * 1e3, 3))
         self._record(t_end)

@@ -28,7 +28,13 @@ Fault planes (``resilient``, ``fault_budget``, ``stall_timeout_s``,
 resilience.faults and bounded by the per-kind error budget (repeated h2d
 faults degrade streamed → monolithic ingest, repeated d2h faults the
 egress), a stall watchdog whose recovery rebuilds the engine, the
-deterministic chaos sites, and the frame-lifecycle tracer.
+deterministic chaos sites, and the frame-lifecycle tracer. The tracer
+(the pipeline's own under ``trace``, or a caller's ``tracer=``, which the
+caller reads and which writes no file) also times the dispatch thread
+(``pipeline.assemble``, ``pipeline.window_wait``, ``engine.launch``) and
+the collect thread (``egress.fetch``, ``pipeline.deliver``), each on a
+lane of its own, every span tagged with the batch's ``seq``, and has the
+engine time each step on the device (``EngineStats.device_ms``).
 
 The ingest queue is injectable: the default is the Python drop-oldest
 queue; ``queue=RingFrameQueue(...)`` (transport/ring_queue.py) puts the
@@ -68,7 +74,14 @@ from dvf_tpu_torch.obs.export import (
 )
 from dvf_tpu_torch.obs.metrics import EgressStats, IngestStats, LatencyStats, RateLogger
 from dvf_tpu_torch.obs.registry import MetricsRegistry
-from dvf_tpu_torch.obs.trace import MERGED_TRACE_NAME, Tracer, merge_with_device_trace
+from dvf_tpu_torch.obs.trace import (
+    MERGED_TRACE_NAME,
+    PIPELINE_ASSEMBLE,
+    PIPELINE_DELIVER,
+    PIPELINE_WINDOW_WAIT,
+    Tracer,
+    merge_with_device_trace,
+)
 from dvf_tpu_torch.resilience.budget import ErrorBudget, escalate
 from dvf_tpu_torch.resilience.faults import FaultError, FaultKind, FaultStats, classify
 from dvf_tpu_torch.resilience.supervisor import Supervisor
@@ -78,9 +91,11 @@ from dvf_tpu_torch.runtime.ingest import INGEST_MODES, ShardedBatchAssembler
 from dvf_tpu_torch.sched.queues import DropOldestQueue
 from dvf_tpu_torch.sched.reorder import ReorderBuffer
 
-# Trace track ids (the reference's): stages, plus the streamed-ingest
-# transfer lane (ingest_h2d spans) and the streamed-egress one (egress_d2h).
-TRACK_INGEST, TRACK_DEVICE, TRACK_SINK, TRACK_H2D, TRACK_D2H = 0, 1, 2, 3, 4
+# Trace track ids (the reference's): stages, plus the ingest transfer
+# lane (ingest_* spans, made on the dispatch thread); then the dispatch
+# thread's lane and the collect thread's (egress_* spans included).
+TRACK_INGEST, TRACK_DEVICE, TRACK_SINK, TRACK_H2D = 0, 1, 2, 3
+TRACK_DISPATCH, TRACK_COLLECT = 5, 6
 
 
 @dataclasses.dataclass
@@ -139,6 +154,7 @@ class Pipeline:
         engine: Optional[Engine] = None,
         device: Union[None, str, torch.device] = None,
         queue: Optional[Any] = None,
+        tracer: Optional[Tracer] = None,
     ):
         if filt.stateful and not filt.pad_safe:
             raise ValueError(
@@ -167,7 +183,9 @@ class Pipeline:
         if self.config.chaos is not None and engine.chaos is None:
             engine.chaos = self.config.chaos  # arm a caller-built engine
         self.engine = engine
-        self.tracer = Tracer(enabled=self.config.trace)
+        self._own_tracer = tracer is None  # only the pipeline's own exports
+        self.tracer = Tracer(enabled=self.config.trace) if tracer is None else tracer
+        engine.tracer, engine.trace_track = self.tracer, TRACK_DISPATCH
         self.queue = queue if queue is not None else DropOldestQueue(
             maxsize=self.config.queue_size)
         self.reorder = ReorderBuffer(frame_delay=self.config.frame_delay,
@@ -355,7 +373,9 @@ class Pipeline:
                     # here does not starve dispatch/collect of the GIL.
                     time.sleep(0.0002)
                 self._capture_rate.tick()
-                self.tracer.instant("frame_captured", ts, TRACK_INGEST, frame=idx)
+                if self.tracer.enabled:
+                    self.tracer.instant("frame_captured", self.tracer.perf_of_wall(ts),
+                                        TRACK_INGEST, frame=idx)
         except BaseException as e:  # noqa: BLE001 — surfaces from run()
             self._fail(e)
         finally:
@@ -430,7 +450,7 @@ class Pipeline:
                 mode=self._egress_mode,
                 slots=self.config.max_inflight + 1,
                 stats=self._egress_stats,
-                tracer=self.tracer, track=TRACK_D2H,
+                tracer=self.tracer, track=TRACK_COLLECT,
                 chaos=self.config.chaos, stream=self.engine.d2h_stream_for)
             if self._egress_degrade_reason is not None:
                 self._egress_stats.fallback_reason = \
@@ -455,9 +475,16 @@ class Pipeline:
         pending: deque = deque()  # inline mode's in-flight window
         if inline:
             self._on_idle = lambda: self._drain_ready(pending)
+        tracer = self.tracer if self.tracer.enabled else None
+        t0 = 0.0  # batch_complete's start, stamped when traced
         try:
             while not self._abort.is_set():
+                if tracer is not None:
+                    ta = time.perf_counter()
                 items = self._assemble()
+                if tracer is not None:
+                    tracer.complete(PIPELINE_ASSEMBLE, ta, time.perf_counter(),
+                                    TRACK_DISPATCH, seq=seq)
                 if items is None:
                     break
                 if not items:
@@ -474,9 +501,14 @@ class Pipeline:
                     # Acquired BEFORE touching the staging slot: the permit
                     # is what makes slot reuse safe. Polled, so a dead
                     # collect thread cannot wedge dispatch.
+                    if tracer is not None:
+                        tw = time.perf_counter()
                     while not self._inflight_sem.acquire(timeout=0.1):
                         if self._abort.is_set():
                             return
+                    if tracer is not None:
+                        tracer.complete(PIPELINE_WINDOW_WAIT, tw, time.perf_counter(),
+                                        TRACK_DISPATCH, seq=seq)
                 try:
                     decode = getattr(self.queue, "decode_into", None)
                     if decode is not None:
@@ -499,9 +531,12 @@ class Pipeline:
                     # frame (one signature; the padded outputs are
                     # dropped) and flushes the remaining chunk copies.
                     batch, resident = builder.finish(valid)
-                    t0 = time.time()
-                    result = (self.engine.submit_resident(batch, ready=builder.ready)
-                              if resident else self.engine.submit(batch, fetch=False))
+                    tag = {}  # the traced launch's seq
+                    if tracer is not None:
+                        t0 = time.perf_counter()
+                        tag["seq"] = seq
+                    result = (self.engine.submit_resident(batch, ready=builder.ready, **tag)
+                              if resident else self.engine.submit(batch, fetch=False, **tag))
                     # Start the D2H now, under the next batch's staging and
                     # this batch's compute; collect then only waits.
                     self._fetcher_for().prefetch(result, seq)
@@ -554,8 +589,13 @@ class Pipeline:
             self._stalls_since_progress = 0  # the engine made progress
         if release:
             self._inflight_sem.release()
-        self.tracer.complete("batch_complete", t0, time.time(), TRACK_DEVICE,
-                             frames=[i for i, _ in meta])
+        tracer = self.tracer if self.tracer.enabled else None
+        if tracer is not None:
+            if getattr(result, "timing_start", None) is not None:
+                self.engine.settle_timing(result)
+            td = time.perf_counter()
+            tracer.complete("batch_complete", t0, td, TRACK_DEVICE,
+                            frames=[i for i, _ in meta])
         # A pooled slab is rewritten max_inflight + 1 batches later; rows
         # the reorder buffer keeps across frame_delay must own their
         # bytes. The monolithic fetch's fresh array keeps handing out views.
@@ -564,6 +604,9 @@ class Pipeline:
             frame = out[row].copy() if copy_rows else out[row]
             self.reorder.complete(idx, (frame, ts))
         self._deliver()
+        if tracer is not None:
+            tracer.complete(PIPELINE_DELIVER, td, time.perf_counter(), TRACK_COLLECT,
+                            seq=seq)
         return True
 
     def _collect(self) -> None:
@@ -594,7 +637,8 @@ class Pipeline:
         for idx, (frame, ts) in self.reorder.pop_ready():
             self.latency.record(time.time() - ts)
             self._deliver_rate.tick()
-            self.tracer.instant("frame_delivered", track=TRACK_SINK, frame=idx)
+            if self.tracer.enabled:
+                self.tracer.instant("frame_delivered", track=TRACK_SINK, frame=idx)
             try:
                 self.sink.emit(idx, frame, ts)
             except Exception as e:  # noqa: BLE001 — a display hiccup must
@@ -654,7 +698,7 @@ class Pipeline:
         self.sink.close()
         if hasattr(self.queue, "close"):
             self.queue.close()  # ring transport: the ring and its codecs
-        if self.tracer.enabled:
+        if self.tracer.enabled and self._own_tracer:
             host_trace = self.tracer.export()
             if host_trace and prof is not None:
                 # One file with the host frame-lifecycle lanes above the
@@ -737,6 +781,9 @@ class Pipeline:
             "recoveries": self.recoveries,
             **self.latency.summary(),
         }
+        es = self.engine.stats
+        if es.timed_batches:  # a traced run on a card
+            out["engine_device_ms"] = round(es.device_ms / es.timed_batches, 4)
         if self._ingest_stats is not None:
             out["ingest"] = self._ingest_stats.summary()
         if self._egress_stats is not None:

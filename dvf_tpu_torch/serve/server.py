@@ -3510,10 +3510,13 @@ class ServeFrontend:
                     #   re-derive bucket.fetcher (new output signature)
                     #   while this batch is in flight — collect must
                     #   fetch from the one the D2H was issued on
-                    self.tracer.complete("serve_dispatch", t0, time.time(),
-                                         TRACK_DISPATCH, seq=seq,
-                                         frames=plan.valid,
-                                         bucket=bucket.label())
+                    if self.tracer.enabled:
+                        self.tracer.complete("serve_dispatch",
+                                             self.tracer.perf_of_wall(t0),
+                                             time.perf_counter(),
+                                             TRACK_DISPATCH, seq=seq,
+                                             frames=plan.valid,
+                                             bucket=bucket.label())
                 except Exception as e:  # noqa: BLE001 — drop this batch
                     sem.release()
                     self.router.discard(plan, kind=classify(e, "dispatch"))
@@ -3639,9 +3642,12 @@ class ServeFrontend:
                                         sample=plan.cost_sample,
                                         valid=plan.valid)
                     bucket.adjust_inflight(-1)
-                self.tracer.complete("batch_complete", _t0, time.time(),
-                                     TRACK_DEVICE, seq=seq,
-                                     frames=plan.valid)
+                if self.tracer.enabled:
+                    self.tracer.complete("batch_complete",
+                                         self.tracer.perf_of_wall(_t0),
+                                         time.perf_counter(),
+                                         TRACK_DEVICE, seq=seq,
+                                         frames=plan.valid)
                 if plan.audit_rows and self.audit is not None \
                         and bucket is not None:
                     # Pair each sampled input with its DELIVERED output

@@ -26,12 +26,14 @@ bits.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Tuple, Union
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from dvf_tpu_torch.models.layers import exact_f32_convs
+from dvf_tpu_torch.obs.trace import TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_OPTIM, TRAIN_STEP
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
@@ -244,8 +246,43 @@ def clone(params: Any, opt: torch.optim.Adam) -> Tuple[Any, torch.optim.Adam]:
     return new, new_opt
 
 
+class _PhaseMarks:
+    """A traced step's phase boundaries: a host stamp at each, and on one
+    card a timing event on the current stream, emitted to the tracer as
+    ``train.step`` holding ``train.optim`` (``zero_grad``),
+    ``train.forward``, ``train.backward`` and ``train.optim`` (the
+    update), each tagged with the step's number and, on a card, timed on
+    the device too (``Tracer.device_span``)."""
+
+    PHASES = (TRAIN_OPTIM, TRAIN_FORWARD, TRAIN_BACKWARD, TRAIN_OPTIM)
+
+    def __init__(self, tracer, step: int, device: Optional[torch.device]):
+        self.tracer, self.step = tracer, step
+        self.stream = (torch.cuda.current_stream(device)
+                       if device is not None and device.type == "cuda" else None)
+        self.t: List[float] = []
+        self.ev: List[torch.cuda.Event] = []
+        self.mark()
+
+    def mark(self) -> None:
+        self.t.append(time.perf_counter())
+        if self.stream is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self.stream)
+            self.ev.append(ev)
+
+    def close(self) -> None:
+        self.mark()
+        tr, t, step = self.tracer, self.t, self.step
+        tr.complete(TRAIN_STEP, t[0], t[-1], step=step)
+        for k, name in enumerate(self.PHASES):
+            tr.complete(name, t[k], t[k + 1], step=step)
+            if self.ev:
+                tr.device_span(name, self.ev[k], self.ev[k + 1], step=step)
+
+
 def descend(opt: torch.optim.Adam, loss_fn: Callable[[], Tuple[torch.Tensor, dict]],
-            dtypes, params: Any = None) -> dict:
+            dtypes, params: Any = None, tracer=None, step: int = 0) -> dict:
     """One optimizer step on ``loss_fn()``'s loss: forward AND backward run
     with cuDNN's TF32 off where one of ``dtypes`` (the nets' compute
     dtypes) is float32 — a backward outside the block would convolve in
@@ -253,22 +290,35 @@ def descend(opt: torch.optim.Adam, loss_fn: Callable[[], Tuple[torch.Tensor, dic
     gradients are summed into the masters before the update and the
     masters copied back after it. Returns the loss function's metrics,
     detached 0-d tensors on the device (nothing here waits for the
-    device)."""
+    device). An enabled ``tracer`` gets the step's phases as spans tagged
+    with ``step`` (:class:`_PhaseMarks`; host spans alone over a mesh)."""
     placed = isinstance(params, MeshParams)
+    marks = None
+    if tracer is not None and tracer.enabled:
+        first = opt.param_groups[0]["params"][0]
+        marks = _PhaseMarks(tracer, step, None if placed else first.device)
     if placed:
         params.zero_grad()
     else:
         opt.zero_grad(set_to_none=True)
+    if marks is not None:
+        marks.mark()
     with contextlib.ExitStack() as stack:
         for dtype in dtypes:
             stack.enter_context(exact_f32_convs(dtype))
         loss, metrics = loss_fn()
+        if marks is not None:
+            marks.mark()
         loss.backward()
+    if marks is not None:
+        marks.mark()
     if placed:
         params.reduce_grads()
     opt.step()
     if placed:
         params.broadcast()
+    if marks is not None:
+        marks.close()
     return {k: v.detach() for k, v in metrics.items()}
 
 

@@ -35,6 +35,7 @@ reference").
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -233,6 +234,7 @@ def make_train_step(
     config: StyleTrainConfig = StyleTrainConfig(),
     state_template: Optional[TrainState] = None,
     donate: bool = True,
+    tracer=None,
 ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, dict]]:
     """The step ``(state, batch) -> (state, metrics)``: the loss of a
     float NHWC batch in [0, 1], its gradient and one Adam update; metrics
@@ -241,26 +243,30 @@ def make_train_step(
     stepped. ``mesh=None`` or a one-position mesh: the state's device.
     Over a mesh of more positions the state must be placed on it
     (:func:`shard_train_state`), and the batch (a whole tensor, or a
-    ``ShardedBatch``) is cut per :func:`train_batch_sharding`."""
+    ``ShardedBatch``) is cut per :func:`train_batch_sharding`. An enabled
+    ``tracer`` (obs.trace.Tracer) gets each step's phases, numbered from
+    0 by this step function (``optim.descend``)."""
     if state_template is None:
         raise ValueError("make_train_step needs a state_template TrainState")
     dtypes = (config.net.compute_dtype, config.vgg.compute_dtype)
+    steps = itertools.count()
     if mesh is not None and mesh.size > 1:
-        return _sharded_step(mesh, config, donate, dtypes)
+        return _sharded_step(mesh, config, donate, dtypes, tracer, steps)
 
     def step(state: TrainState, batch: torch.Tensor):
         if not donate:
             state = copy_state(state)
         batch = torch.as_tensor(batch).to(state.step.device, non_blocking=True)
         metrics = optim.descend(state.opt_state, lambda: style_loss_fn(
-            state.params, batch, state.vgg_params, state.style_grams, config), dtypes)
+            state.params, batch, state.vgg_params, state.style_grams, config), dtypes,
+            tracer=tracer, step=next(steps))
         state.step.add_(1)
         return state, metrics
 
     return step
 
 
-def _sharded_step(mesh, config: StyleTrainConfig, donate: bool, dtypes):
+def _sharded_step(mesh, config: StyleTrainConfig, donate: bool, dtypes, tracer, steps):
     from dvf_tpu_torch.parallel.sharded import lockstep
 
     sharding = train_batch_sharding(mesh)
@@ -289,7 +295,8 @@ def _sharded_step(mesh, config: StyleTrainConfig, donate: bool, dtypes):
             return perceptual_loss(out, feats, content, grams, config)
 
         metrics = optim.descend(state.opt_state, lambda: optim.group_mean(
-            mesh, sharding, batch, group_loss), dtypes, params=state.params)
+            mesh, sharding, batch, group_loss), dtypes, params=state.params,
+            tracer=tracer, step=next(steps))
         state.step.add_(1)
         return state, metrics
 

@@ -586,8 +586,10 @@ class ZmqWorker:
             "assemble_h2d": (t_sub - t0) * 1e3,
             "device": (t_ready - t_sub) * 1e3,
             "d2h": (t1 - t_ready) * 1e3})
-        self.tracer.complete("batch_complete", t0, t1, 0,
-                             frames=valid, batch=self.batches)
+        if self.tracer.enabled:
+            self.tracer.complete("batch_complete", self.tracer.perf_of_wall(t0),
+                                 self.tracer.perf_of_wall(t1), 0,
+                                 frames=valid, batch=self.batches)
         plane = self._plane_for()
         plane.submit([rows[i] for i in range(valid)],
                      [(idx, t0, t1) for idx in indices],
@@ -634,8 +636,7 @@ class ZmqWorker:
             t_done = time.perf_counter()
             self._egress_stats.record_send((t_done - t_send) * 1e3)
             if self.tracer.enabled:
-                off = time.time() - time.perf_counter()
-                self.tracer.complete(EGRESS_SEND, t_send + off, t_done + off,
+                self.tracer.complete(EGRESS_SEND, t_send, t_done,
                                      0, rows=len(batch))
 
     def drain_egress(self, send: Optional[SendFn] = None) -> None:

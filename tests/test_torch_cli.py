@@ -714,7 +714,7 @@ def test_doctor_and_trace_view_json_keys_equal_the_references(tmp_path, capsys,
     from dvf_tpu_torch.obs import trace
 
     t = trace.Tracer(enabled=True, process_name="serve:r0")
-    t.complete("serve_dispatch", t.start_time, t.start_time + 0.01, track=0)
+    t.complete("serve_dispatch", t.perf_start, t.perf_start + 0.01, track=0)
     path = str(tmp_path / "t.pftrace")
     trace.merge_tracer_snapshots([t.snapshot()], out_path=path)
     assert main(["trace-view", path, "--json"]) == 0

@@ -608,6 +608,7 @@ class TestTraceView:
         trace = importlib.import_module(f"{pkg}.obs.trace")
         t = trace.Tracer(enabled=True, process_name="serve:r0")
         t.start_time = 1000.0
+        t.perf_start = 1000.0  # the port's stamp origin (the reference has none)
         t.complete("serve_dispatch", 1000.0, 1000.050, track=0)
         t.complete("batch_complete", 1000.010, 1000.100, track=1)
         t.instant("frame_captured", ts=1000.0, track=0)

@@ -956,7 +956,7 @@ class TestTracerRing:
     def test_bounded_with_dropped_counter(self):
         t = Tracer(enabled=True, max_events=4)
         for i in range(10):
-            t.instant("ev", ts=t.start_time + i * 1e-3, track=0, i=i)
+            t.instant("ev", ts=t.perf_start + i * 1e-3, track=0, i=i)
         assert len(t) == 4
         assert t.dropped == 6
         snap = t.snapshot()
@@ -966,7 +966,7 @@ class TestTracerRing:
     def test_snapshot_cap_keeps_most_recent(self):
         t = Tracer(enabled=True)
         for i in range(10):
-            t.instant("ev", ts=t.start_time + i * 1e-3, i=i)
+            t.instant("ev", ts=t.perf_start + i * 1e-3, i=i)
         snap = t.snapshot(max_events=3)
         assert [e["args"]["i"] for e in snap["events"]] == [7, 8, 9]
         assert snap["dropped"] == 7
@@ -976,14 +976,14 @@ class TestTracerRing:
         t = Tracer(enabled=False, max_events=4)
         for _ in range(10):
             t.instant("ev")
-            t.complete("sp", t.start_time, t.start_time + 1)
+            t.complete("sp", t.perf_start, t.perf_start + 1)
         assert len(t) == 0 and t.dropped == 0
 
     def test_snapshot_is_plain_values(self):
         import pickle
 
         t = Tracer(enabled=True, process_name="serve:r0")
-        t.complete("span", t.start_time, t.start_time + 0.01, track=2,
+        t.complete("span", t.perf_start, t.perf_start + 0.01, track=2,
                    frames=3)
         snap = pickle.loads(pickle.dumps(t.snapshot()))
         assert snap["process_name"] == "serve:r0"
@@ -994,7 +994,7 @@ class TestTracerRing:
 class TestMergeTracerSnapshots:
     def _tracer(self, name, epoch):
         t = Tracer(enabled=True, process_name=name)
-        t.start_time = epoch
+        t.start_time = t.perf_start = epoch  # stamps below on this origin
         return t
 
     def test_clock_alignment_and_lane_blocks(self):
@@ -1054,6 +1054,10 @@ class TestMergeTracerSnapshots:
             for k, name in enumerate(("serve:r0", "worker")):
                 t = mod.Tracer(enabled=True, process_name=name)
                 t.start_time = 1000.0 + k
+                # The port stamps on perf_counter from its anchor
+                # perf_start, the reference on the wall clock: pin both
+                # origins, so both do the same arithmetic.
+                t.perf_start = t.start_time
                 t.complete("batch_complete", t.start_time + 0.1,
                            t.start_time + 0.2, track=1, frames=8)
                 t.instant("frame_delivered", ts=t.start_time + 0.3, frame=k)
@@ -1065,7 +1069,7 @@ class TestMergeTracerSnapshots:
 
 def _host_trace(tmp_path, start=1000.0):
     t = Tracer(enabled=True, process_name="pipeline")
-    t.start_time = start
+    t.start_time = t.perf_start = start
     t.complete("batch_complete", start + 0.010, start + 0.020, track=1)
     t.instant("frame_delivered", ts=start + 0.021, track=2)
     return t.export(str(tmp_path / "host.pftrace")), t
@@ -1185,12 +1189,12 @@ tracer = Tracer(enabled=True, process_name="pipeline")
 prof = start_device_profiler()
 try:
     def work():
-        t0 = time.time()
+        t0 = time.perf_counter()
         with record_function("dvf_marked_step"):
             x = torch.ones(64, 64)
             for _ in range(4):
                 x = x @ x
-        tracer.complete("batch_complete", t0, time.time(), 1)
+        tracer.complete("batch_complete", t0, time.perf_counter(), 1)
     th = threading.Thread(target=work)
     th.start()
     th.join()
@@ -1233,7 +1237,7 @@ print(json.dumps({"out": out}))
 class TestFlightRecorder:
     def test_dump_artifacts_and_rate_limit(self, tmp_path):
         t = Tracer(enabled=True, process_name="w")
-        t.instant("ev", ts=t.start_time)
+        t.instant("ev", ts=t.perf_start)
         ring = TimeSeriesRing(lambda: {"fps": 1.0}, interval_s=10.0)
         ring.sample_once()
         fr = FlightRecorder(
@@ -1283,7 +1287,8 @@ class TestFlightRecorder:
 
         def dump(export_mod, registry_mod, trace_mod, where):
             t = trace_mod.Tracer(enabled=True, process_name="serve")
-            t.complete("serve_dispatch", t.start_time, t.start_time + 0.01)
+            base = getattr(t, "perf_start", t.start_time)
+            t.complete("serve_dispatch", base, base + 0.01)
             ring = registry_mod.TimeSeriesRing(lambda: {"fps": 2.0},
                                                interval_s=10.0)
             ring.sample_once()
