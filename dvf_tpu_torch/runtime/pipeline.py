@@ -16,6 +16,17 @@ Three threads around the engine's CUDA streams:
               buffer, advances the display cursor, emits to the sink
               (``collect_mode="inline"`` folds this into dispatch).
 
+A short batch launches once ``assemble_timeout_s`` has passed since its
+first frame, but not while the device still has ``HOLD_BACKLOG`` (2) or
+more submitted batches unfinished (one running, one whole batch queued
+behind it): launched then, it would start no sooner and would spend a
+whole step on a few rows. The backlog is read from the submitted
+batches' compute events (``query``, never a sync), so a paced source,
+whose backlog stays below 2, launches at the deadline as before, and a
+busy closed loop fills its batches. The hold waits only on work already
+on the device, so it always ends; end of stream, stop and abort launch
+at once.
+
 Staging discipline: the assembler and the fetcher each own
 ``max_inflight + 1`` slots, slot = batch sequence number mod the slot
 count. At most ``max_inflight`` batches are outstanding, so a slot being
@@ -97,6 +108,10 @@ from dvf_tpu_torch.sched.reorder import ReorderBuffer
 TRACK_INGEST, TRACK_DEVICE, TRACK_SINK, TRACK_H2D = 0, 1, 2, 3
 TRACK_DISPATCH, TRACK_COLLECT = 5, 6
 
+# Unfinished batches on the device (one running, one queued) at which a
+# short batch keeps filling past assemble_timeout_s.
+HOLD_BACKLOG = 2
+
 
 @dataclasses.dataclass
 class PipelineConfig:
@@ -105,7 +120,9 @@ class PipelineConfig:
     queue_size: int = 10          # ingest queue bound (distributor.py:11)
     reorder_capacity: int = 50    # reorder cap (distributor.py:23)
     max_inflight: int = 4         # batches in flight; bounds latency
-    assemble_timeout_s: float = 0.01  # wait for a short batch to fill
+    assemble_timeout_s: float = 0.01  # wait for a short batch to fill,
+    #   timed from its first frame; held past it while the device still
+    #   has HOLD_BACKLOG or more batches unfinished (see the module doc)
     trace: bool = False           # frame-lifecycle trace (obs.trace),
     #   exported to dvf_frame_timing.pftrace in the working directory
     resilient: bool = False       # per-iteration error containment: one bad
@@ -233,6 +250,12 @@ class Pipeline:
                                         quiet=_ti <= 0,
                                         registry=self.registry)
         self._on_idle = None  # inline collect: drain-ready hook (_assemble)
+        # Dispatch thread only: compute events of submitted batches the
+        # device may not have finished (the backlog _assemble reads).
+        self._computing: deque = deque(maxlen=self.config.max_inflight)
+        self.short_batches = 0  # batches launched with valid < batch_size
+        self.padded_rows = 0    # sum of batch_size - valid over them
+        self.fill_holds = 0     # batches held past the deadline
         self._inflight = DropOldestQueue(maxsize=1_000_000)
         self._inflight_sem = threading.Semaphore(self.config.max_inflight)
         self._eof = threading.Event()
@@ -383,17 +406,32 @@ class Pipeline:
             if hasattr(it, "close"):
                 it.close()
 
+    def _device_backlog(self) -> int:
+        """Submitted batches whose compute the device has not finished:
+        each compute event queried, finished ones dropped; never a sync."""
+        pending = self._computing
+        for _ in range(len(pending)):
+            ev = pending.popleft()
+            if not ev.query():
+                pending.append(ev)  # order kept: a full rotation
+        return len(pending)
+
     def _assemble(self) -> Optional[list]:
-        """Collect up to batch_size fresh frames; None = stream finished."""
+        """Collect up to batch_size fresh frames; None = stream finished.
+        A short batch launches at its deadline unless the device backlog
+        is HOLD_BACKLOG or more; then it keeps filling (module doc)."""
         b = self.config.batch_size
         items: list = self.queue.pop_up_to(b)
         deadline = None  # started at the first frame, not at call time
+        held = False
         while len(items) < b and not self._abort.is_set():
             if items:
                 if deadline is None:
                     deadline = time.perf_counter() + self.config.assemble_timeout_s
                 elif time.perf_counter() > deadline:
-                    break
+                    if self._device_backlog() < HOLD_BACKLOG:
+                        break
+                    held = True
             if self._eof.is_set() and len(self.queue) == 0:
                 break
             got = self.queue.pop_up_to(b - len(items))
@@ -405,6 +443,7 @@ class Pipeline:
                     # finished while waiting for frames.
                     self._on_idle()
                 time.sleep(0.0005)
+        self.fill_holds += held
         if not items and (self._eof.is_set() or self._abort.is_set()):
             return None
         return items
@@ -484,7 +523,7 @@ class Pipeline:
                 items = self._assemble()
                 if tracer is not None:
                     tracer.complete(PIPELINE_ASSEMBLE, ta, time.perf_counter(),
-                                    TRACK_DISPATCH, seq=seq)
+                                    TRACK_DISPATCH, seq=seq, valid=len(items or ()))
                 if items is None:
                     break
                 if not items:
@@ -546,6 +585,11 @@ class Pipeline:
                     if not self._contain(e, "dispatch"):
                         return
                     continue
+                if result.compute_event is not None:
+                    self._computing.append(result.compute_event)
+                if valid < self.config.batch_size:
+                    self.short_batches += 1
+                    self.padded_rows += self.config.batch_size - valid
                 if self._supervisor is not None:
                     self._supervisor.window.add(seq)
                 meta = [(idx, ts) for idx, _, ts in items]
@@ -757,6 +801,9 @@ class Pipeline:
             "errors_total": float(self.errors),
             "recoveries_total": float(self.recoveries),
             "engine_batches_total": float(self.engine.stats.batches),
+            "short_batches_total": float(self.short_batches),
+            "padded_rows_total": float(self.padded_rows),
+            "fill_holds_total": float(self.fill_holds),
             "trace_dropped_total": float(self.tracer.dropped),
         }
         ing, egr = self._ingest_stats, self._egress_stats
@@ -777,6 +824,9 @@ class Pipeline:
             "errors": self.errors,
             "delivered": self.latency.count,
             "engine_batches": self.engine.stats.batches,
+            "short_batches": self.short_batches,
+            "padded_rows": self.padded_rows,
+            "fill_holds": self.fill_holds,
             "faults": self.faults.summary(),
             "recoveries": self.recoveries,
             **self.latency.summary(),

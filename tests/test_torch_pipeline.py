@@ -6,7 +6,9 @@ byte, the stencil filters within 1 LSB (float sums taken in another order
 can flip ``round`` at .5).
 """
 
+import queue
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from dvf_tpu.runtime.pipeline import PipelineConfig as JaxConfig
 from dvf_tpu.sched.queues import DropOldestQueue as JaxQueue
 from dvf_tpu.sched.reorder import ReorderBuffer as JaxReorder
 from dvf_tpu_torch import CallbackSink, NullSink, Pipeline, PipelineConfig, SyntheticSource
+from dvf_tpu_torch.obs.trace import Tracer
 from dvf_tpu_torch.runtime.engine import Engine, resolve_device
 from dvf_tpu_torch.sched.queues import DropOldestQueue
 from dvf_tpu_torch.sched.reorder import ReorderBuffer
@@ -385,3 +388,251 @@ def test_device_trace_capture_and_merge(tmp_path):
     assert out["files_b"] == ["trace.json"]
     assert out["raised"] is True and out["files_c"] == ["trace.json"]
     assert (tmp_path / "dvf_frame_timing.pftrace").exists()
+
+
+# ---------------------------------------------------------------------------
+# Short batches: held while the device backlog is two or more batches
+# ---------------------------------------------------------------------------
+
+
+class _Gate:
+    """A compute event that completes when the test releases it."""
+
+    def __init__(self):
+        self._done = threading.Event()
+
+    def query(self) -> bool:
+        return self._done.is_set()
+
+    def synchronize(self) -> None:
+        if not self._done.wait(timeout=30.0):
+            raise TimeoutError("batch never released")
+
+    def release(self) -> None:
+        self._done.set()
+
+
+class _GatedEngine(Engine):
+    """An engine whose batches stay unfinished, as on a busy card, until
+    the test (or ``run_device``, a FIFO device of fixed step time)
+    releases them."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.gates = []
+
+    def _gated(self, result):
+        gate = _Gate()
+        result.compute_event = gate
+        self.gates.append(gate)
+        return result
+
+    def submit(self, batch, *args, **kw):
+        return self._gated(super().submit(batch, *args, **kw))
+
+    def submit_resident(self, batch, *args, **kw):
+        return self._gated(super().submit_resident(batch, *args, **kw))
+
+    def launched(self) -> int:
+        return len(self.gates)
+
+    def release_all(self) -> None:
+        for g in list(self.gates):
+            g.release()
+
+    def run_device(self, step_s: float, stop: threading.Event) -> threading.Thread:
+        def device():
+            done, t_free = 0, time.perf_counter()
+            while not stop.is_set():
+                if done == len(self.gates):
+                    time.sleep(0.0005)
+                    continue
+                t_free = max(t_free, time.perf_counter()) + step_s
+                time.sleep(max(0.0, t_free - time.perf_counter()))
+                self.gates[done].release()
+                done += 1
+
+        th = threading.Thread(target=device, daemon=True)
+        th.start()
+        return th
+
+
+class _FeedSource:
+    """Frames the test lets through: ``feed(n)`` hands over n more,
+    ``end()`` ends the stream. Frame i is filled with i % 256."""
+
+    def __init__(self):
+        self._tokens = queue.Queue()
+
+    def feed(self, n: int) -> None:
+        for _ in range(n):
+            self._tokens.put(True)
+
+    def end(self) -> None:
+        self._tokens.put(None)
+
+    def __iter__(self):
+        i = 0
+        while self._tokens.get(timeout=60.0) is not None:
+            yield np.full((8, 8, 3), i % 256, np.uint8), time.time()
+            i += 1
+
+
+def _wait_for(cond, timeout=20.0):
+    end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < end, "timed out"
+        time.sleep(0.001)
+
+
+class _Run:
+    """Runs a pipeline in a thread; ``finish`` ends it and bounds the wait."""
+
+    def __init__(self, pipe):
+        self.pipe, self.stats, self.err = pipe, {}, []
+        self.thread = threading.Thread(target=self._go, daemon=True)
+        self.thread.start()
+
+    def _go(self):
+        try:
+            self.stats.update(self.pipe.run())
+        except BaseException as e:  # noqa: BLE001 — asserted in finish
+            self.err.append(e)
+
+    def finish(self, timeout=30.0) -> dict:
+        self.thread.join(timeout=timeout)
+        hung = self.thread.is_alive()
+        if hung:
+            self.pipe.abort()
+        assert not hung, "the pipeline did not finish"
+        assert not self.err, self.err
+        return self.stats
+
+
+def _gated_pipeline(source, collect_mode, got, tracer=None, **cfg):
+    eng = _GatedEngine(dvf_tpu_torch.get_filter("invert"), device="cpu")
+    cfg = dict(dict(batch_size=4, queue_size=100, frame_delay=0), **cfg)
+    pipe = Pipeline(source, eng.filter,
+                    CallbackSink(lambda i, f, _: got.append((i, int(f[0, 0, 0])))),
+                    PipelineConfig(collect_mode=collect_mode, **cfg),
+                    engine=eng, tracer=tracer)
+    return eng, pipe
+
+
+def _in_order(got, n):
+    return got == [(i, 255 - i % 256) for i in range(n)]
+
+
+@pytest.mark.parametrize("collect_mode", ["thread", "inline"])
+def test_partial_batch_fills_while_device_backlog_is_two(collect_mode):
+    """Two batches unfinished on the device: one frame waits far past
+    assemble_timeout_s and launches in a full batch once three more come."""
+    src, got, tracer = _FeedSource(), [], Tracer(enabled=True)
+    eng, pipe = _gated_pipeline(src, collect_mode, got, tracer=tracer,
+                                assemble_timeout_s=0.1)
+    run = _Run(pipe)
+    try:
+        src.feed(8)
+        _wait_for(lambda: eng.launched() == 2)
+        src.feed(1)
+        time.sleep(0.5)                      # five deadlines
+        assert eng.launched() == 2
+        src.feed(3)
+        _wait_for(lambda: eng.launched() == 3)
+    finally:
+        eng.release_all()
+        src.end()
+    stats = run.finish()
+    assert _in_order(got, 12)
+    assert (stats["fill_holds"], stats["short_batches"], stats["padded_rows"]) == (1, 0, 0)
+    sig = pipe.signals()
+    assert (sig["fill_holds_total"], sig["short_batches_total"],
+            sig["padded_rows_total"]) == (1.0, 0.0, 0.0)
+    valid = [args["valid"] for name, _, _, _, args in tracer.spans()
+             if name == "pipeline.assemble" and args["seq"] < 3]
+    assert valid == [4, 4, 4]
+
+
+@pytest.mark.parametrize("collect_mode", ["thread", "inline"])
+@pytest.mark.parametrize("backlog", [0, 1])
+def test_short_batch_launches_at_deadline_below_backlog_two(backlog, collect_mode):
+    """Fewer than two batches unfinished (a paced source): a lone frame
+    launches padded at assemble_timeout_s, as before the hold existed."""
+    timeout = 0.2
+    src, got = _FeedSource(), []
+    eng, pipe = _gated_pipeline(src, collect_mode, got, assemble_timeout_s=timeout)
+    run = _Run(pipe)
+    try:
+        src.feed(4 * backlog)
+        _wait_for(lambda: eng.launched() == backlog)
+        t0 = time.perf_counter()
+        src.feed(1)
+        _wait_for(lambda: eng.launched() == backlog + 1)
+        assert time.perf_counter() - t0 >= timeout
+    finally:
+        eng.release_all()
+        src.end()
+    stats = run.finish()
+    assert _in_order(got, 4 * backlog + 1)
+    assert (stats["short_batches"], stats["padded_rows"], stats["fill_holds"]) == (1, 3, 0)
+
+
+@pytest.mark.parametrize("collect_mode", ["thread", "inline"])
+def test_closed_loop_fills_every_batch_but_the_last(collect_mode):
+    """The stream cell's loop at a small size: 32 frames between source
+    and sink, 5 of them in the reorder buffer, batch 8, four in flight,
+    a FIFO device of fixed step time. 27 free frames make three full
+    batches and three over; the three wait instead of launching padded."""
+    n, outstanding = 8 * 12 + 3, 32
+    admit = threading.Semaphore(outstanding)
+
+    def source():
+        for i in range(n):
+            assert admit.acquire(timeout=60.0), "the loop never freed a frame"
+            yield np.full((8, 8, 3), i % 256, np.uint8), time.time()
+
+    def emit(i, f, _ts):
+        got.append((i, int(f[0, 0, 0])))
+        admit.release()
+
+    got, stop = [], threading.Event()
+    eng = _GatedEngine(dvf_tpu_torch.get_filter("invert"), device="cpu")
+    pipe = Pipeline(source(), eng.filter, CallbackSink(emit),
+                    PipelineConfig(batch_size=8, queue_size=40, frame_delay=5,
+                                   max_inflight=4, collect_mode=collect_mode),
+                    engine=eng)
+    device = eng.run_device(step_s=0.05, stop=stop)
+    run = _Run(pipe)
+    try:
+        stats = run.finish(timeout=60.0)
+    finally:
+        stop.set()
+        eng.release_all()
+        device.join(timeout=10.0)
+    assert _in_order(got, n)
+    assert stats["engine_batches"] == 13
+    assert (stats["short_batches"], stats["padded_rows"]) == (1, 5)
+    assert stats["fill_holds"] >= 1
+
+
+@pytest.mark.parametrize("collect_mode", ["thread", "inline"])
+def test_stream_tail_launches_while_batches_are_in_flight(collect_mode):
+    """The end of the stream launches the held tail at once, with both
+    earlier batches still unfinished, and every frame is delivered."""
+    src, got = _FeedSource(), []
+    eng, pipe = _gated_pipeline(src, collect_mode, got, assemble_timeout_s=0.05)
+    run = _Run(pipe)
+    try:
+        src.feed(10)
+        _wait_for(lambda: eng.launched() == 2)
+        time.sleep(0.3)
+        assert eng.launched() == 2           # the tail of two is held
+        src.end()
+        _wait_for(lambda: eng.launched() == 3)
+        assert not any(g.query() for g in eng.gates)
+    finally:
+        eng.release_all()
+        src.end()
+    stats = run.finish()
+    assert _in_order(got, 10)
+    assert (stats["short_batches"], stats["padded_rows"], stats["fill_holds"]) == (1, 2, 1)
