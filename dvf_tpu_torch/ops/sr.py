@@ -1,11 +1,13 @@
 """Super-resolution and upscale filter ops (port of ``dvf_tpu.ops.sr``).
 
-``super_resolution`` wraps :mod:`dvf_tpu_torch.models.espcn` as a
-stateful filter whose params are its state, like ``style_transfer``.
-Both filters here change the output geometry ((H, W) → (H·r, W·r)); the
-engine sizes its output from what the filter returns. On a mesh with a
-``model`` axis, ``super_resolution``'s ``specialize`` swaps in the
-tensor-parallel body, as ``style_transfer`` does.
+``super_resolution`` wraps :mod:`dvf_tpu_torch.models.espcn` (the
+default, ``arch="espcn"``) or :mod:`dvf_tpu_torch.models.hat`
+(``arch="hat"``, ×4) as a stateful filter whose params are its state,
+like ``style_transfer``. Both filters here change the output geometry
+((H, W) → (H·r, W·r)); the engine sizes its output from what the filter
+returns. On a mesh with a ``model`` axis, ESPCN's ``specialize`` swaps in
+the tensor-parallel body, as ``style_transfer`` does; HAT has none and
+runs the generic body with replicated weights.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch.nn.functional as F
 from dvf_tpu_torch.api.filter import Filter, stateless
 from dvf_tpu_torch.models.espcn import (EspcnConfig, apply_espcn, init_espcn,
                                         param_pspecs, tp_inner_apply)
+from dvf_tpu_torch.models.hat import (HatConfig, HatStats, apply_prepared, init_hat,
+                                      marks_for, prepare_hat)
 from dvf_tpu_torch.models.layers import tree_to, upsample_nearest
 from dvf_tpu_torch.ops.registry import measured_default_for, register_filter
 from dvf_tpu_torch.ops.style import compute_dtype_of, tp_filter
@@ -59,16 +63,27 @@ def super_resolution(
     seed: int = 0,
     fast_convs: Optional[bool] = None,
     dtype: Optional[str] = None,
+    arch: str = "espcn",
+    tracer: Any = None,
 ) -> Filter:
     """``params=None`` → seeded random weights (benchmark weights); pass
     a trained param tree (``train.checkpoint.load_params``) for real
     upscaling. ``fast_convs=None`` resolves the space-to-depth rewrite
     from ``MEASURED_DEFAULTS["espcn_fast"]`` ("ref" until an A/B on the
-    card commits a winner); ``dtype`` as in ``style_transfer``."""
+    card commits a winner); ``dtype`` as in ``style_transfer``.
+
+    ``arch="hat"``: HAT-SRx4 (:mod:`dvf_tpu_torch.models.hat`), ``scale``
+    4 only, ``params`` an ``init_hat`` tree, ``fast_convs`` unused. An
+    enabled ``tracer`` (``obs.trace.Tracer``) gets its spans, and the
+    filter's ``fn.stats`` (``HatStats``) its counters."""
+    cd = compute_dtype_of(dtype)
+    if arch == "hat":
+        return _hat_filter(params, scale, seed, cd, tracer)
+    if arch != "espcn":
+        raise ValueError(f"arch must be 'espcn' or 'hat', got {arch!r}")
     if fast_convs is None:
         fast_convs = measured_default_for("espcn_fast") == "fast"
-    config = EspcnConfig(scale=scale, compute_dtype=compute_dtype_of(dtype),
-                         fast_convs=bool(fast_convs))
+    config = EspcnConfig(scale=scale, compute_dtype=cd, fast_convs=bool(fast_convs))
 
     def fn(batch: torch.Tensor, state: Any) -> Tuple[torch.Tensor, Any]:
         return apply_espcn(state, batch, config), state
@@ -93,3 +108,47 @@ def super_resolution(
         state_pspecs=lambda: param_pspecs(config),
         specialize=specialize,
     )
+
+
+class _HatStep:
+    """HAT's filter body: the forward on the prepared weights (the state),
+    its spans and counters recorded while ``tracer`` is enabled; each
+    span's ``seq`` is the number of this body's call, from 0."""
+
+    def __init__(self, config: HatConfig, tracer):
+        self.config, self.tracer = config, tracer
+        self.stats = HatStats()
+
+    def __call__(self, batch: torch.Tensor, state: Any) -> Tuple[torch.Tensor, Any]:
+        traced = self.tracer is not None and self.tracer.enabled
+        stats = self.stats if traced else None
+        marks = marks_for(self.tracer, batch.device, self.stats.batches)
+        y = apply_prepared(state, batch, self.config, stats, marks)
+        if traced:
+            self.stats.batches += 1
+            self.stats.frames += batch.shape[0]
+        return y.to(batch.dtype), state
+
+
+def _hat_filter(params, scale, seed, compute_dtype, tracer) -> Filter:
+    if scale != 4:
+        raise ValueError(f"arch='hat' is the published x4 network; scale must be 4, got {scale}")
+    config = HatConfig(compute_dtype=compute_dtype)
+
+    def init_state(batch_shape, dtype, device):
+        return prepare_hat(params if params is not None else init_hat(seed, config),
+                           config, device)
+
+    def specialize(mesh, batch_shape) -> Optional[Filter]:
+        n_model = mesh.axis_size("model")
+        if n_model > 1:
+            import sys
+
+            print(f"[super_resolution] hat has no tensor-parallel body; running "
+                  f"unspecialized over the model axis ({n_model}) with replicated "
+                  f"params", file=sys.stderr)
+        return None
+
+    return Filter(name="super_resolution(hat,x4)", fn=_HatStep(config, tracer),
+                  init_state=init_state, compute_dtype=torch.float32,
+                  specialize=specialize)

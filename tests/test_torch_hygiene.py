@@ -49,7 +49,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert "dvf_tpu_torch.ops.kernels" in res["imported"]
     assert "dvf_tpu_torch.runtime.pipeline" in res["imported"]
     assert {"dvf_tpu_torch.models.style_transfer", "dvf_tpu_torch.models.espcn",
-            "dvf_tpu_torch.train.checkpoint", "dvf_tpu_torch.ops.histogram",
+            "dvf_tpu_torch.models.hat", "dvf_tpu_torch.train.checkpoint", "dvf_tpu_torch.ops.histogram",
             "dvf_tpu_torch.ops.canny"} <= set(res["imported"])
     # Training: the VGG encoder, both train steps and their optimizer.
     assert {"dvf_tpu_torch.models.vgg", "dvf_tpu_torch.train.style",
