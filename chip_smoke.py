@@ -28,8 +28,11 @@ which raises (and so exits non-zero) on failure:
    kernels also at frames larger than one tile with ragged edges, on a
    view whose base is not 16-byte aligned, at their largest C = 4 case
    (31 taps, d = 15) and in each compiled and the runtime-size
-   instantiation. The neural nets (cuDNN convs, no hand kernel): the
-   port's trained checkpoints style_stripes_64 and sr2x_64 on the card in
+   instantiation. The style nets' bias + instance norm + ReLU + residual
+   kernels (csrc/norm.cu) against their plain ops at the style stream's
+   three norm geometries (``check_norm``). The neural nets (cuDNN convs;
+   the style net's norms through csrc/norm.cu): the port's trained
+   checkpoints style_stripes_64 and sr2x_64 on the card in
    bfloat16 against the JAX package's goldens (tests/golden/, mean |d| <
    2.0 and max <= 30, their tests' bar), and in float32 against the CPU
    within 1e-4;
@@ -81,11 +84,13 @@ which raises (and so exits non-zero) on failure:
    K5 one launch and K6 one per batch where the leg runs them and no
    other kernel, and every payload (or dirty coefficient block) identical
    to the same stream recomputed on the card with the plain versions.
-   Then the filters with no hand kernel, 64 frames each in full batches,
-   every launch count 0: style_transfer() (c 32, r 5, bf16) at 8 x 720 x
+   Then the neural filters and the rest of the registry, 64 frames each
+   in full batches: style_transfer() (c 32, r 5, bf16) at 8 x 720 x
    1280 (BASELINE configs[4]) and again with fast_convs=True (an A/B
-   row), super_resolution() (x2, bf16) at 8 x 540 x 960 (1080p out), and
-   equalize, clahe and canny at 16 x 1080 x 1920; every frame in order,
+   row), each batch 15 instance_norm launches (csrc/norm.cu) and no
+   other kernel; super_resolution() (x2, bf16) at 8 x 540 x 960 (1080p
+   out), and equalize, clahe and canny at 16 x 1080 x 1920, every launch
+   count 0; every frame in order,
    the first batch within 1 LSB of a direct filt.fn call on the card,
    the classical ops' kept frames bit-exact to the CPU;
 7. the multi-tenant serving frontend (legs (a)-(e) of ``serve_phase``);
@@ -206,8 +211,9 @@ which raises (and so exits non-zero) on failure:
    host trace and merged host + device trace; (i) where cv2 and a
    surfaceless EGL are present, ``serve --source <video file>`` and
    ``--display-backend gl``;
-13. training (``train_phase``), no hand kernel on its path (every launch
-   count stays 0): (a) the default StyleTrainConfig (the style net at c
+13. training (``train_phase``), no hand kernel on its path (the style
+   net's norms take their plain ops under autograd; the only launches
+   are the instance_norm ones of (d)'s serving, 15 a forward): (a) the default StyleTrainConfig (the style net at c
    32, r 5, the VGG encoder at its default blocks, bf16) on one batch of
    8 x 256 x 256 SyntheticSource frames with the stripes target, 30
    steps with an AsyncSaver checkpoint at step 15: every loss finite and
@@ -224,7 +230,8 @@ which raises (and so exits non-zero) on failure:
    (a)'s two checkpoints restored onto templates from another seed: the
    steps, params bitwise, one more step against the uninterrupted run's,
    and the trained weights through ``load_style_filter`` and an Engine
-   at 8 x 720 x 1280, within 1 LSB of a direct call; (e) ``python -m
+   at 8 x 720 x 1280, within 1 LSB of a direct call, the served batch 15
+   instance_norm launches; (e) ``python -m
    dvf_tpu_torch train`` (4 steps, checkpoints every 2, then resumed to
    6) and ``train-sr`` (4 steps with --eval; 0 steps from the committed
    sr2x_64 state with --eval, delta > 2.5 dB) as processes on cuda:0;
@@ -233,8 +240,9 @@ which raises (and so exits non-zero) on failure:
    entries at their own shapes: the JSON line with its H100 roofline
    fields (``hbm_roofline_frac`` and ``mfu`` each <= 1.0: above it the
    count behind ``Engine.cost_analysis`` is wrong), K1 (gauss9_1080p), K3
-   (sobel_bilateral_1080p) and K4 (flow_720p) once per device batch
-   besides their compiles' launches and no other kernel, then one batch
+   (sobel_bilateral_1080p) and K4 (flow_720p) once per device batch and
+   instance_norm (style_720p) 15 times per batch, besides their
+   compiles' launches, and no other kernel, then one batch
    of each config through an Engine within 1 LSB of its plain version,
    and K1 at 3 taps (its run-time-tap instantiation) at gauss3_1080p's
    shape within 1e-5 (gauss3_1080p itself runs plain torch ops: blurs
@@ -268,7 +276,9 @@ which raises (and so exits non-zero) on failure:
    ``model=5``, ESPCN x2 TP on ``model=2`` at 8 x 540 x 960: in float32
    within 3 levels (TP) / 1 (PP) of the unsharded net, in bfloat16 within
    the bf16 nets' bar (mean < 2.0, max <= 30), and at the tests' own
-   small sizes in bfloat16 within 3 / 1; (f) ``serve --mesh data=1`` and ``bench
+   small sizes in bfloat16 within 3 / 1; each sharded style batch runs
+   instance_norm 15 times a TP rank, and for PP 5 times plus 10 a
+   microbatch, and no other kernel; (f) ``serve --mesh data=1`` and ``bench
    --mesh auto`` through ``cli.main``, ``serve --mesh data=2`` as a
    process (exit 2 on one card: needs 2 devices, has 1), and a 2-replica
    local fleet with ``devices_per_replica=0`` (both replicas on cuda:0)
@@ -324,7 +334,8 @@ and SR batches' device times; ``serve_only()``, ``ring_only()``,
 ``planes_only()``, ``control_only()``, ``fleet_only()``, ``cli_only()``
 ``train_only()``, ``bench_only()``, ``mesh_only()``, ``multiproc_only()``
 and ``train_mesh_only()`` run the build and phase 7, 8, 9, 10, 11, 12,
-13, 14, 15, 16 or 17 alone; ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
+13, 14, 15, 16 or 17 alone, ``norm_only()`` the build and the style nets'
+instance-norm kernels (``check_norm``, part of phases 3-4); ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
 counters (``dvf_tpu_torch.runtime.cost``), the ones ``Engine.cost_analysis``
 and the bench's roofline read.
 
@@ -380,13 +391,18 @@ CODEC_SOURCE = "dvf_tpu_torch/csrc/codec.cu"
 WIRE_SIZE, WIRE_FRAMES, WIRE_BATCH, WIRE_TILE = 512, 160, 8, 32
 WIRE_QUALITY, WIRE_KEY = 90, 16
 # The neural filters and the rest of the registry (no hand kernel on their
-# path): style transfer at BASELINE configs[4] (720p, batch 8; the JAX
+# path but the style net's norms, STYLE_NORMS launches a batch): style
+# transfer at BASELINE configs[4] (720p, batch 8; the JAX
 # package's style_720p / style_fast_720p shape), ESPCN x2 at 540p batch 8
 # (its sr_fast_540p shape, 1080p out), equalize / clahe / canny at
 # MAIN_SHAPE. The style net also with fast_convs=True, as an A/B row.
 STYLE_SHAPE = (8, 720, 1280, 3)
 SR_SHAPE = (8, 540, 960, 3)
 REGISTRY_FRAMES = 64
+# The style net's (c 32, r 5) instance norms a forward: stem, down1,
+# down2, two a residual block, up1, up2. Each is one call of
+# csrc/norm.cu's kernels, counted once as "instance_norm".
+STYLE_NORMS = 3 + 2 * 5 + 2
 REGISTRY_LEGS = [("style_transfer", {}, STYLE_SHAPE),
                  ("style_transfer", {"fast_convs": True}, STYLE_SHAPE),
                  ("super_resolution", {}, SR_SHAPE),
@@ -952,6 +968,8 @@ def main() -> int:
     rows.extend(check_codec_kernels(dev, gen))
     torch.cuda.empty_cache()
     neural_checks = check_neural(dev)
+    rows.extend(check_norm(dev))
+    torch.cuda.empty_cache()
 
     # 5. the main paths
     legs = [("invert", {}, None, 1),
@@ -1004,10 +1022,13 @@ def main() -> int:
         for k, v in delta.items():
             launches[k] += v
         pipe_rows.append(row)
-    # the neural filters and the rest of the registry (no hand kernel)
+    # the neural filters and the rest of the registry (no hand kernel but
+    # the style net's norms)
     registry_engines = {}
     for name, kw, shape in REGISTRY_LEGS:
         row, delta, eng = registry_leg(dev, name, kw, shape)
+        for k, v in delta.items():
+            launches[k] += v
         pipe_rows.append(row)
         registry_engines[row["filter"]] = (eng, shape)
         torch.cuda.empty_cache()
@@ -1037,15 +1058,17 @@ def main() -> int:
     cli_rows, delta = cli_phase(dev, plain_of, fps_of, kind)
     for k, v in delta.items():
         launches[k] += v
-    # 13. training (no hand kernel on its path: every count stays 0)
+    # 13. training (no hand kernel on its path; the norms of (d)'s serving)
     train_rows, delta = train_phase(dev)
     for k, v in delta.items():
         launches[k] += v
-    # 14. the bench harness (K1/K3/K4 through bench, e2e and fleet --scaling)
+    # 14. the bench harness (K1/K3/K4 and the style norms through bench, e2e
+    # and fleet --scaling)
     bench_rows, delta = bench_phase(dev, plain_of, env["libjpeg"])
     for k, v in delta.items():
         launches[k] += v
-    # 15. the in-host mesh (K1-K4 once per block through meshed engines)
+    # 15. the in-host mesh (K1-K4 once per block through meshed engines, the
+    # style norms once per TP rank or PP microbatch)
     mesh_rows, delta = mesh_phase(dev)
     for k, v in delta.items():
         launches[k] += v
@@ -2207,16 +2230,136 @@ def check_neural(dev) -> dict:
     return res
 
 
+def _ulp_bf16(x):
+    """One bf16 ulp at |x| (float32 in, float32 out)."""
+    import torch
+
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+# The style stream's norm geometries (8 x 720 x 1280, bf16): stem and up2,
+# down1 and up1, down2 and the residual trunk (whose res*_b norms add the
+# residual).
+NORM_SHAPES = ((8, 720, 1280, 32), (8, 360, 640, 64), (8, 180, 320, 128))
+
+
+def check_norm(dev) -> list:
+    """The style nets' bias + instance norm + ReLU + residual kernels
+    (``csrc/norm.cu``, ``ops.kernels.bias_norm_act_cuda``) against their
+    plain ops at the stream's three geometries in bf16, with ReLU and (at
+    the trunk's geometry) with the residual instead: bf16 ulps apart and
+    the share of elements that differ; CUDA-event times of the kernels,
+    of the plain ops and of ``F.instance_norm`` (the norm alone, a
+    yardstick the port never calls); the profiler's device time of the
+    kernels' three launches; the bound, each input byte read once and the
+    output written once (4 bytes an element, 6 with the residual) at the
+    card's 3.35 TB/s, and the two-pass design's own floor (6 and 8: the
+    statistics read y a second time). Phase 5 counts the main path's
+    launches. Replaces no TPU kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from dvf_tpu_torch.models import layers as tl
+    from dvf_tpu_torch.ops import kernels as tk
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cases = [(s, False) for s in NORM_SHAPES] + [(NORM_SHAPES[-1], True)]
+    for shape, with_res in cases:
+        c = shape[-1]
+        y = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        res = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               if with_res else None)
+        p = {"scale": torch.rand(c, generator=gen, device=dev) + 0.5,
+             "bias": torch.randn(c, generator=gen, device=dev)}
+        b = torch.randn(c, generator=gen, device=dev)
+        relu = not with_res
+
+        def kernel(x, p=p, b=b, res=res, relu=relu):
+            return tk.bias_norm_act_cuda(p, x, b, relu=relu, residual=res)
+
+        def plain(x, p=p, b=b, res=res, relu=relu):
+            return tl.bias_norm_act_plain(p, x, b, relu=relu, residual=res)
+
+        def library(x, p=p):
+            return F.instance_norm(x.permute(0, 3, 1, 2), weight=p["scale"],
+                                   bias=p["bias"], eps=1e-5)
+
+        got, want = kernel(y).float(), plain(y).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        max_ulp = float((diff / _ulp_bf16(torch.maximum(got.abs(), want.abs()))).max())
+        share = float((diff > 0).float().mean())
+        # Beyond one ulp of the output only where the sum cancels: within
+        # two ulps of the terms summed (tests/test_torch_cuda.py _check_norm).
+        yb = (y + b.to(y.dtype)).float()
+        var, mean = torch.var_mean(yb, dim=(1, 2), keepdim=True, correction=0)
+        a = torch.rsqrt(var + 1e-5) * p["scale"]
+        terms = ((yb * a).abs() + (p["bias"] - mean * a).abs()
+                 + (mean.abs() + var.sqrt()) * a.abs())
+        if res is not None:
+            terms += res.float().abs()
+        guard_ok = bool((diff <= 2 * _ulp_bf16(terms)).logical_or(diff <= _ulp_bf16(
+            torch.maximum(got.abs(), want.abs()))).all())
+        del got, want, diff, yb, terms
+        ms = cuda_ms(kernel, y)
+        dev_ms, launches = profiled_ms(kernel, y)
+        plain_ms = cuda_ms(plain, y)
+        lib_ms = cuda_ms(library, y)
+        n = int(np.prod(shape))
+        least = (6 if with_res else 4) * n
+        moved = (8 if with_res else 6) * n
+        b_ms = least / _cost().PEAK_BYTES_S * 1e3
+        floor_ms = moved / _cost().PEAK_BYTES_S * 1e3
+        row = dict(name="instance_norm", route="cuda",
+                   source="dvf_tpu_torch/csrc/norm.cu", replaces=None,
+                   shape=list(shape), dtype="bfloat16", relu=relu, residual=with_res,
+                   max_ulp=max_ulp, beyond_one_ulp_within_terms=guard_ok,
+                   differing_share=share, kernel_ms=ms,
+                   device_ms=dev_ms, device_kernels=launches, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by="bytes",
+                   share_of_bound=b_ms / dev_ms, two_pass_floor_ms=floor_ms,
+                   achieved_tb_s=moved / (dev_ms * 1e-3) / 1e12)
+        log(f"norm {shape} relu {relu} residual {with_res}: max {max_ulp:.2f} bf16 ulp "
+            f"of the output (within 2 ulp of the terms where more: {guard_ok}), "
+            f"{share:.2e} of elements differ; kernel {ms:.4f} ms (device {dev_ms:.4f} "
+            f"ms, {launches:.0f} kernels), plain {plain_ms:.4f} ms, F.instance_norm "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), share {b_ms / dev_ms:.3f}, "
+            f"two-pass floor {floor_ms:.4f} ms, {row['achieved_tb_s']:.2f} TB/s moved")
+        if not (guard_ok and share < 1e-3):
+            raise AssertionError(f"norm kernels disagree with the plain ops at {shape}: "
+                                 f"{max_ulp} ulp, share {share}")
+        rows.append(row)
+        del y, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def norm_only() -> None:
+    """The build and the instance norm's kernels alone (their check, times
+    and bound at the style stream's shapes, ``check_norm``):
+    ``python3 -c 'import chip_smoke; chip_smoke.norm_only()'``."""
+    from dvf_tpu_torch.ops import _build
+
+    dev, _, _ = _only_setup()
+    for line in _build.build_log.get("norm", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"  ptxas[norm]: {line.strip()}")
+    print(json.dumps({"kernels": check_norm(dev)}))
+
+
 def registry_label(name: str, kw: dict) -> str:
     args = ",".join(f"{k}={v!r}" for k, v in kw.items())
     return f"{name}({args})"
 
 
 def registry_leg(dev, name: str, kw: dict, shape):
-    """Phase 5 for a filter with no hand kernel: a Pipeline over
+    """Phase 5 for a neural or registry filter: a Pipeline over
     REGISTRY_FRAMES frames of SyntheticSource(seed=0) in full batches, the
     launch counters zeroed just before and read just after (every count
-    must stay 0). Every frame once and in order; the first delivered batch
+    must stay 0 but the style net's instance_norm, STYLE_NORMS a batch).
+    Every frame once and in order; the first delivered batch
     within 1 LSB of a direct ``filt.fn`` call on the card on the same
     frames; for the classical ops the kept frames also bit-exact to the
     same filter on the CPU. Returns (pipeline row, launch counts, engine)."""
@@ -2252,8 +2395,11 @@ def registry_leg(dev, name: str, kw: dict, shape):
     if stats["engine_batches"] != n // bsz:
         raise AssertionError(f"{label}: {stats['engine_batches']} batches, want "
                              f"{n // bsz} full ones")
-    if any(delta.values()):
-        raise AssertionError(f"{label}: launched a hand kernel: {delta}")
+    want = {k: 0 for k in delta}
+    if name == "style_transfer":
+        want["instance_norm"] = STYLE_NORMS * (n // bsz)
+    if delta != want:
+        raise AssertionError(f"{label}: launches {delta}, want {want}")
     frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
         *shape[1:], n_frames=n, seed=0)][:-1]
     x = torch.from_numpy(np.stack(frames[:bsz])).to(dev)
@@ -5916,7 +6062,7 @@ def cli_leg_cache(tmp: str):
         if r.returncode != 0 or not line:
             raise AssertionError(f"cli (g): rc {r.returncode}: {r.stderr[-3000:]}")
         builds.append(json.loads(line[-1].split("kernel builds (s): ", 1)[1]))
-    names = {"stencils", "warp", "codec"}
+    names = {"stencils", "warp", "codec", "norm"}
     libs = sorted(n for n in os.listdir(cache) if n.endswith(".so"))
     if (set(builds[0]) != names or not all(v > 0 for v in builds[0].values())
             or builds[1] != {n: 0.0 for n in names}
@@ -6364,11 +6510,15 @@ def train_leg_resume(dev, state, step, batch, ck: str):
     """(d) the (a) run's checkpoints restored on the card into templates
     from another seed: step and params bitwise; one more step of the
     restored state against the uninterrupted run's next step; the trained
-    weights served by an Engine at 8 x 720 x 1280."""
+    weights served by an Engine at 8 x 720 x 1280, the served batch
+    STYLE_NORMS instance_norm launches; the row holds every instance_norm
+    launch of the leg (the engine's compile, the batch, the direct
+    call)."""
     import torch
 
     import dvf_tpu_torch
     from dvf_tpu_torch.cli import make_style_image
+    from dvf_tpu_torch.ops import kernels as tk
     from dvf_tpu_torch.train import StyleTrainConfig, init_train_state, optim
     from dvf_tpu_torch.train.checkpoint import load_style_filter, restore_checkpoint
     from dvf_tpu_torch.utils.image import to_float, to_uint8
@@ -6401,6 +6551,7 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         f"{TRAIN_STEPS // 2} and {final_step}, params bitwise equal to the saved "
         f"ones ({restore_s:.2f} s per restore); the next step resumed vs "
         f"uninterrupted: loss |d| {dl:.3e}, params max |d| {dp:.3e}")
+    norms0 = tk.LAUNCHES["instance_norm"]
     filt = load_style_filter(ck)
     eng = dvf_tpu_torch.Engine(filt, device=dev)
     eng.compile(TRAIN_SERVE_SHAPE)
@@ -6408,9 +6559,15 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         *TRAIN_SERVE_SHAPE[1:], n_frames=TRAIN_SERVE_SHAPE[0], seed=0)][:-1]
     x = np.stack(frames)
     t = time.perf_counter()
+    before = tk.LAUNCHES["instance_norm"]
     got = eng.submit(x).fetch()
+    served = tk.LAUNCHES["instance_norm"] - before
     serve_ms = (time.perf_counter() - t) * 1e3
+    if served != STYLE_NORMS:
+        raise AssertionError(f"train (d): the served batch launched instance_norm "
+                             f"{served} times, want {STYLE_NORMS}")
     direct = to_uint8(_filter_out(filt, to_float(torch.from_numpy(x).to(dev)), dev))
+    norms = tk.LAUNCHES["instance_norm"] - norms0
     lsb = max_lsb(got, direct.cpu().numpy())
     if got.shape != TRAIN_SERVE_SHAPE or got.dtype != np.uint8 or lsb > 1:
         raise AssertionError(f"train (d): served {got.shape} {got.dtype}, {lsb} LSB "
@@ -6419,7 +6576,8 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         f"in {serve_ms:.1f} ms, max {lsb} LSB from a direct call, mean "
         f"{float(got.mean()):.1f}")
     eng.free()
-    return dict(leg="d_resume", restored_steps=[TRAIN_STEPS // 2, final_step],
+    return dict(leg="d_resume", norm_launches=norms,
+                restored_steps=[TRAIN_STEPS // 2, final_step],
                 params_differing=0, restore_s=restore_s,
                 next_step_loss_abs_diff=dl, next_step_param_max_abs_diff=dp,
                 served_shape=list(got.shape), served_max_lsb_vs_direct=lsb,
@@ -6497,7 +6655,8 @@ def train_leg_cli(tmp: str):
 
 def train_phase(dev):
     """Phase 13: legs (a)-(e) of training. Returns (rows, the launch counts
-    of the phase: the train path runs no hand kernel, so all 0)."""
+    of the phase: the train path runs no hand kernel, so all 0 but (d)'s
+    serving of the trained net, its instance_norm launches)."""
     import tempfile
 
     import torch
@@ -6528,9 +6687,14 @@ def train_phase(dev):
         timed(train_leg_sr, dev)
         timed(train_leg_cli, tmp)
     delta = dict(tk.LAUNCHES)
-    if any(delta.values()):
-        raise AssertionError(f"train: the train path launched a hand kernel: {delta}")
-    log(f"train phase: {time.perf_counter() - t0:.1f} s, launches {delta}")
+    served = next(r["norm_launches"] for r in rows if r["leg"] == "d_resume")
+    if delta != {k: served if k == "instance_norm" else 0 for k in delta}:
+        raise AssertionError(f"train: the train path launched a hand kernel: {delta} "
+                             f"(the serving leg's instance_norm: {served})")
+    if not tk.AUTOGRAD_CALLS["instance_norm"]:
+        raise AssertionError("train: no norm of the train path took the plain ops")
+    log(f"train phase: {time.perf_counter() - t0:.1f} s, launches {delta}, the "
+        f"norms' plain calls under autograd {tk.AUTOGRAD_CALLS['instance_norm']}")
     return rows, delta
 
 
@@ -6554,7 +6718,8 @@ BENCH_ITERS = 30                 # (a): device-resident batches per config
 # measured default does on its CPU and TPU alike.
 BENCH_KERNEL = {"gauss9_1080p": ("sep_blur", 1),
                 "sobel_bilateral_1080p": ("sobel_bilateral", 1),
-                "flow_720p": ("warp_bounded", 1)}
+                "flow_720p": ("warp_bounded", 1),
+                "style_720p": ("instance_norm", STYLE_NORMS)}
 BENCH_E2E_BATCH = 16             # (b): the 1080p pipeline legs' batch
 BENCH_E2E_FRAMES = 320           # (b): frames of the throughput run
 BENCH_LAT_FRAMES = 160           # (b): frames of the rate-controlled run
@@ -6598,7 +6763,7 @@ def bench_hold(dev, config: str, plain_of: dict) -> int:
         got = eng.submit(x).fetch().copy()
         xd = torch.from_numpy(x).to(dev)
         with torch.no_grad():
-            if counter is not None:
+            if counter in plain_of:
                 want = to_uint8(plain_of[counter](to_float(xd)))
             else:
                 want = to_uint8(_filter_out(filt, xd if filt.uint8_ok else to_float(xd),
@@ -6629,8 +6794,8 @@ def bench_leg_device(dev, plain_of: dict):
     BENCH_CONFIGS entry, the launch counters zeroed before and read
     after: the JSON line with its H100 roofline fields (each share <= 1.0,
     a count being wrong otherwise), the configs' kernel launched once per
-    device batch (warm-up and timed batches) besides its compile's
-    launches, no other kernel; then one batch held to the plain version
+    device batch (the style net's norms STYLE_NORMS times; warm-up and
+    timed batches) besides its compile's launches, no other kernel; then one batch held to the plain version
     (``bench_hold``). Returns (rows, launch counts, ms_per_frame by
     config)."""
     from dvf_tpu_torch.cli import BENCH_CONFIGS
@@ -7156,29 +7321,33 @@ def mesh_leg_nets(dev, smi: str):
     any way (PP changes only its microbatch sizes) drifts by a few
     levels, so there it is held to the bar the repo holds bfloat16 nets
     to (mean |d| < 2.0, max <= 30, the goldens' bar) and its spread is
-    logged."""
+    logged. The sharded batch's launches: instance_norm (csrc/norm.cu)
+    STYLE_NORMS times a TP rank; for PP the 5 norms outside the trunk
+    once and the trunk's 2 r in each microbatch (4 here); no other
+    kernel. Returns (rows, those launch counts summed)."""
     import torch
 
     import dvf_tpu_torch
     from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-    rows = []
+    rows, total = [], {}
     small = {"base_channels": 8, "n_residual": 2}
-    legs = [  # name, kwargs, shape, model ranks, body, bar, timed
-        ("style_transfer", {"parallel": "tp"}, STYLE_SHAPE, 2, "tp(", None, True),
-        ("style_transfer", {"parallel": "pp"}, STYLE_SHAPE, 5, "pp(", None, True),
-        ("super_resolution", {}, SR_SHAPE, 2, "tp(", None, True),
+    tp, pp = 2 * STYLE_NORMS, 5 + 2 * 5 * 4
+    legs = [  # name, kwargs, shape, model ranks, body, bar, timed, norms
+        ("style_transfer", {"parallel": "tp"}, STYLE_SHAPE, 2, "tp(", None, True, tp),
+        ("style_transfer", {"parallel": "pp"}, STYLE_SHAPE, 5, "pp(", None, True, pp),
+        ("super_resolution", {}, SR_SHAPE, 2, "tp(", None, True, 0),
         ("style_transfer", {"parallel": "tp", "dtype": "float32"}, STYLE_SHAPE, 2,
-         "tp(", 3, False),
+         "tp(", 3, False, tp),
         ("style_transfer", {"parallel": "pp", "dtype": "float32"}, STYLE_SHAPE, 5,
-         "pp(", 1, False),
-        ("super_resolution", {"dtype": "float32"}, SR_SHAPE, 2, "tp(", 3, False),
+         "pp(", 1, False, pp),
+        ("super_resolution", {"dtype": "float32"}, SR_SHAPE, 2, "tp(", 3, False, 0),
         ("style_transfer", {"parallel": "tp", **small}, (2, 32, 32, 3), 2, "tp(", 3,
-         False),
+         False, 2 * (3 + 2 * 2 + 2)),
         ("style_transfer", {"parallel": "pp", "base_channels": 8, "n_residual": 4},
-         (4, 32, 32, 3), 4, "pp(", 1, False),
+         (4, 32, 32, 3), 4, "pp(", 1, False, 5 + 2 * 4 * 4),
     ]
-    for name, kw, shape, n, prefix, bar, timed in legs:
+    for name, kw, shape, n, prefix, bar, timed, norms in legs:
         x = _mesh_frames(shape, 50)
         one = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
         want = one.submit(x).fetch().copy()
@@ -7189,7 +7358,12 @@ def mesh_leg_nets(dev, smi: str):
         eng.compile(shape)
         if not eng._exec_filter.name.startswith(prefix):
             raise AssertionError(f"mesh (e) {name}: body {eng._exec_filter.name}")
-        got = eng.submit(x).fetch().copy()
+        got, delta = _launch_delta(lambda: eng.submit(x).fetch().copy())
+        if delta != {k: norms if k == "instance_norm" else 0 for k in delta}:
+            raise AssertionError(f"mesh (e) {eng._exec_filter.name} {shape}: launches "
+                                 f"{delta}, want instance_norm {norms} and no other")
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
         st = _level_stats(got, want)
         label = f"{eng._exec_filter.name} {kw.get('dtype', 'bfloat16')} {shape}"
         if bar is not None:
@@ -7209,11 +7383,11 @@ def mesh_leg_nets(dev, smi: str):
                if timed else "") + f"; {smi}")
         rows.append(dict(leg="e_nets", filter=eng._exec_filter.name,
                          dtype=kw.get("dtype", "bfloat16"), mesh=m.shape,
-                         shape=list(shape), levels=st, bar=bar,
+                         shape=list(shape), levels=st, bar=bar, launches=delta,
                          step_ms_mesh=ms_mesh, step_ms_device=ms_one, card=smi))
         del eng
         torch.cuda.empty_cache()
-    return rows, {}
+    return rows, total
 
 
 def mesh_leg_cli(dev, smi: str):

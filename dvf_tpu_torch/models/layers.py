@@ -12,7 +12,10 @@ as OIHW, and the NCHW result permuted back to NHWC.
 The convs are ``F.conv2d`` (cuDNN on a card): the reference computes them
 with ``lax.conv_general_dilated``, outside any Pallas kernel. They run in
 ``compute_dtype`` (bfloat16 by default) with a result in that dtype, as
-``lax.conv`` does; instance-norm statistics are float32.
+``lax.conv`` does; instance-norm statistics are float32. A conv's bias,
+the instance norm after it, its ReLU and a residual add run as one call,
+:func:`bias_norm_act`: on a card outside autograd, the kernels of
+``csrc/norm.cu`` (launched by ``ops.kernels.bias_norm_act_cuda``).
 """
 
 from __future__ import annotations
@@ -173,6 +176,44 @@ def instance_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     var, mean = torch.var_mean(xf, dim=(1, 2), keepdim=True, correction=0)
     a = torch.rsqrt(var + eps) * p["scale"]
     return torch.addcmul(p["bias"] - mean * a, xf, a).to(x.dtype)
+
+
+def bias_norm_act_plain(p: Params, y: torch.Tensor, b: torch.Tensor,
+                        relu: bool = False, residual: Optional[torch.Tensor] = None,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """The conv bias add, :func:`instance_norm`, ReLU and residual add as
+    separate ops, each rounding to ``y``'s dtype: the numerics the kernels
+    of :func:`bias_norm_act` are held to, and the differentiable path."""
+    h = instance_norm(p, y + b.to(y.dtype), eps)
+    if relu:
+        h = torch.relu(h)
+    return h if residual is None else residual + h
+
+
+def bias_norm_act(p: Params, y: torch.Tensor, b: torch.Tensor, relu: bool = False,
+                  residual: Optional[torch.Tensor] = None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """``[residual +] [relu] instance_norm(p, y + b)`` for a conv's pre-bias
+    output ``y`` (NHWC, in the compute dtype) and its bias ``b``.
+
+    A CPU tensor takes :func:`bias_norm_act_plain`. A CUDA tensor takes it
+    too where the call is differentiable (grad mode on and any operand
+    requiring grad: the kernels have no backward; counted in
+    ``ops.kernels.AUTOGRAD_CALLS``), and otherwise the kernels
+    (``ops.kernels.bias_norm_act_cuda``), which raise rather than fall
+    back."""
+    if y.device.type == "cpu":
+        return bias_norm_act_plain(p, y, b, relu, residual, eps)
+    from dvf_tpu_torch.ops import kernels
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (y, b, p["scale"], p["bias"], residual)):
+        kernels.count_autograd("instance_norm")
+        return bias_norm_act_plain(p, y, b, relu, residual, eps)
+    return kernels.bias_norm_act_cuda(p, y.contiguous(), b, relu,
+                                      None if residual is None else residual.contiguous(),
+                                      eps)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

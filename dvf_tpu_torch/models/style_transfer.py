@@ -7,7 +7,10 @@ instance norm + ReLU throughout, scaled-tanh output.
 
 The forward rounds where the reference rounds: every conv result and its
 bias add are in the compute dtype, each instance norm returns to it, and
-the final tanh is float32.
+the final tanh is float32. Each conv's bias add, the instance norm after
+it, the ReLU and the residual add are one call (``layers.bias_norm_act``):
+on a card outside autograd the hand-written kernels of ``csrc/norm.cu``,
+elsewhere the plain ops.
 
 Tensor parallelism over a mesh's ``model`` axis is explicit: Megatron
 column/row alternation (:func:`param_pspecs`), each rank running
@@ -28,13 +31,13 @@ import torch
 from dvf_tpu_torch.models.layers import (
     Params,
     SUM,
+    bias_norm_act,
     conv2d_nb,
     conv2d_s2d,
     conv_init,
     exact_f32_convs,
     float32_partials,
     generator,
-    instance_norm,
     instance_norm_init,
     run_steps,
     upsample2_conv,
@@ -128,14 +131,22 @@ def _forward_steps(params: Params, batch: torch.Tensor, config: StyleNetConfig,
     modes = _conv_modes(config) if tp else {}
 
     def cv(name, x, stride=1, upsampled=False):
+        """The conv's output before its bias, in the compute dtype."""
         if modes.get(name) == "row":
             # The rank's partial sum in float32; the sum across the
             # ranks rounds it to the compute dtype once.
             with float32_partials():
                 y = conv(name, x, stride, upsampled)
             y = yield SUM, y
-            return y.to(cd) + params[name]["b"].to(cd)
-        return conv(name, x, stride, upsampled) + params[name]["b"].to(cd)
+            return y.to(cd)
+        return conv(name, x, stride, upsampled)
+
+    def cv_norm(name, norm, x, relu=True, residual=None, **kw):
+        """conv → bias → instance norm → [ReLU] → [+ residual], the last
+        four as one call."""
+        y = yield from cv(name, x, **kw)
+        return bias_norm_act(params[norm], y, params[name]["b"], relu=relu,
+                             residual=residual)
 
     def conv(name, x, stride, upsampled):
         p = params[name]
@@ -154,24 +165,21 @@ def _forward_steps(params: Params, batch: torch.Tensor, config: StyleNetConfig,
             y = conv2d_nb(p, x, stride=stride, compute_dtype=cd, reflect=True)
         return y
 
-    def norm_relu(name, y):
-        return torch.relu(instance_norm(params[name], y))
-
     with exact_f32_convs(cd):
         x = batch.to(cd)
-        x = norm_relu("stem_norm", (yield from cv("stem", x)))
-        x = norm_relu("down1_norm", (yield from cv("down1", x, stride=2)))
-        x = norm_relu("down2_norm", (yield from cv("down2", x, stride=2)))
+        x = yield from cv_norm("stem", "stem_norm", x)
+        x = yield from cv_norm("down1", "down1_norm", x, stride=2)
+        x = yield from cv_norm("down2", "down2_norm", x, stride=2)
         if trunk_fn is not None:
             x = trunk_fn(params, x)
         else:
             for i in range(config.n_residual):
-                h = norm_relu(f"res{i}_an", (yield from cv(f"res{i}_a", x)))
-                h = instance_norm(params[f"res{i}_bn"], (yield from cv(f"res{i}_b", h)))
-                x = x + h
-        x = norm_relu("up1_norm", (yield from cv("up1", x, upsampled=True)))
-        x = norm_relu("up2_norm", (yield from cv("up2", x, upsampled=True)))
-        x = yield from cv("out", x)
+                h = yield from cv_norm(f"res{i}_a", f"res{i}_an", x)
+                x = yield from cv_norm(f"res{i}_b", f"res{i}_bn", h, relu=False,
+                                       residual=x)
+        x = yield from cv_norm("up1", "up1_norm", x, upsampled=True)
+        x = yield from cv_norm("up2", "up2_norm", x, upsampled=True)
+        x = (yield from cv("out", x)) + params["out"]["b"].to(cd)
     y = 0.5 * (torch.tanh(x.float()) + 1.0)
     return y.to(batch.dtype)
 
@@ -198,13 +206,13 @@ def to_pp_params(flat: Params, config: StyleNetConfig) -> Params:
 def _pp_res_block(config: StyleNetConfig):
     cd = config.compute_dtype
 
-    def cv(p, x):
-        return conv2d_nb(p, x, compute_dtype=cd, reflect=True) + p["b"].to(cd)
+    def cv_norm(p, norm, x, relu=True, residual=None):
+        y = conv2d_nb(p, x, compute_dtype=cd, reflect=True)
+        return bias_norm_act(norm, y, p["b"], relu=relu, residual=residual)
 
     def res_block(p, x):
-        h = torch.relu(instance_norm(p["an"], cv(p["a"], x)))
-        h = instance_norm(p["bn"], cv(p["b"], h))
-        return x + h
+        h = cv_norm(p["a"], p["an"], x)
+        return cv_norm(p["b"], p["bn"], h, relu=False, residual=x)
 
     return res_block
 

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels for the stencil ops, the bounded warp and
 the delta wire's codec assist, their wrappers and their registered
-filters (port of ``dvf_tpu/ops/pallas_kernels.py``).
+filters (port of ``dvf_tpu/ops/pallas_kernels.py``), and the launcher of
+the style nets' bias + instance norm + ReLU + residual kernels
+(``csrc/norm.cu``, which replaces no TPU kernel).
 
 The names keep the reference's: ``*_pallas`` here denotes the CUDA C++
 kernel in ``dvf_tpu_torch/csrc/`` (``stencils.cu``, ``warp.cu``,
@@ -13,15 +15,20 @@ Each wrapper dispatches on the tensor's device:
   reference the kernel is held to).
 
 ``LAUNCHES`` counts kernel launches per kernel, so a run can show that
-its main path went through the kernels; CPU calls never count.
+its main path went through the kernels (``instance_norm`` counts one a
+call of :func:`bias_norm_act_cuda`, which launches three); CPU calls
+never count. ``AUTOGRAD_CALLS`` counts the calls on a card that took an
+op's plain version because they are differentiable (the kernels have no
+backward).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +43,8 @@ from dvf_tpu_torch.ops.registry import get_filter, register_filter
 
 LAUNCHES: Dict[str, int] = {"sep_blur": 0, "bilateral": 0, "sobel_bilateral": 0,
                             "warp_bounded": 0, "tile_maxdiff": 0,
-                            "dct8x8_quant": 0}
+                            "dct8x8_quant": 0, "instance_norm": 0}
+AUTOGRAD_CALLS: Dict[str, int] = {"instance_norm": 0}
 _launch_lock = threading.Lock()
 
 # Limits compiled into csrc/stencils.cu.
@@ -79,6 +87,9 @@ _SIGNATURES = {
         "dvf_tile_maxdiff": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "dvf_dct8x8_quant_planes": [_PP, _PP, _IP, _I, _I, _FP, _FP, _P],
     },
+    "norm": {
+        "dvf_instance_norm": [_P] * 7 + [_I] * 6 + [_F, _P],
+    },
 }
 _lib_objs: Dict[str, ctypes.CDLL] = {}
 
@@ -97,10 +108,18 @@ def _lib(source: str = "stencils") -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter and every ``AUTOGRAD_CALLS`` count to 0."""
     with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, AUTOGRAD_CALLS):
+            for k in counts:
+                counts[k] = 0
+
+
+def count_autograd(op: str) -> None:
+    """Count a call on a card that ran ``op``'s plain version because it
+    is differentiable."""
+    with _launch_lock:
+        AUTOGRAD_CALLS[op] += 1
 
 
 def _floats(vals: List[float]):
@@ -317,6 +336,65 @@ def warp_bounded_pallas(img: torch.Tensor, flow: torch.Tensor,
         rc = lib.dvf_warp_bounded(img.data_ptr(), flow.data_ptr(), out.data_ptr(),
                                   b, h, w, c, r, WARP_DESIGNS.index(design), stream)
     _count(lib, "dvf_warp_bounded", "warp_bounded", rc)
+    return out
+
+
+# -- the style nets' bias + instance norm + ReLU + residual (csrc/norm.cu) --
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _norm_slices(batch: int, hw: int, device: torch.device) -> int:
+    """The slices of H·W each sample's statistics split into: about four
+    blocks a multiprocessor over the batch, fewer on a small frame."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return max(1, min(-(-4 * _sm_count(index) // batch), -(-hw // 16), 65535))
+
+
+def bias_norm_act_cuda(p: Dict[str, torch.Tensor], y: torch.Tensor, b: torch.Tensor,
+                       relu: bool = False, residual: Optional[torch.Tensor] = None,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """``models.layers.bias_norm_act_plain`` through csrc/norm.cu: the
+    statistics, their merge and the apply pass, three launches on the
+    current stream, no synchronisation, counted once as
+    ``instance_norm``. Takes a contiguous NHWC ``y`` (and ``residual``)
+    of bf16 or float32 on a CUDA device; raises on anything else."""
+    what = "bias_norm_act_cuda"
+    if y.device.type != "cuda":
+        raise ValueError(f"{what}: takes a CUDA tensor, got {y.device}")
+    if y.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: needs bfloat16 or float32, got {y.dtype}")
+    if y.dim() != 4 or not y.is_contiguous():
+        raise ValueError(f"{what}: needs a contiguous NHWC tensor, got shape "
+                         f"{tuple(y.shape)}")
+    bsz, h, w, c = y.shape
+    vecs = [t.float().contiguous() for t in (b, p["scale"], p["bias"])]
+    if any(v.shape != (c,) or v.device != y.device for v in vecs):
+        raise ValueError(f"{what}: the conv bias and the norm's scale and bias must "
+                         f"be ({c},) on {y.device}")
+    if residual is not None and (residual.shape != y.shape or residual.dtype != y.dtype
+                                 or residual.device != y.device
+                                 or not residual.is_contiguous()):
+        raise ValueError(f"{what}: the residual must be a contiguous "
+                         f"{tuple(y.shape)} {y.dtype} tensor on {y.device}")
+    out = torch.empty_like(y)
+    if y.numel() == 0:
+        return out
+    slices = _norm_slices(bsz, h * w, y.device)
+    scratch = torch.empty(3 * bsz * slices * c + 2 * bsz * c, dtype=torch.float32,
+                          device=y.device)
+    lib = _lib("norm")
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = lib.dvf_instance_norm(
+            y.data_ptr(), *(v.data_ptr() for v in vecs),
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), bsz, h * w, c, slices, int(y.dtype == torch.bfloat16),
+            int(relu), eps, stream)
+    _count(lib, "dvf_instance_norm", "instance_norm", rc)
     return out
 
 

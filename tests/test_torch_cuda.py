@@ -478,6 +478,261 @@ def test_neural_forward_never_waits_on_the_host(dev, name, cfg):
     assert out.device == dev and torch.isfinite(out).all()
 
 
+# -- the style nets' bias + instance norm + ReLU + residual (csrc/norm.cu) ----
+
+# The style stream's three norm geometries at batch 8 (720p), a C that is
+# not a multiple of the 16-byte chunk and one below it.
+NORM_SHAPES = [(8, 720, 1280, 32), (8, 360, 640, 64), (8, 180, 320, 128),
+               (3, 37, 53, 12), (2, 19, 23, 5)]
+
+
+def _norm_operands(shape, dtype, dev, seed, offset=0.0, spread=2.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    y = (torch.randn(shape, generator=g, device=dev) * spread + offset).to(dtype)
+    res = torch.randn(shape, generator=g, device=dev).to(dtype)
+    p = {"scale": torch.rand(c, generator=g, device=dev) + 0.5,
+         "bias": torch.randn(c, generator=g, device=dev)}
+    return p, y, torch.randn(c, generator=g, device=dev), res
+
+
+def _ulp_bf16(x):
+    """One bf16 ulp at |x| (float32 in, float32 out)."""
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+# The float32 ulps of the summed terms by which the statistics' summation
+# order may move an output before it is rounded (see _check_norm).
+NORM_F32_ULPS = 16
+
+
+def _norm_count():
+    return tk.LAUNCHES["instance_norm"]
+
+
+def _check_norm(got, want, p, y, b, residual, max_share=None):
+    """The kernels against the plain ops. They differ only by the float32
+    summation order of the statistics, which moves mean, a and shift by a
+    few float32 ulps of their own scale: each output, before it is
+    rounded, by at most NORM_F32_ULPS float32 ulps of the terms it is
+    summed from (|y·a| + |shift| + (|mean| + σ)·a, the statistics' own
+    scale, and |residual|). In bf16 that flips a rounding now and then:
+    one bf16 ulp of the output more, and with a residual one bf16 ulp of
+    the norm's own output (rounded before the add) too, on under
+    ``max_share`` of the elements. A large mean over a small spread keeps
+    that bound tight: |mean|·a only enters in float32 ulps."""
+    yb = (y + b.to(y.dtype)).float()
+    var, mean = torch.var_mean(yb, dim=(1, 2), keepdim=True, correction=0)
+    a = torch.rsqrt(var + 1e-5) * p["scale"]
+    terms = ((yb * a).abs() + (p["bias"] - mean * a).abs()
+             + (mean.abs() + var.sqrt()) * a.abs())
+    del yb
+    if residual is not None:
+        terms += residual.float().abs()
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bound = NORM_F32_ULPS * 2.0 ** -24 * terms
+    del terms
+    if y.dtype == torch.bfloat16:
+        bound += _ulp_bf16(torch.maximum(g.abs(), w.abs()))
+        if residual is not None:
+            r = residual.float()
+            bound += _ulp_bf16(torch.maximum((g - r).abs(), (w - r).abs()))
+    worst = float((diff / bound).max())
+    assert worst <= 1, f"{worst:.3f} of the bound ({float(diff.max())} at most)"
+    if max_share is not None:
+        share = float((diff > 0).float().mean())
+        assert share < max_share, share
+
+
+@pytest.mark.parametrize("relu,with_res", [(True, False), (False, True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_norm_kernels_match_plain(dev, shape, dtype, relu, with_res):
+    from dvf_tpu_torch.models import layers as tl
+
+    p, y, b, res = _norm_operands(shape, dtype, dev, sum(shape))
+    residual = res if with_res else None
+    before = _norm_count()
+    got = tk.bias_norm_act_cuda(p, y, b, relu=relu, residual=residual)
+    torch.cuda.synchronize()
+    assert _norm_count() == before + 1
+    assert got.dtype == dtype and got.shape == y.shape and got.is_contiguous()
+    want = tl.bias_norm_act_plain(p, y, b, relu=relu, residual=residual)
+    _check_norm(got, want, p, y, b, residual,
+                max_share=1e-3 if dtype == torch.bfloat16 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_kernels_constant_channels_offsets_and_unaligned_views(dev, dtype):
+    """The merges' numerics: channels 0-3 constant in each sample (var 0:
+    the output is the norm's bias), channels 4-7 a large mean offset over
+    a unit spread (a sum and sum of squares would cancel there). Then the
+    same through views whose base is not 16-byte aligned (the
+    one-element-a-thread path). Every channel is held to _check_norm's
+    bound; the share of differing elements as at the stream's shapes, on
+    channels 8-15: an offset channel holds ~12 distinct bf16 values a
+    sample (its ulp at 100 is 0.5), so one flipped rounding there moves
+    ~0.1 % of all the elements at once."""
+    from dvf_tpu_torch.models import layers as tl
+
+    shape = (4, 96, 160, 16)
+    offset = 100.0 if dtype == torch.bfloat16 else 1000.0
+    share = 1e-3 if dtype == torch.bfloat16 else None
+    p, y, b, res = _norm_operands(shape, dtype, dev, 9, spread=1.0)
+    y = y.float()
+    y[..., :4] = torch.arange(4 * 4, device=dev, dtype=torch.float32).view(4, 1, 1, 4) / 7
+    y[..., 4:8] += offset
+    y = y.to(dtype)
+    for residual in (None, res):
+        got = tk.bias_norm_act_cuda(p, y, b, relu=residual is None, residual=residual)
+        want = tl.bias_norm_act_plain(p, y, b, relu=residual is None, residual=residual)
+        _check_norm(got, want, p, y, b, residual)
+        if share is not None:
+            assert float((got[..., 8:] != want[..., 8:]).float().mean()) < share
+        if residual is None:
+            const = got[..., :4].float()
+            assert float((const - const[:, :1, :1]).abs().max()) == 0.0
+    flat = torch.empty(2 * y.numel() + 2, dtype=dtype, device=dev)
+    yv = flat[1:1 + y.numel()].view(shape)
+    rv = flat[1 + y.numel():1 + 2 * y.numel()].view(shape)
+    yv.copy_(y)
+    rv.copy_(res)
+    assert yv.data_ptr() % 16 and rv.data_ptr() % 16
+    got = tk.bias_norm_act_cuda(p, yv, b, residual=rv)
+    want = tl.bias_norm_act_plain(p, y, b, residual=res)
+    _check_norm(got, want, p, y, b, res)
+    if share is not None:
+        assert float((got[..., 8:] != want[..., 8:]).float().mean()) < share
+
+
+def test_norm_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    p, y, b, res = _norm_operands((2, 16, 24, 8), torch.bfloat16, dev, 1)
+    before = _norm_count()
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tk.bias_norm_act_cuda(p, y.half(), b)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        tk.bias_norm_act_cuda(p, y.transpose(1, 2), b)
+    with pytest.raises(ValueError, match=r"\(8,\)"):
+        tk.bias_norm_act_cuda(p, y, b[:4])
+    with pytest.raises(ValueError, match="residual"):
+        tk.bias_norm_act_cuda(p, y, b, residual=res.float())
+    assert _norm_count() == before
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.bfloat16, 1.5), (torch.float32, 0.01)])
+def test_style_net_fused_against_plain_at_the_stream_shape(dev, monkeypatch, dtype, limit):
+    """The whole style net (c 32, r 5) at 8 x 720 x 1280, the fused norms
+    against the plain ops: the worst frame's RMS gap in levels, 15 fused
+    calls a forward. In float32 the nets agree to 0.0002 levels. In bf16
+    a flipped rounding in one layer grows through the 15 norms (each
+    scales its channel by scale/σ): the plain ops themselves, with the
+    statistics reduced over an NCHW copy (another order, the same
+    arithmetic), land 0.82-1.10 levels from the plain ops, and the kernels
+    0.81-1.10 (two seeds, H100). The limit keeps room above that."""
+    from dvf_tpu_torch.models import layers as tl
+    from dvf_tpu_torch.models import style_transfer as st
+
+    cfg = st.StyleNetConfig(compute_dtype=dtype)
+    params = tl.tree_to(st.init_style_net(5, cfg), dev)
+    x = torch.rand((8, 720, 1280, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    tk.reset_launches()
+    with torch.no_grad():
+        fused = st.apply_style_net(params, x, cfg)
+        assert dict(tk.LAUNCHES) == {k: 15 if k == "instance_norm" else 0
+                                     for k in tk.LAUNCHES}
+        monkeypatch.setattr(st, "bias_norm_act", tl.bias_norm_act_plain)
+        plain = st.apply_style_net(params, x, cfg)
+    assert _norm_count() == 15 and tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    rms = ((fused - plain).float() * 255).pow(2).mean(dim=(1, 2, 3)).sqrt()
+    assert float(rms.max()) <= limit, rms.tolist()
+
+
+def test_a_stream_batch_runs_fifteen_fused_norms_without_waiting_on_the_host(dev):
+    """One 720p batch of 8 through the engine runs the net's 15 norms
+    through the kernels, no other hand kernel, and none through the plain
+    ops; the filter's forward runs under CUDA's sync debug mode set to
+    raise."""
+    frames = np.random.default_rng(4).integers(0, 256, (8, 720, 1280, 3), np.uint8)
+    eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("style_transfer"), device=dev)
+    eng.compile(frames.shape)
+    tk.reset_launches()
+    out = eng.submit(frames).fetch()
+    assert out.shape == frames.shape
+    assert dict(tk.LAUNCHES) == {k: 15 if k == "instance_norm" else 0 for k in tk.LAUNCHES}
+    assert tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    filt = dvf_tpu_torch.get_filter("style_transfer")
+    state = filt.init_state(frames.shape, torch.float32, dev)
+    x = torch.from_numpy(frames).to(dev).float() / 255
+    filt.fn(x, state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            filt.fn(x, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _norm_count() == 45 and tk.AUTOGRAD_CALLS["instance_norm"] == 0
+
+
+def test_train_step_takes_the_plain_norms(dev):
+    """The train step's forward is differentiable: its norms take the
+    plain ops (3 + 2 x 2 residual + 2 = 9 a forward), none the kernels."""
+    state, step, batch = _train_family("style", torch.bfloat16, dev)
+    tk.reset_launches()
+    state, m = step(state, batch.to(dev))
+    torch.cuda.synchronize()
+    assert not any(tk.LAUNCHES.values())
+    assert tk.AUTOGRAD_CALLS == {"instance_norm": 9}
+    assert np.isfinite(float(m["loss"]))
+
+
+# The sharded style bodies over a virtual mesh of cuda:0: parallel, net
+# widths, batch shape, model ranks, fused calls a batch. TP: each of the 2
+# ranks runs the 15 norms (column-parallel convs give it 16, 32 and 64
+# channels; a row-parallel sum is rounded to the compute dtype before its
+# norm). PP: the 5 norms outside the trunk once, the trunk's 10 in each of
+# 4 microbatches. The c 8 nets hold 4 channels a TP rank (the kernels'
+# one-element path) and run 4 microbatches of 1 over 4 stages.
+SHARDED_STYLE = [("tp", {}, (8, 360, 640, 3), 2, 30),
+                 ("pp", {}, (8, 360, 640, 3), 5, 45),
+                 ("tp", {"base_channels": 8, "n_residual": 2}, (2, 32, 32, 3), 2, 18),
+                 ("pp", {"base_channels": 8, "n_residual": 4}, (4, 32, 32, 3), 4, 37)]
+
+
+@pytest.mark.parametrize("dtype,limit", [("bfloat16", 1.5), ("float32", 0.01)])
+@pytest.mark.parametrize("parallel,kw,shape,ranks,calls", SHARDED_STYLE)
+def test_sharded_style_bodies_run_the_fused_norms(dev, monkeypatch, parallel, kw, shape,
+                                                  ranks, calls, dtype, limit):
+    """The TP and PP bodies take the kernels at their sharded widths, no
+    other hand kernel and no plain norm, and land where the same body with
+    the plain ops lands: the worst frame's RMS gap in levels within the
+    whole-net test's limits (the statistics' summation order)."""
+    from dvf_tpu_torch.models import layers as tl
+    from dvf_tpu_torch.models import style_transfer as st
+    from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    x = np.random.default_rng(7).random(shape, dtype=np.float32)
+    filt = dvf_tpu_torch.get_filter("style_transfer", parallel=parallel, dtype=dtype, **kw)
+    eng = dvf_tpu_torch.Engine(filt, mesh=make_mesh(MeshConfig(model=ranks),
+                                                    devices=[dev] * ranks),
+                               out_uint8=False)
+    eng.compile(shape, np.float32)
+    assert eng._exec_filter.name.startswith(f"{parallel}("), eng._exec_filter.name
+    tk.reset_launches()
+    fused = eng.submit(x).fetch().copy()
+    assert dict(tk.LAUNCHES) == {k: calls if k == "instance_norm" else 0
+                                 for k in tk.LAUNCHES}
+    assert tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    monkeypatch.setattr(st, "bias_norm_act", tl.bias_norm_act_plain)
+    plain = eng.submit(x).fetch()
+    assert _norm_count() == calls
+    rms = np.sqrt((((fused - plain) * 255.0) ** 2).mean(axis=(1, 2, 3)))
+    assert float(rms.max()) <= limit, rms.tolist()
+
+
 # -- streamed ingest and egress on the card ----------------------------------
 
 
@@ -1071,7 +1326,7 @@ def test_cli_compile_cache_dir_builds_then_loads(dev, tmp_path):
         assert r.returncode == 0, r.stderr[-3000:]
         line = [ln for ln in r.stderr.splitlines() if "kernel builds (s): " in ln][-1]
         builds.append(json.loads(line.split("kernel builds (s): ", 1)[1]))
-    names = {"stencils", "warp", "codec"}
+    names = {"stencils", "warp", "codec", "norm"}
     assert set(builds[0]) == names and all(v > 0 for v in builds[0].values())
     assert builds[1] == {k: 0.0 for k in names}
     assert {p.name.split("-")[0][3:] for p in cache.glob("lib*.so")} >= names

@@ -314,13 +314,18 @@ def test_warp_bounded_takes_only_its_designs():
 
 
 def test_reset_launches_zeroes_every_counter():
-    saved = dict(tk.LAUNCHES)
+    saved, saved_autograd = dict(tk.LAUNCHES), dict(tk.AUTOGRAD_CALLS)
     try:
-        for k in tk.LAUNCHES:
-            tk.LAUNCHES[k] = 3
+        for counts in (tk.LAUNCHES, tk.AUTOGRAD_CALLS):
+            for k in counts:
+                counts[k] = 3
         tk.reset_launches()
         assert set(tk.LAUNCHES) == {"sep_blur", "bilateral", "sobel_bilateral",
-                                    "warp_bounded", "tile_maxdiff", "dct8x8_quant"}
+                                    "warp_bounded", "tile_maxdiff", "dct8x8_quant",
+                                    "instance_norm"}
+        assert set(tk.AUTOGRAD_CALLS) == {"instance_norm"}
         assert all(v == 0 for v in tk.LAUNCHES.values())
+        assert all(v == 0 for v in tk.AUTOGRAD_CALLS.values())
     finally:
         tk.LAUNCHES.update(saved)
+        tk.AUTOGRAD_CALLS.update(saved_autograd)
