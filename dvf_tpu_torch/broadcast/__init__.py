@@ -5,7 +5,7 @@ The serving tier below this package delivers every processed frame to
 exactly ONE session — delivery cost scales 1:1 with viewers × codec
 work, the reference's strictly-1:1 capture→display shape
 (webcam_app.py). This package is the subscription layer ABOVE that
-per-session delivery (ROADMAP item 2):
+per-session delivery:
 
 - a published session's output becomes a named **channel**;
 - subscribers attach to a channel at a **tier** = (geometry, quality,

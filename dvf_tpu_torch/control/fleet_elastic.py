@@ -32,12 +32,11 @@ The decision inputs, in the order they matter:
 - **queue depth / shed / SLO-miss counters and fleet p99 vs SLO**: the
   lagging confirmation that the fleet is genuinely past capacity.
 
-Scaling has TWO axes (ROADMAP item 2's last leg): *more replicas*
-(another single-host replica — the default) and a *bigger replica*
-(in the reference a ``MultiHostEngine`` process group: one program
-across every host's devices — its `fleet.multihost`, which the port has
-not yet). The controller picks
-per the measured signature cost profiles (``--profile-dir``):
+Scaling has TWO axes: *more replicas* (another single-host replica —
+the default) and a *bigger replica* (a ``MultiHostEngine`` process
+group: one program across every host's devices, ``fleet.multihost``).
+The controller picks per the measured signature cost profiles
+(``--profile-dir``):
 when the dominant signature's measured device-stage cost alone exceeds
 ``bigger_replica_device_ms``, adding small replicas multiplies queueing
 without ever bringing one frame's device time down — only a replica

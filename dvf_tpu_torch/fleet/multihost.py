@@ -13,10 +13,10 @@ the LEADER unhealthy and the whole group is replaced as a unit
 (replica-granular loss, the router's existing domain; intra-group
 elasticity is `parallel.distributed.ElasticMeshRunner` territory).
 
-This is the elasticity controller's second axis (ROADMAP item 2's last
-leg): when the measured stage profiles say one host's device time IS
-the latency, ``scale_out`` targets this flavor instead of another
-single-host replica — more devices under one program, not more queues.
+This is the elasticity controller's second axis: when the measured
+stage profiles say one host's device time IS the latency,
+``scale_out`` targets this flavor instead of another single-host
+replica — more devices under one program, not more queues.
 
 A multihost replica serves ONE signature, fixed at spawn (the fleet
 pins it to the first ``--precompile`` manifest entry): the group

@@ -5,13 +5,13 @@ resolution and a final subpixel rearrange (DCR order,
 ``layers.depth_to_space``, on float32 as in the reference) produces the
 ×r output. Tensor parallelism over a mesh's ``model`` axis: feat is
 column-parallel, map row-parallel with one sum across the ranks, head
-replicated (:func:`param_pspecs`, :func:`tp_inner_apply`).
+replicated (:func:`param_pspecs`, :func:`tp_inner_steps`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Union
 
 import torch
 
@@ -55,15 +55,7 @@ def init_espcn(rng: Union[int, torch.Generator],
 def apply_espcn(params: Params, batch: torch.Tensor,
                 config: EspcnConfig = EspcnConfig()) -> torch.Tensor:
     """(B, H, W, 3) in [0, 1] → (B, H·r, W·r, 3)."""
-    return _forward(params, batch, config, row_reduce=None)
-
-
-def _forward(params: Params, batch: torch.Tensor, config: EspcnConfig,
-             row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
-    """Shared body; ``row_reduce`` (the sum across the model ranks under
-    TP, None unsharded) runs on map's pre-bias partial sums."""
-    return run_steps(_forward_steps(params, batch, config, tp=row_reduce is not None),
-                     lambda _kind, y: row_reduce(y))
+    return run_steps(_forward_steps(params, batch, config, tp=False))
 
 
 def _forward_steps(params: Params, batch: torch.Tensor, config: EspcnConfig,
@@ -97,18 +89,13 @@ def _forward_steps(params: Params, batch: torch.Tensor, config: EspcnConfig,
     return torch.clamp(y, 0.0, 1.0).to(batch.dtype)
 
 
-def tp_inner_apply(config: EspcnConfig) -> Callable[..., torch.Tensor]:
-    """Per-rank apply under tensor parallelism: ``inner(params, batch,
-    row_reduce)`` — feat column-parallel (activations leave C-sharded),
-    map row-parallel reducing through ``row_reduce``, head replicated."""
-    return lambda params, batch, row_reduce: _forward(
-        params, batch, config, row_reduce=row_reduce)
-
-
 def tp_inner_steps(config: EspcnConfig) -> Callable[..., Any]:
-    """The same per-rank forward as a rank program, ``program(params,
-    batch)``, for ``parallel.sharded.lockstep`` (the sharded train
-    step)."""
+    """The per-rank forward under tensor parallelism as a rank program,
+    ``program(params, batch)``: feat column-parallel (activations leave
+    C-sharded), map row-parallel yielding its float32 partial as a
+    ``SUM`` request, head replicated. ``parallel.sharded.lockstep``
+    drives one per rank (``parallel.sharded.tp_filter``, the sharded
+    train step)."""
     return lambda params, batch: _forward_steps(params, batch, config, tp=True)
 
 

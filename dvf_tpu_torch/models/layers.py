@@ -85,24 +85,23 @@ def pad_nhwc(x: torch.Tensor, r: int, mode: str) -> torch.Tensor:
 # it yields a request ``(kind, tensor)`` and resumes with the collective's
 # result. ``SUM``: the row-parallel partial sums, summed across the ranks.
 # ``GATHER``: channel slices, joined on C. Unsharded, a program yields
-# nothing. :func:`run_steps` drives one program with a per-rank callback
-# (serving: ``parallel.sharded.RankGroup``, one thread per rank);
-# ``parallel.sharded.lockstep`` drives every rank's program from one
-# thread as one autograd graph (training).
+# nothing, and :func:`run_steps` drives it to its end. Sharded, one driver
+# runs every rank's program from the calling thread,
+# ``parallel.sharded.lockstep``, each collective one autograd node: the
+# serving body (``parallel.sharded.tp_filter``) and the train step alike.
 
 SUM, GATHER = "sum", "gather"
 
 
-def run_steps(program: Iterator, on_request=None) -> Any:
-    """Drive a rank program to its end: each request ``(kind, tensor)``
-    is answered by ``on_request(kind, tensor)``; returns the program's
-    value."""
+def run_steps(program: Iterator) -> Any:
+    """Drive an unsharded rank program to its end and return its value.
+    Unsharded, a program requests no collective: one that does raises."""
     try:
         req = next(program)
-        while True:
-            req = program.send(on_request(*req))
     except StopIteration as stop:
         return stop.value
+    program.close()
+    raise RuntimeError(f"an unsharded rank program requested {req[0]!r}")
 
 
 _PARTIALS = threading.local()
@@ -347,6 +346,20 @@ def upsample2_conv(
     klw, pad = _upsample2_kernel(p["w"])
     xp = pad_nhwc(x, pad, "edge")
     return depth_to_space(_conv(xp.to(compute_dtype), klw.to(compute_dtype)), 2)
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype_of(dtype: Optional[str]) -> torch.dtype:
+    """The model compute dtype named by a filter factory's ``dtype``
+    argument (None: bfloat16)."""
+    if dtype is None:
+        dtype = "bfloat16"
+    if dtype not in _DTYPES:
+        raise ValueError(
+            f"dtype must be 'bfloat16' or 'float32', got {dtype!r}")
+    return _DTYPES[dtype]
 
 
 @contextlib.contextmanager

@@ -13,12 +13,12 @@ on a card outside autograd the hand-written kernels of ``csrc/norm.cu``,
 elsewhere the plain ops.
 
 Tensor parallelism over a mesh's ``model`` axis is explicit: Megatron
-column/row alternation (:func:`param_pspecs`), each rank running
-:func:`tp_inner_apply` on its weight blocks with one sum across the ranks
-after each row-parallel conv. Layer pipelining (:func:`pp_inner_apply`)
-stacks the residual trunk (:func:`to_pp_params`) and runs it as a GPipe
-schedule over the model axis (``parallel.pp``); on one device the same
-grouping runs as a loop (:func:`pp_sequential_apply`).
+column/row alternation (:func:`param_pspecs`), each rank running the rank
+program :func:`tp_inner_steps` on its weight blocks with one sum across
+the ranks after each row-parallel conv. Layer pipelining
+(:func:`pp_inner_apply`) stacks the residual trunk (:func:`to_pp_params`)
+and runs it as a GPipe schedule over the model axis (``parallel.pp``); on
+one device the same grouping runs as a loop (:func:`pp_sequential_apply`).
 """
 
 from __future__ import annotations
@@ -109,17 +109,12 @@ def _conv_modes(config: StyleNetConfig) -> Dict[str, str]:
 
 def _forward(params: Params, batch: torch.Tensor, config: StyleNetConfig,
              trunk_fn: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None,
-             row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
              ) -> torch.Tensor:
-    """Shared forward body. ``trunk_fn(params, x)`` replaces the flat
-    residual loop (the PP grouping passes its loop over stacked blocks):
-    one copy of the stem/decoder wiring, however the trunk runs.
-    ``row_reduce`` runs on each row-parallel conv's pre-bias output (the
-    sum across the model ranks under TP; None unsharded): that partial
-    is float32, and the sum rounds it to the compute dtype."""
-    return run_steps(_forward_steps(params, batch, config, trunk_fn,
-                                    tp=row_reduce is not None),
-                     lambda _kind, y: row_reduce(y))
+    """Shared unsharded forward body. ``trunk_fn(params, x)`` replaces the
+    flat residual loop (the PP grouping passes its loop over stacked
+    blocks): one copy of the stem/decoder wiring, however the trunk
+    runs."""
+    return run_steps(_forward_steps(params, batch, config, trunk_fn))
 
 
 def _forward_steps(params: Params, batch: torch.Tensor, config: StyleNetConfig,
@@ -239,19 +234,13 @@ def pp_sequential_apply(config: StyleNetConfig) -> Callable[[Params, torch.Tenso
     return lambda params, batch: _forward(params, batch, config, trunk_fn=trunk)
 
 
-def tp_inner_apply(config: StyleNetConfig) -> Callable[..., torch.Tensor]:
-    """Per-rank apply under tensor parallelism: ``inner(params, batch,
-    row_reduce)`` runs this rank's weight blocks (``param_pspecs``), and
-    each row-parallel conv's partial output goes through ``row_reduce``
-    (the sum across the model ranks, ``parallel.sharded.RankGroup``)."""
-    return lambda params, batch, row_reduce: _forward(
-        params, batch, config, row_reduce=row_reduce)
-
-
 def tp_inner_steps(config: StyleNetConfig) -> Callable[..., Any]:
-    """The same per-rank forward as a rank program, ``program(params,
-    batch)``, for ``parallel.sharded.lockstep`` (the sharded train
-    step's differentiable TP body)."""
+    """The per-rank forward under tensor parallelism as a rank program,
+    ``program(params, batch)``: this rank's weight blocks
+    (:func:`param_pspecs`), each row-parallel conv's float32 partial
+    yielded as a ``SUM`` request. ``parallel.sharded.lockstep`` drives
+    one per rank, for the serving body (``parallel.sharded.tp_filter``)
+    and the sharded train step alike."""
     return lambda params, batch: _forward_steps(params, batch, config, tp=True)
 
 

@@ -5,10 +5,10 @@ The third observability plane beside the stage metrics and the frame
 lineage. Those answer "how fast is the steady state" and
 "where did one frame's latency go"; this module answers the question
 between them — **what did every reconfiguration cost, and whom did it
-stall?** The ROADMAP's stall-free-reconfiguration item (compile-aside +
-atomic hot swap) will be judged against exactly these records: "dwell≈0,
-zero stall events in the ledger" is an acceptance bar only if a ledger
-exists to read.
+stall?** Stall-free reconfiguration (compile-aside + atomic hot swap,
+``Engine.prepare_swap`` / ``commit_swap``) is judged against exactly
+these records: "dwell≈0, zero stall events in the ledger" is an
+acceptance bar only if a ledger exists to read.
 
 Every compile, recompile, program-pool acquire/evict, batch resize,
 quality rebind, engine rebuild, bucket create/retire, and replica

@@ -1,11 +1,10 @@
 """Metrics registry + sliding-window telemetry ring (port of
 ``dvf_tpu.obs.registry``; host code only).
 
-Until this module, every subsystem exported observability as an ad-hoc
-nested ``stats()`` dict with its own naming, the numbers lived only as
-point-in-time snapshots, and nothing exported continuously — the
-ROADMAP's auto-plan and load-adaptive control items (4/5) have no signal
-substrate to read. This module is that substrate:
+Every subsystem keeps its observability as an ad-hoc nested ``stats()``
+dict with its own naming, point-in-time snapshots that nothing exports
+continuously; the auto-plan and load-adaptive control (``control``)
+need a signal substrate to read. This module is that substrate:
 
 :class:`MetricsRegistry`
     Counters, gauges, and bounded histograms with label sets, plus

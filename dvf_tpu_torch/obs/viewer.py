@@ -1,5 +1,6 @@
 """Offline trace / flight-dump summaries (port of ``dvf_tpu.obs.viewer``,
-the reference's ``dvf_tpu trace-view``; the CLI subcommand is not ported).
+the reference's ``dvf_tpu trace-view``; the port's ``trace-view``
+subcommand, ``cli.cmd_trace_view``, runs it).
 
 Post-mortems should not require loading Perfetto: this module reads a
 Chrome-trace JSON file (the ``.pftrace`` documents ``Tracer.export`` /

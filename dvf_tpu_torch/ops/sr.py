@@ -6,8 +6,9 @@ default, ``arch="espcn"``) or :mod:`dvf_tpu_torch.models.hat`
 like ``style_transfer``. Both filters here change the output geometry
 ((H, W) → (H·r, W·r)); the engine sizes its output from what the filter
 returns. On a mesh with a ``model`` axis, ESPCN's ``specialize`` swaps in
-the tensor-parallel body, as ``style_transfer`` does; HAT has none and
-runs the generic body with replicated weights.
+the tensor-parallel body (``parallel.sharded.tp_filter``), as
+``style_transfer`` does; HAT has none and runs the generic body with
+replicated weights.
 """
 
 from __future__ import annotations
@@ -19,12 +20,11 @@ import torch.nn.functional as F
 
 from dvf_tpu_torch.api.filter import Filter, stateless
 from dvf_tpu_torch.models.espcn import (EspcnConfig, apply_espcn, init_espcn,
-                                        param_pspecs, tp_inner_apply)
+                                        param_pspecs, tp_inner_steps)
 from dvf_tpu_torch.models.hat import (HatConfig, HatStats, apply_prepared, init_hat,
                                       marks_for, prepare_hat)
-from dvf_tpu_torch.models.layers import tree_to, upsample_nearest
+from dvf_tpu_torch.models.layers import compute_dtype_of, tree_to, upsample_nearest
 from dvf_tpu_torch.ops.registry import measured_default_for, register_filter
-from dvf_tpu_torch.ops.style import compute_dtype_of, tp_filter
 
 
 @register_filter("upscale")
@@ -97,7 +97,9 @@ def super_resolution(
     def specialize(mesh, batch_shape) -> Optional[Filter]:
         if mesh.axis_size("model") <= 1:
             return None  # generic body; params replicate over size-1 axis
-        return tp_filter(name, tp_inner_apply(config), param_pspecs(config),
+        from dvf_tpu_torch.parallel.sharded import tp_filter
+
+        return tp_filter(name, tp_inner_steps(config), param_pspecs(config),
                          init_state, config.compute_dtype, mesh, batch_shape)
 
     return Filter(

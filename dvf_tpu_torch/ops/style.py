@@ -16,8 +16,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from dvf_tpu_torch.api.filter import Filter
-from dvf_tpu_torch.models.layers import tree_to
-from dvf_tpu_torch.models.layers import exact_f32_convs
+from dvf_tpu_torch.models.layers import compute_dtype_of, tree_to
 from dvf_tpu_torch.models.style_transfer import (
     StyleNetConfig,
     apply_style_net,
@@ -27,75 +26,9 @@ from dvf_tpu_torch.models.style_transfer import (
     pp_param_pspecs,
     pp_sequential_apply,
     to_pp_params,
-    tp_inner_apply,
+    tp_inner_steps,
 )
 from dvf_tpu_torch.ops.registry import measured_default_for, register_filter
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def compute_dtype_of(dtype: Optional[str]) -> torch.dtype:
-    """The model compute dtype named by a factory's ``dtype`` argument."""
-    if dtype is None:
-        dtype = "bfloat16"
-    if dtype not in _DTYPES:
-        raise ValueError(
-            f"dtype must be 'bfloat16' or 'float32', got {dtype!r}")
-    return _DTYPES[dtype]
-
-
-def fold_sharding(mesh, batch_shape):
-    """The batch layout of a model-parallel body: B folded over (data,
-    space) on dim 0, replicated over ``model`` (whose ranks own weight
-    blocks). Degrades to whatever the batch divides: data+space → data →
-    one block."""
-    from dvf_tpu_torch.parallel.mesh import NamedSharding, P
-
-    b = batch_shape[0]
-    d, s = mesh.axis_size("data"), mesh.axis_size("space")
-    if b % (d * s) == 0:
-        spec = P(("data", "space"))
-    elif b % d == 0:
-        spec = P("data")
-    else:
-        spec = P(None)
-    return NamedSharding(mesh, spec)
-
-
-def tp_filter(name: str, inner, specs, init_state, model_dtype, mesh,
-              batch_shape) -> Filter:
-    """The tensor-parallel mesh body of a net: each batch block runs on
-    the ``model`` ranks beside it, every rank with its weight blocks
-    (the engine places the state by ``specs``), one thread per rank, the
-    row-parallel partial outputs summed across the ranks
-    (``parallel.sharded.RankGroup``). Every rank ends with the same
-    output; the block's own rank hands it on."""
-    from dvf_tpu_torch.parallel.sharded import (RankGroup, ShardedBatch,
-                                                as_sharded, finish, model_groups)
-
-    sharding = fold_sharding(mesh, batch_shape)
-
-    def sharded_fn(batch, state):
-        sb, whole = as_sharded(batch, sharding)
-        out = []
-        for blk, x in zip(sb.blocks, sb.shards):
-            ranks = model_groups(mesh, blk.pos)
-            group = RankGroup([mesh.devices[p] for p in ranks])
-
-            def body(m, x=x, ranks=ranks, group=group):
-                dev = group.devices[m]
-                return inner(state.local(ranks[m]), x.to(dev, non_blocking=True),
-                             lambda y: group.psum(m, y))
-
-            with exact_f32_convs(model_dtype):
-                out.append(group.run(body)[0])
-        res = ShardedBatch(out, sharding, sharding.global_shape(out[0].shape))
-        return finish(res, whole, batch), state
-
-    return Filter(name=f"tp({name})", fn=sharded_fn, init_state=init_state,
-                  compute_dtype=torch.float32, state_pspecs=lambda: specs,
-                  sharding=sharding)
-
 
 @register_filter("style_transfer")
 def style_transfer(
@@ -119,7 +52,7 @@ def style_transfer(
 
     - ``"tp"`` — Megatron column/row tensor parallelism with an explicit
       sum across the ranks after each row-parallel conv
-      (models.style_transfer.tp_inner_apply).
+      (models.style_transfer.tp_inner_steps, parallel.sharded.tp_filter).
     - ``"pp"`` — layer pipeline parallelism over the residual trunk
       (models.style_transfer.pp_inner_apply / parallel.pp): each device
       owns n_residual/S contiguous blocks and activations hop stages on a
@@ -162,8 +95,10 @@ def style_transfer(
         n_model = mesh.axis_size("model")
         if n_model <= 1:
             return None  # generic body; params replicate over size-1 axis
+        from dvf_tpu_torch.parallel.sharded import model_axis_filter, tp_filter
+
         if parallel == "tp":
-            return tp_filter(name, tp_inner_apply(config), param_pspecs(config),
+            return tp_filter(name, tp_inner_steps(config), param_pspecs(config),
                              init_state, config.compute_dtype, mesh, batch_shape)
         if config.n_residual % n_model != 0:
             import sys
@@ -175,29 +110,9 @@ def style_transfer(
                 file=sys.stderr,
             )
             return None
-        return pp_filter(mesh, batch_shape)
-
-    def pp_filter(mesh, batch_shape) -> Filter:
-        from dvf_tpu_torch.parallel.sharded import (ShardedBatch, as_sharded, finish,
-                                                    model_groups)
-
-        inner = pp_inner_apply(config)
-        specs = pp_param_pspecs(config)
-        sharding = fold_sharding(mesh, batch_shape)
-
-        def sharded_fn(batch, state):
-            sb, whole = as_sharded(batch, sharding)
-            out = []
-            for blk, x in zip(sb.blocks, sb.shards):
-                ranks = model_groups(mesh, blk.pos)
-                out.append(inner([state.local(p) for p in ranks], x,
-                                 [mesh.devices[p] for p in ranks]))
-            res = ShardedBatch(out, sharding, sb.shape)
-            return finish(res, whole, batch), state
-
-        return Filter(name=f"pp({name})", fn=sharded_fn, init_state=init_state,
-                      compute_dtype=torch.float32, state_pspecs=lambda: specs,
-                      sharding=sharding)
+        return model_axis_filter(f"pp({name})", pp_inner_apply(config),
+                                 pp_param_pspecs(config), init_state,
+                                 config.compute_dtype, mesh, batch_shape)
 
     return Filter(
         name=name,

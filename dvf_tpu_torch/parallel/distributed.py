@@ -8,7 +8,8 @@ rank shares ``cuda:0``, the process counterpart of a virtual mesh), and
 across processes, so the only cross-process traffic a frame batch needs
 is its own rows. The reference's SPMD program makes its cross-process
 reductions implicitly; here they are explicit: a step calls
-:func:`all_reduce` (the process counterpart of ``RankGroup.psum``).
+:func:`all_reduce` (the process counterpart of ``parallel.sharded``'s
+sum across a model axis).
 Frame rows never cross the group: a caller ships them itself, as the
 fleet's multi-host replica does over sockets.
 

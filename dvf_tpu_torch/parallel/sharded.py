@@ -4,7 +4,7 @@ One process drives the whole mesh, so a sharded batch is a list of
 per-block tensors in mesh order, each contiguous on its own device
 (:class:`ShardedBatch`), and a collective is a copy between such lists:
 boundary rows to a neighbour (``parallel.halo``), a sum across the ranks
-of an axis (:class:`RankGroup`), an activation to the next stage
+of an axis (:func:`lockstep`), an activation to the next stage
 (``parallel.pp``). Every cross-device copy is PyTorch's own
 (``Tensor.to(device, non_blocking=True)``), which orders itself against
 the current streams of both devices, so nothing here synchronises the
@@ -15,17 +15,24 @@ one per ``space`` block, carried across the data blocks in order) or
 placed by the filter's ``state_pspecs`` (:func:`place_tree`: one local
 tree per mesh position, each holding that position's block of every
 leaf).
+
+A net's serving body over the ``model`` axis (:func:`model_axis_filter`)
+folds the batch over the other axes and runs each block on the ``model``
+ranks beside it: the tensor-parallel body (:func:`tp_filter`) drives the
+net's rank programs with :func:`lockstep`, as the train step does; the
+layer pipeline hands the block to ``parallel.pp``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from dvf_tpu_torch.api.filter import Filter
+from dvf_tpu_torch.models.layers import exact_f32_convs
 from dvf_tpu_torch.parallel.mesh import Mesh, NamedSharding, PartitionSpec, Shard
 
 
@@ -265,19 +272,8 @@ def place_tree(tree, mesh: Mesh, specs) -> PlacedTree:
 
 
 # ---------------------------------------------------------------------------
-# Ranks of one axis running in lockstep (tensor parallelism)
+# Streams, sums and the ranks of one model axis
 # ---------------------------------------------------------------------------
-
-def current_streams(devices: Sequence[torch.device]) -> List[Any]:
-    """The calling thread's current stream on each CUDA device of
-    ``devices`` (each device once)."""
-    out, seen = [], set()
-    for d in devices:
-        if d.type == "cuda" and d not in seen:
-            seen.add(d)
-            out.append(torch.cuda.current_stream(d))
-    return out
-
 
 def on_streams(streams: Sequence[Any]) -> contextlib.ExitStack:
     """Make ``streams`` current in this thread (a thread starts on each
@@ -302,66 +298,6 @@ def rank_sum(ts: Sequence[torch.Tensor], home: Union[str, torch.device]) -> torc
     return acc.to(dtype)
 
 
-class RankGroup:
-    """The ranks of one mesh axis running one body together, one thread
-    each, as the reference's all-manual ``shard_map`` runs it on every
-    device of the axis. ``psum`` is the collective they meet at: every
-    rank hands in its partial, the sum is formed once in rank order on
-    rank 0's device (in float32 for half-precision partials) and each
-    rank gets it back on its own device, so all ranks hold the same
-    bits."""
-
-    def __init__(self, devices: Sequence[torch.device]):
-        self.devices = list(devices)
-        self.n = len(self.devices)
-        self._barrier = threading.Barrier(self.n) if self.n > 1 else None
-        self._slots: List[Optional[torch.Tensor]] = [None] * self.n
-        self._sum: Optional[torch.Tensor] = None
-
-    def psum(self, rank: int, y: torch.Tensor) -> torch.Tensor:
-        if self.n == 1:
-            return y
-        self._slots[rank] = y
-        self._barrier.wait()
-        if rank == 0:
-            self._sum = rank_sum(self._slots, self.devices[0])
-        self._barrier.wait()
-        out = self._sum.to(self.devices[rank], non_blocking=True)
-        self._barrier.wait()
-        return out
-
-    def run(self, body: Callable[[int], Any]) -> List[Any]:
-        """``body(rank)`` on every rank; returns the results in rank
-        order. A rank that raises breaks the others' waits, and the first
-        error is re-raised here."""
-        if self.n == 1:
-            return [body(0)]
-        results: List[Any] = [None] * self.n
-        errors: List[BaseException] = []
-        streams = current_streams(self.devices)
-
-        def worker(rank: int) -> None:
-            try:
-                with torch.no_grad(), on_streams(streams):
-                    results[rank] = body(rank)
-            except threading.BrokenBarrierError as e:
-                errors.append(e)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors.insert(0, e)
-                self._barrier.abort()
-
-        threads = [threading.Thread(target=worker, args=(r,), daemon=True,
-                                    name=f"dvf-rank{r}")
-                   for r in range(self.n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            raise errors[0]
-        return results
-
-
 def model_groups(mesh: Mesh, pos: Tuple[int, ...]) -> List[Tuple[int, ...]]:
     """The mesh positions of the ``model`` ranks beside ``pos``, in rank
     order."""
@@ -371,20 +307,21 @@ def model_groups(mesh: Mesh, pos: Tuple[int, ...]) -> List[Tuple[int, ...]]:
 
 
 # ---------------------------------------------------------------------------
-# Ranks of one axis in lockstep, as one autograd graph (training)
+# Ranks of one axis in lockstep, as one autograd graph
 # ---------------------------------------------------------------------------
 #
-# The train step's tensor-parallel body runs every rank's program
+# A tensor-parallel body, served or trained, runs every rank's program
 # (``models.layers`` rank programs) from the calling thread, and each
-# collective is one autograd node with one output per rank, so the
+# collective is one autograd node with one output per rank. Under
+# ``no_grad`` (serving) the node is only the copies; in the train step the
 # gradient is the one-device gradient by construction (Megatron's
 # conjugate pairs: the sum of the ranks' partials forward is the sum's
 # gradient handed to every partial backward; the copies handed to the
 # ranks forward are their gradients summed backward). Every sum runs in
 # rank order on rank 0's device, in float32 for half-precision tensors,
-# so it is the same bits however the device threads of a backward
-# interleave. No barrier and no helper thread: nothing waits inside a
-# backward.
+# so every rank gets the same bits, however the device threads of a
+# backward interleave. No barrier and no helper thread: nothing waits,
+# forward or backward.
 
 def _fan_out(x: torch.Tensor, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
     """``x`` (on rank 0's device) once per rank: itself for rank 0, a copy
@@ -460,7 +397,9 @@ def lockstep(programs: Sequence[Any], devices: Sequence[torch.device]) -> List[A
     each program resumed with its result. Returns the programs' values
     in rank order. The programs are the same program on other blocks,
     so they request the same collectives in the same order and end
-    together; anything else raises."""
+    together; anything else raises. When a program raises, or the
+    programs diverge, every program is closed (its ``finally`` blocks
+    run, last rank first) before the error reaches the caller."""
     n = len(programs)
 
     def advance(r: int, value, first: bool):
@@ -469,13 +408,83 @@ def lockstep(programs: Sequence[Any], devices: Sequence[torch.device]) -> List[A
         except StopIteration as stop:
             return True, stop.value
 
-    state = [advance(r, None, True) for r in range(n)]
-    while True:
-        done = {d for d, _ in state}
-        if done == {True}:
-            return [v for _, v in state]
-        kinds = {v[0] for d, v in state if not d}
-        if len(done) != 1 or len(kinds) != 1:
-            raise RuntimeError(f"the ranks' programs diverged: {state!r}")
-        outs = collective(kinds.pop(), [v[1] for _, v in state], devices)
-        state = [advance(r, outs[r], False) for r in range(n)]
+    try:
+        state = [advance(r, None, True) for r in range(n)]
+        while True:
+            done = {d for d, _ in state}
+            if done == {True}:
+                return [v for _, v in state]
+            kinds = {v[0] for d, v in state if not d}
+            if len(done) != 1 or len(kinds) != 1:
+                raise RuntimeError(f"the ranks' programs diverged: {state!r}")
+            outs = collective(kinds.pop(), [v[1] for _, v in state], devices)
+            state = [advance(r, outs[r], False) for r in range(n)]
+    except BaseException:
+        for p in reversed(programs):
+            p.close()
+        raise
+
+
+# ---------------------------------------------------------------------------
+# Model-axis serving bodies
+# ---------------------------------------------------------------------------
+
+def fold_sharding(mesh: Mesh, batch_shape: Sequence[int]) -> NamedSharding:
+    """The batch layout of a model-parallel body: B folded over (data,
+    space) on dim 0, replicated over ``model`` (whose ranks own weight
+    blocks). Degrades to whatever the batch divides: data+space → data →
+    one block."""
+    b = batch_shape[0]
+    d, s = mesh.axis_size("data"), mesh.axis_size("space")
+    if b % (d * s) == 0:
+        spec = PartitionSpec(("data", "space"))
+    elif b % d == 0:
+        spec = PartitionSpec("data")
+    else:
+        spec = PartitionSpec(None)
+    return NamedSharding(mesh, spec)
+
+
+def model_axis_filter(name: str, run_group: Callable[..., torch.Tensor], specs,
+                      init_state, model_dtype: torch.dtype, mesh: Mesh,
+                      batch_shape: Sequence[int]) -> Filter:
+    """A net's mesh body over the ``model`` axis: the batch folded by
+    :func:`fold_sharding`, and each block run by the ``model`` ranks
+    beside it as ``run_group(states, x, devices)`` (the ranks' local
+    states placed by ``specs``, the block on rank 0's device, the ranks'
+    devices), whose output stays on rank 0's device."""
+    sharding = fold_sharding(mesh, batch_shape)
+
+    def sharded_fn(batch, state):
+        sb, whole = as_sharded(batch, sharding)
+        out = []
+        for blk, x in zip(sb.blocks, sb.shards):
+            ranks = model_groups(mesh, blk.pos)
+            # The rank programs' own exact_f32_convs blocks interleave
+            # under lockstep and unwind out of order; this one holds the
+            # flag for the whole group and restores the caller's.
+            with exact_f32_convs(model_dtype):
+                out.append(run_group([state.local(p) for p in ranks], x,
+                                     [mesh.devices[p] for p in ranks]))
+        res = ShardedBatch(out, sharding, sharding.global_shape(out[0].shape))
+        return finish(res, whole, batch), state
+
+    return Filter(name=name, fn=sharded_fn, init_state=init_state,
+                  compute_dtype=torch.float32, state_pspecs=lambda: specs,
+                  sharding=sharding)
+
+
+def tp_filter(name: str, program: Callable[..., Any], specs, init_state,
+              model_dtype: torch.dtype, mesh: Mesh, batch_shape: Sequence[int]) -> Filter:
+    """The tensor-parallel mesh body of a net (``tp(name)``): every rank
+    runs ``program(local_params, block)`` (the net's ``tp_inner_steps``)
+    on its weight blocks, driven by :func:`lockstep`, the row-parallel
+    partial outputs summed across the ranks. Every rank ends with the
+    same output; rank 0's hands it on."""
+
+    def run_group(states, x, devices):
+        return lockstep([program(s, x.to(d, non_blocking=True))
+                         for s, d in zip(states, devices)], devices)[0]
+
+    return model_axis_filter(f"tp({name})", run_group, specs, init_state,
+                             model_dtype, mesh, batch_shape)

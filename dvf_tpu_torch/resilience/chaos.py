@@ -27,9 +27,10 @@ site            hook location                             default effect
                                                           stall watchdog)
 =============== ========================================= ==================
 
-``SITE_KINDS`` also names the reference's serving, fleet, audit, swap and
-continuity sites, so one ``--chaos`` spec parses alike in both packages;
-those planes are not ported yet, so nothing fires them here.
+``SITE_KINDS`` also names the serving, fleet, audit, swap and continuity
+sites, which those planes' own modules fire (``serve.server``,
+``fleet.router``, ``runtime.engine``); one ``--chaos`` spec parses alike
+in both packages.
 
 Triggers are event-indexed (``at`` — explicit 0-based event numbers at
 the site, or ``every`` — every Nth event), optionally bounded by

@@ -1,8 +1,7 @@
 """The port's session-continuity plane (``dvf_tpu_torch.resilience.
 continuity``) on the CPU: counterparts of ``tests/test_continuity.py``
-(its fleet cases included; without its subscribe and worker-SIGTERM
-cases, whose CLI tiers are not ported yet), plus parity of the tokens
-and backoff ladder with the JAX package.
+(its fleet, subscribe and worker-SIGTERM cases included), plus parity
+of the tokens and backoff ladder with the JAX package.
 """
 
 import os

@@ -22,8 +22,9 @@ from dvf_tpu_torch.models import style_transfer as tst
 from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from dvf_tpu_torch.parallel.pp import (pipeline_apply, pipeline_stage_specs,
                                        stack_layer_params)
-from dvf_tpu_torch.parallel.sharded import RankGroup, place_tree
+from dvf_tpu_torch.parallel.sharded import lockstep, place_tree
 from dvf_tpu_torch.runtime.engine import Engine
+from dvf_tpu_torch.utils.image import to_float, to_uint8
 
 CPU = torch.device("cpu")
 CPU8 = [CPU] * 8
@@ -94,9 +95,9 @@ def test_param_pspecs_cover_params_and_are_valid():
 
 
 def test_tp_sharded_forward_matches_replicated():
-    """Two ranks each with their weight blocks, one sum after each
-    row-parallel conv: the replicated forward's output, and the
-    reference's TP forward's."""
+    """Two ranks' rank programs in lockstep, each with its weight
+    blocks, one sum after each row-parallel conv: the replicated
+    forward's output, and the reference's TP forward's."""
     from dvf_tpu.models.style_transfer import StyleNetConfig as RefCfg
     from dvf_tpu.models.style_transfer import apply_style_net as ref_apply
 
@@ -106,10 +107,9 @@ def test_tp_sharded_forward_matches_replicated():
     params = from_jax(jp, CPU)
     want = tst.apply_style_net(params, torch.from_numpy(x), cfg)
     placed = place_tree(params, mesh(model=2), tst.param_pspecs(cfg))
-    group = RankGroup([CPU, CPU])
-    inner = tst.tp_inner_apply(cfg)
-    outs = group.run(lambda m: inner(placed.local((0, 0, m)), torch.from_numpy(x),
-                                     lambda y: group.psum(m, y)))
+    program = tst.tp_inner_steps(cfg)
+    outs = lockstep([program(placed.local((0, 0, m)), torch.from_numpy(x))
+                     for m in range(2)], [CPU, CPU])
     assert torch.equal(outs[0], outs[1])
     np.testing.assert_allclose(outs[0].numpy(), want.numpy(), atol=2e-2)
     ref = ref_apply(jax.tree.map(jnp.asarray, jp), jnp.asarray(x), RefCfg(**SMALL))
@@ -178,10 +178,9 @@ def test_espcn_pspecs_cover_params_and_tp_matches_replicated():
                                                          dtype=np.float32))
     want = tes.apply_espcn(params, x, cfg)
     placed = place_tree(params, mesh(model=2), specs)
-    group = RankGroup([CPU, CPU])
-    inner = tes.tp_inner_apply(cfg)
-    got = group.run(lambda m: inner(placed.local((0, 0, m)), x,
-                                    lambda y: group.psum(m, y)))[0]
+    program = tes.tp_inner_steps(cfg)
+    got = lockstep([program(placed.local((0, 0, m)), x) for m in range(2)],
+                   [CPU, CPU])[0]
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-2)
 
 
@@ -334,21 +333,105 @@ def test_style_pp_rejects_bad_parallel():
 
 
 def test_rank_group_sum_is_identical_on_every_rank():
-    """The sum is formed once, in rank order (half precision in float32),
-    and every rank gets the same bits back; an error on one rank reaches
-    the caller instead of hanging the others."""
-    group = RankGroup([CPU] * 4)
+    """Four rank programs in lockstep: the sum is formed once, in rank
+    order (half precision in float32), and every rank gets the same
+    bits back; an error in one rank's program reaches the caller, every
+    other program closed first; programs that ask for different
+    collectives raise."""
+    from dvf_tpu_torch.models.layers import GATHER, SUM
+
     parts = [torch.full((3,), 0.1 * (r + 1), dtype=torch.bfloat16) for r in range(4)]
-    outs = group.run(lambda r: group.psum(r, parts[r]))
+
+    def summed(r):
+        return (yield SUM, parts[r])
+
+    outs = lockstep([summed(r) for r in range(4)], [CPU] * 4)
     want = sum(p.float() for p in parts).to(torch.bfloat16)
     assert all(torch.equal(o, want) for o in outs)
 
-    failing = RankGroup([CPU] * 4)
+    closed = []
 
-    def body(r):
-        if r == 2:
-            raise KeyError("rank 2")
-        return failing.psum(r, parts[r])
+    def failing(r):
+        try:
+            y = yield SUM, parts[r]
+            if r == 2:
+                raise KeyError("rank 2")
+            y = yield SUM, y
+            return y
+        finally:
+            closed.append(r)
 
-    with pytest.raises(KeyError, match="rank 2"):
-        failing.run(body)
+    with pytest.raises(KeyError, match="rank 2") as err:
+        lockstep([failing(r) for r in range(4)], [CPU] * 4)
+    # Closed by lockstep itself, last rank first (the traceback ``err``
+    # holds keeps the programs alive).
+    assert closed == [2, 3, 1, 0], (closed, err)
+
+    def asks(kind):
+        return (yield kind, parts[0])
+
+    with pytest.raises(RuntimeError, match="diverged"):
+        lockstep([asks(SUM), asks(GATHER)], [CPU, CPU])
+
+
+def test_style_tp_engine_runs_no_thread_and_is_the_train_forward(monkeypatch):
+    """The style TP body serves from the calling thread: a batch on
+    (data=2, model=2) starts no thread, and its output is, bit for bit,
+    the train step's forward (the rank programs in lockstep) on the
+    engine's own placed weights."""
+    import threading
+
+    x = np.random.default_rng(6).integers(0, 255, (2, 32, 32, 3), np.uint8)
+    cfg = tst.StyleNetConfig(**SMALL, compute_dtype=torch.float32)
+    eng = Engine(_style(dtype="float32"), mesh=mesh(data=2, model=2))
+    eng.compile(x.shape, np.uint8)
+    assert eng._exec_filter.name.startswith("tp("), eng._exec_filter.name
+    starts = []
+    real_start = threading.Thread.start
+    monkeypatch.setattr(threading.Thread, "start",
+                        lambda self: (starts.append(self.name), real_start(self))[1])
+    got = eng.submit(x).fetch()
+    monkeypatch.undo()
+    assert starts == []
+    program = tst.tp_inner_steps(cfg)
+    want = []
+    with torch.no_grad():
+        for d in range(2):
+            xb = to_float(torch.from_numpy(x[d:d + 1]))
+            want.append(lockstep([program(eng._state.local((d, 0, m)), xb)
+                                  for m in range(2)], [CPU, CPU])[0])
+    np.testing.assert_array_equal(got, to_uint8(torch.cat(want)).numpy())
+
+
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("net", ["style_transfer", "super_resolution"])
+def test_float32_tp_batch_keeps_the_callers_tf32_flag(net, tf32, monkeypatch):
+    """A float32 TP serving batch runs every conv of every rank with
+    cuDNN's TF32 off, the last rank's convs after its final sum
+    included, and leaves the process-wide flag as it found it."""
+    import torch.nn.functional as F
+
+    from dvf_tpu_torch.models import layers
+
+    shape = (2, 32, 32, 3) if net == "style_transfer" else (2, 16, 16, 3)
+    x = np.random.default_rng(7).integers(0, 255, shape, np.uint8)
+    kw = SMALL if net == "style_transfer" else {}
+    eng = Engine(dt.get_filter(net, dtype="float32", **kw), mesh=mesh(model=2))
+    eng.compile(x.shape, np.uint8)
+    assert eng._exec_filter.name.startswith("tp("), eng._exec_filter.name
+    flags, conv2d = [], F.conv2d
+
+    def spy(*args, **kwargs):
+        flags.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = tf32
+        monkeypatch.setattr(layers.F, "conv2d", spy)
+        eng.submit(x).fetch()
+        monkeypatch.undo()
+        assert torch.backends.cudnn.allow_tf32 is tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert flags and not any(flags), flags

@@ -168,8 +168,8 @@ class TestRegistry:
     def test_json_documents_are_strict_rfc8259(self):
         """NaN percentiles (empty windows) must never reach a JSON
         document as the invalid literal ``NaN`` — rows treat them as
-        gaps, served documents sanitize to null (``jsonable``; the
-        reference also checks its flight dumps, not ported yet)."""
+        gaps, served documents sanitize to null (``jsonable``, which
+        the flight recorder's dumps go through too)."""
         ring = TimeSeriesRing(lambda: {"p50_ms": float("nan"),
                                        "fps": 1.0}, interval_s=10.0)
         ring.sample_once()
@@ -318,7 +318,7 @@ class TestServeMetricsEndpoint:
                 series = json.loads(_get(f"{ex.url}/timeseries"))
                 with pytest.raises(urllib.error.HTTPError):
                     _get(f"{ex.url}/nope")
-                # The lineage and audit planes are not ported: their
+                # No lineage or audit plane is attached here: their
                 # endpoints answer 404, as the reference's do without
                 # a plane attached.
                 for path in ("/explain", "/audit"):
