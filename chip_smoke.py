@@ -30,8 +30,11 @@ which raises (and so exits non-zero) on failure:
    (31 taps, d = 15) and in each compiled and the runtime-size
    instantiation. The style nets' bias + instance norm + ReLU + residual
    kernels (csrc/norm.cu) against their plain ops at the style stream's
-   three norm geometries (``check_norm``). The neural nets (cuDNN convs;
-   the style net's norms through csrc/norm.cu): the port's trained
+   three norm geometries (``check_norm``), and their out stage's conv +
+   bias + tanh kernel (csrc/outconv.cu) at the stream's shape and at
+   ragged ones (``check_outconv``). The neural nets (cuDNN convs;
+   the style net's norms through csrc/norm.cu, its out stage through
+   csrc/outconv.cu): the port's trained
    checkpoints style_stripes_64 and sr2x_64 on the card in
    bfloat16 against the JAX package's goldens (tests/golden/, mean |d| <
    2.0 and max <= 30, their tests' bar), and in float32 against the CPU
@@ -87,7 +90,8 @@ which raises (and so exits non-zero) on failure:
    Then the neural filters and the rest of the registry, 64 frames each
    in full batches: style_transfer() (c 32, r 5, bf16) at 8 x 720 x
    1280 (BASELINE configs[4]) and again with fast_convs=True (an A/B
-   row), each batch 15 instance_norm launches (csrc/norm.cu) and no
+   row), each batch 15 instance_norm launches (csrc/norm.cu), one
+   out_conv launch (csrc/outconv.cu; none with fast_convs) and no
    other kernel; super_resolution() (x2, bf16) at 8 x 540 x 960 (1080p
    out), and equalize, clahe and canny at 16 x 1080 x 1920, every launch
    count 0; every frame in order,
@@ -212,8 +216,9 @@ which raises (and so exits non-zero) on failure:
    surfaceless EGL are present, ``serve --source <video file>`` and
    ``--display-backend gl``;
 13. training (``train_phase``), no hand kernel on its path (the style
-   net's norms take their plain ops under autograd; the only launches
-   are the instance_norm ones of (d)'s serving, 15 a forward): (a) the default StyleTrainConfig (the style net at c
+   net's norms and out stage take their plain ops under autograd; the
+   only launches are (d)'s serving's, 15 instance_norm and one out_conv
+   a forward): (a) the default StyleTrainConfig (the style net at c
    32, r 5, the VGG encoder at its default blocks, bf16) on one batch of
    8 x 256 x 256 SyntheticSource frames with the stripes target, 30
    steps with an AsyncSaver checkpoint at step 15: every loss finite and
@@ -231,7 +236,7 @@ which raises (and so exits non-zero) on failure:
    steps, params bitwise, one more step against the uninterrupted run's,
    and the trained weights through ``load_style_filter`` and an Engine
    at 8 x 720 x 1280, within 1 LSB of a direct call, the served batch 15
-   instance_norm launches; (e) ``python -m
+   instance_norm launches and one out_conv; (e) ``python -m
    dvf_tpu_torch train`` (4 steps, checkpoints every 2, then resumed to
    6) and ``train-sr`` (4 steps with --eval; 0 steps from the committed
    sr2x_64 state with --eval, delta > 2.5 dB) as processes on cuda:0;
@@ -241,7 +246,7 @@ which raises (and so exits non-zero) on failure:
    fields (``hbm_roofline_frac`` and ``mfu`` each <= 1.0: above it the
    count behind ``Engine.cost_analysis`` is wrong), K1 (gauss9_1080p), K3
    (sobel_bilateral_1080p) and K4 (flow_720p) once per device batch and
-   instance_norm (style_720p) 15 times per batch, besides their
+   instance_norm (style_720p) 15 times per batch and out_conv once, besides their
    compiles' launches, and no other kernel, then one batch
    of each config through an Engine within 1 LSB of its plain version,
    and K1 at 3 taps (its run-time-tap instantiation) at gauss3_1080p's
@@ -278,7 +283,8 @@ which raises (and so exits non-zero) on failure:
    the bf16 nets' bar (mean < 2.0, max <= 30), and at the tests' own
    small sizes in bfloat16 within 3 / 1; each sharded style batch runs
    instance_norm 15 times a TP rank, and for PP 5 times plus 10 a
-   microbatch, and no other kernel; (f) ``serve --mesh data=1`` and ``bench
+   microbatch and out_conv once on stage 0 (bf16, c 32), and no other
+   kernel; (f) ``serve --mesh data=1`` and ``bench
    --mesh auto`` through ``cli.main``, ``serve --mesh data=2`` as a
    process (exit 2 on one card: needs 2 devices, has 1), and a 2-replica
    local fleet with ``devices_per_replica=0`` (both replicas on cuda:0)
@@ -335,7 +341,9 @@ and SR batches' device times; ``serve_only()``, ``ring_only()``,
 ``train_only()``, ``bench_only()``, ``mesh_only()``, ``multiproc_only()``
 and ``train_mesh_only()`` run the build and phase 7, 8, 9, 10, 11, 12,
 13, 14, 15, 16 or 17 alone, ``norm_only()`` the build and the style nets'
-instance-norm kernels (``check_norm``, part of phases 3-4); ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
+instance-norm kernels (``check_norm``, part of phases 3-4),
+``outconv_only()`` the build and their out stage's kernel
+(``check_outconv``, part of phases 3-4); ``mp_rank(argv)`` is one rank of phase 16's group. The bounds and counts come from the package's
 counters (``dvf_tpu_torch.runtime.cost``), the ones ``Engine.cost_analysis``
 and the bench's roofline read.
 
@@ -401,8 +409,11 @@ SR_SHAPE = (8, 540, 960, 3)
 REGISTRY_FRAMES = 64
 # The style net's (c 32, r 5) instance norms a forward: stem, down1,
 # down2, two a residual block, up1, up2. Each is one call of
-# csrc/norm.cu's kernels, counted once as "instance_norm".
+# csrc/norm.cu's kernels, counted once as "instance_norm". Its out stage
+# (bf16, unsharded, without fast_convs) is one launch of csrc/outconv.cu,
+# "out_conv".
 STYLE_NORMS = 3 + 2 * 5 + 2
+STYLE_LAUNCHES = {"instance_norm": STYLE_NORMS, "out_conv": 1}
 REGISTRY_LEGS = [("style_transfer", {}, STYLE_SHAPE),
                  ("style_transfer", {"fast_convs": True}, STYLE_SHAPE),
                  ("super_resolution", {}, SR_SHAPE),
@@ -969,6 +980,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     neural_checks = check_neural(dev)
     rows.extend(check_norm(dev))
+    torch.cuda.empty_cache()
+    rows.extend(check_outconv(dev))
     torch.cuda.empty_cache()
 
     # 5. the main paths
@@ -2349,6 +2362,143 @@ def norm_only() -> None:
     print(json.dumps({"kernels": check_norm(dev)}))
 
 
+# The style stream's out stage (csrc/outconv.cu): its input, and frames
+# that are no multiple of the kernel's tile, the smallest it takes, and
+# every other channel count it is compiled for.
+OUTCONV_SHAPES = ((8, 720, 1280, 32), (1, 5, 5, 32), (2, 37, 53, 32), (3, 97, 131, 32),
+                  (2, 37, 53, 16), (2, 37, 53, 48), (1, 70, 131, 64))
+# The share of the outputs whose pre-tanh value may sit one bf16 rounding
+# apart from the plain ops' (the conv's summation order over 81·Cin
+# products; tests/test_torch_cuda.py _check_outconv).
+OUTCONV_MAX_SHARE = 2e-3
+
+
+def _outconv_operands(shape, dev, seed):
+    """A post-ReLU bf16 activation as up2's norm leaves it, the out conv's
+    He-normal weight and a bias."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cin = shape[-1]
+    x = torch.relu(torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    p = {"w": torch.randn((9, 9, cin, 3), generator=gen, device=dev)
+         * (2.0 / (81 * cin)) ** 0.5,
+         "b": torch.randn(3, generator=gen, device=dev) * 0.3}
+    return x, p
+
+
+def outconv_gap(got, x, p):
+    """The kernel's output against the plain ops' on the same operands:
+    the largest difference over its bound (one bf16 ulp of the conv result
+    and of the sum with the bias, halved by the scaled tanh, plus float32
+    noise of tanh), and the share of outputs that differ beyond that
+    noise (a pre-tanh rounding flipped)."""
+    import torch
+
+    from dvf_tpu_torch.models import layers as tl
+
+    s = tl.conv2d_nb(p, x, compute_dtype=torch.bfloat16, reflect=True)
+    z = (s + p["b"].to(torch.bfloat16)).float()
+    want = (0.5 * (torch.tanh(z) + 1.0))
+    diff = (got.float() - want).abs()
+    us = _ulp_bf16(s.float().abs() + _ulp_bf16(s.float()))
+    bound = 0.5 * (us + _ulp_bf16(z.abs() + us + _ulp_bf16(z))) + 2.0 ** -22
+    return float((diff / bound).max()), float((diff > 2.0 ** -22).float().mean())
+
+
+def check_outconv(dev) -> list:
+    """The style nets' out stage kernel (``csrc/outconv.cu``,
+    ``ops.kernels.out_conv_tanh_cuda``) against the plain ops
+    (``models.layers.out_conv_tanh_plain``) at the stream's shape and at
+    ragged ones: the largest gap over its bound and the share of outputs a
+    flipped rounding moved (``outconv_gap``); at the stream's shape
+    CUDA-event and profiler times of the kernel, of the plain ops as the
+    stream runs them (cuDNN with TF32 allowed: a TF32 kernel on a float32
+    copy of the input) and of cuDNN bf16 with Cout zero-padded to 8 on a
+    pre-padded input (a yardstick the port never calls; it too takes
+    TF32); the bound, max(FLOPs ÷ 989e12, bytes ÷ 3.35e12) with the input
+    read once and the float32 output written once. Phase 5 counts the main
+    path's launches. Replaces no TPU kernel."""
+    import torch
+
+    from dvf_tpu_torch.models import layers as tl
+    from dvf_tpu_torch.ops import kernels as tk
+
+    rows = []
+    for i, shape in enumerate(OUTCONV_SHAPES):
+        x, p = _outconv_operands(shape, dev, 29 + i)
+        before = tk.LAUNCHES["out_conv"]
+        got = tk.out_conv_tanh_cuda(p, x)
+        torch.cuda.synchronize()
+        if tk.LAUNCHES["out_conv"] != before + 1:
+            raise AssertionError("out_conv: not counted once a call")
+        worst, share = outconv_gap(got, x, p)
+        log(f"outconv {shape}: worst {worst:.3f} of the bound, {share:.2e} of the "
+            f"outputs a rounding apart")
+        if not (worst <= 1 and share < OUTCONV_MAX_SHARE):
+            raise AssertionError(f"out_conv disagrees with the plain ops at {shape}: "
+                                 f"{worst} of the bound, share {share}")
+        row = dict(name="out_conv", route="cuda", source="dvf_tpu_torch/csrc/outconv.cu",
+                   replaces=None, shape=list(shape), dtype="bfloat16", out_dtype="float32",
+                   worst_of_bound=worst, rounded_apart_share=share)
+        if i == 0:
+            ms = cuda_ms(lambda t: tk.out_conv_tanh_cuda(p, t), x)
+            dev_ms, launches = profiled_ms(lambda t: tk.out_conv_tanh_cuda(p, t), x)
+            xp = tl.pad_nhwc(x, 4, "reflect")
+            wp = torch.zeros((9, 9, shape[-1], 8), device=dev)
+            wp[..., :3] = p["w"]
+            wp = wp.to(torch.bfloat16)
+            prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                plain_ms = cuda_ms(lambda t: tl.out_conv_tanh_plain(
+                    p, t, torch.bfloat16, torch.float32), x)
+                plain_dev_ms, plain_kernels = profiled_ms(lambda t: tl.out_conv_tanh_plain(
+                    p, t, torch.bfloat16, torch.float32), x)
+                lib_ms = cuda_ms(lambda t: tl._conv(t, wp), xp)
+            finally:
+                torch.backends.cudnn.allow_tf32 = prev
+            n = int(np.prod(shape[:3]))
+            flops = 2 * 81 * shape[-1] * 3 * n
+            mma_flops = 2 * 81 * shape[-1] * 8 * n * 5 // 9  # 5 tap pairs of 9 taps, N 8
+            nbytes = n * shape[-1] * 2 + n * 3 * 4
+            t_ops = flops / _cost().PEAK_BF16_S * 1e3
+            t_bytes = nbytes / _cost().PEAK_BYTES_S * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            row.update(kernel_ms=ms, device_ms=dev_ms, device_kernels=launches,
+                       plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                       plain_device_kernels=plain_kernels, library_ms=lib_ms,
+                       library="cuDNN bf16, Cout zero-padded to 8, pre-padded input",
+                       bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / dev_ms,
+                       achieved_tb_s=nbytes / (dev_ms * 1e-3) / 1e12,
+                       achieved_tflop_s=flops / (dev_ms * 1e-3) / 1e12,
+                       mma_tflop_s=mma_flops / (dev_ms * 1e-3) / 1e12)
+            log(f"outconv {shape}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+                f"{launches:.0f} kernels), plain {plain_ms:.4f} ms (device "
+                f"{plain_dev_ms:.4f}, {plain_kernels:.0f} kernels), cuDNN Cout 8 "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+                f"{b_ms / dev_ms:.3f}, {row['achieved_tb_s']:.2f} TB/s, "
+                f"{row['achieved_tflop_s']:.1f} TFLOP/s ({row['mma_tflop_s']:.1f} issued)")
+            del xp, wp
+        rows.append(row)
+        del x, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def outconv_only() -> None:
+    """The build and the out stage's kernel alone (its check, times and
+    bound at the style stream's shape, ``check_outconv``):
+    ``python3 -c 'import chip_smoke; chip_smoke.outconv_only()'``."""
+    from dvf_tpu_torch.ops import _build
+
+    dev, _, _ = _only_setup()
+    for line in _build.build_log.get("outconv", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"  ptxas[outconv]: {line.strip()}")
+    print(json.dumps({"kernels": check_outconv(dev)}))
+
+
 def registry_label(name: str, kw: dict) -> str:
     args = ",".join(f"{k}={v!r}" for k, v in kw.items())
     return f"{name}({args})"
@@ -2358,7 +2508,8 @@ def registry_leg(dev, name: str, kw: dict, shape):
     """Phase 5 for a neural or registry filter: a Pipeline over
     REGISTRY_FRAMES frames of SyntheticSource(seed=0) in full batches, the
     launch counters zeroed just before and read just after (every count
-    must stay 0 but the style net's instance_norm, STYLE_NORMS a batch).
+    must stay 0 but the style net's instance_norm, STYLE_NORMS a batch,
+    and its out_conv, one a batch without fast_convs).
     Every frame once and in order; the first delivered batch
     within 1 LSB of a direct ``filt.fn`` call on the card on the same
     frames; for the classical ops the kept frames also bit-exact to the
@@ -2398,6 +2549,8 @@ def registry_leg(dev, name: str, kw: dict, shape):
     want = {k: 0 for k in delta}
     if name == "style_transfer":
         want["instance_norm"] = STYLE_NORMS * (n // bsz)
+        if not kw.get("fast_convs"):
+            want["out_conv"] = n // bsz
     if delta != want:
         raise AssertionError(f"{label}: launches {delta}, want {want}")
     frames = [f for f, _ in dvf_tpu_torch.SyntheticSource(
@@ -6038,8 +6191,8 @@ def _dir_state(path: str) -> dict:
 
 def cli_leg_cache(tmp: str):
     """(g) ``serve --compile-cache-dir DIR`` in two processes on one fresh
-    directory: the first builds the three kernel libraries there (its
-    build seconds printed), the second loads them with 0.0 s of build;
+    directory: the first builds every kernel library there (its build
+    seconds printed), the second loads them with 0.0 s of build;
     the default dvf_tpu_torch/_build/ is written by neither."""
     import subprocess
 
@@ -6062,7 +6215,7 @@ def cli_leg_cache(tmp: str):
         if r.returncode != 0 or not line:
             raise AssertionError(f"cli (g): rc {r.returncode}: {r.stderr[-3000:]}")
         builds.append(json.loads(line[-1].split("kernel builds (s): ", 1)[1]))
-    names = {"stencils", "warp", "codec", "norm"}
+    names = {"stencils", "warp", "codec", "norm", "outconv"}
     libs = sorted(n for n in os.listdir(cache) if n.endswith(".so"))
     if (set(builds[0]) != names or not all(v > 0 for v in builds[0].values())
             or builds[1] != {n: 0.0 for n in names}
@@ -6511,7 +6664,7 @@ def train_leg_resume(dev, state, step, batch, ck: str):
     from another seed: step and params bitwise; one more step of the
     restored state against the uninterrupted run's next step; the trained
     weights served by an Engine at 8 x 720 x 1280, the served batch
-    STYLE_NORMS instance_norm launches; the row holds every instance_norm
+    STYLE_LAUNCHES (instance_norm and out_conv); the row holds every
     launch of the leg (the engine's compile, the batch, the direct
     call)."""
     import torch
@@ -6551,7 +6704,7 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         f"{TRAIN_STEPS // 2} and {final_step}, params bitwise equal to the saved "
         f"ones ({restore_s:.2f} s per restore); the next step resumed vs "
         f"uninterrupted: loss |d| {dl:.3e}, params max |d| {dp:.3e}")
-    norms0 = tk.LAUNCHES["instance_norm"]
+    launches0 = dict(tk.LAUNCHES)
     filt = load_style_filter(ck)
     eng = dvf_tpu_torch.Engine(filt, device=dev)
     eng.compile(TRAIN_SERVE_SHAPE)
@@ -6559,15 +6712,15 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         *TRAIN_SERVE_SHAPE[1:], n_frames=TRAIN_SERVE_SHAPE[0], seed=0)][:-1]
     x = np.stack(frames)
     t = time.perf_counter()
-    before = tk.LAUNCHES["instance_norm"]
+    before = dict(tk.LAUNCHES)
     got = eng.submit(x).fetch()
-    served = tk.LAUNCHES["instance_norm"] - before
+    served = {k: v - before[k] for k, v in tk.LAUNCHES.items() if v != before[k]}
     serve_ms = (time.perf_counter() - t) * 1e3
-    if served != STYLE_NORMS:
-        raise AssertionError(f"train (d): the served batch launched instance_norm "
-                             f"{served} times, want {STYLE_NORMS}")
+    if served != STYLE_LAUNCHES:
+        raise AssertionError(f"train (d): the served batch launched {served}, want "
+                             f"{STYLE_LAUNCHES}")
     direct = to_uint8(_filter_out(filt, to_float(torch.from_numpy(x).to(dev)), dev))
-    norms = tk.LAUNCHES["instance_norm"] - norms0
+    launches = {k: v - launches0[k] for k, v in tk.LAUNCHES.items()}
     lsb = max_lsb(got, direct.cpu().numpy())
     if got.shape != TRAIN_SERVE_SHAPE or got.dtype != np.uint8 or lsb > 1:
         raise AssertionError(f"train (d): served {got.shape} {got.dtype}, {lsb} LSB "
@@ -6576,7 +6729,7 @@ def train_leg_resume(dev, state, step, batch, ck: str):
         f"in {serve_ms:.1f} ms, max {lsb} LSB from a direct call, mean "
         f"{float(got.mean()):.1f}")
     eng.free()
-    return dict(leg="d_resume", norm_launches=norms,
+    return dict(leg="d_resume", serve_launches=launches,
                 restored_steps=[TRAIN_STEPS // 2, final_step],
                 params_differing=0, restore_s=restore_s,
                 next_step_loss_abs_diff=dl, next_step_param_max_abs_diff=dp,
@@ -6656,7 +6809,7 @@ def train_leg_cli(tmp: str):
 def train_phase(dev):
     """Phase 13: legs (a)-(e) of training. Returns (rows, the launch counts
     of the phase: the train path runs no hand kernel, so all 0 but (d)'s
-    serving of the trained net, its instance_norm launches)."""
+    serving of the trained net, its instance_norm and out_conv launches)."""
     import tempfile
 
     import torch
@@ -6687,14 +6840,15 @@ def train_phase(dev):
         timed(train_leg_sr, dev)
         timed(train_leg_cli, tmp)
     delta = dict(tk.LAUNCHES)
-    served = next(r["norm_launches"] for r in rows if r["leg"] == "d_resume")
-    if delta != {k: served if k == "instance_norm" else 0 for k in delta}:
+    served = next(r["serve_launches"] for r in rows if r["leg"] == "d_resume")
+    if delta != served:
         raise AssertionError(f"train: the train path launched a hand kernel: {delta} "
-                             f"(the serving leg's instance_norm: {served})")
-    if not tk.AUTOGRAD_CALLS["instance_norm"]:
-        raise AssertionError("train: no norm of the train path took the plain ops")
+                             f"(the serving leg's: {served})")
+    if not (tk.AUTOGRAD_CALLS["instance_norm"] and tk.AUTOGRAD_CALLS["out_conv"]):
+        raise AssertionError(f"train: no norm or out stage of the train path took the "
+                             f"plain ops: {tk.AUTOGRAD_CALLS}")
     log(f"train phase: {time.perf_counter() - t0:.1f} s, launches {delta}, the "
-        f"norms' plain calls under autograd {tk.AUTOGRAD_CALLS['instance_norm']}")
+        f"plain calls under autograd {tk.AUTOGRAD_CALLS}")
     return rows, delta
 
 
@@ -6712,14 +6866,14 @@ def train_only() -> None:
 # ---------------------------------------------------------------------------
 
 BENCH_ITERS = 30                 # (a): device-resident batches per config
-# (a): the hand kernel each BENCH_CONFIGS entry launches, and how often per
-# device batch. gauss3_1080p's 3-tap blur has none: gaussian_blur resolves
+# (a): the hand kernels each BENCH_CONFIGS entry launches, and how often
+# per device batch. gauss3_1080p's 3-tap blur has none: gaussian_blur resolves
 # blurs under 9 taps to plain torch ops (ops/conv.py), as the reference's
 # measured default does on its CPU and TPU alike.
-BENCH_KERNEL = {"gauss9_1080p": ("sep_blur", 1),
-                "sobel_bilateral_1080p": ("sobel_bilateral", 1),
-                "flow_720p": ("warp_bounded", 1),
-                "style_720p": ("instance_norm", STYLE_NORMS)}
+BENCH_KERNEL = {"gauss9_1080p": {"sep_blur": 1},
+                "sobel_bilateral_1080p": {"sobel_bilateral": 1},
+                "flow_720p": {"warp_bounded": 1},
+                "style_720p": STYLE_LAUNCHES}
 BENCH_E2E_BATCH = 16             # (b): the 1080p pipeline legs' batch
 BENCH_E2E_FRAMES = 320           # (b): frames of the throughput run
 BENCH_LAT_FRAMES = 160           # (b): frames of the rate-controlled run
@@ -6751,7 +6905,7 @@ def bench_hold(dev, config: str, plain_of: dict) -> int:
     filt = dvf_tpu_torch.get_filter(name, **kw)
     rng = np.random.default_rng(0)
     eng = dvf_tpu_torch.Engine(filt, device=dev)
-    counter = BENCH_KERNEL.get(config, (None,))[0]
+    counter = next(iter(BENCH_KERNEL.get(config, {})), None)
     if name == "flow_warp":
         frames = [rng.integers(0, 255, size=shape[1:], dtype=np.uint8)
                   for _ in range(2 * shape[0])]
@@ -6794,7 +6948,7 @@ def bench_leg_device(dev, plain_of: dict):
     BENCH_CONFIGS entry, the launch counters zeroed before and read
     after: the JSON line with its H100 roofline fields (each share <= 1.0,
     a count being wrong otherwise), the configs' kernel launched once per
-    device batch (the style net's norms STYLE_NORMS times; warm-up and
+    device batch (the style net's STYLE_LAUNCHES; warm-up and
     timed batches) besides its compile's launches, no other kernel; then one batch held to the plain version
     (``bench_hold``). Returns (rows, launch counts, ms_per_frame by
     config)."""
@@ -6808,10 +6962,10 @@ def bench_leg_device(dev, plain_of: dict):
             out = _cli_json(f"a {config}", ["bench", "--config", config,
                                             "--iters", str(BENCH_ITERS)])
             delta = dict(tk.LAUNCHES)
-        counter, per = BENCH_KERNEL.get(config, (None, 0))
+        per = BENCH_KERNEL.get(config, {})
         batches = ledger.batches()
         serving = {k: v - ledger.compile.get(k, 0) for k, v in delta.items()}
-        want = {k: per * batches if k == counter else 0 for k in delta}
+        want = {k: per.get(k, 0) * batches for k in delta}
         if serving != want or batches != BENCH_ITERS + 1:
             raise AssertionError(f"bench (a) {config}: serving launches {serving} "
                                  f"for {batches} batches, want {want}")
@@ -7323,8 +7477,10 @@ def mesh_leg_nets(dev, smi: str):
     to (mean |d| < 2.0, max <= 30, the goldens' bar) and its spread is
     logged. The sharded batch's launches: instance_norm (csrc/norm.cu)
     STYLE_NORMS times a TP rank; for PP the 5 norms outside the trunk
-    once and the trunk's 2 r in each microbatch (4 here); no other
-    kernel. Returns (rows, those launch counts summed)."""
+    once and the trunk's 2 r in each microbatch (4 here), and in bf16 at
+    c 32 the out stage (csrc/outconv.cu) once on stage 0; the TP body's
+    row-parallel out conv keeps the plain ops; no other kernel. Returns
+    (rows, those launch counts summed)."""
     import torch
 
     import dvf_tpu_torch
@@ -7332,22 +7488,24 @@ def mesh_leg_nets(dev, smi: str):
 
     rows, total = [], {}
     small = {"base_channels": 8, "n_residual": 2}
-    tp, pp = 2 * STYLE_NORMS, 5 + 2 * 5 * 4
-    legs = [  # name, kwargs, shape, model ranks, body, bar, timed, norms
+    tp = {"instance_norm": 2 * STYLE_NORMS}
+    pp = {"instance_norm": 5 + 2 * 5 * 4}
+    legs = [  # name, kwargs, shape, model ranks, body, bar, timed, launches
         ("style_transfer", {"parallel": "tp"}, STYLE_SHAPE, 2, "tp(", None, True, tp),
-        ("style_transfer", {"parallel": "pp"}, STYLE_SHAPE, 5, "pp(", None, True, pp),
-        ("super_resolution", {}, SR_SHAPE, 2, "tp(", None, True, 0),
+        ("style_transfer", {"parallel": "pp"}, STYLE_SHAPE, 5, "pp(", None, True,
+         {**pp, "out_conv": 1}),
+        ("super_resolution", {}, SR_SHAPE, 2, "tp(", None, True, {}),
         ("style_transfer", {"parallel": "tp", "dtype": "float32"}, STYLE_SHAPE, 2,
          "tp(", 3, False, tp),
         ("style_transfer", {"parallel": "pp", "dtype": "float32"}, STYLE_SHAPE, 5,
          "pp(", 1, False, pp),
-        ("super_resolution", {"dtype": "float32"}, SR_SHAPE, 2, "tp(", 3, False, 0),
+        ("super_resolution", {"dtype": "float32"}, SR_SHAPE, 2, "tp(", 3, False, {}),
         ("style_transfer", {"parallel": "tp", **small}, (2, 32, 32, 3), 2, "tp(", 3,
-         False, 2 * (3 + 2 * 2 + 2)),
+         False, {"instance_norm": 2 * (3 + 2 * 2 + 2)}),
         ("style_transfer", {"parallel": "pp", "base_channels": 8, "n_residual": 4},
-         (4, 32, 32, 3), 4, "pp(", 1, False, 5 + 2 * 4 * 4),
+         (4, 32, 32, 3), 4, "pp(", 1, False, {"instance_norm": 5 + 2 * 4 * 4}),
     ]
-    for name, kw, shape, n, prefix, bar, timed, norms in legs:
+    for name, kw, shape, n, prefix, bar, timed, launches in legs:
         x = _mesh_frames(shape, 50)
         one = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter(name, **kw), device=dev)
         want = one.submit(x).fetch().copy()
@@ -7359,9 +7517,9 @@ def mesh_leg_nets(dev, smi: str):
         if not eng._exec_filter.name.startswith(prefix):
             raise AssertionError(f"mesh (e) {name}: body {eng._exec_filter.name}")
         got, delta = _launch_delta(lambda: eng.submit(x).fetch().copy())
-        if delta != {k: norms if k == "instance_norm" else 0 for k in delta}:
+        if delta != {k: launches.get(k, 0) for k in delta}:
             raise AssertionError(f"mesh (e) {eng._exec_filter.name} {shape}: launches "
-                                 f"{delta}, want instance_norm {norms} and no other")
+                                 f"{delta}, want {launches} and no other")
         for k, v in delta.items():
             total[k] = total.get(k, 0) + v
         st = _level_stats(got, want)

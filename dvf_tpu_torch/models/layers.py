@@ -15,7 +15,10 @@ with ``lax.conv_general_dilated``, outside any Pallas kernel. They run in
 ``lax.conv`` does; instance-norm statistics are float32. A conv's bias,
 the instance norm after it, its ReLU and a residual add run as one call,
 :func:`bias_norm_act`: on a card outside autograd, the kernels of
-``csrc/norm.cu`` (launched by ``ops.kernels.bias_norm_act_cuda``).
+``csrc/norm.cu`` (launched by ``ops.kernels.bias_norm_act_cuda``). The
+style nets' out stage (9×9 conv, bias, scaled tanh) is one call too,
+:func:`out_conv_tanh`: on a card outside autograd, in bf16, the kernel of
+``csrc/outconv.cu`` (``ops.kernels.out_conv_tanh_cuda``).
 """
 
 from __future__ import annotations
@@ -213,6 +216,50 @@ def bias_norm_act(p: Params, y: torch.Tensor, b: torch.Tensor, relu: bool = Fals
     return kernels.bias_norm_act_cuda(p, y.contiguous(), b, relu,
                                       None if residual is None else residual.contiguous(),
                                       eps)
+
+
+def bias_tanh(y: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``0.5 · (tanh(y + b) + 1)`` for a conv's pre-bias output ``y``: the
+    bias added in ``y``'s dtype, tanh and the scale in float32, the result
+    in ``out_dtype`` (a float image in [0, 1])."""
+    return (0.5 * (torch.tanh((y + b.to(y.dtype)).float()) + 1.0)).to(out_dtype)
+
+
+def out_conv_tanh_plain(p: Params, x: torch.Tensor, compute_dtype: torch.dtype,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """The style nets' out stage as separate ops: the reflect-padded conv
+    in ``compute_dtype`` (:func:`conv2d_nb`), then :func:`bias_tanh`. The
+    numerics the kernel of :func:`out_conv_tanh` is held to, and the
+    differentiable path."""
+    return bias_tanh(conv2d_nb(p, x, compute_dtype=compute_dtype, reflect=True),
+                     p["b"], out_dtype)
+
+
+def out_conv_tanh(p: Params, x: torch.Tensor, compute_dtype: torch.dtype,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The style nets' out stage, ``0.5 · (tanh(conv(x) + b) + 1)`` with a
+    reflect-101 border, from an NHWC activation ``x`` and the conv's
+    params ``p`` (HWIO weight, bias).
+
+    A CPU tensor takes :func:`out_conv_tanh_plain`. A CUDA tensor takes it
+    too where the call is differentiable (grad mode on and any operand
+    requiring grad; counted in ``ops.kernels.AUTOGRAD_CALLS``), where the
+    compute dtype is not bfloat16 (float32 stays on cuDNN, TF32 off) or
+    the output not float32, and where the kernel does not take the shape
+    (``ops.kernels.out_conv_takes``); otherwise the kernel
+    (``ops.kernels.out_conv_tanh_cuda``), which raises rather than falls
+    back."""
+    if x.device.type == "cpu":
+        return out_conv_tanh_plain(p, x, compute_dtype, out_dtype)
+    from dvf_tpu_torch.ops import kernels
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, p["w"], p["b"])):
+        kernels.count_autograd("out_conv")
+        return out_conv_tanh_plain(p, x, compute_dtype, out_dtype)
+    if (compute_dtype != torch.bfloat16 or out_dtype != torch.float32
+            or not kernels.out_conv_takes(x.shape, p["w"].shape)):
+        return out_conv_tanh_plain(p, x, compute_dtype, out_dtype)
+    return kernels.out_conv_tanh_cuda(p, x.to(compute_dtype).contiguous())
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -10,7 +10,10 @@ bias add are in the compute dtype, each instance norm returns to it, and
 the final tanh is float32. Each conv's bias add, the instance norm after
 it, the ReLU and the residual add are one call (``layers.bias_norm_act``):
 on a card outside autograd the hand-written kernels of ``csrc/norm.cu``,
-elsewhere the plain ops.
+elsewhere the plain ops. The out conv, its bias and the scaled tanh are
+one call too (``layers.out_conv_tanh``): on a card outside autograd in
+bf16 the kernel of ``csrc/outconv.cu``; under TP (a row-parallel partial
+summed before the bias) and with ``fast_convs`` the plain ops.
 
 Tensor parallelism over a mesh's ``model`` axis is explicit: Megatron
 column/row alternation (:func:`param_pspecs`), each rank running the rank
@@ -32,6 +35,7 @@ from dvf_tpu_torch.models.layers import (
     Params,
     SUM,
     bias_norm_act,
+    bias_tanh,
     conv2d_nb,
     conv2d_s2d,
     conv_init,
@@ -39,6 +43,7 @@ from dvf_tpu_torch.models.layers import (
     float32_partials,
     generator,
     instance_norm_init,
+    out_conv_tanh,
     run_steps,
     upsample2_conv,
     upsample_nearest,
@@ -174,9 +179,11 @@ def _forward_steps(params: Params, batch: torch.Tensor, config: StyleNetConfig,
                                        residual=x)
         x = yield from cv_norm("up1", "up1_norm", x, upsampled=True)
         x = yield from cv_norm("up2", "up2_norm", x, upsampled=True)
-        x = (yield from cv("out", x)) + params["out"]["b"].to(cd)
-    y = 0.5 * (torch.tanh(x.float()) + 1.0)
-    return y.to(batch.dtype)
+        if modes.get("out") == "row" or config.fast_convs:
+            # A row-parallel partial sums across the ranks before its
+            # bias; fast_convs computes the conv space-to-depth.
+            return bias_tanh((yield from cv("out", x)), params["out"]["b"], batch.dtype)
+        return out_conv_tanh(params["out"], x, cd, batch.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels for the stencil ops, the bounded warp and
 the delta wire's codec assist, their wrappers and their registered
-filters (port of ``dvf_tpu/ops/pallas_kernels.py``), and the launcher of
+filters (port of ``dvf_tpu/ops/pallas_kernels.py``), and the launchers of
 the style nets' bias + instance norm + ReLU + residual kernels
-(``csrc/norm.cu``, which replaces no TPU kernel).
+(``csrc/norm.cu``) and of their out stage's conv + bias + tanh kernel
+(``csrc/outconv.cu``), which replace no TPU kernel.
 
 The names keep the reference's: ``*_pallas`` here denotes the CUDA C++
 kernel in ``dvf_tpu_torch/csrc/`` (``stencils.cu``, ``warp.cu``,
@@ -16,7 +17,8 @@ Each wrapper dispatches on the tensor's device:
 
 ``LAUNCHES`` counts kernel launches per kernel, so a run can show that
 its main path went through the kernels (``instance_norm`` counts one a
-call of :func:`bias_norm_act_cuda`, which launches three); CPU calls
+call of :func:`bias_norm_act_cuda`, which launches three; ``out_conv``
+one a call of :func:`out_conv_tanh_cuda`); CPU calls
 never count. ``AUTOGRAD_CALLS`` counts the calls on a card that took an
 op's plain version because they are differentiable (the kernels have no
 backward).
@@ -43,8 +45,8 @@ from dvf_tpu_torch.ops.registry import get_filter, register_filter
 
 LAUNCHES: Dict[str, int] = {"sep_blur": 0, "bilateral": 0, "sobel_bilateral": 0,
                             "warp_bounded": 0, "tile_maxdiff": 0,
-                            "dct8x8_quant": 0, "instance_norm": 0}
-AUTOGRAD_CALLS: Dict[str, int] = {"instance_norm": 0}
+                            "dct8x8_quant": 0, "instance_norm": 0, "out_conv": 0}
+AUTOGRAD_CALLS: Dict[str, int] = {"instance_norm": 0, "out_conv": 0}
 _launch_lock = threading.Lock()
 
 # Limits compiled into csrc/stencils.cu.
@@ -90,13 +92,20 @@ _SIGNATURES = {
     "norm": {
         "dvf_instance_norm": [_P] * 7 + [_I] * 6 + [_F, _P],
     },
+    "outconv": {
+        "dvf_out_conv": [_P] * 5 + [_I] * 4 + [_P],
+    },
 }
+# Sources one caller needs together, built together at the first use of
+# either: the style nets' norms and out stage.
+_BUILT_TOGETHER = {"norm": ("norm", "outconv"), "outconv": ("norm", "outconv")}
 _lib_objs: Dict[str, ctypes.CDLL] = {}
 
 
 def _lib(source: str = "stencils") -> ctypes.CDLL:
     lib = _lib_objs.get(source)
     if lib is None:
+        _build.build_all(_BUILT_TOGETHER.get(source, (source,)))
         lib = _build.load(source)
         for fn, argtypes in _SIGNATURES[source].items():
             getattr(lib, fn).argtypes = argtypes
@@ -395,6 +404,73 @@ def bias_norm_act_cuda(p: Dict[str, torch.Tensor], y: torch.Tensor, b: torch.Ten
             scratch.data_ptr(), bsz, h * w, c, slices, int(y.dtype == torch.bfloat16),
             int(relu), eps, stream)
     _count(lib, "dvf_instance_norm", "instance_norm", rc)
+    return out
+
+
+# -- the style nets' out stage: 9×9 conv, bias, tanh (csrc/outconv.cu) --
+
+# The kernel's taps a side and output channels; the input channels it
+# is compiled for: multiples of 16 up to the most whose halo tile fits a
+# block's shared memory.
+OUT_CONV_K, OUT_CONV_COUT = 9, 3
+OUT_CONV_MAX_CIN = 64
+
+
+def out_conv_takes(x_shape, w_shape) -> bool:
+    """Whether csrc/outconv.cu computes the out stage of an NHWC input of
+    ``x_shape`` by an HWIO weight of ``w_shape``: a 9×9 conv to 3 channels
+    of 16·k ≤ OUT_CONV_MAX_CIN input channels, H and W at least 5 (the
+    reflect-101 border of radius 4)."""
+    if len(x_shape) != 4:
+        return False
+    _, h, w, c = x_shape
+    return (tuple(w_shape) == (OUT_CONV_K, OUT_CONV_K, c, OUT_CONV_COUT)
+            and c % 16 == 0 and 16 <= c <= OUT_CONV_MAX_CIN
+            and h > OUT_CONV_K // 2 and w > OUT_CONV_K // 2)
+
+
+def out_conv_tanh_cuda(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``models.layers.out_conv_tanh_plain`` in bf16 through
+    csrc/outconv.cu: two launches (the weight packed, the conv) on the
+    current stream, no synchronisation, counted once as ``out_conv``.
+    Takes a contiguous, 16-byte aligned NHWC bf16 ``x`` on a CUDA device
+    and ``p``'s HWIO weight (9, 9, Cin, 3) and bias (3,) (the kernel
+    rounds both to bf16, as the plain ops do); returns (B, H, W, 3)
+    float32. Raises on anything else (:func:`out_conv_takes`)."""
+    what = "out_conv_tanh_cuda"
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: takes a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: needs bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: needs a contiguous, 16-byte aligned NHWC tensor, got "
+                         f"shape {tuple(x.shape)}")
+    if not out_conv_takes(x.shape, p["w"].shape):
+        raise ValueError(
+            f"{what}: takes a (9, 9, Cin, 3) weight, Cin a multiple of 16 up to "
+            f"{OUT_CONV_MAX_CIN}, and H, W >= 5; got {tuple(x.shape)} by "
+            f"{tuple(p['w'].shape)}")
+    bsz, h, w_, c = x.shape
+    if bsz > 65535:
+        raise ValueError(f"{what}: takes at most 65535 frames a launch, got {bsz}")
+    wt = p["w"].to(device=x.device, dtype=torch.float32).contiguous()
+    b = p["b"].to(device=x.device, dtype=torch.float32).contiguous()
+    if b.shape != (OUT_CONV_COUT,):
+        raise ValueError(f"{what}: the bias must be ({OUT_CONV_COUT},), got "
+                         f"{tuple(b.shape)}")
+    out = torch.empty((bsz, h, w_, OUT_CONV_COUT), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out
+    # The weight packed as the MMAs' B fragments: 9 taps x Cin / 16 steps
+    # x 5 tap pairs x 32 lanes x 8 bytes.
+    frag = torch.empty(OUT_CONV_K * (c // 16) * 5 * 32 * 2, dtype=torch.int32,
+                       device=x.device)
+    lib = _lib("outconv")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dvf_out_conv(x.data_ptr(), wt.data_ptr(), b.data_ptr(), frag.data_ptr(),
+                              out.data_ptr(), bsz, h, w_, c, stream)
+    _count(lib, "dvf_out_conv", "out_conv", rc)
     return out
 
 

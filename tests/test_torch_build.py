@@ -101,3 +101,20 @@ def test_sass_report_names_the_codec_kernels():
     assert chip_smoke._histogram(["I2F.U32", "F2I.S16", "FRND", "PRMT", "PRMT",
                                   "LOP3.LUT"]) == {"I2F": 1, "F2I": 1, "FRND": 1,
                                                    "PRMT": 2, "other": 1}
+
+
+@pytest.mark.parametrize("first", ["norm", "outconv"])
+def test_style_net_sources_build_together(monkeypatch, first):
+    """The first use of either of the style nets' sources (the norms, the
+    out stage) builds both, in one parallel build, so a stream's warm-up
+    waits for one nvcc and not two in a row."""
+    from dvf_tpu_torch.ops import kernels as tk
+
+    built = []
+    monkeypatch.setattr(tk, "_lib_objs", {})
+    monkeypatch.setattr(_build, "build_all", lambda names: built.append(tuple(names)))
+    monkeypatch.setattr(_build, "load", lambda name: (_ for _ in ()).throw(
+        RuntimeError(f"loaded {name}")))
+    with pytest.raises(RuntimeError, match=f"loaded {first}"):
+        tk._lib(first)
+    assert built == [("norm", "outconv")]

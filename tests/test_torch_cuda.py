@@ -621,16 +621,117 @@ def test_norm_wrapper_refuses_what_the_kernels_do_not_take(dev):
     assert _norm_count() == before
 
 
+# The out stage's kernel (csrc/outconv.cu): the stream's input, frames
+# that are no multiple of its 16 x 64 tile, the smallest it takes, and
+# every other channel count it is compiled for.
+OUTCONV_SHAPES = [(8, 720, 1280, 32), (1, 5, 5, 32), (2, 37, 53, 32), (3, 97, 131, 32),
+                  (2, 37, 53, 16), (2, 37, 53, 48), (1, 70, 131, 64)]
+
+
+def _outconv_operands(shape, dev, seed):
+    """A post-ReLU bf16 activation (as up2's norm leaves it), a He-normal
+    (9, 9, Cin, 3) weight and a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cin = shape[-1]
+    x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    w = torch.randn((9, 9, cin, 3), generator=g, device=dev) * (2.0 / (81 * cin)) ** 0.5
+    return x, {"w": w, "b": torch.randn(3, generator=g, device=dev) * 0.3}
+
+
+def _check_outconv(got, x, p, max_share=2e-3):
+    """The kernel against the plain ops. Both round the conv's float32 sum
+    to bf16, add the bf16 bias in bf16 and take tanh in float32; they
+    differ by the sum's order over 81·Cin products, which now and then
+    flips the rounding of the conv result (one bf16 ulp of it) and so of
+    the sum with the bias (one of that): the output moves by at most half
+    of those two ulps (tanh's slope is at most 1, the scale 0.5; each ulp
+    taken one step up, where a flip crosses a power of two), plus tanhf's
+    own float32 noise, and moves at all on under ``max_share`` of the
+    elements (2.5e-4 to 4.2e-4 of them at these shapes, H100)."""
+    from dvf_tpu_torch.models import layers as tl
+
+    s = tl.conv2d_nb(p, x, compute_dtype=torch.bfloat16, reflect=True)
+    z = (s + p["b"].to(torch.bfloat16)).float()
+    want = 0.5 * (torch.tanh(z) + 1.0)
+    diff = (got.float() - want).abs()
+    us = _ulp_bf16(s.float().abs() + _ulp_bf16(s.float()))
+    bound = 0.5 * (us + _ulp_bf16(z.abs() + us + _ulp_bf16(z))) + 2.0 ** -22
+    worst = float((diff / bound).max())
+    assert worst <= 1, f"{worst:.3f} of the bound ({float(diff.max())} at most)"
+    share = float((diff > 2.0 ** -22).float().mean())
+    assert share < max_share, share
+
+
+@pytest.mark.parametrize("shape", OUTCONV_SHAPES)
+def test_outconv_kernel_matches_plain(dev, shape):
+    x, p = _outconv_operands(shape, dev, sum(shape))
+    before = tk.LAUNCHES["out_conv"]
+    got = tk.out_conv_tanh_cuda(p, x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["out_conv"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == shape[:3] + (3,)
+    assert got.is_contiguous()
+    _check_outconv(got, x, p)
+
+
+def test_outconv_layer_dispatch_on_the_card(dev):
+    """``layers.out_conv_tanh``: bf16 at a shape the kernel takes launches
+    it; float32, a bf16 output, a shape it does not take (8 channels) and
+    a differentiable call take the plain ops (the last counted)."""
+    from dvf_tpu_torch.models import layers as tl
+
+    x, p = _outconv_operands((2, 24, 40, 16), dev, 3)
+    tk.reset_launches()
+    with torch.no_grad():
+        got = tl.out_conv_tanh(p, x, torch.bfloat16, torch.float32)
+        _check_outconv(got, x, p)
+        tl.out_conv_tanh(p, x.float(), torch.float32, torch.float32)
+        tl.out_conv_tanh(p, x, torch.bfloat16, torch.bfloat16)
+        x8, p8 = _outconv_operands((2, 24, 40, 8), dev, 4)
+        tl.out_conv_tanh(p8, x8, torch.bfloat16, torch.float32)
+    assert tk.LAUNCHES["out_conv"] == 1 and tk.AUTOGRAD_CALLS["out_conv"] == 0
+    out = tl.out_conv_tanh({"w": p["w"].clone().requires_grad_(True), "b": p["b"]}, x,
+                           torch.bfloat16, torch.float32)
+    assert out.requires_grad
+    assert tk.LAUNCHES["out_conv"] == 1 and tk.AUTOGRAD_CALLS["out_conv"] == 1
+
+
+def test_outconv_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, p = _outconv_operands((2, 16, 24, 32), dev, 1)
+    before = tk.LAUNCHES["out_conv"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        tk.out_conv_tanh_cuda(p, x.float())
+    x24, p24 = _outconv_operands((2, 16, 24, 24), dev, 2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.out_conv_tanh_cuda(p24, x24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.out_conv_tanh_cuda(p, x[:, :4].contiguous())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.out_conv_tanh_cuda(p, x[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.out_conv_tanh_cuda({"w": p["w"][..., :2], "b": p["b"][:2]}, x)
+    with pytest.raises(ValueError, match="contiguous, 16-byte aligned"):
+        tk.out_conv_tanh_cuda(p, x.transpose(1, 2))
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="contiguous, 16-byte aligned"):
+        tk.out_conv_tanh_cuda(p, flat[1:].view(x.shape))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.out_conv_tanh_cuda(p, x.cpu())
+    assert tk.LAUNCHES["out_conv"] == before
+
+
 @pytest.mark.parametrize("dtype,limit", [(torch.bfloat16, 1.5), (torch.float32, 0.01)])
 def test_style_net_fused_against_plain_at_the_stream_shape(dev, monkeypatch, dtype, limit):
     """The whole style net (c 32, r 5) at 8 x 720 x 1280, the fused norms
-    against the plain ops: the worst frame's RMS gap in levels, 15 fused
-    calls a forward. In float32 the nets agree to 0.0002 levels. In bf16
-    a flipped rounding in one layer grows through the 15 norms (each
-    scales its channel by scale/σ): the plain ops themselves, with the
-    statistics reduced over an NCHW copy (another order, the same
-    arithmetic), land 0.82-1.10 levels from the plain ops, and the kernels
-    0.81-1.10 (two seeds, H100). The limit keeps room above that."""
+    and (in bf16) the out stage's kernel against the plain ops: the worst
+    frame's RMS gap in levels, 15 fused norms and one out stage a forward.
+    In float32 the nets agree to 0.0002 levels. In bf16 a flipped rounding
+    in one layer grows through the 15 norms (each scales its channel by
+    scale/σ): the plain ops themselves, with the statistics reduced over
+    an NCHW copy (another order, the same arithmetic), land 0.82-1.10
+    levels from the plain ops, and the norm kernels 0.81-1.10 (two seeds,
+    H100); the out stage adds at most half a bf16 ulp of its pre-tanh
+    value where a rounding flips. The limit keeps room above that."""
     from dvf_tpu_torch.models import layers as tl
     from dvf_tpu_torch.models import style_transfer as st
 
@@ -638,31 +739,34 @@ def test_style_net_fused_against_plain_at_the_stream_shape(dev, monkeypatch, dty
     params = tl.tree_to(st.init_style_net(5, cfg), dev)
     x = torch.rand((8, 720, 1280, 3), generator=torch.Generator(device=dev).manual_seed(2),
                    device=dev)
+    want = {"instance_norm": 15, "out_conv": int(dtype == torch.bfloat16)}
     tk.reset_launches()
     with torch.no_grad():
         fused = st.apply_style_net(params, x, cfg)
-        assert dict(tk.LAUNCHES) == {k: 15 if k == "instance_norm" else 0
-                                     for k in tk.LAUNCHES}
+        assert dict(tk.LAUNCHES) == {k: want.get(k, 0) for k in tk.LAUNCHES}
         monkeypatch.setattr(st, "bias_norm_act", tl.bias_norm_act_plain)
+        monkeypatch.setattr(st, "out_conv_tanh", tl.out_conv_tanh_plain)
         plain = st.apply_style_net(params, x, cfg)
-    assert _norm_count() == 15 and tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    assert dict(tk.LAUNCHES) == {k: want.get(k, 0) for k in tk.LAUNCHES}
+    assert not any(tk.AUTOGRAD_CALLS.values())
     rms = ((fused - plain).float() * 255).pow(2).mean(dim=(1, 2, 3)).sqrt()
     assert float(rms.max()) <= limit, rms.tolist()
 
 
 def test_a_stream_batch_runs_fifteen_fused_norms_without_waiting_on_the_host(dev):
     """One 720p batch of 8 through the engine runs the net's 15 norms
-    through the kernels, no other hand kernel, and none through the plain
-    ops; the filter's forward runs under CUDA's sync debug mode set to
-    raise."""
+    and its out stage through the kernels (one out_conv launch a batch),
+    no other hand kernel, and none through the plain ops; the filter's
+    forward runs under CUDA's sync debug mode set to raise."""
     frames = np.random.default_rng(4).integers(0, 256, (8, 720, 1280, 3), np.uint8)
     eng = dvf_tpu_torch.Engine(dvf_tpu_torch.get_filter("style_transfer"), device=dev)
     eng.compile(frames.shape)
     tk.reset_launches()
     out = eng.submit(frames).fetch()
     assert out.shape == frames.shape
-    assert dict(tk.LAUNCHES) == {k: 15 if k == "instance_norm" else 0 for k in tk.LAUNCHES}
-    assert tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    want = {"instance_norm": 15, "out_conv": 1}
+    assert dict(tk.LAUNCHES) == {k: want.get(k, 0) for k in tk.LAUNCHES}
+    assert not any(tk.AUTOGRAD_CALLS.values())
     filt = dvf_tpu_torch.get_filter("style_transfer")
     state = filt.init_state(frames.shape, torch.float32, dev)
     x = torch.from_numpy(frames).to(dev).float() / 255
@@ -674,18 +778,20 @@ def test_a_stream_batch_runs_fifteen_fused_norms_without_waiting_on_the_host(dev
             filt.fn(x, state)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert _norm_count() == 45 and tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    assert _norm_count() == 45 and tk.LAUNCHES["out_conv"] == 3
+    assert not any(tk.AUTOGRAD_CALLS.values())
 
 
 def test_train_step_takes_the_plain_norms(dev):
     """The train step's forward is differentiable: its norms take the
-    plain ops (3 + 2 x 2 residual + 2 = 9 a forward), none the kernels."""
+    plain ops (3 + 2 x 2 residual + 2 = 9 a forward) and so does its out
+    stage, none the kernels."""
     state, step, batch = _train_family("style", torch.bfloat16, dev)
     tk.reset_launches()
     state, m = step(state, batch.to(dev))
     torch.cuda.synchronize()
     assert not any(tk.LAUNCHES.values())
-    assert tk.AUTOGRAD_CALLS == {"instance_norm": 9}
+    assert tk.AUTOGRAD_CALLS == {"instance_norm": 9, "out_conv": 1}
     assert np.isfinite(float(m["loss"]))
 
 
@@ -695,7 +801,10 @@ def test_train_step_takes_the_plain_norms(dev):
 # channels; a row-parallel sum is rounded to the compute dtype before its
 # norm). PP: the 5 norms outside the trunk once, the trunk's 10 in each of
 # 4 microbatches. The c 8 nets hold 4 channels a TP rank (the kernels'
-# one-element path) and run 4 microbatches of 1 over 4 stages.
+# one-element path) and run 4 microbatches of 1 over 4 stages. The out
+# stage's kernel runs once a batch on PP's stage 0 in bf16 at c 32; the
+# TP body's out conv is row-parallel (a float32 partial summed before its
+# bias) and keeps the plain ops, as a c 8 net's 8-channel out conv does.
 SHARDED_STYLE = [("tp", {}, (8, 360, 640, 3), 2, 30),
                  ("pp", {}, (8, 360, 640, 3), 5, 45),
                  ("tp", {"base_channels": 8, "n_residual": 2}, (2, 32, 32, 3), 2, 18),
@@ -710,6 +819,8 @@ def test_sharded_style_bodies_run_the_fused_norms(dev, monkeypatch, parallel, kw
     other hand kernel and no plain norm, and land where the same body with
     the plain ops lands: the worst frame's RMS gap in levels within the
     whole-net test's limits (the statistics' summation order)."""
+    outs = int(parallel == "pp" and dtype == "bfloat16" and not kw)
+    want = {"instance_norm": calls, "out_conv": outs}
     from dvf_tpu_torch.models import layers as tl
     from dvf_tpu_torch.models import style_transfer as st
     from dvf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
@@ -723,12 +834,12 @@ def test_sharded_style_bodies_run_the_fused_norms(dev, monkeypatch, parallel, kw
     assert eng._exec_filter.name.startswith(f"{parallel}("), eng._exec_filter.name
     tk.reset_launches()
     fused = eng.submit(x).fetch().copy()
-    assert dict(tk.LAUNCHES) == {k: calls if k == "instance_norm" else 0
-                                 for k in tk.LAUNCHES}
-    assert tk.AUTOGRAD_CALLS["instance_norm"] == 0
+    assert dict(tk.LAUNCHES) == {k: want.get(k, 0) for k in tk.LAUNCHES}
+    assert not any(tk.AUTOGRAD_CALLS.values())
     monkeypatch.setattr(st, "bias_norm_act", tl.bias_norm_act_plain)
+    monkeypatch.setattr(st, "out_conv_tanh", tl.out_conv_tanh_plain)
     plain = eng.submit(x).fetch()
-    assert _norm_count() == calls
+    assert dict(tk.LAUNCHES) == {k: want.get(k, 0) for k in tk.LAUNCHES}
     rms = np.sqrt((((fused - plain) * 255.0) ** 2).mean(axis=(1, 2, 3)))
     assert float(rms.max()) <= limit, rms.tolist()
 
@@ -1326,7 +1437,7 @@ def test_cli_compile_cache_dir_builds_then_loads(dev, tmp_path):
         assert r.returncode == 0, r.stderr[-3000:]
         line = [ln for ln in r.stderr.splitlines() if "kernel builds (s): " in ln][-1]
         builds.append(json.loads(line.split("kernel builds (s): ", 1)[1]))
-    names = {"stencils", "warp", "codec", "norm"}
+    names = {"stencils", "warp", "codec", "norm", "outconv"}
     assert set(builds[0]) == names and all(v > 0 for v in builds[0].values())
     assert builds[1] == {k: 0.0 for k in names}
     assert {p.name.split("-")[0][3:] for p in cache.glob("lib*.so")} >= names

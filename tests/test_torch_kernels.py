@@ -322,8 +322,8 @@ def test_reset_launches_zeroes_every_counter():
         tk.reset_launches()
         assert set(tk.LAUNCHES) == {"sep_blur", "bilateral", "sobel_bilateral",
                                     "warp_bounded", "tile_maxdiff", "dct8x8_quant",
-                                    "instance_norm"}
-        assert set(tk.AUTOGRAD_CALLS) == {"instance_norm"}
+                                    "instance_norm", "out_conv"}
+        assert set(tk.AUTOGRAD_CALLS) == {"instance_norm", "out_conv"}
         assert all(v == 0 for v in tk.LAUNCHES.values())
         assert all(v == 0 for v in tk.AUTOGRAD_CALLS.values())
     finally:
