@@ -36,6 +36,11 @@ class Filter:
       pad_safe: repeat-last-frame batch padding keeps the state right; the
         pipeline pads short batches, so it refuses stateful filters that
         are not pad-safe.
+      clip: each output frame depends on every frame of its batch, so a
+        batch must be consecutive frames of one stream, cut only where the
+        stream ends: the pipeline never launches such a batch short while
+        its source is live, and frontends that would cut or split it (the
+        ZMQ worker, a mesh with a ``data`` or ``space`` axis) refuse it.
       members: the composed stages of a FilterChain, in order.
       state_pspecs: ``() -> PartitionSpec tree`` matching ``init_state``'s
         tree. On a mesh the engine places the state by these specs (a
@@ -62,6 +67,7 @@ class Filter:
     uint8_ok: bool = False
     halo: Optional[int] = None
     pad_safe: bool = True
+    clip: bool = False
     members: Optional[Tuple["Filter", ...]] = None
     state_pspecs: Optional[Callable[[], Any]] = None
     specialize: Optional[Callable[[Any, Tuple[int, ...]], Optional["Filter"]]] = None
@@ -116,5 +122,6 @@ def FilterChain(*filters: Filter, name: Optional[str] = None) -> Filter:
         uint8_ok=all(f.uint8_ok for f in filters) if filters else False,
         halo=chain_halo,
         pad_safe=all(f.pad_safe for f in filters) if filters else True,
+        clip=any(f.clip for f in filters),
         members=tuple(filters),
     )

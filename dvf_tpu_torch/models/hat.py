@@ -55,13 +55,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from dvf_tpu_torch.models.layers import Params, generator
+from dvf_tpu_torch.models.layers import NoMarks, Params, generator, pixel_shuffle
 
 # Span names (``Tracer.device_span`` on a card, ``Tracer.complete`` on the
 # CPU), each tagged with ``block`` and the filter's batch number ``seq``.
@@ -340,43 +339,6 @@ class _Geometry:
 
 
 # ---------------------------------------------------------------------------
-# Spans
-# ---------------------------------------------------------------------------
-
-
-class _Marks:
-    """Phase boundaries of one traced batch: on a card a timing event on
-    the current stream at each, emitted as ``Tracer.device_span``; on the
-    CPU (where the ops have run when they return) a host stamp, emitted
-    as ``Tracer.complete``."""
-
-    def __init__(self, tracer, device: torch.device, seq: int):
-        self.tracer, self.seq = tracer, seq
-        self.cuda = device.type == "cuda"
-        self.last = self._stamp()
-
-    def _stamp(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def end(self, name: str, block: str) -> None:
-        now = self._stamp()
-        if self.cuda:
-            self.tracer.device_span(name, self.last, now, seq=self.seq, block=block)
-        else:
-            self.tracer.complete(name, self.last, now, seq=self.seq, block=block)
-        self.last = now
-
-
-class _NoMarks:
-    def end(self, name: str, block: str) -> None:
-        pass
-
-
-# ---------------------------------------------------------------------------
 # The forward
 # ---------------------------------------------------------------------------
 
@@ -444,15 +406,6 @@ def _mlp(p, x: torch.Tensor) -> torch.Tensor:
     return x + F.linear(h, p["fc2.w"], p["fc2.b"])
 
 
-def _pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
-    """``nn.PixelShuffle(r)`` (CRD: input channel ``c·r² + i·r + j``) on
-    NHWC: (B, H, W, C·r²) → (B, H·r, W·r, C)."""
-    b, h, w, crr = x.shape
-    c = crr // (r * r)
-    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
-    return x.reshape(b, h * r, w * r, c)
-
-
 def _hab(p, x, config, geom, attend, shifted, name, marks):
     b, hp, wp, c = x.shape
     heads, dp, n = p["heads"], p["dp"], config.window_size ** 2
@@ -471,14 +424,14 @@ def _hab(p, x, config, geom, attend, shifted, name, marks):
         o = attend(q, k, v, p["bias"], scale).transpose(1, 2)
     o = F.linear(o.reshape(-1, heads * dp), p["proj.w"], p["proj.b"])
     x = x + o.index_select(0, geom.inverse[shifted]).view(b, hp, wp, c)
-    marks.end(SPAN_WINDOW_ATTN, name)
+    marks.end(SPAN_WINDOW_ATTN, block=name)
     y = _conv(p["cab2"], F.gelu(_conv(p["cab1"], xn)))
     a = torch.relu(F.linear(y.mean(dim=(1, 2)), p["ca1"]["w"], p["ca1"]["b"]))
     a = torch.sigmoid(F.linear(a, p["ca2"]["w"], p["ca2"]["b"]))
     x = x + (y * a[:, None, None, :]) * config.conv_scale
-    marks.end(SPAN_CAB, name)
+    marks.end(SPAN_CAB, block=name)
     x = _mlp(p, x)
-    marks.end(SPAN_MLP, name)
+    marks.end(SPAN_MLP, block=name)
     return x
 
 
@@ -498,18 +451,18 @@ def _ocab(p, x, config, attend, name, marks):
     o = attend(q, kv[0], kv[1], p["bias"], (c // heads) ** -0.5)
     o = o.view(b, nh, nw, heads, ws, ws, dp).permute(0, 1, 4, 2, 5, 3, 6).reshape(b, hp, wp, -1)
     x = x + F.linear(o, p["proj.w"], p["proj.b"])
-    marks.end(SPAN_OCAB_ATTN, name)
+    marks.end(SPAN_OCAB_ATTN, block=name)
     x = _mlp(p, x)
-    marks.end(SPAN_MLP, name)
+    marks.end(SPAN_MLP, block=name)
     return x
 
 
 def apply_prepared(prep: Dict[str, Any], batch: torch.Tensor, config: HatConfig,
                    stats: Optional[HatStats] = None, marks=None) -> torch.Tensor:
     """(B, H, W, 3) float in [0, 1] → (B, H·s, W·s, 3) float32 in [0, 1],
-    on :func:`prepare_hat`'s weights; ``marks`` (:func:`marks_for`)
+    on :func:`prepare_hat`'s weights; ``marks`` (``layers.marks_for``)
     records the spans."""
-    marks = marks or _NoMarks()
+    marks = marks or NoMarks()
     cd, ws, s = config.compute_dtype, config.window_size, config.upscale
     b, h, w, _ = batch.shape
     hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
@@ -528,7 +481,7 @@ def apply_prepared(prep: Dict[str, Any], batch: torch.Tensor, config: HatConfig,
         x = F.pad(x.permute(0, 3, 1, 2), (0, wp - w, 0, hp - h), mode="reflect").permute(0, 2, 3, 1)
     shallow = _conv(prep["conv_first"], x.to(cd))
     x = _ln(prep["patch_norm"], "", shallow)
-    marks.end(SPAN_CONV, "head")
+    marks.end(SPAN_CONV, block="head")
     for g, depth in enumerate(config.depths):
         group_in = x
         for j in range(depth):
@@ -537,16 +490,16 @@ def apply_prepared(prep: Dict[str, Any], batch: torch.Tensor, config: HatConfig,
         name = f"g{g}.ocab"
         x = _ocab(prep[name], x, config, attend, name, marks)
         x = group_in + _conv(prep[f"g{g}.conv"], x)
-        marks.end(SPAN_CONV, f"g{g}.conv")
+        marks.end(SPAN_CONV, block=f"g{g}.conv")
     x = _ln(prep["norm"], "", x)
     x = _conv(prep["conv_after_body"], x) + shallow
     x = F.leaky_relu(_conv(prep["conv_before_upsample"], x), 0.01)
-    marks.end(SPAN_CONV, "tail")
+    marks.end(SPAN_CONV, block="tail")
     for i in range(config.up_stages):
-        x = _pixel_shuffle(_conv(prep[f"up{i}"], x), 2)
+        x = pixel_shuffle(_conv(prep[f"up{i}"], x), 2)
     y = _conv(prep["conv_last"], x)[:, :h * s, :w * s].float()
     y = torch.clamp(y / config.img_range + mean, 0.0, 1.0)
-    marks.end(SPAN_UPSAMPLE, "upsample")
+    marks.end(SPAN_UPSAMPLE, block="upsample")
     return y
 
 
@@ -557,11 +510,3 @@ def apply_hat(params: Params, batch: torch.Tensor,
     call)."""
     with torch.no_grad():
         return apply_prepared(prepare_hat(params, config, batch.device), batch, config)
-
-
-def marks_for(tracer, device: torch.device, seq: int):
-    """The span recorder of one batch: a no-op unless ``tracer`` is
-    enabled."""
-    if tracer is None or not tracer.enabled:
-        return None
-    return _Marks(tracer, torch.device(device), seq)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+import time
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -282,6 +283,15 @@ def depth_to_space(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(b, h * factor, w * factor, c)
 
 
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``nn.PixelShuffle(r)`` (CRD: input channel ``c·r² + i·r + j``) on
+    NHWC: (B, H, W, C·r²) → (B, H·r, W·r, C). The SR nets' upsamplers."""
+    b, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c)
+
+
 def gram_matrix(feats: torch.Tensor) -> torch.Tensor:
     """Batched Gram matrix of NHWC features: (B, C, C) / (H*W*C)."""
     b, h, w, c = feats.shape
@@ -431,3 +441,50 @@ def tree_to(params: Any, device: Optional[torch.device] = None) -> Any:
     if isinstance(params, dict):
         return {k: tree_to(v, device) for k, v in params.items()}
     return torch.as_tensor(params).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Spans of a traced forward (the SR nets)
+# ---------------------------------------------------------------------------
+
+
+class Marks:
+    """Phase boundaries of one traced batch: on a card a timing event on
+    the current stream at each, emitted as ``Tracer.device_span``; on the
+    CPU (where the ops have run when they return) a host stamp, emitted
+    as ``Tracer.complete``. Each span runs from the previous boundary (or
+    the recorder's creation) to this one, tagged with the batch's ``seq``
+    and the caller's tags."""
+
+    def __init__(self, tracer, device: torch.device, seq: int):
+        self.tracer, self.seq = tracer, seq
+        self.cuda = device.type == "cuda"
+        self.last = self._stamp()
+
+    def _stamp(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def end(self, name: str, **tags) -> None:
+        now = self._stamp()
+        if self.cuda:
+            self.tracer.device_span(name, self.last, now, seq=self.seq, **tags)
+        else:
+            self.tracer.complete(name, self.last, now, seq=self.seq, **tags)
+        self.last = now
+
+
+class NoMarks:
+    def end(self, name: str, **tags) -> None:
+        pass
+
+
+def marks_for(tracer, device: torch.device, seq: int):
+    """The span recorder of one batch: a no-op unless ``tracer`` is
+    enabled."""
+    if tracer is None or not tracer.enabled:
+        return None
+    return Marks(tracer, torch.device(device), seq)

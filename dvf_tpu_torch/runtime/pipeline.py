@@ -25,7 +25,10 @@ batches' compute events (``query``, never a sync), so a paced source,
 whose backlog stays below 2, launches at the deadline as before, and a
 busy closed loop fills its batches. The hold waits only on work already
 on the device, so it always ends; end of stream, stop and abort launch
-at once.
+at once. A clip filter (``Filter.clip``: each output depends on
+every frame of its batch) is never launched short while the source is
+live: its batch waits past any deadline, and only the end of the stream
+(or a stop) launches the last clip short, padded as any short batch.
 
 Staging discipline: the assembler and the fetcher each own
 ``max_inflight + 1`` slots, slot = batch sequence number mod the slot
@@ -179,6 +182,7 @@ class Pipeline:
                 f"pipeline pads short batches and cannot run it")
         self.source = source
         self.sink = sink
+        self.filter_is_clip = filt.clip
         self.config = config or PipelineConfig()
         if self.config.collect_mode not in ("thread", "inline"):
             raise ValueError(
@@ -419,7 +423,8 @@ class Pipeline:
     def _assemble(self) -> Optional[list]:
         """Collect up to batch_size fresh frames; None = stream finished.
         A short batch launches at its deadline unless the device backlog
-        is HOLD_BACKLOG or more; then it keeps filling (module doc)."""
+        is HOLD_BACKLOG or more, or the filter is a clip filter; then it
+        keeps filling (module doc)."""
         b = self.config.batch_size
         items: list = self.queue.pop_up_to(b)
         deadline = None  # started at the first frame, not at call time
@@ -429,7 +434,7 @@ class Pipeline:
                 if deadline is None:
                     deadline = time.perf_counter() + self.config.assemble_timeout_s
                 elif time.perf_counter() > deadline:
-                    if self._device_backlog() < HOLD_BACKLOG:
+                    if not self.filter_is_clip and self._device_backlog() < HOLD_BACKLOG:
                         break
                     held = True
             if self._eof.is_set() and len(self.queue) == 0:

@@ -196,6 +196,11 @@ class ZmqWorker:
             raise ValueError(
                 f"filter {filt.name!r} is stateful and not pad-safe; "
                 f"the ZMQ worker pads short batches and cannot serve it")
+        if filt.clip:
+            raise ValueError(
+                f"filter {filt.name!r} is a clip filter (each output reads "
+                f"every frame of its batch); the ZMQ worker cuts and pads "
+                f"batches at its own boundaries and cannot serve it")
         self.filt = filt
         self.chaos = chaos  # resilience.chaos.FaultPlan ("decode" and
         #   "transport" sites live here; "h2d", "d2h", "compute" and "oom"

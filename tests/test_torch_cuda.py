@@ -478,6 +478,32 @@ def test_neural_forward_never_waits_on_the_host(dev, name, cfg):
     assert out.device == dev and torch.isfinite(out).all()
 
 
+def test_basicvsrpp_traced_clip_never_waits_on_the_host(dev):
+    """BasicVSR++ with its tracer enabled: after a warm-up clip, the
+    forward, its CUDA-event spans and its counters run under the sync
+    debug mode set to raise, and every span is a device span."""
+    from dvf_tpu_torch.models import basicvsrpp as vsr
+    from dvf_tpu_torch.obs.trace import Tracer
+
+    tr = Tracer(enabled=True)
+    filt = dvf_tpu_torch.get_filter("super_resolution", arch="basicvsrpp", scale=4, tracer=tr)
+    x = torch.rand((3, 64, 72, 3), device=dev)
+    state = filt.init_state(tuple(x.shape), torch.float32, dev)
+    with torch.no_grad():
+        filt.fn(x, state)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out, _ = filt.fn(x, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == (3, 256, 288, 3) and torch.isfinite(out).all()
+    assert {n for n, *_ in tr.device_spans()} == set(vsr.SPANS) and tr.dropped == 0
+    assert filt.fn.stats.dcn_calls == 2 * 4 * 2 and filt.fn.stats.padded_frames == 0
+
+
 # -- the style nets' bias + instance norm + ReLU + residual (csrc/norm.cu) ----
 
 # The style stream's three norm geometries at batch 8 (720p), a C that is

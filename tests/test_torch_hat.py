@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 import dvf_tpu_torch
-from dvf_tpu_torch.models import hat
+from dvf_tpu_torch.models import hat, layers
 from dvf_tpu_torch.models.espcn import EspcnConfig, apply_espcn, init_espcn
 from dvf_tpu_torch.obs.trace import Tracer
 from dvf_tpu_torch.ops.sr import super_resolution
@@ -121,7 +121,7 @@ def test_shifted_window_attention_matches_brute_force_over_the_frame():
     prep = hat.prepare_hat({**params, "g0.hab1": leaves}, TINY, CPU)
     geom = hat._Geometry(prep, TINY, 1, hp, wp, CPU)
     got = hat._hab(prep["g0.hab1"], x, TINY, geom, hat._Attend(geom, None), True, "g0.hab1",
-                   hat._NoMarks()) - x
+                   layers.NoMarks()) - x
 
     rolled = torch.roll(x, (-s, -s), (1, 2)).reshape(-1, TINY.embed_dim)
     q, k, v = _qkv(leaves, rolled)
@@ -150,7 +150,7 @@ def test_overlapping_attention_matches_brute_force_gather():
     prep = hat.prepare_hat({**params, "g1.ocab": leaves}, TINY, CPU)
     geom = hat._Geometry(prep, TINY, 1, hp, wp, CPU)
     got = hat._ocab(prep["g1.ocab"], x, TINY, hat._Attend(geom, None), "g1.ocab",
-                    hat._NoMarks()) - x
+                    layers.NoMarks()) - x
 
     q, k, v = (t.view(hp, wp, -1) for t in _qkv(leaves, x.view(-1, TINY.embed_dim)))
     kp, vp = (F.pad(t, (0, 0, r, r, r, r)) for t in (k, v))
